@@ -1,0 +1,495 @@
+"""Feature serving: a dynamic-batching inference server over the port's ViT.
+
+Counterpart of the JAX package's serving.py for the feature task:
+
+- `FeatureEngine`: MAE weights -> the ViT encoder on the card, run on
+  fixed-size slabs of `batch_size` volumes (the last slab padded with
+  repeats). Requests reach the device through pinned host memory; a call's
+  slabs are gathered with one synchronising copy back.
+- `BatchingQueue`: gathers concurrent requests into slabs within a bounded
+  wait, with admission control and latency/fill statistics.
+- `make_http_server` / `serve`: a stdlib ThreadingHTTPServer front end —
+  `POST /features` with a `.npy` body, `GET /healthz`, `GET /stats` —
+  exposed as the `serve` subcommand of cli.py; drains on SIGTERM.
+
+Not ported yet: NIfTI request bodies (answered with 400), resizing of
+mismatched volumes, the int8 engine and the classifier engine.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import threading
+import time
+from collections import deque
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from vit_ae_plus_plus_torch.device import resolve_device
+from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_model
+from vit_ae_plus_plus_torch.pipelines.transfer import mae_params_to_vit
+from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict, params_from_jax
+from vit_ae_plus_plus_torch.train.step import feature_step
+
+
+class _SlabEngine:
+    """Fixed-shape slab machinery: per-channel z-score, padding every request
+    to `batch_size`, one slab stream on the device at a time. Subclasses set
+    `_step`, `batch_size`, `volume_shape`, `normalize`, `device`, `_lock`."""
+
+    def _normalize(self, v: np.ndarray) -> np.ndarray:
+        if self.normalize == "zscore":
+            # per-channel z-score over the spatial dims (the datasets' semantics)
+            mean = v.mean(axis=(-3, -2, -1), keepdims=True)
+            std = v.std(axis=(-3, -2, -1), keepdims=True)
+            v = (v - mean) / np.maximum(std, 1e-8)
+        return v
+
+    def prepare_one(self, volume: np.ndarray) -> np.ndarray:
+        """Validate ONE request volume before it is queued, so a bad request
+        fails alone instead of poisoning its co-batched slab."""
+        v = np.asarray(volume, np.float32)
+        if v.shape != self.volume_shape:
+            raise ValueError(
+                f"expected ({', '.join(map(str, self.volume_shape))}), got {v.shape}"
+            )
+        return v
+
+    def warmup(self) -> float:
+        """Run one slab (building the kernels on first use); returns seconds."""
+        t0 = time.perf_counter()
+        self.infer(np.zeros((self.batch_size, *self.volume_shape), np.float32))
+        return time.perf_counter() - t0
+
+    def infer(self, volumes: np.ndarray) -> np.ndarray:
+        """(N, C, S, S, S) -> (N, out_dim) float32, any N >= 1."""
+        volumes = np.asarray(volumes, np.float32)
+        if volumes.ndim != 5 or volumes.shape[1:] != self.volume_shape:
+            raise ValueError(
+                f"expected (N, {', '.join(map(str, self.volume_shape))}), "
+                f"got {volumes.shape}"
+            )
+        volumes = self._normalize(volumes)
+        n, b = volumes.shape[0], self.batch_size
+        n_pad = -(-n // b) * b
+        host = torch.empty(
+            (n_pad, *self.volume_shape), dtype=torch.float32,
+            pin_memory=self.device.type == "cuda",
+        )
+        host[:n] = torch.from_numpy(volumes)
+        host[n:] = host[(n - 1) // b * b]  # pad the last slab with its first volume
+        with self._lock:
+            # enqueue every slab (copy, then compute, on one stream), then
+            # one synchronising copy of all features back to the host
+            outs = [
+                self._step(host[i:i + b].to(self.device, non_blocking=True))
+                for i in range(0, n_pad, b)
+            ]
+            feats = torch.cat(outs)[:n].float().cpu()
+        return feats.numpy()
+
+
+class FeatureEngine(_SlabEngine):
+    """MAE weights -> the ViT encoder's `forward_features` on fixed slabs.
+
+    Weights come from `checkpoint_path` (a reference-layout `.pth`, as the
+    JAX package's `export-torch` writes it) or from `mae_params` (a JAX MAE
+    param tree of numpy arrays). `device` defaults to `cuda` and raises when
+    there is none; pass `device="cpu"` to run on the CPU."""
+
+    def __init__(
+        self,
+        checkpoint_path: Optional[str] = None,
+        model_name: str = "contr_mae_vit_base_patch16",
+        volume_size: int = 96,
+        in_chans: int = 1,
+        patch_size: int = 8,
+        batch_size: int = 8,
+        compute_dtype: str = "bfloat16",
+        normalize: str = "none",
+        mae_params: Optional[Dict] = None,
+        attn_impl: str = "auto",
+        device=None,
+    ):
+        if normalize not in ("none", "zscore"):
+            raise ValueError(f"normalize must be 'none'|'zscore', got {normalize!r}")
+        self.device = resolve_device(device)
+        mae_cfg = MODEL_ZOO[model_name](
+            volume_size=volume_size, in_chans=in_chans, patch_size=patch_size,
+            dtype=compute_dtype, attn_impl=attn_impl,
+        )
+        # num_classes=2 as in the extraction graft (the fresh-keys check
+        # expects a head; forward_features ignores it)
+        vit_cfg = mae_cfg.encoder_vit_config(num_classes=2, global_pool=True)
+        if mae_params is not None:
+            mae_sd = params_from_jax(mae_params, patch_size, in_chans)
+        elif checkpoint_path is not None:
+            mae_sd = load_reference_state_dict(checkpoint_path)
+        else:
+            raise ValueError("need checkpoint_path or mae_params")
+        with torch.device("meta"):
+            model = build_model(vit_cfg)
+        sd = mae_params_to_vit(mae_sd, model.state_dict(), mae_cfg, vit_cfg)
+        model = model.to_empty(device=self.device)
+        model.load_state_dict(sd, strict=True)
+        self.model = model.eval()
+        self._step = lambda batch: feature_step(self.model, batch)
+
+        self.batch_size = int(batch_size)
+        self.volume_shape = (in_chans, volume_size, volume_size, volume_size)
+        self.normalize = normalize
+        self.feature_dim = mae_cfg.embed_dim
+        self._lock = threading.Lock()  # one caller's slabs at a time
+
+
+class QueueFull(RuntimeError):
+    """Raised by BatchingQueue.submit when admission is at max_depth —
+    mapped to HTTP 429 by the server front."""
+
+
+class _BodyTooLarge(RuntimeError):
+    """Request body over the server's max_body_mb — mapped to HTTP 413."""
+
+
+class _Pending:
+    __slots__ = ("volume", "event", "result", "error", "t_submit")
+
+    def __init__(self, volume):
+        self.volume = volume
+        self.event = threading.Event()
+        self.result = None
+        self.error: Optional[BaseException] = None
+        self.t_submit = time.time()
+
+
+class BatchingQueue:
+    """Dynamic batcher: gathers concurrent requests into engine-sized slabs.
+
+    The worker blocks for the first request, then drains up to
+    ``batch_size - 1`` more within ``max_wait_ms`` before running one padded
+    slab — bounded added latency, full slabs under load."""
+
+    def __init__(self, engine: _SlabEngine, max_wait_ms: float = 5.0,
+                 max_history: int = 1024, max_depth: Optional[int] = None):
+        """`max_depth`: bounded admission (load shedding) — submit() raises
+        QueueFull once this many requests are waiting. Default: 32 slabs'
+        worth of requests."""
+        self.engine = engine
+        self.max_wait_s = max_wait_ms / 1e3
+        self.max_depth = max_depth if max_depth is not None else 32 * engine.batch_size
+        self._queue: deque = deque()
+        self._cv = threading.Condition()
+        self._closed = False
+        self._latencies: deque = deque(maxlen=max_history)
+        self._fills: deque = deque(maxlen=max_history)
+        # guards the history deques: the worker appends outside _cv while
+        # stats() iterates them
+        self._stats_lock = threading.Lock()
+        self._total_requests = 0
+        self._total_batches = 0
+        self._total_shed = 0
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    def submit(self, volume: np.ndarray) -> _Pending:
+        return self.submit_many([volume])[0]
+
+    def submit_many(self, volumes) -> list:
+        """Atomically admit a whole request's volumes — all or QueueFull.
+        Validation runs in the CALLER's thread so a malformed request raises
+        alone, never failing co-batched requests."""
+        pendings = [_Pending(self.engine.prepare_one(v)) for v in volumes]
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("queue is closed")
+            if len(self._queue) + len(pendings) > self.max_depth:
+                self._total_shed += len(pendings)
+                raise QueueFull(
+                    f"serving queue at capacity ({len(self._queue)} waiting, "
+                    f"request of {len(pendings)} > {self.max_depth} limit)"
+                )
+            self._queue.extend(pendings)
+            self._total_requests += len(pendings)
+            self._cv.notify()
+        return pendings
+
+    def infer_one(self, volume: np.ndarray, timeout: float = 120.0) -> np.ndarray:
+        pending = self.submit(volume)
+        if not pending.event.wait(timeout):
+            raise TimeoutError("inference timed out")
+        if pending.error is not None:
+            raise pending.error
+        return pending.result
+
+    def _drain(self):
+        """One slab's worth of requests (called with the lock held)."""
+        batch = [self._queue.popleft()]
+        deadline = time.time() + self.max_wait_s
+        while len(batch) < self.engine.batch_size:
+            remaining = deadline - time.time()
+            if self._queue:
+                batch.append(self._queue.popleft())
+            elif remaining > 0 and not self._closed:
+                self._cv.wait(remaining)
+            else:
+                break
+        return batch
+
+    def _run(self):
+        while True:
+            with self._cv:
+                while not self._queue and not self._closed:
+                    self._cv.wait()
+                if not self._queue and self._closed:
+                    return
+                batch = self._drain()
+            try:
+                feats = self.engine.infer(np.stack([p.volume for p in batch]))
+                now = time.time()
+                for p, f in zip(batch, feats):
+                    p.result = f
+                # record the batch's stats BEFORE waking any client, so a
+                # caller reading stats() right after its answer sees its sample
+                with self._stats_lock:
+                    for p in batch:
+                        self._latencies.append(now - p.t_submit)
+                    self._fills.append(len(batch) / self.engine.batch_size)
+                    self._total_batches += 1
+                for p in batch:
+                    p.event.set()
+            except BaseException as e:  # deliver, don't kill the worker
+                for p in batch:
+                    p.error = e
+                    p.event.set()
+
+    def stats(self) -> dict:
+        with self._stats_lock:
+            lat = sorted(self._latencies)
+            fills = list(self._fills)
+            batches = self._total_batches
+        pct = lambda q: lat[min(len(lat) - 1, int(q * len(lat)))] if lat else 0.0  # noqa: E731
+        return {
+            "total_requests": self._total_requests,
+            "total_batches": batches,
+            "total_shed": self._total_shed,
+            "queue_depth": len(self._queue),
+            "mean_batch_fill": float(np.mean(fills)) if fills else 0.0,
+            "latency_p50_ms": round(pct(0.50) * 1e3, 3),
+            "latency_p95_ms": round(pct(0.95) * 1e3, 3),
+            "batch_size": self.engine.batch_size,
+        }
+
+    def close(self):
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._worker.join(timeout=10)
+
+
+def make_http_server(queue: BatchingQueue, host: str = "127.0.0.1",
+                     port: int = 8000, max_body_mb: int = 1024):
+    """ThreadingHTTPServer over a BatchingQueue of a FeatureEngine.
+
+    POST /features — body: ``.npy`` bytes of one (C,S,S,S) volume or an
+    (N,C,S,S,S) stack, sent with a Content-Length; response: ``.npy`` bytes
+    of (N,D) float32 features. GET /healthz — liveness; GET /stats —
+    batching statistics JSON.
+    Failure codes: 400 malformed request (NIfTI bodies included, not ported
+    yet), 404 unknown path, 411 body without Content-Length (e.g. chunked),
+    413 body over `max_body_mb`, 429 queue at capacity (retry later), 500
+    server-side inference error, 504 inference timeout."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    if max_body_mb < 1:
+        raise ValueError(f"max_body_mb must be >= 1, got {max_body_mb}")
+
+    class _Server(ThreadingHTTPServer):
+        # join handler threads on server_close(): a SIGTERM drain lets
+        # already-computed responses finish writing
+        daemon_threads = False
+        block_on_close = True
+
+    def _gather(q: BatchingQueue, arr: np.ndarray) -> np.ndarray:
+        # admit the whole stack atomically (all-or-429), then wait
+        pendings = q.submit_many(list(arr))
+        out = []
+        for p in pendings:
+            if not p.event.wait(300):
+                raise TimeoutError("inference timed out")
+            if p.error is not None:
+                raise p.error
+            out.append(p.result)
+        return np.stack(out)
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # quiet by default; /stats has the numbers
+            pass
+
+        def _json(self, code: int, payload: dict):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._json(200, {"status": "ok"})
+            elif self.path == "/stats":
+                self._json(200, queue.stats())
+            else:
+                self._json(404, {"error": f"unknown path {self.path}"})
+
+        def _drain_body(self, length: int):
+            # A rejection answered without reading the body would close a
+            # socket with unread data, and the kernel's RST can destroy the
+            # response before a still-sending client reads it. Discard the
+            # unread remainder (bounded) so the close is graceful; an
+            # oversend beyond twice the cap gets the hard close.
+            left = length - self._consumed
+            if length > 2 * max_body_mb * 2**20:
+                return
+            try:
+                while left > 0:
+                    chunk = self.rfile.read(min(left, 1 << 20))
+                    if not chunk:
+                        break
+                    left -= len(chunk)
+            except OSError:
+                pass
+
+        def _read_volumes(self, length: int, engine) -> np.ndarray:
+            if length > max_body_mb * 2**20:
+                raise _BodyTooLarge(f"body {length} bytes > max_body_mb={max_body_mb}")
+            body = self.rfile.read(length)
+            self._consumed = len(body)
+            if body[:6] != b"\x93NUMPY":
+                raise ValueError(
+                    "body is not .npy (NIfTI bodies are not supported by this server yet)"
+                )
+            arr = np.load(io.BytesIO(body), allow_pickle=False)
+            if arr.ndim == len(engine.volume_shape):
+                arr = arr[None]
+            return arr
+
+        def do_POST(self):
+            self._consumed = 0
+            # a body of unknown length (chunked, or no header) cannot be
+            # drained, so its answer could be lost to a reset: refuse it
+            # before any processing and close the connection
+            if "Content-Length" not in self.headers or "Transfer-Encoding" in self.headers:
+                self.close_connection = True
+                self._json(411, {"error": "a Content-Length header is required"})
+                return
+            try:
+                length = int(self.headers["Content-Length"])
+                if length < 0:
+                    raise ValueError(f"negative Content-Length {length}")
+            except ValueError as e:
+                self.close_connection = True
+                self._json(400, {"error": f"bad Content-Length: {e}"})
+                return
+            try:
+                if self.path == "/features":
+                    feats = _gather(queue, self._read_volumes(length, queue.engine))
+                    buf = io.BytesIO()
+                    np.save(buf, feats.astype(np.float32), allow_pickle=False)
+                    body = buf.getvalue()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/octet-stream")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                else:
+                    self._drain_body(length)  # rejected before the body was read
+                    self._json(404, {"error": f"unknown path {self.path}"})
+            except QueueFull as e:
+                self._json(429, {"error": str(e)})  # shed load, retry later
+            except _BodyTooLarge as e:
+                self._drain_body(length)
+                self._json(413, {"error": str(e)})
+            except TimeoutError as e:
+                self._json(504, {"error": str(e)})  # server-side: retryable
+            except ValueError as e:  # malformed body or shape: client fault
+                self._json(400, {"error": f"{type(e).__name__}: {e}"})
+            except Exception as e:  # device/runtime failure: server fault
+                self._json(500, {"error": f"{type(e).__name__}: {e}"})
+
+    return _Server((host, port), Handler)
+
+
+def build_engine(
+    checkpoint_path: str,
+    model_name: str = "contr_mae_vit_base_patch16",
+    volume_size: int = 96,
+    in_chans: int = 1,
+    patch_size: int = 8,
+    batch_size: int = 8,
+    compute_dtype: str = "bfloat16",
+    normalize: str = "none",
+    device=None,
+) -> FeatureEngine:
+    """A `.pth` checkpoint -> the feature engine `serve` runs."""
+    if checkpoint_path is None:
+        raise ValueError("need checkpoint_path")
+    return FeatureEngine(
+        checkpoint_path, model_name=model_name, volume_size=volume_size,
+        in_chans=in_chans, patch_size=patch_size, batch_size=batch_size,
+        compute_dtype=compute_dtype, normalize=normalize, device=device,
+    )
+
+
+def serve(
+    checkpoint_path: str,
+    model_name: str = "contr_mae_vit_base_patch16",
+    volume_size: int = 96,
+    in_chans: int = 1,
+    patch_size: int = 8,
+    batch_size: int = 8,
+    compute_dtype: str = "bfloat16",
+    normalize: str = "none",
+    max_wait_ms: float = 5.0,
+    host: str = "127.0.0.1",
+    port: int = 8000,
+    max_body_mb: int = 1024,
+    device=None,
+):
+    """Build the engine, warm it, and run the HTTP server until SIGTERM or
+    Ctrl-C; accepted requests are answered before it returns."""
+    engine = build_engine(
+        checkpoint_path, model_name=model_name, volume_size=volume_size,
+        in_chans=in_chans, patch_size=patch_size, batch_size=batch_size,
+        compute_dtype=compute_dtype, normalize=normalize, device=device,
+    )
+    t = engine.warmup()
+    print(f"engine warm in {t:.1f}s (batch {batch_size}, {compute_dtype}, "
+          f"{engine.device})", flush=True)
+    queue = BatchingQueue(engine, max_wait_ms=max_wait_ms)
+    server = make_http_server(queue, host=host, port=port, max_body_mb=max_body_mb)
+
+    import signal
+
+    def _stop(signum, _frame):
+        # shutdown() must come from another thread (serve_forever holds this one)
+        print(f"signal {signum}: draining and shutting down", flush=True)
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    # the handler goes in BEFORE the readiness line: a script reading
+    # "listening on" may send SIGTERM right after
+    prev = signal.signal(signal.SIGTERM, _stop)
+    print(f"listening on http://{host}:{server.server_address[1]} "
+          f"(POST /features, GET /healthz, GET /stats)", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+        server.shutdown()
+        queue.close()  # answers already-accepted requests
+        server.server_close()  # joins handler threads
+        print("server stopped", flush=True)
