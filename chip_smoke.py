@@ -8,9 +8,10 @@ non-zero exit when it fails:
 
 1. print the card and build the CUDA kernels from the repository's sources;
 2. hold every kernel against its plain PyTorch version on the card at the
-   shapes the serving path gives it, and time kernel, plain version and
-   `torch.nn.functional.scaled_dot_product_attention` (a yardstick the port
-   never calls) with CUDA events;
+   shapes the serving and training paths give it, and time kernel, plain
+   version and `torch.nn.functional.scaled_dot_product_attention` (a
+   yardstick the port never calls; forward+backward minus forward for the
+   backward kernels) with CUDA events;
 3. build the ViT-B feature engine at full width (96^3, patch 8, batch 8,
    bf16) from seeded numpy weights passed through `params_from_jax`, and
    hold its features to the same weights run with `attn_impl="plain"`;
@@ -21,8 +22,23 @@ non-zero exit when it fails:
    the request rate and p50 are printed as information only. Then the
    per-head kernel's path (`attn_impl="flash"`) and the f32 path, each with
    counts reset before and read after;
-5. print one JSON line of kernels, the card's name and power limit, and as
-   the last line `{"ok": true, "device": {...}}`.
+5. the full-width MAE pretraining step (96^3, patch 8, batch 8, bf16,
+   ViT-B encoder over 2B = 16 masked views, 8-block decoder, composite loss,
+   AdamW) from seeded numpy weights and batch statistics through
+   `params_from_jax`, with injected masking noise: three steps with
+   attn_impl="auto" (the packed kernels) against three with "plain" from the
+   same start (losses, metrics and three gradients), launch counts read
+   around every step (20 packed forward and 20 packed backward: 12 at the
+   encoder's shape, 8 at the decoder's), then one step with
+   attn_impl="flash" (the per-head kernels) and one f32 step against f32
+   plain; step time, volumes/s, peak memory and a torch.profiler breakdown
+   of one step's device time as information;
+6. print one JSON line of kernels, the card's name and power limit, and as
+   the last line `{"ok": true, "device": {...}}`. Each kernel row's
+   `launches` is what its wrapper launched at the row's shape and dtype in
+   the first path run that launched it there (the wrappers count by shape),
+   and `path` names that run; a reference case that no path runs at its
+   shape reads 0.
 
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
 no result.
@@ -37,6 +53,7 @@ import sys
 import threading
 import time
 import urllib.request
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -47,9 +64,14 @@ VOLUME, PATCH, BATCH = 96, 8, 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 without tensor cores
 KERNEL_SOURCE = "vit_ae_plus_plus_torch/kernels/csrc/flash_fwd.cu"
+BWD_SOURCE = "vit_ae_plus_plus_torch/kernels/csrc/flash_bwd.cu"
 REPLACES = {
     "packed": "vit_ae_plus_plus_tpu/kernels/packed_flash.py:164",
     "per_head": "vit_ae_plus_plus_tpu/kernels/pallas_flash.py:446",
+}
+BWD_REPLACES = {
+    "packed": "vit_ae_plus_plus_tpu/kernels/packed_flash.py:196",
+    "per_head": "vit_ae_plus_plus_tpu/kernels/pallas_flash.py:531",
 }
 # kernel vs plain version: `kernel_tolerance` (kernels/flash_attention.py),
 # two bf16 spacings at the largest output in bf16, 1e-5 in f32, 1e-4 on lse.
@@ -62,7 +84,19 @@ ENGINE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # computation on a slab of the same shape (rows are independent), so any
 # difference beyond noise means a volume was mixed up or mis-padded
 SERVED_TOL = 1e-3
-
+# the training step with the kernels vs the same weights, data and noise with
+# attn_impl="plain", step 1, as max abs difference over the largest
+# magnitude. bf16: the kernels round P (and dS) to bf16 where the plain
+# version keeps f32, through 12 encoder and 8 decoder blocks forward and
+# back. An H100 reads at most 2.2e-4 on the loss terms (contr_loss, a term
+# of about 1.6e-5; the others read 2e-6 to 7e-6) and 5.8e-3 on the three
+# gradients, the same on the packed and the per-head path: the limits are
+# about four times those. f32: only summation order differs; an H100 reads
+# at most 1.2e-7 on the loss terms and 5.7e-7 on the gradients.
+STEP_TOL = {"bfloat16": {"loss": 1e-3, "grad": 2e-2}, "float32": {"loss": 1e-5, "grad": 1e-5}}
+GRAD_NAMES = ("blocks.0.attn.qkv.weight", "decoder_blocks.0.attn.qkv.weight", "patch_embed.proj.weight")
+TRAIN_STEPS = 3
+TIMED_STEPS = 5
 
 def check(ok: bool, what: str) -> None:
     if not ok:
@@ -146,11 +180,98 @@ def kernel_case(label, layout, b, h, n, d, dtype_name, seed):
     return {
         "name": "packed_flash_fwd" if layout == "packed" else "flash_fwd",
         "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES[layout],
-        "shape": f"B={b} H={h} N={n} d={d}", "dtype": dtype_name,
+        "shape": f"B={b} H={h} N={n} d={d}", "dtype": dtype_name, "key": (b, h, n, d, dtype_name),
         "launches": None, "max_abs_err": err, "tol": tol, "lse_err": lse_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
     }
+
+
+def bwd_bound(b: int, h: int, n: int, d: int, dtype: str, elt: int):
+    """Least time for the backward: q, k, v, o and do read once and dq, dk
+    and dv written once, or 10*B*H*N^2*d operations (five N x N x d
+    products) at the type's peak, whichever is larger."""
+    t_bytes = 8 * b * n * h * d * elt / HBM_BYTES_PER_S
+    t_ops = 10 * b * h * n * n * d / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def bwd_case(label, layout, b, h, n, d, dtype_name, seed):
+    """Phase 2 for one backward shape: dq, dk and dv of the kernel against
+    the plain backward from the same forward (o, lse) and output gradient,
+    and times. `library_ms` is SDPA forward+backward minus SDPA forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from vit_ae_plus_plus_torch.kernels import (
+        attention_bwd_plain, bwd_tolerance, flash_attention, flash_attention_bwd,
+        packed_attention_bwd_plain, packed_flash_attention, packed_flash_attention_bwd,
+    )
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scale = d**-0.5
+    if layout == "packed":
+        qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda").to(dtype)
+        do = torch.randn((b, n, h * d), generator=gen, device="cuda").to(dtype)
+        o, lse = packed_flash_attention(qkv, d, scale, return_lse=True)
+        kernel = lambda: packed_flash_attention_bwd(qkv, o, lse, do, d, scale)  # noqa: E731
+        plain = lambda: packed_attention_bwd_plain(qkv, o, lse, do, d, scale)  # noqa: E731
+        got = kernel().chunk(3, dim=-1)
+        want = plain().chunk(3, dim=-1)
+        leaf = qkv.detach().requires_grad_()
+        q, k, v = leaf.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+        do_heads = do.view(b, n, h, d).transpose(1, 2)
+    else:
+        q, k, v, do = (torch.randn((b, h, n, d), generator=gen, device="cuda").to(dtype) for _ in range(4))
+        o, lse = flash_attention(q, k, v, scale, return_lse=True)
+        kernel = lambda: flash_attention_bwd(q, k, v, o, lse, do, scale)  # noqa: E731
+        plain = lambda: attention_bwd_plain(q, k, v, o, lse, do, scale)  # noqa: E731
+        got, want = kernel(), plain()
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        do_heads = do
+    torch.cuda.synchronize()
+    errs, tols = {}, {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(bool(torch.isfinite(g).all()), f"{label}: non-finite {name}")
+        errs[name] = (g.float() - w.float()).abs().max().item()
+        tols[name] = bwd_tolerance(w)
+        check(errs[name] <= tols[name], f"{label}: {name} max abs err {errs[name]:.3g} (tol {tols[name]:.3g})")
+    del got, want
+    torch.cuda.empty_cache()
+    ms = cuda_ms(kernel, reps=10)
+    plain_ms = cuda_ms(plain, reps=3, warmup=1)
+    torch.cuda.empty_cache()
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
+    fwd_ms = cuda_ms(lambda: sdpa_fwd().detach(), reps=10)
+    both_ms = cuda_ms(lambda: sdpa_fwd().backward(do_heads), reps=10)
+    bound_ms, bound_by = bwd_bound(b, h, n, d, dtype_name, torch.empty((), dtype=dtype).element_size())
+    torch.cuda.empty_cache()
+    print(f"kernel {label}: max_abs_err " + ", ".join(f"{k} {errs[k]:.3g} (tol {tols[k]:.3g})" for k in errs)
+          + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bwd {both_ms - fwd_ms:.4f} ms "
+          f"(fwd+bwd {both_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return {
+        "name": "packed_flash_bwd" if layout == "packed" else "flash_bwd",
+        "route": "cuda", "source": BWD_SOURCE, "replaces": BWD_REPLACES[layout],
+        "shape": f"B={b} H={h} N={n} d={d}", "dtype": dtype_name, "key": (b, h, n, d, dtype_name),
+        "launches": None, "max_abs_err": max(errs.values()), "tol": min(tols.values()),
+        "errs": errs, "tols": tols, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": both_ms - fwd_ms,
+    }
+
+
+def dense(rng, fan_in: int, fan_out: int, bias: bool = True) -> dict:
+    """A flax Dense leaf: xavier-uniform kernel, as the JAX init."""
+    lim = np.sqrt(6.0 / (fan_in + fan_out))
+    leaf = {"kernel": rng.uniform(-lim, lim, (fan_in, fan_out)).astype(np.float32)}
+    if bias:
+        leaf["bias"] = (0.02 * rng.standard_normal(fan_out)).astype(np.float32)
+    return leaf
+
+
+def ln(rng, dim: int) -> dict:
+    return {"scale": (1 + 0.1 * rng.standard_normal(dim)).astype(np.float32),
+            "bias": (0.02 * rng.standard_normal(dim)).astype(np.float32)}
 
 
 def mae_encoder_tree(cfg, seed: int) -> dict:
@@ -158,28 +279,43 @@ def mae_encoder_tree(cfg, seed: int) -> dict:
     encoder's leaves: the only ones the feature graft reads)."""
     rng = np.random.default_rng(seed)
     d, hidden = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio)
-
-    def dense(fan_in, fan_out):  # xavier-uniform kernel, as the JAX init
-        lim = np.sqrt(6.0 / (fan_in + fan_out))
-        return {"kernel": rng.uniform(-lim, lim, (fan_in, fan_out)).astype(np.float32),
-                "bias": (0.02 * rng.standard_normal(fan_out)).astype(np.float32)}
-
-    def ln():
-        return {"scale": (1 + 0.1 * rng.standard_normal(d)).astype(np.float32),
-                "bias": (0.02 * rng.standard_normal(d)).astype(np.float32)}
-
     tree = {
-        "patch_embed": {"proj": dense(cfg.patch_size**3 * cfg.in_chans, d)},
+        "patch_embed": {"proj": dense(rng, cfg.patch_size**3 * cfg.in_chans, d)},
         "cls_token": (0.02 * rng.standard_normal((1, 1, d))).astype(np.float32),
-        "norm": ln(),
+        "norm": ln(rng, d),
     }
     for i in range(cfg.depth):
         tree[f"blocks_{i}"] = {
-            "norm1": ln(), "norm2": ln(),
-            "attn": {"qkv": dense(d, 3 * d), "proj": dense(d, d)},
-            "mlp": {"Dense_0": dense(d, hidden), "Dense_1": dense(hidden, d)},
+            "norm1": ln(rng, d), "norm2": ln(rng, d),
+            "attn": {"qkv": dense(rng, d, 3 * d), "proj": dense(rng, d, d)},
+            "mlp": {"Dense_0": dense(rng, d, hidden), "Dense_1": dense(rng, hidden, d)},
         }
     return tree
+
+
+def mae_tree(cfg, seed: int):
+    """Seeded numpy weights for the whole MAE param tree (encoder, decoder,
+    contrastive predictor) and its flax `batch_stats`, in the JAX package's
+    layout."""
+    rng = np.random.default_rng(seed + 1)
+    tree = mae_encoder_tree(cfg, seed)
+    d, dd, hidden = cfg.embed_dim, cfg.decoder_embed_dim, int(cfg.decoder_embed_dim * cfg.mlp_ratio)
+    tree["decoder_embed"] = dense(rng, d, dd)
+    tree["mask_token"] = (0.02 * rng.standard_normal((1, 1, dd))).astype(np.float32)
+    for i in range(cfg.decoder_depth):
+        tree[f"decoder_blocks_{i}"] = {
+            "norm1": ln(rng, dd), "norm2": ln(rng, dd),
+            "attn": {"qkv": dense(rng, dd, 3 * dd), "proj": dense(rng, dd, dd)},
+            "mlp": {"Dense_0": dense(rng, dd, hidden), "Dense_1": dense(rng, hidden, dd)},
+        }
+    tree["decoder_norm"] = ln(rng, dd)
+    tree["decoder_pred"] = dense(rng, dd, cfg.patch_size**3 * cfg.in_chans)
+    tree["heads"] = {"predictor": {"Dense_0": dense(rng, d, d, bias=False), "BatchNorm_0": ln(rng, d),
+                                   "Dense_1": dense(rng, d, d)}}
+    stats = {"heads": {"predictor": {"BatchNorm_0": {
+        "mean": (0.1 * rng.standard_normal(d)).astype(np.float32),
+        "var": (1 + 0.1 * rng.random(d)).astype(np.float32)}}}}
+    return tree, stats
 
 
 def rel_err(a: np.ndarray, ref: np.ndarray) -> float:
@@ -203,7 +339,7 @@ def serve_phase(engine) -> dict:
     A correctness check: the traffic (8 closed-loop clients, 1-3 volumes
     per request) follows no workload source and is too short to measure
     served throughput or latency; those are printed as information only."""
-    from vit_ae_plus_plus_torch.kernels import flash_attention, packed_flash_attention
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
     from vit_ae_plus_plus_torch.serving import BatchingQueue, make_http_server
 
     rng = np.random.default_rng(11)
@@ -224,15 +360,14 @@ def serve_phase(engine) -> dict:
 
     clients = [threading.Thread(target=client, args=(list(range(c, len(requests), 8)),)) for c in range(8)]
     try:
-        packed_flash_attention.launches = 0
-        flash_attention.launches = 0
+        reset_launch_counts()
         t0 = time.perf_counter()
         for c in clients:
             c.start()
         for c in clients:
             c.join(timeout=600)
         wall = time.perf_counter() - t0
-        launches = {"packed": packed_flash_attention.launches, "per_head": flash_attention.launches}
+        counts = shape_counts()
         stats = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=60).read())
     finally:
         server.shutdown()
@@ -250,31 +385,30 @@ def serve_phase(engine) -> dict:
     check(served_err <= SERVED_TOL, f"served vs engine.infer rel err {served_err:.3g}")
     check(stats["total_requests"] == sum(sizes), f"/stats counted {stats['total_requests']}")
     slabs = stats["total_batches"]
-    check(launches["packed"] == 12 * slabs,
-          f"packed kernel launched {launches['packed']} times for {slabs} slabs (want 12 per slab)")
-    check(launches["per_head"] == 0, "the per-head kernel ran on the packed path")
+    launches = totals(counts)
+    check(launches == {**NO_LAUNCHES, "packed_flash_fwd": 12 * slabs},
+          f"{slabs} slabs launched {launches} (want 12 packed forward per slab and nothing else)")
     latencies = sorted(r[2] for r in results)
     summary = {
         "requests": len(sizes), "volumes": sum(sizes), "slabs": slabs,
-        "packed_launches": launches["packed"], "served_vs_infer_rel_err": served_err,
+        "packed_launches": launches["packed_flash_fwd"], "served_vs_infer_rel_err": served_err,
     }
     print(f"serve: {json.dumps(summary)}", flush=True)
     print(f"serve, information only (a {wall:.2f} s burst, not a load test): "
           f"{sum(sizes) / wall:.1f} volumes/s, client p50 {1e3 * latencies[len(latencies) // 2]:.1f} ms, "
           f"server p50 {stats['latency_p50_ms']:.1f} ms, mean batch fill {stats['mean_batch_fill']:.2f}",
           flush=True)
-    return summary
+    return summary, counts
 
 
-def path_launches(engine, vols) -> dict:
-    """Run one slab through `engine` with the counts reset just before."""
-    from vit_ae_plus_plus_torch.kernels import flash_attention, packed_flash_attention
+def path_launches(engine, vols):
+    """Run one slab through `engine` with the counts reset just before:
+    -> features, launches by (wrapper, shape)."""
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
 
-    packed_flash_attention.launches = 0
-    flash_attention.launches = 0
+    reset_launch_counts()
     feats = engine.infer(vols)
-    return {"packed": packed_flash_attention.launches, "per_head": flash_attention.launches,
-            "feats": feats}
+    return feats, shape_counts()
 
 
 def slab_ms(engine, vols, reps: int = 5) -> float:
@@ -286,6 +420,265 @@ def slab_ms(engine, vols, reps: int = 5) -> float:
     for _ in range(reps):
         engine.infer(vols)
     return (time.perf_counter() - t0) / reps * 1e3
+
+
+WRAPPERS = ("packed_flash_fwd", "packed_flash_bwd", "flash_fwd", "flash_bwd")  # kernel rows' names
+NO_LAUNCHES = dict.fromkeys(WRAPPERS, 0)
+
+
+def shape_counts() -> dict:
+    """Launches since the last reset, by (row name, (B, H, N, d, dtype))."""
+    from vit_ae_plus_plus_torch.kernels import (
+        flash_attention, flash_attention_bwd, packed_flash_attention, packed_flash_attention_bwd,
+    )
+
+    wrappers = (packed_flash_attention, packed_flash_attention_bwd, flash_attention, flash_attention_bwd)
+    return {(name, key): n for name, fn in zip(WRAPPERS, wrappers) for key, n in fn.launches_by_shape.items()}
+
+
+def totals(counts: dict) -> dict:
+    """Launches by row name, over all shapes."""
+    out = dict(NO_LAUNCHES)
+    for (name, _), n in counts.items():
+        out[name] += n
+    return out
+
+
+def fill_launches(rows: list, counts: dict, path: str) -> None:
+    """A row not yet filled takes the launches that its wrapper made at its
+    shape and dtype in `counts` (one path's run), if that run made any."""
+    for row in rows:
+        n = counts.get((row["name"], row["key"]), 0)
+        if row["launches"] is None and n:
+            row["launches"], row["path"] = n, path
+
+
+class Trainer:
+    """One training run of the port's public API: `build_model`, the weight
+    bridge, `make_adamw`, `create_train_state`, `make_train_step`."""
+
+    def __init__(self, tree, stats, dtype: str, attn_impl: str):
+        import torch
+
+        from vit_ae_plus_plus_torch.configs import TrainConfig
+        from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_model
+        from vit_ae_plus_plus_torch.train import (
+            create_train_state, make_adamw, make_train_step, warmup_cosine_schedule,
+        )
+        from vit_ae_plus_plus_torch.train.checkpoint import params_from_jax
+
+        tc = TrainConfig()
+        self.cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH, dtype=dtype, attn_impl=attn_impl)
+        model = build_model(self.cfg)
+        model.load_state_dict(params_from_jax(tree, PATCH, 1, stats), strict=True)
+        self.model = model.cuda()
+        lr = tc.blr * BATCH / 256
+        # no warmup here: the warmup's first learning rate is 0, and the smoke
+        # run checks that the first update moves the parameters
+        schedule = warmup_cosine_schedule(lr, tc.min_lr, 0, tc.epochs, steps_per_epoch=4)
+        self.state = create_train_state(self.model, make_adamw(schedule, weight_decay=tc.weight_decay), seed=0)
+        self.kw = dict(mask_ratio=tc.mask_ratio, contr_weight=tc.contr_weight)
+        self.step = make_train_step(self.model, PATCH, **self.kw)
+        self._make = lambda fwd: make_train_step(self.model, PATCH, forward_fn=fwd, **self.kw)  # noqa: E731
+        self.emw = 0.01  # the edge-loss weight of epoch 0
+
+    def run(self, views, noise=None):
+        """One step; masking noise injected when given, else drawn from the
+        state's generator (the default path). -> metrics as floats, launch
+        counts by (wrapper, shape) read around the step."""
+        from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+
+        step = self.step if noise is None else self._make(lambda m, a, b, _g: m(a, b, noise=noise))
+        reset_launch_counts()
+        self.state, metrics = step(self.state, *views, self.emw)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        counts = shape_counts()
+        check(all(np.isfinite(v) for v in metrics.values()), f"non-finite metrics {metrics}")
+        return metrics, counts
+
+    def grads(self) -> dict:
+        named = dict(self.model.named_parameters())
+        return {n: named[n].grad.float().clone() for n in GRAD_NAMES}
+
+    def all_grads_finite(self) -> bool:
+        import torch
+
+        return all(bool(torch.isfinite(p.grad).all()) for p in self.model.parameters())
+
+
+def step_rel_errs(got: dict, want: dict, got_grads: dict, want_grads: dict) -> dict:
+    errs = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want if want[k] != 0.0}
+    for n in GRAD_NAMES:
+        errs[n] = float((got_grads[n] - want_grads[n]).abs().max() / want_grads[n].abs().max())
+    return errs
+
+
+# device kernels of one step, by family of kernel name
+KERNEL_FAMILIES = (
+    ("attention (flash_fwd.cu, flash_bwd.cu)", ("flash_",)),
+    ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "sm80_")),
+    ("AdamW (foreach)", ("multi_tensor_apply",)),
+    ("LayerNorm fwd/bwd", ("layer_norm", "LayerNorm", "GammaBeta")),
+    ("memcpy/memset", ("Memcpy", "Memset")),
+)
+
+
+def profile_step(trainer, views, step_ms_events: float) -> None:
+    """One step of the main path under torch.profiler: the device kernels'
+    time by family and by name (top 15), their count, and the device's busy
+    share of the step time measured without the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.run(views)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.state, _ = trainer.step(trainer.state, *views, trainer.emw)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    by_name, by_family = {}, {}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        family = next((f for f, keys in KERNEL_FAMILIES if any(k in e.name for k in keys)),
+                      "elementwise, reductions, gathers, filters (rest)")
+        by_family[family] = by_family.get(family, 0.0) + us
+    busy_ms = sum(by_name.values()) / 1e3
+    check(busy_ms > 0, "the profiler saw no device kernel")
+    print(f"profile, information only: {len(kernels)} device kernels, busy {busy_ms:.2f} ms = "
+          f"{busy_ms / step_ms_events:.1%} of the {step_ms_events:.2f} ms step (idle "
+          f"{1 - busy_ms / step_ms_events:.1%})", flush=True)
+    for family, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"  {us / 1e3:8.2f} ms  {us / 1e3 / busy_ms:6.1%}  {family}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"  {us / 1e3:8.2f} ms  {name[:110]}")
+
+
+def train_phase(rows: list) -> None:
+    """The pretraining step at full width: kernels against plain, launch
+    counts per step and by shape, then the per-head path and the f32 path.
+    Fills the kernel rows' `launches` from each path's run."""
+    import torch
+
+    from vit_ae_plus_plus_torch.configs import TrainConfig
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    tree, stats = mae_tree(cfg, seed=0)
+    rng = np.random.default_rng(21)
+    views = [torch.from_numpy(rng.standard_normal((BATCH, 1, VOLUME, VOLUME, VOLUME)).astype(np.float32)).cuda()
+             for _ in range(2)]
+    noise = [torch.from_numpy(rng.random((2 * BATCH, cfg.num_patches)).astype(np.float32)).cuda()
+             for _ in range(TRAIN_STEPS)]
+    # the attention shapes of one step: the masked encoder over both views
+    # (2B rows, the kept patches and cls) and the decoder over every token
+    enc = (2 * BATCH, cfg.num_heads, int(cfg.num_patches * (1 - TrainConfig().mask_ratio)) + 1,
+           cfg.embed_dim // cfg.num_heads)
+    dec = (BATCH, cfg.decoder_num_heads, cfg.num_patches + 1, cfg.decoder_embed_dim // cfg.decoder_num_heads)
+
+    def per_step(prefix: str, dtype: str) -> dict:
+        """The launches one step should make: one forward and one backward
+        per block, at the encoder's and the decoder's shape."""
+        return {(f"{prefix}_{way}", (*shape, dtype)): depth for way in ("fwd", "bwd")
+                for shape, depth in ((enc, cfg.depth), (dec, cfg.decoder_depth))}
+
+    def first_steps(trainer, steps, want_counts):
+        before = trainer.model.blocks[0].attn.qkv.weight.detach().clone()
+        out, run_counts = [], Counter()
+        for i in range(steps):
+            metrics, counts = trainer.run(views, noise[i])
+            check(counts == want_counts, f"{trainer.cfg.attn_impl} {trainer.cfg.dtype} step {i + 1} launched "
+                  f"{counts} (want {want_counts})")
+            run_counts.update(counts)
+            out.append((metrics, trainer.grads() if i == 0 else None))
+            check(trainer.all_grads_finite(), f"{trainer.cfg.attn_impl} step {i + 1}: non-finite gradients")
+        moved = float((trainer.model.blocks[0].attn.qkv.weight.detach() - before).abs().max())
+        check(moved > 0, f"{trainer.cfg.attn_impl}: parameters did not move")
+        return out, run_counts
+
+    def hold(label, errs, tol):
+        print(f"train {label} vs plain, step 1 relative errors: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f" (tol loss terms {tol['loss']}, grads {tol['grad']})", flush=True)
+        for k, v in errs.items():
+            check(v <= (tol["grad"] if k in GRAD_NAMES else tol["loss"]), f"train {label} {k}: rel err {v:.3g}")
+
+    plain = Trainer(tree, stats, "bfloat16", "plain")
+    want, _ = first_steps(plain, TRAIN_STEPS, {})
+    plain_ms, _ = step_ms(plain, views)
+    del plain
+    torch.cuda.empty_cache()
+
+    # the main path: three steps, counts set to 0 before each and read after
+    auto = Trainer(tree, stats, "bfloat16", "auto")
+    auto_step = per_step("packed_flash", "bfloat16")
+    got, run_counts = first_steps(auto, TRAIN_STEPS, auto_step)
+    fill_launches(rows, run_counts, f"make_train_step, attn_impl='auto', {TRAIN_STEPS} steps")
+    tol = STEP_TOL["bfloat16"]
+    hold("bf16 auto", step_rel_errs(got[0][0], want[0][0], got[0][1], want[0][1]), tol)
+    print("train bf16 losses, steps 1-3: auto " + ", ".join(f"{m['loss']:.6f}" for m, _ in got)
+          + "; plain " + ", ".join(f"{m['loss']:.6f}" for m, _ in want), flush=True)
+    print(f"train bf16 step 1 metrics (auto): {json.dumps(got[0][0])}", flush=True)
+
+    # the main path timed: the default noise draw, counts read around the run
+    torch.cuda.reset_peak_memory_stats()
+    auto_ms, timed = step_ms(auto, views)
+    peak = torch.cuda.max_memory_allocated()
+    check(timed == {k: TIMED_STEPS * n for k, n in auto_step.items()},
+          f"{TIMED_STEPS} timed auto steps launched {timed}")
+    profile_step(auto, views, auto_ms)
+    del auto
+    torch.cuda.empty_cache()
+
+    flash = Trainer(tree, stats, "bfloat16", "flash")
+    [(fm, fgrads)], fcounts = first_steps(flash, 1, per_step("flash", "bfloat16"))
+    fill_launches(rows, fcounts, "make_train_step, attn_impl='flash', one step")
+    hold("bf16 flash", step_rel_errs(fm, want[0][0], fgrads, want[0][1]), tol)
+    flash_ms, _ = step_ms(flash, views, reps=3)
+    del flash
+    torch.cuda.empty_cache()
+
+    f32 = Trainer(tree, stats, "float32", "auto")
+    f32_plain = Trainer(tree, stats, "float32", "plain")
+    [(m32, g32)], c32 = first_steps(f32, 1, per_step("packed_flash", "float32"))
+    fill_launches(rows, c32, "make_train_step, compute_dtype='float32', one step")
+    [(mp, gp)], _ = first_steps(f32_plain, 1, {})
+    hold("f32 auto", step_rel_errs(m32, mp, g32, gp), STEP_TOL["float32"])
+    f32_ms, _ = step_ms(f32, views, reps=2)
+    del f32, f32_plain
+    torch.cuda.empty_cache()
+
+    # each kernel's time at its shape, times its launches in one step
+    ms = {(row["name"], row["key"]): row["ms"] for row in rows}
+    attn_ms = sum(n * ms[k] for k, n in auto_step.items())
+    card = card_line()
+    print(f"train step, information only ({card}): bf16 auto {auto_ms:.2f} ms per step of {BATCH} "
+          f"(CUDA events over {TIMED_STEPS} steps), {BATCH / auto_ms * 1e3:.1f} volumes/s, "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; attention kernels {cfg.depth} x (enc fwd+bwd) + "
+          f"{cfg.decoder_depth} x (dec fwd+bwd) = {attn_ms:.2f} ms = {attn_ms / auto_ms:.1%} of the step; "
+          f"bf16 plain {plain_ms:.2f} ms, bf16 flash {flash_ms:.2f} ms, f32 auto {f32_ms:.2f} ms", flush=True)
+
+
+def step_ms(trainer, views, reps: int = TIMED_STEPS):
+    """Mean time of `reps` steps of the default path (noise drawn from the
+    state's generator) by CUDA events after one warm-up step, and the launch
+    counts of those steps by (wrapper, shape)."""
+    import torch
+
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+
+    trainer.run(views)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    start.record()
+    for _ in range(reps):
+        trainer.state, _ = trainer.step(trainer.state, *views, trainer.emw)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, shape_counts()
 
 
 def main() -> int:
@@ -329,6 +722,24 @@ def main() -> int:
         ("packed f32 N1729 d64", "packed", 8, 12, 1729, 64, "float32"),
     ]
     rows = [kernel_case(*c, seed=i) for i, c in enumerate(cases)]
+    # and at the shapes of the training step: the masked encoder over both
+    # views (2B = 16, 433 tokens, d 64) and the decoder (1,729 tokens, d 32),
+    # both layouts (the per-head forward at the decoder's shape is the
+    # N1729 d32 case above), and the per-head backward at N1729 d64
+    enc, dec = (2 * BATCH, 12, 433, 64), (BATCH, 16, 1729, 32)
+    train_cases = [
+        (kernel_case, "packed bf16 N433 d64 (encoder)", "packed", enc, "bfloat16"),
+        (kernel_case, "packed bf16 N1729 d32 (decoder)", "packed", dec, "bfloat16"),
+        (bwd_case, "packed bwd bf16 N433 d64 (encoder)", "packed", enc, "bfloat16"),
+        (bwd_case, "packed bwd bf16 N1729 d32 (decoder)", "packed", dec, "bfloat16"),
+        (kernel_case, "per-head bf16 N433 d64 (encoder)", "per_head", enc, "bfloat16"),
+        (bwd_case, "per-head bwd bf16 N433 d64 (encoder)", "per_head", enc, "bfloat16"),
+        (bwd_case, "per-head bwd bf16 N1729 d32 (decoder)", "per_head", dec, "bfloat16"),
+        (bwd_case, "per-head bwd bf16 N1729 d64", "per_head", (BATCH, 12, 1729, 64), "bfloat16"),
+        (bwd_case, "packed bwd f32 N1729 d32 (decoder)", "packed", dec, "float32"),
+    ]
+    rows += [case(label, layout, *shape, dtype, seed=10 + i)
+             for i, (case, label, layout, shape, dtype) in enumerate(train_cases)]
 
     # phase 3: the full-width ViT-B feature engine, kernel against plain
     cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
@@ -340,42 +751,39 @@ def main() -> int:
     engine.warmup()
     print(f"engine warm in {time.perf_counter() - t0:.1f}s", flush=True)
     vols = np.random.default_rng(5).standard_normal((BATCH, 1, VOLUME, VOLUME, VOLUME)).astype(np.float32)
-    main_run = path_launches(engine, vols)
-    feats, ref = main_run["feats"], plain.infer(vols)
+    feats, counts = path_launches(engine, vols)
+    ref = plain.infer(vols)
     check(feats.shape == (BATCH, cfg.embed_dim) and bool(np.isfinite(feats).all()), "engine features")
-    check(main_run["packed"] == 12 and main_run["per_head"] == 0,
-          f"one slab launched packed {main_run['packed']}, per-head {main_run['per_head']} (want 12, 0)")
+    check(totals(counts) == {**NO_LAUNCHES, "packed_flash_fwd": 12},
+          f"one slab launched {totals(counts)} (want 12 packed forward and nothing else)")
     err = rel_err(feats, ref)
     print(f"engine bf16: features vs attn_impl=plain rel err {err:.3g} (tol {ENGINE_TOL['bfloat16']})")
     check(err <= ENGINE_TOL["bfloat16"], f"engine features vs plain: rel err {err:.3g}")
 
     # phase 4: the main path, served over HTTP
-    rows[0]["launches"] = serve_phase(engine)["packed_launches"]
+    _, counts = serve_phase(engine)
+    fill_launches(rows, counts, "serve: POST /features through BatchingQueue (attn_impl='auto')")
 
     # the per-head kernel's path and the f32 path, counts read around each
     flash = FeatureEngine(mae_params=tree, attn_impl="flash", **common)
-    flash_run = path_launches(flash, vols)
-    check(flash_run["per_head"] == 12 and flash_run["packed"] == 0,
-          f"flash path launched per-head {flash_run['per_head']}, packed {flash_run['packed']}")
-    err_flash = rel_err(flash_run["feats"], ref)
-    same = float(np.abs(flash_run["feats"] - feats).max())
+    flash_feats, counts = path_launches(flash, vols)
+    check(totals(counts) == {**NO_LAUNCHES, "flash_fwd": 12},
+          f"flash path launched {totals(counts)} (want 12 per-head forward and nothing else)")
+    fill_launches(rows, counts, "FeatureEngine(attn_impl='flash').infer, one slab")
+    err_flash = rel_err(flash_feats, ref)
+    same = float(np.abs(flash_feats - feats).max())
     print(f"engine bf16 attn_impl=flash: rel err vs plain {err_flash:.3g}, max diff vs packed {same:.3g}")
     check(err_flash <= ENGINE_TOL["bfloat16"], f"flash engine vs plain: rel err {err_flash:.3g}")
-    for row in rows[1:4]:
-        row["launches"] = flash_run["per_head"]
-        row["path"] = "FeatureEngine(attn_impl='flash').infer, one slab"
-    rows[0]["path"] = "serve: POST /features through BatchingQueue (attn_impl='auto')"
 
     f32 = FeatureEngine(mae_params=tree, compute_dtype="float32", **common)
     f32_plain = FeatureEngine(mae_params=tree, compute_dtype="float32", attn_impl="plain", **common)
-    f32_run = path_launches(f32, vols)
-    check(f32_run["packed"] == 12, f"f32 path launched packed {f32_run['packed']}")
-    err32 = rel_err(f32_run["feats"], f32_plain.infer(vols))
+    f32_feats, counts = path_launches(f32, vols)
+    check(totals(counts) == {**NO_LAUNCHES, "packed_flash_fwd": 12}, f"f32 path launched {totals(counts)}")
+    fill_launches(rows, counts, "FeatureEngine(compute_dtype='float32').infer, one slab")
+    err32 = rel_err(f32_feats, f32_plain.infer(vols))
     print(f"engine f32: features vs attn_impl=plain rel err {err32:.3g} (tol {ENGINE_TOL['float32']}); "
-          f"bf16 vs f32 features rel err {rel_err(feats, f32_run['feats']):.3g}")
+          f"bf16 vs f32 features rel err {rel_err(feats, f32_feats):.3g}")
     check(err32 <= ENGINE_TOL["float32"], f"f32 engine vs plain: rel err {err32:.3g}")
-    rows[4]["launches"] = f32_run["packed"]
-    rows[4]["path"] = "FeatureEngine(compute_dtype='float32').infer, one slab"
 
     times = {name: slab_ms(e, vols) for name, e in
              (("bf16 auto", engine), ("bf16 plain", plain), ("bf16 flash", flash), ("f32 auto", f32))}
@@ -387,6 +795,17 @@ def main() -> int:
     print(f"engine bf16 auto: {BATCH / times['bf16 auto'] * 1e3:.1f} volumes/s through engine.infer; "
           f"12 attention launches {12 * rows[0]['ms']:.2f} ms = {12 * rows[0]['ms'] / device_ms:.1%} "
           f"of the device forward", flush=True)
+
+    # phase 5: the pretraining step at full width
+    t0 = time.perf_counter()
+    train_phase(rows)
+    print(f"train phase {time.perf_counter() - t0:.1f}s", flush=True)
+    for row in rows:
+        if row["launches"] is None:
+            row["launches"], row["path"] = 0, "none: a reference case at a shape no path runs"
+        del row["key"]
+    check(all(any(r["launches"] for r in rows if r["name"] == name) for name in WRAPPERS),
+          "a kernel was launched by no path")
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
 
     print(json.dumps({"kernels": rows}))

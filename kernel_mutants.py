@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Mutation check of the attention kernel's tolerances, on one NVIDIA GPU.
+"""Mutation check of the attention kernels' tolerances, on one NVIDIA GPU.
 
     python3 kernel_mutants.py
 
 Run from the root of a checkout. For each mutant below it copies the port
 (`vit_ae_plus_plus_torch/`, `chip_smoke.py`, the CUDA kernel tests) into
-`vit_ae_plus_plus_torch/build/mutants/<name>/`, breaks
-`kernels/csrc/flash_fwd.cu` there on purpose, builds every copy at once, and
-runs two checks against each broken kernel:
+`vit_ae_plus_plus_torch/build/mutants/<name>/`, breaks one kernel source
+(`kernels/csrc/flash_fwd.cu` or `flash_bwd.cu`) there on purpose, builds
+every copy at once, and runs two checks against each broken kernel:
 
-- `tests/test_torch_port_kernels_cuda.py`, the kernel against its plain
-  version at small ragged shapes;
-- `chip_smoke.kernel_case` at the serving shape (packed, B=8, N=1729,
-  C=768, d=64, bf16).
+- `tests/test_torch_port_kernels_cuda.py`, the kernels against their plain
+  versions at small ragged shapes;
+- at a main-path shape: `chip_smoke.kernel_case` at the serving shape
+  (packed, B=8, N=1729, C=768, d=64, bf16) for a forward mutant,
+  `chip_smoke.bwd_case` at the decoder's training shape (packed, B=8,
+  N=1729, C=512, d=32, bf16) for a backward mutant.
 
 Each check must fail: a tolerance loose enough to pass a broken kernel shows
 here. Prints one line per mutant and exits 0 only when every mutant is
@@ -28,27 +30,52 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-KERNEL = Path("vit_ae_plus_plus_torch/kernels/csrc/flash_fwd.cu")
+CSRC = Path("vit_ae_plus_plus_torch/kernels/csrc")
 KERNEL_TESTS = Path("tests/test_torch_port_kernels_cuda.py")
-# name -> (text in the kernel source, its broken replacement at every occurrence)
+FWD_CASE = "chip_smoke.kernel_case('packed bf16 N1729 d64', 'packed', 8, 12, 1729, 64, 'bfloat16', seed=0)"
+BWD_CASE = "chip_smoke.bwd_case('packed bwd bf16 N1729 d32', 'packed', 8, 16, 1729, 32, 'bfloat16', seed=13)"
+# name -> (source, text in it, its broken replacement at every occurrence, main-path check)
 MUTANTS = {
     "drop_last_key_tile": (
+        "flash_fwd.cu",
         "for (int k0 = 0; k0 < n; k0 += kBlockK)",
         "for (int k0 = 0; k0 + kBlockK < n; k0 += kBlockK)",
+        FWD_CASE,
     ),
     "unmasked_key_tail": (
+        "flash_fwd.cu",
         "const float x = key < n ? s[j][e] * scale2 : -INFINITY;",
         "const float x = key <= n ? s[j][e] * scale2 : -INFINITY;",
+        FWD_CASE,
     ),
     "scale_off_1pct": (
+        "flash_fwd.cu",
         "const float scale2 = p.scale * kLog2e;",
         "const float scale2 = p.scale * kLog2e * 1.01f;",
+        FWD_CASE,
+    ),
+    "bwd_drop_last_query_tile": (  # the dK/dV loop skips the ragged last query tile
+        "flash_bwd.cu",
+        "for (int q0 = 0; q0 < n; q0 += kBlock)",
+        "for (int q0 = 0; q0 + kBlock < n; q0 += kBlock)",
+        BWD_CASE,
+    ),
+    "bwd_no_delta": (  # dS = P * dP, delta = rowsum(dO * O) left out
+        "flash_bwd.cu",
+        "if (lane == 0) p.delta[r] = acc;",
+        "if (lane == 0) p.delta[r] = 0.f;",
+        BWD_CASE,
+    ),
+    "bwd_dk_unscaled": (  # dK = dS^T Q without the softmax scale
+        "flash_bwd.cu",
+        "pack_f32(dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale)",
+        "pack_f32(dk[j][2 * r], dk[j][2 * r + 1])",
+        BWD_CASE,
     ),
 }
-SERVING_CASE = "chip_smoke.kernel_case('packed bf16 N1729 d64', 'packed', 8, 12, 1729, 64, 'bfloat16', seed=0)"
 
 
-def make_copy(name: str, old: str, new: str) -> Path:
+def make_copy(name: str, source: str, old: str, new: str) -> Path:
     root = REPO / "vit_ae_plus_plus_torch" / "build" / "mutants" / name
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(
@@ -58,10 +85,11 @@ def make_copy(name: str, old: str, new: str) -> Path:
     for f in ("chip_smoke.py", "pyproject.toml", KERNEL_TESTS):
         (root / f).parent.mkdir(parents=True, exist_ok=True)
         shutil.copy(REPO / f, root / f)
-    src = (root / KERNEL).read_text()
+    kernel = root / CSRC / source
+    src = kernel.read_text()
     if old not in src:
-        raise SystemExit(f"kernel_mutants: {name}: {old!r} is not in {KERNEL}")
-    (root / KERNEL).write_text(src.replace(old, new))
+        raise SystemExit(f"kernel_mutants: {name}: {old!r} is not in {CSRC / source}")
+    kernel.write_text(src.replace(old, new))
     return root
 
 
@@ -75,7 +103,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_mutants: no CUDA device", file=sys.stderr)
         return 1
-    roots = {name: make_copy(name, *edit) for name, edit in MUTANTS.items()}
+    roots = {name: make_copy(name, *edit[:3]) for name, edit in MUTANTS.items()}
     builds = {
         name: subprocess.Popen(
             [sys.executable, "-c", "from vit_ae_plus_plus_torch.kernels import _build; _build.build()"],
@@ -93,14 +121,15 @@ def main() -> int:
         tests = run([sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
                      "-p", "no:cacheprovider", str(KERNEL_TESTS)], root, timeout=600)
         tally = re.findall(r"(\d+) (failed|passed)", tests.stdout)
-        serving = run([sys.executable, "-c", f"import chip_smoke; {SERVING_CASE}"], root, timeout=600)
-        reason = (serving.stderr.strip().splitlines() or ["(no message)"])[-1]
+        case = MUTANTS[name][3]
+        main_path = run([sys.executable, "-c", f"import chip_smoke; {case}"], root, timeout=600)
+        reason = (main_path.stderr.strip().splitlines() or ["(no message)"])[-1]
         caught_tests = tests.returncode == 1 and any(kind == "failed" for _, kind in tally)
-        caught_serving = serving.returncode != 0 and "chip_smoke FAILED" in serving.stderr
+        caught_main = main_path.returncode != 0 and "chip_smoke FAILED" in main_path.stderr
         print(f"mutant {name}: kernel tests {'caught' if caught_tests else 'MISSED'} "
               f"({', '.join(f'{n} {k}' for n, k in tally) or tests.stdout[-300:]}); "
-              f"serving shape {'caught' if caught_serving else 'MISSED'} ({reason})", flush=True)
-        if not (caught_tests and caught_serving):
+              f"main-path shape {'caught' if caught_main else 'MISSED'} ({reason})", flush=True)
+        if not (caught_tests and caught_main):
             missed.append(name)
     shutil.rmtree(REPO / "vit_ae_plus_plus_torch" / "build" / "mutants", ignore_errors=True)
     if missed:

@@ -1,3 +1,3 @@
-from vit_ae_plus_plus_torch.configs.config import MAEConfig, ViTConfig
+from vit_ae_plus_plus_torch.configs.config import MAEConfig, TrainConfig, ViTConfig
 
-__all__ = ["MAEConfig", "ViTConfig"]
+__all__ = ["MAEConfig", "TrainConfig", "ViTConfig"]

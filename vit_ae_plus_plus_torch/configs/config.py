@@ -1,14 +1,15 @@
 """Model configuration for the PyTorch port.
 
-A copy of the JAX package's `ViTConfig` and `MAEConfig`
+A copy of the JAX package's `ViTConfig`, `MAEConfig` and `TrainConfig`
 (vit_ae_plus_plus_tpu/configs/config.py) holding only the fields the port
 reads. Field names and defaults are the same, so a preset means the same
-model in both packages.
+model, and a config the same training run, in both packages.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +39,7 @@ class ViTConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MAEConfig:
-    """3D masked autoencoder; the port uses it for its encoder's shape."""
+    """3D masked autoencoder (models/mae.py)."""
 
     volume_size: int = 96
     patch_size: int = 8
@@ -50,9 +51,13 @@ class MAEConfig:
     decoder_depth: int = 8
     decoder_num_heads: int = 16
     mlp_ratio: float = 4.0
-    contrastive: bool = False
+    norm_pix_loss: bool = False
+    contrastive: bool = False  # ContrastiveMAEViT variant (predictor head)
+    use_proj: bool = False  # 3-layer projector: built but never applied in forward
     dtype: str = "float32"
     attn_impl: str = "auto"
+    ln_fusion: str = "auto"  # only the unfused LayerNorm is ported ('on' raises)
+    ln_dtype: str = "float32"  # only f32 LayerNorm statistics are ported
 
     @property
     def grid_size(self) -> int:
@@ -61,6 +66,10 @@ class MAEConfig:
     @property
     def num_patches(self) -> int:
         return self.grid_size**3
+
+    @property
+    def patch_dim(self) -> int:
+        return self.patch_size**3 * self.in_chans
 
     def encoder_vit_config(self, num_classes: int = 2, global_pool: bool = True) -> ViTConfig:
         """The plain ViT that shares this MAE's encoder trunk."""
@@ -77,3 +86,33 @@ class MAEConfig:
             dtype=self.dtype,
             attn_impl=self.attn_impl,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """SSL pretraining hyperparameters: the JAX package's `TrainConfig`
+    fields that the training step and its optimizer read, with its
+    defaults (the reference's config.ini [K_FOLD] and argparse defaults)."""
+
+    epochs: int = 50
+    batch_size: int = 4
+    accum_iter: int = 1
+    blr: float = 1e-3  # absolute_lr = blr * eff_batch / 256
+    lr: Optional[float] = None
+    min_lr: float = 0.0
+    warmup_epochs: float = 40.0
+    weight_decay: float = 0.05
+    mask_ratio: float = 0.75
+    patch_size: int = 8
+    clip_grad: Optional[float] = None
+    seed: int = 42
+    # loss weights
+    use_edge_map: bool = True  # edge weight schedule 0.01 * (1 - epoch/epochs)
+    perceptual_weight: float = 0.0
+    vgg_ckpt: Optional[str] = None  # the perceptual term is not ported yet
+    contr_weight: float = 0.001
+    norm_pix_loss: bool = False
+    # execution
+    compute_dtype: str = "float32"  # "bfloat16" for throughput
+    ln_dtype: str = "float32"
+    loss_filters_dtype: str = "float32"  # "bfloat16": edge-loss filters in bf16

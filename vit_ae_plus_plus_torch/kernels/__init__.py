@@ -1,22 +1,43 @@
 """Attention for the port: plain PyTorch versions beside the wrappers of the
-hand-written CUDA kernel in csrc/flash_fwd.cu (built at first use)."""
+hand-written CUDA kernels in csrc/flash_fwd.cu and csrc/flash_bwd.cu (built
+at first use). Each wrapper counts its kernel's launches, in total
+(`launches`) and by shape and dtype (`launches_by_shape`)."""
 
 from vit_ae_plus_plus_torch.kernels.flash_attention import (
+    attention_bwd_plain,
     attention_plain,
+    bwd_tolerance,
     flash_attention,
+    flash_attention_bwd,
     kernel_tolerance,
     multihead_attention,
 )
 from vit_ae_plus_plus_torch.kernels.packed_flash import (
+    packed_attention_bwd_plain,
     packed_attention_plain,
     packed_flash_attention,
+    packed_flash_attention_bwd,
 )
 
+
+def reset_launch_counts() -> None:
+    """Set every wrapper's launch counts to 0."""
+    for wrapper in (flash_attention, flash_attention_bwd, packed_flash_attention, packed_flash_attention_bwd):
+        wrapper.launches = 0
+        wrapper.launches_by_shape = {}
+
+
 __all__ = [
+    "attention_bwd_plain",
     "attention_plain",
+    "bwd_tolerance",
     "flash_attention",
+    "flash_attention_bwd",
     "kernel_tolerance",
     "multihead_attention",
+    "packed_attention_bwd_plain",
     "packed_attention_plain",
     "packed_flash_attention",
+    "packed_flash_attention_bwd",
+    "reset_launch_counts",
 ]

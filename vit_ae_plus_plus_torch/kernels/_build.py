@@ -3,7 +3,8 @@
 Each source under `csrc/` has a plain C interface, so it compiles in
 seconds with `nvcc -shared` (no PyTorch headers) into
 `vit_ae_plus_plus_torch/build/`. The library's file name carries a hash of
-the source and the flags: an edited source is rebuilt, never loaded stale.
+the source, the headers under `csrc/` and the flags: an edited source or
+header is rebuilt, never loaded stale.
 Nothing is built when a module is imported; `load` builds on first call.
 """
 
@@ -20,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("flash_fwd",)
+SOURCES = ("flash_fwd", "flash_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,8 +47,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

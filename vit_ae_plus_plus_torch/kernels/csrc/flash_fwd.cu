@@ -34,10 +34,7 @@
 // The f32 kernel (compute_dtype float32, off the default bf16 path) uses
 // scalar FMAs with one thread per query row, so f32 inputs keep f32 products.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 struct FlashFwdParams {
   const void* q;
@@ -55,58 +52,13 @@ struct FlashFwdParams {
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using namespace flash;
 
 // ---------------------------------------------------------------- bf16 path
 
 constexpr int kBlockQ = 64;  // query rows per block: 4 warps x 16 rows
 constexpr int kBlockK = 64;  // keys per shared-memory tile
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two floats -> one register of two bf16, the first in the low half.
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + 64) of one head into shared memory (row pitch LD);
-// rows at or past n are zero-filled.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int n) {
-  constexpr int kVec = 8;  // bf16 per 16-byte load
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < kBlockK * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -135,7 +87,7 @@ flash_fwd_bf16_kernel(const FlashFwdParams p) {
 
   // Stage the Q tile through ks, then keep this warp's 16 rows in registers
   // as m16n8k16 A fragments.
-  load_tile<D, LD>(ks, qg, p.q_sn, q0, n);
+  load_tile<D, LD, kBlockK, kThreads>(ks, qg, p.q_sn, q0, n);
   __syncthreads();
   uint32_t qa[KT][4];
   {
@@ -161,8 +113,8 @@ flash_fwd_bf16_kernel(const FlashFwdParams p) {
 
   for (int k0 = 0; k0 < n; k0 += kBlockK) {
     __syncthreads();  // the previous tile (or the Q staging) is consumed
-    load_tile<D, LD>(ks, kg, p.k_sn, k0, n);
-    load_tile<D, LD>(vs, vg, p.v_sn, k0, n);
+    load_tile<D, LD, kBlockK, kThreads>(ks, kg, p.k_sn, k0, n);
+    load_tile<D, LD, kBlockK, kThreads>(vs, vg, p.v_sn, k0, n);
     __syncthreads();
 
     // S = Q K^T for 16 rows x 64 keys: eight 8-key tiles

@@ -1,22 +1,27 @@
-"""Multi-head attention: the plain version, the per-head kernel and the dispatch.
+"""Multi-head attention: plain versions, the per-head kernels and the dispatch.
 
 Counterpart of the JAX package's kernels/flash_attention.py
-(`multihead_attention`) and kernels/pallas_flash.py (`flash_attention`).
+(`multihead_attention`) and kernels/pallas_flash.py (`flash_attention`, a
+`jax.custom_vjp` over the forward and backward TPU kernels).
 
-- `attention_plain`: eager PyTorch over (B, H, N, D). Products and softmax
-  run in f32 and the output is cast back to the input dtype: the arithmetic
-  of the TPU kernels, which upcast q, k and v to f32. It is the CPU path and
-  the reference the CUDA kernel is held to on the card.
-- `flash_attention`: the per-head wrapper of `csrc/flash_fwd.cu`. On a CPU
-  tensor it takes the plain version; on a CUDA tensor it launches the kernel
-  or raises.
+- `attention_plain` / `attention_bwd_plain`: eager PyTorch over (B, H, N, D).
+  Products and softmax run in at least f32 (f64 stays f64) and results are
+  cast back to the input dtype: the arithmetic of the TPU kernels, which
+  upcast q, k and v to f32. They are the CPU path and the reference the CUDA
+  kernels are held to on the card.
+- `flash_attention`: differentiable per-head attention, a
+  `torch.autograd.Function` whose forward is `csrc/flash_fwd.cu` and whose
+  backward is `csrc/flash_bwd.cu` (`flash_attention_bwd`). On CPU tensors
+  both take the plain versions; on CUDA tensors they launch the kernels or
+  raise. Gradients reach q, k and v on either device.
 - `multihead_attention`: the per-head dispatch behind `attn_impl`
   ('plain' or 'flash'); the model's 'auto' is resolved in models/vit.py.
-- `kernel_tolerance`: how far the kernel may lie from the plain version.
+- `kernel_tolerance` / `bwd_tolerance`: how far the kernels may lie from the
+  plain versions.
 
-The kernel reads its operands through (batch, token, head) strides, so
-`launch_flash_fwd` takes (B, N, H, D) views: a per-head tensor is passed
-transposed, the packed (B, N, 3C) projection as three views of itself.
+The kernels read operands through (batch, token, head) strides, so the
+launchers take (B, N, H, D) views: a per-head tensor is passed transposed,
+the packed (B, N, 3C) projection as three views of itself.
 """
 
 from __future__ import annotations
@@ -29,18 +34,75 @@ import torch
 
 from vit_ae_plus_plus_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)  # the kernel's template instances
+HEAD_DIMS = (32, 64, 128)  # the kernels' template instances
 DTYPES = (torch.float32, torch.bfloat16)
+# the plain versions also take float64 (the CPU trajectory tests run in f64)
+CPU_DTYPES = DTYPES + (torch.float64,)
+
+
+def check_dtype(dtype: torch.dtype, device: torch.device) -> None:
+    allowed = CPU_DTYPES if device.type == "cpu" else DTYPES
+    if dtype not in allowed:
+        raise ValueError(f"dtype {dtype} not in {allowed} on {device.type}")
+
+
+def _at_least_f32(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
 
 
 def attention_plain(q, k, v, scale: float, return_lse: bool = False):
-    """softmax(q k^T * scale) v over (B, H, N, D); f32 inside, q's dtype out.
-    With `return_lse`, also the f32 log-sum-exp of the scaled scores, (B, H, N)."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    o = torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
+    """softmax(q k^T * scale) v over (B, H, N, D); at least f32 inside, q's
+    dtype out. With `return_lse`, also the log-sum-exp of the scaled scores,
+    (B, H, N), in the inner dtype (f32 for bf16 and f32 inputs)."""
+    dt = _at_least_f32(q.dtype)
+    s = torch.matmul(q.to(dt), k.to(dt).transpose(-1, -2)) * scale
+    o = torch.matmul(torch.softmax(s, dim=-1), v.to(dt)).to(q.dtype)
     if return_lse:
         return o, torch.logsumexp(s, dim=-1)
     return o
+
+
+def attention_bwd_plain(q, k, v, o, lse, do, scale: float):
+    """Gradients (dq, dk, dv) of `attention_plain` over (B, H, N, D), from the
+    forward's output `o` and log-sum-exp `lse`: the formulas of the backward
+    kernels, eagerly, in at least f32, each result in its input's dtype.
+
+    P = exp(q k^T * scale - lse), dV = P^T dO, dP = dO V^T,
+    delta = rowsum(dO * O), dS = P * (dP - delta), dQ = scale * dS K,
+    dK = scale * dS^T Q."""
+    dt = _at_least_f32(q.dtype)
+    qf, kf, vf, of, dof = (t.to(dt) for t in (q, k, v, o, do))
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse.to(dt)[..., None])
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _strides_ok(t: torch.Tensor) -> bool:
+    """The kernels' operand contract: a contiguous head_dim axis and, for
+    bf16, 16-byte aligned rows (one vector load per 8 elements)."""
+    vec = 8 if t.dtype == torch.bfloat16 else 1
+    return (
+        t.stride(-1) == 1
+        and not any(s % vec for s in t.stride()[:-1])
+        and t.data_ptr() % (vec * t.element_size()) == 0
+    )
+
+
+def _check_views(q, views) -> None:
+    vec = 8 if q.dtype == torch.bfloat16 else 1
+    for name, t in views:
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the head_dim axis must be contiguous")
+        if not _strides_ok(t):
+            raise ValueError(
+                f"{name}: strides {t.stride()} and address must be multiples "
+                f"of {vec} elements for the {q.dtype} kernel"
+            )
 
 
 class FlashFwdParams(ctypes.Structure):
@@ -56,15 +118,51 @@ class FlashFwdParams(ctypes.Structure):
     ]
 
 
-def _flash_lib() -> ctypes.CDLL:
-    lib = _build.load("flash_fwd")
-    lib.flash_fwd.argtypes = [
-        ctypes.POINTER(FlashFwdParams), ctypes.c_int, ctypes.c_int, ctypes.c_void_p
+_BWD_TENSORS = ("q", "k", "v", "o", "do", "dq", "dk", "dv")
+
+
+class FlashBwdParams(ctypes.Structure):
+    """Mirror of `struct FlashBwdParams` in csrc/flash_bwd.cu."""
+
+    _fields_ = [
+        *[(name, ctypes.c_void_p) for name in _BWD_TENSORS],
+        ("lse", ctypes.c_void_p), ("delta", ctypes.c_void_p),
+        *[(f"{t}_s{a}", ctypes.c_longlong) for t in _BWD_TENSORS for a in "bnh"],
+        ("batch", ctypes.c_int), ("heads", ctypes.c_int),
+        ("seq_len", ctypes.c_int), ("head_dim", ctypes.c_int),
+        ("scale", ctypes.c_float),
     ]
-    lib.flash_fwd.restype = ctypes.c_int
-    lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
-    lib.flash_fwd_error_string.restype = ctypes.c_char_p
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    params = FlashFwdParams if name == "flash_fwd" else FlashBwdParams
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.POINTER(params), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
+
+
+def _launch(name: str, params, q: torch.Tensor) -> None:
+    lib = _lib(name)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = getattr(lib, name)(
+        ctypes.byref(params), int(q.dtype == torch.bfloat16), q.device.index or 0, stream
+    )
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg}")
+
+
+def _check_lse(lse, b, h, n, device) -> None:
+    if (
+        lse.shape != (b, h, n) or lse.dtype != torch.float32
+        or not lse.is_contiguous() or lse.device != device
+    ):
+        raise ValueError("lse must be a contiguous (B, H, N) float32 tensor on q's device")
 
 
 def launch_flash_fwd(q, k, v, o, lse: Optional[torch.Tensor], scale: float) -> None:
@@ -74,37 +172,42 @@ def launch_flash_fwd(q, k, v, o, lse: Optional[torch.Tensor], scale: float) -> N
     `o` is written in place; `lse`, if given, is a contiguous (B, H, N) f32
     tensor. Launches on the current stream and does not synchronise."""
     b, n, h, d = q.shape
-    # shapes, dtypes and head_dim are checked by the wrappers; the bf16 kernel moves 16-byte vectors: every row start must be aligned
-    vec = 16 // q.element_size() if q.dtype == torch.bfloat16 else 1
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name}: the head_dim axis must be contiguous")
-        if any(s % vec for s in t.stride()[:3]) or t.data_ptr() % (vec * t.element_size()):
-            raise ValueError(
-                f"{name}: strides {t.stride()} and address must be multiples "
-                f"of {vec} elements for the {q.dtype} kernel"
-            )
-    if lse is not None and (
-        lse.shape != (b, h, n) or lse.dtype != torch.float32
-        or not lse.is_contiguous() or lse.device != q.device
-    ):
-        raise ValueError("lse must be a contiguous (B, H, N) float32 tensor on q's device")
-
+    _check_views(q, (("q", q), ("k", k), ("v", v), ("o", o)))
+    if lse is not None:
+        _check_lse(lse, b, h, n, q.device)
     params = FlashFwdParams(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         *[t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)],
         b, h, n, d, float(scale),
     )
-    lib = _flash_lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_fwd(
-        ctypes.byref(params), int(q.dtype == torch.bfloat16), q.device.index or 0, stream
+    _launch("flash_fwd", params, q)
+
+
+def launch_flash_bwd(q, k, v, o, lse, do, dq, dk, dv, scale: float) -> None:
+    """Run csrc/flash_bwd.cu on (B, N, H, D) views of CUDA tensors of one
+    shape and dtype: dq, dk and dv are written in place from q, k, v, the
+    forward's o and f32 lse (B, H, N), and the output gradient do. Launches
+    on the current stream and does not synchronise."""
+    b, n, h, d = q.shape
+    tensors = (q, k, v, o, do, dq, dk, dv)
+    _check_views(q, zip(_BWD_TENSORS, tensors))
+    _check_lse(lse, b, h, n, q.device)
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    params = FlashBwdParams(
+        *[t.data_ptr() for t in tensors], lse.data_ptr(), delta.data_ptr(),
+        *[t.stride(i) for t in tensors for i in (0, 1, 2)],
+        b, h, n, d, float(scale),
     )
-    if err != 0:
-        raise RuntimeError(
-            f"flash_fwd launch failed: {lib.flash_fwd_error_string(err).decode()}"
-        )
+    _launch("flash_bwd", params, q)
+
+
+def count_launch(wrapper, b: int, h: int, n: int, d: int, dtype: torch.dtype) -> None:
+    """Count one kernel launch of `wrapper`: its total `launches` and its
+    `launches_by_shape[(B, H, N, d, dtype name)]`."""
+    wrapper.launches += 1
+    key = (b, h, n, d, str(dtype).removeprefix("torch."))
+    wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
 
 
 def _check_operands(q, k, v) -> None:
@@ -115,38 +218,89 @@ def _check_operands(q, k, v) -> None:
             raise ValueError(f"{name} must match q's shape, dtype and device")
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"head_dim {q.shape[-1]} not in {HEAD_DIMS}")
-    if q.dtype not in DTYPES:
-        raise ValueError(f"dtype {q.dtype} not in {DTYPES}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
+    check_dtype(q.dtype, q.device)
 
 
-def flash_attention(q, k, v, scale: Optional[float] = None, return_lse: bool = False):
-    """softmax(q k^T * scale) v over (B, H, N, D) tensors, non-causal.
+def kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself when the kernels can read it through its strides, else a
+    contiguous copy (an incoming gradient may have any layout)."""
+    return t if _strides_ok(t) else t.contiguous()
 
-    Any strides with a contiguous head_dim axis. Returns o (B, H, N, D) in
-    q's dtype, and the f32 lse (B, H, N) with `return_lse`."""
+
+def flash_attention_fwd(q, k, v, scale: float):
+    """(o, lse) of per-head attention: the forward kernel on CUDA tensors,
+    `attention_plain` on CPU tensors. Not differentiable: `flash_attention`
+    is the differentiable entry."""
     _check_operands(q, k, v)
-    scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale, return_lse)
+        return attention_plain(q, k, v, scale, return_lse=True)
     b, h, n, _ = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if return_lse else None
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     launch_flash_fwd(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), o.transpose(1, 2), lse, scale
     )
-    flash_attention.launches += 1
+    count_launch(flash_attention, *q.shape, q.dtype)
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
+    """(dq, dk, dv) of per-head attention over (B, H, N, D): the backward
+    kernel on CUDA tensors, `attention_bwd_plain` on CPU tensors."""
+    _check_operands(q, k, v)
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, o, lse, do, scale)
+    do = kernel_operand(do)
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    launch_flash_bwd(*(t.transpose(1, 2) for t in (q, k, v, o)), lse,
+                     *(t.transpose(1, 2) for t in (do, dq, dk, dv)), scale)
+    count_launch(flash_attention_bwd, *q.shape, q.dtype)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0  # backward-kernel launches since the last reset
+flash_attention_bwd.launches_by_shape = {}
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Per-head attention with the kernels' backward (pallas_flash.py:767-808)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = flash_attention_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, scale: Optional[float] = None, return_lse: bool = False):
+    """softmax(q k^T * scale) v over (B, H, N, D) tensors, non-causal, with
+    gradients to q, k and v through the backward kernel.
+
+    Any strides with a contiguous head_dim axis. Returns o (B, H, N, D) in
+    q's dtype, and the lse (B, H, N) with `return_lse` (not differentiable)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    o, lse = _FlashAttention.apply(q, k, v, scale)
     return (o, lse) if return_lse else o
 
 
-flash_attention.launches = 0  # kernel launches since the last reset
+flash_attention.launches = 0  # forward-kernel launches since the last reset
+flash_attention.launches_by_shape = {}
 
 
 def multihead_attention(q, k, v, impl: str):
     """Scaled dot-product attention over (B, H, N, Dh), scale 1/sqrt(Dh).
 
-    impl: 'plain' (eager reference) or 'flash' (the per-head kernel)."""
+    impl: 'plain' (eager reference) or 'flash' (the per-head kernels)."""
     scale = q.shape[-1] ** -0.5
     if impl == "plain":
         return attention_plain(q, k, v, scale)
@@ -155,9 +309,15 @@ def multihead_attention(q, k, v, impl: str):
     raise ValueError(f"unknown attention impl {impl!r} (want 'flash'|'plain')")
 
 
+def _bf16_spacing(top: float) -> float:
+    """One bf16 spacing at magnitude `top`."""
+    finfo = torch.finfo(torch.bfloat16)
+    return finfo.eps * 2.0 ** math.floor(math.log2(max(top, finfo.tiny)))
+
+
 def kernel_tolerance(want_o: torch.Tensor) -> tuple:
-    """Max-abs tolerances (o, lse) of the CUDA kernel against `attention_plain`
-    on the same inputs, given the plain version's output `want_o`.
+    """Max-abs tolerances (o, lse) of the forward kernel against
+    `attention_plain` on the same inputs, given the plain version's output.
 
     bf16: both sides round o to bf16, so an element may differ by one bf16
     spacing at the output's largest magnitude; the kernel's bf16 P (relative
@@ -167,6 +327,26 @@ def kernel_tolerance(want_o: torch.Tensor) -> tuple:
     dtype: 1e-4."""
     if want_o.dtype != torch.bfloat16:
         return 1e-5, 1e-4
-    finfo = torch.finfo(torch.bfloat16)
-    top = max(want_o.float().abs().max().item(), finfo.tiny)
-    return 2 * finfo.eps * 2.0 ** math.floor(math.log2(top)), 1e-4
+    return 2 * _bf16_spacing(want_o.float().abs().max().item()), 1e-4
+
+
+def bwd_tolerance(want: torch.Tensor) -> float:
+    """Max-abs tolerance of one backward-kernel gradient (dq, dk or dv)
+    against `attention_bwd_plain` on the same inputs, given the plain
+    gradient.
+
+    bf16: each gradient is a sum over N keys or queries of products whose
+    P and dS factors the kernel rounds to bf16 (relative 2^-9 each) while
+    the plain version keeps them in f32; the rounding errors are independent
+    and add up like a random walk, which measures a few bf16 spacings at the
+    largest gradient. Then the result is rounded to bf16 on both sides (one
+    spacing). Eight spacings at the largest magnitude, and no less than
+    1e-4: where a gradient vanishes (dq and dk of a single key, whose
+    dP - delta cancels exactly) both sides hold f32 rounding noise of the
+    size of dP times 2^-24, which the spacing of that noise would not cover.
+    f32: f32 products and f32 sums on both sides in another order:
+    1e-5 relative to the largest magnitude (at least 1e-5 absolute)."""
+    top = want.float().abs().max().item()
+    if want.dtype != torch.bfloat16:
+        return 1e-5 * max(top, 1.0)
+    return max(8 * _bf16_spacing(top), 1e-4)

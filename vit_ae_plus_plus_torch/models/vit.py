@@ -8,7 +8,9 @@ GELU MLP. Parameter names are the reference PyTorch keys
 
 Precision follows the JAX package: parameters stay f32; every product runs
 in the compute dtype (weights are cast per call); LayerNorm statistics are
-f32 and the result is cast back; attention's softmax is f32 (kernels/).
+at least f32 and the result is cast back; attention's softmax is at least
+f32 (kernels/). The contrastive heads' BatchNorm follows flax, not torch
+(`FlaxBatchNorm1d`).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from vit_ae_plus_plus_torch.configs import ViTConfig
 from vit_ae_plus_plus_torch.kernels import multihead_attention, packed_flash_attention
 from vit_ae_plus_plus_torch.ops import patchify
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# float64 serves the CPU trajectory tests, as in the JAX package
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
 
 
 def compute_dtype(name: str) -> torch.dtype:
@@ -32,12 +35,14 @@ def compute_dtype(name: str) -> torch.dtype:
 
 def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     """Dense in x's dtype over f32 parameters."""
-    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
 def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
-    """LayerNorm with f32 statistics, result in x's dtype."""
-    y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps)
+    """LayerNorm with at least f32 statistics, result in x's dtype."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    y = F.layer_norm(x.to(dt), norm.normalized_shape, norm.weight.to(dt), norm.bias.to(dt), norm.eps)
     return y.to(x.dtype)
 
 
@@ -55,8 +60,10 @@ class Attention(nn.Module):
     """Multi-head self-attention over the fused qkv projection.
 
     attn_impl 'auto' sends the (B, N, 3C) projection straight to the packed
-    kernel on CUDA and to the plain version on the CPU; 'flash' takes the
-    per-head kernel; 'plain' the eager reference on any device."""
+    kernels on CUDA (a head dim or dtype they are not built for raises) and
+    to the plain version on the CPU; 'flash' takes the per-head kernels;
+    'plain' the eager reference on any device. Every path is
+    differentiable: the kernels' backward runs in csrc/flash_bwd.cu."""
 
     def __init__(self, dim: int, num_heads: int, attn_impl: str = "auto"):
         super().__init__()
@@ -155,3 +162,72 @@ class VisionTransformer3D(nn.Module):
         if self.cfg.num_classes > 0:
             return _linear(feats, self.head)
         return feats
+
+
+class FlaxBatchNorm1d(nn.Module):
+    """BatchNorm over the rows of (M, D) with flax's semantics, which the JAX
+    package trains with: the running statistics move as
+    `0.9 * running + 0.1 * batch` (flax momentum 0.9), the running variance
+    is the BIASED batch variance (torch's BatchNorm1d keeps the unbiased
+    one), eps 1e-5, and the batch variance is E[x^2] - E[x]^2 clipped at 0.
+    Statistics and output are in at least f32. Trains on batch statistics
+    and updates the running ones in `training` mode, normalises with the
+    running ones otherwise."""
+
+    momentum = 0.9
+    eps = 1e-5
+
+    def __init__(self, dim: int, affine: bool = True):
+        super().__init__()
+        self.affine = affine
+        if affine:
+            self.weight = nn.Parameter(torch.ones(dim))
+            self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(torch.promote_types(x.dtype, torch.float32), self.running_mean.dtype)
+        if self.training:
+            xf = x.to(dt)
+            mean = xf.mean(dim=0)
+            var = torch.clamp_min((xf * xf).mean(dim=0) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean.to(dt), self.running_var.to(dt)
+        mul = torch.rsqrt(var + self.eps)
+        if self.affine:
+            mul = mul * self.weight
+        y = (x - mean) * mul
+        return y + self.bias if self.affine else y
+
+
+class MLPHead(nn.Sequential):
+    """SimSiam head: [Linear(no bias) -> BatchNorm -> ReLU] x num_hidden,
+    then a biased Linear (the predictor), or a bias-free Linear and an
+    affine-free BatchNorm (the projector). The layers sit at the reference's
+    Sequential indices (predictor.{0,1,3}, projection_head.{0,1,3,4,6,7}).
+
+    Linear products run in the compute dtype; BatchNorm, as flax's with
+    `dtype=None`, in at least f32 (models/vit.py MLPHead of the JAX
+    package)."""
+
+    def __init__(self, dim: int, num_hidden: int = 1, final_dense: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        layers = []
+        for _ in range(num_hidden):
+            layers += [nn.Linear(dim, dim, bias=False), FlaxBatchNorm1d(dim), nn.ReLU()]
+        if final_dense:
+            layers.append(nn.Linear(dim, dim))
+        else:
+            layers += [nn.Linear(dim, dim, bias=False), FlaxBatchNorm1d(dim, affine=False)]
+        super().__init__(*layers)
+        self.dtype = dtype
+
+    def forward(self, x):
+        for layer in self:
+            x = _linear(x.to(self.dtype), layer) if isinstance(layer, nn.Linear) else layer(x)
+        return x

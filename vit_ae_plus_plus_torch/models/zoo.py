@@ -1,9 +1,8 @@
 """Named model presets.
 
 The same constructors as the JAX package's models/zoo.py: each returns a
-config; `build_model` turns a `ViTConfig` into the port's ViT. The MAE
-itself is not ported yet, so an `MAEConfig` serves only for its encoder's
-shape (`MAEConfig.encoder_vit_config`).
+config; `build_model` turns a `ViTConfig` into the port's ViT and an
+`MAEConfig` into its masked autoencoder.
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ from typing import Any, Callable, Dict
 from torch import nn
 
 from vit_ae_plus_plus_torch.configs import MAEConfig, ViTConfig
+from vit_ae_plus_plus_torch.models.mae import MaskedAutoencoderViT3D
 from vit_ae_plus_plus_torch.models.vit import VisionTransformer3D
 
 
@@ -100,11 +100,10 @@ MODEL_ZOO: Dict[str, Callable[..., Any]] = {
 
 
 def build_model(cfg) -> nn.Module:
-    """Config -> module. Only the ViT is ported so far."""
+    """Config -> module (weights as PyTorch initialises them: load a state
+    dict, or call the MAE's `init_weights` for the JAX package's init)."""
     if isinstance(cfg, ViTConfig):
         return VisionTransformer3D(cfg)
     if isinstance(cfg, MAEConfig):
-        raise NotImplementedError(
-            "the MAE is not ported yet; use cfg.encoder_vit_config() for its encoder"
-        )
+        return MaskedAutoencoderViT3D(cfg)
     raise TypeError(f"unknown config type {type(cfg)}")

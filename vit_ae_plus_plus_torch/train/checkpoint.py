@@ -3,9 +3,10 @@
 The port cannot read the JAX package's orbax checkpoints (that needs JAX),
 so it reads exactly two inputs:
 
-- `params_from_jax(tree, patch_size, in_chans)`: a JAX param tree (MAE or
-  ViT) as nested dicts of arrays, e.g. loaded by the JAX package and passed
-  on as numpy;
+- `params_from_jax(tree, patch_size, in_chans, batch_stats)`: a JAX param
+  tree (MAE or ViT) and, for the contrastive heads, its flax `batch_stats`
+  tree, as nested dicts of arrays, e.g. loaded by the JAX package and
+  passed on as numpy;
 - `load_reference_state_dict(path)`: the `.pth` that the JAX package's
   `export-torch` command writes (`export_mae_torch_state_dict` + `torch.save`).
 
@@ -16,7 +17,7 @@ package's `export_torch_state_dict` (train/checkpoint.py there).
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,14 +73,30 @@ def _torch_name_and_value(path: Tuple[str, ...], w: np.ndarray, patch_size: int,
     return ".".join(parts), w
 
 
-def params_from_jax(tree: Dict, patch_size: int, in_chans: int = 1) -> Dict[str, torch.Tensor]:
-    """A JAX param tree (MAE or ViT; nested dicts of arrays) -> a state dict
-    under the reference keys. `patch_size` and `in_chans` unfold the
-    (p^3*C, D) patch-embed kernel into the Conv3d layout."""
+def _batch_stat_name(path: Tuple[str, ...]) -> str:
+    """flax batch_stats leaf (heads, head, BatchNorm_k, mean|var) -> the
+    reference key of its BatchNorm1d buffer."""
+    if path[0] != "heads" or len(path) != 4 or path[3] not in ("mean", "var"):
+        raise ValueError(f"unexpected batch_stats leaf {'/'.join(path)}")
+    head, layer, leaf = path[1], path[2], path[3]
+    idx = _HEAD_LAYER_TO_SEQ[head][layer]
+    return f"{_HEAD_TORCH_NAME[head]}.{idx}.running_{leaf}"
+
+
+def params_from_jax(
+    tree: Dict, patch_size: int, in_chans: int = 1, batch_stats: Optional[Dict] = None
+) -> Dict[str, torch.Tensor]:
+    """A JAX param tree (MAE or ViT; nested dicts of arrays) and optionally
+    its flax `batch_stats` tree -> a state dict under the reference keys
+    (BatchNorm statistics as `predictor.1.running_mean` / `running_var`).
+    `patch_size` and `in_chans` unfold the (p^3*C, D) patch-embed kernel
+    into the Conv3d layout."""
     sd: Dict[str, torch.Tensor] = {}
     for path, w in _flatten(tree):
         name, value = _torch_name_and_value(path, np.asarray(w), patch_size, in_chans)
-        sd[name] = torch.from_numpy(np.ascontiguousarray(value))
+        sd[name] = torch.from_numpy(np.array(value))
+    for path, w in _flatten(batch_stats or {}):
+        sd[_batch_stat_name(path)] = torch.from_numpy(np.array(w))
     return sd
 
 
