@@ -9,9 +9,12 @@ non-zero exit when it fails:
 1. print the card and build the CUDA kernels from the repository's sources;
 2. hold every kernel against its plain PyTorch version on the card at the
    shapes the serving and training paths give it, and time kernel, plain
-   version and `torch.nn.functional.scaled_dot_product_attention` (a
-   yardstick the port never calls; forward+backward minus forward for the
-   backward kernels) with CUDA events;
+   version and a PyTorch call the port never uses (a yardstick:
+   `scaled_dot_product_attention`, forward+backward minus forward for the
+   attention backward; `F.layer_norm` + `F.linear` for LayerNorm+Dense,
+   `dY @ W` + `native_layer_norm_backward` for its backward; `F.layer_norm`
+   and its backward for the LayerNorm kernels), each from a CUDA graph of
+   repeated calls timed with CUDA events;
 3. build the ViT-B feature engine at full width (96^3, patch 8, batch 8,
    bf16) from seeded numpy weights passed through `params_from_jax`, and
    hold its features to the same weights run with `attn_impl="plain"`;
@@ -22,6 +25,10 @@ non-zero exit when it fails:
    the request rate and p50 are printed as information only. Then the
    per-head kernel's path (`attn_impl="flash"`) and the f32 path, each with
    counts reset before and read after;
+   4b. phase 3's slab through `feature_step` on
+   `VisionTransformer3D(ln_fusion="on")` with the engine's weights, held
+   to the engine's features: 24 LayerNorm+Dense forward launches (12 at
+   qkv, 12 at fc1) and 12 packed attention launches;
 5. the full-width MAE pretraining step (96^3, patch 8, batch 8, bf16,
    ViT-B encoder over 2B = 16 masked views, 8-block decoder, composite loss,
    AdamW) from seeded numpy weights and batch statistics through
@@ -33,6 +40,14 @@ non-zero exit when it fails:
    attn_impl="flash" (the per-head kernels) and one f32 step against f32
    plain; step time, volumes/s, peak memory and a torch.profiler breakdown
    of one step's device time as information;
+   5b. three bf16 steps with `ln_fusion="on"` against three with "off"
+   from the same weights and noise (losses, metrics, five gradients), counts
+   read around every step (40 LayerNorm+Dense forward and 40 backward: 12
+   and 12 at the encoder's qkv and fc1 shapes, 8 and 8 at the decoder's,
+   beside the 20 + 20 attention launches), one f32 step against f32 "off",
+   then the fused step's time, peak memory and profile; and one forward and
+   backward of `FusedLayerNorm` at the encoder's norm shape, the path of
+   the LayerNorm kernels;
 6. print one JSON line of kernels, the card's name and power limit, and as
    the last line `{"ok": true, "device": {...}}`. Each kernel row's
    `launches` is what its wrapper launched at the row's shape and dtype in
@@ -46,6 +61,7 @@ no result.
 
 from __future__ import annotations
 
+import gc
 import io
 import json
 import subprocess
@@ -73,6 +89,16 @@ BWD_REPLACES = {
     "packed": "vit_ae_plus_plus_tpu/kernels/packed_flash.py:196",
     "per_head": "vit_ae_plus_plus_tpu/kernels/pallas_flash.py:531",
 }
+LN_SOURCES = {  # kernel row -> (source, the TPU kernel it replaces)
+    "layernorm_fwd": ("vit_ae_plus_plus_torch/kernels/csrc/layernorm.cu",
+                      "vit_ae_plus_plus_tpu/kernels/fused_ln.py:153"),
+    "layernorm_bwd": ("vit_ae_plus_plus_torch/kernels/csrc/layernorm.cu",
+                      "vit_ae_plus_plus_tpu/kernels/fused_ln.py:190"),
+    "ln_dense_fwd": ("vit_ae_plus_plus_torch/kernels/csrc/ln_dense.cu",
+                     "vit_ae_plus_plus_tpu/kernels/fused_ln_dense.py:119"),
+    "ln_dense_bwd": ("vit_ae_plus_plus_torch/kernels/csrc/ln_dense.cu",
+                     "vit_ae_plus_plus_tpu/kernels/fused_ln_dense.py:159"),
+}
 # kernel vs plain version: `kernel_tolerance` (kernels/flash_attention.py),
 # two bf16 spacings at the largest output in bf16, 1e-5 in f32, 1e-4 on lse.
 # Engine features vs the same weights with attn_impl="plain", as max abs
@@ -94,7 +120,17 @@ SERVED_TOL = 1e-3
 # about four times those. f32: only summation order differs; an H100 reads
 # at most 1.2e-7 on the loss terms and 5.7e-7 on the gradients.
 STEP_TOL = {"bfloat16": {"loss": 1e-3, "grad": 2e-2}, "float32": {"loss": 1e-5, "grad": 1e-5}}
+# the bf16 step with ln_fusion="on" vs "off", by the same measure: the fused
+# trunk rounds every qkv and fc1 output in another place (the bias added
+# after rounding) and keeps dln in f32. An H100 reads 2.7e-3 on contr_loss
+# (the same near-zero term), 1.2e-4 to 3.1e-4 on the others, and 6.4e-3 on
+# the five gradients: the limits are about four and three times the
+# largest. In f32 the two trunks differ in summation order only, and are
+# held to STEP_TOL["float32"].
+FUSED_STEP_TOL = {"loss": 1e-2, "grad": 2e-2}
 GRAD_NAMES = ("blocks.0.attn.qkv.weight", "decoder_blocks.0.attn.qkv.weight", "patch_embed.proj.weight")
+# and with ln_fusion="on", two that only the fused backward produces there
+FUSED_GRAD_NAMES = GRAD_NAMES + ("blocks.0.norm1.weight", "blocks.0.mlp.fc1.weight")
 TRAIN_STEPS = 3
 TIMED_STEPS = 5
 
@@ -112,7 +148,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of `fn` over `reps` calls, by CUDA events."""
+    """Mean time of `fn` over `reps` back-to-back calls, by CUDA events: for
+    a whole forward pass, long next to the host's time to launch it (single
+    kernels take `graph_ms`)."""
     import torch
 
     for _ in range(warmup):
@@ -125,6 +163,48 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 5, cold: bool = False) -> float:
+    """Device time of one call of `fn`: `calls` calls captured in a CUDA
+    graph, replayed `reps` times between CUDA events. A short kernel runs
+    for less time than its wrapper's Python and ctypes call take on the host,
+    so back-to-back calls would time the host; the graph replays the
+    launches alone. Warm-up and capture run on one side stream.
+
+    `cold`: each call follows a write of 128 MB, so that the operands come
+    from device memory and not from the 50 MB L2 cache, as in the training
+    step; the time of the writes alone, from a graph of their own, is taken
+    off."""
+    import torch
+
+    scratch = torch.empty(2**25, dtype=torch.float32, device="cuda") if cold else None
+
+    def timed(body) -> float:
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            for _ in range(2):
+                body()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(calls):
+                body()
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (reps * calls)
+
+    if not cold:
+        return timed(fn)
+    both = timed(lambda: (scratch.zero_(), fn()))
+    return both - timed(scratch.zero_)
 
 
 def bound(b: int, h: int, n: int, d: int, dtype: str, elt: int):
@@ -169,9 +249,9 @@ def kernel_case(label, layout, b, h, n, d, dtype_name, seed):
     check(err <= tol and lse_err <= lse_tol,
           f"{label}: max abs err {err:.3g} (tol {tol:.3g}), lse {lse_err:.3g} (tol {lse_tol:.3g})")
     del o, lse, want_o, want_lse
-    ms = cuda_ms(kernel, reps=10)
-    plain_ms = cuda_ms(plain, reps=3, warmup=1)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), reps=10)
+    ms = graph_ms(kernel)
+    plain_ms = graph_ms(plain, calls=3, reps=2)
+    library_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
     bound_ms, bound_by = bound(b, h, n, d, dtype_name, torch.empty((), dtype=dtype).element_size())
     torch.cuda.empty_cache()
     print(f"kernel {label}: max_abs_err {err:.3g} (tol {tol:.3g}), lse {lse_err:.3g} (tol {lse_tol:.3g}); "
@@ -219,8 +299,8 @@ def bwd_case(label, layout, b, h, n, d, dtype_name, seed):
         plain = lambda: packed_attention_bwd_plain(qkv, o, lse, do, d, scale)  # noqa: E731
         got = kernel().chunk(3, dim=-1)
         want = plain().chunk(3, dim=-1)
-        leaf = qkv.detach().requires_grad_()
-        q, k, v = leaf.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+        leaves = (qkv.detach().requires_grad_(),)
+        heads = lambda: leaves[0].view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)  # noqa: E731
         do_heads = do.view(b, n, h, d).transpose(1, 2)
     else:
         q, k, v, do = (torch.randn((b, h, n, d), generator=gen, device="cuda").to(dtype) for _ in range(4))
@@ -228,7 +308,8 @@ def bwd_case(label, layout, b, h, n, d, dtype_name, seed):
         kernel = lambda: flash_attention_bwd(q, k, v, o, lse, do, scale)  # noqa: E731
         plain = lambda: attention_bwd_plain(q, k, v, o, lse, do, scale)  # noqa: E731
         got, want = kernel(), plain()
-        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
+        heads = lambda: leaves  # noqa: E731
         do_heads = do
     torch.cuda.synchronize()
     errs, tols = {}, {}
@@ -239,12 +320,14 @@ def bwd_case(label, layout, b, h, n, d, dtype_name, seed):
         check(errs[name] <= tols[name], f"{label}: {name} max abs err {errs[name]:.3g} (tol {tols[name]:.3g})")
     del got, want
     torch.cuda.empty_cache()
-    ms = cuda_ms(kernel, reps=10)
-    plain_ms = cuda_ms(plain, reps=3, warmup=1)
+    ms = graph_ms(kernel)
+    plain_ms = graph_ms(plain, calls=3, reps=2)
     torch.cuda.empty_cache()
-    sdpa_fwd = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
-    fwd_ms = cuda_ms(lambda: sdpa_fwd().detach(), reps=10)
-    both_ms = cuda_ms(lambda: sdpa_fwd().backward(do_heads), reps=10)
+    # the autograd graph is built inside each timed call, so that its nodes
+    # run on the stream the CUDA graph captures
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(*heads(), scale=scale)  # noqa: E731
+    fwd_ms = graph_ms(lambda: sdpa_fwd().detach())
+    both_ms = graph_ms(lambda: torch.autograd.grad(sdpa_fwd(), leaves, do_heads))
     bound_ms, bound_by = bwd_bound(b, h, n, d, dtype_name, torch.empty((), dtype=dtype).element_size())
     torch.cuda.empty_cache()
     print(f"kernel {label}: max_abs_err " + ", ".join(f"{k} {errs[k]:.3g} (tol {tols[k]:.3g})" for k in errs)
@@ -258,6 +341,149 @@ def bwd_case(label, layout, b, h, n, d, dtype_name, seed):
         "errs": errs, "tols": tols, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": both_ms - fwd_ms,
     }
+
+
+def ln_operands(r: int, c: int, dtype, seed: int, f=None):
+    """Seeded operands on the card: x (R, C) with mean 1 and spread 2, f32
+    gamma near 1 and beta; with `f`, w (F, C) of spread C^-1/2 and b (F,)
+    of spread 0.1 in x's dtype (the bias and the product of comparable size
+    make a wrong rounding order show) and dy (R, F); else dy (R, C)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    x = (2 * rand(r, c) + 1).to(dtype)
+    gamma, beta = 1 + 0.1 * rand(c), 0.1 * rand(c)
+    if f is None:
+        return x, gamma, beta, rand(r, c).to(dtype)
+    return x, gamma, beta, (c**-0.5 * rand(f, c)).to(dtype), (0.1 * rand(f)).to(dtype), rand(r, f).to(dtype)
+
+
+def ln_row(name, shape, key, dtype_name, errs, times, nbytes, flops, peak):
+    """A kernel row of #6 or #7: the bound is the larger of `nbytes` over the
+    memory rate and `flops` at `peak`."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    source, replaces = LN_SOURCES[name]
+    ms, plain_ms, library_ms = times
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces, "shape": shape,
+        "dtype": dtype_name, "key": key, "launches": None,
+        "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "errs": errs,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes > t_ops else "operations", "library_ms": library_ms,
+    }
+
+
+def report(label: str, row: dict) -> None:
+    print(f"kernel {label}: " + ", ".join(
+        f"{k} {e['max_abs_err']:.3g} (tol {e['tol']:.3g}, differing {e['mismatch']:.2%} of "
+        f"{e['mismatch_tol']:.0%})" for k, e in row["errs"].items())
+        + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    for k, e in row["errs"].items():
+        check(e["ok"], f"{label}: {k} {e}")
+
+
+def ln_dense_cases(label, r, c, f, dtype_name, seed):
+    """Phase 2 for kernel #7 at one shape, forward (7a) and backward (7b):
+    y, mu, rstd, dx and dln against the plain versions on the same inputs,
+    and times. Library: F.layer_norm + F.linear forward; dY @ W (cuBLAS) +
+    aten.native_layer_norm_backward for dx backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from vit_ae_plus_plus_torch.kernels import ln_dense_bwd_plain, ln_dense_plain
+    from vit_ae_plus_plus_torch.kernels.fused_ln import compare
+    from vit_ae_plus_plus_torch.kernels.fused_ln_dense import dln_tolerance, ln_dense_bwd, ln_dense_fwd
+
+    dtype = getattr(torch, dtype_name)
+    elt = torch.empty((), dtype=dtype).element_size()
+    x, gamma, beta, w, b, dy = ln_operands(r, c, dtype, seed, f)
+    y, mu, rstd = ln_dense_fwd(x, gamma, beta, w, b, 1e-6)
+    want_y, want_mu, want_rstd = ln_dense_plain(x, gamma, beta, w, b, 1e-6)
+    dx, dln = ln_dense_bwd(x, gamma, w, dy, mu, rstd)
+    want_dx, want_dln = ln_dense_bwd_plain(x, gamma, w, dy, want_mu, want_rstd)
+    torch.cuda.synchronize()
+    fwd_errs = {"y": compare(y, want_y), "mu": compare(mu, want_mu), "rstd": compare(rstd, want_rstd)}
+    dln_err = (dln - want_dln).abs().max().item()
+    dln_tol = dln_tolerance(want_dln, dtype)
+    bwd_errs = {"dx": compare(dx, want_dx),
+                "dln": {"max_abs_err": dln_err, "tol": dln_tol, "mismatch": 0.0, "mismatch_tol": 1.0,
+                        "ok": bool(torch.isfinite(dln).all()) and dln_err <= dln_tol}}
+    del y, want_y, dx, want_dx, dln, want_dln
+    torch.cuda.empty_cache()
+
+    gc, bc = gamma.to(dtype), beta.to(dtype)
+    fwd_times = (
+        graph_ms(lambda: ln_dense_fwd(x, gamma, beta, w, b, 1e-6)),
+        graph_ms(lambda: ln_dense_plain(x, gamma, beta, w, b, 1e-6)),
+        graph_ms(lambda: F.linear(F.layer_norm(x, (c,), gc, bc, 1e-6), w, b)),
+    )
+    _, lib_mean, lib_rstd = torch.ops.aten.native_layer_norm(x, [c], gc, bc, 1e-6)
+    bwd_times = (
+        graph_ms(lambda: ln_dense_bwd(x, gamma, w, dy, mu, rstd)),
+        graph_ms(lambda: ln_dense_bwd_plain(x, gamma, w, dy, mu, rstd)),
+        graph_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            dy @ w, x, [c], lib_mean, lib_rstd, gc, bc, [True, False, False])),
+    )
+    torch.cuda.empty_cache()
+    peak = PEAK_FLOPS[dtype_name]
+    shape, key = f"R={r} C={c} F={f}", (r, c, f, dtype_name)
+    # bytes: x, W, b, gamma, beta read; y, mu, rstd written / dY, W, x,
+    # gamma, mu, rstd read; dx and the f32 dln written
+    fwd = ln_row("ln_dense_fwd", shape, key, dtype_name, fwd_errs, fwd_times,
+                 (r * c + f * c + f + r * f) * elt + (2 * c + 2 * r) * 4, 2 * r * c * f, peak)
+    bwd = ln_row("ln_dense_bwd", shape, key, dtype_name, bwd_errs, bwd_times,
+                 (r * f + f * c + 2 * r * c) * elt + (c + 2 * r + r * c) * 4, 2 * r * c * f, peak)
+    report(f"{label} fwd", fwd)
+    report(f"{label} bwd", bwd)
+    return [fwd, bwd]
+
+
+def layernorm_cases(label, r, c, dtype_name, seed):
+    """Phase 2 for kernel #6 at one shape, forward (6a) and backward (6b),
+    and times, with the operands cold in L2 (they fit in it). Library:
+    F.layer_norm, and aten.native_layer_norm_backward for dx. Bound: bytes
+    (a few f32 operations per element, far under the card's f32 rate)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vit_ae_plus_plus_torch.kernels import layernorm_bwd_plain, layernorm_plain
+    from vit_ae_plus_plus_torch.kernels.fused_ln import compare, layernorm_bwd, layernorm_fwd
+
+    dtype = getattr(torch, dtype_name)
+    elt = torch.empty((), dtype=dtype).element_size()
+    x, gamma, beta, dy = ln_operands(r, c, dtype, seed)
+    y, mu, rstd = layernorm_fwd(x, gamma, beta, 1e-6)
+    want_y, want_mu, want_rstd = layernorm_plain(x, gamma, beta, 1e-6)
+    dx = layernorm_bwd(x, gamma, mu, rstd, dy)
+    want_dx = layernorm_bwd_plain(x, gamma, want_mu, want_rstd, dy)
+    torch.cuda.synchronize()
+    fwd_errs = {"y": compare(y, want_y), "mu": compare(mu, want_mu), "rstd": compare(rstd, want_rstd)}
+    bwd_errs = {"dx": compare(dx, want_dx)}
+    gc, bc = gamma.to(dtype), beta.to(dtype)
+    _, lib_mean, lib_rstd = torch.ops.aten.native_layer_norm(x, [c], gc, bc, 1e-6)
+    fwd_times = (
+        graph_ms(lambda: layernorm_fwd(x, gamma, beta, 1e-6), cold=True),
+        graph_ms(lambda: layernorm_plain(x, gamma, beta, 1e-6), cold=True),
+        graph_ms(lambda: F.layer_norm(x, (c,), gc, bc, 1e-6), cold=True),
+    )
+    bwd_times = (
+        graph_ms(lambda: layernorm_bwd(x, gamma, mu, rstd, dy), cold=True),
+        graph_ms(lambda: layernorm_bwd_plain(x, gamma, mu, rstd, dy), cold=True),
+        graph_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [c], lib_mean, lib_rstd, gc, bc, [True, False, False]), cold=True),
+    )
+    torch.cuda.empty_cache()
+    shape, key = f"R={r} C={c}", (r, c, dtype_name)
+    f32 = PEAK_FLOPS["float32"]
+    fwd = ln_row("layernorm_fwd", shape, key, dtype_name, fwd_errs, fwd_times,
+                 2 * r * c * elt + (2 * c + 2 * r) * 4, 8 * r * c, f32)
+    bwd = ln_row("layernorm_bwd", shape, key, dtype_name, bwd_errs, bwd_times,
+                 3 * r * c * elt + (c + 2 * r) * 4, 10 * r * c, f32)
+    report(f"{label} fwd", fwd)
+    report(f"{label} bwd", bwd)
+    return [fwd, bwd]
 
 
 def dense(rng, fan_in: int, fan_out: int, bias: bool = True) -> dict:
@@ -422,18 +648,45 @@ def slab_ms(engine, vols, reps: int = 5) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-WRAPPERS = ("packed_flash_fwd", "packed_flash_bwd", "flash_fwd", "flash_bwd")  # kernel rows' names
+WRAPPERS = ("packed_flash_fwd", "packed_flash_bwd", "flash_fwd", "flash_bwd",
+            "layernorm_fwd", "layernorm_bwd", "ln_dense_fwd", "ln_dense_bwd")  # kernel rows' names
 NO_LAUNCHES = dict.fromkeys(WRAPPERS, 0)
 
 
 def shape_counts() -> dict:
-    """Launches since the last reset, by (row name, (B, H, N, d, dtype))."""
+    """Launches since the last reset, by (row name, shape key): (B, H, N, d,
+    dtype) for attention, (R, C, dtype) for LayerNorm, (R, C, F, dtype) for
+    LayerNorm+Dense."""
     from vit_ae_plus_plus_torch.kernels import (
-        flash_attention, flash_attention_bwd, packed_flash_attention, packed_flash_attention_bwd,
+        flash_attention, flash_attention_bwd, fused_layernorm, fused_ln_dense, layernorm_bwd, ln_dense_bwd,
+        packed_flash_attention, packed_flash_attention_bwd,
     )
 
-    wrappers = (packed_flash_attention, packed_flash_attention_bwd, flash_attention, flash_attention_bwd)
+    wrappers = (packed_flash_attention, packed_flash_attention_bwd, flash_attention, flash_attention_bwd,
+                fused_layernorm, layernorm_bwd, fused_ln_dense, ln_dense_bwd)
     return {(name, key): n for name, fn in zip(WRAPPERS, wrappers) for key, n in fn.launches_by_shape.items()}
+
+
+def ln_shapes(cfg) -> dict:
+    """(R, C) of the blocks' LayerNorms: the training encoder over both
+    masked views, the training decoder, and one serving slab."""
+    from vit_ae_plus_plus_torch.configs import TrainConfig
+
+    kept = int(cfg.num_patches * (1 - TrainConfig().mask_ratio)) + 1
+    return {"encoder": (2 * BATCH * kept, cfg.embed_dim),
+            "decoder": (BATCH * (cfg.num_patches + 1), cfg.decoder_embed_dim),
+            "serving": (BATCH * (cfg.num_patches + 1), cfg.embed_dim)}
+
+
+def ln_dense_launches(shapes, dtype: str, ways=("fwd", "bwd"), depths=None) -> dict:
+    """LayerNorm+Dense launches of one pass: per block one at qkv (F = 3C)
+    and one at fc1 (F = 4C), at each (R, C) of `shapes` with its depth."""
+    out = {}
+    for (r, c), depth in zip(shapes, depths):
+        for f in (3 * c, 4 * c):
+            for way in ways:
+                out[(f"ln_dense_{way}", (r, c, f, dtype))] = depth
+    return out
 
 
 def totals(counts: dict) -> dict:
@@ -457,7 +710,7 @@ class Trainer:
     """One training run of the port's public API: `build_model`, the weight
     bridge, `make_adamw`, `create_train_state`, `make_train_step`."""
 
-    def __init__(self, tree, stats, dtype: str, attn_impl: str):
+    def __init__(self, tree, stats, dtype: str, attn_impl: str, ln_fusion: str = "auto"):
         import torch
 
         from vit_ae_plus_plus_torch.configs import TrainConfig
@@ -468,7 +721,10 @@ class Trainer:
         from vit_ae_plus_plus_torch.train.checkpoint import params_from_jax
 
         tc = TrainConfig()
-        self.cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH, dtype=dtype, attn_impl=attn_impl)
+        self.cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH, dtype=dtype, attn_impl=attn_impl,
+                                    ln_fusion=ln_fusion)
+        self.label = f"{attn_impl} ln_fusion={ln_fusion}"
+        self.grad_names = FUSED_GRAD_NAMES if ln_fusion != "auto" else GRAD_NAMES
         model = build_model(self.cfg)
         model.load_state_dict(params_from_jax(tree, PATCH, 1, stats), strict=True)
         self.model = model.cuda()
@@ -479,7 +735,6 @@ class Trainer:
         self.state = create_train_state(self.model, make_adamw(schedule, weight_decay=tc.weight_decay), seed=0)
         self.kw = dict(mask_ratio=tc.mask_ratio, contr_weight=tc.contr_weight)
         self.step = make_train_step(self.model, PATCH, **self.kw)
-        self._make = lambda fwd: make_train_step(self.model, PATCH, forward_fn=fwd, **self.kw)  # noqa: E731
         self.emw = 0.01  # the edge-loss weight of epoch 0
 
     def run(self, views, noise=None):
@@ -487,8 +742,10 @@ class Trainer:
         state's generator (the default path). -> metrics as floats, launch
         counts by (wrapper, shape) read around the step."""
         from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+        from vit_ae_plus_plus_torch.train import make_train_step
 
-        step = self.step if noise is None else self._make(lambda m, a, b, _g: m(a, b, noise=noise))
+        step = self.step if noise is None else make_train_step(
+            self.model, PATCH, forward_fn=lambda m, a, b, _g: m(a, b, noise=noise), **self.kw)
         reset_launch_counts()
         self.state, metrics = step(self.state, *views, self.emw)
         metrics = {k: float(v) for k, v in metrics.items()}
@@ -498,7 +755,7 @@ class Trainer:
 
     def grads(self) -> dict:
         named = dict(self.model.named_parameters())
-        return {n: named[n].grad.float().clone() for n in GRAD_NAMES}
+        return {n: named[n].grad.float().clone() for n in self.grad_names}
 
     def all_grads_finite(self) -> bool:
         import torch
@@ -507,8 +764,10 @@ class Trainer:
 
 
 def step_rel_errs(got: dict, want: dict, got_grads: dict, want_grads: dict) -> dict:
+    """Step-1 errors: each loss term over its own magnitude, each gradient
+    over its largest magnitude."""
     errs = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want if want[k] != 0.0}
-    for n in GRAD_NAMES:
+    for n in want_grads:
         errs[n] = float((got_grads[n] - want_grads[n]).abs().max() / want_grads[n].abs().max())
     return errs
 
@@ -516,6 +775,7 @@ def step_rel_errs(got: dict, want: dict, got_grads: dict, want_grads: dict) -> d
 # device kernels of one step, by family of kernel name
 KERNEL_FAMILIES = (
     ("attention (flash_fwd.cu, flash_bwd.cu)", ("flash_",)),
+    ("LayerNorm+Dense, LayerNorm (ln_dense.cu, layernorm.cu)", ("vitae_ln",)),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "sm80_")),
     ("AdamW (foreach)", ("multi_tensor_apply",)),
     ("LayerNorm fwd/bwd", ("layer_norm", "LayerNorm", "GammaBeta")),
@@ -589,21 +849,21 @@ def train_phase(rows: list) -> None:
         out, run_counts = [], Counter()
         for i in range(steps):
             metrics, counts = trainer.run(views, noise[i])
-            check(counts == want_counts, f"{trainer.cfg.attn_impl} {trainer.cfg.dtype} step {i + 1} launched "
+            check(counts == want_counts, f"{trainer.label} {trainer.cfg.dtype} step {i + 1} launched "
                   f"{counts} (want {want_counts})")
             run_counts.update(counts)
             out.append((metrics, trainer.grads() if i == 0 else None))
-            check(trainer.all_grads_finite(), f"{trainer.cfg.attn_impl} step {i + 1}: non-finite gradients")
+            check(trainer.all_grads_finite(), f"{trainer.label} step {i + 1}: non-finite gradients")
         moved = float((trainer.model.blocks[0].attn.qkv.weight.detach() - before).abs().max())
-        check(moved > 0, f"{trainer.cfg.attn_impl}: parameters did not move")
+        check(moved > 0, f"{trainer.label}: parameters did not move")
         return out, run_counts
 
-    def hold(label, errs, tol):
-        print(f"train {label} vs plain, step 1 relative errors: "
+    def hold(label, errs, tol, against="plain"):
+        print(f"train {label} vs {against}, step 1 relative errors: "
               + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
               + f" (tol loss terms {tol['loss']}, grads {tol['grad']})", flush=True)
         for k, v in errs.items():
-            check(v <= (tol["grad"] if k in GRAD_NAMES else tol["loss"]), f"train {label} {k}: rel err {v:.3g}")
+            check(v <= (tol["grad"] if k in FUSED_GRAD_NAMES else tol["loss"]), f"train {label} {k}: rel err {v:.3g}")
 
     plain = Trainer(tree, stats, "bfloat16", "plain")
     want, _ = first_steps(plain, TRAIN_STEPS, {})
@@ -623,7 +883,7 @@ def train_phase(rows: list) -> None:
     print(f"train bf16 step 1 metrics (auto): {json.dumps(got[0][0])}", flush=True)
 
     # the main path timed: the default noise draw, counts read around the run
-    torch.cuda.reset_peak_memory_stats()
+    resident = reset_peak()
     auto_ms, timed = step_ms(auto, views)
     peak = torch.cuda.max_memory_allocated()
     check(timed == {k: TIMED_STEPS * n for k, n in auto_step.items()},
@@ -650,15 +910,106 @@ def train_phase(rows: list) -> None:
     del f32, f32_plain
     torch.cuda.empty_cache()
 
+    # 5b: ln_fusion="on" against "off" from the same start, counts read
+    # around every step: the attention launches of the unfused step plus
+    # one LayerNorm+Dense forward and backward at qkv and at fc1 per block
+    shapes = ln_shapes(cfg)
+    trunk = ((shapes["encoder"], shapes["decoder"]), (cfg.depth, cfg.decoder_depth))
+
+    def fused_step(dtype):
+        return {**per_step("packed_flash", dtype), **ln_dense_launches(trunk[0], dtype, depths=trunk[1])}
+
+    off = Trainer(tree, stats, "bfloat16", "auto", ln_fusion="off")
+    want_off, _ = first_steps(off, TRAIN_STEPS, auto_step)
+    del off
+    torch.cuda.empty_cache()
+    fused = Trainer(tree, stats, "bfloat16", "auto", ln_fusion="on")
+    on_step = fused_step("bfloat16")
+    got_on, on_counts = first_steps(fused, TRAIN_STEPS, on_step)
+    fill_launches(rows, on_counts, f"make_train_step, ln_fusion='on', {TRAIN_STEPS} steps")
+    hold("bf16 ln_fusion=on", step_rel_errs(got_on[0][0], want_off[0][0], got_on[0][1], want_off[0][1]),
+         FUSED_STEP_TOL, "ln_fusion=off")
+    print("train bf16 losses, steps 1-3: ln_fusion=on " + ", ".join(f"{m['loss']:.6f}" for m, _ in got_on)
+          + "; off " + ", ".join(f"{m['loss']:.6f}" for m, _ in want_off), flush=True)
+    on_resident = reset_peak()
+    on_ms, on_timed = step_ms(fused, views)
+    on_peak = torch.cuda.max_memory_allocated()
+    check(on_timed == {k: TIMED_STEPS * n for k, n in on_step.items()},
+          f"{TIMED_STEPS} timed ln_fusion=on steps launched {on_timed}")
+    profile_step(fused, views, on_ms)
+    del fused
+    torch.cuda.empty_cache()
+
+    f32_on = Trainer(tree, stats, "float32", "auto", ln_fusion="on")
+    f32_off = Trainer(tree, stats, "float32", "auto", ln_fusion="off")
+    [(m_on, g_on)], c_on = first_steps(f32_on, 1, fused_step("float32"))
+    fill_launches(rows, c_on, "make_train_step, compute_dtype='float32', ln_fusion='on', one step")
+    [(m_off, g_off)], _ = first_steps(f32_off, 1, per_step("packed_flash", "float32"))
+    hold("f32 ln_fusion=on", step_rel_errs(m_on, m_off, g_on, g_off), STEP_TOL["float32"], "ln_fusion=off")
+    f32_on_ms, _ = step_ms(f32_on, views, reps=2)
+    del f32_on, f32_off
+    torch.cuda.empty_cache()
+
     # each kernel's time at its shape, times its launches in one step
     ms = {(row["name"], row["key"]): row["ms"] for row in rows}
     attn_ms = sum(n * ms[k] for k, n in auto_step.items())
+    lnd_ms = sum(n * ms[k] for k, n in on_step.items() if k[0].startswith("ln_dense"))
     card = card_line()
     print(f"train step, information only ({card}): bf16 auto {auto_ms:.2f} ms per step of {BATCH} "
           f"(CUDA events over {TIMED_STEPS} steps), {BATCH / auto_ms * 1e3:.1f} volumes/s, "
-          f"max_memory_allocated {peak / 2**30:.2f} GiB; attention kernels {cfg.depth} x (enc fwd+bwd) + "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB ({resident / 2**30:.2f} before the steps); attention kernels {cfg.depth} x (enc fwd+bwd) + "
           f"{cfg.decoder_depth} x (dec fwd+bwd) = {attn_ms:.2f} ms = {attn_ms / auto_ms:.1%} of the step; "
           f"bf16 plain {plain_ms:.2f} ms, bf16 flash {flash_ms:.2f} ms, f32 auto {f32_ms:.2f} ms", flush=True)
+    print(f"train step ln_fusion=on, information only ({card}): bf16 {on_ms:.2f} ms per step of {BATCH} "
+          f"({BATCH / on_ms * 1e3:.1f} volumes/s; auto {auto_ms:.2f} ms), max_memory_allocated "
+          f"{on_peak / 2**30:.2f} GiB ({on_resident / 2**30:.2f} before the steps; auto {peak / 2**30:.2f}); LayerNorm+Dense kernels, 40 forward + 40 "
+          f"backward = {lnd_ms:.2f} ms = {lnd_ms / on_ms:.1%} of the step; f32 ln_fusion=on {f32_on_ms:.2f} ms",
+          flush=True)
+
+
+def fused_layernorm_run(rows: list, cfg) -> None:
+    """The path of the LayerNorm kernels (#6): one forward and backward of
+    `FusedLayerNorm` at the encoder's norm shape in the training step,
+    counts set to 0 just before and read just after."""
+    import torch
+
+    from vit_ae_plus_plus_torch.kernels import layernorm_bwd_plain, reset_launch_counts
+    from vit_ae_plus_plus_torch.kernels.fused_ln import compare, row_stats_plain
+    from vit_ae_plus_plus_torch.models.vit import FusedLayerNorm
+
+    (r, c) = ln_shapes(cfg)["encoder"]
+    norm = FusedLayerNorm(c, eps=1e-6, dtype=torch.bfloat16).cuda()
+    x, gamma, beta, dy = ln_operands(r, c, torch.bfloat16, seed=31)
+    with torch.no_grad():
+        norm.weight.copy_(gamma)
+        norm.bias.copy_(beta)
+    x = x.view(2 * BATCH, r // (2 * BATCH), c).requires_grad_()
+    reset_launch_counts()
+    y = norm(x)
+    y.backward(dy.view(y.shape))
+    torch.cuda.synchronize()
+    counts = shape_counts()
+    key = (r, c, "bfloat16")
+    check(totals(counts) == {**NO_LAUNCHES, "layernorm_fwd": 1, "layernorm_bwd": 1}
+          and counts.get(("layernorm_fwd", key)) == 1, f"FusedLayerNorm launched {counts}")
+    fill_launches(rows, counts, f"FusedLayerNorm({c}) forward and backward at the encoder's (R, C)")
+    mu, rstd = row_stats_plain(x.detach().view(r, c), 1e-6)
+    err = compare(x.grad.view(r, c), layernorm_bwd_plain(x.detach().view(r, c), gamma, mu, rstd, dy))
+    check(err["ok"] and norm.weight.grad is not None and bool(torch.isfinite(norm.weight.grad).all()),
+          f"FusedLayerNorm gradients: {err}")
+    print(f"FusedLayerNorm({c}) at R={r}: dx vs plain {err['max_abs_err']:.3g} (tol {err['tol']:.3g}); "
+          f"launched {totals(counts)}", flush=True)
+
+
+def reset_peak() -> int:
+    """Free what deleted trainers left and start the peak-memory count
+    here: -> the bytes allocated now."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
 
 
 def step_ms(trainer, views, reps: int = TIMED_STEPS):
@@ -679,6 +1030,43 @@ def step_ms(trainer, views, reps: int = TIMED_STEPS):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, shape_counts()
+
+
+def fused_vit_phase(engine, vols, engine_feats, rows) -> None:
+    """One slab through `feature_step` on VisionTransformer3D(ln_fusion="on")
+    with the engine's (grafted) weights: held to the engine's features, and
+    24 LayerNorm+Dense forward launches (12 at qkv, 12 at fc1) and 12 packed
+    attention launches, counts set to 0 just before and read just after."""
+    import dataclasses
+
+    import torch
+
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+    from vit_ae_plus_plus_torch.models import VisionTransformer3D
+    from vit_ae_plus_plus_torch.train.step import feature_step
+
+    cfg = dataclasses.replace(engine.model.cfg, ln_fusion="on")
+    model = VisionTransformer3D(cfg)
+    model.load_state_dict(engine.model.state_dict(), strict=True)
+    model = model.cuda().eval()
+    slab = torch.from_numpy(vols).cuda()
+    reset_launch_counts()
+    feats = feature_step(model, slab).float().cpu().numpy()
+    counts = shape_counts()
+    r, c = slab.shape[0] * (cfg.num_patches + 1), cfg.embed_dim
+    want = {("packed_flash_fwd", (slab.shape[0], cfg.num_heads, cfg.num_patches + 1, c // cfg.num_heads,
+                                  "bfloat16")): cfg.depth,
+            **ln_dense_launches([(r, c)], "bfloat16", ways=("fwd",), depths=[cfg.depth])}
+    check(counts == want, f"ln_fusion='on' slab launched {counts} (want {want})")
+    fill_launches(rows, counts, "feature_step on VisionTransformer3D(ln_fusion='on'), one slab")
+    check(feats.shape == engine_feats.shape and bool(np.isfinite(feats).all()), "ln_fusion='on' features")
+    err = rel_err(feats, engine_feats)
+    on_ms = cuda_ms(lambda: feature_step(model, slab), reps=5)
+    auto_ms = cuda_ms(lambda: feature_step(engine.model, slab), reps=5)
+    print(f"engine bf16 ln_fusion=on: features vs the engine rel err {err:.3g} (tol {ENGINE_TOL['bfloat16']}); "
+          f"launched {totals(counts)}; forward_features on a device slab {on_ms:.2f} ms, "
+          f"auto {auto_ms:.2f} ms (CUDA events)", flush=True)
+    check(err <= ENGINE_TOL["bfloat16"], f"ln_fusion='on' features vs the engine: rel err {err:.3g}")
 
 
 def main() -> int:
@@ -740,9 +1128,25 @@ def main() -> int:
     ]
     rows += [case(label, layout, *shape, dtype, seed=10 + i)
              for i, (case, label, layout, shape, dtype) in enumerate(train_cases)]
+    # kernels #6 and #7 at the shapes of the ln_fusion="on" paths: each
+    # block's qkv (F = 3C) and fc1 (F = 4C) in the training encoder and
+    # decoder and in one serving slab, one f32 case, and the LayerNorm at
+    # the encoder's and the decoder's (R, C)
+    t0 = time.perf_counter()
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    shapes = ln_shapes(cfg)
+    for i, (where, (r, c)) in enumerate(shapes.items()):
+        for j, (layer, f) in enumerate((("qkv", 3 * c), ("fc1", 4 * c))):
+            rows += ln_dense_cases(f"ln_dense bf16 {where} {layer} R{r} C{c} F{f}", r, c, f, "bfloat16",
+                                   seed=40 + 2 * i + j)
+    r, c = shapes["decoder"]
+    rows += ln_dense_cases(f"ln_dense f32 decoder qkv R{r} C{c} F{3 * c}", r, c, 3 * c, "float32", seed=50)
+    for i, where in enumerate(("encoder", "decoder")):
+        r, c = shapes[where]
+        rows += layernorm_cases(f"layernorm bf16 {where} R{r} C{c}", r, c, "bfloat16", seed=60 + i)
+    print(f"LayerNorm kernel cases {time.perf_counter() - t0:.1f}s", flush=True)
 
     # phase 3: the full-width ViT-B feature engine, kernel against plain
-    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
     tree = mae_encoder_tree(cfg, seed=0)
     common = dict(model_name=MODEL, volume_size=VOLUME, patch_size=PATCH, batch_size=BATCH)
     engine = FeatureEngine(mae_params=tree, **common)
@@ -763,6 +1167,9 @@ def main() -> int:
     # phase 4: the main path, served over HTTP
     _, counts = serve_phase(engine)
     fill_launches(rows, counts, "serve: POST /features through BatchingQueue (attn_impl='auto')")
+
+    # phase 4b: the same slab through the ln_fusion="on" trunk
+    fused_vit_phase(engine, vols, feats, rows)
 
     # the per-head kernel's path and the f32 path, counts read around each
     flash = FeatureEngine(mae_params=tree, attn_impl="flash", **common)
@@ -796,10 +1203,11 @@ def main() -> int:
           f"12 attention launches {12 * rows[0]['ms']:.2f} ms = {12 * rows[0]['ms'] / device_ms:.1%} "
           f"of the device forward", flush=True)
 
-    # phase 5: the pretraining step at full width
+    # phase 5: the pretraining step at full width (5b: ln_fusion="on")
     t0 = time.perf_counter()
     train_phase(rows)
     print(f"train phase {time.perf_counter() - t0:.1f}s", flush=True)
+    fused_layernorm_run(rows, cfg)
     for row in rows:
         if row["launches"] is None:
             row["launches"], row["path"] = 0, "none: a reference case at a shape no path runs"

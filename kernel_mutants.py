@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Mutation check of the attention kernels' tolerances, on one NVIDIA GPU.
+"""Mutation check of the CUDA kernels' tolerances, on one NVIDIA GPU.
 
     python3 kernel_mutants.py
 
 Run from the root of a checkout. For each mutant below it copies the port
 (`vit_ae_plus_plus_torch/`, `chip_smoke.py`, the CUDA kernel tests) into
 `vit_ae_plus_plus_torch/build/mutants/<name>/`, breaks one kernel source
-(`kernels/csrc/flash_fwd.cu` or `flash_bwd.cu`) there on purpose, builds
-every copy at once, and runs two checks against each broken kernel:
+under `kernels/csrc/` there on purpose, builds every copy at once, and runs
+two checks against each broken kernel:
 
 - `tests/test_torch_port_kernels_cuda.py`, the kernels against their plain
   versions at small ragged shapes;
 - at a main-path shape: `chip_smoke.kernel_case` at the serving shape
   (packed, B=8, N=1729, C=768, d=64, bf16) for a forward mutant,
   `chip_smoke.bwd_case` at the decoder's training shape (packed, B=8,
-  N=1729, C=512, d=32, bf16) for a backward mutant.
+  N=1729, C=512, d=32, bf16) for a backward mutant;
+  `chip_smoke.ln_dense_cases` at the training encoder's qkv shape (R=6928,
+  C=768, F=2304, bf16, forward and backward) for a LayerNorm+Dense or
+  LayerNorm row-pass mutant.
 
 Each check must fail: a tolerance loose enough to pass a broken kernel shows
 here. Prints one line per mutant and exits 0 only when every mutant is
@@ -34,6 +37,7 @@ CSRC = Path("vit_ae_plus_plus_torch/kernels/csrc")
 KERNEL_TESTS = Path("tests/test_torch_port_kernels_cuda.py")
 FWD_CASE = "chip_smoke.kernel_case('packed bf16 N1729 d64', 'packed', 8, 12, 1729, 64, 'bfloat16', seed=0)"
 BWD_CASE = "chip_smoke.bwd_case('packed bwd bf16 N1729 d32', 'packed', 8, 16, 1729, 32, 'bfloat16', seed=13)"
+LND_CASE = "chip_smoke.ln_dense_cases('ln_dense bf16 encoder qkv', 6928, 768, 2304, 'bfloat16', seed=40)"
 # name -> (source, text in it, its broken replacement at every occurrence, main-path check)
 MUTANTS = {
     "drop_last_key_tile": (
@@ -71,6 +75,24 @@ MUTANTS = {
         "pack_f32(dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale)",
         "pack_f32(dk[j][2 * r], dk[j][2 * r + 1])",
         BWD_CASE,
+    ),
+    "lnd_bias_before_rounding": (  # y = bf16(acc + b): the bias added before acc is rounded
+        "ln_dense.cu",
+        "return __bfloat162float(__float2bfloat16(acc)) + bias;",
+        "return acc + bias;",
+        LND_CASE,
+    ),
+    "lnd_dln_drop_last_tile": (  # the dln product skips its last tile of F
+        "ln_dense.cu",
+        "for (int kt = 0; kt < ktiles; ++kt)",
+        "for (int kt = 0; kt < ktiles - 1; ++kt)",
+        LND_CASE,
+    ),
+    "ln_rows_no_mean_gxhat": (  # dx = rstd * (g - mean(g)): the mean(g * xhat) term left out
+        "ln_rows.cuh",
+        "g[j][e] - mg - xh[j][e] * mgx",
+        "g[j][e] - mg",
+        LND_CASE,
     ),
 }
 

@@ -17,7 +17,17 @@ at the plain gradient's largest magnitude in bf16 (the kernel rounds P and
 dS to bf16 before their products, the plain version keeps them in f32, and
 both round the result), 1e-5 relative to the largest magnitude in f32.
 `kernel_mutants.py` shows that these catch a backward that drops its last
-query tile, leaves delta out, or forgets the scale on dk."""
+query tile, leaves delta out, or forgets the scale on dk.
+
+LayerNorm (csrc/layernorm.cu) and LayerNorm+Dense (csrc/ln_dense.cu):
+`compare` (kernels/fused_ln.py) for y and dx: two bf16 spacings at the
+plain output's largest magnitude and at most 2% of elements different at
+all in bf16 (both sides round the same f32 values; only summation order
+differs), 1e-5 relative in f32; mu and rstd 1e-5 relative (f32 on both
+sides); dln `dln_tolerance` (kernels/fused_ln_dense.py): 1e-4 relative for
+bf16 operands, 1e-5 for f32. `kernel_mutants.py` shows that these catch a
+forward that adds the bias before rounding, a dln product that drops its
+last tile of F, and a row pass without the mean(g * xhat) term."""
 
 import pytest
 import torch
@@ -33,6 +43,23 @@ from vit_ae_plus_plus_torch.kernels import (
     packed_attention_plain,
     packed_flash_attention,
     packed_flash_attention_bwd,
+)
+from vit_ae_plus_plus_torch.kernels.fused_ln import (
+    LN_WIDTHS,
+    compare,
+    fused_layernorm,
+    layernorm_bwd,
+    layernorm_bwd_plain,
+    layernorm_fwd,
+    layernorm_plain,
+)
+from vit_ae_plus_plus_torch.kernels.fused_ln_dense import (
+    dln_tolerance,
+    fused_ln_dense,
+    ln_dense_bwd,
+    ln_dense_bwd_plain,
+    ln_dense_fwd,
+    ln_dense_plain,
 )
 from vit_ae_plus_plus_torch.models.vit import Attention
 
@@ -171,3 +198,104 @@ def test_auto_attention_raises_where_no_kernel_is_built(cuda):
         Attention(48, 6).to(cuda)(_rand((1, 10, 48), torch.float32, cuda, seed=5))  # d = 8
     with pytest.raises(ValueError, match="dtype"):
         Attention(128, 2).to(cuda, torch.float64)(_rand((1, 10, 128), torch.float64, cuda, seed=6))
+
+
+def _ln_operands(r, c, dtype, device, seed, f=None):
+    """x (mean 1, spread 2), gamma near 1, beta, and with `f` w (F, C),
+    b (F,) in x's dtype and dy (R, F); else dy (R, C)."""
+    x = (2 * _rand((r, c), torch.float32, device, seed) + 1).to(dtype)
+    gamma = 1 + 0.1 * _rand((c,), torch.float32, device, seed + 1)
+    beta = 0.1 * _rand((c,), torch.float32, device, seed + 2)
+    if f is None:
+        return x, gamma, beta, _rand((r, c), dtype, device, seed + 3)
+    w = (c**-0.5 * _rand((f, c), torch.float32, device, seed + 4)).to(dtype)
+    b = (0.1 * _rand((f,), torch.float32, device, seed + 5)).to(dtype)
+    return x, gamma, beta, w, b, _rand((r, f), dtype, device, seed + 6)
+
+
+def _assert_compare(got, want, what):
+    c = compare(got, want)
+    assert c["ok"], (what, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", LN_WIDTHS)
+@pytest.mark.parametrize("r", [1, 100])
+def test_layernorm_kernels_match_plain(cuda, dtype, c, r):
+    x, gamma, beta, dy = _ln_operands(r, c, dtype, cuda, seed=c + r)
+    before = fused_layernorm.launches, layernorm_bwd.launches
+    y, mu, rstd = layernorm_fwd(x, gamma, beta, 1e-6)
+    dx = layernorm_bwd(x, gamma, mu, rstd, dy)
+    torch.cuda.synchronize()
+    assert (fused_layernorm.launches, layernorm_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want_y, want_mu, want_rstd = layernorm_plain(x, gamma, beta, 1e-6)
+    _assert_compare(y, want_y, "y")
+    _assert_compare(mu, want_mu, "mu")
+    _assert_compare(rstd, want_rstd, "rstd")
+    _assert_compare(dx, layernorm_bwd_plain(x, gamma, want_mu, want_rstd, dy), "dx")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("r,c,f", [(100, 256, 192), (1, 512, 64), (130, 768, 320), (65, 1024, 96)])
+def test_ln_dense_kernels_match_plain(cuda, dtype, r, c, f):
+    """Ragged rows (and a ragged last tile of output columns at F = 192,
+    320 and 96) in both directions."""
+    x, gamma, beta, w, b, dy = _ln_operands(r, c, dtype, cuda, seed=f, f=f)
+    before = fused_ln_dense.launches, ln_dense_bwd.launches
+    y, mu, rstd = ln_dense_fwd(x, gamma, beta, w, b, 1e-6)
+    dx, dln = ln_dense_bwd(x, gamma, w, dy, mu, rstd)
+    torch.cuda.synchronize()
+    assert (fused_ln_dense.launches, ln_dense_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want_y, want_mu, want_rstd = ln_dense_plain(x, gamma, beta, w, b, 1e-6)
+    _assert_compare(y, want_y, "y")
+    _assert_compare(mu, want_mu, "mu")
+    _assert_compare(rstd, want_rstd, "rstd")
+    want_dx, want_dln = ln_dense_bwd_plain(x, gamma, w, dy, want_mu, want_rstd)
+    assert dln.dtype == torch.float32 and dx.dtype == dtype
+    torch.testing.assert_close(dln, want_dln, rtol=0, atol=dln_tolerance(want_dln, dtype))
+    _assert_compare(dx, want_dx, "dx")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_autograd_goes_through_the_ln_kernels(cuda, dtype):
+    """backward() through `fused_ln_dense` launches the backward kernels
+    (#7b) once, and through `fused_layernorm` #6b once; the f32 parameters
+    get f32 gradients, those of the CPU run of the same op."""
+    r, c, f = 97, 256, 192
+    x, gamma, beta, w, b, dy = _ln_operands(r, c, dtype, cuda, seed=9, f=f)
+    params = [t.float().requires_grad_() for t in (gamma, beta, w, b)]
+    xg = x.clone().requires_grad_()
+    key = (r, c, f, str(dtype).removeprefix("torch."))
+    fwd0, bwd0 = (fn.launches_by_shape.get(key, 0) for fn in (fused_ln_dense, ln_dense_bwd))
+    (fused_ln_dense(xg, *params).float() * dy.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert (fused_ln_dense.launches_by_shape[key] - fwd0, ln_dense_bwd.launches_by_shape[key] - bwd0) == (1, 1)
+    xc = x.cpu().requires_grad_()
+    cpu_params = [p.detach().cpu().requires_grad_() for p in params]
+    (fused_ln_dense(xc, *cpu_params).float() * dy.cpu().float()).sum().backward()
+    _assert_compare(xg.grad.cpu(), xc.grad, "dx")
+    for name, p, q in zip(("gamma", "beta", "w", "b"), params, cpu_params):
+        assert p.grad.dtype == torch.float32, name
+        top = q.grad.abs().max().item()
+        torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=0, atol=1e-4 * max(top, 1.0), msg=name)
+    xl = x.clone().requires_grad_()
+    before = layernorm_bwd.launches
+    (fused_layernorm(xl, params[0], params[1]).float() * x.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert layernorm_bwd.launches == before + 1 and bool(torch.isfinite(xl.grad).all())
+
+
+def test_ln_kernels_raise_where_no_instance_is_built(cuda):
+    """On the card a width, a dtype or an F that no kernel instance takes
+    raises: nothing falls back to the plain version."""
+    for c in (12, 32, 384):
+        x, gamma, beta, w, b, _ = _ln_operands(8, c, torch.bfloat16, cuda, seed=c, f=64)
+        with pytest.raises(ValueError, match="width"):
+            fused_layernorm(x, gamma, beta)
+        with pytest.raises(ValueError, match="width"):
+            fused_ln_dense(x, gamma, beta, w.float(), b.float())
+    x, gamma, beta, w, b, _ = _ln_operands(8, 256, torch.bfloat16, cuda, seed=1, f=64)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_layernorm(x.double(), gamma, beta)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fused_ln_dense(x, gamma, beta, w[:48].float(), b[:48].float())

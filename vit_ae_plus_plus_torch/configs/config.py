@@ -11,6 +11,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+LN_FUSION_MODES = ("auto", "on", "off")
+
+
+def check_ln_fusion(mode: str) -> None:
+    """`ln_fusion` takes 'auto', 'on' or 'off' (the JAX package's
+    `_use_fused_ln`, models/vit.py there); anything else raises."""
+    if mode not in LN_FUSION_MODES:
+        raise ValueError(f"ln_fusion must be 'auto'|'on'|'off', got {mode!r}")
+
 
 @dataclasses.dataclass(frozen=True)
 class ViTConfig:
@@ -27,6 +36,11 @@ class ViTConfig:
     global_pool: bool = True
     dtype: str = "float32"  # compute dtype; params stay float32
     attn_impl: str = "auto"  # 'auto' | 'flash' | 'plain' (kernels/flash_attention.py)
+    ln_fusion: str = "auto"  # 'on': LayerNorm fused into qkv and fc1 (kernels/fused_ln_dense.py); 'auto' never fuses
+    ln_dtype: str = "float32"  # "bfloat16": block-LN statistics in bf16 (models/vit.py ln_stats_dtype)
+
+    def __post_init__(self):
+        check_ln_fusion(self.ln_fusion)
 
     @property
     def grid_size(self) -> int:
@@ -56,8 +70,11 @@ class MAEConfig:
     use_proj: bool = False  # 3-layer projector: built but never applied in forward
     dtype: str = "float32"
     attn_impl: str = "auto"
-    ln_fusion: str = "auto"  # only the unfused LayerNorm is ported ('on' raises)
-    ln_dtype: str = "float32"  # only f32 LayerNorm statistics are ported
+    ln_fusion: str = "auto"  # as ViTConfig.ln_fusion, for the encoder and decoder blocks
+    ln_dtype: str = "float32"  # as ViTConfig.ln_dtype
+
+    def __post_init__(self):
+        check_ln_fusion(self.ln_fusion)
 
     @property
     def grid_size(self) -> int:
@@ -85,6 +102,8 @@ class MAEConfig:
             global_pool=global_pool,
             dtype=self.dtype,
             attn_impl=self.attn_impl,
+            ln_fusion=self.ln_fusion,
+            ln_dtype=self.ln_dtype,
         )
 
 

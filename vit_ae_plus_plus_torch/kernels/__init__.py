@@ -1,7 +1,9 @@
-"""Attention for the port: plain PyTorch versions beside the wrappers of the
-hand-written CUDA kernels in csrc/flash_fwd.cu and csrc/flash_bwd.cu (built
-at first use). Each wrapper counts its kernel's launches, in total
-(`launches`) and by shape and dtype (`launches_by_shape`)."""
+"""The port's kernels: plain PyTorch versions beside the wrappers of the
+hand-written CUDA kernels (built at first use) for attention
+(csrc/flash_fwd.cu, csrc/flash_bwd.cu), LayerNorm (csrc/layernorm.cu) and
+LayerNorm fused into the next Dense layer (csrc/ln_dense.cu). Each wrapper
+counts its kernel's launches, in total (`launches`) and by shape and dtype
+(`launches_by_shape`)."""
 
 from vit_ae_plus_plus_torch.kernels.flash_attention import (
     attention_bwd_plain,
@@ -11,6 +13,18 @@ from vit_ae_plus_plus_torch.kernels.flash_attention import (
     flash_attention_bwd,
     kernel_tolerance,
     multihead_attention,
+)
+from vit_ae_plus_plus_torch.kernels.fused_ln import (
+    fused_layernorm,
+    layernorm_bwd,
+    layernorm_bwd_plain,
+    layernorm_plain,
+)
+from vit_ae_plus_plus_torch.kernels.fused_ln_dense import (
+    fused_ln_dense,
+    ln_dense_bwd,
+    ln_dense_bwd_plain,
+    ln_dense_plain,
 )
 from vit_ae_plus_plus_torch.kernels.packed_flash import (
     packed_attention_bwd_plain,
@@ -22,7 +36,8 @@ from vit_ae_plus_plus_torch.kernels.packed_flash import (
 
 def reset_launch_counts() -> None:
     """Set every wrapper's launch counts to 0."""
-    for wrapper in (flash_attention, flash_attention_bwd, packed_flash_attention, packed_flash_attention_bwd):
+    for wrapper in (flash_attention, flash_attention_bwd, packed_flash_attention, packed_flash_attention_bwd,
+                    fused_layernorm, layernorm_bwd, fused_ln_dense, ln_dense_bwd):
         wrapper.launches = 0
         wrapper.launches_by_shape = {}
 
@@ -33,7 +48,15 @@ __all__ = [
     "bwd_tolerance",
     "flash_attention",
     "flash_attention_bwd",
+    "fused_layernorm",
+    "fused_ln_dense",
     "kernel_tolerance",
+    "layernorm_bwd",
+    "layernorm_bwd_plain",
+    "layernorm_plain",
+    "ln_dense_bwd",
+    "ln_dense_bwd_plain",
+    "ln_dense_plain",
     "multihead_attention",
     "packed_attention_bwd_plain",
     "packed_attention_plain",

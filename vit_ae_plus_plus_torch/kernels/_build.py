@@ -6,6 +6,9 @@ seconds with `nvcc -shared` (no PyTorch headers) into
 the source, the headers under `csrc/` and the flags: an edited source or
 header is rebuilt, never loaded stale.
 Nothing is built when a module is imported; `load` builds on first call.
+Every source exports its launchers as `int fn(const Params*, int is_bf16,
+int device, void* stream)` returning the CUDA error, and
+`<source>_error_string`; `launch` calls one.
 """
 
 from __future__ import annotations
@@ -19,9 +22,11 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("flash_fwd", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_bwd", "layernorm", "ln_dense")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -91,3 +96,20 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build((name,))[name]))
             _loaded[name] = lib
         return lib
+
+
+def launch(source: str, fn_name: str, params: ctypes.Structure, t: torch.Tensor) -> None:
+    """Call `fn_name(&params, is_bf16, device, stream)` of csrc/<source>.cu
+    on t's device and current stream (the kernel does not synchronise);
+    raise on the CUDA error it returns, a refused launch included."""
+    lib = load(source)
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.POINTER(type(params)), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(t.device).cuda_stream
+    err = fn(ctypes.byref(params), int(t.dtype == torch.bfloat16), t.device.index or 0, stream)
+    if err != 0:
+        msg = getattr(lib, f"{source}_error_string")
+        msg.argtypes = [ctypes.c_int]
+        msg.restype = ctypes.c_char_p
+        raise RuntimeError(f"{fn_name} launch failed: {msg(err).decode()}")

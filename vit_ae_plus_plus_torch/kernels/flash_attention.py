@@ -134,29 +134,6 @@ class FlashBwdParams(ctypes.Structure):
     ]
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
-    params = FlashFwdParams if name == "flash_fwd" else FlashBwdParams
-    fn = getattr(lib, name)
-    fn.argtypes = [ctypes.POINTER(params), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return lib
-
-
-def _launch(name: str, params, q: torch.Tensor) -> None:
-    lib = _lib(name)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = getattr(lib, name)(
-        ctypes.byref(params), int(q.dtype == torch.bfloat16), q.device.index or 0, stream
-    )
-    if err != 0:
-        msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg}")
-
-
 def _check_lse(lse, b, h, n, device) -> None:
     if (
         lse.shape != (b, h, n) or lse.dtype != torch.float32
@@ -181,7 +158,7 @@ def launch_flash_fwd(q, k, v, o, lse: Optional[torch.Tensor], scale: float) -> N
         *[t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)],
         b, h, n, d, float(scale),
     )
-    _launch("flash_fwd", params, q)
+    _build.launch("flash_fwd", "flash_fwd", params, q)
 
 
 def launch_flash_bwd(q, k, v, o, lse, do, dq, dk, dv, scale: float) -> None:
@@ -199,14 +176,16 @@ def launch_flash_bwd(q, k, v, o, lse, do, dq, dk, dv, scale: float) -> None:
         *[t.stride(i) for t in tensors for i in (0, 1, 2)],
         b, h, n, d, float(scale),
     )
-    _launch("flash_bwd", params, q)
+    _build.launch("flash_bwd", "flash_bwd", params, q)
 
 
-def count_launch(wrapper, b: int, h: int, n: int, d: int, dtype: torch.dtype) -> None:
+def count_launch(wrapper, *shape_and_dtype) -> None:
     """Count one kernel launch of `wrapper`: its total `launches` and its
-    `launches_by_shape[(B, H, N, d, dtype name)]`."""
+    `launches_by_shape[(*shape, dtype name)]`, e.g. (B, H, N, d, "bfloat16")
+    for attention, (R, C, F, "bfloat16") for LayerNorm+Dense."""
+    *shape, dtype = shape_and_dtype
     wrapper.launches += 1
-    key = (b, h, n, d, str(dtype).removeprefix("torch."))
+    key = (*shape, str(dtype).removeprefix("torch."))
     wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
 
 

@@ -21,7 +21,9 @@ Parameters carry the reference PyTorch keys (`blocks.N.attn.qkv.weight`,
 `decoder_embed.weight`, `mask_token`, `predictor.1.weight`, ...), so the
 weight bridge (train/checkpoint.py) loads a JAX param tree with
 `strict=True`. Precision: parameters stay f32 and are cast per call to the
-compute dtype; LayerNorm and BatchNorm statistics are at least f32.
+compute dtype; LayerNorm and BatchNorm statistics are at least f32, except
+in the blocks under `ln_dtype="bfloat16"`. `ln_fusion` and `ln_dtype` reach
+the encoder and decoder blocks; `norm` and `decoder_norm` stay unfused.
 """
 
 from __future__ import annotations
@@ -56,7 +58,8 @@ class MaskedAutoencoderViT3D(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.register_buffer("pos_embed", self._table(d, grid), persistent=False)
         self.blocks = nn.ModuleList(
-            Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.attn_impl) for _ in range(cfg.depth)
+            Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.attn_impl, cfg.ln_fusion, cfg.ln_dtype)
+            for _ in range(cfg.depth)
         )
         self.norm = nn.LayerNorm(d, eps=1e-6)
 
@@ -64,7 +67,7 @@ class MaskedAutoencoderViT3D(nn.Module):
         self.mask_token = nn.Parameter(torch.zeros(1, 1, dd))
         self.register_buffer("decoder_pos_embed", self._table(dd, grid), persistent=False)
         self.decoder_blocks = nn.ModuleList(
-            Block(dd, cfg.decoder_num_heads, cfg.mlp_ratio, cfg.attn_impl)
+            Block(dd, cfg.decoder_num_heads, cfg.mlp_ratio, cfg.attn_impl, cfg.ln_fusion, cfg.ln_dtype)
             for _ in range(cfg.decoder_depth)
         )
         self.decoder_norm = nn.LayerNorm(dd, eps=1e-6)

@@ -11,16 +11,31 @@ in the compute dtype (weights are cast per call); LayerNorm statistics are
 at least f32 and the result is cast back; attention's softmax is at least
 f32 (kernels/). The contrastive heads' BatchNorm follows flax, not torch
 (`FlaxBatchNorm1d`).
+
+A block's LayerNorms run one of three ways, as in the JAX package:
+`ln_fusion="on"` fuses norm1 into attn.qkv and norm2 into mlp.fc1
+(kernels/fused_ln_dense.py; 'auto' never fuses), `ln_dtype="bfloat16"`
+computes their statistics in bf16 (`ln_stats_dtype`), and the default is
+the unfused LayerNorm with f32 statistics. Parameter names are the same in
+all three, so one state dict loads into any of them.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vit_ae_plus_plus_torch.configs import ViTConfig
-from vit_ae_plus_plus_torch.kernels import multihead_attention, packed_flash_attention
+from vit_ae_plus_plus_torch.configs.config import check_ln_fusion
+from vit_ae_plus_plus_torch.kernels import (
+    fused_layernorm,
+    fused_ln_dense,
+    multihead_attention,
+    packed_flash_attention,
+)
 from vit_ae_plus_plus_torch.ops import patchify
 
 # float64 serves the CPU trajectory tests, as in the JAX package
@@ -46,14 +61,60 @@ def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def _use_fused_ln(mode: str) -> bool:
+    """The JAX package's gate for the fused LN+Dense kernel: 'on' fuses,
+    'off' and 'auto' do not ('auto' stays unfused: the fused step measured
+    slower in-model, on a TPU and on an H100, PERF.md); anything else
+    raises."""
+    check_ln_fusion(mode)
+    return mode == "on"
+
+
+def _ln_dense(x: torch.Tensor, norm: nn.LayerNorm, layer: nn.Linear) -> torch.Tensor:
+    """Dense(LayerNorm(x)) through the fused kernel; x is the un-normalised
+    stream in the compute dtype."""
+    return fused_ln_dense(x, norm.weight, norm.bias, layer.weight, layer.bias, norm.eps)
+
+
+def ln_stats_dtype(x: torch.Tensor, norm: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
+    """LayerNorm with statistics, normalisation and affine all in `dtype`
+    (the opt-in `ln_dtype="bfloat16"`), result in `dtype`. Two-pass
+    variance: E[x^2] - mean^2 cancels catastrophically in bf16."""
+    xd = x.to(dtype)
+    mu = xd.mean(dim=-1, keepdim=True)
+    d = xd - mu
+    var = (d * d).mean(dim=-1, keepdim=True)
+    y = d * torch.rsqrt(var + torch.tensor(norm.eps, dtype=dtype))
+    return y * norm.weight.to(dtype) + norm.bias.to(dtype)
+
+
+class FusedLayerNorm(nn.Module):
+    """LayerNorm through the LayerNorm kernels (kernels/fused_ln.py): a
+    drop-in that no trunk uses, as in the JAX package. Parameters `weight`
+    and `bias` (flax's `scale` and `bias`); the result is cast to `dtype`."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_layernorm(x, self.weight, self.bias, self.eps).to(self.dtype)
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden_dim: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
 
-    def forward(self, x):
-        return _linear(F.gelu(_linear(x, self.fc1)), self.fc2)
+    def forward(self, x, ln: nn.LayerNorm = None):
+        """`ln`: when given, x is the un-normalised stream and `ln` is fused
+        into fc1."""
+        h = _linear(x, self.fc1) if ln is None else _ln_dense(x, ln, self.fc1)
+        return _linear(F.gelu(h), self.fc2)
 
 
 class Attention(nn.Module):
@@ -63,7 +124,8 @@ class Attention(nn.Module):
     kernels on CUDA (a head dim or dtype they are not built for raises) and
     to the plain version on the CPU; 'flash' takes the per-head kernels;
     'plain' the eager reference on any device. Every path is
-    differentiable: the kernels' backward runs in csrc/flash_bwd.cu."""
+    differentiable: the kernels' backward runs in csrc/flash_bwd.cu. With
+    `ln`, x is the un-normalised stream and `ln` is fused into qkv."""
 
     def __init__(self, dim: int, num_heads: int, attn_impl: str = "auto"):
         super().__init__()
@@ -74,10 +136,10 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x):
+    def forward(self, x, ln: nn.LayerNorm = None):
         b, n, c = x.shape
         d = c // self.num_heads
-        qkv = _linear(x, self.qkv)
+        qkv = _linear(x, self.qkv) if ln is None else _ln_dense(x, ln, self.qkv)
         if self.attn_impl == "auto" and qkv.is_cuda:
             out = packed_flash_attention(qkv, d)
         else:
@@ -89,18 +151,37 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block."""
+    """Pre-LN transformer block, its LayerNorms fused (`ln_fusion="on"`),
+    with bf16 statistics (`ln_dtype="bfloat16"`) or plain."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, attn_impl: str = "auto"):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, attn_impl: str = "auto",
+                 ln_fusion: str = "auto", ln_dtype: str = "float32"):
         super().__init__()
+        self.fused = _use_fused_ln(ln_fusion)
+        self.low_ln = ln_dtype == "bfloat16"
+        if self.fused and self.low_ln:
+            warnings.warn(
+                "ln_fusion='on' routes LayerNorm through the fused LN+Dense "
+                "kernel, whose statistics are f32: ln_dtype='bfloat16' is "
+                "ignored on fused blocks; drop one of the two flags",
+                stacklevel=2,
+            )
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, attn_impl)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
+    def _norm(self, x, norm):
+        if self.low_ln:  # the stream's dtype again: the Dense layers compute in it
+            return ln_stats_dtype(x, norm, torch.bfloat16).to(x.dtype)
+        return _layer_norm(x, norm)
+
     def forward(self, x):
-        x = x + self.attn(_layer_norm(x, self.norm1))
-        return x + self.mlp(_layer_norm(x, self.norm2))
+        if self.fused:
+            x = x + self.attn(x, ln=self.norm1)
+            return x + self.mlp(x, ln=self.norm2)
+        x = x + self.attn(self._norm(x, self.norm1))
+        return x + self.mlp(self._norm(x, self.norm2))
 
 
 class PatchEmbed3D(nn.Module):
@@ -138,7 +219,8 @@ class VisionTransformer3D(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, d))
         self.blocks = nn.ModuleList(
-            Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.attn_impl) for _ in range(cfg.depth)
+            Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.attn_impl, cfg.ln_fusion, cfg.ln_dtype)
+            for _ in range(cfg.depth)
         )
         if cfg.global_pool:
             self.fc_norm = nn.LayerNorm(d, eps=1e-6)

@@ -42,12 +42,7 @@ def make_train_step(
     replaces the model call, e.g. to inject noise in tests. `metrics` holds
     the loss terms and `grad_norm` (the global norm of all gradients before
     clipping) as device scalars, so the step does not wait for the card."""
-    cfg = model.cfg
-    if cfg.ln_fusion == "on":
-        raise NotImplementedError("ln_fusion='on' (the fused LayerNorm+Dense kernel) is not ported yet")
-    if cfg.ln_dtype == "bfloat16":
-        raise NotImplementedError("ln_dtype='bfloat16' is not ported yet")
-    contrastive = cfg.contrastive
+    contrastive = model.cfg.contrastive
 
     if forward_fn is None:
 
