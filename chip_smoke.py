@@ -10,7 +10,8 @@ non-zero exit when it fails:
 2. hold every kernel against its plain PyTorch version on the card at the
    shapes the serving and training paths give it, and time kernel, plain
    version and a PyTorch call the port never uses (a yardstick:
-   `scaled_dot_product_attention`, forward+backward minus forward for the
+   `scaled_dot_product_attention` by the fastest fused backend that takes
+   the inputs, named in the row, forward+backward minus forward for the
    attention backward; `F.layer_norm` + `F.linear` for LayerNorm+Dense,
    `dY @ W` + `native_layer_norm_backward` for its backward; `F.layer_norm`
    and its backward for the LayerNorm kernels), each from a CUDA graph of
@@ -48,12 +49,31 @@ non-zero exit when it fails:
    then the fused step's time, peak memory and profile; and one forward and
    backward of `FusedLayerNorm` at the encoder's norm shape, the path of
    the LayerNorm kernels;
-6. print one JSON line of kernels, the card's name and power limit, and as
+6. the ring's partial kernels (csrc/flash_fwd.cu and flash_bwd.cu with a
+   key bias) against their plain versions at the ring blocks of the paths
+   in phase 7, each the block that holds the padded tail, and at a fully
+   padded block (correctness only); the per-head kernels with 1,032 query
+   rows against 4,097 keys (the sequence-sharded shard); library times
+   from `scaled_dot_product_attention` with the bias as a float mask, the
+   fastest fused backend that takes it named;
+7. a world of 4 spawned ranks on the one card, in one gloo group (NCCL
+   takes one rank per device; the kernels stay on the card and the blocks
+   travel through pinned host memory), every join bounded: ring and
+   sequence-sharded attention at B=2, H=12, N=4,097 against
+   `flash_attention`; ViT-B `forward_features` at 128^3 / patch 8 (4,097
+   tokens), batch 2, with `attn_impl="flash_ring"` and `"flash_seq"`
+   against `"flash"` (48 ring forward launches a rank: 12 blocks x 4
+   steps); then three bf16 MAE steps at phase 5's size with "flash_ring",
+   step 1 against phase 5's default step (80 ring forward and 80 ring
+   backward launches a rank and step: 48 in the encoder, 32 in the
+   decoder), and the parameters after the steps, which must be bitwise
+   equal on every rank (the replicated trunk is right only while they are);
+8. print one JSON line of kernels, the card's name and power limit, and as
    the last line `{"ok": true, "device": {...}}`. Each kernel row's
    `launches` is what its wrapper launched at the row's shape and dtype in
-   the first path run that launched it there (the wrappers count by shape),
-   and `path` names that run; a reference case that no path runs at its
-   shape reads 0.
+   the first path run that launched it there (the wrappers count by shape;
+   in phase 7, rank 0's count), and `path` names that run; a reference case
+   that no path runs at its shape reads 0.
 
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
 no result.
@@ -69,6 +89,7 @@ import sys
 import threading
 import time
 import urllib.request
+import warnings
 from collections import Counter
 from pathlib import Path
 
@@ -89,6 +110,8 @@ BWD_REPLACES = {
     "packed": "vit_ae_plus_plus_tpu/kernels/packed_flash.py:196",
     "per_head": "vit_ae_plus_plus_tpu/kernels/pallas_flash.py:531",
 }
+RING_REPLACES = {"fwd": "vit_ae_plus_plus_tpu/kernels/ring_flash.py:154",
+                 "bwd": "vit_ae_plus_plus_tpu/kernels/ring_flash.py:181"}
 LN_SOURCES = {  # kernel row -> (source, the TPU kernel it replaces)
     "layernorm_fwd": ("vit_ae_plus_plus_torch/kernels/csrc/layernorm.cu",
                       "vit_ae_plus_plus_tpu/kernels/fused_ln.py:153"),
@@ -131,8 +154,21 @@ FUSED_STEP_TOL = {"loss": 1e-2, "grad": 2e-2}
 GRAD_NAMES = ("blocks.0.attn.qkv.weight", "decoder_blocks.0.attn.qkv.weight", "patch_embed.proj.weight")
 # and with ln_fusion="on", two that only the fused backward produces there
 FUSED_GRAD_NAMES = GRAD_NAMES + ("blocks.0.norm1.weight", "blocks.0.mlp.fc1.weight")
+# ring and sequence-sharded attention at N4097 against the single-device
+# kernel on the same bf16 inputs, in bf16 spacings at the largest magnitude
+# of each single-device result: both round o, P and dS to bf16, the ring
+# also rounds each of its four partial outputs (and each step's gradients)
+# to bf16 before its f32 merge (or sum), as the JAX package does, and the
+# sequence-sharded path its four partial dk and dv. An H100 reads one
+# spacing on o and on the gradients of either path (flash_seq's o and dq
+# bitwise equal); the limits are two and four. A broken schedule reads far
+# more: kernel_mutants.py's schedule mutants run this check.
+SHARDED_SPACINGS = {"o": 2, "grad": 4}
 TRAIN_STEPS = 3
 TIMED_STEPS = 5
+GROUP_RANKS = 4  # the 'model' group of phase 7, all on the one card
+GROUP_VOLUME = 128  # 128^3 / patch 8: 4,097 tokens, a length the sequence-parallel paths exist for
+GROUP_TIMEOUT = 600.0  # seconds for the whole of phase 7, spawn and joins included
 
 def check(ok: bool, what: str) -> None:
     if not ok:
@@ -207,22 +243,128 @@ def graph_ms(fn, calls: int = 20, reps: int = 5, cold: bool = False) -> float:
     return both - timed(scratch.zero_)
 
 
-def bound(b: int, h: int, n: int, d: int, dtype: str, elt: int):
-    """Least time the card could take: q, k, v read once and o written once,
-    or 4*B*H*N^2*d operations at the type's peak, whichever is larger."""
-    t_bytes = 4 * b * n * h * d * elt / HBM_BYTES_PER_S
-    t_ops = 4 * b * h * n * n * d / PEAK_FLOPS[dtype]
+def bound(b: int, h: int, n: int, d: int, dtype: str, elt: int, nk: int = None, bwd: bool = False,
+          extra_bytes: int = 0):
+    """Least time the card could take for attention of n query rows against
+    nk keys (default n), the larger of two times. Bytes: forward, q, k, v
+    read once and o written once; backward, q, k, v, o and do read once and
+    dq, dk and dv written once; plus `extra_bytes` (an f32 lse, a key bias).
+    Operations: 4*B*H*N*NK*d forward, 10*B*H*N*NK*d backward (five
+    N x NK x d products), at the type's peak."""
+    nk = n if nk is None else nk
+    t_bytes = ((2 * n + 2 * nk) * b * h * d * elt * (2 if bwd else 1) + extra_bytes) / HBM_BYTES_PER_S
+    t_ops = (10 if bwd else 4) * b * h * n * nk * d / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def sdpa_calls(heads, scale, mask=None) -> dict:
+    """`scaled_dot_product_attention` of q, k, v = heads(), the yardstick of
+    the attention rows, under each fused backend that takes these inputs
+    forward and backward (the flash backend refuses a float mask; the math
+    backend, the plain version's method, is left out): {backend: call}.
+    `heads` runs inside every call, so that a backward's autograd graph is
+    built on the stream a CUDA graph captures."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    calls = {}
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(*heads(), attn_mask=mask, scale=scale)
+        try:
+            with warnings.catch_warnings():  # a refusing backend warns before it raises
+                warnings.simplefilter("ignore")
+                out = call()
+                if out.requires_grad:
+                    out.float().sum().backward()
+        except RuntimeError:
+            continue
+        calls[backend.name] = call
+    check(bool(calls), "no fused SDPA backend takes these inputs")
+    return calls
+
+
+def sdpa_fwd_ms(calls: dict) -> tuple:
+    """The fastest backend's forward: -> (ms, backend)."""
+    import torch
+
+    with torch.no_grad():
+        times = {name: graph_ms(call) for name, call in calls.items()}
+    best = min(times, key=times.get)
+    return times[best], best
+
+
+def sdpa_bwd_ms(calls: dict, leaves, do) -> tuple:
+    """The fastest backend's backward, forward+backward minus forward from
+    `leaves`: -> (ms, backend)."""
+    import torch
+
+    times = {name: graph_ms(lambda: torch.autograd.grad(call(), leaves, do)) - graph_ms(lambda: call().detach())
+             for name, call in calls.items()}
+    best = min(times, key=times.get)
+    return times[best], best
+
+
+def fwd_row(label, row, got, want, times, bnd, lse_relative=False) -> dict:
+    """Check a forward kernel's (o, lse) against its plain version's and
+    print; -> its kernel row: `row` (name, replaces, shape, dtype, key) with
+    the errors, `times` (kernel, plain and SDPA ms, SDPA's backend) and the
+    bound `bnd`. The lse is held to `kernel_tolerance`'s 1e-4, or with
+    `lse_relative` (a fully padded block's, about -1e30 on both sides) to
+    1e-6 of its magnitude."""
+    import torch
+
+    from vit_ae_plus_plus_torch.kernels import kernel_tolerance
+
+    (o, lse), (want_o, want_lse) = got, want
+    check(bool(torch.isfinite(o).all()), f"{label}: non-finite output")
+    err = (o.float() - want_o.float()).abs().max().item()
+    tol, lse_tol = kernel_tolerance(want_o)
+    lse_err = (lse - want_lse).abs().max().item()
+    if lse_relative:
+        lse_err, lse_tol = lse_err / want_lse.abs().max().item(), 1e-6
+    check(err <= tol and lse_err <= lse_tol,
+          f"{label}: max abs err {err:.3g} (tol {tol:.3g}), lse {lse_err:.3g} (tol {lse_tol:.3g})")
+    (ms, plain_ms, library_ms, backend), (bound_ms, bound_by) = times, bnd
+    print(f"kernel {label}: max_abs_err {err:.3g} (tol {tol:.3g}), lse {lse_err:.3g} (tol {lse_tol:.3g}); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({backend}) {library_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return {"launches": None, **row, "route": "cuda", "source": KERNEL_SOURCE, "max_abs_err": err, "tol": tol,
+            "lse_err": lse_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library": f"scaled_dot_product_attention ({backend})"}
+
+
+def bwd_row(label, row, grads, want_grads, times, bnd) -> dict:
+    """Check a backward kernel's dq, dk and dv against its plain version's
+    (`bwd_tolerance`) and print; -> its kernel row, as `fwd_row`."""
+    import torch
+
+    from vit_ae_plus_plus_torch.kernels import bwd_tolerance
+
+    errs, tols = {}, {}
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want_grads):
+        check(bool(torch.isfinite(g).all()), f"{label}: non-finite {name}")
+        errs[name] = (g.float() - w.float()).abs().max().item()
+        tols[name] = bwd_tolerance(w)
+        check(errs[name] <= tols[name], f"{label}: {name} max abs err {errs[name]:.3g} (tol {tols[name]:.3g})")
+    (ms, plain_ms, library_ms, backend), (bound_ms, bound_by) = times, bnd
+    print(f"kernel {label}: max_abs_err " + ", ".join(f"{k} {errs[k]:.3g} (tol {tols[k]:.3g})" for k in errs)
+          + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({backend}) bwd {library_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return {"launches": None, **row, "route": "cuda", "source": BWD_SOURCE, "max_abs_err": max(errs.values()),
+            "tol": min(tols.values()), "errs": errs, "tols": tols, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "library": f"scaled_dot_product_attention ({backend})"}
 
 
 def kernel_case(label, layout, b, h, n, d, dtype_name, seed):
     """Phase 2 for one shape: error against the plain version, and times."""
     import torch
-    import torch.nn.functional as F
 
     from vit_ae_plus_plus_torch.kernels import (
-        attention_plain, flash_attention, kernel_tolerance, packed_attention_plain,
-        packed_flash_attention,
+        attention_plain, flash_attention, packed_attention_plain, packed_flash_attention,
     )
 
     dtype = getattr(torch, dtype_name)
@@ -233,47 +375,21 @@ def kernel_case(label, layout, b, h, n, d, dtype_name, seed):
         q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
         kernel = lambda: packed_flash_attention(qkv, d, scale)  # noqa: E731
         plain = lambda: packed_attention_plain(qkv, d, scale)  # noqa: E731
-        o, lse = packed_flash_attention(qkv, d, scale, return_lse=True)
-        want_o, want_lse = packed_attention_plain(qkv, d, scale, return_lse=True)
+        got = packed_flash_attention(qkv, d, scale, return_lse=True)
+        want = packed_attention_plain(qkv, d, scale, return_lse=True)
     else:
         q, k, v = (torch.randn((b, h, n, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
         kernel = lambda: flash_attention(q, k, v, scale)  # noqa: E731
         plain = lambda: attention_plain(q, k, v, scale)  # noqa: E731
-        o, lse = flash_attention(q, k, v, scale, return_lse=True)
-        want_o, want_lse = attention_plain(q, k, v, scale, return_lse=True)
+        got = flash_attention(q, k, v, scale, return_lse=True)
+        want = attention_plain(q, k, v, scale, return_lse=True)
     torch.cuda.synchronize()
-    err = (o.float() - want_o.float()).abs().max().item()
-    lse_err = (lse - want_lse).abs().max().item()
-    tol, lse_tol = kernel_tolerance(want_o)
-    check(bool(torch.isfinite(o).all()), f"{label}: non-finite output")
-    check(err <= tol and lse_err <= lse_tol,
-          f"{label}: max abs err {err:.3g} (tol {tol:.3g}), lse {lse_err:.3g} (tol {lse_tol:.3g})")
-    del o, lse, want_o, want_lse
-    ms = graph_ms(kernel)
-    plain_ms = graph_ms(plain, calls=3, reps=2)
-    library_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-    bound_ms, bound_by = bound(b, h, n, d, dtype_name, torch.empty((), dtype=dtype).element_size())
+    times = (graph_ms(kernel), graph_ms(plain, calls=3, reps=2), *sdpa_fwd_ms(sdpa_calls(lambda: (q, k, v), scale)))
     torch.cuda.empty_cache()
-    print(f"kernel {label}: max_abs_err {err:.3g} (tol {tol:.3g}), lse {lse_err:.3g} (tol {lse_tol:.3g}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-    return {
-        "name": "packed_flash_fwd" if layout == "packed" else "flash_fwd",
-        "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES[layout],
-        "shape": f"B={b} H={h} N={n} d={d}", "dtype": dtype_name, "key": (b, h, n, d, dtype_name),
-        "launches": None, "max_abs_err": err, "tol": tol, "lse_err": lse_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
-    }
-
-
-def bwd_bound(b: int, h: int, n: int, d: int, dtype: str, elt: int):
-    """Least time for the backward: q, k, v, o and do read once and dq, dk
-    and dv written once, or 10*B*H*N^2*d operations (five N x N x d
-    products) at the type's peak, whichever is larger."""
-    t_bytes = 8 * b * n * h * d * elt / HBM_BYTES_PER_S
-    t_ops = 10 * b * h * n * n * d / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+    row = {"name": "packed_flash_fwd" if layout == "packed" else "flash_fwd", "replaces": REPLACES[layout],
+           "shape": f"B={b} H={h} N={n} d={d}", "dtype": dtype_name, "key": (b, h, n, d, dtype_name)}
+    elt = torch.empty((), dtype=dtype).element_size()
+    return fwd_row(label, row, got, want, times, bound(b, h, n, d, dtype_name, elt))
 
 
 def bwd_case(label, layout, b, h, n, d, dtype_name, seed):
@@ -281,11 +397,10 @@ def bwd_case(label, layout, b, h, n, d, dtype_name, seed):
     the plain backward from the same forward (o, lse) and output gradient,
     and times. `library_ms` is SDPA forward+backward minus SDPA forward."""
     import torch
-    import torch.nn.functional as F
 
     from vit_ae_plus_plus_torch.kernels import (
-        attention_bwd_plain, bwd_tolerance, flash_attention, flash_attention_bwd,
-        packed_attention_bwd_plain, packed_flash_attention, packed_flash_attention_bwd,
+        attention_bwd_plain, flash_attention, flash_attention_bwd, packed_attention_bwd_plain,
+        packed_flash_attention, packed_flash_attention_bwd,
     )
 
     dtype = getattr(torch, dtype_name)
@@ -312,35 +427,13 @@ def bwd_case(label, layout, b, h, n, d, dtype_name, seed):
         heads = lambda: leaves  # noqa: E731
         do_heads = do
     torch.cuda.synchronize()
-    errs, tols = {}, {}
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        check(bool(torch.isfinite(g).all()), f"{label}: non-finite {name}")
-        errs[name] = (g.float() - w.float()).abs().max().item()
-        tols[name] = bwd_tolerance(w)
-        check(errs[name] <= tols[name], f"{label}: {name} max abs err {errs[name]:.3g} (tol {tols[name]:.3g})")
-    del got, want
+    library = sdpa_calls(heads, scale)
+    times = (graph_ms(kernel), graph_ms(plain, calls=3, reps=2), *sdpa_bwd_ms(library, leaves, do_heads))
     torch.cuda.empty_cache()
-    ms = graph_ms(kernel)
-    plain_ms = graph_ms(plain, calls=3, reps=2)
-    torch.cuda.empty_cache()
-    # the autograd graph is built inside each timed call, so that its nodes
-    # run on the stream the CUDA graph captures
-    sdpa_fwd = lambda: F.scaled_dot_product_attention(*heads(), scale=scale)  # noqa: E731
-    fwd_ms = graph_ms(lambda: sdpa_fwd().detach())
-    both_ms = graph_ms(lambda: torch.autograd.grad(sdpa_fwd(), leaves, do_heads))
-    bound_ms, bound_by = bwd_bound(b, h, n, d, dtype_name, torch.empty((), dtype=dtype).element_size())
-    torch.cuda.empty_cache()
-    print(f"kernel {label}: max_abs_err " + ", ".join(f"{k} {errs[k]:.3g} (tol {tols[k]:.3g})" for k in errs)
-          + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bwd {both_ms - fwd_ms:.4f} ms "
-          f"(fwd+bwd {both_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-    return {
-        "name": "packed_flash_bwd" if layout == "packed" else "flash_bwd",
-        "route": "cuda", "source": BWD_SOURCE, "replaces": BWD_REPLACES[layout],
-        "shape": f"B={b} H={h} N={n} d={d}", "dtype": dtype_name, "key": (b, h, n, d, dtype_name),
-        "launches": None, "max_abs_err": max(errs.values()), "tol": min(tols.values()),
-        "errs": errs, "tols": tols, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": both_ms - fwd_ms,
-    }
+    row = {"name": "packed_flash_bwd" if layout == "packed" else "flash_bwd", "replaces": BWD_REPLACES[layout],
+           "shape": f"B={b} H={h} N={n} d={d}", "dtype": dtype_name, "key": (b, h, n, d, dtype_name)}
+    elt = torch.empty((), dtype=dtype).element_size()
+    return bwd_row(label, row, got, want, times, bound(b, h, n, d, dtype_name, elt, bwd=True))
 
 
 def ln_operands(r: int, c: int, dtype, seed: int, f=None):
@@ -484,6 +577,96 @@ def layernorm_cases(label, r, c, dtype_name, seed):
     report(f"{label} fwd", fwd)
     report(f"{label} bwd", bwd)
     return [fwd, bwd]
+
+
+def ring_case(label, b, h, n, d, shards, seed, full_pad=False):
+    """Phase 6 for one ring block, forward and backward: rank 0's query rows
+    against the last rank's block (where the padded tail lies; K and V pad
+    rows are zeros, as the ring pads them) with its key bias, or with every
+    key padded (`full_pad`). The backward takes the o and lse of each row
+    over the whole sequence, as the merge hands them over. SDPA takes the
+    bias as a bf16 float mask."""
+    import torch
+
+    from vit_ae_plus_plus_torch.kernels import (
+        attention_bwd_plain, attention_plain, ring_partial_bwd, ring_partial_fwd,
+    )
+    from vit_ae_plus_plus_torch.kernels.ring_flash import NEG_INF
+    from vit_ae_plus_plus_torch.parallel import padded_len
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scale, pn = d**-0.5, padded_len(n, shards)
+    nb = pn // shards
+    rand = lambda rows: torch.randn((b, h, rows, d), generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+    q, k, v = (torch.nn.functional.pad(rand(n), (0, 0, 0, pn - n)) for _ in range(3))
+    bias = torch.where(torch.arange(pn, device="cuda") < n, 0.0, NEG_INF).float()
+    q_l, do = q[:, :, :nb].contiguous(), rand(nb)
+    kb, vb = (t[:, :, pn - nb:].contiguous() for t in (k, v))
+    bb = torch.full((nb,), NEG_INF, device="cuda") if full_pad else bias[pn - nb:].contiguous()
+    o_row, lse_row = attention_plain(q_l, k, v, scale, return_lse=True, bias=bias)
+
+    fwd = lambda: ring_partial_fwd(q_l, kb, vb, bb, scale)  # noqa: E731
+    bwd = lambda: ring_partial_bwd(q_l, do, o_row, lse_row, kb, vb, bb, scale)  # noqa: E731
+    plain_fwd = lambda: attention_plain(q_l, kb, vb, scale, return_lse=True, bias=bb)  # noqa: E731
+    plain_bwd = lambda: attention_bwd_plain(q_l, kb, vb, o_row, lse_row, do, scale, bb)  # noqa: E731
+    got, grads = fwd(), bwd()
+    torch.cuda.synchronize()
+    if full_pad:  # lse about -1e30, so the merge weights it 0; no gradient reaches its keys
+        check(float(got[1].max()) < -1e29 and float(grads[1].abs().max()) == 0.0
+              and float(grads[2].abs().max()) == 0.0, f"{label}: a fully padded block is not inert")
+    leaves = tuple(t.detach().requires_grad_() for t in (q_l, kb, vb))
+    library = sdpa_calls(lambda: leaves, scale, mask=bb.to(torch.bfloat16).view(1, 1, 1, nb))
+    times = ((graph_ms(fwd), graph_ms(plain_fwd, calls=3, reps=2), *sdpa_fwd_ms(library)),
+             (graph_ms(bwd), graph_ms(plain_bwd, calls=3, reps=2), *sdpa_bwd_ms(library, leaves, do)))
+    torch.cuda.empty_cache()
+    row = {"shape": f"B={b} H={h} NB={nb} d={d} (of N={n} over {shards})", "dtype": "bfloat16",
+           "key": (b, h, nb, d, "bfloat16")}
+    if full_pad:
+        row.update(launches=0, path="none: a fully padded block, correctness only")
+    lse_bias = b * h * nb * 4 + nb * 4  # the f32 lse and the f32 key bias
+    return [
+        fwd_row(label, {**row, "name": "ring_flash_fwd", "replaces": RING_REPLACES["fwd"]}, got, plain_fwd(),
+                times[0], bound(b, h, nb, d, "bfloat16", 2, extra_bytes=lse_bias), lse_relative=full_pad),
+        bwd_row(f"{label} bwd", {**row, "name": "ring_flash_bwd", "replaces": RING_REPLACES["bwd"]}, grads,
+                plain_bwd(), times[1], bound(b, h, nb, d, "bfloat16", 2, bwd=True, extra_bytes=lse_bias)),
+    ]
+
+
+def seq_case(label, b, h, n, d, shards, seed):
+    """Phase 6 for the sequence-sharded shard: the per-head kernels with
+    rank 0's pn / shards query rows against all n keys, forward and
+    backward, against their plain versions."""
+    import torch
+
+    from vit_ae_plus_plus_torch.kernels import attention_bwd_plain, attention_plain
+    from vit_ae_plus_plus_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from vit_ae_plus_plus_torch.parallel import padded_len
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scale, nq = d**-0.5, padded_len(n, shards) // shards
+    rand = lambda rows: torch.randn((b, h, rows, d), generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+    q_l, k, v, do = rand(nq), rand(n), rand(n), rand(nq)
+    fwd = lambda: flash_attention_fwd(q_l, k, v, scale)  # noqa: E731
+    o, lse = got = fwd()
+    bwd = lambda: flash_attention_bwd(q_l, k, v, o, lse, do, scale)  # noqa: E731
+    grads = bwd()
+    torch.cuda.synchronize()
+    plain_fwd = lambda: attention_plain(q_l, k, v, scale, return_lse=True)  # noqa: E731
+    plain_bwd = lambda: attention_bwd_plain(q_l, k, v, o, lse, do, scale)  # noqa: E731
+    leaves = tuple(t.detach().requires_grad_() for t in (q_l, k, v))
+    library = sdpa_calls(lambda: leaves, scale)
+    times = ((graph_ms(fwd), graph_ms(plain_fwd, calls=3, reps=2), *sdpa_fwd_ms(library)),
+             (graph_ms(bwd), graph_ms(plain_bwd, calls=3, reps=2), *sdpa_bwd_ms(library, leaves, do)))
+    torch.cuda.empty_cache()
+    row = {"shape": f"B={b} H={h} N={nq} Nk={n} d={d} (a shard of {shards})", "dtype": "bfloat16",
+           "key": (b, h, nq, d, "bfloat16")}
+    lse_bytes = b * h * nq * 4
+    return [
+        fwd_row(label, {**row, "name": "flash_fwd", "replaces": REPLACES["per_head"]}, got, plain_fwd(),
+                times[0], bound(b, h, nq, d, "bfloat16", 2, nk=n, extra_bytes=lse_bytes)),
+        bwd_row(f"{label} bwd", {**row, "name": "flash_bwd", "replaces": BWD_REPLACES["per_head"]}, grads,
+                plain_bwd(), times[1], bound(b, h, nq, d, "bfloat16", 2, nk=n, bwd=True, extra_bytes=lse_bytes)),
+    ]
 
 
 def dense(rng, fan_in: int, fan_out: int, bias: bool = True) -> dict:
@@ -648,22 +831,22 @@ def slab_ms(engine, vols, reps: int = 5) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-WRAPPERS = ("packed_flash_fwd", "packed_flash_bwd", "flash_fwd", "flash_bwd",
-            "layernorm_fwd", "layernorm_bwd", "ln_dense_fwd", "ln_dense_bwd")  # kernel rows' names
+WRAPPERS = ("packed_flash_fwd", "packed_flash_bwd", "flash_fwd", "flash_bwd", "layernorm_fwd",
+            "layernorm_bwd", "ln_dense_fwd", "ln_dense_bwd", "ring_flash_fwd", "ring_flash_bwd")  # kernel rows' names
 NO_LAUNCHES = dict.fromkeys(WRAPPERS, 0)
 
 
 def shape_counts() -> dict:
     """Launches since the last reset, by (row name, shape key): (B, H, N, d,
-    dtype) for attention, (R, C, dtype) for LayerNorm, (R, C, F, dtype) for
-    LayerNorm+Dense."""
+    dtype) for attention (N: q's rows), (R, C, dtype) for LayerNorm,
+    (R, C, F, dtype) for LayerNorm+Dense."""
     from vit_ae_plus_plus_torch.kernels import (
         flash_attention, flash_attention_bwd, fused_layernorm, fused_ln_dense, layernorm_bwd, ln_dense_bwd,
-        packed_flash_attention, packed_flash_attention_bwd,
+        packed_flash_attention, packed_flash_attention_bwd, ring_partial_bwd, ring_partial_fwd,
     )
 
     wrappers = (packed_flash_attention, packed_flash_attention_bwd, flash_attention, flash_attention_bwd,
-                fused_layernorm, layernorm_bwd, fused_ln_dense, ln_dense_bwd)
+                fused_layernorm, layernorm_bwd, fused_ln_dense, ln_dense_bwd, ring_partial_fwd, ring_partial_bwd)
     return {(name, key): n for name, fn in zip(WRAPPERS, wrappers) for key, n in fn.launches_by_shape.items()}
 
 
@@ -816,27 +999,45 @@ def profile_step(trainer, views, step_ms_events: float) -> None:
         print(f"  {us / 1e3:8.2f} ms  {name[:110]}")
 
 
-def train_phase(rows: list) -> None:
-    """The pretraining step at full width: kernels against plain, launch
-    counts per step and by shape, then the per-head path and the f32 path.
-    Fills the kernel rows' `launches` from each path's run."""
+def train_inputs(cfg):
+    """The training phases' seeded inputs on the card: the two views and
+    one masking noise per step."""
     import torch
 
-    from vit_ae_plus_plus_torch.configs import TrainConfig
-    from vit_ae_plus_plus_torch.models import MODEL_ZOO
-
-    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
-    tree, stats = mae_tree(cfg, seed=0)
     rng = np.random.default_rng(21)
     views = [torch.from_numpy(rng.standard_normal((BATCH, 1, VOLUME, VOLUME, VOLUME)).astype(np.float32)).cuda()
              for _ in range(2)]
     noise = [torch.from_numpy(rng.random((2 * BATCH, cfg.num_patches)).astype(np.float32)).cuda()
              for _ in range(TRAIN_STEPS)]
-    # the attention shapes of one step: the masked encoder over both views
-    # (2B rows, the kept patches and cls) and the decoder over every token
+    return views, noise
+
+
+def train_shapes(cfg):
+    """The attention shapes (B, H, N, d) of one step: the masked encoder
+    over both views (2B rows, the kept patches and cls) and the decoder
+    over every token."""
+    from vit_ae_plus_plus_torch.configs import TrainConfig
+
     enc = (2 * BATCH, cfg.num_heads, int(cfg.num_patches * (1 - TrainConfig().mask_ratio)) + 1,
            cfg.embed_dim // cfg.num_heads)
     dec = (BATCH, cfg.decoder_num_heads, cfg.num_patches + 1, cfg.decoder_embed_dim // cfg.decoder_num_heads)
+    return enc, dec
+
+
+def train_phase(rows: list) -> dict:
+    """The pretraining step at full width: kernels against plain, launch
+    counts per step and by shape, then the per-head path and the f32 path.
+    Fills the kernel rows' `launches` from each path's run. -> the default
+    path's step-1 metrics and `GRAD_NAMES` gradients (numpy), phase 7's
+    reference."""
+    import torch
+
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    tree, stats = mae_tree(cfg, seed=0)
+    views, noise = train_inputs(cfg)
+    enc, dec = train_shapes(cfg)
 
     def per_step(prefix: str, dtype: str) -> dict:
         """The launches one step should make: one forward and one backward
@@ -881,6 +1082,7 @@ def train_phase(rows: list) -> None:
     print("train bf16 losses, steps 1-3: auto " + ", ".join(f"{m['loss']:.6f}" for m, _ in got)
           + "; plain " + ", ".join(f"{m['loss']:.6f}" for m, _ in want), flush=True)
     print(f"train bf16 step 1 metrics (auto): {json.dumps(got[0][0])}", flush=True)
+    reference = {"metrics": got[0][0], "grads": {n: g.cpu().numpy() for n, g in got[0][1].items()}}
 
     # the main path timed: the default noise draw, counts read around the run
     resident = reset_peak()
@@ -965,6 +1167,7 @@ def train_phase(rows: list) -> None:
           f"{on_peak / 2**30:.2f} GiB ({on_resident / 2**30:.2f} before the steps; auto {peak / 2**30:.2f}); LayerNorm+Dense kernels, 40 forward + 40 "
           f"backward = {lnd_ms:.2f} ms = {lnd_ms / on_ms:.1%} of the step; f32 ln_fusion=on {f32_on_ms:.2f} ms",
           flush=True)
+    return reference
 
 
 def fused_layernorm_run(rows: list, cfg) -> None:
@@ -1067,6 +1270,233 @@ def fused_vit_phase(engine, vols, engine_feats, rows) -> None:
           f"launched {totals(counts)}; forward_features on a device slab {on_ms:.2f} ms, "
           f"auto {auto_ms:.2f} ms (CUDA events)", flush=True)
     check(err <= ENGINE_TOL["bfloat16"], f"ln_fusion='on' features vs the engine: rel err {err:.3g}")
+
+
+def group_attention(mesh) -> dict:
+    """Phase 7a on one rank: ring and sequence-sharded attention at B=2,
+    H=12, N=4,097, d=64, bf16, o and the three gradients against
+    `flash_attention` on the same inputs, and the launches of each."""
+    import torch
+
+    from vit_ae_plus_plus_torch.kernels import (
+        flash_attention, reset_launch_counts, ring_flash_attention, seq_sharded_flash_attention,
+    )
+    from vit_ae_plus_plus_torch.kernels.flash_attention import _bf16_spacing
+
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    q, k, v, do = (torch.randn((2, 12, 4097, 64), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+
+    def run(fn):
+        leaves = tuple(t.clone().requires_grad_() for t in (q, k, v))
+        o = fn(*leaves)
+        o.backward(do)
+        torch.cuda.synchronize()
+        return [o.detach(), *(t.grad for t in leaves)]
+
+    want = run(flash_attention)
+    tols = {name: SHARDED_SPACINGS["o" if name == "o" else "grad"] * _bf16_spacing(w.float().abs().max().item())
+            for name, w in zip(("o", "dq", "dk", "dv"), want)}
+    out = {}
+    for impl, fn in (("flash_ring", ring_flash_attention), ("flash_seq", seq_sharded_flash_attention)):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = run(lambda q, k, v: fn(q, k, v, mesh))
+        wall = time.perf_counter() - t0
+        out[impl] = {"errs": {name: (g.float() - w.float()).abs().max().item()
+                              for name, g, w in zip(("o", "dq", "dk", "dv"), got, want)},
+                     "finite": all(bool(torch.isfinite(g).all()) for g in got),
+                     "tols": tols, "counts": shape_counts(), "wall_s": wall}
+    return out
+
+
+def group_vit(mesh) -> dict:
+    """Phase 7b on one rank: ViT-B `forward_features` at 128^3 / patch 8,
+    batch 2, bf16, through `FeatureEngine.infer` under `set_mesh`, with
+    "flash_ring" and "flash_seq" against "flash" on the same seeded
+    weights; the launches of each path's run."""
+    import torch
+
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+    from vit_ae_plus_plus_torch.parallel import set_mesh
+    from vit_ae_plus_plus_torch.serving import FeatureEngine
+
+    cfg = MODEL_ZOO[MODEL](volume_size=GROUP_VOLUME, patch_size=PATCH)
+    tree = mae_encoder_tree(cfg, seed=0)
+    vols = np.random.default_rng(6).standard_normal((2, 1, GROUP_VOLUME, GROUP_VOLUME, GROUP_VOLUME))
+    common = dict(model_name=MODEL, volume_size=GROUP_VOLUME, patch_size=PATCH, batch_size=2)
+    want = FeatureEngine(mae_params=tree, attn_impl="flash", **common).infer(vols)
+    out = {}
+    for impl in ("flash_ring", "flash_seq"):
+        engine = FeatureEngine(mae_params=tree, attn_impl=impl, **common)
+        with set_mesh(mesh):
+            engine.infer(vols)  # warm
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            feats = engine.infer(vols)
+            wall = time.perf_counter() - t0
+        out[impl] = {"rel_err": rel_err(feats, want), "ok": feats.shape == want.shape
+                     and bool(np.isfinite(feats).all()), "counts": shape_counts(), "infer_ms": 1e3 * wall}
+        del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def group_train(mesh, reference: dict) -> dict:
+    """Phase 7c on one rank: three bf16 MAE steps at phase 5's size with
+    attn_impl="flash_ring" under `set_mesh`, from phase 5's weights, views
+    and noise: step-1 errors against `reference` (phase 5's default step),
+    the launches of each step, and the parameters' largest difference from
+    the group's first rank after the steps."""
+    import torch
+    import torch.distributed as dist
+
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+    from vit_ae_plus_plus_torch.parallel import set_mesh
+
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    tree, stats = mae_tree(cfg, seed=0)
+    views, noise = train_inputs(cfg)
+    trainer = Trainer(tree, stats, "bfloat16", "flash_ring")
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    with set_mesh(mesh):
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            metrics, counts = trainer.run(views, noise[i])
+            torch.cuda.synchronize()
+            steps.append({"metrics": metrics, "counts": counts, "wall_s": time.perf_counter() - t0})
+            if i == 0:
+                errs = step_rel_errs(metrics, reference["metrics"], {n: g.cpu() for n, g in trainer.grads().items()},
+                                     {n: torch.from_numpy(g) for n, g in reference["grads"].items()})
+    flat = torch.cat([p.detach().flatten() for p in trainer.model.parameters()]).cpu()
+    first = flat.clone()
+    dist.broadcast(first, src=mesh.ranks["model"][0], group=mesh.groups["model"])
+    return {"steps": steps, "errs": errs, "params_max_diff": float((flat - first).abs().max()),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def rank_mesh():
+    """A rank of phase 7: the one card, f32 kept f32, and the (1, 4) mesh."""
+    import torch
+
+    from vit_ae_plus_plus_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return make_mesh(1, GROUP_RANKS)
+
+
+def group_rank(rank: int, reference: dict) -> dict:
+    """Phase 7: one rank's program in the 4-rank gloo world, all ranks on
+    the one card (the kernels were built by the parent). -> its numbers."""
+    mesh = rank_mesh()
+    return {"attention": group_attention(mesh), "vit": group_vit(mesh), "train": group_train(mesh, reference)}
+
+
+def attention_rank(rank: int) -> dict:
+    """Phase 7a alone on one rank (a schedule mutant's check)."""
+    return {"attention": group_attention(rank_mesh())}
+
+
+def run_group(fn, *args) -> list:
+    """`fn(rank, *args)` on 4 spawned ranks of one gloo group; -> their results."""
+    from vit_ae_plus_plus_torch.parallel import run_ranks
+
+    t0 = time.perf_counter()
+    results = run_ranks(fn, GROUP_RANKS, args, timeout=GROUP_TIMEOUT,
+                        store_dir=str(REPO / "vit_ae_plus_plus_torch" / "build" / "stores"))
+    print(f"group of {GROUP_RANKS} ranks: {time.perf_counter() - t0:.1f}s, spawn and joins included", flush=True)
+    return results
+
+
+def group_key() -> tuple:
+    """The launch-count key of one rank's rows at B2 H12 N4097 d64 bf16 over
+    4 ranks: 1,032, both the ring's block and the sequence shard."""
+    from vit_ae_plus_plus_torch.parallel import padded_len
+
+    return (2, 12, padded_len(4097, GROUP_RANKS) // GROUP_RANKS, 64, "bfloat16")
+
+
+def check_group_attention(results: list) -> None:
+    """Phase 7a's limits: every rank's ring and sequence-sharded attention
+    at N4097 against `flash_attention`, and the launches of each."""
+    key = group_key()  # one ring block a step, 4 steps; one shard
+    want_counts = {"flash_ring": {("ring_flash_fwd", key): GROUP_RANKS, ("ring_flash_bwd", key): GROUP_RANKS},
+                   "flash_seq": {("flash_fwd", key): 1, ("flash_bwd", key): 1}}
+    for impl in ("flash_ring", "flash_seq"):
+        for rank, res in enumerate(results):
+            a = res["attention"][impl]
+            print(f"group rank {rank} {impl} attention B2 H12 N4097 d64 vs flash_attention: "
+                  + ", ".join(f"{k} {v:.3g} (tol {a['tols'][k]:.3g})" for k, v in a["errs"].items())
+                  + f"; launched {a['counts']}; {a['wall_s']:.2f} s (host clock, information only)", flush=True)
+            check(a["finite"] and all(a["errs"][k] <= a["tols"][k] for k in a["errs"]),
+                  f"rank {rank} {impl} attention: {a['errs']} (tols {a['tols']})")
+            check(a["counts"] == want_counts[impl], f"rank {rank} {impl} attention launched {a['counts']}")
+
+
+def group_phase(rows: list, reference: dict) -> None:
+    """Phase 7: run `group_rank` on 4 spawned ranks and hold their numbers
+    to the limits; fills the ring rows' `launches` from rank 0's runs."""
+    import torch
+
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+    from vit_ae_plus_plus_torch.parallel import padded_len
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = run_group(group_rank, reference)
+    check_group_attention(results)  # 7a
+
+    # 7b: ViT-B features at 128^3 / p8: 12 blocks x 4 ring steps, or 12 shards
+    cfg = MODEL_ZOO[MODEL](volume_size=GROUP_VOLUME, patch_size=PATCH)
+    want_counts = {"flash_ring": {("ring_flash_fwd", group_key()): cfg.depth * GROUP_RANKS},
+                   "flash_seq": {("flash_fwd", group_key()): cfg.depth}}
+    for impl in ("flash_ring", "flash_seq"):
+        for rank, res in enumerate(results):
+            r = res["vit"][impl]
+            print(f"group rank {rank} ViT-B {GROUP_VOLUME}^3/p{PATCH} batch 2 bf16 {impl}: features vs flash rel err "
+                  f"{r['rel_err']:.3g} (tol {ENGINE_TOL['bfloat16']}); launched {r['counts']}; engine.infer "
+                  f"{r['infer_ms']:.1f} ms (host clock, information only)", flush=True)
+            check(r["ok"] and r["rel_err"] <= ENGINE_TOL["bfloat16"], f"rank {rank} {impl} features: {r['rel_err']}")
+            check(r["counts"] == want_counts[impl], f"rank {rank} {impl} ViT launched {r['counts']}")
+        fill_launches(rows, results[0]["vit"][impl]["counts"],
+                      f"FeatureEngine(attn_impl='{impl}') at {GROUP_VOLUME}^3, one slab of 2, rank 0 of {GROUP_RANKS}")
+    for impl, fn in (("flash_ring", "ring_flash_attention"), ("flash_seq", "seq_sharded_flash_attention")):
+        fill_launches(rows, results[0]["attention"][impl]["counts"],  # the backward rows at N4097
+                      f"{fn} forward and backward at N4097, rank 0 of {GROUP_RANKS}")
+
+    # 7c: the MAE step with flash_ring: every block's attention in P ring steps
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    per_step = {}
+    for (b, h, n, d), depth in zip(train_shapes(cfg), (cfg.depth, cfg.decoder_depth)):
+        key = (b, h, padded_len(n, GROUP_RANKS) // GROUP_RANKS, d, "bfloat16")
+        per_step.update({("ring_flash_fwd", key): depth * GROUP_RANKS, ("ring_flash_bwd", key): depth * GROUP_RANKS})
+    tol = STEP_TOL["bfloat16"]
+    run_counts = Counter()
+    for rank, res in enumerate(results):
+        t = res["train"]
+        print(f"group rank {rank} train bf16 flash_ring vs the default step, step 1 relative errors: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in t["errs"].items())
+              + f" (tol loss terms {tol['loss']}, grads {tol['grad']}); losses "
+              + ", ".join(f"{s['metrics']['loss']:.6f}" for s in t["steps"])
+              + f"; step wall " + ", ".join(f"{s['wall_s']:.2f}" for s in t["steps"])
+              + f" s; peak {t['peak_gib']:.2f} GiB; parameters' largest difference from rank 0 after "
+              f"{TRAIN_STEPS} steps: {t['params_max_diff']:.3g}", flush=True)
+        for k, v in t["errs"].items():
+            check(v <= (tol["grad"] if k in GRAD_NAMES else tol["loss"]), f"rank {rank} flash_ring train {k}: {v:.3g}")
+        # the replicated trunk is right only while every rank holds the same weights
+        check(t["params_max_diff"] == 0.0, f"rank {rank}: parameters differ from rank 0's by "
+              f"{t['params_max_diff']:.3g} after {TRAIN_STEPS} flash_ring steps")
+        for i, step in enumerate(t["steps"]):
+            check(step["counts"] == per_step, f"rank {rank} flash_ring step {i + 1} launched {step['counts']} "
+                  f"(want {per_step})")
+            if rank == 0:
+                run_counts.update(step["counts"])
+    fill_launches(rows, run_counts, f"make_train_step, attn_impl='flash_ring', {TRAIN_STEPS} steps, rank 0 of "
+                  f"{GROUP_RANKS}")
 
 
 def main() -> int:
@@ -1205,9 +1635,24 @@ def main() -> int:
 
     # phase 5: the pretraining step at full width (5b: ln_fusion="on")
     t0 = time.perf_counter()
-    train_phase(rows)
+    reference = train_phase(rows)
     print(f"train phase {time.perf_counter() - t0:.1f}s", flush=True)
     fused_layernorm_run(rows, cfg)
+
+    # phase 6: the ring's partial kernels at the ring blocks of phase 7 (the
+    # feature path's, the step's decoder's and encoder's), a fully padded
+    # block, and the sequence-sharded shard of 1,032 rows against 4,097 keys
+    ring_cases = [("ring bf16 NB1032 d64 (ViT-B 128^3)", 2, 12, 4097, 64),
+                  ("ring bf16 NB440 d32 (decoder)", BATCH, 16, cfg.num_patches + 1, 32),
+                  ("ring bf16 NB112 d64 (encoder)", *train_shapes(cfg)[0][:3], 64)]
+    for i, (label, b, h, n, d) in enumerate(ring_cases):
+        rows += ring_case(label, b, h, n, d, GROUP_RANKS, seed=70 + i)
+    rows += ring_case("ring bf16 NB1032 d64, every key padded", 2, 12, 4097, 64, GROUP_RANKS, seed=75,
+                      full_pad=True)
+    rows += seq_case("seq bf16 N1032 Nk4097 d64", 2, 12, 4097, 64, GROUP_RANKS, seed=80)
+
+    # phase 7: the sequence-parallel paths in a group of ranks on the card
+    group_phase(rows, reference)
     for row in rows:
         if row["launches"] is None:
             row["launches"], row["path"] = 0, "none: a reference case at a shape no path runs"

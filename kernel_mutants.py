@@ -5,9 +5,9 @@
 
 Run from the root of a checkout. For each mutant below it copies the port
 (`vit_ae_plus_plus_torch/`, `chip_smoke.py`, the CUDA kernel tests) into
-`vit_ae_plus_plus_torch/build/mutants/<name>/`, breaks one kernel source
-under `kernels/csrc/` there on purpose, builds every copy at once, and runs
-two checks against each broken kernel:
+`vit_ae_plus_plus_torch/build/mutants/<name>/` and breaks one file there on
+purpose. A kernel mutant breaks a source under `kernels/csrc/`; every such
+copy is built at once, and two checks run against each broken kernel:
 
 - `tests/test_torch_port_kernels_cuda.py`, the kernels against their plain
   versions at small ragged shapes;
@@ -17,11 +17,24 @@ two checks against each broken kernel:
   N=1729, C=512, d=32, bf16) for a backward mutant;
   `chip_smoke.ln_dense_cases` at the training encoder's qkv shape (R=6928,
   C=768, F=2304, bf16, forward and backward) for a LayerNorm+Dense or
-  LayerNorm row-pass mutant.
+  LayerNorm row-pass mutant; `chip_smoke.ring_case` at the feature path's
+  ring block (B=2, H=12, 1,032 rows, d=64, bf16, the block with 31 pad
+  keys) for a key-bias mutant; `chip_smoke.seq_case` at the
+  sequence-sharded shape (1,032 queries against 4,097 keys) for a kv_len
+  mutant.
 
-Each check must fail: a tolerance loose enough to pass a broken kernel shows
-here. Prints one line per mutant and exits 0 only when every mutant is
-caught by both checks.
+A schedule mutant breaks the ring's or the sequence-sharded path's Python
+(`kernels/ring_flash.py`, `kernels/seq_flash.py`: the rotations, the merge,
+the final hop home, the sum over ranks) and loads the unbroken kernels,
+built once in the checkout. The CUDA kernel tests run no group of ranks, so
+one check runs against it: `chip_smoke`'s phase 7a, ring and sequence-sharded
+attention at B=2, H=12, N=4,097, d=64 in 4 ranks on the card against
+`flash_attention`.
+
+Each check must fail: a tolerance loose enough to pass a broken kernel or
+schedule shows here. The mutants' checks run four at a time on the one card (each is a
+correctness check, none is timed). Prints one line per mutant and exits 0
+only when every mutant is caught by both checks.
 """
 
 from __future__ import annotations
@@ -30,93 +43,168 @@ import re
 import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-CSRC = Path("vit_ae_plus_plus_torch/kernels/csrc")
+PKG = Path("vit_ae_plus_plus_torch")
 KERNEL_TESTS = Path("tests/test_torch_port_kernels_cuda.py")
 FWD_CASE = "chip_smoke.kernel_case('packed bf16 N1729 d64', 'packed', 8, 12, 1729, 64, 'bfloat16', seed=0)"
 BWD_CASE = "chip_smoke.bwd_case('packed bwd bf16 N1729 d32', 'packed', 8, 16, 1729, 32, 'bfloat16', seed=13)"
 LND_CASE = "chip_smoke.ln_dense_cases('ln_dense bf16 encoder qkv', 6928, 768, 2304, 'bfloat16', seed=40)"
-# name -> (source, text in it, its broken replacement at every occurrence, main-path check)
+RING_CASE = "chip_smoke.ring_case('ring bf16 NB1032', 2, 12, 4097, 64, 4, seed=70)"
+SEQ_CASE = "chip_smoke.seq_case('seq bf16 N1032 Nk4097', 2, 12, 4097, 64, 4, seed=80)"
+GROUP_CASE = "chip_smoke.check_group_attention(chip_smoke.run_group(chip_smoke.attention_rank))"
+# name -> (file under the package, text in it, its broken replacement at
+# every occurrence, main-path check); a kernel mutant's file is under
+# kernels/csrc/
 MUTANTS = {
     "drop_last_key_tile": (
-        "flash_fwd.cu",
-        "for (int k0 = 0; k0 < n; k0 += kBlockK)",
-        "for (int k0 = 0; k0 + kBlockK < n; k0 += kBlockK)",
+        "kernels/csrc/flash_fwd.cu",
+        "for (int k0 = 0; k0 < nk; k0 += kBlockK)",
+        "for (int k0 = 0; k0 + kBlockK < nk; k0 += kBlockK)",
         FWD_CASE,
     ),
     "unmasked_key_tail": (
-        "flash_fwd.cu",
-        "const float x = key < n ? s[j][e] * scale2 : -INFINITY;",
-        "const float x = key <= n ? s[j][e] * scale2 : -INFINITY;",
+        "kernels/csrc/flash_fwd.cu",
+        "float x = key < nk ? s[j][e] * scale2 : -INFINITY;",
+        "float x = key <= nk ? s[j][e] * scale2 : -INFINITY;",
         FWD_CASE,
     ),
     "scale_off_1pct": (
-        "flash_fwd.cu",
+        "kernels/csrc/flash_fwd.cu",
         "const float scale2 = p.scale * kLog2e;",
         "const float scale2 = p.scale * kLog2e * 1.01f;",
         FWD_CASE,
     ),
     "bwd_drop_last_query_tile": (  # the dK/dV loop skips the ragged last query tile
-        "flash_bwd.cu",
+        "kernels/csrc/flash_bwd.cu",
         "for (int q0 = 0; q0 < n; q0 += kBlock)",
         "for (int q0 = 0; q0 + kBlock < n; q0 += kBlock)",
         BWD_CASE,
     ),
     "bwd_no_delta": (  # dS = P * dP, delta = rowsum(dO * O) left out
-        "flash_bwd.cu",
+        "kernels/csrc/flash_bwd.cu",
         "if (lane == 0) p.delta[r] = acc;",
         "if (lane == 0) p.delta[r] = 0.f;",
         BWD_CASE,
     ),
     "bwd_dk_unscaled": (  # dK = dS^T Q without the softmax scale
-        "flash_bwd.cu",
+        "kernels/csrc/flash_bwd.cu",
         "pack_f32(dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale)",
         "pack_f32(dk[j][2 * r], dk[j][2 * r + 1])",
         BWD_CASE,
     ),
     "lnd_bias_before_rounding": (  # y = bf16(acc + b): the bias added before acc is rounded
-        "ln_dense.cu",
+        "kernels/csrc/ln_dense.cu",
         "return __bfloat162float(__float2bfloat16(acc)) + bias;",
         "return acc + bias;",
         LND_CASE,
     ),
     "lnd_dln_drop_last_tile": (  # the dln product skips its last tile of F
-        "ln_dense.cu",
+        "kernels/csrc/ln_dense.cu",
         "for (int kt = 0; kt < ktiles; ++kt)",
         "for (int kt = 0; kt < ktiles - 1; ++kt)",
         LND_CASE,
     ),
     "ln_rows_no_mean_gxhat": (  # dx = rstd * (g - mean(g)): the mean(g * xhat) term left out
-        "ln_rows.cuh",
+        "kernels/csrc/ln_rows.cuh",
         "g[j][e] - mg - xh[j][e] * mgx",
         "g[j][e] - mg",
         LND_CASE,
     ),
+    "fwd_bias_dropped": (  # the bf16 forward's S without the key bias
+        "kernels/csrc/flash_fwd.cu",
+        "if constexpr (HAS_BIAS) x += bias_s[j * 8 + 2 * t + (e & 1)];",
+        "if constexpr (HAS_BIAS) x += 0.f;",
+        RING_CASE,
+    ),
+    "dkdv_bias_dropped": (  # the bf16 dK/dV kernel's S without the key bias
+        "kernels/csrc/flash_bwd.cu",
+        "if constexpr (HAS_BIAS) x += kb[e >> 1];",
+        "if constexpr (HAS_BIAS) x += 0.f;",
+        RING_CASE,
+    ),
+    "kv_len_as_seq_len": (  # the forward reads the key count from the query count
+        "kernels/csrc/flash_fwd.cu",
+        "const int nk = p.kv_len;",
+        "const int nk = p.seq_len;",
+        SEQ_CASE,
+    ),
+    "ring_bias_not_rotated": (  # K/V rotate without their bias: pad keys count, valid ones are masked
+        "kernels/ring_flash.py",
+        "kb, vb, bb = ring_shift((kb, vb, bb), mesh, axis)",
+        "kb, vb = ring_shift((kb, vb), mesh, axis)",
+        GROUP_CASE,
+    ),
+    "ring_merge_max": (  # the merge's lse is the larger one, not the log-sum-exp
+        "kernels/ring_flash.py",
+        "lse_new = torch.logaddexp(lse, lse_s)",
+        "lse_new = torch.maximum(lse, lse_s)",
+        GROUP_CASE,
+    ),
+    "ring_bwd_last_partial": (  # the backward takes the last step's partial o and lse, not the merged ones
+        "kernels/ring_flash.py",
+        "ctx.save_for_backward(q_l, k_l, v_l, bias_l, o_l, lse)",
+        "ctx.save_for_backward(q_l, k_l, v_l, bias_l, o_s.to(q.dtype), lse_s)",
+        GROUP_CASE,
+    ),
+    "ring_no_hop_home": (  # dk and dv stay one rank short of their block's home
+        "kernels/ring_flash.py",
+        "dk, dv = ring_shift((dk, dv), mesh, axis)",
+        "dk, dv = dk, dv",
+        GROUP_CASE,
+    ),
+    "seq_dkdv_not_summed": (  # each rank keeps its own rows' share of dk and dv
+        "kernels/seq_flash.py",
+        "all_reduce_sum(g.float(), mesh, axis)",
+        "g.float()",
+        GROUP_CASE,
+    ),
 }
 
 
+def is_kernel(name: str) -> bool:
+    return MUTANTS[name][0].startswith("kernels/csrc/")
+
+
 def make_copy(name: str, source: str, old: str, new: str) -> Path:
-    root = REPO / "vit_ae_plus_plus_torch" / "build" / "mutants" / name
+    """The mutant's copy of the port; a schedule mutant's copy keeps the
+    checkout's built kernels (its sources are the checkout's)."""
+    root = REPO / PKG / "build" / "mutants" / name
     shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(
-        REPO / "vit_ae_plus_plus_torch", root / "vit_ae_plus_plus_torch",
-        ignore=shutil.ignore_patterns("build", "__pycache__"),
-    )
+    skip = ("build",) if is_kernel(name) else ("mutants", "stores")
+    shutil.copytree(REPO / PKG, root / PKG, ignore=shutil.ignore_patterns(*skip, "__pycache__"))
     for f in ("chip_smoke.py", "pyproject.toml", KERNEL_TESTS):
         (root / f).parent.mkdir(parents=True, exist_ok=True)
         shutil.copy(REPO / f, root / f)
-    kernel = root / CSRC / source
-    src = kernel.read_text()
+    broken = root / PKG / source
+    src = broken.read_text()
     if old not in src:
-        raise SystemExit(f"kernel_mutants: {name}: {old!r} is not in {CSRC / source}")
-    kernel.write_text(src.replace(old, new))
+        raise SystemExit(f"kernel_mutants: {name}: {old!r} is not in {PKG / source}")
+    broken.write_text(src.replace(old, new))
     return root
 
 
 def run(cmd, cwd: Path, timeout: float) -> subprocess.CompletedProcess:
     return subprocess.run(cmd, cwd=cwd, capture_output=True, text=True, timeout=timeout)
+
+
+def check_mutant(name: str, root: Path):
+    """The mutant's checks on its copy: -> (caught by all, report line)."""
+    main_path = run([sys.executable, "-c", f"import chip_smoke; {MUTANTS[name][3]}"], root, timeout=600)
+    reason = (main_path.stderr.strip().splitlines() or ["(no message)"])[-1]
+    caught_main = main_path.returncode != 0 and "chip_smoke FAILED" in main_path.stderr
+    line = f"main-path shape {'caught' if caught_main else 'MISSED'} ({reason})"
+    if not is_kernel(name):
+        return caught_main, f"mutant {name}: {line}"
+    tests = run([sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
+                 "-p", "no:cacheprovider", str(KERNEL_TESTS)], root, timeout=900)
+    tally = re.findall(r"(\d+) (failed|passed)", tests.stdout)
+    caught_tests = tests.returncode == 1 and any(kind == "failed" for _, kind in tally)
+    return caught_tests and caught_main, (
+        f"mutant {name}: kernel tests {'caught' if caught_tests else 'MISSED'} "
+        f"({', '.join(f'{n} {k}' for n, k in tally) or tests.stdout[-300:]}); {line}")
 
 
 def main() -> int:
@@ -125,35 +213,30 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_mutants: no CUDA device", file=sys.stderr)
         return 1
-    roots = {name: make_copy(name, *edit[:3]) for name, edit in MUTANTS.items()}
+    # every kernel mutant's copy and the checkout itself build at once; the
+    # schedule mutants' copies then take the checkout's kernels
+    roots = {name: make_copy(name, *edit[:3]) for name, edit in MUTANTS.items() if is_kernel(name)}
     builds = {
         name: subprocess.Popen(
             [sys.executable, "-c", "from vit_ae_plus_plus_torch.kernels import _build; _build.build()"],
             cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        for name, root in roots.items()
+        for name, root in {**roots, "(the checkout)": REPO}.items()
     }
     for name, proc in builds.items():
         log, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
             raise SystemExit(f"kernel_mutants: {name} did not build:\n{log}")
+    roots.update({name: make_copy(name, *edit[:3]) for name, edit in MUTANTS.items() if not is_kernel(name)})
 
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        checked = dict(zip(roots, pool.map(check_mutant, roots, roots.values())))
     missed = []
-    for name, root in roots.items():
-        tests = run([sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
-                     "-p", "no:cacheprovider", str(KERNEL_TESTS)], root, timeout=600)
-        tally = re.findall(r"(\d+) (failed|passed)", tests.stdout)
-        case = MUTANTS[name][3]
-        main_path = run([sys.executable, "-c", f"import chip_smoke; {case}"], root, timeout=600)
-        reason = (main_path.stderr.strip().splitlines() or ["(no message)"])[-1]
-        caught_tests = tests.returncode == 1 and any(kind == "failed" for _, kind in tally)
-        caught_main = main_path.returncode != 0 and "chip_smoke FAILED" in main_path.stderr
-        print(f"mutant {name}: kernel tests {'caught' if caught_tests else 'MISSED'} "
-              f"({', '.join(f'{n} {k}' for n, k in tally) or tests.stdout[-300:]}); "
-              f"main-path shape {'caught' if caught_main else 'MISSED'} ({reason})", flush=True)
-        if not (caught_tests and caught_main):
+    for name, (caught, line) in checked.items():
+        print(line, flush=True)
+        if not caught:
             missed.append(name)
-    shutil.rmtree(REPO / "vit_ae_plus_plus_torch" / "build" / "mutants", ignore_errors=True)
+    shutil.rmtree(REPO / PKG / "build" / "mutants", ignore_errors=True)
     if missed:
         print(f"kernel_mutants: not caught: {missed}", file=sys.stderr)
         return 1

@@ -41,6 +41,7 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
 def test_importing_serving_and_cli_loads_no_jax():
     code = (
         "import sys, vit_ae_plus_plus_torch.serving, vit_ae_plus_plus_torch.cli\n"
+        "import vit_ae_plus_plus_torch.parallel, vit_ae_plus_plus_torch.kernels.ring_flash\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

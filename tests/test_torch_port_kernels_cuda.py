@@ -19,6 +19,14 @@ both round the result), 1e-5 relative to the largest magnitude in f32.
 `kernel_mutants.py` shows that these catch a backward that drops its last
 query tile, leaves delta out, or forgets the scale on dk.
 
+The ring's partial kernels (the same sources with a key bias, 0 or -1e30)
+and the per-head kernels with fewer or more keys than queries (the
+sequence-sharded path's kv_len) are held to the plain versions by the same
+tolerances; a fully padded block's lse (about -1e30 on both sides) by 1e-6
+relative. `kernel_mutants.py` shows that these catch a forward that drops
+the bias from S, a dK/dV kernel that drops it, and a forward that reads
+kv_len as seq_len.
+
 LayerNorm (csrc/layernorm.cu) and LayerNorm+Dense (csrc/ln_dense.cu):
 `compare` (kernels/fused_ln.py) for y and dx: two bf16 spacings at the
 plain output's largest magnitude and at most 2% of elements different at
@@ -43,7 +51,11 @@ from vit_ae_plus_plus_torch.kernels import (
     packed_attention_plain,
     packed_flash_attention,
     packed_flash_attention_bwd,
+    ring_partial_bwd,
+    ring_partial_fwd,
 )
+from vit_ae_plus_plus_torch.kernels.flash_attention import flash_attention_fwd
+from vit_ae_plus_plus_torch.kernels.ring_flash import NEG_INF
 from vit_ae_plus_plus_torch.kernels.fused_ln import (
     LN_WIDTHS,
     compare,
@@ -198,6 +210,73 @@ def test_auto_attention_raises_where_no_kernel_is_built(cuda):
         Attention(48, 6).to(cuda)(_rand((1, 10, 48), torch.float32, cuda, seed=5))  # d = 8
     with pytest.raises(ValueError, match="dtype"):
         Attention(128, 2).to(cuda, torch.float64)(_rand((1, 10, 128), torch.float64, cuda, seed=6))
+
+
+def _row_stats(q, k, v, bias, scale):
+    """o and lse of each query row over the block (k, v, bias) and a valid
+    block beside it: what the ring's merge hands each backward step."""
+    k2, v2 = (t.flip(2) for t in (k, v))  # another block of keys, all valid
+    both = torch.cat([torch.zeros_like(bias), bias])
+    return attention_plain(q, torch.cat([k2, k], 2), torch.cat([v2, v], 2), scale, return_lse=True, bias=both)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("nq,nk,pad", [(65, 65, 7), (130, 130, 130), (40, 200, 31), (200, 63, 1)])
+def test_ring_partial_kernels_match_plain(cuda, dtype, d, nq, nk, pad):
+    """One ring step, forward and backward, with the last `pad` keys of the
+    block padded (all of them at 130): partial, full, and fewer or more
+    queries than keys."""
+    q, do = (_rand((2, 3, nq, d), dtype, cuda, s) for s in range(2))
+    k, v = (_rand((2, 3, nk, d), dtype, cuda, s) for s in range(2, 4))
+    bias = torch.zeros(nk, device=cuda)
+    bias[nk - pad:] = NEG_INF
+    scale = d**-0.5
+    before = ring_partial_fwd.launches, ring_partial_bwd.launches
+    o, lse = ring_partial_fwd(q, k, v, bias, scale)
+    o_row, lse_row = _row_stats(q, k, v, bias, scale)
+    got = ring_partial_bwd(q, do, o_row.to(dtype), lse_row.float(), k, v, bias, scale)
+    torch.cuda.synchronize()
+    assert (ring_partial_fwd.launches, ring_partial_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want_o, want_lse = attention_plain(q, k, v, scale, return_lse=True, bias=bias)
+    tol_o, tol_lse = kernel_tolerance(want_o)
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=0, atol=tol_o)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=tol_lse)
+    _assert_grads_close(got, attention_bwd_plain(q, k, v, o_row.to(dtype), lse_row.float(), do, scale, bias))
+    if pad == nk:  # a block of pad keys: lse about -1e30, no gradient to its keys
+        assert float(lse.max()) < -1e29
+        assert float(got[1].abs().max()) == 0.0 and float(got[2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("nq,nk", [(40, 200), (200, 63), (1, 65)])
+def test_per_head_kernels_with_another_key_length_match_plain(cuda, dtype, d, nq, nk):
+    """The sequence-sharded path's shard of query rows against all keys."""
+    q, do = (_rand((2, 3, nq, d), dtype, cuda, s) for s in range(2))
+    k, v = (_rand((2, 3, nk, d), dtype, cuda, s) for s in range(2, 4))
+    o, lse = flash_attention_fwd(q, k, v, d**-0.5)
+    want_o, want_lse = attention_plain(q, k, v, d**-0.5, return_lse=True)
+    _assert_close(o, lse, want_o, want_lse)
+    got = flash_attention_bwd(q, k, v, o, lse, do, d**-0.5)
+    assert got[0].shape == q.shape and got[1].shape == k.shape
+    _assert_grads_close(got, attention_bwd_plain(q, k, v, o, lse, do, d**-0.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_a_zero_bias_gives_the_bias_free_kernels_results(cuda, dtype):
+    """The biased instances add 0 where the bias-free ones (the packed and
+    per-head paths') add nothing. The forward's results are bitwise equal;
+    in the backward the bias-free kernels fuse `s * scale2 - lse` into one
+    FMA where the biased ones round `s * scale2 + bias` first, so the
+    gradients agree within the backward's tolerance."""
+    q, k, v, do = (_rand((2, 3, 100, 64), dtype, cuda, s) for s in range(4))
+    zero = torch.zeros(100, device=cuda)
+    o, lse = flash_attention_fwd(q, k, v, 0.125)
+    o_b, lse_b = ring_partial_fwd(q, k, v, zero, 0.125)
+    assert torch.equal(o, o_b) and torch.equal(lse, lse_b)
+    _assert_grads_close(ring_partial_bwd(q, do, o, lse, k, v, zero, 0.125),
+                        flash_attention_bwd(q, k, v, o, lse, do, 0.125))
 
 
 def _ln_operands(r, c, dtype, device, seed, f=None):

@@ -35,7 +35,7 @@ class ViTConfig:
     num_classes: int = 2
     global_pool: bool = True
     dtype: str = "float32"  # compute dtype; params stay float32
-    attn_impl: str = "auto"  # 'auto' | 'flash' | 'plain' (kernels/flash_attention.py)
+    attn_impl: str = "auto"  # 'auto' | 'flash' | 'plain' | 'flash_ring' | 'flash_seq' (kernels/flash_attention.py)
     ln_fusion: str = "auto"  # 'on': LayerNorm fused into qkv and fc1 (kernels/fused_ln_dense.py); 'auto' never fuses
     ln_dtype: str = "float32"  # "bfloat16": block-LN statistics in bf16 (models/vit.py ln_stats_dtype)
 

@@ -1,17 +1,26 @@
 // Flash-attention backward for Hopper (sm_90a), with a plain C interface
 // loaded through ctypes (vit_ae_plus_plus_torch/kernels/_build.py).
 //
-// Replaces two TPU kernels of the JAX package:
+// Replaces three TPU kernels of the JAX package:
 //   - vit_ae_plus_plus_tpu/kernels/packed_flash.py::_packed_bwd
 //     (_pk_bwd_kernel), which reads q, k, v, o and do from the packed
 //     (B, N, 3C) / (B, N, C) layouts and writes dq, dk and dv;
 //   - vit_ae_plus_plus_tpu/kernels/pallas_flash.py::_bwd (_mh_bwd_kernel,
 //     _fused_bwd_kernel, _dq_kernel and _dkv_kernel), the same gradients on
-//     the per-head (B, H, N, D) layout.
-// Both compute, from the forward's o and lse (csrc/flash_fwd.cu):
-//   P = exp(q k^T * scale - lse), dv = P^T do, dP = do v^T,
+//     the per-head (B, H, N, D) layout;
+//   - vit_ae_plus_plus_tpu/kernels/ring_flash.py::_partial_bwd
+//     (_ring_bwd_kernel): one ring step's dq, dk and dv of the local query
+//     rows against one K/V block, from the MERGED o and lse of the whole
+//     row, with the block's additive key bias (0 valid, -1e30 pad).
+// All compute, from the forward's o and lse (csrc/flash_fwd.cu):
+//   P = exp(q k^T * scale + bias - lse), dv = P^T do, dP = do v^T,
 //   delta = rowsum(do * o), dS = P * (dP - delta),
 //   dq = scale * dS k, dk = scale * dS^T q.
+// The bias is a template flag (HAS_BIAS), as in the forward. q, o and do
+// have seq_len rows, k and v kv_len rows. The lse of a ring step is the
+// row's global one, always finite (every query row sees a valid key), so
+// a pad key's P = exp2(-1.44e30 - lse2) is exactly 0 and its dk, dv rows
+// stay 0.
 // As in the forward, every operand is addressed through (batch, token,
 // head) strides with a contiguous head_dim axis: the packed wrapper passes
 // three strided views of the (B, N, 3C) projection and of one (B, N, 3C)
@@ -35,11 +44,14 @@
 //   3. dQ kernel: one block per (b, h, 64-query tile), looping over 64-key
 //      tiles: S = Q K^T, dP = dO V^T, dQ += dS K.
 // mma.sync m16n8k16 bf16 with f32 accumulation; P and dS are rounded to bf16
-// before their products. Ragged tails: rows past N are zero-filled when
-// staged; their lse is read as +inf (so P = 0) and their delta as 0, keys
-// past N get P = 0 in the dQ kernel, and nothing is stored past N. Shared
+// before their products. Ragged tails: rows past their length are
+// zero-filled when staged; query rows past seq_len have lse read as +inf
+// (so P = 0) and delta as 0, keys past kv_len get P = 0 in the dQ kernel,
+// and nothing is stored past seq_len (dq) or kv_len (dk, dv). Shared
 // memory is dynamic (4 tiles of 64 x (D+8) bf16: 70 KB at D = 128), so the
 // accumulators are the only per-thread arrays (D/2 floats each of dK, dV).
+// The dQ kernel keeps its key tile's bias in the 2 x 64 floats that the
+// dK/dV kernel uses for lse and delta.
 // Not yet done (a later change): cp.async/TMA double buffering, wgmma.
 //
 // The f32 kernels (compute_dtype float32, off the default bf16 path) use
@@ -59,6 +71,7 @@ struct FlashBwdParams {
   void* dv;
   const float* lse;  // (B, H, N) f32, from the forward
   float* delta;      // (B, H, N) f32 scratch, written by the pre-pass
+  const float* key_bias;  // (kv_len,) f32 additive bias over the keys, or null
   long long q_sb, q_sn, q_sh;  // element strides of (batch, token, head)
   long long k_sb, k_sn, k_sh;
   long long v_sb, v_sn, v_sh;
@@ -67,7 +80,7 @@ struct FlashBwdParams {
   long long dq_sb, dq_sn, dq_sh;
   long long dk_sb, dk_sn, dk_sh;
   long long dv_sb, dv_sn, dv_sh;
-  int batch, heads, seq_len, head_dim;
+  int batch, heads, seq_len, kv_len, head_dim;  // seq_len query rows, kv_len keys
   float scale;
 };
 
@@ -116,7 +129,7 @@ constexpr int bf16_smem_bytes() {
          2 * kBlock * static_cast<int>(sizeof(float));
 }
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_bf16_kernel(const FlashBwdParams p) {
   constexpr int LD = D + 8;  // padded row pitch, in elements
@@ -138,6 +151,7 @@ flash_bwd_dkdv_bf16_kernel(const FlashBwdParams p) {
   const int g = lane >> 2;
   const int t = lane & 3;
   const int n = p.seq_len;
+  const int nk = p.kv_len;
 
   const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + bh_offset(p.q_sb, p.q_sh, b, h);
   const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + bh_offset(p.k_sb, p.k_sh, b, h);
@@ -146,8 +160,16 @@ flash_bwd_dkdv_bf16_kernel(const FlashBwdParams p) {
   const float* lse_g = p.lse + ((long long)b * p.heads + h) * n;
   const float* delta_g = p.delta + ((long long)b * p.heads + h) * n;
 
-  load_tile<D, LD, kBlock, kThreads>(ks, kg, p.k_sn, k0, n);
-  load_tile<D, LD, kBlock, kThreads>(vs, vg, p.v_sn, k0, n);
+  load_tile<D, LD, kBlock, kThreads>(ks, kg, p.k_sn, k0, nk);
+  load_tile<D, LD, kBlock, kThreads>(vs, vg, p.v_sn, k0, nk);
+  float kb[2] = {0.f, 0.f};  // the bias of this thread's keys (rows g, g + 8), log2 units
+  if constexpr (HAS_BIAS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + warp * 16 + g + 8 * r;
+      kb[r] = key < nk ? p.key_bias[key] * kLog2e : 0.f;
+    }
+  }
 
   float dk[NT][4];
   float dv[NT][4];
@@ -197,7 +219,9 @@ flash_bwd_dkdv_bf16_kernel(const FlashBwdParams p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = c * 16 + jj * 8 + 2 * t + (e & 1);
-          const float pv = exp2f(s[jj][e] * scale2 - lse_s[col]);
+          float x = s[jj][e] * scale2;
+          if constexpr (HAS_BIAS) x += kb[e >> 1];
+          const float pv = exp2f(x - lse_s[col]);
           s[jj][e] = pv;
           dp[jj][e] = pv * (dp[jj][e] - delta_s[col]);
         }
@@ -228,7 +252,7 @@ flash_bwd_dkdv_bf16_kernel(const FlashBwdParams p) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = k0 + warp * 16 + g + 8 * r;
-    if (key >= n) continue;  // dead key rows are not stored
+    if (key >= nk) continue;  // dead key rows are not stored
     __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + bh_offset(p.dk_sb, p.dk_sh, b, h) +
                          key * p.dk_sn + 2 * t;
     __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + bh_offset(p.dv_sb, p.dv_sh, b, h) +
@@ -242,7 +266,7 @@ flash_bwd_dkdv_bf16_kernel(const FlashBwdParams p) {
   }
 }
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_bf16_kernel(const FlashBwdParams p) {
   constexpr int LD = D + 8;
@@ -253,6 +277,7 @@ flash_bwd_dq_bf16_kernel(const FlashBwdParams p) {
   __nv_bfloat16* dos = qs + kBlock * LD;
   __nv_bfloat16* ks = dos + kBlock * LD;
   __nv_bfloat16* vs = ks + kBlock * LD;
+  float* bias_s = reinterpret_cast<float*>(vs + kBlock * LD);  // the key tile's bias, log2 units
 
   const int q0 = blockIdx.x * kBlock;
   const int h = blockIdx.y;
@@ -262,6 +287,7 @@ flash_bwd_dq_bf16_kernel(const FlashBwdParams p) {
   const int g = lane >> 2;
   const int t = lane & 3;
   const int n = p.seq_len;
+  const int nk = p.kv_len;
 
   const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + bh_offset(p.q_sb, p.q_sh, b, h);
   const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + bh_offset(p.k_sb, p.k_sh, b, h);
@@ -287,10 +313,16 @@ flash_bwd_dq_bf16_kernel(const FlashBwdParams p) {
   const __nv_bfloat16* qw = qs + (warp * 16 + g) * LD + 2 * t;  // this warp's 16 queries
   const __nv_bfloat16* dow = dos + (warp * 16 + g) * LD + 2 * t;
 
-  for (int k0 = 0; k0 < n; k0 += kBlock) {
+  for (int k0 = 0; k0 < nk; k0 += kBlock) {
     __syncthreads();  // the previous key tile (or the Q staging) is consumed
-    load_tile<D, LD, kBlock, kThreads>(ks, kg, p.k_sn, k0, n);
-    load_tile<D, LD, kBlock, kThreads>(vs, vg, p.v_sn, k0, n);
+    load_tile<D, LD, kBlock, kThreads>(ks, kg, p.k_sn, k0, nk);
+    load_tile<D, LD, kBlock, kThreads>(vs, vg, p.v_sn, k0, nk);
+    if constexpr (HAS_BIAS) {
+      if (threadIdx.x < kBlock) {
+        const int key = k0 + threadIdx.x;
+        bias_s[threadIdx.x] = key < nk ? p.key_bias[key] * kLog2e : 0.f;
+      }
+    }
     __syncthreads();
 
 #pragma unroll 1
@@ -312,13 +344,15 @@ flash_bwd_dq_bf16_kernel(const FlashBwdParams p) {
           mma_16816(dp[jj], a, ld32(vb + kk * 16), ld32(vb + kk * 16 + 8));
         }
       }
-      // dS, with keys past N masked to P = 0
+      // dS, with keys past kv_len masked to P = 0
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + c * 16 + jj * 8 + 2 * t + (e & 1);
-          const float pv = key < n ? exp2f(s[jj][e] * scale2 - lse2[e >> 1]) : 0.f;
+          float x = s[jj][e] * scale2;
+          if constexpr (HAS_BIAS) x += bias_s[c * 16 + jj * 8 + 2 * t + (e & 1)];
+          const float pv = key < nk ? exp2f(x - lse2[e >> 1]) : 0.f;
           dp[jj][e] = pv * (dp[jj][e] - dl[e >> 1]);
         }
       }
@@ -358,7 +392,7 @@ constexpr int kF32Tile = 32;  // rows per shared-memory tile
 // D/16 neighbouring threads share one row; thread `sub` of the group holds
 // dims sub, sub + G, ..., sub + 15G (neighbouring threads read neighbouring
 // words of shared memory).
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_f32_kernel(const FlashBwdParams p) {
   constexpr int G = D / 16;
@@ -373,7 +407,8 @@ flash_bwd_dkdv_f32_kernel(const FlashBwdParams p) {
   const int sub = threadIdx.x % G;
   const int key = blockIdx.x * kRows + threadIdx.x / G;
   const int n = p.seq_len;
-  const bool live = key < n;
+  const int nk = p.kv_len;
+  const bool live = key < nk;
 
   const float* qg = static_cast<const float*>(p.q) + bh_offset(p.q_sb, p.q_sh, b, h);
   const float* kg = static_cast<const float*>(p.k) + bh_offset(p.k_sb, p.k_sh, b, h);
@@ -390,6 +425,8 @@ flash_bwd_dkdv_f32_kernel(const FlashBwdParams p) {
     dk[i] = dv[i] = 0.f;
   }
   const float scale2 = p.scale * kLog2e;
+  float kb = 0.f;  // this key's bias, log2 units
+  if constexpr (HAS_BIAS) kb = live ? p.key_bias[key] * kLog2e : 0.f;
 
   for (int q0 = 0; q0 < n; q0 += kF32Tile) {
     __syncthreads();
@@ -419,7 +456,9 @@ flash_bwd_dkdv_f32_kernel(const FlashBwdParams p) {
         s += __shfl_xor_sync(0xffffffffu, s, off);
         dp += __shfl_xor_sync(0xffffffffu, dp, off);
       }
-      const float pv = exp2f(s * scale2 - lse_s[j]);
+      float x = s * scale2;
+      if constexpr (HAS_BIAS) x += kb;
+      const float pv = exp2f(x - lse_s[j]);
       const float ds = pv * (dp - delta_s[j]);
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
@@ -438,19 +477,21 @@ flash_bwd_dkdv_f32_kernel(const FlashBwdParams p) {
   }
 }
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_f32_kernel(const FlashBwdParams p) {
   constexpr int G = D / 16;
   constexpr int kRows = kThreads / G;
   __shared__ float ks[kF32Tile][D];
   __shared__ float vs[kF32Tile][D];
+  __shared__ float bias_s[HAS_BIAS ? kF32Tile : 1];  // log2 units
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int sub = threadIdx.x % G;
   const int row = blockIdx.x * kRows + threadIdx.x / G;
   const int n = p.seq_len;
+  const int nk = p.kv_len;
   const bool live = row < n;
 
   const float* qg = static_cast<const float*>(p.q) + bh_offset(p.q_sb, p.q_sh, b, h);
@@ -470,17 +511,23 @@ flash_bwd_dq_f32_kernel(const FlashBwdParams p) {
   }
   const float scale2 = p.scale * kLog2e;
 
-  for (int k0 = 0; k0 < n; k0 += kF32Tile) {
+  for (int k0 = 0; k0 < nk; k0 += kF32Tile) {
     __syncthreads();
     for (int i = threadIdx.x; i < kF32Tile * D; i += kThreads) {
       const int r = i / D;
       const int c = i % D;
-      const bool ok = k0 + r < n;
+      const bool ok = k0 + r < nk;
       ks[r][c] = ok ? kg[(k0 + r) * p.k_sn + c] : 0.f;
       vs[r][c] = ok ? vg[(k0 + r) * p.v_sn + c] : 0.f;
     }
+    if constexpr (HAS_BIAS) {
+      if (threadIdx.x < kF32Tile) {
+        const int key = k0 + threadIdx.x;
+        bias_s[threadIdx.x] = key < nk ? p.key_bias[key] * kLog2e : 0.f;
+      }
+    }
     __syncthreads();
-    const int keys = min(kF32Tile, n - k0);
+    const int keys = min(kF32Tile, nk - k0);
     for (int j = 0; j < keys; ++j) {
       float s = 0.f, dp = 0.f;
 #pragma unroll
@@ -493,7 +540,9 @@ flash_bwd_dq_f32_kernel(const FlashBwdParams p) {
         s += __shfl_xor_sync(0xffffffffu, s, off);
         dp += __shfl_xor_sync(0xffffffffu, dp, off);
       }
-      const float ds = exp2f(s * scale2 - lse2) * (dp - dl);
+      float x = s * scale2;
+      if constexpr (HAS_BIAS) x += bias_s[j];
+      const float ds = exp2f(x - lse2) * (dp - dl);
 #pragma unroll
       for (int i = 0; i < 16; ++i) dq[i] = fmaf(ds, ks[j][sub + G * i], dq[i]);
     }
@@ -504,7 +553,7 @@ flash_bwd_dq_f32_kernel(const FlashBwdParams p) {
   for (int i = 0; i < 16; ++i) dqg[sub + G * i] = dq[i] * p.scale;
 }
 
-template <int D>
+template <int D, bool HAS_BIAS>
 cudaError_t launch(const FlashBwdParams& p, int is_bf16, cudaStream_t stream) {
   const long long rows = (long long)p.batch * p.heads * p.seq_len;
   const dim3 delta_grid(static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32)));
@@ -517,26 +566,34 @@ cudaError_t launch(const FlashBwdParams& p, int is_bf16, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   if (is_bf16) {
     constexpr int smem = bf16_smem_bytes<D>();
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16_kernel<D>,
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16_kernel<D, HAS_BIAS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
+    err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D, HAS_BIAS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.seq_len + kBlock - 1) / kBlock, p.heads, p.batch);
-    flash_bwd_dkdv_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+    const dim3 key_grid((p.kv_len + kBlock - 1) / kBlock, p.heads, p.batch);
+    const dim3 query_grid((p.seq_len + kBlock - 1) / kBlock, p.heads, p.batch);
+    flash_bwd_dkdv_bf16_kernel<D, HAS_BIAS><<<key_grid, kThreads, smem, stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+    flash_bwd_dq_bf16_kernel<D, HAS_BIAS><<<query_grid, kThreads, smem, stream>>>(p);
   } else {
     constexpr int kRows = kThreads / (D / 16);
-    const dim3 grid((p.seq_len + kRows - 1) / kRows, p.heads, p.batch);
-    flash_bwd_dkdv_f32_kernel<D><<<grid, kThreads, 0, stream>>>(p);
+    const dim3 key_grid((p.kv_len + kRows - 1) / kRows, p.heads, p.batch);
+    const dim3 query_grid((p.seq_len + kRows - 1) / kRows, p.heads, p.batch);
+    flash_bwd_dkdv_f32_kernel<D, HAS_BIAS><<<key_grid, kThreads, 0, stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_f32_kernel<D><<<grid, kThreads, 0, stream>>>(p);
+    flash_bwd_dq_f32_kernel<D, HAS_BIAS><<<query_grid, kThreads, 0, stream>>>(p);
   }
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const FlashBwdParams& p, int is_bf16, cudaStream_t stream) {
+  return p.key_bias != nullptr ? launch<D, true>(p, is_bf16, stream)
+                               : launch<D, false>(p, is_bf16, stream);
 }
 
 }  // namespace

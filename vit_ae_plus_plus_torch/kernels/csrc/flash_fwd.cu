@@ -1,14 +1,22 @@
 // Flash-attention forward for Hopper (sm_90a), with a plain C interface
 // loaded through ctypes (vit_ae_plus_plus_torch/kernels/_build.py).
 //
-// Replaces two TPU kernels of the JAX package:
+// Replaces three TPU kernels of the JAX package:
 //   - vit_ae_plus_plus_tpu/kernels/packed_flash.py::_packed_fwd
 //     (_pk_fwd_kernel), which reads q, k and v straight from the fused
 //     projection's (B, N, 3C) output;
 //   - vit_ae_plus_plus_tpu/kernels/pallas_flash.py::_fwd (_mh_fwd_kernel and
-//     _fwd_kernel), the same attention on the per-head (B, H, N, D) layout.
-// Both compute o = softmax(q k^T * scale) v, non-causal, with the ragged key
-// tail masked, and optionally lse = log(sum(exp(q k^T * scale))) in f32.
+//     _fwd_kernel), the same attention on the per-head (B, H, N, D) layout;
+//   - vit_ae_plus_plus_tpu/kernels/ring_flash.py::_partial_fwd
+//     (_ring_fwd_kernel): the local query rows against one K/V block of the
+//     ring, with an additive f32 bias over the block's keys (0 for a valid
+//     key, -1e30 for a pad key).
+// All compute o = softmax(q k^T * scale + bias) v, non-causal, with the
+// ragged key tail masked, and optionally lse = log(sum(exp(q k^T * scale +
+// bias))) in f32. The bias is a template flag (HAS_BIAS): the bias-free
+// instances are the packed and per-head paths' kernels. q has seq_len rows,
+// k and v kv_len rows (the sequence-sharded path runs a shard of the query
+// rows against every key).
 //
 // Addressing: q, k, v and o are read and written through (batch, token,
 // head) strides given as arguments, with the head_dim axis contiguous. The
@@ -41,12 +49,13 @@ struct FlashFwdParams {
   const void* k;
   const void* v;
   void* o;
-  float* lse;  // (B, H, N) f32, or null
+  float* lse;  // (B, H, seq_len) f32, or null
+  const float* key_bias;  // (kv_len,) f32 additive bias over the keys, or null
   long long q_sb, q_sn, q_sh;  // element strides of (batch, token, head)
   long long k_sb, k_sn, k_sh;
   long long v_sb, v_sn, v_sh;
   long long o_sb, o_sn, o_sh;
-  int batch, heads, seq_len, head_dim;
+  int batch, heads, seq_len, kv_len, head_dim;  // seq_len query rows, kv_len keys
   float scale;
 };
 
@@ -60,7 +69,7 @@ constexpr int kBlockQ = 64;  // query rows per block: 4 warps x 16 rows
 constexpr int kBlockK = 64;  // keys per shared-memory tile
 constexpr int kThreads = 128;
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_kernel(const FlashFwdParams p) {
   constexpr int LD = D + 8;  // padded row pitch, in elements
@@ -68,6 +77,7 @@ flash_fwd_bf16_kernel(const FlashFwdParams p) {
   constexpr int NT = D / 8;   // 8-column tiles of O
   __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * LD];
   __shared__ __align__(16) __nv_bfloat16 vs[kBlockK * LD];
+  __shared__ float bias_s[HAS_BIAS ? kBlockK : 1];  // the tile's bias, log2 units
 
   const int q0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y;
@@ -77,6 +87,7 @@ flash_fwd_bf16_kernel(const FlashFwdParams p) {
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread within the group
   const int n = p.seq_len;
+  const int nk = p.kv_len;
 
   const __nv_bfloat16* qg =
       static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -111,10 +122,16 @@ flash_fwd_bf16_kernel(const FlashFwdParams p) {
   float l[2] = {0.f, 0.f};
   const float scale2 = p.scale * kLog2e;
 
-  for (int k0 = 0; k0 < n; k0 += kBlockK) {
+  for (int k0 = 0; k0 < nk; k0 += kBlockK) {
     __syncthreads();  // the previous tile (or the Q staging) is consumed
-    load_tile<D, LD, kBlockK, kThreads>(ks, kg, p.k_sn, k0, n);
-    load_tile<D, LD, kBlockK, kThreads>(vs, vg, p.v_sn, k0, n);
+    load_tile<D, LD, kBlockK, kThreads>(ks, kg, p.k_sn, k0, nk);
+    load_tile<D, LD, kBlockK, kThreads>(vs, vg, p.v_sn, k0, nk);
+    if constexpr (HAS_BIAS) {
+      if (threadIdx.x < kBlockK) {
+        const int key = k0 + threadIdx.x;
+        bias_s[threadIdx.x] = key < nk ? p.key_bias[key] * kLog2e : 0.f;
+      }
+    }
     __syncthreads();
 
     // S = Q K^T for 16 rows x 64 keys: eight 8-key tiles
@@ -129,14 +146,18 @@ flash_fwd_bf16_kernel(const FlashFwdParams p) {
       }
     }
 
-    // scale into log2 units, mask the ragged key tail, new running max
+    // scale into log2 units, add the bias, mask the ragged key tail, new
+    // running max. A pad key's bias (-1e30 * log2(e)) is finite: a tile of
+    // pad keys alone gives a finite max and p = 1 for each, so an all-pad
+    // block ends with l = kv_len and lse ~ -1e30, which the merge weights 0.
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const float x = key < n ? s[j][e] * scale2 : -INFINITY;
+        float x = key < nk ? s[j][e] * scale2 : -INFINITY;
+        if constexpr (HAS_BIAS) x += bias_s[j * 8 + 2 * t + (e & 1)];
         s[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -146,7 +167,7 @@ flash_fwd_bf16_kernel(const FlashFwdParams p) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     }
-    // every tile holds key k0 < n, so mx is finite from the first tile on
+    // every tile holds key k0 < kv_len, so mx is finite from the first tile on
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -219,16 +240,18 @@ flash_fwd_bf16_kernel(const FlashFwdParams p) {
 constexpr int kF32Rows = 64;  // query rows per block, one per thread
 constexpr int kF32Keys = 32;  // keys per shared-memory tile
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(kF32Rows)
 flash_fwd_f32_kernel(const FlashFwdParams p) {
   __shared__ float ks[kF32Keys][D];
   __shared__ float vs[kF32Keys][D];
+  __shared__ float bias_s[HAS_BIAS ? kF32Keys : 1];  // log2 units
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int row = blockIdx.x * kF32Rows + threadIdx.x;
   const int n = p.seq_len;
+  const int nk = p.kv_len;
   const bool live = row < n;
 
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -246,14 +269,20 @@ flash_fwd_f32_kernel(const FlashFwdParams p) {
   float m = -INFINITY;
   float l = 0.f;
 
-  for (int k0 = 0; k0 < n; k0 += kF32Keys) {
+  for (int k0 = 0; k0 < nk; k0 += kF32Keys) {
     __syncthreads();
     for (int i = threadIdx.x; i < kF32Keys * D; i += kF32Rows) {
       const int r = i / D;
       const int c = i % D;
-      const bool ok = k0 + r < n;
+      const bool ok = k0 + r < nk;
       ks[r][c] = ok ? kg[(long long)(k0 + r) * p.k_sn + c] : 0.f;
       vs[r][c] = ok ? vg[(long long)(k0 + r) * p.v_sn + c] : 0.f;
+    }
+    if constexpr (HAS_BIAS) {
+      if (threadIdx.x < kF32Keys) {
+        const int key = k0 + threadIdx.x;
+        bias_s[threadIdx.x] = key < nk ? p.key_bias[key] * kLog2e : 0.f;
+      }
     }
     __syncthreads();
 
@@ -264,7 +293,8 @@ flash_fwd_f32_kernel(const FlashFwdParams p) {
       float x = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) x = fmaf(q[d], ks[j][d], x);
-      s[j] = k0 + j < n ? x : -INFINITY;
+      if constexpr (HAS_BIAS) x += bias_s[j];
+      s[j] = k0 + j < nk ? x : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
     const float alpha = exp2f(m - mx);
@@ -291,16 +321,22 @@ flash_fwd_f32_kernel(const FlashFwdParams p) {
   }
 }
 
-template <int D>
+template <int D, bool HAS_BIAS>
 cudaError_t launch(const FlashFwdParams& p, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
     const dim3 grid((p.seq_len + kBlockQ - 1) / kBlockQ, p.heads, p.batch);
-    flash_fwd_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(p);
+    flash_fwd_bf16_kernel<D, HAS_BIAS><<<grid, kThreads, 0, stream>>>(p);
   } else {
     const dim3 grid((p.seq_len + kF32Rows - 1) / kF32Rows, p.heads, p.batch);
-    flash_fwd_f32_kernel<D><<<grid, kF32Rows, 0, stream>>>(p);
+    flash_fwd_f32_kernel<D, HAS_BIAS><<<grid, kF32Rows, 0, stream>>>(p);
   }
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const FlashFwdParams& p, int is_bf16, cudaStream_t stream) {
+  return p.key_bias != nullptr ? launch<D, true>(p, is_bf16, stream)
+                               : launch<D, false>(p, is_bf16, stream);
 }
 
 }  // namespace

@@ -8,14 +8,19 @@ Counterpart of the JAX package's kernels/flash_attention.py
   Products and softmax run in at least f32 (f64 stays f64) and results are
   cast back to the input dtype: the arithmetic of the TPU kernels, which
   upcast q, k and v to f32. They are the CPU path and the reference the CUDA
-  kernels are held to on the card.
+  kernels are held to on the card. Both take an optional additive f32 bias
+  over the keys (the ring's validity bias, kernels/ring_flash.py) and k, v
+  with another length than q (the sequence-sharded path,
+  kernels/seq_flash.py).
 - `flash_attention`: differentiable per-head attention, a
   `torch.autograd.Function` whose forward is `csrc/flash_fwd.cu` and whose
   backward is `csrc/flash_bwd.cu` (`flash_attention_bwd`). On CPU tensors
   both take the plain versions; on CUDA tensors they launch the kernels or
   raise. Gradients reach q, k and v on either device.
 - `multihead_attention`: the per-head dispatch behind `attn_impl`
-  ('plain' or 'flash'); the model's 'auto' is resolved in models/vit.py.
+  ('plain', 'flash', and the sequence-parallel 'flash_ring' and
+  'flash_seq' under `parallel.set_mesh`); the model's 'auto' is resolved in
+  models/vit.py.
 - `kernel_tolerance` / `bwd_tolerance`: how far the kernels may lie from the
   plain versions.
 
@@ -50,29 +55,38 @@ def _at_least_f32(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def attention_plain(q, k, v, scale: float, return_lse: bool = False):
-    """softmax(q k^T * scale) v over (B, H, N, D); at least f32 inside, q's
-    dtype out. With `return_lse`, also the log-sum-exp of the scaled scores,
-    (B, H, N), in the inner dtype (f32 for bf16 and f32 inputs)."""
-    dt = _at_least_f32(q.dtype)
+def _scores(q, k, scale: float, bias, dt):
     s = torch.matmul(q.to(dt), k.to(dt).transpose(-1, -2)) * scale
+    return s if bias is None else s + bias.to(dt)
+
+
+def attention_plain(q, k, v, scale: float, return_lse: bool = False, bias=None):
+    """softmax(q k^T * scale + bias) v over q (B, H, N, D) and k, v
+    (B, H, Nk, D); at least f32 inside, q's dtype out. `bias`, if given, is
+    (Nk,) and added to every row of scores. With `return_lse`, also the
+    log-sum-exp of the biased scores, (B, H, N), in the inner dtype (f32
+    for bf16 and f32 inputs)."""
+    dt = _at_least_f32(q.dtype)
+    s = _scores(q, k, scale, bias, dt)
     o = torch.matmul(torch.softmax(s, dim=-1), v.to(dt)).to(q.dtype)
     if return_lse:
         return o, torch.logsumexp(s, dim=-1)
     return o
 
 
-def attention_bwd_plain(q, k, v, o, lse, do, scale: float):
-    """Gradients (dq, dk, dv) of `attention_plain` over (B, H, N, D), from the
-    forward's output `o` and log-sum-exp `lse`: the formulas of the backward
-    kernels, eagerly, in at least f32, each result in its input's dtype.
+def attention_bwd_plain(q, k, v, o, lse, do, scale: float, bias=None):
+    """Gradients (dq, dk, dv) of `attention_plain` over q (B, H, N, D) and
+    k, v (B, H, Nk, D), from the output `o` and log-sum-exp `lse` of the
+    softmax over each whole row (a ring step's block is a part of the row):
+    the formulas of the backward kernels, eagerly, in at least f32, each
+    result in its input's dtype.
 
-    P = exp(q k^T * scale - lse), dV = P^T dO, dP = dO V^T,
+    P = exp(q k^T * scale + bias - lse), dV = P^T dO, dP = dO V^T,
     delta = rowsum(dO * O), dS = P * (dP - delta), dQ = scale * dS K,
     dK = scale * dS^T Q."""
     dt = _at_least_f32(q.dtype)
     qf, kf, vf, of, dof = (t.to(dt) for t in (q, k, v, o, do))
-    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse.to(dt)[..., None])
+    p = torch.exp(_scores(qf, kf, scale, bias, dt) - lse.to(dt)[..., None])
     dv = torch.matmul(p.transpose(-1, -2), dof)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     delta = (dof * of).sum(dim=-1, keepdim=True)
@@ -110,10 +124,10 @@ class FlashFwdParams(ctypes.Structure):
 
     _fields_ = [
         ("q", ctypes.c_void_p), ("k", ctypes.c_void_p), ("v", ctypes.c_void_p),
-        ("o", ctypes.c_void_p), ("lse", ctypes.c_void_p),
+        ("o", ctypes.c_void_p), ("lse", ctypes.c_void_p), ("key_bias", ctypes.c_void_p),
         *[(f"{t}_s{a}", ctypes.c_longlong) for t in "qkvo" for a in "bnh"],
         ("batch", ctypes.c_int), ("heads", ctypes.c_int),
-        ("seq_len", ctypes.c_int), ("head_dim", ctypes.c_int),
+        ("seq_len", ctypes.c_int), ("kv_len", ctypes.c_int), ("head_dim", ctypes.c_int),
         ("scale", ctypes.c_float),
     ]
 
@@ -126,10 +140,10 @@ class FlashBwdParams(ctypes.Structure):
 
     _fields_ = [
         *[(name, ctypes.c_void_p) for name in _BWD_TENSORS],
-        ("lse", ctypes.c_void_p), ("delta", ctypes.c_void_p),
+        ("lse", ctypes.c_void_p), ("delta", ctypes.c_void_p), ("key_bias", ctypes.c_void_p),
         *[(f"{t}_s{a}", ctypes.c_longlong) for t in _BWD_TENSORS for a in "bnh"],
         ("batch", ctypes.c_int), ("heads", ctypes.c_int),
-        ("seq_len", ctypes.c_int), ("head_dim", ctypes.c_int),
+        ("seq_len", ctypes.c_int), ("kv_len", ctypes.c_int), ("head_dim", ctypes.c_int),
         ("scale", ctypes.c_float),
     ]
 
@@ -142,39 +156,59 @@ def _check_lse(lse, b, h, n, device) -> None:
         raise ValueError("lse must be a contiguous (B, H, N) float32 tensor on q's device")
 
 
-def launch_flash_fwd(q, k, v, o, lse: Optional[torch.Tensor], scale: float) -> None:
+def _check_bias(bias, nk, device) -> None:
+    if bias is not None and (
+        bias.shape != (nk,) or bias.dtype != torch.float32
+        or not bias.is_contiguous() or bias.device != device
+    ):
+        raise ValueError("bias must be a contiguous (Nk,) float32 tensor on q's device")
+
+
+def launch_flash_fwd(q, k, v, o, lse: Optional[torch.Tensor], scale: float,
+                     key_bias: Optional[torch.Tensor] = None) -> None:
     """Run csrc/flash_fwd.cu on (B, N, H, D) views of CUDA tensors of one
-    shape and dtype (the wrappers check both).
+    dtype: q and o of N rows, k and v of Nk rows (the wrappers check shapes
+    and dtypes).
 
     `o` is written in place; `lse`, if given, is a contiguous (B, H, N) f32
-    tensor. Launches on the current stream and does not synchronise."""
+    tensor; `key_bias`, if given, a contiguous (Nk,) f32 tensor added to
+    every row of scores. Launches on the current stream and does not
+    synchronise."""
     b, n, h, d = q.shape
+    nk = k.shape[1]
     _check_views(q, (("q", q), ("k", k), ("v", v), ("o", o)))
     if lse is not None:
         _check_lse(lse, b, h, n, q.device)
+    _check_bias(key_bias, nk, q.device)
     params = FlashFwdParams(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if lse is not None else None,
+        key_bias.data_ptr() if key_bias is not None else None,
         *[t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)],
-        b, h, n, d, float(scale),
+        b, h, n, nk, d, float(scale),
     )
     _build.launch("flash_fwd", "flash_fwd", params, q)
 
 
-def launch_flash_bwd(q, k, v, o, lse, do, dq, dk, dv, scale: float) -> None:
+def launch_flash_bwd(q, k, v, o, lse, do, dq, dk, dv, scale: float,
+                     key_bias: Optional[torch.Tensor] = None) -> None:
     """Run csrc/flash_bwd.cu on (B, N, H, D) views of CUDA tensors of one
-    shape and dtype: dq, dk and dv are written in place from q, k, v, the
-    forward's o and f32 lse (B, H, N), and the output gradient do. Launches
-    on the current stream and does not synchronise."""
+    dtype: dq, dk and dv are written in place from q, k, v, the forward's o
+    and f32 lse (B, H, N), and the output gradient do; q, o, do and dq have
+    N rows, k, v, dk and dv Nk rows. `key_bias` as in `launch_flash_fwd`.
+    Launches on the current stream and does not synchronise."""
     b, n, h, d = q.shape
+    nk = k.shape[1]
     tensors = (q, k, v, o, do, dq, dk, dv)
     _check_views(q, zip(_BWD_TENSORS, tensors))
     _check_lse(lse, b, h, n, q.device)
+    _check_bias(key_bias, nk, q.device)
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     params = FlashBwdParams(
         *[t.data_ptr() for t in tensors], lse.data_ptr(), delta.data_ptr(),
+        key_bias.data_ptr() if key_bias is not None else None,
         *[t.stride(i) for t in tensors for i in (0, 1, 2)],
-        b, h, n, d, float(scale),
+        b, h, n, nk, d, float(scale),
     )
     _build.launch("flash_bwd", "flash_bwd", params, q)
 
@@ -189,17 +223,20 @@ def count_launch(wrapper, *shape_and_dtype) -> None:
     wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
 
 
-def _check_operands(q, k, v) -> None:
+def _check_operands(q, k, v, bias=None) -> None:
     if q.dim() != 4:
         raise ValueError(f"expected (B, H, N, D) tensors, got {tuple(q.shape)}")
+    b, h, _, d = q.shape
     for name, t in (("k", k), ("v", v)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name} must match q's shape, dtype and device")
+        if (t.dim() != 4 or (t.shape[0], t.shape[1], t.shape[3]) != (b, h, d) or t.shape != k.shape
+                or t.dtype != q.dtype or t.device != q.device):
+            raise ValueError(f"{name} must match q's shape (but for its length), dtype and device")
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"head_dim {q.shape[-1]} not in {HEAD_DIMS}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
     check_dtype(q.dtype, q.device)
+    _check_bias(bias, k.shape[2], q.device)
 
 
 def kernel_operand(t: torch.Tensor) -> torch.Tensor:
@@ -208,35 +245,51 @@ def kernel_operand(t: torch.Tensor) -> torch.Tensor:
     return t if _strides_ok(t) else t.contiguous()
 
 
-def flash_attention_fwd(q, k, v, scale: float):
-    """(o, lse) of per-head attention: the forward kernel on CUDA tensors,
-    `attention_plain` on CPU tensors. Not differentiable: `flash_attention`
-    is the differentiable entry."""
-    _check_operands(q, k, v)
+def attention_fwd(q, k, v, scale: float, bias, wrapper):
+    """(o, lse) of per-head attention, q (B, H, N, D) against k, v
+    (B, H, Nk, D) with an optional (Nk,) f32 key bias: the forward kernel on
+    CUDA tensors, its launch counted on `wrapper`; `attention_plain` on CPU
+    tensors."""
+    _check_operands(q, k, v, bias)
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale, return_lse=True)
+        return attention_plain(q, k, v, scale, return_lse=True, bias=bias)
     b, h, n, _ = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     launch_flash_fwd(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), o.transpose(1, 2), lse, scale
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), o.transpose(1, 2), lse, scale, bias
     )
-    count_launch(flash_attention, *q.shape, q.dtype)
+    count_launch(wrapper, *q.shape, q.dtype)
     return o, lse
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
-    """(dq, dk, dv) of per-head attention over (B, H, N, D): the backward
-    kernel on CUDA tensors, `attention_bwd_plain` on CPU tensors."""
-    _check_operands(q, k, v)
+def attention_bwd(q, k, v, o, lse, do, scale: float, bias, wrapper):
+    """(dq, dk, dv) of `attention_fwd`: the backward kernel on CUDA tensors,
+    its launch counted on `wrapper`; `attention_bwd_plain` on CPU tensors."""
+    _check_operands(q, k, v, bias)
     if q.device.type == "cpu":
-        return attention_bwd_plain(q, k, v, o, lse, do, scale)
+        return attention_bwd_plain(q, k, v, o, lse, do, scale, bias)
     do = kernel_operand(do)
-    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk, dv = (torch.empty(k.shape, dtype=k.dtype, device=k.device) for _ in range(2))
     launch_flash_bwd(*(t.transpose(1, 2) for t in (q, k, v, o)), lse,
-                     *(t.transpose(1, 2) for t in (do, dq, dk, dv)), scale)
-    count_launch(flash_attention_bwd, *q.shape, q.dtype)
+                     *(t.transpose(1, 2) for t in (do, dq, dk, dv)), scale, bias)
+    count_launch(wrapper, *q.shape, q.dtype)
     return dq, dk, dv
+
+
+def flash_attention_fwd(q, k, v, scale: float, bias=None):
+    """(o, lse) of per-head attention, q (B, H, N, D) against k, v
+    (B, H, Nk, D) with an optional (Nk,) f32 key bias: the forward kernel
+    on CUDA tensors, `attention_plain` on CPU tensors. Not differentiable:
+    `flash_attention` is the differentiable entry."""
+    return attention_fwd(q, k, v, scale, bias, flash_attention)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, scale: float, bias=None):
+    """(dq, dk, dv) of `flash_attention_fwd`: the backward kernel on CUDA
+    tensors, `attention_bwd_plain` on CPU tensors."""
+    return attention_bwd(q, k, v, o, lse, do, scale, bias, flash_attention_bwd)
 
 
 flash_attention_bwd.launches = 0  # backward-kernel launches since the last reset
@@ -279,13 +332,33 @@ flash_attention.launches_by_shape = {}
 def multihead_attention(q, k, v, impl: str):
     """Scaled dot-product attention over (B, H, N, Dh), scale 1/sqrt(Dh).
 
-    impl: 'plain' (eager reference) or 'flash' (the per-head kernels)."""
+    impl: 'plain' (eager reference), 'flash' (the per-head kernels), or the
+    sequence-parallel 'flash_ring' (q, k and v sharded over the ambient
+    mesh's 'model' group, K/V rotating round the ring: kernels/ring_flash.py)
+    and 'flash_seq' (q sharded, K/V replicated: kernels/seq_flash.py). Those
+    two read `parallel.get_mesh()`; with no mesh, or a 'model' group of one
+    rank, they take `flash_attention`, as the JAX package does."""
     scale = q.shape[-1] ** -0.5
     if impl == "plain":
         return attention_plain(q, k, v, scale)
     if impl == "flash":
         return flash_attention(q, k, v, scale)
-    raise ValueError(f"unknown attention impl {impl!r} (want 'flash'|'plain')")
+    if impl in ("flash_ring", "flash_seq"):
+        from vit_ae_plus_plus_torch.parallel import get_mesh
+
+        mesh = get_mesh()
+        if mesh is None or mesh.size("model") == 1:
+            return flash_attention(q, k, v, scale)
+        if impl == "flash_ring":
+            from vit_ae_plus_plus_torch.kernels.ring_flash import ring_flash_attention
+
+            return ring_flash_attention(q, k, v, mesh, scale=scale)
+        from vit_ae_plus_plus_torch.kernels.seq_flash import seq_sharded_flash_attention
+
+        return seq_sharded_flash_attention(q, k, v, mesh, scale=scale)
+    raise ValueError(
+        f"unknown attention impl {impl!r} (want 'flash'|'plain'|'flash_ring'|'flash_seq')"
+    )
 
 
 def _bf16_spacing(top: float) -> float:

@@ -123,9 +123,12 @@ class Attention(nn.Module):
     attn_impl 'auto' sends the (B, N, 3C) projection straight to the packed
     kernels on CUDA (a head dim or dtype they are not built for raises) and
     to the plain version on the CPU; 'flash' takes the per-head kernels;
-    'plain' the eager reference on any device. Every path is
-    differentiable: the kernels' backward runs in csrc/flash_bwd.cu. With
-    `ln`, x is the un-normalised stream and `ln` is fused into qkv."""
+    'plain' the eager reference on any device; 'flash_ring' and
+    'flash_seq' the per-head layout too, sharding the sequence over the
+    ambient mesh (`parallel.set_mesh`; without one they are 'flash'). Every
+    path is differentiable: the kernels' backward runs in
+    csrc/flash_bwd.cu. With `ln`, x is the un-normalised stream and `ln` is
+    fused into qkv."""
 
     def __init__(self, dim: int, num_heads: int, attn_impl: str = "auto"):
         super().__init__()
