@@ -25,11 +25,12 @@ non-zero exit when it fails:
    launch counts read around this run (12 packed-kernel launches per slab);
    the request rate and p50 are printed as information only. Then the
    per-head kernel's path (`attn_impl="flash"`) and the f32 path, each with
-   counts reset before and read after;
+   counts reset before and read after, the f32 slab's device time and a
+   torch.profiler breakdown of it;
    4b. phase 3's slab through `feature_step` on
    `VisionTransformer3D(ln_fusion="on")` with the engine's weights, held
    to the engine's features: 24 LayerNorm+Dense forward launches (12 at
-   qkv, 12 at fc1) and 12 packed attention launches;
+   qkv, 12 at fc1) and 12 packed attention launches, and a profile of it;
 5. the full-width MAE pretraining step (96^3, patch 8, batch 8, bf16,
    ViT-B encoder over 2B = 16 masked views, 8-block decoder, composite loss,
    AdamW) from seeded numpy weights and batch statistics through
@@ -99,7 +100,13 @@ REPO = Path(__file__).resolve().parent
 MODEL = "contr_mae_vit_base_patch16"
 VOLUME, PATCH, BATCH = 96, 8, 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 without tensor cores
+# dense tensor-core rates of an H100 SXM (NVIDIA data sheet). f32-accurate
+# products run on the TF32 tensor cores as 3xTF32 (three TF32 products per
+# f32 one, as the f32 attention forward does), so the least time for f32
+# matrix work is at 495 / 3 TFLOP/s, above the 67 of f32 without tensor
+# cores: a bound that no f32 kernel can beat, whatever it runs on
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
+F32_SIMT_FLOPS = 67e12  # f32 elementwise work (the LayerNorm rows), without tensor cores
 KERNEL_SOURCE = "vit_ae_plus_plus_torch/kernels/csrc/flash_fwd.cu"
 BWD_SOURCE = "vit_ae_plus_plus_torch/kernels/csrc/flash_bwd.cu"
 REPLACES = {
@@ -569,7 +576,7 @@ def layernorm_cases(label, r, c, dtype_name, seed):
     )
     torch.cuda.empty_cache()
     shape, key = f"R={r} C={c}", (r, c, dtype_name)
-    f32 = PEAK_FLOPS["float32"]
+    f32 = F32_SIMT_FLOPS
     fwd = ln_row("layernorm_fwd", shape, key, dtype_name, fwd_errs, fwd_times,
                  2 * r * c * elt + (2 * c + 2 * r) * 4, 8 * r * c, f32)
     bwd = ln_row("layernorm_bwd", shape, key, dtype_name, bwd_errs, bwd_times,
@@ -967,17 +974,26 @@ KERNEL_FAMILIES = (
 
 
 def profile_step(trainer, views, step_ms_events: float) -> None:
-    """One step of the main path under torch.profiler: the device kernels'
-    time by family and by name (top 15), their count, and the device's busy
-    share of the step time measured without the profiler."""
+    """One step of the main path under torch.profiler (see `profile_run`)."""
+    trainer.run(views)
+
+    def step():
+        trainer.state, _ = trainer.step(trainer.state, *views, trainer.emw)
+
+    profile_run(step, "step", step_ms_events)
+
+
+def profile_run(fn, what: str, ms_events: float) -> None:
+    """`fn` once under torch.profiler: the device kernels' time by family and
+    by name (top 15), their count, and the device's busy share of `what`'s
+    time measured without the profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    trainer.run(views)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.state, _ = trainer.step(trainer.state, *views, trainer.emw)
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
@@ -991,8 +1007,8 @@ def profile_step(trainer, views, step_ms_events: float) -> None:
     busy_ms = sum(by_name.values()) / 1e3
     check(busy_ms > 0, "the profiler saw no device kernel")
     print(f"profile, information only: {len(kernels)} device kernels, busy {busy_ms:.2f} ms = "
-          f"{busy_ms / step_ms_events:.1%} of the {step_ms_events:.2f} ms step (idle "
-          f"{1 - busy_ms / step_ms_events:.1%})", flush=True)
+          f"{busy_ms / ms_events:.1%} of the {ms_events:.2f} ms {what} (idle "
+          f"{1 - busy_ms / ms_events:.1%})", flush=True)
     for family, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"  {us / 1e3:8.2f} ms  {us / 1e3 / busy_ms:6.1%}  {family}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
@@ -1270,6 +1286,7 @@ def fused_vit_phase(engine, vols, engine_feats, rows) -> None:
           f"launched {totals(counts)}; forward_features on a device slab {on_ms:.2f} ms, "
           f"auto {auto_ms:.2f} ms (CUDA events)", flush=True)
     check(err <= ENGINE_TOL["bfloat16"], f"ln_fusion='on' features vs the engine: rel err {err:.3g}")
+    profile_run(lambda: feature_step(model, slab), "ln_fusion=on slab", on_ms)
 
 
 def group_attention(mesh) -> dict:
@@ -1555,6 +1572,8 @@ def main() -> int:
         (bwd_case, "per-head bwd bf16 N1729 d32 (decoder)", "per_head", dec, "bfloat16"),
         (bwd_case, "per-head bwd bf16 N1729 d64", "per_head", (BATCH, 12, 1729, 64), "bfloat16"),
         (bwd_case, "packed bwd f32 N1729 d32 (decoder)", "packed", dec, "float32"),
+        (kernel_case, "packed f32 N433 d64 (encoder)", "packed", enc, "float32"),
+        (kernel_case, "packed f32 N1729 d32 (decoder)", "packed", dec, "float32"),
     ]
     rows += [case(label, layout, *shape, dtype, seed=10 + i)
              for i, (case, label, layout, shape, dtype) in enumerate(train_cases)]
@@ -1632,6 +1651,11 @@ def main() -> int:
     print(f"engine bf16 auto: {BATCH / times['bf16 auto'] * 1e3:.1f} volumes/s through engine.infer; "
           f"12 attention launches {12 * rows[0]['ms']:.2f} ms = {12 * rows[0]['ms'] / device_ms:.1%} "
           f"of the device forward", flush=True)
+    f32_device_ms = cuda_ms(lambda: feature_step(f32.model, slab), reps=3)
+    f32_attn_ms = 12 * next(r["ms"] for r in rows if r["key"] == (BATCH, 12, cfg.num_patches + 1, 64, "float32"))
+    print(f"engine f32 auto forward_features on a device slab: {f32_device_ms:.2f} ms (CUDA events); "
+          f"12 attention launches {f32_attn_ms:.2f} ms = {f32_attn_ms / f32_device_ms:.1%}", flush=True)
+    profile_run(lambda: feature_step(f32.model, slab), "f32 slab", f32_device_ms)
 
     # phase 5: the pretraining step at full width (5b: ln_fusion="on")
     t0 = time.perf_counter()

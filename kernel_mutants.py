@@ -12,7 +12,8 @@ copy is built at once, and two checks run against each broken kernel:
 - `tests/test_torch_port_kernels_cuda.py`, the kernels against their plain
   versions at small ragged shapes;
 - at a main-path shape: `chip_smoke.kernel_case` at the serving shape
-  (packed, B=8, N=1729, C=768, d=64, bf16) for a forward mutant,
+  (packed, B=8, N=1729, C=768, d=64, bf16) for a forward mutant, and in
+  f32 (the f32 slab's shape) for an f32-forward mutant,
   `chip_smoke.bwd_case` at the decoder's training shape (packed, B=8,
   N=1729, C=512, d=32, bf16) for a backward mutant;
   `chip_smoke.ln_dense_cases` at the training encoder's qkv shape (R=6928,
@@ -50,6 +51,7 @@ REPO = Path(__file__).resolve().parent
 PKG = Path("vit_ae_plus_plus_torch")
 KERNEL_TESTS = Path("tests/test_torch_port_kernels_cuda.py")
 FWD_CASE = "chip_smoke.kernel_case('packed bf16 N1729 d64', 'packed', 8, 12, 1729, 64, 'bfloat16', seed=0)"
+F32_CASE = "chip_smoke.kernel_case('packed f32 N1729 d64', 'packed', 8, 12, 1729, 64, 'float32', seed=4)"
 BWD_CASE = "chip_smoke.bwd_case('packed bwd bf16 N1729 d32', 'packed', 8, 16, 1729, 32, 'bfloat16', seed=13)"
 LND_CASE = "chip_smoke.ln_dense_cases('ln_dense bf16 encoder qkv', 6928, 768, 2304, 'bfloat16', seed=40)"
 RING_CASE = "chip_smoke.ring_case('ring bf16 NB1032', 2, 12, 4097, 64, 4, seed=70)"
@@ -100,6 +102,30 @@ MUTANTS = {
         "return __bfloat162float(__float2bfloat16(acc)) + bias;",
         "return acc + bias;",
         LND_CASE,
+    ),
+    "lnd_stage_last_k16_dropped": (  # the wgmma forward skips the last 16-deep step of every W stage
+        "kernels/csrc/ln_dense.cu",
+        "for (int kk = 0; kk < kStageK / 16; ++kk)",
+        "for (int kk = 0; kk + 1 < kStageK / 16; ++kk)",
+        LND_CASE,
+    ),
+    "lnd_rstd_not_stored": (  # the slab's LayerNorm leaves rstd unwritten
+        "kernels/csrc/ln_dense.cu",
+        "      p.rstd[grow] = st.y;\n",
+        "",
+        LND_CASE,
+    ),
+    "f32_fwd_tf32_low_terms_dropped": (  # plain TF32: hi * hi alone
+        "kernels/csrc/flash_common.cuh",
+        "  mma_1688_tf32(c, a_lo, b0.hi, b1.hi);\n  mma_1688_tf32(c, a_hi, b0.lo, b1.lo);\n",
+        "",
+        F32_CASE,
+    ),
+    "f32_fwd_drop_last_key_tile": (
+        "kernels/csrc/flash_fwd.cu",
+        "for (int tile = 0; tile < ktiles; ++tile)",
+        "for (int tile = 0; tile + 1 < ktiles; ++tile)",
+        F32_CASE,
     ),
     "lnd_dln_drop_last_tile": (  # the dln product skips its last tile of F
         "kernels/csrc/ln_dense.cu",

@@ -10,7 +10,9 @@ spacings at the plain output's largest magnitude in bf16 (both sides round o
 to bf16; the kernel also rounds P for the P V product), 1e-5 in f32; for the
 f32 lse, 1e-4. `kernel_mutants.py` shows that these catch a kernel that
 drops its last key tile, leaves the ragged key tail unmasked, or is off in
-its scale by 1%.
+its scale by 1%, and an f32 kernel that drops its last key tile or the
+3xTF32 low terms (plain TF32; tests/test_torch_port_tf32_split.py shows the
+same on the CPU).
 
 Backward: `bwd_tolerance` (kernels/flash_attention.py): eight bf16 spacings
 at the plain gradient's largest magnitude in bf16 (the kernel rounds P and
@@ -34,8 +36,9 @@ all in bf16 (both sides round the same f32 values; only summation order
 differs), 1e-5 relative in f32; mu and rstd 1e-5 relative (f32 on both
 sides); dln `dln_tolerance` (kernels/fused_ln_dense.py): 1e-4 relative for
 bf16 operands, 1e-5 for f32. `kernel_mutants.py` shows that these catch a
-forward that adds the bias before rounding, a dln product that drops its
-last tile of F, and a row pass without the mean(g * xhat) term."""
+forward that adds the bias before rounding, drops the last 16-deep step of
+each W stage or the store of rstd, a dln product that drops its last tile of
+F, and a row pass without the mean(g * xhat) term."""
 
 import pytest
 import torch
@@ -132,11 +135,35 @@ def test_per_head_kernel_reads_strided_views(cuda):
     torch.testing.assert_close(got, want, rtol=0, atol=0)  # one kernel, two stride sets
 
 
-def test_kernel_rejects_misaligned_operands(cuda):
-    base = torch.zeros(1, 2, 8, 65, dtype=torch.bfloat16, device=cuda)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_rejects_misaligned_operands(cuda, dtype):
+    base = torch.zeros(1, 2, 8, 65, dtype=dtype, device=cuda)
     q = base[..., 1:]  # head_dim 64, but rows start off the 16-byte grid
     with pytest.raises(ValueError, match="multiples"):
         flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("nq,nk", [(1, 1), (64, 129), (130, 64), (200, 333)])
+def test_f32_forward_kernel_matches_plain(cuda, d, with_bias, nq, nk):
+    """The 3xTF32 forward: one key, whole and ragged key tiles (the cp.async
+    ring's last stage), query tiles past the rows, kv_len != seq_len, with
+    and without the ring's key bias (a padded tail)."""
+    q = _rand((2, 3, nq, d), torch.float32, cuda, 1)
+    k, v = (_rand((2, 3, nk, d), torch.float32, cuda, s) for s in (2, 3))
+    scale = d**-0.5
+    if with_bias:
+        bias = torch.zeros(nk, device=cuda)
+        bias[nk - nk // 5:] = NEG_INF
+        o, lse = ring_partial_fwd(q, k, v, bias, scale)
+    else:
+        bias = None
+        o, lse = flash_attention_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    want_o, want_lse = attention_plain(q, k, v, scale, return_lse=True, bias=bias)
+    assert o.dtype == torch.float32 and bool(torch.isfinite(o).all())
+    _assert_close(o, lse, want_o, want_lse)
 
 
 def _assert_grads_close(got, want):
@@ -333,6 +360,24 @@ def test_ln_dense_kernels_match_plain(cuda, dtype, r, c, f):
     assert dln.dtype == torch.float32 and dx.dtype == dtype
     torch.testing.assert_close(dln, want_dln, rtol=0, atol=dln_tolerance(want_dln, dtype))
     _assert_compare(dx, want_dx, "dx")
+
+
+@pytest.mark.parametrize("c", LN_WIDTHS)
+@pytest.mark.parametrize("r,f", [(65, 32), (129, 416), (257, 96), (300, 1056)])
+def test_ln_dense_bf16_forward_edges(cuda, c, r, f):
+    """The wgmma forward at every width: rows past a slab of 128 (64 at
+    C = 1024), F a multiple of 32 but not of the 128-column tile, F under one
+    tile, and slabs whose F is split into several runs (a few slabs leave
+    most SMs free, so each run takes one or two tiles); mu and rstd come from
+    each slab's first run."""
+    x, gamma, beta, w, b, _ = _ln_operands(r, c, torch.bfloat16, cuda, seed=r + c + f, f=f)
+    y, mu, rstd = ln_dense_fwd(x, gamma, beta, w, b, 1e-6)
+    torch.cuda.synchronize()
+    want_y, want_mu, want_rstd = ln_dense_plain(x, gamma, beta, w, b, 1e-6)
+    assert y.shape == (r, f) and bool(torch.isfinite(y).all())
+    _assert_compare(y, want_y, "y")
+    _assert_compare(mu, want_mu, "mu")
+    _assert_compare(rstd, want_rstd, "rstd")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -39,8 +39,17 @@
 // Not yet done (a later change): cp.async/TMA double buffering, wgmma, and
 // warp specialisation.
 //
-// The f32 kernel (compute_dtype float32, off the default bf16 path) uses
-// scalar FMAs with one thread per query row, so f32 inputs keep f32 products.
+// The f32 kernel (compute_dtype float32, TrainConfig's default) keeps
+// f32-accurate products on the tensor cores with 3xTF32 (flash_common.cuh):
+// each operand split into a TF32 high and low part, hi*hi + hi*lo + lo*hi
+// summed in f32 by mma.sync m16n8k8, lo*lo dropped (about 2^-22 relative per
+// product, inside kernel_tolerance's 1e-5 where plain TF32's 2^-11 is not).
+// Bound: 3 x 4*B*H*N*Nk*d TF32 operations, so the card's 495 TFLOP/s of
+// TF32 give 165 of f32-accurate work. Same tiling as the bf16 kernel (4
+// warps x 16 query rows, 64-key tiles, online softmax in the log2 domain),
+// with K and V tiles in f32 double-buffered through cp.async, rows padded
+// by 4 floats for conflict-free fragment reads (70 KB at d = 64, so dynamic
+// shared memory). Operands need 16-byte aligned rows (the wrapper checks).
 
 #include "flash_common.cuh"
 
@@ -237,87 +246,204 @@ flash_fwd_bf16_kernel(const FlashFwdParams p) {
 
 // ----------------------------------------------------------------- f32 path
 
-constexpr int kF32Rows = 64;  // query rows per block, one per thread
-constexpr int kF32Keys = 32;  // keys per shared-memory tile
+// K and V tiles of kBlockK keys in f32, two stages, rows padded by 4 floats
+// so that the m16n8k8 fragment reads hit 32 distinct banks; then the two
+// stages' key bias (log2 units).
+template <int D>
+constexpr int f32_smem_bytes() {
+  return (2 * 2 * kBlockK * (D + 4) + 2 * kBlockK) * static_cast<int>(sizeof(float));
+}
 
 template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(kF32Rows)
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const FlashFwdParams p) {
-  __shared__ float ks[kF32Keys][D];
-  __shared__ float vs[kF32Keys][D];
-  __shared__ float bias_s[HAS_BIAS ? kF32Keys : 1];  // log2 units
+  constexpr int LD = D + 4;   // padded row pitch, in floats
+  constexpr int KT = D / 8;   // k-steps of Q K^T
+  constexpr int NT = D / 8;   // 8-column tiles of O
+  constexpr int kStage = 2 * kBlockK * LD;  // K then V of one stage, in floats
+  extern __shared__ __align__(16) float f32_smem[];
+  float* bias_s = f32_smem + 2 * kStage;
 
+  const int q0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int row = blockIdx.x * kF32Rows + threadIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int n = p.seq_len;
   const int nk = p.kv_len;
-  const bool live = row < n;
 
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-  float q[D];
-  float acc[D];
-  const float scale2 = p.scale * kLog2e;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    q[d] = live ? qg[(long long)row * p.q_sn + d] * scale2 : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY;
-  float l = 0.f;
-
-  for (int k0 = 0; k0 < nk; k0 += kF32Keys) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kF32Keys * D; i += kF32Rows) {
-      const int r = i / D;
-      const int c = i % D;
+  // K and V rows k0..k0+63 into one stage (rows past kv_len zero-filled),
+  // 16 bytes a copy, and the stage's bias
+  auto load_kv = [&](int stage, int k0) {
+    constexpr int kPerRow = D / 4;
+    float* ks = f32_smem + stage * kStage;
+    float* vs = ks + kBlockK * LD;
+    for (int i = threadIdx.x; i < kBlockK * kPerRow; i += kThreads) {
+      const int r = i / kPerRow;
+      const int c = (i % kPerRow) * 4;
       const bool ok = k0 + r < nk;
-      ks[r][c] = ok ? kg[(long long)(k0 + r) * p.k_sn + c] : 0.f;
-      vs[r][c] = ok ? vg[(long long)(k0 + r) * p.v_sn + c] : 0.f;
+      const long long row = ok ? k0 + r : 0;
+      cp_async16(ks + r * LD + c, kg + row * p.k_sn + c, ok);
+      cp_async16(vs + r * LD + c, vg + row * p.v_sn + c, ok);
     }
     if constexpr (HAS_BIAS) {
-      if (threadIdx.x < kF32Keys) {
+      if (threadIdx.x < kBlockK) {
         const int key = k0 + threadIdx.x;
-        bias_s[threadIdx.x] = key < nk ? p.key_bias[key] * kLog2e : 0.f;
+        bias_s[stage * kBlockK + threadIdx.x] = key < nk ? p.key_bias[key] * kLog2e : 0.f;
       }
     }
-    __syncthreads();
+  };
 
-    float s[kF32Keys];
-    float mx = m;
+  // Stage the Q tile through stage 0, then keep this warp's 16 rows in
+  // registers as m16n8k8 A fragments in f32, split into hi and lo at each use
+  // (rows past seq_len are zeros and are not stored).
+  for (int i = threadIdx.x; i < kBlockQ * (D / 4); i += kThreads) {
+    const int r = i / (D / 4);
+    const int c = (i % (D / 4)) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < n) val = *reinterpret_cast<const float4*>(qg + (long long)(q0 + r) * p.q_sn + c);
+    *reinterpret_cast<float4*>(f32_smem + r * LD + c) = val;
+  }
+  __syncthreads();
+  float qf[KT][4];
+  {
+    const float* base = f32_smem + (warp * 16 + g) * LD + t;
 #pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) {
-      float x = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) x = fmaf(q[d], ks[j][d], x);
-      if constexpr (HAS_BIAS) x += bias_s[j];
-      s[j] = k0 + j < nk ? x : -INFINITY;
-      mx = fmaxf(mx, s[j]);
-    }
-    const float alpha = exp2f(m - mx);
-    m = mx;
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) {
-      const float pj = exp2f(s[j] - m);
-      l += pj;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(pj, vs[j][d], acc[d]);
+    for (int kk = 0; kk < KT; ++kk) {
+      qf[kk][0] = base[kk * 8];
+      qf[kk][1] = base[kk * 8 + 8 * LD];
+      qf[kk][2] = base[kk * 8 + 4];
+      qf[kk][3] = base[kk * 8 + 8 * LD + 4];
     }
   }
+  __syncthreads();
 
-  if (!live) return;
-  const float inv = 1.f / l;
-  float* og = static_cast<float*>(p.o) + b * p.o_sb + (long long)row * p.o_sn + h * p.o_sh;
+  float acc[NT][4];
 #pragma unroll
-  for (int d = 0; d < D; ++d) og[d] = acc[d] * inv;
-  if (p.lse != nullptr) {
-    p.lse[((long long)b * p.heads + h) * n + row] = (m + log2f(l)) * kLn2;
+  for (int j = 0; j < NT; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  const float scale2 = p.scale * kLog2e;
+
+  const int ktiles = (nk + kBlockK - 1) / kBlockK;
+  load_kv(0, 0);
+  cp_async_commit();
+  for (int tile = 0; tile < ktiles; ++tile) {
+    if (tile + 1 < ktiles) load_kv((tile + 1) & 1, (tile + 1) * kBlockK);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's stage has landed (the next may be in flight)
+    __syncthreads();
+    const float* ks = f32_smem + (tile & 1) * kStage;
+    const float* vs = ks + kBlockK * LD;
+    const float* bs = bias_s + (tile & 1) * kBlockK;
+    const int k0 = tile * kBlockK;
+
+    // S = Q K^T for 16 rows x 64 keys, 3xTF32
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t a_hi[4], a_lo[4];
+      split_a(qf[kk], a_hi, a_lo);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float* kb = ks + (j * 8 + g) * LD + kk * 8 + t;
+        mma_1688_3xtf32(s[j], a_hi, a_lo, split_tf32(kb[0]), split_tf32(kb[4]));
+      }
+    }
+
+    // scale into log2 units, add the bias, mask the ragged key tail, new
+    // running max: as in the bf16 kernel
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + j * 8 + 2 * t + (e & 1);
+        float x = key < nk ? s[j][e] * scale2 : -INFINITY;
+        if constexpr (HAS_BIAS) x += bs[j * 8 + 2 * t + (e & 1)];
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
+    }
+
+    // O = O * alpha + P V, the tile's P V in a fresh accumulator, 3xTF32.
+    // S's accumulator of key tile j holds keys 2t and 2t+1, where the
+    // m16n8k8 A fragment wants k = t and t + 4: P is taken
+    // as it lies, with its keys permuted within the tile, and V's B fragment
+    // reads the same keys (rows 2t and 2t+1); the sum over keys is
+    // order-free. The tensor cores' f32 sums truncate; a tile's 24 of them
+    // stay a few 2^-24 off, where a row's thousands would drift by 1e-5:
+    // the tiles are summed on the FMA pipes, rounded to nearest.
+    float pv[NT][4];
+#pragma unroll
+    for (int c = 0; c < NT; ++c) pv[c][0] = pv[c][1] = pv[c][2] = pv[c][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float pa[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+      uint32_t p_hi[4], p_lo[4];
+      split_a(pa, p_hi, p_lo);
+      const float* vb = vs + (j * 8 + 2 * t) * LD + g;
+#pragma unroll
+      for (int c = 0; c < NT; ++c) {
+        mma_1688_3xtf32(pv[c], p_hi, p_lo, split_tf32(vb[c * 8]), split_tf32(vb[c * 8 + LD]));
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] = fmaf(acc[c][e], alpha[e >> 1], pv[c][e]);
+    }
+    __syncthreads();  // the stage is consumed before the next-but-one load overwrites it
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= n) continue;
+    const float inv = 1.f / l[r];
+    float* og = static_cast<float*>(p.o) + b * p.o_sb + (long long)row * p.o_sn + h * p.o_sh + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      *reinterpret_cast<float2*>(og + j * 8) = make_float2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+    }
+    if (p.lse != nullptr && t == 0) {
+      p.lse[((long long)b * p.heads + h) * n + row] = (m[r] + log2f(l[r])) * kLn2;
+    }
   }
 }
 
@@ -327,8 +453,12 @@ cudaError_t launch(const FlashFwdParams& p, int is_bf16, cudaStream_t stream) {
     const dim3 grid((p.seq_len + kBlockQ - 1) / kBlockQ, p.heads, p.batch);
     flash_fwd_bf16_kernel<D, HAS_BIAS><<<grid, kThreads, 0, stream>>>(p);
   } else {
-    const dim3 grid((p.seq_len + kF32Rows - 1) / kF32Rows, p.heads, p.batch);
-    flash_fwd_f32_kernel<D, HAS_BIAS><<<grid, kF32Rows, 0, stream>>>(p);
+    constexpr int smem = f32_smem_bytes<D>();
+    const cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D, HAS_BIAS>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.seq_len + kBlockQ - 1) / kBlockQ, p.heads, p.batch);
+    flash_fwd_f32_kernel<D, HAS_BIAS><<<grid, kThreads, smem, stream>>>(p);
   }
   return cudaGetLastError();
 }

@@ -22,17 +22,34 @@
 // forward block normalises its rows into shared memory and uses them as the
 // resident A operand of the product.
 //
-// Forward, bf16: one block of 8 warps per (128 output columns, 64 rows),
-// the column tile the fast grid index so that the blocks that share rows run
-// together. The block computes its rows' statistics with warp reductions
-// (csrc/ln_rows.cuh) and writes the normalised rows, rounded to bf16, into
-// shared memory (64 x (C + 8) bf16: 99 KB at C = 768, so dynamic shared
-// memory above 48 KB). Recomputing the statistics in each of the F / 128
-// column tiles is cheap next to the product. W tiles of 128 x 64 stream in
-// through cp.async, two stages, the first issued before the LayerNorm so
-// that it lands meanwhile. Each warp owns a 32 x 32 output tile of
-// mma.sync m16n8k16 bf16 -> f32. Rows past R are zero in shared memory and
-// not stored; columns past F read zero W rows and are not stored.
+// Forward, bf16 (redesigned for Hopper's wgmma and TMA): a block owns a
+// slab of 128 rows (64 at C = 1024), two consumer warpgroups of 64 rows
+// each plus one producer warp. The producer first loads the slab's raw x
+// through TMA, in k-blocks of 64 columns swizzled 128B (the layout wgmma
+// reads A in; rows past R arrive as zeros), then keeps a ring of W stages
+// of 128 output features in flight through TMA and full/empty mbarriers:
+// 64 deep (16 KB, swizzled 128B), 6 to 8 of them, where three fit beside
+// the slab; at C = 768, where the slab takes 192 KB, 4 stages 32 deep (8
+// KB, swizzled 64B). Each consumer warpgroup normalises its 64 rows once,
+// in place in shared memory (the row passes of csrc/ln_rows.cuh; mu and
+// rstd written once, by the slab's first run), makes the stores visible to
+// the async proxy, then walks its run of 128-column tiles: wgmma
+// m64n128k16 bf16 -> f32 with A the resident normalised rows and B the W
+// stage, one stage's products in flight while the previous stage is
+// released. The normalised rows never reach device memory. Every slab
+// streams all of W from L2 once per run, 128 rows per W stage: L2 keeps W
+// (evict_last) against the x and y streams (evict_first).
+// The epilogue rounds the f32 sum to bf16, then adds the bf16 bias
+// (round_then_bias, the bias loaded before the tile's products), transposes
+// the words within each quad so that a lane stores 16 contiguous bytes
+// (4-byte stores scattered over 8 rows took more than half the kernel's
+// time), and masks rows past R and columns past F (TMA zero-fills W rows
+// past F). The (slab, run) grid splits F into runs so that the items fill
+// the card's SMs with the least waves (`tiles_per_run`), the LayerNorm
+// recomputed once per run.
+// What holds it back at C = 768: with the slab in 192 KB, only four 8 KB
+// W stages fit, and each stage's round trip (release, TMA, landing) is
+// paid every 32 deep; at C = 512 the 16 KB stages run it past the library.
 //
 // Backward, bf16, two launches on one stream: a product kernel for dln
 // (64 x 128 tiles of (R, C), F in steps of 32, dY and W tiles through
@@ -40,13 +57,14 @@
 // fragments come from shared memory through ldmatrix.trans), then the row
 // pass that the LayerNorm backward also runs (csrc/ln_rows.cuh), reading
 // dln in f32.
-// Not yet done (a later change): wgmma with TMA, a persistent schedule, and
-// fusing the row pass into the product.
+// Not yet done (a later change): the backward on wgmma with TMA, a
+// persistent schedule, and fusing the row pass into the product.
 //
 // The f32 kernels (compute_dtype float32, off the default bf16 path) are
 // scalar FMA bodies with the same tiling idea and f32 products.
 
 #include "ln_rows.cuh"
+#include "sm90_common.cuh"
 
 struct LndParams {
   const void* x;       // (R, C) in cdt
@@ -71,21 +89,6 @@ namespace {
 using namespace flash;
 using namespace lnrows;
 
-// ------------------------------------------------------------ async copies
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Four 8 x 8 b16 matrices, transposed: lanes 8m..8m+7 give the row
 // addresses of matrix m, and register m receives the fragment of matrix m.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const __nv_bfloat16* p) {
@@ -103,133 +106,277 @@ __device__ __forceinline__ float round_then_bias(float acc, float bias) {
 
 // ------------------------------------------------------------ bf16 forward
 
-constexpr int kThreads = 256;  // 8 warps: 2 (rows) x 4 (columns) of 32 x 32
-constexpr int kBM = 64;        // rows per block
-constexpr int kBN = 128;       // output columns per block
-constexpr int kBK = 64;        // depth of one W stage
-constexpr int kLDW = kBK + 8;  // padded pitch of a W stage row, in elements
+constexpr int kBN = 128;    // output columns per tile: one wgmma N
+constexpr int kAtomK = 64;  // columns of an x k-block: 128 bytes a row, swizzled 128B
 
 template <int C>
-constexpr int fwd_smem_bytes() {
-  return (kBM * (C + 8) + 2 * kBN * kLDW) * static_cast<int>(sizeof(__nv_bfloat16));
+struct FwdTiling {
+  static constexpr int kRows = C <= 768 ? 128 : 64;        // slab rows
+  static constexpr int kConsumers = kRows / 64;            // warpgroups of 64 rows
+  static constexpr int kThreads = kConsumers * 128 + 32;   // and one producer warp
+  static constexpr int kABytes = kRows * C * 2;
+  // W stages 64 deep (128-byte rows, swizzled 128B) where at least three
+  // fit beside the slab, else 32 deep (64-byte rows, swizzled 64B): C = 768
+  static constexpr int kRoom = 224 * 1024 - kABytes;
+  static constexpr int kStageK = kRoom / (kBN * 64 * 2) >= 3 ? 64 : 32;
+  static constexpr int kStageBytes = kBN * kStageK * 2;
+  static constexpr int kStages = kRoom / kStageBytes < 8 ? kRoom / kStageBytes : 8;
+  static constexpr int kSwizzle = kStageK == 64 ? sm90::kSwizzle128 : sm90::kSwizzle64;
+  static constexpr uint32_t kAtomBytes = kStageK * 2 * 8;  // 8 rows of the stage: the descriptor's SBO
+  static constexpr int kSmem = 1024 + kABytes + kStages * kStageBytes + (2 * kStages + 1) * 8;
+  static_assert(kStages >= 3, "a W ring of at least three stages");
+  static_assert(kSmem <= 232448, "over the shared memory a block can use");
+};
+
+// 4 x 4 transpose of 32-bit words across the four lanes of a quad (t = lane
+// % 4): afterwards lane t holds word t of each lane's v. Two exchanges, one
+// per bit of t, with selects instead of indexing by t.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
+  const bool odd = t & 1;
+  uint32_t x0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[1], 1);
+  uint32_t x1 = __shfl_xor_sync(0xffffffffu, odd ? v[2] : v[3], 1);
+  if (odd) {
+    v[0] = x0;
+    v[2] = x1;
+  } else {
+    v[1] = x0;
+    v[3] = x1;
+  }
+  const bool hi = t & 2;
+  x0 = __shfl_xor_sync(0xffffffffu, hi ? v[0] : v[2], 2);
+  x1 = __shfl_xor_sync(0xffffffffu, hi ? v[1] : v[3], 2);
+  if (hi) {
+    v[0] = x0;
+    v[1] = x1;
+  } else {
+    v[2] = x0;
+    v[3] = x1;
+  }
 }
 
 template <int C>
-__global__ void __launch_bounds__(kThreads) vitae_lnd_fwd_bf16_kernel(const LndParams p) {
+__global__ void __launch_bounds__(FwdTiling<C>::kThreads, 1)
+vitae_lnd_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+                          const LndParams p, int tiles_per_run) {
   using bf16 = __nv_bfloat16;
-  constexpr int LDA = C + 8;
-  constexpr int kSteps = C / kBK;
-  constexpr int V = RowShape<bf16, C>::V;
-  constexpr int J = RowShape<bf16, C>::J;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* as = reinterpret_cast<bf16*>(smem);  // the block's normalised rows
-  bf16* ws = as + kBM * LDA;                 // two W stages of kBN x kLDW
+  using Tiling = FwdTiling<C>;
+  using namespace sm90;
+  constexpr int kRows = Tiling::kRows;
+  constexpr int kStages = Tiling::kStages;
+  constexpr int kStageK = Tiling::kStageK;
+  constexpr int kStageBytes = Tiling::kStageBytes;
+  constexpr int kKSteps = C / kStageK;
+  extern __shared__ unsigned char lnd_smem[];
+  // operand tiles start on 1,024-byte boundaries (the swizzle atoms)
+  unsigned char* base = lnd_smem + ((1024 - (smem_u32(lnd_smem) & 1023)) & 1023);
+  bf16* a = reinterpret_cast<bf16*>(base);  // C / 64 k-blocks of kRows x 64
+  unsigned char* ws = base + Tiling::kABytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ws + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* xbar = empty + kStages;
 
-  const int n0 = blockIdx.x * kBN;
-  const long long r0 = (long long)blockIdx.y * kBM;
+  const int ntiles = (p.features + kBN - 1) / kBN;
+  const int tile0 = blockIdx.x * tiles_per_run;
+  const int tile1 = min(ntiles, tile0 + tiles_per_run);
+  const long long row0 = (long long)blockIdx.y * kRows;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], Tiling::kConsumers);  // one arrival per consumer warpgroup
+    }
+    mbar_init(xbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == Tiling::kConsumers * 4) {  // the producer warp: TMA only
+    if (lane == 0) {
+      tma_prefetch_descriptor(&tm_x);
+      tma_prefetch_descriptor(&tm_w);
+      // x is read once per run, W by every block: W is kept in L2 against
+      // the stream of x reads and y writes
+      const uint64_t once = l2_evict_first();
+      const uint64_t shared_by_all = l2_evict_last();
+      mbar_arrive_expect_tx(xbar, Tiling::kABytes);
+      for (int kb = 0; kb < C / kAtomK; ++kb) {
+        tma_load_2d(a + kb * kRows * kAtomK, &tm_x, kb * kAtomK, static_cast<int>(row0), xbar, once);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = tile0; tile < tile1; ++tile) {
+        for (int ks = 0; ks < kKSteps; ++ks) {
+          mbar_wait(&empty[stage], phase ^ 1);  // the first round passes: every stage starts empty
+          mbar_arrive_expect_tx(&full[stage], kStageBytes);
+          tma_load_2d(ws + stage * kStageBytes, &tm_w, ks * kStageK, tile * kBN, &full[stage], shared_by_all);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: slab rows wg*64 .. wg*64+63
+  const int wg = warp >> 2;
+  const int wl = warp & 3;
+  constexpr int V = RowShape<bf16, C>::V;
+  constexpr int J = RowShape<bf16, C>::J;
+  float gam[J][V], bet[J][V];  // the lane's gamma and beta, for all its rows
+  load_lane(p.gamma, gam, lane);
+  load_lane(p.beta, bet, lane);
+  mbar_wait(xbar, 0);
+  // LayerNorm in place: warp wl takes rows wl, wl + 4, ... of its 64; lane
+  // `lane` holds the row's 16-byte chunks j * 32 + lane (ln_rows.cuh's
+  // layout), chunk c in k-block c / 8 at the swizzled position (c % 8) ^
+  // (row % 8)
+#pragma unroll 2
+  for (int i = 0; i < 16; ++i) {  // two rows in flight: their reductions overlap
+    const int rr = wg * 64 + wl + 4 * i;
+    bf16* chunk[J];
+    float v[J][V];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      chunk[j] = a + (j * 4 + (lane >> 3)) * kRows * kAtomK + rr * kAtomK + (((lane & 7) ^ (rr & 7)) * 8);
+      load_vec<V>(chunk[j], v[j]);
+    }
+    const float2 st = stats_of<C>(v, p.eps);
+    const long long grow = row0 + rr;
+    if (blockIdx.x == 0 && lane == 0 && grow < p.rows) {
+      p.mu[grow] = st.x;
+      p.rstd[grow] = st.y;
+    }
+    normalize_with(v, st, gam, bet);
+#pragma unroll
+    for (int j = 0; j < J; ++j) store_vec<V>(chunk[j], v[j]);
+  }
+  fence_proxy_async();            // the normalised rows, to wgmma
+  named_barrier(1 + wg, 128);     // ... of all four warps of the warpgroup
+
+  const bf16* a_wg = a + wg * 64 * kAtomK;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int f_out = p.features;
-  const long long rows = p.rows;
-  const bf16* w = static_cast<const bf16*>(p.w);
-
-  // W rows n0..n0+127 (output features), columns k0..k0+63: 1,024 vectors
-  auto load_w = [&](int stage, int k0) {
-    bf16* dst = ws + stage * kBN * kLDW;
-#pragma unroll
-    for (int u = 0; u < kBN * kBK / 8 / kThreads; ++u) {
-      const int i = threadIdx.x + u * kThreads;
-      const int r = i / (kBK / 8);
-      const int c8 = (i % (kBK / 8)) * 8;
-      const bool ok = n0 + r < f_out;
-      cp_async16(dst + r * kLDW + c8, w + (long long)(ok ? n0 + r : 0) * C + k0 + c8, ok);
-    }
-  };
-  load_w(0, 0);
-  cp_async_commit();
-
-  // LayerNorm of the block's rows into `as`, rounded to bf16: warp w takes
-  // rows w, w + 8, ...
-  for (int i = warp; i < kBM; i += kThreads / 32) {
-    const long long row = r0 + i;
-    bf16* dst = as + i * LDA;
-    float v[J][V];
-    if (row < rows) {
-      const float2 st = row_stats<bf16, C>(static_cast<const bf16*>(p.x) + row * C, v, lane, p.eps);
-      normalize(v, st, p.gamma, p.beta, lane);
-      if (blockIdx.x == 0 && lane == 0) {
-        p.mu[row] = st.x;
-        p.rstd[row] = st.y;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-#pragma unroll
-        for (int e = 0; e < V; ++e) v[j][e] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < J; ++j) store_vec<V>(dst + col_of<V>(j, lane), v[j]);
-  }
-
-  const int wm = warp >> 2;  // rows wm*32 .. wm*32+31 of the tile
-  const int wn = warp & 3;   // columns wn*32 .. wn*32+31
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj) acc[mi][nj][0] = acc[mi][nj][1] = acc[mi][nj][2] = acc[mi][nj][3] = 0.f;
-  }
-  for (int step = 0; step < kSteps; ++step) {
-    if (step + 1 < kSteps) load_w((step + 1) & 1, (step + 1) * kBK);
-    cp_async_commit();
-    cp_async_wait<1>();  // this step's stage has landed (the next may be in flight)
-    __syncthreads();     // ... for every thread; at step 0 also the normalised rows
-    const bf16* wst = ws + (step & 1) * kBN * kLDW;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        load_a<LDA>(a[mi], as + (wm * 32 + mi * 16 + g) * LDA + step * kBK + 2 * t, kk);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const bf16* bb = wst + (wn * 32 + nj * 8 + g) * kLDW + kk * 16 + 2 * t;
-        const uint32_t b0 = ld32(bb);
-        const uint32_t b1 = ld32(bb + 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_16816(acc[mi][nj], a[mi], b0, b1);
-      }
-    }
-    __syncthreads();  // the stage is consumed before the next-but-one load overwrites it
-  }
-
+  // the warpgroup's first thread releases a stage for it, once its wait has
+  // seen the warpgroup's products on that stage done
+  const bool lead = (threadIdx.x & 127) == 0;
+  const long long r_top = row0 + wg * 64 + wl * 16 + g;  // this thread's rows: r_top, r_top + 8
   const bf16* bias = static_cast<const bf16*>(p.b);
   bf16* y = static_cast<bf16*>(p.y);
+  int stage = 0;
+  uint32_t phase = 0;
+  float acc[64] = {};
+  for (int tile = tile0; tile < tile1; ++tile) {
+    // the tile's bias pairs, loaded now so that the loads land during the
+    // products (columns 8j + 2t, 8j + 2t + 1; none past F)
+    __nv_bfloat162 bias2[kBN / 8];
 #pragma unroll
-  for (int nj = 0; nj < 4; ++nj) {
-    const int col = n0 + wn * 32 + nj * 8 + 2 * t;
-    if (col >= f_out) continue;  // F is even: col + 1 < F too
-    const float b0 = __bfloat162float(bias[col]);
-    const float b1 = __bfloat162float(bias[col + 1]);
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = tile * kBN + j * 8 + 2 * t;
+      bias2[j] = col < p.features ? *reinterpret_cast<const __nv_bfloat162*>(bias + col)
+                                  : __floats2bfloat162_rn(0.f, 0.f);
+    }
+    int release = -1;  // the stage whose products may still be running
+    for (int ks = 0; ks < kKSteps; ++ks) {
+      mbar_wait(&full[stage], phase);
+      wgmma_fence();
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
+      for (int kk = 0; kk < kStageK / 16; ++kk) {
+        const int k = ks * kStageK + kk * 16;
+        const uint64_t da = wgmma_desc(a_wg + (k / kAtomK) * kRows * kAtomK + k % kAtomK, 1024, kSwizzle128);
+        const uint64_t db = wgmma_desc(ws + stage * kStageBytes + kk * 32, Tiling::kAtomBytes, Tiling::kSwizzle);
+        wgmma_m64n128k16(acc, da, db, ks > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+      if (release >= 0 && lead) mbar_arrive(&empty[release]);
+      release = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);  // the epilogue reads acc after the wait, not before
+    if (lead) mbar_arrive(&empty[release]);
+
+    // accumulator of m64n128: acc[4j + e] is row 16 * wl + g (+ 8 for
+    // e >= 2) of the warpgroup, column 8j + 2t + (e & 1) of the tile. Each
+    // quad transposes its words so that lane t holds the 8 columns of chunk
+    // 4m + t: 16-byte stores, 64 contiguous bytes of a row per quad,
+    // streaming (evict-first), so that y does not push W out of L2.
+#pragma unroll
+    for (int m = 0; m < kBN / 32; ++m) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const long long row = r0 + wm * 32 + mi * 16 + g + 8 * r;
-        if (row >= rows) continue;
-        *reinterpret_cast<uint32_t*>(y + row * f_out + col) =
-            pack_f32(round_then_bias(acc[mi][nj][2 * r], b0), round_then_bias(acc[mi][nj][2 * r + 1], b1));
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 4 * m + i;
+          const float2 bb = __bfloat1622float2(bias2[j]);
+          w[i] = pack_f32(round_then_bias(acc[4 * j + 2 * r], bb.x), round_then_bias(acc[4 * j + 2 * r + 1], bb.y));
+        }
+        quad_transpose(w, t);
+        const long long row = r_top + 8 * r;
+        const int col = tile * kBN + (4 * m + t) * 8;
+        if (row < p.rows && col < p.features) {  // F is a multiple of 8: the chunk is in or out
+          __stcs(reinterpret_cast<uint4*>(y + row * p.features + col), make_uint4(w[0], w[1], w[2], w[3]));
+        }
       }
     }
   }
+}
+
+// Column tiles per run: the (slab, run) items go out in waves of `sms`
+// blocks (one block an SM: the slab fills shared memory), each item costing
+// its tiles plus about one tile's worth for its LayerNorm; the fewest runs
+// of the least cost.
+int tiles_per_run(long long slabs, int ntiles, int sms) {
+  int best = ntiles;
+  long long best_cost = -1;
+  for (int runs = 1; runs <= ntiles; ++runs) {
+    const int per_run = (ntiles + runs - 1) / runs;
+    const long long items = slabs * ((ntiles + per_run - 1) / per_run);
+    const long long cost = (items + sms - 1) / sms * (per_run + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = per_run;
+    }
+  }
+  return best;
+}
+
+template <int C>
+cudaError_t launch_fwd_bf16(const LndParams& p, cudaStream_t stream) {
+  using Tiling = FwdTiling<C>;
+  CUtensorMap tm_x, tm_w;
+  const CUtensorMapSwizzle w_swizzle = Tiling::kStageK == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  if (sm90::encode_bf16_2d(&tm_x, p.x, p.rows, C, Tiling::kRows, kAtomK, CU_TENSOR_MAP_SWIZZLE_128B) !=
+          CUDA_SUCCESS ||
+      sm90::encode_bf16_2d(&tm_w, p.w, p.features, C, kBN, Tiling::kStageK, w_swizzle) != CUDA_SUCCESS) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(vitae_lnd_fwd_bf16_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Tiling::kSmem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
+  const long long slabs = (p.rows + Tiling::kRows - 1) / Tiling::kRows;
+  const int ntiles = (p.features + kBN - 1) / kBN;
+  const int per_run = tiles_per_run(slabs, ntiles, sms);
+  const dim3 grid((ntiles + per_run - 1) / per_run, static_cast<unsigned>(slabs));
+  vitae_lnd_fwd_bf16_kernel<C><<<grid, Tiling::kThreads, Tiling::kSmem, stream>>>(tm_x, tm_w, p, per_run);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------- bf16 backward: dln = dY W
 
+constexpr int kThreads = 256;     // 8 warps: 2 (rows) x 4 (columns) of 32 x 32
+constexpr int kBM = 64;           // rows per block (columns per block: kBN)
 constexpr int kBKd = 32;          // depth (features out) of one stage
 constexpr int kLDAd = kBKd + 8;   // pitch of a dY stage row
 constexpr int kLDBd = kBN + 8;    // pitch of a W stage row
@@ -451,22 +598,13 @@ __global__ void __launch_bounds__(kThreads) vitae_lnd_dln_f32_kernel(const LndPa
 
 template <int C>
 cudaError_t launch_fwd_c(const LndParams& p, int is_bf16, cudaStream_t stream) {
-  const unsigned row_tiles = static_cast<unsigned>((p.rows + kBM - 1) / kBM);
-  if (is_bf16) {
-    constexpr int smem = fwd_smem_bytes<C>();
-    const cudaError_t err = cudaFuncSetAttribute(vitae_lnd_fwd_bf16_kernel<C>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.features + kBN - 1) / kBN, row_tiles);
-    vitae_lnd_fwd_bf16_kernel<C><<<grid, kThreads, smem, stream>>>(p);
-  } else {
-    constexpr int smem = f32_fwd_smem_bytes<C>();
-    const cudaError_t err = cudaFuncSetAttribute(vitae_lnd_fwd_f32_kernel<C>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.features + kF32BN - 1) / kF32BN, static_cast<unsigned>((p.rows + kF32BM - 1) / kF32BM));
-    vitae_lnd_fwd_f32_kernel<C><<<grid, kThreads, smem, stream>>>(p);
-  }
+  if (is_bf16) return launch_fwd_bf16<C>(p, stream);
+  constexpr int smem = f32_fwd_smem_bytes<C>();
+  const cudaError_t err = cudaFuncSetAttribute(vitae_lnd_fwd_f32_kernel<C>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.features + kF32BN - 1) / kF32BN, static_cast<unsigned>((p.rows + kF32BM - 1) / kF32BM));
+  vitae_lnd_fwd_f32_kernel<C><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

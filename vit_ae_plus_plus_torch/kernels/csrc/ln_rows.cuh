@@ -91,16 +91,12 @@ __device__ __forceinline__ int col_of(int j, int lane) {
   return (j * 32 + lane) * V;
 }
 
-// Loads one row into v (as f32) -> (mean, rstd).
-template <typename T, int C>
-__device__ __forceinline__ float2 row_stats(const T* row, float (&v)[RowShape<T, C>::J][RowShape<T, C>::V],
-                                            int lane, float eps) {
-  constexpr int V = RowShape<T, C>::V;
-  constexpr int J = RowShape<T, C>::J;
+// (mean, rstd) of a row of C elements whose vectors the warp holds in v.
+template <int C, int J, int V>
+__device__ __forceinline__ float2 stats_of(const float (&v)[J][V], float eps) {
   float s = 0.f, ss = 0.f;
 #pragma unroll
   for (int j = 0; j < J; ++j) {
-    load_vec<V>(row + col_of<V>(j, lane), v[j]);
 #pragma unroll
     for (int e = 0; e < V; ++e) {
       s += v[j][e];
@@ -112,18 +108,44 @@ __device__ __forceinline__ float2 row_stats(const T* row, float (&v)[RowShape<T,
   return make_float2(mu, rsqrtf(var + eps));
 }
 
+// Loads one row into v (as f32) -> (mean, rstd).
+template <typename T, int C>
+__device__ __forceinline__ float2 row_stats(const T* row, float (&v)[RowShape<T, C>::J][RowShape<T, C>::V],
+                                            int lane, float eps) {
+  constexpr int V = RowShape<T, C>::V;
+  constexpr int J = RowShape<T, C>::J;
+#pragma unroll
+  for (int j = 0; j < J; ++j) load_vec<V>(row + col_of<V>(j, lane), v[j]);
+  return stats_of<C>(v, eps);
+}
+
+// v <- ((v - mu) * rstd) * gam + bet, in place, with the lane's gamma and
+// beta already in registers.
+template <int V, int J>
+__device__ __forceinline__ void normalize_with(float (&v)[J][V], float2 st, const float (&gam)[J][V],
+                                               const float (&bet)[J][V]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[j][e] = ((v[j][e] - st.x) * st.y) * gam[j][e] + bet[j][e];
+  }
+}
+
+// The lane's vectors of a (C,) f32 parameter.
+template <int V, int J>
+__device__ __forceinline__ void load_lane(const float* param, float (&out)[J][V], int lane) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) load_vec<V>(param + col_of<V>(j, lane), out[j]);
+}
+
 // v <- ((v - mu) * rstd) * gamma + beta, in place, for the vectors of one lane.
 template <int V, int J>
 __device__ __forceinline__ void normalize(float (&v)[J][V], float2 st, const float* gamma,
                                           const float* beta, int lane) {
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    float gam[V], bet[V];
-    load_vec<V>(gamma + col_of<V>(j, lane), gam);
-    load_vec<V>(beta + col_of<V>(j, lane), bet);
-#pragma unroll
-    for (int e = 0; e < V; ++e) v[j][e] = ((v[j][e] - st.x) * st.y) * gam[e] + bet[e];
-  }
+  float gam[J][V], bet[J][V];
+  load_lane(gamma, gam, lane);
+  load_lane(beta, bet, lane);
+  normalize_with(v, st, gam, bet);
 }
 
 struct RowBwdArgs {

@@ -26,7 +26,9 @@ Counterpart of the JAX package's kernels/flash_attention.py
 
 The kernels read operands through (batch, token, head) strides, so the
 launchers take (B, N, H, D) views: a per-head tensor is passed transposed,
-the packed (B, N, 3C) projection as three views of itself.
+the packed (B, N, 3C) projection as three views of itself. Both dtypes run
+on the tensor cores: bf16 through mma.sync bf16, f32 through 3xTF32 (each
+f32 operand split into two TF32 parts, f32-accurate products).
 """
 
 from __future__ import annotations
@@ -96,10 +98,16 @@ def attention_bwd_plain(q, k, v, o, lse, do, scale: float, bias=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _vec(t: torch.Tensor) -> int:
+    """Elements in one 16-byte vector load: 8 bf16, 4 f32."""
+    return 16 // t.element_size()
+
+
 def _strides_ok(t: torch.Tensor) -> bool:
-    """The kernels' operand contract: a contiguous head_dim axis and, for
-    bf16, 16-byte aligned rows (one vector load per 8 elements)."""
-    vec = 8 if t.dtype == torch.bfloat16 else 1
+    """The kernels' operand contract: a contiguous head_dim axis and 16-byte
+    aligned rows (the forward kernels load 16 bytes at a time: 8 bf16 or,
+    through cp.async, 4 f32)."""
+    vec = _vec(t)
     return (
         t.stride(-1) == 1
         and not any(s % vec for s in t.stride()[:-1])
@@ -108,7 +116,7 @@ def _strides_ok(t: torch.Tensor) -> bool:
 
 
 def _check_views(q, views) -> None:
-    vec = 8 if q.dtype == torch.bfloat16 else 1
+    vec = _vec(q)
     for name, t in views:
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head_dim axis must be contiguous")
@@ -374,9 +382,10 @@ def kernel_tolerance(want_o: torch.Tensor) -> tuple:
     bf16: both sides round o to bf16, so an element may differ by one bf16
     spacing at the output's largest magnitude; the kernel's bf16 P (relative
     error 2^-9 per term) adds a small fraction of one. Two spacings.
-    f32: f32 products on both sides, only the summation order and the
-    log2-domain softmax differ: 1e-5. lse: f32 on both sides for either
-    dtype: 1e-4."""
+    f32: f32-accurate products on both sides (the kernel's 3xTF32 is off
+    by about 2^-22 relative per product, plain TF32's 2^-11 would not pass),
+    only the summation order and the log2-domain softmax differ: 1e-5.
+    lse: f32 on both sides for either dtype: 1e-4."""
     if want_o.dtype != torch.bfloat16:
         return 1e-5, 1e-4
     return 2 * _bf16_spacing(want_o.float().abs().max().item()), 1e-4
