@@ -57,6 +57,11 @@ non-zero exit when it fails:
    rows against 4,097 keys (the sequence-sharded shard); library times
    from `scaled_dot_product_attention` with the bias as a float mask, the
    fastest fused backend that takes it named;
+   6b. with `--parent DIR` (a checkout of another commit), every row of the
+   bf16 attention backward and of the bf16 LayerNorm+Dense backward timed
+   in turns against DIR's bodies: each checkout's own case functions in a
+   process of its own, parent, this checkout, this checkout, parent; the
+   rows' `in_turns` hold the four times (null without `--parent`);
 7. a world of 4 spawned ranks on the one card, in one gloo group (NCCL
    takes one rank per device; the kernels stay on the card and the blocks
    travel through pinned host memory), every join bounded: ring and
@@ -70,18 +75,21 @@ non-zero exit when it fails:
    decoder), and the parameters after the steps, which must be bitwise
    equal on every rank (the replicated trunk is right only while they are);
 8. print one JSON line of kernels, the card's name and power limit, and as
-   the last line `{"ok": true, "device": {...}}`. Each kernel row's
+   the last line `{"ok": true, "device": {...}}`. Each kernel row names
+   the CUDA bodies it launched (`body`). Each kernel row's
    `launches` is what its wrapper launched at the row's shape and dtype in
    the first path run that launched it there (the wrappers count by shape;
    in phase 7, rank 0's count), and `path` names that run; a reference case
    that no path runs at its shape reads 0.
 
-Without a CUDA device, or outside a checkout, it exits non-zero and prints
-no result.
+Every kernel check synchronises first, so that a kernel that faults fails
+its own check. Without a CUDA device, or outside a checkout, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import atexit
 import gc
 import io
 import json
@@ -128,6 +136,19 @@ LN_SOURCES = {  # kernel row -> (source, the TPU kernel it replaces)
                      "vit_ae_plus_plus_tpu/kernels/fused_ln_dense.py:119"),
     "ln_dense_bwd": ("vit_ae_plus_plus_torch/kernels/csrc/ln_dense.cu",
                      "vit_ae_plus_plus_tpu/kernels/fused_ln_dense.py:159"),
+}
+BODIES = {  # (kernel row or attention direction, dtype) -> the CUDA bodies it launches
+    ("fwd", "bfloat16"): "flash_fwd_bf16_kernel (mma.sync)",
+    ("fwd", "float32"): "flash_fwd_f32_kernel (3xTF32 on mma.sync)",
+    ("bwd", "bfloat16"): "flash_bwd_delta_kernel + flash_bwd_dkdv_wgmma_kernel + flash_bwd_dq_wgmma_kernel "
+                         "(wgmma + TMA)",
+    ("bwd", "float32"): "flash_bwd_delta_kernel + flash_bwd_dkdv_f32_kernel + flash_bwd_dq_f32_kernel",
+    ("layernorm_fwd", "bfloat16"): "vitae_ln_fwd_kernel",
+    ("layernorm_bwd", "bfloat16"): "vitae_ln_rows_bwd_kernel",
+    ("ln_dense_fwd", "bfloat16"): "vitae_lnd_fwd_bf16_kernel (wgmma + TMA)",
+    ("ln_dense_fwd", "float32"): "vitae_lnd_fwd_f32_kernel",
+    ("ln_dense_bwd", "bfloat16"): "vitae_lnd_dln_wgmma_kernel (wgmma + TMA) + vitae_ln_rows_bwd_kernel",
+    ("ln_dense_bwd", "float32"): "vitae_lnd_dln_f32_kernel + vitae_ln_rows_bwd_kernel",
 }
 # kernel vs plain version: `kernel_tolerance` (kernels/flash_attention.py),
 # two bf16 spacings at the largest output in bf16, 1e-5 in f32, 1e-4 on lse.
@@ -177,9 +198,28 @@ GROUP_RANKS = 4  # the 'model' group of phase 7, all on the one card
 GROUP_VOLUME = 128  # 128^3 / patch 8: 4,097 tokens, a length the sequence-parallel paths exist for
 GROUP_TIMEOUT = 600.0  # seconds for the whole of phase 7, spawn and joins included
 
+def stop(proc) -> None:
+    """End a child process that is still running (at exit, failed or not)."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke FAILED: {what}")
+
+
+def synced(label: str) -> None:
+    """Wait for the card: a kernel that faulted (an illegal address, a
+    trapped barrier wait) fails its check here, before any other call
+    reports the fault as its own."""
+    import torch
+
+    try:
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        check(False, f"{label}: the kernel faulted ({str(err).splitlines()[0]})")
 
 
 def card_line() -> str:
@@ -338,7 +378,8 @@ def fwd_row(label, row, got, want, times, bnd, lse_relative=False) -> dict:
     print(f"kernel {label}: max_abs_err {err:.3g} (tol {tol:.3g}), lse {lse_err:.3g} (tol {lse_tol:.3g}); "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({backend}) {library_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-    return {"launches": None, **row, "route": "cuda", "source": KERNEL_SOURCE, "max_abs_err": err, "tol": tol,
+    return {"launches": None, **row, "route": "cuda", "source": KERNEL_SOURCE,
+            "body": BODIES[("fwd", row["dtype"])], "in_turns": None, "max_abs_err": err, "tol": tol,
             "lse_err": lse_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "library": f"scaled_dot_product_attention ({backend})"}
 
@@ -360,7 +401,8 @@ def bwd_row(label, row, grads, want_grads, times, bnd) -> dict:
     print(f"kernel {label}: max_abs_err " + ", ".join(f"{k} {errs[k]:.3g} (tol {tols[k]:.3g})" for k in errs)
           + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({backend}) bwd {library_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-    return {"launches": None, **row, "route": "cuda", "source": BWD_SOURCE, "max_abs_err": max(errs.values()),
+    return {"launches": None, **row, "route": "cuda", "source": BWD_SOURCE,
+            "body": BODIES[("bwd", row["dtype"])], "in_turns": None, "max_abs_err": max(errs.values()),
             "tol": min(tols.values()), "errs": errs, "tols": tols, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             "library": f"scaled_dot_product_attention ({backend})"}
@@ -383,12 +425,14 @@ def kernel_case(label, layout, b, h, n, d, dtype_name, seed):
         kernel = lambda: packed_flash_attention(qkv, d, scale)  # noqa: E731
         plain = lambda: packed_attention_plain(qkv, d, scale)  # noqa: E731
         got = packed_flash_attention(qkv, d, scale, return_lse=True)
+        synced(label)
         want = packed_attention_plain(qkv, d, scale, return_lse=True)
     else:
         q, k, v = (torch.randn((b, h, n, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
         kernel = lambda: flash_attention(q, k, v, scale)  # noqa: E731
         plain = lambda: attention_plain(q, k, v, scale)  # noqa: E731
         got = flash_attention(q, k, v, scale, return_lse=True)
+        synced(label)
         want = attention_plain(q, k, v, scale, return_lse=True)
     torch.cuda.synchronize()
     times = (graph_ms(kernel), graph_ms(plain, calls=3, reps=2), *sdpa_fwd_ms(sdpa_calls(lambda: (q, k, v), scale)))
@@ -420,6 +464,7 @@ def bwd_case(label, layout, b, h, n, d, dtype_name, seed):
         kernel = lambda: packed_flash_attention_bwd(qkv, o, lse, do, d, scale)  # noqa: E731
         plain = lambda: packed_attention_bwd_plain(qkv, o, lse, do, d, scale)  # noqa: E731
         got = kernel().chunk(3, dim=-1)
+        synced(label)
         want = plain().chunk(3, dim=-1)
         leaves = (qkv.detach().requires_grad_(),)
         heads = lambda: leaves[0].view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)  # noqa: E731
@@ -429,7 +474,9 @@ def bwd_case(label, layout, b, h, n, d, dtype_name, seed):
         o, lse = flash_attention(q, k, v, scale, return_lse=True)
         kernel = lambda: flash_attention_bwd(q, k, v, o, lse, do, scale)  # noqa: E731
         plain = lambda: attention_bwd_plain(q, k, v, o, lse, do, scale)  # noqa: E731
-        got, want = kernel(), plain()
+        got = kernel()
+        synced(label)
+        want = plain()
         leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
         heads = lambda: leaves  # noqa: E731
         do_heads = do
@@ -466,8 +513,8 @@ def ln_row(name, shape, key, dtype_name, errs, times, nbytes, flops, peak):
     source, replaces = LN_SOURCES[name]
     ms, plain_ms, library_ms = times
     return {
-        "name": name, "route": "cuda", "source": source, "replaces": replaces, "shape": shape,
-        "dtype": dtype_name, "key": key, "launches": None,
+        "name": name, "route": "cuda", "source": source, "body": BODIES[(name, dtype_name)], "in_turns": None,
+        "replaces": replaces, "shape": shape, "dtype": dtype_name, "key": key, "launches": None,
         "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "errs": errs,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes > t_ops else "operations", "library_ms": library_ms,
@@ -500,8 +547,9 @@ def ln_dense_cases(label, r, c, f, dtype_name, seed):
     elt = torch.empty((), dtype=dtype).element_size()
     x, gamma, beta, w, b, dy = ln_operands(r, c, dtype, seed, f)
     y, mu, rstd = ln_dense_fwd(x, gamma, beta, w, b, 1e-6)
-    want_y, want_mu, want_rstd = ln_dense_plain(x, gamma, beta, w, b, 1e-6)
     dx, dln = ln_dense_bwd(x, gamma, w, dy, mu, rstd)
+    synced(label)
+    want_y, want_mu, want_rstd = ln_dense_plain(x, gamma, beta, w, b, 1e-6)
     want_dx, want_dln = ln_dense_bwd_plain(x, gamma, w, dy, want_mu, want_rstd)
     torch.cuda.synchronize()
     fwd_errs = {"y": compare(y, want_y), "mu": compare(mu, want_mu), "rstd": compare(rstd, want_rstd)}
@@ -555,8 +603,9 @@ def layernorm_cases(label, r, c, dtype_name, seed):
     elt = torch.empty((), dtype=dtype).element_size()
     x, gamma, beta, dy = ln_operands(r, c, dtype, seed)
     y, mu, rstd = layernorm_fwd(x, gamma, beta, 1e-6)
-    want_y, want_mu, want_rstd = layernorm_plain(x, gamma, beta, 1e-6)
     dx = layernorm_bwd(x, gamma, mu, rstd, dy)
+    synced(label)
+    want_y, want_mu, want_rstd = layernorm_plain(x, gamma, beta, 1e-6)
     want_dx = layernorm_bwd_plain(x, gamma, want_mu, want_rstd, dy)
     torch.cuda.synchronize()
     fwd_errs = {"y": compare(y, want_y), "mu": compare(mu, want_mu), "rstd": compare(rstd, want_rstd)}
@@ -617,7 +666,7 @@ def ring_case(label, b, h, n, d, shards, seed, full_pad=False):
     plain_fwd = lambda: attention_plain(q_l, kb, vb, scale, return_lse=True, bias=bb)  # noqa: E731
     plain_bwd = lambda: attention_bwd_plain(q_l, kb, vb, o_row, lse_row, do, scale, bb)  # noqa: E731
     got, grads = fwd(), bwd()
-    torch.cuda.synchronize()
+    synced(label)
     if full_pad:  # lse about -1e30, so the merge weights it 0; no gradient reaches its keys
         check(float(got[1].max()) < -1e29 and float(grads[1].abs().max()) == 0.0
               and float(grads[2].abs().max()) == 0.0, f"{label}: a fully padded block is not inert")
@@ -657,7 +706,7 @@ def seq_case(label, b, h, n, d, shards, seed):
     o, lse = got = fwd()
     bwd = lambda: flash_attention_bwd(q_l, k, v, o, lse, do, scale)  # noqa: E731
     grads = bwd()
-    torch.cuda.synchronize()
+    synced(label)
     plain_fwd = lambda: attention_plain(q_l, k, v, scale, return_lse=True)  # noqa: E731
     plain_bwd = lambda: attention_bwd_plain(q_l, k, v, o, lse, do, scale)  # noqa: E731
     leaves = tuple(t.detach().requires_grad_() for t in (q_l, k, v))
@@ -674,6 +723,91 @@ def seq_case(label, b, h, n, d, shards, seed):
         bwd_row(f"{label} bwd", {**row, "name": "flash_bwd", "replaces": BWD_REPLACES["per_head"]}, grads,
                 plain_bwd(), times[1], bound(b, h, nq, d, "bfloat16", 2, nk=n, bwd=True, extra_bytes=lse_bytes)),
     ]
+
+
+def ring_shapes(cfg) -> list:
+    """(label, B, H, N, d) of the ring blocks of phase 7's paths: ViT-B at
+    128^3, the step's decoder and its encoder, each over GROUP_RANKS."""
+    return [("ring bf16 NB1032 d64 (ViT-B 128^3)", 2, 12, 4097, 64),
+            ("ring bf16 NB440 d32 (decoder)", BATCH, 16, cfg.num_patches + 1, 32),
+            ("ring bf16 NB112 d64 (encoder)", *train_shapes(cfg)[0][:3], 64)]
+
+
+def turn_cases(cfg) -> list:
+    """(row name, row key, case call) for every row of the bf16 attention
+    backward (packed, per-head, ring, sequence-sharded) and of the bf16
+    LayerNorm+Dense backward at the shapes of phases 2 and 6: the rows that
+    `--parent` times in turns against another checkout's bodies. The calls
+    are this script's case functions, which that checkout's copy has too."""
+    from vit_ae_plus_plus_torch.parallel import padded_len
+
+    enc, dec = train_shapes(cfg)
+    cases = []
+    for layout, shape in (("packed", dec), ("packed", enc), ("per_head", dec), ("per_head", enc),
+                          ("per_head", (BATCH, 12, cfg.num_patches + 1, 64))):
+        args, (b, h, n, d) = ", ".join(map(str, shape)), shape
+        cases.append(("packed_flash_bwd" if layout == "packed" else "flash_bwd", (*shape, "bfloat16"),
+                      f"bwd_case('{layout} bwd bf16 B{b} H{h} N{n} d{d}', '{layout}', {args}, 'bfloat16', seed=13)"))
+    for label, b, h, n, d in ring_shapes(cfg):
+        cases.append(("ring_flash_bwd", (b, h, padded_len(n, GROUP_RANKS) // GROUP_RANKS, d, "bfloat16"),
+                      f"ring_case('{label}', {b}, {h}, {n}, {d}, {GROUP_RANKS}, seed=70)"))
+    n = GROUP_VOLUME**3 // PATCH**3 + 1
+    cases.append(("flash_bwd", (2, 12, padded_len(n, GROUP_RANKS) // GROUP_RANKS, 64, "bfloat16"),
+                  f"seq_case('seq bf16 shard', 2, 12, {n}, 64, {GROUP_RANKS}, seed=80)"))
+    for r, c in ln_shapes(cfg).values():
+        for f in (3 * c, 4 * c):
+            cases.append(("ln_dense_bwd", (r, c, f, "bfloat16"),
+                          f"ln_dense_cases('ln_dense bf16 R{r} C{c} F{f}', {r}, {c}, {f}, 'bfloat16', seed=40)"))
+    return cases
+
+
+# One turn in another checkout: its own chip_smoke's case functions, each
+# call's row of the given name -> its kernel ms, as one JSON line
+TURN_CHILD = """
+import json, sys
+import torch
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+out = []
+for name, call in json.loads(sys.argv[1]):
+    got = eval("cs." + call)
+    out.append(next(r["ms"] for r in (got if isinstance(got, list) else [got]) if r["name"] == name))
+print("TURN " + json.dumps(out))
+"""
+
+
+def turn_ms(checkout: Path, cases: list) -> list:
+    """Kernel ms of each case's row, timed by `checkout`'s own copy of this
+    script in a process of its own, on the card this process leaves idle."""
+    import torch
+
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, "-c", TURN_CHILD, json.dumps([[n, c] for n, _, c in cases])],
+                          cwd=checkout, capture_output=True, text=True, timeout=600)
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    check(proc.returncode == 0 and last.startswith("TURN "),
+          f"turn in {checkout} failed: {(proc.stderr.strip().splitlines() or ['(no message)'])[-1]}")
+    return json.loads(last[5:])
+
+
+def in_turns_phase(rows: list, cfg, parent: Path, parent_build) -> None:
+    """The redesigned rows timed in turns against `parent`'s bodies, on this
+    card in this run: parent, this checkout, this checkout, parent. Each
+    row gets `in_turns` {"parent_ms": [..], "ms": [..]}."""
+    log, _ = parent_build.communicate(timeout=600)
+    check(parent_build.returncode == 0, f"the parent checkout's kernels did not build:\n{log[-2000:]}")
+    cases = turn_cases(cfg)
+    t0 = time.perf_counter()
+    first = turn_ms(parent, cases)
+    mine = [turn_ms(REPO, cases) for _ in range(2)]
+    last = turn_ms(parent, cases)
+    for i, (name, key, _) in enumerate(cases):
+        row = next(r for r in rows if r["name"] == name and r["key"] == key)
+        row["in_turns"] = {"parent_ms": [first[i], last[i]], "ms": [mine[0][i], mine[1][i]]}
+        print(f"in turns {name} {key[:-1]}: parent {first[i]:.4f}, {last[i]:.4f} ms -> "
+              f"{mine[0][i]:.4f}, {mine[1][i]:.4f} ms", flush=True)
+    print(f"in-turns phase {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def dense(rng, fan_in: int, fan_out: int, bias: bool = True) -> dict:
@@ -1516,9 +1650,15 @@ def group_phase(rows: list, reference: dict) -> None:
                   f"{GROUP_RANKS}")
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
+    parent = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--parent" or not (Path(argv[1]) / "chip_smoke.py").is_file():
+            print("usage: chip_smoke.py [--parent CHECKOUT]", file=sys.stderr)
+            return 2
+        parent = Path(argv[1]).resolve()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1539,8 +1679,15 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
 
-    # phase 1: build every kernel source, all nvcc processes at once
+    # phase 1: build every kernel source, all nvcc processes at once (and,
+    # with --parent, the parent checkout's beside them)
     t0 = time.perf_counter()
+    parent_build = None
+    if parent is not None:
+        parent_build = subprocess.Popen(
+            [sys.executable, "-c", "from vit_ae_plus_plus_torch.kernels import _build; _build.build()"],
+            cwd=parent, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        atexit.register(stop, parent_build)
     libs = _build.build()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s", flush=True)
     for name, path in libs.items():
@@ -1666,14 +1813,15 @@ def main() -> int:
     # phase 6: the ring's partial kernels at the ring blocks of phase 7 (the
     # feature path's, the step's decoder's and encoder's), a fully padded
     # block, and the sequence-sharded shard of 1,032 rows against 4,097 keys
-    ring_cases = [("ring bf16 NB1032 d64 (ViT-B 128^3)", 2, 12, 4097, 64),
-                  ("ring bf16 NB440 d32 (decoder)", BATCH, 16, cfg.num_patches + 1, 32),
-                  ("ring bf16 NB112 d64 (encoder)", *train_shapes(cfg)[0][:3], 64)]
-    for i, (label, b, h, n, d) in enumerate(ring_cases):
+    for i, (label, b, h, n, d) in enumerate(ring_shapes(cfg)):
         rows += ring_case(label, b, h, n, d, GROUP_RANKS, seed=70 + i)
     rows += ring_case("ring bf16 NB1032 d64, every key padded", 2, 12, 4097, 64, GROUP_RANKS, seed=75,
                       full_pad=True)
     rows += seq_case("seq bf16 N1032 Nk4097 d64", 2, 12, 4097, 64, GROUP_RANKS, seed=80)
+
+    # with --parent: the redesigned rows in turns against the parent's bodies
+    if parent is not None:
+        in_turns_phase(rows, cfg, parent, parent_build)
 
     # phase 7: the sequence-parallel paths in a group of ranks on the card
     group_phase(rows, reference)
@@ -1693,4 +1841,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -79,10 +79,16 @@ MUTANTS = {
         "const float scale2 = p.scale * kLog2e * 1.01f;",
         FWD_CASE,
     ),
-    "bwd_drop_last_query_tile": (  # the dK/dV loop skips the ragged last query tile
+    "bwd_drop_last_query_tile": (  # the dK/dV ring skips its last stage: the ragged last query tile
         "kernels/csrc/flash_bwd.cu",
-        "for (int q0 = 0; q0 < n; q0 += kBlock)",
-        "for (int q0 = 0; q0 + kBlock < n; q0 += kBlock)",
+        "for (int qt = 0; qt < qtiles; ++qt)",
+        "for (int qt = 0; qt + 1 < qtiles; ++qt)",
+        BWD_CASE,
+    ),
+    "bwd_dq_drop_last_key_tile": (  # the dQ ring skips its last stage: the ragged last key tile
+        "kernels/csrc/flash_bwd.cu",
+        "for (int kt = 0; kt < ktiles; ++kt)",
+        "for (int kt = 0; kt + 1 < ktiles; ++kt)",
         BWD_CASE,
     ),
     "bwd_no_delta": (  # dS = P * dP, delta = rowsum(dO * O) left out
@@ -93,8 +99,20 @@ MUTANTS = {
     ),
     "bwd_dk_unscaled": (  # dK = dS^T Q without the softmax scale
         "kernels/csrc/flash_bwd.cu",
-        "pack_f32(dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale)",
-        "pack_f32(dk[j][2 * r], dk[j][2 * r + 1])",
+        "store_tile<D>(dk, p.scale,",
+        "store_tile<D>(dk, 1.f,",
+        BWD_CASE,
+    ),
+    "bwd_dv_b_not_transposed": (  # dV += P^T dO reads the MN-major dO tile as K-major
+        "kernels/csrc/flash_bwd.cu",
+        "Wgmma<D>::template rs<1>(dv, pa[kk]",
+        "Wgmma<D>::template rs<0>(dv, pa[kk]",
+        BWD_CASE,
+    ),
+    "bwd_scores_not_reset": (  # S^T accumulates over the query tiles instead of starting afresh
+        "kernels/csrc/flash_bwd.cu",
+        "Wgmma<64>::ss<0>(st, desc_k<D>(ks, kk), desc_k<D>(qs, kk), kk > 0)",
+        "Wgmma<64>::ss<0>(st, desc_k<D>(ks, kk), desc_k<D>(qs, kk), 1)",
         BWD_CASE,
     ),
     "lnd_bias_before_rounding": (  # y = bf16(acc + b): the bias added before acc is rounded
@@ -127,10 +145,22 @@ MUTANTS = {
         "for (int tile = 0; tile + 1 < ktiles; ++tile)",
         F32_CASE,
     ),
-    "lnd_dln_drop_last_tile": (  # the dln product skips its last tile of F
+    "lnd_dln_drop_last_stage": (  # the dln product's ring skips its last 64-deep stage of F
         "kernels/csrc/ln_dense.cu",
-        "for (int kt = 0; kt < ktiles; ++kt)",
-        "for (int kt = 0; kt < ktiles - 1; ++kt)",
+        "const int ksteps = (p.features + T::kStageK - 1) / T::kStageK;",
+        "const int ksteps = (p.features - 1) / T::kStageK;",
+        LND_CASE,
+    ),
+    "lnd_dln_b_not_transposed": (  # W's MN-major stage read as K-major
+        "kernels/csrc/ln_dense.cu",
+        "Wgmma<128>::ss<1>(acc, da, db,",
+        "Wgmma<128>::ss<0>(acc, da, db,",
+        LND_CASE,
+    ),
+    "lnd_dln_acc_not_reset": (  # a block's next tile starts from the last tile's sums
+        "kernels/csrc/ln_dense.cu",
+        "Wgmma<128>::ss<1>(acc, da, db, ks > 0 || kk > 0)",
+        "Wgmma<128>::ss<1>(acc, da, db, tile != static_cast<int>(blockIdx.x) || ks > 0 || kk > 0)",
         LND_CASE,
     ),
     "ln_rows_no_mean_gxhat": (  # dx = rstd * (g - mean(g)): the mean(g * xhat) term left out
@@ -145,10 +175,10 @@ MUTANTS = {
         "if constexpr (HAS_BIAS) x += 0.f;",
         RING_CASE,
     ),
-    "dkdv_bias_dropped": (  # the bf16 dK/dV kernel's S without the key bias
+    "dkdv_bias_dropped": (  # the bf16 dK/dV kernel's S^T without the key bias
         "kernels/csrc/flash_bwd.cu",
-        "if constexpr (HAS_BIAS) x += kb[e >> 1];",
-        "if constexpr (HAS_BIAS) x += 0.f;",
+        "fmaf(st[4 * j + e], scale2, kb[e >> 1])",
+        "fmaf(st[4 * j + e], scale2, 0.f)",
         RING_CASE,
     ),
     "kv_len_as_seq_len": (  # the forward reads the key count from the query count

@@ -1,7 +1,7 @@
-"""The CUDA attention kernels (kernels/csrc/flash_fwd.cu, flash_bwd.cu)
-against their plain PyTorch versions, on the card. Every test here needs an NVIDIA GPU and nvcc
-and skips without them; this file imports no JAX, so it runs on a GPU
-machine with
+"""The CUDA kernels (kernels/csrc/flash_fwd.cu, flash_bwd.cu, layernorm.cu,
+ln_dense.cu) against their plain PyTorch versions, on the card. Every test
+here needs an NVIDIA GPU and nvcc and skips without them; this file
+imports no JAX, so it runs on a GPU machine with
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_kernels_cuda.py
 
@@ -18,8 +18,13 @@ Backward: `bwd_tolerance` (kernels/flash_attention.py): eight bf16 spacings
 at the plain gradient's largest magnitude in bf16 (the kernel rounds P and
 dS to bf16 before their products, the plain version keeps them in f32, and
 both round the result), 1e-5 relative to the largest magnitude in f32.
-`kernel_mutants.py` shows that these catch a backward that drops its last
-query tile, leaves delta out, or forgets the scale on dk.
+`kernel_mutants.py` shows that these catch a bf16 backward whose dK/dV or
+dQ ring skips its last stage, that leaves delta out, forgets the scale on
+dk, clears dV's transpose flag or does not reset S^T between query tiles.
+The bf16 backward runs on wgmma: `wgmma_tile` holds one tile of its
+helpers (B MN-major through the transpose flag, A from shared memory or
+registers) to `torch.matmul`; two calls must give bitwise equal
+gradients (no atomics).
 
 The ring's partial kernels (the same sources with a key bias, 0 or -1e30)
 and the per-head kernels with fewer or more keys than queries (the
@@ -37,8 +42,9 @@ differs), 1e-5 relative in f32; mu and rstd 1e-5 relative (f32 on both
 sides); dln `dln_tolerance` (kernels/fused_ln_dense.py): 1e-4 relative for
 bf16 operands, 1e-5 for f32. `kernel_mutants.py` shows that these catch a
 forward that adds the bias before rounding, drops the last 16-deep step of
-each W stage or the store of rstd, a dln product that drops its last tile of
-F, and a row pass without the mean(g * xhat) term."""
+each W stage or the store of rstd, a dln product that skips its last stage
+of F, clears its transpose flag or carries its sums into the next tile, and
+a row pass without the mean(g * xhat) term."""
 
 import pytest
 import torch
@@ -57,7 +63,7 @@ from vit_ae_plus_plus_torch.kernels import (
     ring_partial_bwd,
     ring_partial_fwd,
 )
-from vit_ae_plus_plus_torch.kernels.flash_attention import flash_attention_fwd
+from vit_ae_plus_plus_torch.kernels.flash_attention import flash_attention_fwd, wgmma_tile
 from vit_ae_plus_plus_torch.kernels.ring_flash import NEG_INF
 from vit_ae_plus_plus_torch.kernels.fused_ln import (
     LN_WIDTHS,
@@ -306,6 +312,73 @@ def test_a_zero_bias_gives_the_bias_free_kernels_results(cuda, dtype):
                         flash_attention_bwd(q, k, v, o, lse, do, 0.125))
 
 
+@pytest.mark.parametrize("n", [32, 64, 128])
+@pytest.mark.parametrize("a_from_registers", [False, True], ids=["a_smem", "a_regs"])
+def test_wgmma_transposed_b_tile_matches_matmul(cuda, n, a_from_registers):
+    """One tile of the helpers under the bf16 backward: b (64, N) row-major
+    is loaded by TMA and read MN-major through wgmma's transpose flag, a
+    from shared memory or from registers. bf16 products are exact in f32,
+    so only the order of the 64-term sums differs from torch.matmul."""
+    a = _rand((64, 64), torch.bfloat16, cuda, seed=n)
+    b = _rand((64, n), torch.bfloat16, cuda, seed=n + 1)
+    got = wgmma_tile(a, b, a_from_registers)
+    torch.cuda.synchronize()
+    want = torch.matmul(a.float(), b.float())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("nq,nk", [(1, 1), (64, 64), (65, 129), (200, 63), (333, 200)])
+def test_bf16_bwd_instances_match_plain(cuda, d, with_bias, nq, nk):
+    """Every bf16 backward instance (head_dim, key bias on and off) at
+    ragged lengths, with kv_len equal to and different from seq_len; with
+    the bias, the last keys of the block are padded."""
+    q, do = (_rand((2, 3, nq, d), torch.bfloat16, cuda, s) for s in (nq, nq + 1))
+    k, v = (_rand((2, 3, nk, d), torch.bfloat16, cuda, s) for s in (nk + 2, nk + 3))
+    scale = d**-0.5
+    bias = None
+    if with_bias:
+        bias = torch.zeros(nk, device=cuda)
+        bias[nk - max(1, nk // 8):] = NEG_INF
+        o, lse = _row_stats(q, k, v, bias, scale)  # the merged row's o and lse, as the ring hands them over
+        o = o.to(torch.bfloat16)
+        got = ring_partial_bwd(q, do, o, lse.float(), k, v, bias, scale)
+    else:
+        o, lse = flash_attention_fwd(q, k, v, scale)
+        got = flash_attention_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, attention_bwd_plain(q, k, v, o, lse.float(), do, scale, bias))
+
+
+@pytest.mark.parametrize("layout", ["packed", "per_head", "ring"])
+def test_bf16_bwd_is_bitwise_repeatable(cuda, layout):
+    """No atomics: two calls on the same inputs give bitwise equal dq, dk
+    and dv (the sequence-parallel step keeps its ranks' parameters bitwise
+    equal only so)."""
+    d, n = 64, 300
+    if layout == "packed":
+        qkv = _rand((2, n, 3 * 128), torch.bfloat16, cuda, seed=11)
+        do = _rand((2, n, 128), torch.bfloat16, cuda, seed=12)
+        o, lse = packed_flash_attention(qkv, d, return_lse=True)
+        call = lambda: packed_flash_attention_bwd(qkv, o, lse, do, d, d**-0.5).chunk(3, dim=-1)  # noqa: E731
+    else:
+        q, k, v, do = (_rand((2, 3, n, d), torch.bfloat16, cuda, s) for s in range(20, 24))
+        if layout == "per_head":
+            o, lse = flash_attention_fwd(q, k, v, d**-0.5)
+            call = lambda: flash_attention_bwd(q, k, v, o, lse, do, d**-0.5)  # noqa: E731
+        else:
+            bias = torch.zeros(n, device=cuda)
+            bias[n - 9:] = NEG_INF
+            o, lse = ring_partial_fwd(q, k, v, bias, d**-0.5)
+            call = lambda: ring_partial_bwd(q, do, o, lse, k, v, bias, d**-0.5)  # noqa: E731
+    first = [g.clone() for g in call()]
+    second = call()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
 def _ln_operands(r, c, dtype, device, seed, f=None):
     """x (mean 1, spread 2), gamma near 1, beta, and with `f` w (F, C),
     b (F,) in x's dtype and dy (R, F); else dy (R, C)."""
@@ -378,6 +451,44 @@ def test_ln_dense_bf16_forward_edges(cuda, c, r, f):
     _assert_compare(y, want_y, "y")
     _assert_compare(mu, want_mu, "mu")
     _assert_compare(rstd, want_rstd, "rstd")
+
+
+@pytest.mark.parametrize("c", LN_WIDTHS)
+@pytest.mark.parametrize("r,f", [(1, 32), (129, 96), (257, 416), (300, 1056)])
+def test_ln_dense_bf16_backward_edges(cuda, c, r, f):
+    """The wgmma dln product at every width: rows past a 128-row tile, F a
+    multiple of 32 but not of the 64-deep stage, F under one stage, and
+    more tiles than SMs hold blocks (so that a block walks several)."""
+    x, gamma, beta, w, b, dy = _ln_operands(r, c, torch.bfloat16, cuda, seed=r + c + f + 1, f=f)
+    _, mu, rstd = ln_dense_fwd(x, gamma, beta, w, b, 1e-6)
+    dx, dln = ln_dense_bwd(x, gamma, w, dy, mu, rstd)
+    torch.cuda.synchronize()
+    want_dx, want_dln = ln_dense_bwd_plain(x, gamma, w, dy, mu, rstd)
+    assert dln.shape == (r, c) and bool(torch.isfinite(dln).all())
+    torch.testing.assert_close(dln, want_dln, rtol=0, atol=dln_tolerance(want_dln, torch.bfloat16))
+    _assert_compare(dx, want_dx, "dx")
+
+
+def test_ln_dense_bf16_backward_walks_many_tiles(cuda):
+    """At R = 20,000 and C = 1024 there are 1,256 tiles for 132 SMs: each
+    persistent block walks about ten, its ring running on across them."""
+    x, gamma, beta, w, b, dy = _ln_operands(20_000, 1024, torch.bfloat16, cuda, seed=77, f=96)
+    _, mu, rstd = ln_dense_fwd(x, gamma, beta, w, b, 1e-6)
+    dx, dln = ln_dense_bwd(x, gamma, w, dy, mu, rstd)
+    torch.cuda.synchronize()
+    want_dx, want_dln = ln_dense_bwd_plain(x, gamma, w, dy, mu, rstd)
+    torch.testing.assert_close(dln, want_dln, rtol=0, atol=dln_tolerance(want_dln, torch.bfloat16))
+    _assert_compare(dx, want_dx, "dx")
+
+
+def test_ln_dense_bf16_backward_is_bitwise_repeatable(cuda):
+    """No atomics in #7b either: two calls give bitwise equal dln and dx."""
+    x, gamma, beta, w, b, dy = _ln_operands(1000, 768, torch.bfloat16, cuda, seed=5, f=2304)
+    _, mu, rstd = ln_dense_fwd(x, gamma, beta, w, b, 1e-6)
+    first = [t.clone() for t in ln_dense_bwd(x, gamma, w, dy, mu, rstd)]
+    second = ln_dense_bwd(x, gamma, w, dy, mu, rstd)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -26,39 +26,59 @@
 // three strided views of the (B, N, 3C) projection and of one (B, N, 3C)
 // gradient, the per-head wrapper transposed views.
 //
-// What bounds it: 10 * B*H*N^2*d operations (five N x N x d products, two
-// of them recomputing the forward's) against some 60 MB of operands at the
-// decoder shape: far above the H100's ~295 FLOP/byte ridge, so it is bound
-// by tensor-core throughput. The N x N scores never reach device memory.
+// What bounds it: 10 * B*H*N^2*d operations (five N x N x d products)
+// against some 60 MB of operands at the decoder shape: far above the H100's
+// ~295 FLOP/byte ridge, so the bound is tensor-core throughput. The N x N
+// scores never reach device memory.
 //
-// Design, deterministic and without atomics: three launches on one stream.
+// Design of the bf16 bodies (Hopper: wgmma + TMA), deterministic and
+// without atomics, three launches on one stream:
 //   1. delta pre-pass: one warp per (b, h, row), delta = rowsum(do * o) in
 //      f32 into a (B, H, N) scratch.
-//   2. dK/dV kernel: one block of 4 warps per (b, h, 64-key tile); each warp
-//      owns 16 keys. It loops over every 64-query tile (q, do, lse and delta
-//      staged in shared memory) and, 16 queries at a time, computes
-//      S^T = K Q^T and dP^T = V dO^T on the tensor cores. That puts P^T and
-//      dS^T in accumulator layout, which rounded to bf16 is the A fragment
-//      of dV += P^T dO and dK += dS^T Q (the forward reuses its S the same
-//      way). dK and dV stay in f32 registers for the whole loop.
-//   3. dQ kernel: one block per (b, h, 64-query tile), looping over 64-key
-//      tiles: S = Q K^T, dP = dO V^T, dQ += dS K.
-// mma.sync m16n8k16 bf16 with f32 accumulation; P and dS are rounded to bf16
-// before their products. Ragged tails: rows past their length are
-// zero-filled when staged; query rows past seq_len have lse read as +inf
-// (so P = 0) and delta as 0, keys past kv_len get P = 0 in the dQ kernel,
-// and nothing is stored past seq_len (dq) or kv_len (dk, dv). Shared
-// memory is dynamic (4 tiles of 64 x (D+8) bf16: 70 KB at D = 128), so the
-// accumulators are the only per-thread arrays (D/2 floats each of dK, dV).
-// The dQ kernel keeps its key tile's bias in the 2 x 64 floats that the
-// dK/dV kernel uses for lse and delta.
-// Not yet done (a later change): cp.async/TMA double buffering, wgmma.
+//   2. dK/dV kernel: a block per (b, h, 64-key tile): one consumer
+//      warpgroup and one producer warp. The producer loads the block's K
+//      and V once and streams every 64-query tile of Q and dO through a
+//      ring of stages (2 to 4, by head_dim) with TMA, rank-4 tensor maps
+//      over (d, token, head, batch) built from the wrapper's strides (the
+//      packed view's token stride is 3C), behind full/empty mbarriers; its
+//      lanes write each tile's lse * log2(e) and delta beside it (+inf and
+//      0 past seq_len). Per query tile the warpgroup runs S^T = K Q^T and
+//      dP^T = V dO^T as wgmma m64n64k16 with both operands K-major in
+//      shared memory, forms P^T = exp2(S^T * scale * log2(e) + bias - lse)
+//      and dS^T = P^T (dP^T - delta) in the f32 accumulators, rounds them
+//      to bf16 straight into the register A fragments of dV += P^T dO and
+//      dK += dS^T Q (wgmma m64n{d}k16, A from registers, B = the same dO
+//      and Q tiles read MN-major through the transpose flag), and releases
+//      the stage. dK and dV stay in f32 registers for the whole loop.
+//   3. dQ kernel: a block per (b, h, 64-query tile), Q and dO resident, K
+//      and V (and a ring step's key bias) streamed: S = Q K^T, dP = dO V^T,
+//      dS with keys past kv_len masked to P = 0, dQ += dS K with K read
+//      MN-major.
+// The split recomputes S and dP in the dQ kernel (seven N x N x d products
+// for the bound's five) so that every sum has one owner and a fixed order:
+// two runs give bitwise equal gradients, which the sequence-parallel step
+// needs (its ranks' parameters must stay bitwise equal). A single pass with
+// dQ summed across key tiles would need atomics or ordered semaphores.
+// Tiles: 64 rows of d bf16 as TMA writes them, k-blocks of 64 columns
+// swizzled 128B (d = 32: 64-byte rows swizzled 64B, d = 128: two k-blocks),
+// each serving K-major and MN-major descriptors (sm90_common.cuh). Ragged
+// tails arrive zero-filled from TMA; nothing is stored past seq_len (dq) or
+// kv_len (dk, dv). P and dS are rounded to bf16 before their products, as
+// before. A gradient sums over up to 4,097 rows in one f32 accumulator:
+// the tolerance's eight bf16 spacings leave that far behind.
+// What bounds it now: per 64 x 64 tile the warpgroup's exponentials and
+// elementwise work (exp2 of 4,096 scores on the 16-a-clock MUFU pipe, some
+// five FP32 operations per score) stand beside its tensor work (four or
+// three 64 x 64 x d products), and a warpgroup waits for its own products
+// before the elementwise step: the overlap comes from two blocks on an SM
+// (one at d = 128, for registers), not from inside one.
 //
 // The f32 kernels (compute_dtype float32, off the default bf16 path) use
 // scalar FMAs: D/16 neighbouring threads share one key (or query) row, each
 // holding 16 of its dims, and reduce their dot products with shuffles.
 
 #include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 struct FlashBwdParams {
   const void* q;
@@ -82,6 +102,16 @@ struct FlashBwdParams {
   long long dv_sb, dv_sn, dv_sh;
   int batch, heads, seq_len, kv_len, head_dim;  // seq_len query rows, kv_len keys
   float scale;
+};
+
+// The wgmma probe's tile: d (64 x n f32) = a (64 x 64) b (64 x n), a and b
+// contiguous bf16; n in {32, 64, 128}.
+struct WgmmaProbeParams {
+  const void* a;
+  const void* b;
+  float* d;
+  int n;
+  int a_from_registers;
 };
 
 namespace {
@@ -122,47 +152,185 @@ flash_bwd_delta_kernel(const FlashBwdParams p) {
 }
 
 // ---------------------------------------------------------------- bf16 path
+//
+// wgmma bodies: one consumer warpgroup owns a 64-row tile (keys in the
+// dK/dV kernel, queries in the dQ kernel) whose operands stay resident in
+// shared memory; one producer warp streams the other side's 64-row tiles
+// through TMA into a ring of stages behind full/empty mbarriers.
 
+constexpr int kWsThreads = 128 + 32;  // one consumer warpgroup and one producer warp
+
+// A tile is 64 rows of D bf16, as TMA writes it: k-blocks of 64 columns
+// (128-byte rows, swizzled 128B; D = 32 is one block of 64-byte rows,
+// swizzled 64B), each of 64 rows. The same tile serves K-major (its rows
+// are a product's M or N, D its depth) and MN-major (its rows are the
+// depth, D the N).
 template <int D>
-constexpr int bf16_smem_bytes() {
-  return 4 * kBlock * (D + 8) * static_cast<int>(sizeof(__nv_bfloat16)) +
-         2 * kBlock * static_cast<int>(sizeof(float));
+struct BwdTiling {
+  static constexpr int kBoxCols = D < 64 ? D : 64;
+  static constexpr int kKBlocks = D / kBoxCols;
+  static constexpr int kSwizzle = D == 32 ? sm90::kSwizzle64 : sm90::kSwizzle128;
+  static constexpr uint32_t kAtomBytes = kBoxCols * 2 * 8;  // 8 rows
+  static constexpr int kBoxBytes = kBlock * kBoxCols * 2;   // one k-block of a tile
+  static constexpr int kTileBytes = kBlock * D * 2;
+  static constexpr int kStages = D == 32 ? 4 : (D == 64 ? 3 : 2);
+  static constexpr int kMinBlocks = D == 128 ? 1 : 2;  // blocks an SM holds: the register budget
+  // [two resident tiles][kStages x two streamed tiles][kStages x 2 x 64
+  // f32 (lse and delta, or the key bias)][barriers], after 1,024 bytes of
+  // alignment room
+  static constexpr int kRowsOffset = (2 + 2 * kStages) * kTileBytes;
+  static constexpr int kBarOffset = kRowsOffset + kStages * 2 * kBlock * 4;
+  static constexpr int kSmem = 1024 + kBarOffset + (2 * kStages + 1) * 8;
+  static_assert(kSmem * kMinBlocks <= 228 * 1024, "over the shared memory of an SM");
+};
+
+// K-major descriptor of a tile's 16-deep step kk over D.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int kk) {
+  using T = BwdTiling<D>;
+  return sm90::wgmma_desc(tile + (kk * 16 / T::kBoxCols) * T::kBoxBytes + (kk * 16 % T::kBoxCols) * 2,
+                          T::kAtomBytes, T::kSwizzle);
 }
 
+// MN-major descriptor of a tile's 16-deep step kk over its rows.
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int kk) {
+  using T = BwdTiling<D>;
+  return sm90::wgmma_desc_mn(tile + kk * 2 * T::kAtomBytes, T::kBoxBytes, T::kAtomBytes, T::kSwizzle);
+}
+
+// Rows row0 .. row0 + 63 of head (b, h) of a 4-D (D, token, head, batch)
+// tensor map into `tile`; rows past the tensor arrive as zeros.
+template <int D>
+__device__ __forceinline__ void load_rows(unsigned char* tile, const CUtensorMap* map, int row0, int h, int b,
+                                          uint64_t* bar, uint64_t policy) {
+  using T = BwdTiling<D>;
+#pragma unroll
+  for (int kb = 0; kb < T::kKBlocks; ++kb) {
+    sm90::tma_load_4d(tile + kb * T::kBoxBytes, map, kb * T::kBoxCols, row0, h, b, bar, policy);
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Keeps registers that an async wgmma reads (register A fragments) live
+// and unchanged until its wait.
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
+}
+
+// Stores rows (16 * warp + g, + 8) of a 64 x D accumulator, times `mul`, as
+// bf16 pairs at columns 8j + 2t; rows at or past `rows` are not stored.
+template <int D>
+__device__ __forceinline__ void store_tile(const float (&acc)[D / 2], float mul, __nv_bfloat16* base,
+                                           long long row_stride, int row0, int rows, int warp, int g, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + warp * 16 + g + 8 * r;
+    if (row >= rows) continue;
+    __nv_bfloat16* dst = base + row * row_stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dst + j * 8) = pack_f32(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+    }
+  }
+}
+
+// dK and dV of 64 keys: S^T = K Q^T and dP^T = V dO^T (both operands
+// K-major), P^T = exp(S^T * scale + bias - lse) and dS^T = P^T (dP^T -
+// delta) in the accumulators, rounded to bf16 as the register A of dV +=
+// P^T dO and dK += dS^T Q (dO and Q MN-major), over every 64-query tile.
 template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_bf16_kernel(const FlashBwdParams p) {
-  constexpr int LD = D + 8;  // padded row pitch, in elements
-  constexpr int KT = D / 16;  // 16-deep steps over head_dim
-  constexpr int NT = D / 8;   // 8-column tiles of dK and dV
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + kBlock * LD;
-  __nv_bfloat16* qs = vs + kBlock * LD;
-  __nv_bfloat16* dos = qs + kBlock * LD;
-  float* lse_s = reinterpret_cast<float*>(dos + kBlock * LD);  // lse * log2(e); +inf past N
-  float* delta_s = lse_s + kBlock;                             // delta; 0 past N
+__global__ void __launch_bounds__(kWsThreads, BwdTiling<D>::kMinBlocks)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                            const FlashBwdParams p) {
+  using T = BwdTiling<D>;
+  using namespace sm90;
+  constexpr int kStages = T::kStages;
+  extern __shared__ unsigned char bwd_smem[];
+  unsigned char* base = bwd_smem + ((1024 - (smem_u32(bwd_smem) & 1023)) & 1023);
+  unsigned char* ks = base;
+  unsigned char* vs = base + T::kTileBytes;
+  unsigned char* stream = base + 2 * T::kTileBytes;  // stage s: Q at 2s, dO at 2s + 1 tiles
+  float* rows_s = reinterpret_cast<float*>(base + T::kRowsOffset);  // stage s: lse2 [128s, +64), delta [+64, +128)
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + T::kBarOffset);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
 
   const int k0 = blockIdx.x * kBlock;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
   const int n = p.seq_len;
   const int nk = p.kv_len;
+  const int qtiles = (n + kBlock - 1) / kBlock;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
 
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + bh_offset(p.q_sb, p.q_sh, b, h);
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + bh_offset(p.k_sb, p.k_sh, b, h);
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + bh_offset(p.v_sb, p.v_sh, b, h);
-  const __nv_bfloat16* dog = static_cast<const __nv_bfloat16*>(p.do_) + bh_offset(p.do_sb, p.do_sh, b, h);
-  const float* lse_g = p.lse + ((long long)b * p.heads + h) * n;
-  const float* delta_g = p.delta + ((long long)b * p.heads + h) * n;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA's expect_tx arrival and the producer lanes' rows
+      mbar_init(&empty[s], 1);
+    }
+    mbar_init(kvbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  load_tile<D, LD, kBlock, kThreads>(ks, kg, p.k_sn, k0, nk);
-  load_tile<D, LD, kBlock, kThreads>(vs, vg, p.v_sn, k0, nk);
-  float kb[2] = {0.f, 0.f};  // the bias of this thread's keys (rows g, g + 8), log2 units
+  if (warp == 4) {  // the producer warp
+    const float* lse_g = p.lse + ((long long)b * p.heads + h) * n;
+    const float* delta_g = p.delta + ((long long)b * p.heads + h) * n;
+    const uint64_t once = l2_evict_first();
+    const uint64_t shared_by_all = l2_evict_last();  // every key tile of the head reads Q and dO
+    if (lane == 0) {
+      tma_prefetch_descriptor(&tm_q);
+      tma_prefetch_descriptor(&tm_do);
+      mbar_arrive_expect_tx(kvbar, 2 * T::kTileBytes);
+      load_rows<D>(ks, &tm_k, k0, h, b, kvbar, once);
+      load_rows<D>(vs, &tm_v, k0, h, b, kvbar, once);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int qt = 0; qt < qtiles; ++qt) {
+      mbar_wait(&empty[stage], phase ^ 1);  // the first round passes: every stage starts empty
+      const int q0 = qt * kBlock;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[stage], 2 * T::kTileBytes);
+        load_rows<D>(stream + 2 * stage * T::kTileBytes, &tm_q, q0, h, b, &full[stage], shared_by_all);
+        load_rows<D>(stream + (2 * stage + 1) * T::kTileBytes, &tm_do, q0, h, b, &full[stage], shared_by_all);
+      }
+      // lse * log2(e) and delta of the tile's rows: +inf and 0 past N, so
+      // that P = 0 there
+      float* rs = rows_s + stage * 2 * kBlock;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = lane + 32 * i;
+        const bool live = q0 + r < n;
+        rs[r] = live ? lse_g[q0 + r] * kLog2e : INFINITY;
+        rs[kBlock + r] = live ? delta_g[q0 + r] : 0.f;
+      }
+      mbar_arrive(&full[stage]);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float scale2 = p.scale * kLog2e;
+  float kb[2] = {0.f, 0.f};  // the bias of this thread's key rows (g, g + 8), log2 units
   if constexpr (HAS_BIAS) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -170,219 +338,342 @@ flash_bwd_dkdv_bf16_kernel(const FlashBwdParams p) {
       kb[r] = key < nk ? p.key_bias[key] * kLog2e : 0.f;
     }
   }
-
-  float dk[NT][4];
-  float dv[NT][4];
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-  }
-  const float scale2 = p.scale * kLog2e;
-  const __nv_bfloat16* kw = ks + (warp * 16 + g) * LD + 2 * t;  // this warp's 16 keys
-  const __nv_bfloat16* vw = vs + (warp * 16 + g) * LD + 2 * t;
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kvbar, 0);
 
-  for (int q0 = 0; q0 < n; q0 += kBlock) {
-    __syncthreads();  // the previous query tile is consumed
-    load_tile<D, LD, kBlock, kThreads>(qs, qg, p.q_sn, q0, n);
-    load_tile<D, LD, kBlock, kThreads>(dos, dog, p.do_sn, q0, n);
-    if (threadIdx.x < kBlock) {
-      const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < n ? lse_g[row] * kLog2e : INFINITY;
-      delta_s[threadIdx.x] = row < n ? delta_g[row] : 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int qt = 0; qt < qtiles; ++qt) {
+    mbar_wait(&full[stage], phase);
+    const unsigned char* qs = stream + 2 * stage * T::kTileBytes;
+    const unsigned char* dos = qs + T::kTileBytes;
+    const float* lse2 = rows_s + stage * 2 * kBlock;
+    const float* delta = lse2 + kBlock;
+    float st[32], dpt[32];  // S^T and dP^T: 64 keys x 64 queries
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) Wgmma<64>::ss<0>(st, desc_k<D>(ks, kk), desc_k<D>(qs, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) Wgmma<64>::ss<0>(dpt, desc_k<D>(vs, kk), desc_k<D>(dos, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(st);
+    fence_operands(dpt);
+    // accumulator element 4j + e: key row g (+ 8 for e >= 2) of the warp,
+    // query column 8j + 2t + (e & 1)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lv = (e & 1) ? l2.y : l2.x;
+        const float x = HAS_BIAS ? fmaf(st[4 * j + e], scale2, kb[e >> 1]) - lv : fmaf(st[4 * j + e], scale2, -lv);
+        const float pv = ex2(x);
+        st[4 * j + e] = pv;
+        dpt[4 * j + e] = pv * (dpt[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+      }
     }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int c = 0; c < kBlock / 16; ++c) {  // 16 queries at a time
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x two 8-query tiles
-      float s[2][4];
-      float dp[2][4];
+    uint32_t pa[4][4], da[4][4];
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
+    for (int kk = 0; kk < 4; ++kk) {
+      acc_to_a(st, kk, pa[kk]);
+      acc_to_a(dpt, kk, da[kk]);
+    }
+    wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.f;
-        const __nv_bfloat16* qb = qs + (c * 16 + jj * 8 + g) * LD + 2 * t;
-        const __nv_bfloat16* dob = dos + (c * 16 + jj * 8 + g) * LD + 2 * t;
+    for (int kk = 0; kk < 4; ++kk) Wgmma<D>::template rs<1>(dv, pa[kk], desc_mn<D>(dos, kk), 1);
 #pragma unroll
-        for (int kk = 0; kk < KT; ++kk) {
-          uint32_t a[4];
-          load_a<LD>(a, kw, kk);
-          mma_16816(s[jj], a, ld32(qb + kk * 16), ld32(qb + kk * 16 + 8));
-          load_a<LD>(a, vw, kk);
-          mma_16816(dp[jj], a, ld32(dob + kk * 16), ld32(dob + kk * 16 + 8));
-        }
-      }
-      // P^T and dS^T in place; dead query columns have lse +inf, so P = 0
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c * 16 + jj * 8 + 2 * t + (e & 1);
-          float x = s[jj][e] * scale2;
-          if constexpr (HAS_BIAS) x += kb[e >> 1];
-          const float pv = exp2f(x - lse_s[col]);
-          s[jj][e] = pv;
-          dp[jj][e] = pv * (dp[jj][e] - delta_s[col]);
-        }
-      }
-      uint32_t pa[4];
-      uint32_t da[4];
-      pa[0] = pack_f32(s[0][0], s[0][1]);
-      pa[1] = pack_f32(s[0][2], s[0][3]);
-      pa[2] = pack_f32(s[1][0], s[1][1]);
-      pa[3] = pack_f32(s[1][2], s[1][3]);
-      da[0] = pack_f32(dp[0][0], dp[0][1]);
-      da[1] = pack_f32(dp[0][2], dp[0][3]);
-      da[2] = pack_f32(dp[1][0], dp[1][1]);
-      da[3] = pack_f32(dp[1][2], dp[1][3]);
-      // dV += P^T dO and dK += dS^T Q over these 16 queries
-      const __nv_bfloat16* dob = dos + (c * 16 + 2 * t) * LD + g;
-      const __nv_bfloat16* qb = qs + (c * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* col = dob + j * 8;
-        mma_16816(dv[j], pa, pack_bf16(col[0], col[LD]), pack_bf16(col[8 * LD], col[9 * LD]));
-        col = qb + j * 8;
-        mma_16816(dk[j], da, pack_bf16(col[0], col[LD]), pack_bf16(col[8 * LD], col[9 * LD]));
-      }
+    for (int kk = 0; kk < 4; ++kk) Wgmma<D>::template rs<1>(dk, da[kk], desc_mn<D>(qs, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dv);
+    fence_operands(dk);
+    fence_frags(pa);
+    fence_frags(da);
+    if (threadIdx.x == 0) mbar_arrive(&empty[stage]);  // the warpgroup's products on the stage are done
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
     }
   }
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + warp * 16 + g + 8 * r;
-    if (key >= nk) continue;  // dead key rows are not stored
-    __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + bh_offset(p.dk_sb, p.dk_sh, b, h) +
-                         key * p.dk_sn + 2 * t;
-    __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + bh_offset(p.dv_sb, p.dv_sh, b, h) +
-                         key * p.dv_sn + 2 * t;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      *reinterpret_cast<uint32_t*>(dkg + j * 8) =
-          pack_f32(dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvg + j * 8) = pack_f32(dv[j][2 * r], dv[j][2 * r + 1]);
-    }
-  }
+  store_tile<D>(dk, p.scale, static_cast<__nv_bfloat16*>(p.dk) + bh_offset(p.dk_sb, p.dk_sh, b, h), p.dk_sn, k0,
+                nk, warp, g, t);
+  store_tile<D>(dv, 1.f, static_cast<__nv_bfloat16*>(p.dv) + bh_offset(p.dv_sb, p.dv_sh, b, h), p.dv_sn, k0, nk,
+                warp, g, t);
 }
 
+// dQ of 64 queries: S = Q K^T and dP = dO V^T (K-major), dS = P (dP -
+// delta) with keys past kv_len masked to P = 0, rounded to bf16 as the
+// register A of dQ += dS K (K MN-major), over every 64-key tile.
 template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16_kernel(const FlashBwdParams p) {
-  constexpr int LD = D + 8;
-  constexpr int KT = D / 16;
-  constexpr int NT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dos = qs + kBlock * LD;
-  __nv_bfloat16* ks = dos + kBlock * LD;
-  __nv_bfloat16* vs = ks + kBlock * LD;
-  float* bias_s = reinterpret_cast<float*>(vs + kBlock * LD);  // the key tile's bias, log2 units
+__global__ void __launch_bounds__(kWsThreads, BwdTiling<D>::kMinBlocks)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                          const FlashBwdParams p) {
+  using T = BwdTiling<D>;
+  using namespace sm90;
+  constexpr int kStages = T::kStages;
+  extern __shared__ unsigned char bwd_smem[];
+  unsigned char* base = bwd_smem + ((1024 - (smem_u32(bwd_smem) & 1023)) & 1023);
+  unsigned char* qs = base;
+  unsigned char* dos = base + T::kTileBytes;
+  unsigned char* stream = base + 2 * T::kTileBytes;  // stage s: K at 2s, V at 2s + 1 tiles
+  float* bias_s = reinterpret_cast<float*>(base + T::kRowsOffset);  // stage s: [128s, +64), log2 units
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + T::kBarOffset);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
 
   const int q0 = blockIdx.x * kBlock;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
   const int n = p.seq_len;
   const int nk = p.kv_len;
+  const int ktiles = (nk + kBlock - 1) / kBlock;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
 
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + bh_offset(p.q_sb, p.q_sh, b, h);
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + bh_offset(p.k_sb, p.k_sh, b, h);
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + bh_offset(p.v_sb, p.v_sh, b, h);
-  const __nv_bfloat16* dog = static_cast<const __nv_bfloat16*>(p.do_) + bh_offset(p.do_sb, p.do_sh, b, h);
-  const float* lse_g = p.lse + ((long long)b * p.heads + h) * n;
-  const float* delta_g = p.delta + ((long long)b * p.heads + h) * n;
-
-  load_tile<D, LD, kBlock, kThreads>(qs, qg, p.q_sn, q0, n);
-  load_tile<D, LD, kBlock, kThreads>(dos, dog, p.do_sn, q0, n);
-  float lse2[2];  // rows g and g + 8 of this warp: lse * log2(e), +inf past N
-  float dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    lse2[r] = row < n ? lse_g[row] * kLog2e : INFINITY;
-    dl[r] = row < n ? delta_g[row] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], HAS_BIAS ? 1 + 32 : 1);  // and the producer lanes' bias
+      mbar_init(&empty[s], 1);
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
   }
-  float dq[NT][4];
+  __syncthreads();
+
+  if (warp == 4) {  // the producer warp
+    const uint64_t once = l2_evict_first();
+    const uint64_t shared_by_all = l2_evict_last();  // every query tile of the head reads K and V
+    if (lane == 0) {
+      tma_prefetch_descriptor(&tm_k);
+      tma_prefetch_descriptor(&tm_v);
+      mbar_arrive_expect_tx(qbar, 2 * T::kTileBytes);
+      load_rows<D>(qs, &tm_q, q0, h, b, qbar, once);
+      load_rows<D>(dos, &tm_do, q0, h, b, qbar, once);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(&empty[stage], phase ^ 1);
+      const int k0 = kt * kBlock;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[stage], 2 * T::kTileBytes);
+        load_rows<D>(stream + 2 * stage * T::kTileBytes, &tm_k, k0, h, b, &full[stage], shared_by_all);
+        load_rows<D>(stream + (2 * stage + 1) * T::kTileBytes, &tm_v, k0, h, b, &full[stage], shared_by_all);
+      }
+      if constexpr (HAS_BIAS) {
+        float* bs = bias_s + stage * 2 * kBlock;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+        for (int i = 0; i < 2; ++i) {
+          const int key = k0 + lane + 32 * i;
+          bs[lane + 32 * i] = key < nk ? p.key_bias[key] * kLog2e : 0.f;
+        }
+        mbar_arrive(&full[stage]);
+      }
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const float scale2 = p.scale * kLog2e;
-  const __nv_bfloat16* qw = qs + (warp * 16 + g) * LD + 2 * t;  // this warp's 16 queries
-  const __nv_bfloat16* dow = dos + (warp * 16 + g) * LD + 2 * t;
+  float lse2[2], dl[2];  // rows g and g + 8 of the warp: +inf and 0 past N
+  {
+    const long long bh = ((long long)b * p.heads + h) * n;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + g + 8 * r;
+      lse2[r] = row < n ? p.lse[bh + row] * kLog2e : INFINITY;
+      dl[r] = row < n ? p.delta[bh + row] : 0.f;
+    }
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  mbar_wait(qbar, 0);
 
-  for (int k0 = 0; k0 < nk; k0 += kBlock) {
-    __syncthreads();  // the previous key tile (or the Q staging) is consumed
-    load_tile<D, LD, kBlock, kThreads>(ks, kg, p.k_sn, k0, nk);
-    load_tile<D, LD, kBlock, kThreads>(vs, vg, p.v_sn, k0, nk);
-    if constexpr (HAS_BIAS) {
-      if (threadIdx.x < kBlock) {
-        const int key = k0 + threadIdx.x;
-        bias_s[threadIdx.x] = key < nk ? p.key_bias[key] * kLog2e : 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    mbar_wait(&full[stage], phase);
+    const int k0 = kt * kBlock;
+    const unsigned char* ks = stream + 2 * stage * T::kTileBytes;
+    const unsigned char* vs = ks + T::kTileBytes;
+    float s[32], dp[32];  // S and dP: 64 queries x 64 keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) Wgmma<64>::ss<0>(s, desc_k<D>(qs, kk), desc_k<D>(ks, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) Wgmma<64>::ss<0>(dp, desc_k<D>(dos, kk), desc_k<D>(vs, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+    fence_operands(dp);
+    // element 4j + e: query row g (+ 8 for e >= 2), key column 8j + 2t + (e & 1)
+    const bool tail = k0 + kBlock > nk;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float2 bb = make_float2(0.f, 0.f);
+      if constexpr (HAS_BIAS) bb = *reinterpret_cast<const float2*>(bias_s + stage * 2 * kBlock + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = HAS_BIAS ? fmaf(s[4 * j + e], scale2, (e & 1) ? bb.y : bb.x) - lse2[e >> 1]
+                                 : fmaf(s[4 * j + e], scale2, -lse2[e >> 1]);
+        float pv = ex2(x);
+        if (tail && k0 + 8 * j + 2 * t + (e & 1) >= nk) pv = 0.f;
+        dp[4 * j + e] = pv * (dp[4 * j + e] - dl[e >> 1]);
       }
     }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int c = 0; c < kBlock / 16; ++c) {  // 16 keys at a time
-      float s[2][4];
-      float dp[2][4];
+    uint32_t da[4][4];
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(dp, kk, da[kk]);
+    wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.f;
-        const __nv_bfloat16* kb = ks + (c * 16 + jj * 8 + g) * LD + 2 * t;
-        const __nv_bfloat16* vb = vs + (c * 16 + jj * 8 + g) * LD + 2 * t;
-#pragma unroll
-        for (int kk = 0; kk < KT; ++kk) {
-          uint32_t a[4];
-          load_a<LD>(a, qw, kk);
-          mma_16816(s[jj], a, ld32(kb + kk * 16), ld32(kb + kk * 16 + 8));
-          load_a<LD>(a, dow, kk);
-          mma_16816(dp[jj], a, ld32(vb + kk * 16), ld32(vb + kk * 16 + 8));
-        }
-      }
-      // dS, with keys past kv_len masked to P = 0
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + c * 16 + jj * 8 + 2 * t + (e & 1);
-          float x = s[jj][e] * scale2;
-          if constexpr (HAS_BIAS) x += bias_s[c * 16 + jj * 8 + 2 * t + (e & 1)];
-          const float pv = key < nk ? exp2f(x - lse2[e >> 1]) : 0.f;
-          dp[jj][e] = pv * (dp[jj][e] - dl[e >> 1]);
-        }
-      }
-      uint32_t da[4];
-      da[0] = pack_f32(dp[0][0], dp[0][1]);
-      da[1] = pack_f32(dp[0][2], dp[0][3]);
-      da[2] = pack_f32(dp[1][0], dp[1][1]);
-      da[3] = pack_f32(dp[1][2], dp[1][3]);
-      // dQ += dS K over these 16 keys
-      const __nv_bfloat16* kb = ks + (c * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* col = kb + j * 8;
-        mma_16816(dq[j], da, pack_bf16(col[0], col[LD]), pack_bf16(col[8 * LD], col[9 * LD]));
-      }
+    for (int kk = 0; kk < 4; ++kk) Wgmma<D>::template rs<1>(dq, da[kk], desc_mn<D>(ks, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dq);
+    fence_frags(da);
+    if (threadIdx.x == 0) mbar_arrive(&empty[stage]);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
     }
   }
 
+  store_tile<D>(dq, p.scale, static_cast<__nv_bfloat16*>(p.dq) + bh_offset(p.dq_sb, p.dq_sh, b, h), p.dq_sn, q0, n,
+                warp, g, t);
+}
+
+// The rank-4 (D, token, head, batch) tensor map of one bf16 operand from
+// its element strides, boxes of 64 rows by one k-block.
+template <int D>
+CUresult encode_rows(CUtensorMap* map, const void* ptr, long long sb, long long sn, long long sh, int rows,
+                     int heads, int batch) {
+  using T = BwdTiling<D>;
+  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(rows), static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(batch)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(sn) * 2, static_cast<uint64_t>(sh) * 2,
+                               static_cast<uint64_t>(sb) * 2};
+  const uint32_t box[4] = {static_cast<uint32_t>(T::kBoxCols), static_cast<uint32_t>(kBlock), 1, 1};
+  return sm90::encode_bf16(map, ptr, 4, dims, strides, box,
+                           D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int D, bool HAS_BIAS>
+cudaError_t launch_bf16(const FlashBwdParams& p, cudaStream_t stream) {
+  using T = BwdTiling<D>;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (encode_rows<D>(&tm_q, p.q, p.q_sb, p.q_sn, p.q_sh, p.seq_len, p.heads, p.batch) != CUDA_SUCCESS ||
+      encode_rows<D>(&tm_k, p.k, p.k_sb, p.k_sn, p.k_sh, p.kv_len, p.heads, p.batch) != CUDA_SUCCESS ||
+      encode_rows<D>(&tm_v, p.v, p.v_sb, p.v_sn, p.v_sh, p.kv_len, p.heads, p.batch) != CUDA_SUCCESS ||
+      encode_rows<D>(&tm_do, p.do_, p.do_sb, p.do_sn, p.do_sh, p.seq_len, p.heads, p.batch) != CUDA_SUCCESS) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<D, HAS_BIAS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D, HAS_BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 key_grid((p.kv_len + kBlock - 1) / kBlock, p.heads, p.batch);
+  const dim3 query_grid((p.seq_len + kBlock - 1) / kBlock, p.heads, p.batch);
+  flash_bwd_dkdv_wgmma_kernel<D, HAS_BIAS><<<key_grid, kWsThreads, T::kSmem, stream>>>(tm_q, tm_k, tm_v, tm_do, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wgmma_kernel<D, HAS_BIAS><<<query_grid, kWsThreads, T::kSmem, stream>>>(tm_q, tm_k, tm_v, tm_do, p);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------ wgmma probe (tests)
+//
+// One tile through the helpers the bf16 bodies use: d (64 x N f32) = a (64
+// x 64 bf16, row-major) b (64 x N bf16, row-major), b loaded by TMA into
+// the tile layout above and read MN-major (the transpose flag), a read
+// K-major from shared memory (the `ss` form) or from registers (`rs`).
+// Held to torch.matmul by the CUDA tests.
+
+template <int N>
+__global__ void __launch_bounds__(128) wgmma_probe_kernel(const __grid_constant__ CUtensorMap tm_a,
+                                                          const __grid_constant__ CUtensorMap tm_b,
+                                                          const WgmmaProbeParams p) {
+  using namespace sm90;
+  __shared__ __align__(1024) unsigned char tiles[kBlock * 128 + BwdTiling<128>::kTileBytes];
+  __shared__ uint64_t bar;
+  unsigned char* as = tiles;
+  unsigned char* bs = tiles + kBlock * 128;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const uint64_t policy = l2_evict_first();
+    mbar_arrive_expect_tx(&bar, kBlock * 128 + BwdTiling<N>::kTileBytes);
+    tma_load_2d(as, &tm_a, 0, 0, &bar, policy);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= n) continue;
-    __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + bh_offset(p.dq_sb, p.dq_sh, b, h) +
-                         row * p.dq_sn + 2 * t;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      *reinterpret_cast<uint32_t*>(dqg + j * 8) =
-          pack_f32(dq[j][2 * r] * p.scale, dq[j][2 * r + 1] * p.scale);
+    for (int kb = 0; kb < BwdTiling<N>::kKBlocks; ++kb) {
+      tma_load_2d(bs + kb * BwdTiling<N>::kBoxBytes, &tm_b, kb * BwdTiling<N>::kBoxCols, 0, &bar, policy);
     }
   }
+  mbar_wait(&bar, 0);
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(p.a);
+  uint32_t af[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {  // the m16n8k16 A fragment of rows 16 * warp .. + 15
+    const __nv_bfloat16* r0 = a + (warp * 16 + g) * 64 + kk * 16 + 2 * t;
+    af[kk][0] = ld32(r0);
+    af[kk][1] = ld32(r0 + 8 * 64);
+    af[kk][2] = ld32(r0 + 8);
+    af[kk][3] = ld32(r0 + 8 * 64 + 8);
+  }
+  float d[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (p.a_from_registers) {
+      Wgmma<N>::template rs<1>(d, af[kk], desc_mn<N>(bs, kk), 1);
+    } else {
+      Wgmma<N>::template ss<1>(d, desc_k<64>(as, kk), desc_mn<N>(bs, kk), 1);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(d);
+  fence_frags(af);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p.d[(warp * 16 + g + 8 * (e >> 1)) * N + 8 * j + 2 * t + (e & 1)] = d[4 * j + e];
+    }
+  }
+}
+
+template <int N>
+cudaError_t launch_probe(const WgmmaProbeParams& p, cudaStream_t stream) {
+  CUtensorMap tm_a, tm_b;
+  if (sm90::encode_bf16_2d(&tm_a, p.a, kBlock, 64, kBlock, 64, CU_TENSOR_MAP_SWIZZLE_128B) != CUDA_SUCCESS ||
+      sm90::encode_bf16_2d(&tm_b, p.b, kBlock, N, kBlock, BwdTiling<N>::kBoxCols,
+                           N == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B) != CUDA_SUCCESS) {
+    return cudaErrorInvalidValue;
+  }
+  wgmma_probe_kernel<N><<<1, 128, 0, stream>>>(tm_a, tm_b, p);
+  return cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- f32 path
@@ -564,29 +855,14 @@ cudaError_t launch(const FlashBwdParams& p, int is_bf16, cudaStream_t stream) {
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (is_bf16) {
-    constexpr int smem = bf16_smem_bytes<D>();
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16_kernel<D, HAS_BIAS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D, HAS_BIAS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 key_grid((p.kv_len + kBlock - 1) / kBlock, p.heads, p.batch);
-    const dim3 query_grid((p.seq_len + kBlock - 1) / kBlock, p.heads, p.batch);
-    flash_bwd_dkdv_bf16_kernel<D, HAS_BIAS><<<key_grid, kThreads, smem, stream>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_bf16_kernel<D, HAS_BIAS><<<query_grid, kThreads, smem, stream>>>(p);
-  } else {
-    constexpr int kRows = kThreads / (D / 16);
-    const dim3 key_grid((p.kv_len + kRows - 1) / kRows, p.heads, p.batch);
-    const dim3 query_grid((p.seq_len + kRows - 1) / kRows, p.heads, p.batch);
-    flash_bwd_dkdv_f32_kernel<D, HAS_BIAS><<<key_grid, kThreads, 0, stream>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_f32_kernel<D, HAS_BIAS><<<query_grid, kThreads, 0, stream>>>(p);
-  }
+  if (is_bf16) return launch_bf16<D, HAS_BIAS>(p, stream);
+  constexpr int kRows = kThreads / (D / 16);
+  const dim3 key_grid((p.kv_len + kRows - 1) / kRows, p.heads, p.batch);
+  const dim3 query_grid((p.seq_len + kRows - 1) / kRows, p.heads, p.batch);
+  flash_bwd_dkdv_f32_kernel<D, HAS_BIAS><<<key_grid, kThreads, 0, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_f32_kernel<D, HAS_BIAS><<<query_grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -609,6 +885,20 @@ int flash_bwd(const FlashBwdParams* p, int is_bf16, int device, void* stream) {
     case 32: return static_cast<int>(launch<32>(*p, is_bf16, s));
     case 64: return static_cast<int>(launch<64>(*p, is_bf16, s));
     case 128: return static_cast<int>(launch<128>(*p, is_bf16, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// One tile of the wgmma probe (WgmmaProbeParams); `is_bf16` is unused.
+int wgmma_probe(const WgmmaProbeParams* p, int is_bf16, int device, void* stream) {
+  (void)is_bf16;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p->n) {
+    case 32: return static_cast<int>(launch_probe<32>(*p, s));
+    case 64: return static_cast<int>(launch_probe<64>(*p, s));
+    case 128: return static_cast<int>(launch_probe<128>(*p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

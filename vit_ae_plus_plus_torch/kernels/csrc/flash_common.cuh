@@ -117,16 +117,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// A fragment of 16 rows from shared memory: `base` points at (row g, col 2t)
-// of the first row of the fragment, rows LD apart; `k` is the 16-deep step.
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* base, int k) {
-  a[0] = ld32(base + k * 16);
-  a[1] = ld32(base + k * 16 + 8 * LD);
-  a[2] = ld32(base + k * 16 + 8);
-  a[3] = ld32(base + k * 16 + 8 * LD + 8);
-}
-
 // Rows [row0, row0 + ROWS) of one head into shared memory (row pitch LD),
 // by THREADS threads with 16-byte loads; rows at or past n are zero-filled.
 template <int D, int LD, int ROWS, int THREADS>

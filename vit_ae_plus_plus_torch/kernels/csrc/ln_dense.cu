@@ -51,14 +51,25 @@
 // W stages fit, and each stage's round trip (release, TMA, landing) is
 // paid every 32 deep; at C = 512 the 16 KB stages run it past the library.
 //
-// Backward, bf16, two launches on one stream: a product kernel for dln
-// (64 x 128 tiles of (R, C), F in steps of 32, dY and W tiles through
-// cp.async, two stages; W (F, C) is the B operand un-transposed, so its
-// fragments come from shared memory through ldmatrix.trans), then the row
-// pass that the LayerNorm backward also runs (csrc/ln_rows.cuh), reading
-// dln in f32.
-// Not yet done (a later change): the backward on wgmma with TMA, a
-// persistent schedule, and fusing the row pass into the product.
+// Backward, bf16 (redesigned for Hopper's wgmma and TMA), two launches on
+// one stream. The dln product dln = dY W: a persistent block per SM walks
+// 128 x 128 tiles of (R, C), two consumer warpgroups of 64 rows and one
+// producer warp; the producer streams F in 64-deep stages of dY (TMA,
+// K-major, evict_first) and W (TMA, 64 rows of W's (F, C) layout: F is
+// the depth, so B is MN-major, read through wgmma's transpose flag;
+// evict_last) in a ring of six 32 KB stages that runs on across the block's
+// tiles; each stage feeds four m64n128k16 per warpgroup, the previous stage
+// released while the current one runs. The f32 tile leaves in 16-byte
+// streaming stores (lanes t and t ^ 1 swap one pair of each two 8-column
+// blocks). Then the row pass that the LayerNorm backward also runs
+// (csrc/ln_rows.cuh) reads dln in f32 and writes dx. Both dx and dln leave
+// the kernels: dgamma and dbeta are computed outside from dln, as in JAX.
+// Fusing the row pass into the product's epilogue would need a tile that
+// spans all of C (a 64-row x 768 f32 tile is 192 KB of registers across a
+// warpgroup), so it stays a second launch.
+// What holds the product back: each 32 KB stage is 2 MFLOP for the two
+// warpgroups, about 64 operations a byte of L2 traffic; at C = 768 the 330
+// (R6928) tiles fill 132 SMs in 2.5 rounds.
 //
 // The f32 kernels (compute_dtype float32, off the default bf16 path) are
 // scalar FMA bodies with the same tiling idea and f32 products.
@@ -88,15 +99,6 @@ namespace {
 
 using namespace flash;
 using namespace lnrows;
-
-// Four 8 x 8 b16 matrices, transposed: lanes 8m..8m+7 give the row
-// addresses of matrix m, and register m receives the fragment of matrix m.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const __nv_bfloat16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
 
 // The TPU kernel's epilogue order: the f32 sum rounded to bf16, then the
 // bf16 bias added and the result rounded again (fused_ln_dense.py:76-77).
@@ -374,106 +376,168 @@ cudaError_t launch_fwd_bf16(const LndParams& p, cudaStream_t stream) {
 }
 
 // ------------------------------------------------- bf16 backward: dln = dY W
+//
+// dln (R x C, f32) = dY (R x F) W (F x C) on wgmma: a persistent block per
+// SM walks 128 x 128 output tiles (column tiles fastest, so the blocks at
+// work at once share their dY rows in L2); two consumer warpgroups own 64
+// rows each, one producer warp streams the depth F in 64-deep stages of dY
+// (128 rows, K-major) and W (64 rows of F by 128 columns: W's rows are the
+// depth, so B is MN-major) through TMA, in a ring that runs on across the
+// block's tiles. Each stage feeds four m64n128k16 per warpgroup; the
+// previous stage is released once they run.
 
-constexpr int kThreads = 256;     // 8 warps: 2 (rows) x 4 (columns) of 32 x 32
-constexpr int kBM = 64;           // rows per block (columns per block: kBN)
-constexpr int kBKd = 32;          // depth (features out) of one stage
-constexpr int kLDAd = kBKd + 8;   // pitch of a dY stage row
-constexpr int kLDBd = kBN + 8;    // pitch of a W stage row
+constexpr int kThreads = 256;  // the f32 bodies: 8 warps
 
-__global__ void __launch_bounds__(kThreads) vitae_lnd_dln_bf16_kernel(const LndParams p) {
-  using bf16 = __nv_bfloat16;
-  __shared__ __align__(16) bf16 as[2][kBM * kLDAd];   // dY: 64 rows x 32 features out
-  __shared__ __align__(16) bf16 bs[2][kBKd * kLDBd];  // W: 32 features out x 128 features in
+struct DlnTiling {
+  static constexpr int kBM = 128;      // tile rows: two consumer warpgroups
+  static constexpr int kStageK = 64;   // depth (features out) of a stage: 128-byte rows
+  static constexpr int kConsumers = kBM / 64;
+  static constexpr int kThreads = kConsumers * 128 + 32;
+  static constexpr int kABytes = kBM * kStageK * 2;   // dY: 128 rows x 64, swizzled 128B
+  static constexpr int kBBytes = kStageK * kBN * 2;   // W: 64 rows x 128 columns, two 64-column boxes
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages = 6;
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+  static_assert(kSmem <= 232448, "over the shared memory a block can use");
+};
 
-  const int c0 = blockIdx.x * kBN;
-  const long long r0 = (long long)blockIdx.y * kBM;
+__global__ void __launch_bounds__(DlnTiling::kThreads, 1)
+vitae_lnd_dln_wgmma_kernel(const __grid_constant__ CUtensorMap tm_dy, const __grid_constant__ CUtensorMap tm_w,
+                           const LndParams p) {
+  using T = DlnTiling;
+  using namespace sm90;
+  constexpr int kStages = T::kStages;
+  extern __shared__ unsigned char dln_smem[];
+  unsigned char* base = dln_smem + ((1024 - (smem_u32(dln_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kStages * T::kStageBytes);
+  uint64_t* empty = full + kStages;
+
+  const int cols = p.cols;
+  const int ctiles = cols / kBN;
+  const int ntiles = static_cast<int>((p.rows + T::kBM - 1) / T::kBM) * ctiles;
+  const int ksteps = (p.features + T::kStageK - 1) / T::kStageK;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], T::kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == T::kConsumers * 4) {  // the producer warp: TMA only
+    if (lane == 0) {
+      tma_prefetch_descriptor(&tm_dy);
+      tma_prefetch_descriptor(&tm_w);
+      const uint64_t streamed = l2_evict_first();     // dY: read by the C / 128 tiles of its rows
+      const uint64_t shared_by_all = l2_evict_last();  // W: read by every tile
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int r0 = (tile / ctiles) * T::kBM;
+        const int c0 = (tile % ctiles) * kBN;
+        for (int ks = 0; ks < ksteps; ++ks) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = base + stage * T::kStageBytes;
+          mbar_arrive_expect_tx(&full[stage], T::kStageBytes);
+          tma_load_2d(st, &tm_dy, ks * T::kStageK, r0, &full[stage], streamed);
+          tma_load_2d(st + T::kABytes, &tm_w, c0, ks * T::kStageK, &full[stage], shared_by_all);
+          tma_load_2d(st + T::kABytes + T::kBBytes / 2, &tm_w, c0 + 64, ks * T::kStageK, &full[stage],
+                      shared_by_all);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  const int wl = warp & 3;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int cols = p.cols;
-  const int f_out = p.features;
-  const long long rows = p.rows;
-  const bf16* dy = static_cast<const bf16*>(p.dy);
-  const bf16* w = static_cast<const bf16*>(p.w);
-
-  auto load = [&](int stage, int f0) {
-    {  // dY rows r0..r0+63, features f0..f0+31: 256 vectors, one a thread
-      const int r = threadIdx.x / (kBKd / 8);
-      const int c8 = (threadIdx.x % (kBKd / 8)) * 8;
-      const bool ok = r0 + r < rows;
-      cp_async16(&as[stage][r * kLDAd + c8], dy + (ok ? r0 + r : 0) * f_out + f0 + c8, ok);
-    }
+  const bool lead = (threadIdx.x & 127) == 0;
+  int stage = 0;
+  uint32_t phase = 0;
+  float acc[64];
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long r0 = (long long)(tile / ctiles) * T::kBM;
+    const int c0 = (tile % ctiles) * kBN;
+    int release = -1;  // the stage whose products may still be running
+    for (int ks = 0; ks < ksteps; ++ks) {
+      mbar_wait(&full[stage], phase);
+      const unsigned char* st = base + stage * T::kStageBytes;
+      wgmma_fence();
 #pragma unroll
-    for (int u = 0; u < kBKd * kBN / 8 / kThreads; ++u) {  // W rows f0..f0+31, columns c0..c0+127
-      const int i = threadIdx.x + u * kThreads;
-      const int r = i / (kBN / 8);
-      const int c8 = (i % (kBN / 8)) * 8;
-      cp_async16(&bs[stage][r * kLDBd + c8], w + (long long)(f0 + r) * cols + c0 + c8, true);
-    }
-  };
-
-  const int wm = warp >> 2;
-  const int wn = warp & 3;
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj) acc[mi][nj][0] = acc[mi][nj][1] = acc[mi][nj][2] = acc[mi][nj][3] = 0.f;
-  }
-  const int ktiles = f_out / kBKd;
-  load(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    if (kt + 1 < ktiles) load((kt + 1) & 1, (kt + 1) * kBKd);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* at = as[kt & 1];
-    const bf16* bt = bs[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < kBKd / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) load_a<kLDAd>(a[mi], at + (wm * 32 + mi * 16 + g) * kLDAd + 2 * t, kk);
-      // B fragments of four 8-column tiles, two per ldmatrix: matrix m holds
-      // features kk*16 + (m & 1)*8 .. +7 of columns (m >> 1)*8 .. +7
-      uint32_t b[4][2];
-#pragma unroll
-      for (int pair = 0; pair < 2; ++pair) {
-        const int m = lane >> 3;
-        const bf16* src = bt + (kk * 16 + (m & 1) * 8 + (lane & 7)) * kLDBd + wn * 32 + pair * 16 + (m >> 1) * 8;
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, src);
-        b[2 * pair][0] = r[0];
-        b[2 * pair][1] = r[1];
-        b[2 * pair + 1][0] = r[2];
-        b[2 * pair + 1][1] = r[3];
+      for (int kk = 0; kk < T::kStageK / 16; ++kk) {
+        // A: the warpgroup's 64 dY rows, K-major; B: the W stage, MN-major
+        // (two 64-column boxes T::kBBytes / 2 apart, 8-deep groups 1,024 apart)
+        const uint64_t da = wgmma_desc(st + wg * 64 * 128 + kk * 32, 1024, kSwizzle128);
+        const uint64_t db = wgmma_desc_mn(st + T::kABytes + kk * 2048, T::kBBytes / 2, 1024, kSwizzle128);
+        Wgmma<128>::ss<1>(acc, da, db, ks > 0 || kk > 0);
       }
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_16816(acc[mi][nj], a[mi], b[nj][0], b[nj][1]);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+      if (release >= 0 && lead) mbar_arrive(&empty[release]);
+      release = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-    __syncthreads();
-  }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (lead) mbar_arrive(&empty[release]);
 
+    // acc[4j + e]: row 16 * wl + g (+ 8 for e >= 2) of the warpgroup,
+    // column 8j + 2t + (e & 1) of the tile. Lanes t and t ^ 1 swap one pair
+    // of each two 8-column blocks, so that each stores 4 contiguous floats
+    // (16 bytes, streaming: dln is read once, by the row pass)
+    const long long row_top = r0 + wg * 64 + wl * 16 + g;
+    const bool odd = t & 1;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+    for (int m = 0; m < kBN / 16; ++m) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const long long row = r0 + wm * 32 + mi * 16 + g + 8 * r;
-      if (row >= rows) continue;
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int col = c0 + wn * 32 + nj * 8 + 2 * t;
-        *reinterpret_cast<float2*>(p.dln + row * cols + col) =
-            make_float2(acc[mi][nj][2 * r], acc[mi][nj][2 * r + 1]);
+      for (int r = 0; r < 2; ++r) {
+        const int j0 = 2 * m, j1 = 2 * m + 1;
+        const float send_x = odd ? acc[4 * j0 + 2 * r] : acc[4 * j1 + 2 * r];
+        const float send_y = odd ? acc[4 * j0 + 2 * r + 1] : acc[4 * j1 + 2 * r + 1];
+        const float got_x = __shfl_xor_sync(0xffffffffu, send_x, 1);
+        const float got_y = __shfl_xor_sync(0xffffffffu, send_y, 1);
+        const float4 v = odd ? make_float4(got_x, got_y, acc[4 * j1 + 2 * r], acc[4 * j1 + 2 * r + 1])
+                             : make_float4(acc[4 * j0 + 2 * r], acc[4 * j0 + 2 * r + 1], got_x, got_y);
+        const int col = c0 + 8 * (odd ? j1 : j0) + 2 * (t & 2);
+        const long long row = row_top + 8 * r;
+        if (row < p.rows) __stcs(reinterpret_cast<float4*>(p.dln + row * cols + col), v);
       }
     }
   }
+}
+
+cudaError_t launch_dln_bf16(const LndParams& p, cudaStream_t stream) {
+  using T = DlnTiling;
+  CUtensorMap tm_dy, tm_w;
+  if (sm90::encode_bf16_2d(&tm_dy, p.dy, p.rows, p.features, T::kBM, T::kStageK, CU_TENSOR_MAP_SWIZZLE_128B) !=
+          CUDA_SUCCESS ||
+      sm90::encode_bf16_2d(&tm_w, p.w, p.features, p.cols, T::kStageK, 64, CU_TENSOR_MAP_SWIZZLE_128B) !=
+          CUDA_SUCCESS) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err =
+      cudaFuncSetAttribute(vitae_lnd_dln_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
+  const long long tiles = (p.rows + T::kBM - 1) / T::kBM * (p.cols / kBN);
+  const dim3 grid(static_cast<unsigned>(tiles < sms ? tiles : sms));
+  vitae_lnd_dln_wgmma_kernel<<<grid, T::kThreads, T::kSmem, stream>>>(tm_dy, tm_w, p);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ f32
@@ -635,14 +699,14 @@ int ln_dense_bwd(const LndParams* p, int is_bf16, int device, void* stream) {
   if (p->cols != 256 && p->cols != 512 && p->cols != 768 && p->cols != 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaError_t err;
   if (is_bf16) {
-    const dim3 grid(p->cols / kBN, static_cast<unsigned>((p->rows + kBM - 1) / kBM));
-    vitae_lnd_dln_bf16_kernel<<<grid, kThreads, 0, s>>>(*p);
+    err = launch_dln_bf16(*p, s);
   } else {
     const dim3 grid(p->cols / kF32BN, static_cast<unsigned>((p->rows + kF32BM - 1) / kF32BM));
     vitae_lnd_dln_f32_kernel<<<grid, kThreads, 0, s>>>(*p);
+    err = cudaGetLastError();
   }
-  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const lnrows::RowBwdArgs a{p->x, p->dln, p->gamma, p->mu, p->rstd, p->dx, p->rows};
   return static_cast<int>(is_bf16 ? lnrows::launch_rows_bwd<__nv_bfloat16, float>(a, p->cols, s)

@@ -1,19 +1,32 @@
 // Hopper (sm_90a) building blocks for warp-specialised kernels: mbarriers,
-// TMA tensor loads, wgmma shared-memory descriptors and the bf16 wgmma
-// m64n128k16, and on the host the TMA descriptor (cuTensorMapEncodeTiled,
-// looked up through the CUDA runtime, so the library needs no -lcuda). Used by
-// ln_dense.cu's bf16 forward.
+// TMA tensor loads (rank 2 to 4 tensor maps), wgmma shared-memory
+// descriptors in both majors, and the bf16 wgmma m64nNk16 (N = 32, 64, 128)
+// with A from shared memory or from registers and B K-major or
+// MN-major; on the host the TMA descriptor (cuTensorMapEncodeTiled, looked
+// up through the CUDA runtime, so the library needs no -lcuda). Used by
+// ln_dense.cu (the bf16 forward and the bf16 dln product) and flash_bwd.cu
+// (the bf16 backward).
 //
-// wgmma operands in shared memory are K-major, in the swizzled layouts that
-// TMA writes: 8-row atoms of 128 bytes a row (SWIZZLE_128B: 16-byte chunk c
-// of row r stored at chunk c ^ (r % 8)) or of 64 bytes a row (SWIZZLE_64B:
-// chunk c ^ ((r / 2) % 4)), the swizzle taken from address bits, so every
-// operand tile starts on a 1,024-byte boundary. A descriptor names the
-// tile's start (advanced by 32 bytes per 16-deep step inside a row), the
-// stride between 8-row atoms (SBO) and the swizzle.
+// wgmma operands in shared memory sit in the swizzled layouts that TMA
+// writes: rows of 128 bytes (SWIZZLE_128B: 16-byte chunk c of row r stored
+// at chunk c ^ (r % 8)) or of 64 bytes (SWIZZLE_64B: chunk c ^ ((r / 2) %
+// 4)), 8 rows to an atom (1,024 or 512 bytes), the swizzle taken from
+// address bits, so every operand tile starts on a 1,024-byte boundary.
+//   K-major (the operand's contiguous axis is the product's depth K): a
+//   row holds K values of one M (or N) index. The descriptor names the
+//   tile's start (advanced by 32 bytes per 16-deep step inside a row) and
+//   the stride between 8-row atoms along M or N (SBO); the leading offset
+//   is unused.
+//   MN-major (the contiguous axis is M or N; wgmma's transpose flag set):
+//   a row holds 64 (128B) or 32 (64B) values along N of one K index, so an
+//   atom is 8 K indices deep. The descriptor's SBO is then the stride
+//   between 8-deep groups along K (a 16-deep step spans two of them and
+//   advances the start by 2 * SBO), and its LBO the stride between atom
+//   columns along N (one atom column covers 64 or 32 values of N).
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -91,6 +104,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// Tile (c0, c1, c2, c3) of a 4-D tensor map (c0 innermost, in elements).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                                            uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_descriptor(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -120,6 +144,15 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* smem, uint32_t sbo, i
          (static_cast<uint64_t>(layout) << 62);
 }
 
+// Descriptor of an MN-major operand tile at `smem` (an atom boundary):
+// `sbo` bytes between 8-deep groups along K, `lbo` bytes between atom
+// columns along N (unused when N fits one atom column).
+__device__ __forceinline__ uint64_t wgmma_desc_mn(const void* smem, uint32_t lbo, uint32_t sbo, int layout) {
+  const uint64_t addr = smem_u32(smem);
+  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (static_cast<uint64_t>(layout) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 template <int N>
@@ -134,37 +167,139 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 128 f32, this thread's 64) += A (64 x 16) * B (16 x 128), both
-// bf16 in shared memory behind their descriptors, K-major; with
-// `accumulate` 0 the product overwrites d.
+// The bf16 wgmma m64nNk16 with f32 accumulators: d (64 x N, this thread's
+// N / 2) += A (64 x 16) * B (16 x N); with `accumulate` 0 the product
+// overwrites d. `ss` reads A and B from shared memory behind descriptors (A
+// K-major), `rs` takes A from registers (`a`: the m16n8k16 A fragment of
+// the thread's warp, rows 16 * warp .. + 15 of the 64). TB = 1 marks B
+// MN-major (the transpose flag; its descriptor from `wgmma_desc_mn`), 0
+// K-major. Accumulator layout: d[4j + e] is row 16 * warp + lane / 4 (+ 8
+// for e >= 2), column 8j + 2 * (lane % 4) + (e & 1).
+#define SM90_ACC8(i)                                                                              \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  static constexpr int kRegs = 16;
+  template <int TB>
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, %19;\n}\n"
+        : SM90_ACC8(0), SM90_ACC8(8)
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : SM90_ACC8(0), SM90_ACC8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static constexpr int kRegs = 32;
+  template <int TB>
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        : SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24)
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static constexpr int kRegs = 64;
+  template <int TB>
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        : SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24),
+          SM90_ACC8(32), SM90_ACC8(40), SM90_ACC8(48), SM90_ACC8(56)
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24),
+          SM90_ACC8(32), SM90_ACC8(40), SM90_ACC8(48), SM90_ACC8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(TB));
+  }
+};
+
+#undef SM90_ACC8
+
+// d (64 x 128) += A (64 x 16) * B (16 x 128), both K-major in shared memory.
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                                  int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  Wgmma<128>::ss<0>(d, desc_a, desc_b, accumulate);
+}
+
+// The register A fragment of 16-deep step kk from an m64nN f32 accumulator,
+// rounded to bf16: a wgmma's output columns 16kk .. 16kk + 15 become the
+// next product's depth (P or dS of attention, as the mma.sync bodies reuse
+// their C fragments).
+template <int R>
+__device__ __forceinline__ void acc_to_a(const float (&acc)[R], int kk, uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1]);
+    a[i] = *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 // ---------------------------------------------------------------------- host
 
-// A 2-D bf16 tensor map over a row-major (rows, cols) array at `base`,
-// boxes of box_rows x box_cols, swizzled as `swizzle`; reads past the array
-// are zero-filled. -> CUDA_SUCCESS or the encoder's error.
-inline CUresult encode_bf16_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols, uint32_t box_rows,
-                               uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+// A bf16 tensor map of `rank` (2 to 5) dimensions at `base`: dims[i]
+// elements along dimension i (0 innermost, contiguous), byte_strides[i]
+// bytes between neighbours along dimension i + 1 (multiples of 16), boxes of
+// box[i] elements, swizzled as `swizzle`; reads past the dims are
+// zero-filled. -> CUDA_SUCCESS or the encoder's error.
+inline CUresult encode_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                            const uint64_t* byte_strides, const uint32_t* box, CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                               const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                               CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -183,13 +318,28 @@ inline CUresult encode_bf16_2d(CUtensorMap* map, const void* base, uint64_t rows
     }
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};  // bytes between rows
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  if (rank < 2 || rank > 5) return CUDA_ERROR_INVALID_VALUE;
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], es[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    es[i] = 1;
+    if (i + 1 < rank) st[i] = byte_strides[i];
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank), const_cast<void*>(base), d,
+                st, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A 2-D bf16 tensor map over a row-major (rows, cols) array at `base`,
+// boxes of box_rows x box_cols.
+inline CUresult encode_bf16_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols, uint32_t box_rows,
+                               uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+  const uint64_t dims[2] = {cols, rows};
+  const uint64_t strides[1] = {cols * 2};
+  const uint32_t box[2] = {box_cols, box_rows};
+  return encode_bf16(map, base, 2, dims, strides, box, swizzle);
 }
 
 }  // namespace sm90

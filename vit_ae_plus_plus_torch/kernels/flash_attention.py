@@ -27,8 +27,10 @@ Counterpart of the JAX package's kernels/flash_attention.py
 The kernels read operands through (batch, token, head) strides, so the
 launchers take (B, N, H, D) views: a per-head tensor is passed transposed,
 the packed (B, N, 3C) projection as three views of itself. Both dtypes run
-on the tensor cores: bf16 through mma.sync bf16, f32 through 3xTF32 (each
-f32 operand split into two TF32 parts, f32-accurate products).
+on the tensor cores: the bf16 forward through mma.sync, the bf16 backward
+through Hopper's wgmma with its operands streamed by TMA (`wgmma_tile`
+checks one tile of those helpers), f32 through 3xTF32 (each f32 operand
+split into two TF32 parts, f32-accurate products).
 """
 
 from __future__ import annotations
@@ -219,6 +221,30 @@ def launch_flash_bwd(q, k, v, o, lse, do, dq, dk, dv, scale: float,
         b, h, n, nk, d, float(scale),
     )
     _build.launch("flash_bwd", "flash_bwd", params, q)
+
+
+class WgmmaProbeParams(ctypes.Structure):
+    """Mirror of `struct WgmmaProbeParams` in csrc/flash_bwd.cu."""
+
+    _fields_ = [("a", ctypes.c_void_p), ("b", ctypes.c_void_p), ("d", ctypes.c_void_p),
+                ("n", ctypes.c_int), ("a_from_registers", ctypes.c_int)]
+
+
+def wgmma_tile(a: torch.Tensor, b: torch.Tensor, a_from_registers: bool) -> torch.Tensor:
+    """a (64, 64) @ b (64, N) in f32 through one tile of the Hopper helpers
+    that the bf16 backward builds on (csrc/flash_bwd.cu `wgmma_probe`): b
+    loaded by TMA and read MN-major through wgmma's transpose flag, a from
+    shared memory or from registers. Contiguous bf16 CUDA tensors, N in
+    (32, 64, 128). A check of those helpers, on no path of the model."""
+    n = b.shape[1]
+    if (a.shape != (64, 64) or b.shape != (64, n) or n not in HEAD_DIMS or a.dtype != torch.bfloat16
+            or b.dtype != torch.bfloat16 or not a.is_cuda or not b.is_cuda):
+        raise ValueError("wgmma_tile takes bf16 CUDA tensors a (64, 64) and b (64, N), N in (32, 64, 128)")
+    a, b = a.contiguous(), b.contiguous()
+    d = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    _build.launch("flash_bwd", "wgmma_probe",
+                  WgmmaProbeParams(a.data_ptr(), b.data_ptr(), d.data_ptr(), n, int(a_from_registers)), a)
+    return d
 
 
 def count_launch(wrapper, *shape_and_dtype) -> None:

@@ -14,7 +14,9 @@ under `ln_fusion="on"` (models/vit.py).
 - `ln_dense_fwd` / `ln_dense_bwd`: csrc/ln_dense.cu on CUDA tensors (or
   raise), the plain versions on CPU tensors. The bf16 forward runs on
   Hopper's wgmma with W streamed through TMA: each block normalises a slab
-  of rows once, in shared memory, for a run of 128-column tiles.
+  of rows once, in shared memory, for a run of 128-column tiles. The bf16
+  backward's dln product runs on wgmma too, dY and W streamed by TMA (W
+  read MN-major), before the LayerNorm row pass.
 - `fused_ln_dense(x, gamma, beta, w, b, eps)`: the differentiable op over
   the f32 parameters; W in PyTorch's (F, C) layout.
 """
@@ -38,9 +40,9 @@ from vit_ae_plus_plus_torch.kernels.fused_ln import (
 def _check(x2: torch.Tensor, w: torch.Tensor) -> None:
     """The kernels' contract: C a built width (`check_rows`), w (F, C) with
     F a multiple of 32 on CUDA (the kernels store output columns in pairs
-    and the dln product steps F by 32; any R). The wrappers hand the
+    and the f32 dln product steps F by 32; any R). The wrappers hand the
     kernels contiguous, 16-byte aligned operands (`cuda_operand`), as the
-    forward's TMA descriptors need."""
+    bf16 kernels' TMA descriptors need."""
     check_rows(x2, "ln_dense")
     if w.dim() != 2 or w.shape[1] != x2.shape[1]:
         raise ValueError(f"w must be (F, C) with C={x2.shape[1]}, got {tuple(w.shape)}")

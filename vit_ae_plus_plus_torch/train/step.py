@@ -4,6 +4,14 @@ Counterpart of the JAX package's train/step.py: `make_train_step` builds
 forward, composite loss, backward, global-norm metric and AdamW update as
 one call; `feature_step` is batched encoder inference. PyTorch runs
 eagerly, so the step is a plain function over a mutable `TrainState`.
+
+The JAX step shards the batch over the mesh's 'data' axis and so takes the
+gradient and the contrastive BatchNorm's statistics over the global batch.
+The port reduces neither over a data group yet (data parallelism is its own
+later work), so its step refuses an ambient mesh with data > 1 before any
+forward, rather than let each data coordinate take its own update. A mesh
+of (1, M), as the sequence-parallel attention paths train on, and no mesh
+at all run as before.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ import torch
 
 from vit_ae_plus_plus_torch.models.vit import VisionTransformer3D
 from vit_ae_plus_plus_torch.ops import at_least_f32
+from vit_ae_plus_plus_torch.parallel import get_mesh
 from vit_ae_plus_plus_torch.train.objective import mae_loss_terms
 from vit_ae_plus_plus_torch.train.optim import global_norm
 from vit_ae_plus_plus_torch.train.state import TrainState
@@ -41,7 +50,10 @@ def make_train_step(
     the state's generator; `forward_fn(model, view1, view2, generator)`
     replaces the model call, e.g. to inject noise in tests. `metrics` holds
     the loss terms and `grad_norm` (the global norm of all gradients before
-    clipping) as device scalars, so the step does not wait for the card."""
+    clipping) as device scalars, so the step does not wait for the card.
+
+    The step raises `ValueError` under a `parallel.set_mesh` mesh whose
+    'data' axis has more than one rank (see the module's docstring)."""
     contrastive = model.cfg.contrastive
 
     if forward_fn is None:
@@ -51,6 +63,7 @@ def make_train_step(
 
     def train_step(state: TrainState, view1, view2, edge_map_weight: Union[torch.Tensor, float]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        check_data_axis()
         m = state.model
         m.train()
         outputs = forward_fn(m, view1, view2 if contrastive else None, state.generator)
@@ -73,6 +86,20 @@ def make_train_step(
         return state, metrics
 
     return train_step
+
+
+def check_data_axis() -> None:
+    """Raise when the ambient mesh has data > 1: the step would neither
+    average the gradient nor take the BatchNorm statistics over the data
+    group, so the ranks along it would drift apart."""
+    mesh = get_mesh()
+    if mesh is not None and mesh.size("data") > 1:
+        raise ValueError(
+            f"make_train_step: the mesh has data={mesh.size('data')}, but the step does not "
+            "all-reduce the gradient mean or the contrastive BatchNorm's batch statistics over "
+            "the 'data' group; data-parallel training (DDP) is not ported yet. Train on a mesh "
+            "of data=1 (the sequence-parallel paths' (1, M)) or without a mesh."
+        )
 
 
 def feature_step(model: VisionTransformer3D, batch: torch.Tensor) -> torch.Tensor:
