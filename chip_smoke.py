@@ -47,7 +47,8 @@ non-zero exit when it fails:
    read around every step (40 LayerNorm+Dense forward and 40 backward: 12
    and 12 at the encoder's qkv and fc1 shapes, 8 and 8 at the decoder's,
    beside the 20 + 20 attention launches), one f32 step against f32 "off",
-   then the fused step's time, peak memory and profile; and one forward and
+   then the fused step's time, peak memory and profile, and the f32 fused
+   and unfused steps' times and profiles; and one forward and
    backward of `FusedLayerNorm` at the encoder's norm shape, the path of
    the LayerNorm kernels;
 6. the ring's partial kernels (csrc/flash_fwd.cu and flash_bwd.cu with a
@@ -57,11 +58,12 @@ non-zero exit when it fails:
    rows against 4,097 keys (the sequence-sharded shard); library times
    from `scaled_dot_product_attention` with the bias as a float mask, the
    fastest fused backend that takes it named;
-   6b. with `--parent DIR` (a checkout of another commit), every row of the
-   bf16 attention backward and of the bf16 LayerNorm+Dense backward timed
-   in turns against DIR's bodies: each checkout's own case functions in a
-   process of its own, parent, this checkout, this checkout, parent; the
-   rows' `in_turns` hold the four times (null without `--parent`);
+   6b. with `--parent DIR` (a checkout of another commit), the f32
+   LayerNorm+Dense rows, forward and backward at the training step's four
+   shapes, timed in turns against DIR's bodies: each checkout's own case
+   functions in a process of its own, parent, this checkout, this checkout,
+   parent; the rows' `in_turns` hold the four times (null without
+   `--parent`);
 7. a world of 4 spawned ranks on the one card, in one gloo group (NCCL
    takes one rank per device; the kernels stay on the card and the blocks
    travel through pinned host memory), every join bounded: ring and
@@ -146,9 +148,11 @@ BODIES = {  # (kernel row or attention direction, dtype) -> the CUDA bodies it l
     ("layernorm_fwd", "bfloat16"): "vitae_ln_fwd_kernel",
     ("layernorm_bwd", "bfloat16"): "vitae_ln_rows_bwd_kernel",
     ("ln_dense_fwd", "bfloat16"): "vitae_lnd_fwd_bf16_kernel (wgmma + TMA)",
-    ("ln_dense_fwd", "float32"): "vitae_lnd_fwd_f32_kernel",
+    ("ln_dense_fwd", "float32"): "vitae_lnd_stats_f32_kernel + vitae_tf32_split_kernel + vitae_lnd_tf32_kernel "
+                                 "(3xTF32 on wgmma + TMA)",
     ("ln_dense_bwd", "bfloat16"): "vitae_lnd_dln_wgmma_kernel (wgmma + TMA) + vitae_ln_rows_bwd_kernel",
-    ("ln_dense_bwd", "float32"): "vitae_lnd_dln_f32_kernel + vitae_ln_rows_bwd_kernel",
+    ("ln_dense_bwd", "float32"): "vitae_tf32_split_kernel (W transposed) + vitae_lnd_tf32_kernel (3xTF32 on wgmma "
+                                 "+ TMA) + vitae_ln_rows_bwd_kernel",
 }
 # kernel vs plain version: `kernel_tolerance` (kernels/flash_attention.py),
 # two bf16 spacings at the largest output in bf16, 1e-5 in f32, 1e-4 on lse.
@@ -733,46 +737,41 @@ def ring_shapes(cfg) -> list:
             ("ring bf16 NB112 d64 (encoder)", *train_shapes(cfg)[0][:3], 64)]
 
 
+def f32_lnd_cases(cfg) -> list:
+    """(label, R, C, F, seed) of the f32 LayerNorm+Dense cases: qkv (F = 3C)
+    and fc1 (F = 4C) at the training encoder's and decoder's (R, C), the
+    shapes of the f32 ln_fusion="on" step."""
+    shapes = ln_shapes(cfg)
+    return [(f"ln_dense f32 {where} {layer} R{r} C{c} F{f}", r, c, f, 50 + 2 * i + j)
+            for i, where in enumerate(("encoder", "decoder")) for r, c in [shapes[where]]
+            for j, (layer, f) in enumerate((("qkv", 3 * c), ("fc1", 4 * c)))]
+
+
 def turn_cases(cfg) -> list:
-    """(row name, row key, case call) for every row of the bf16 attention
-    backward (packed, per-head, ring, sequence-sharded) and of the bf16
-    LayerNorm+Dense backward at the shapes of phases 2 and 6: the rows that
-    `--parent` times in turns against another checkout's bodies. The calls
-    are this script's case functions, which that checkout's copy has too."""
-    from vit_ae_plus_plus_torch.parallel import padded_len
-
-    enc, dec = train_shapes(cfg)
-    cases = []
-    for layout, shape in (("packed", dec), ("packed", enc), ("per_head", dec), ("per_head", enc),
-                          ("per_head", (BATCH, 12, cfg.num_patches + 1, 64))):
-        args, (b, h, n, d) = ", ".join(map(str, shape)), shape
-        cases.append(("packed_flash_bwd" if layout == "packed" else "flash_bwd", (*shape, "bfloat16"),
-                      f"bwd_case('{layout} bwd bf16 B{b} H{h} N{n} d{d}', '{layout}', {args}, 'bfloat16', seed=13)"))
-    for label, b, h, n, d in ring_shapes(cfg):
-        cases.append(("ring_flash_bwd", (b, h, padded_len(n, GROUP_RANKS) // GROUP_RANKS, d, "bfloat16"),
-                      f"ring_case('{label}', {b}, {h}, {n}, {d}, {GROUP_RANKS}, seed=70)"))
-    n = GROUP_VOLUME**3 // PATCH**3 + 1
-    cases.append(("flash_bwd", (2, 12, padded_len(n, GROUP_RANKS) // GROUP_RANKS, 64, "bfloat16"),
-                  f"seq_case('seq bf16 shard', 2, 12, {n}, 64, {GROUP_RANKS}, seed=80)"))
-    for r, c in ln_shapes(cfg).values():
-        for f in (3 * c, 4 * c):
-            cases.append(("ln_dense_bwd", (r, c, f, "bfloat16"),
-                          f"ln_dense_cases('ln_dense bf16 R{r} C{c} F{f}', {r}, {c}, {f}, 'bfloat16', seed=40)"))
-    return cases
+    """(row name, row key, case call) for every row of the f32
+    LayerNorm+Dense forward and backward at the training step's shapes: the
+    rows that `--parent` times in turns against another checkout's bodies.
+    The calls are this script's case functions, which that checkout's copy
+    has too."""
+    return [(name, (r, c, f, "float32"), f"ln_dense_cases('{label}', {r}, {c}, {f}, 'float32', seed={seed})")
+            for label, r, c, f, seed in f32_lnd_cases(cfg) for name in ("ln_dense_fwd", "ln_dense_bwd")]
 
 
-# One turn in another checkout: its own chip_smoke's case functions, each
-# call's row of the given name -> its kernel ms, as one JSON line
+# One turn in another checkout: its own chip_smoke's case functions (each
+# call once), each call's row of the given name -> its kernel ms, as one
+# JSON line
 TURN_CHILD = """
 import json, sys
 import torch
 import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-out = []
+out, done = [], {}
 for name, call in json.loads(sys.argv[1]):
-    got = eval("cs." + call)
-    out.append(next(r["ms"] for r in (got if isinstance(got, list) else [got]) if r["name"] == name))
+    if call not in done:
+        got = eval("cs." + call)
+        done[call] = got if isinstance(got, list) else [got]
+    out.append(next(r["ms"] for r in done[call] if r["name"] == name))
 print("TURN " + json.dumps(out))
 """
 
@@ -1108,13 +1107,14 @@ KERNEL_FAMILIES = (
 
 
 def profile_step(trainer, views, step_ms_events: float) -> None:
-    """One step of the main path under torch.profiler (see `profile_run`)."""
+    """One step of the trainer's path under torch.profiler (see
+    `profile_run`)."""
     trainer.run(views)
 
     def step():
         trainer.state, _ = trainer.step(trainer.state, *views, trainer.emw)
 
-    profile_run(step, "step", step_ms_events)
+    profile_run(step, f"{trainer.cfg.dtype} {trainer.label} step", step_ms_events)
 
 
 def profile_run(fn, what: str, ms_events: float) -> None:
@@ -1298,7 +1298,18 @@ def train_phase(rows: list) -> dict:
     fill_launches(rows, c_on, "make_train_step, compute_dtype='float32', ln_fusion='on', one step")
     [(m_off, g_off)], _ = first_steps(f32_off, 1, per_step("packed_flash", "float32"))
     hold("f32 ln_fusion=on", step_rel_errs(m_on, m_off, g_on, g_off), STEP_TOL["float32"], "ln_fusion=off")
-    f32_on_ms, _ = step_ms(f32_on, views, reps=2)
+    # both f32 steps timed in turns (on, off, on, off: a step's wall time
+    # moves more between runs than its device time does) and profiled:
+    # where the f32 step's device time goes
+    f32_turns = {"on": [], "off": []}
+    for which, trainer in (("on", f32_on), ("off", f32_off), ("on", f32_on), ("off", f32_off)):
+        t_ms, timed = step_ms(trainer, views, reps=3)
+        f32_turns[which].append(t_ms)
+        want_timed = fused_step("float32") if which == "on" else per_step("packed_flash", "float32")
+        check(timed == {k: 3 * n for k, n in want_timed.items()}, f"3 timed f32 ln_fusion={which} steps launched {timed}")
+    f32_on_ms, f32_off_ms = f32_turns["on"][-1], f32_turns["off"][-1]
+    profile_step(f32_on, views, f32_on_ms)
+    profile_step(f32_off, views, f32_off_ms)
     del f32_on, f32_off
     torch.cuda.empty_cache()
 
@@ -1306,6 +1317,7 @@ def train_phase(rows: list) -> dict:
     ms = {(row["name"], row["key"]): row["ms"] for row in rows}
     attn_ms = sum(n * ms[k] for k, n in auto_step.items())
     lnd_ms = sum(n * ms[k] for k, n in on_step.items() if k[0].startswith("ln_dense"))
+    lnd32_ms = sum(n * ms[k] for k, n in fused_step("float32").items() if k[0].startswith("ln_dense"))
     card = card_line()
     print(f"train step, information only ({card}): bf16 auto {auto_ms:.2f} ms per step of {BATCH} "
           f"(CUDA events over {TIMED_STEPS} steps), {BATCH / auto_ms * 1e3:.1f} volumes/s, "
@@ -1315,8 +1327,11 @@ def train_phase(rows: list) -> dict:
     print(f"train step ln_fusion=on, information only ({card}): bf16 {on_ms:.2f} ms per step of {BATCH} "
           f"({BATCH / on_ms * 1e3:.1f} volumes/s; auto {auto_ms:.2f} ms), max_memory_allocated "
           f"{on_peak / 2**30:.2f} GiB ({on_resident / 2**30:.2f} before the steps; auto {peak / 2**30:.2f}); LayerNorm+Dense kernels, 40 forward + 40 "
-          f"backward = {lnd_ms:.2f} ms = {lnd_ms / on_ms:.1%} of the step; f32 ln_fusion=on {f32_on_ms:.2f} ms",
-          flush=True)
+          f"backward = {lnd_ms:.2f} ms = {lnd_ms / on_ms:.1%} of the step", flush=True)
+    print(f"train step f32, information only ({card}): ln_fusion=on {f32_turns['on'][0]:.2f}, {f32_on_ms:.2f} ms, "
+          f"off {f32_turns['off'][0]:.2f}, {f32_off_ms:.2f} ms per step of {BATCH} (CUDA events over 3 steps, two "
+          f"rounds in turns); f32 LayerNorm+Dense kernels, 40 forward + 40 backward = {lnd32_ms:.2f} ms = "
+          f"{lnd32_ms / f32_on_ms:.1%} of the fused step", flush=True)
     return reference
 
 
@@ -1726,8 +1741,8 @@ def main(argv) -> int:
              for i, (case, label, layout, shape, dtype) in enumerate(train_cases)]
     # kernels #6 and #7 at the shapes of the ln_fusion="on" paths: each
     # block's qkv (F = 3C) and fc1 (F = 4C) in the training encoder and
-    # decoder and in one serving slab, one f32 case, and the LayerNorm at
-    # the encoder's and the decoder's (R, C)
+    # decoder and in one serving slab, the training shapes in f32 too, and
+    # the LayerNorm at the encoder's and the decoder's (R, C)
     t0 = time.perf_counter()
     cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
     shapes = ln_shapes(cfg)
@@ -1735,8 +1750,8 @@ def main(argv) -> int:
         for j, (layer, f) in enumerate((("qkv", 3 * c), ("fc1", 4 * c))):
             rows += ln_dense_cases(f"ln_dense bf16 {where} {layer} R{r} C{c} F{f}", r, c, f, "bfloat16",
                                    seed=40 + 2 * i + j)
-    r, c = shapes["decoder"]
-    rows += ln_dense_cases(f"ln_dense f32 decoder qkv R{r} C{c} F{3 * c}", r, c, 3 * c, "float32", seed=50)
+    for label, r, c, f, seed in f32_lnd_cases(cfg):
+        rows += ln_dense_cases(label, r, c, f, "float32", seed=seed)
     for i, where in enumerate(("encoder", "decoder")):
         r, c = shapes[where]
         rows += layernorm_cases(f"layernorm bf16 {where} R{r} C{c}", r, c, "bfloat16", seed=60 + i)

@@ -18,7 +18,9 @@ copy is built at once, and two checks run against each broken kernel:
   N=1729, C=512, d=32, bf16) for a backward mutant;
   `chip_smoke.ln_dense_cases` at the training encoder's qkv shape (R=6928,
   C=768, F=2304, bf16, forward and backward) for a LayerNorm+Dense or
-  LayerNorm row-pass mutant; `chip_smoke.ring_case` at the feature path's
+  LayerNorm row-pass mutant, and at the decoder's qkv shape (R=13832,
+  C=512, F=1536) in f32 for a mutant of the f32 (3xTF32) bodies;
+  `chip_smoke.ring_case` at the feature path's
   ring block (B=2, H=12, 1,032 rows, d=64, bf16, the block with 31 pad
   keys) for a key-bias mutant; `chip_smoke.seq_case` at the
   sequence-sharded shape (1,032 queries against 4,097 keys) for a kv_len
@@ -54,6 +56,7 @@ FWD_CASE = "chip_smoke.kernel_case('packed bf16 N1729 d64', 'packed', 8, 12, 172
 F32_CASE = "chip_smoke.kernel_case('packed f32 N1729 d64', 'packed', 8, 12, 1729, 64, 'float32', seed=4)"
 BWD_CASE = "chip_smoke.bwd_case('packed bwd bf16 N1729 d32', 'packed', 8, 16, 1729, 32, 'bfloat16', seed=13)"
 LND_CASE = "chip_smoke.ln_dense_cases('ln_dense bf16 encoder qkv', 6928, 768, 2304, 'bfloat16', seed=40)"
+LND_F32_CASE = "chip_smoke.ln_dense_cases('ln_dense f32 decoder qkv', 13832, 512, 1536, 'float32', seed=52)"
 RING_CASE = "chip_smoke.ring_case('ring bf16 NB1032', 2, 12, 4097, 64, 4, seed=70)"
 SEQ_CASE = "chip_smoke.seq_case('seq bf16 N1032 Nk4097', 2, 12, 4097, 64, 4, seed=80)"
 GROUP_CASE = "chip_smoke.check_group_attention(chip_smoke.run_group(chip_smoke.attention_rank))"
@@ -162,6 +165,44 @@ MUTANTS = {
         "Wgmma<128>::ss<1>(acc, da, db, ks > 0 || kk > 0)",
         "Wgmma<128>::ss<1>(acc, da, db, tile != static_cast<int>(blockIdx.x) || ks > 0 || kk > 0)",
         LND_CASE,
+    ),
+    "lnd_f32_fwd_tf32_low_terms_dropped": (  # the f32 forward's product in plain TF32: hi * hi alone
+        "kernels/csrc/ln_dense.cu",
+        """        WgmmaTf32::rs(acc, cur.lo[kk], b_hi, kk > 0);  // the chunk starts a fresh accumulator
+        WgmmaTf32::rs(acc, cur.hi[kk], b_lo, 1);
+        WgmmaTf32::rs(acc, cur.hi[kk], b_hi, 1);""",
+        """        if (!kNorm) WgmmaTf32::rs(acc, cur.lo[kk], b_hi, kk > 0);
+        if (!kNorm) WgmmaTf32::rs(acc, cur.hi[kk], b_lo, 1);
+        WgmmaTf32::rs(acc, cur.hi[kk], b_hi, !kNorm || kk > 0);""",
+        LND_F32_CASE,
+    ),
+    "lnd_f32_dln_tf32_low_terms_dropped": (  # the f32 dln product in plain TF32
+        "kernels/csrc/ln_dense.cu",
+        """        WgmmaTf32::rs(acc, cur.lo[kk], b_hi, kk > 0);  // the chunk starts a fresh accumulator
+        WgmmaTf32::rs(acc, cur.hi[kk], b_lo, 1);
+        WgmmaTf32::rs(acc, cur.hi[kk], b_hi, 1);""",
+        """        if (kNorm) WgmmaTf32::rs(acc, cur.lo[kk], b_hi, kk > 0);
+        if (kNorm) WgmmaTf32::rs(acc, cur.hi[kk], b_lo, 1);
+        WgmmaTf32::rs(acc, cur.hi[kk], b_hi, kNorm || kk > 0);""",
+        LND_F32_CASE,
+    ),
+    "lnd_f32_drop_last_chunk": (  # both f32 products skip the last 32-deep chunk of their depth
+        "kernels/csrc/ln_dense.cu",
+        "const int chunks = (kNorm ? p.cols : p.features) / kTfStageK;",
+        "const int chunks = (kNorm ? p.cols : p.features) / kTfStageK - 1;",
+        LND_F32_CASE,
+    ),
+    "lnd_f32_chunk_acc_not_reset": (  # a chunk's accumulator starts from the last one's sums
+        "kernels/csrc/ln_dense.cu",
+        "WgmmaTf32::rs(acc, cur.lo[kk], b_hi, kk > 0);",
+        "WgmmaTf32::rs(acc, cur.lo[kk], b_hi, 1);",
+        LND_F32_CASE,
+    ),
+    "lnd_f32_split_not_permuted": (  # W's split copies in the original depth order, A's fragments permuted
+        "kernels/csrc/ln_dense.cu",
+        "const int src = tf32_perm(tx);",
+        "const int src = tx;",
+        LND_F32_CASE,
     ),
     "ln_rows_no_mean_gxhat": (  # dx = rstd * (g - mean(g)): the mean(g * xhat) term left out
         "kernels/csrc/ln_rows.cuh",

@@ -44,7 +44,10 @@ bf16 operands, 1e-5 for f32. `kernel_mutants.py` shows that these catch a
 forward that adds the bias before rounding, drops the last 16-deep step of
 each W stage or the store of rstd, a dln product that skips its last stage
 of F, clears its transpose flag or carries its sums into the next tile, and
-a row pass without the mean(g * xhat) term."""
+a row pass without the mean(g * xhat) term; and f32 bodies (3xTF32 on
+wgmma) that drop the low terms in the forward or in dln, skip the last
+32-deep chunk, or do not start each chunk's accumulator afresh. The four #7
+edge tests named bf16 take both dtypes."""
 
 import pytest
 import torch
@@ -435,15 +438,17 @@ def test_ln_dense_kernels_match_plain(cuda, dtype, r, c, f):
     _assert_compare(dx, want_dx, "dx")
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("c", LN_WIDTHS)
 @pytest.mark.parametrize("r,f", [(65, 32), (129, 416), (257, 96), (300, 1056)])
-def test_ln_dense_bf16_forward_edges(cuda, c, r, f):
-    """The wgmma forward at every width: rows past a slab of 128 (64 at
-    C = 1024), F a multiple of 32 but not of the 128-column tile, F under one
-    tile, and slabs whose F is split into several runs (a few slabs leave
-    most SMs free, so each run takes one or two tiles); mu and rstd come from
-    each slab's first run."""
-    x, gamma, beta, w, b, _ = _ln_operands(r, c, torch.bfloat16, cuda, seed=r + c + f, f=f)
+def test_ln_dense_bf16_forward_edges(cuda, dtype, c, r, f):
+    """The wgmma forwards at every width. bf16: rows past a slab of 128 (64
+    at C = 1024), F a multiple of 32 but not of the 128-column tile, F under
+    one tile, and slabs whose F is split into several runs (a few slabs
+    leave most SMs free, so each run takes one or two tiles); mu and rstd
+    come from each slab's first run. f32 (3xTF32): rows past a 128-row tile,
+    the ragged last column tile, and W's split pre-pass at every shape."""
+    x, gamma, beta, w, b, _ = _ln_operands(r, c, dtype, cuda, seed=r + c + f, f=f)
     y, mu, rstd = ln_dense_fwd(x, gamma, beta, w, b, 1e-6)
     torch.cuda.synchronize()
     want_y, want_mu, want_rstd = ln_dense_plain(x, gamma, beta, w, b, 1e-6)
@@ -453,37 +458,41 @@ def test_ln_dense_bf16_forward_edges(cuda, c, r, f):
     _assert_compare(rstd, want_rstd, "rstd")
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("c", LN_WIDTHS)
 @pytest.mark.parametrize("r,f", [(1, 32), (129, 96), (257, 416), (300, 1056)])
-def test_ln_dense_bf16_backward_edges(cuda, c, r, f):
-    """The wgmma dln product at every width: rows past a 128-row tile, F a
-    multiple of 32 but not of the 64-deep stage, F under one stage, and
-    more tiles than SMs hold blocks (so that a block walks several)."""
-    x, gamma, beta, w, b, dy = _ln_operands(r, c, torch.bfloat16, cuda, seed=r + c + f + 1, f=f)
+def test_ln_dense_bf16_backward_edges(cuda, dtype, c, r, f):
+    """The wgmma dln products at every width: rows past a 128-row tile, F a
+    multiple of 32 but not of the bf16 body's 64-deep stage, F under one
+    stage (the f32 body's one 32-deep chunk at F = 32), and more tiles than
+    SMs hold blocks (so that a block walks several)."""
+    x, gamma, beta, w, b, dy = _ln_operands(r, c, dtype, cuda, seed=r + c + f + 1, f=f)
     _, mu, rstd = ln_dense_fwd(x, gamma, beta, w, b, 1e-6)
     dx, dln = ln_dense_bwd(x, gamma, w, dy, mu, rstd)
     torch.cuda.synchronize()
     want_dx, want_dln = ln_dense_bwd_plain(x, gamma, w, dy, mu, rstd)
     assert dln.shape == (r, c) and bool(torch.isfinite(dln).all())
-    torch.testing.assert_close(dln, want_dln, rtol=0, atol=dln_tolerance(want_dln, torch.bfloat16))
+    torch.testing.assert_close(dln, want_dln, rtol=0, atol=dln_tolerance(want_dln, dtype))
     _assert_compare(dx, want_dx, "dx")
 
 
-def test_ln_dense_bf16_backward_walks_many_tiles(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ln_dense_bf16_backward_walks_many_tiles(cuda, dtype):
     """At R = 20,000 and C = 1024 there are 1,256 tiles for 132 SMs: each
     persistent block walks about ten, its ring running on across them."""
-    x, gamma, beta, w, b, dy = _ln_operands(20_000, 1024, torch.bfloat16, cuda, seed=77, f=96)
+    x, gamma, beta, w, b, dy = _ln_operands(20_000, 1024, dtype, cuda, seed=77, f=96)
     _, mu, rstd = ln_dense_fwd(x, gamma, beta, w, b, 1e-6)
     dx, dln = ln_dense_bwd(x, gamma, w, dy, mu, rstd)
     torch.cuda.synchronize()
     want_dx, want_dln = ln_dense_bwd_plain(x, gamma, w, dy, mu, rstd)
-    torch.testing.assert_close(dln, want_dln, rtol=0, atol=dln_tolerance(want_dln, torch.bfloat16))
+    torch.testing.assert_close(dln, want_dln, rtol=0, atol=dln_tolerance(want_dln, dtype))
     _assert_compare(dx, want_dx, "dx")
 
 
-def test_ln_dense_bf16_backward_is_bitwise_repeatable(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ln_dense_bf16_backward_is_bitwise_repeatable(cuda, dtype):
     """No atomics in #7b either: two calls give bitwise equal dln and dx."""
-    x, gamma, beta, w, b, dy = _ln_operands(1000, 768, torch.bfloat16, cuda, seed=5, f=2304)
+    x, gamma, beta, w, b, dy = _ln_operands(1000, 768, dtype, cuda, seed=5, f=2304)
     _, mu, rstd = ln_dense_fwd(x, gamma, beta, w, b, 1e-6)
     first = [t.clone() for t in ln_dense_bwd(x, gamma, w, dy, mu, rstd)]
     second = ln_dense_bwd(x, gamma, w, dy, mu, rstd)

@@ -71,8 +71,13 @@
 // warpgroups, about 64 operations a byte of L2 traffic; at C = 768 the 330
 // (R6928) tiles fill 132 SMs in 2.5 rounds.
 //
-// The f32 kernels (compute_dtype float32, off the default bf16 path) are
-// scalar FMA bodies with the same tiling idea and f32 products.
+// f32 (compute_dtype float32, TrainConfig's default), redesigned for
+// Hopper: the forward's product and the dln product run on one 3xTF32
+// wgmma + TMA kernel (vitae_lnd_tf32_kernel, described at its section
+// below): A from registers, normalised there in the forward, W split into
+// tf32 hi and lo copies by a pre-pass, a fresh accumulator for every
+// 32-deep chunk. The forward's statistics come from a row pass before it;
+// the backward's row pass follows the dln product as in bf16.
 
 #include "ln_rows.cuh"
 #include "sm90_common.cuh"
@@ -89,6 +94,8 @@ struct LndParams {
   const void* dy;      // (R, F) in cdt, backward
   float* dln;          // (R, C) f32, backward
   void* dx;            // (R, C) in cdt, backward
+  float* w_hi;         // f32 only: W split for the product, (F, C) forward, (C, F) backward
+  float* w_lo;
   long long rows;
   int cols;
   int features;
@@ -386,8 +393,6 @@ cudaError_t launch_fwd_bf16(const LndParams& p, cudaStream_t stream) {
 // block's tiles. Each stage feeds four m64n128k16 per warpgroup; the
 // previous stage is released once they run.
 
-constexpr int kThreads = 256;  // the f32 bodies: 8 warps
-
 struct DlnTiling {
   static constexpr int kBM = 128;      // tile rows: two consumer warpgroups
   static constexpr int kStageK = 64;   // depth (features out) of a stage: 128-byte rows
@@ -540,122 +545,355 @@ cudaError_t launch_dln_bf16(const LndParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------------------ f32
+// ------------------------------------------------- f32: 3xTF32 on wgmma
+//
+// Both f32 products run on one kernel, out (R x N) = A (R x K) B^T with B
+// (N x K), f32-accurate as 3xTF32 (flash_common.cuh): each operand split
+// into tf32 hi and lo, a product a * b taken as a.lo b.hi + a.hi b.lo +
+// a.hi b.hi. The forward: A = x normalised on the way in (kNorm), B = W
+// (F x C), N = F, K = C, the f32 bias added; the dln product: A = dY, B =
+// W^T (C x F), N = C, K = F. tf32 wgmma reads only K-major operands, and
+// W's rows run along C: the forward's B is K-major as stored, the dln
+// product's is not. So a pre-pass (vitae_tf32_split_kernel) splits W once
+// per call into hi and lo copies in the product's layout (F x C, or
+// transposed to C x F), 2 x 4 bytes an element of device memory (6 to 19
+// MB at the model's shapes, L2 keeps them), and TMA loads them as they are.
+// A stays raw f32: TMA brings it in 32-deep stages; each thread reads its
+// fragment from shared memory, normalises it (forward: (x - mu) rstd gamma
+// + beta, mu and rstd from the statistics pass before, which writes them
+// for the backward too) and splits it in registers: wgmma's register A
+// form. The normalised rows never reach device memory.
+// Tiles of 128 x 128, two consumer warpgroups of 64 rows and a producer
+// warpgroup (one thread issues the TMA loads; the warpgroup hands its
+// registers to the consumers through setmaxnreg), persistent blocks, a ring
+// of four 48 KB stages (A 16 KB, B hi and lo 16 KB each, swizzled 128B)
+// running on across tiles. Per stage a warpgroup issues 4 k8 steps x 3
+// m64n128k8 into a fresh accumulator, which is then added to the f32
+// register sum: the tensor cores' f32 sums truncate, so no accumulator sums
+// more than one 32-deep chunk (12 products); the sum over chunks rounds to
+// nearest. While a chunk's products run, the warpgroup loads, normalises
+// and splits the next chunk's fragments: 232 registers a consumer thread
+// hold both chunks' fragments beside the accumulator and the sum (with a
+// producer warp and no reallocation, the 168 registers a thread gets at
+// 288 threads spilled).
+// The depth order: a thread's A fragment wants depth t and t + 4 of each k8
+// step (g = lane / 4, t = lane % 4), four scalars scattered over the 128
+// bytes of a row; the split copies of B store each 32-wide group of the
+// depth permuted (tf32_perm), so that the thread's 4 k8 steps read depth
+// 8t .. 8t + 7 of its rows in the original order: two 16-byte loads a row
+// (conflict-free under the swizzle) and two of gamma and of beta.
+// What bounds it: each 48 KB stage feeds 3.1 MFLOP of tf32 products (1
+// MFLOP of f32 ones), so at the f32 bound (495 / 3 TFLOP/s) the 132 SMs
+// would pull ~7.7 TB/s of L2; the split B copies double W's share of it.
+// In the f32 training step on an H100 the product runs near 110 TFLOP/s
+// (chip_smoke.py's profile), about 5 TB/s of L2 traffic.
 
-constexpr int kF32BM = 32;  // rows per block: 4 groups of 8, one group per 64 threads
-constexpr int kF32BN = 64;  // columns per block, one per thread of a group
-constexpr int kF32BK = 32;  // depth of one shared-memory stage
+constexpr int kTfBM = 128;     // tile rows: two consumer warpgroups of 64
+constexpr int kTfStageK = 32;  // depth of a stage and of a chunk: one 128-byte f32 row
+constexpr int kTfConsumers = kTfBM / 64;
+constexpr int kTfThreads = (kTfConsumers + 1) * 128;  // and a producer warpgroup
+// registers a thread: 168 at launch (65,536 over 384 threads); the producer
+// warpgroup gives back all but 40 and each consumer takes 232 (two
+// accumulators of 64 and two chunks' A fragments of 32)
+constexpr int kTfProducerRegs = 40;
+constexpr int kTfConsumerRegs = 232;
+static_assert(kTfProducerRegs * 128 + kTfConsumerRegs * 128 * kTfConsumers <= 65536, "over the SM's registers");
+constexpr int kTfABytes = kTfBM * kTfStageK * 4;  // A: 128 rows x 32, swizzled 128B
+constexpr int kTfBBytes = kBN * kTfStageK * 4;    // B hi or lo: 128 rows (of N) x 32
+constexpr int kTfStageBytes = kTfABytes + 2 * kTfBBytes;
+constexpr int kTfStages = 4;
+constexpr int kTfSmem = 1024 + kTfStages * kTfStageBytes + 2 * kTfStages * 8;
+static_assert(kTfSmem <= 232448, "over the shared memory a block can use");
 
-template <int C>
-constexpr int f32_fwd_smem_bytes() {
-  return (kF32BM * C + kF32BK * (kF32BN + 1)) * static_cast<int>(sizeof(float));
+// Physical column p of each 32-wide depth group of the split B holds depth
+// tf32_perm(p): p = 8 kk + 4 h + t (k8 step kk, fragment half h, t = lane %
+// 4) holds 8 t + 2 kk + h, so that lane t's fragments over the stage's four
+// k8 steps cover depth 8t .. 8t + 7.
+__host__ __device__ constexpr int tf32_perm(int p) { return 8 * (p & 3) + 2 * (p >> 3) + ((p >> 2) & 1); }
+
+// W (F x C, f32) -> hi and lo tf32 bit patterns (as f32 words), each
+// 32-wide depth group permuted by tf32_perm: (F x C), depth C, for the
+// forward; transposed, (C x F), depth F, for the dln product. A 32 x 32
+// tile of W a block, through shared memory; reads and writes coalesced.
+template <bool kTranspose>
+__global__ void __launch_bounds__(256) vitae_tf32_split_kernel(const float* w, float* hi, float* lo, int features,
+                                                               int cols) {
+  __shared__ float tile[32][33];
+  const int c0 = blockIdx.x * 32;
+  const int f0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31;
+  for (int i = threadIdx.x >> 5; i < 32; i += 8) tile[i][tx] = w[(long long)(f0 + i) * cols + c0 + tx];
+  __syncthreads();
+  const int src = tf32_perm(tx);
+  for (int i = threadIdx.x >> 5; i < 32; i += 8) {
+    const Tf32x2 s = split_tf32(kTranspose ? tile[src][i] : tile[i][src]);
+    const long long at = kTranspose ? (long long)(c0 + i) * features + f0 + tx : (long long)(f0 + i) * cols + c0 + tx;
+    hi[at] = __uint_as_float(s.hi);
+    lo[at] = __uint_as_float(s.lo);
+  }
 }
 
-// y = LN(x) W^T + b in f32: the block's normalised rows stay in shared memory.
+// mu and rstd of every row of x (R x C, f32), one warp a row: the forward's
+// statistics, read by the product and kept for the backward.
 template <int C>
-__global__ void __launch_bounds__(kThreads) vitae_lnd_fwd_f32_kernel(const LndParams p) {
-  constexpr int V = RowShape<float, C>::V;
-  constexpr int J = RowShape<float, C>::J;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* lns = reinterpret_cast<float*>(smem);  // kF32BM x C
-  float* ws = lns + kF32BM * C;                 // kF32BK x (kF32BN + 1), W transposed
-  const int n0 = blockIdx.x * kF32BN;
-  const long long r0 = (long long)blockIdx.y * kF32BM;
+__global__ void __launch_bounds__(kRowThreads) vitae_lnd_stats_f32_kernel(const LndParams p) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
+  if (row >= p.rows) return;
+  float v[RowShape<float, C>::J][RowShape<float, C>::V];
+  const float2 st = row_stats<float, C>(static_cast<const float*>(p.x) + row * C, v, lane, p.eps);
+  if (lane == 0) {
+    p.mu[row] = st.x;
+    p.rstd[row] = st.y;
+  }
+}
+
+// One chunk's A fragments of a thread, tf32 hi and lo, for its 4 k8 steps.
+struct TfFrag {
+  uint32_t hi[4][4], lo[4][4];
+};
+
+// Keeps the compiler from reusing a fragment's registers before the wgmma
+// that reads them has been waited for.
+__device__ __forceinline__ void fence_frag(TfFrag& f) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(f.hi[kk][i]), "+r"(f.lo[kk][i])::"memory");
+  }
+}
+
+// Depth 8t .. 8t + 7 of row `row` of an A stage (128-byte rows, 16-byte
+// chunk c stored at c ^ (row % 8)): chunks 2t and 2t + 1.
+__device__ __forceinline__ void load_depth8(const unsigned char* stage, int row, int t, float (&v)[8]) {
+  const unsigned char* r = stage + row * 128;
+  const float4 a = *reinterpret_cast<const float4*>(r + (((2 * t) ^ (row & 7)) << 4));
+  const float4 b = *reinterpret_cast<const float4*>(r + (((2 * t + 1) ^ (row & 7)) << 4));
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+  v[4] = b.x;
+  v[5] = b.y;
+  v[6] = b.z;
+  v[7] = b.w;
+}
+
+// A thread's fragments of chunk ks from its A stage: its two rows' depth
+// 8t .. 8t + 7, normalised in the forward ((x - mu) rstd gamma + beta; st
+// = (mu, rstd)), split into tf32 hi and lo. k8 step kk's fragment is
+// (row g, t), (row g + 8, t), (g, t + 4), (g + 8, t + 4) of the permuted
+// depth: depth 8t + 2kk (+ 1).
+template <bool kNorm>
+__device__ __forceinline__ void load_frag(const unsigned char* stage, int ks, int row, int t, float2 top_st,
+                                          float2 bot_st, const float* gamma, const float* beta, TfFrag& f) {
+  float top[8], bot[8];
+  load_depth8(stage, row, t, top);
+  load_depth8(stage, row + 8, t, bot);
+  if constexpr (kNorm) {
+    float gam[8], bet[8];
+    load_vec<8>(gamma + ks * kTfStageK + 8 * t, gam);
+    load_vec<8>(beta + ks * kTfStageK + 8 * t, bet);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      top[i] = ((top[i] - top_st.x) * top_st.y) * gam[i] + bet[i];
+      bot[i] = ((bot[i] - bot_st.x) * bot_st.y) * gam[i] + bet[i];
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const Tf32x2 u = split_tf32(top[2 * kk + h]);
+      const Tf32x2 v = split_tf32(bot[2 * kk + h]);
+      f.hi[kk][2 * h] = u.hi;
+      f.lo[kk][2 * h] = u.lo;
+      f.hi[kk][2 * h + 1] = v.hi;
+      f.lo[kk][2 * h + 1] = v.lo;
+    }
+  }
+}
+
+template <bool kNorm>
+__global__ void __launch_bounds__(kTfThreads, 1)
+vitae_lnd_tf32_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_hi,
+                      const __grid_constant__ CUtensorMap tm_lo, const LndParams p) {
+  using namespace sm90;
+  extern __shared__ unsigned char tf_smem[];
+  unsigned char* base = tf_smem + ((1024 - (smem_u32(tf_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kTfStages * kTfStageBytes);
+  uint64_t* empty = full + kTfStages;
+
+  const int n_out = kNorm ? p.features : p.cols;
+  const int ntn = (n_out + kBN - 1) / kBN;
+  const int ntiles = static_cast<int>((p.rows + kTfBM - 1) / kTfBM) * ntn;
+  const int chunks = (kNorm ? p.cols : p.features) / kTfStageK;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int tx = threadIdx.x % kF32BN;
-  const int ty = threadIdx.x / kF32BN;
-  const int f_out = p.features;
-  const long long rows = p.rows;
-  const float* w = static_cast<const float*>(p.w);
 
-  for (int i = warp; i < kF32BM; i += kThreads / 32) {
-    const long long row = r0 + i;
-    float v[J][V];
-    if (row < rows) {
-      const float2 st = row_stats<float, C>(static_cast<const float*>(p.x) + row * C, v, lane, p.eps);
-      normalize(v, st, p.gamma, p.beta, lane);
-      if (blockIdx.x == 0 && lane == 0) {
-        p.mu[row] = st.x;
-        p.rstd[row] = st.y;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-#pragma unroll
-        for (int e = 0; e < V; ++e) v[j][e] = 0.f;
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTfStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kTfConsumers);
     }
-#pragma unroll
-    for (int j = 0; j < J; ++j) store_vec<V>(lns + i * C + col_of<V>(j, lane), v[j]);
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < C; k0 += kF32BK) {
-    __syncthreads();  // the LayerNorm rows are written, the previous stage consumed
-    for (int i = threadIdx.x; i < kF32BN * kF32BK; i += kThreads) {
-      const int n = i / kF32BK;
-      const int k = i % kF32BK;
-      ws[k * (kF32BN + 1) + n] = n0 + n < f_out ? w[(long long)(n0 + n) * C + k0 + k] : 0.f;
+  if (warp < 4) {  // the producer warpgroup: its registers to the consumers, TMA from one thread
+    setmaxnreg_dec<kTfProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_descriptor(&tm_a);
+      tma_prefetch_descriptor(&tm_hi);
+      tma_prefetch_descriptor(&tm_lo);
+      const uint64_t streamed = l2_evict_first();      // A: read by the column tiles of its rows
+      const uint64_t shared_by_all = l2_evict_last();  // the split W: read by every row tile
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int r0 = (tile / ntn) * kTfBM;
+        const int n0 = (tile % ntn) * kBN;
+        for (int ks = 0; ks < chunks; ++ks) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = base + stage * kTfStageBytes;
+          mbar_arrive_expect_tx(&full[stage], kTfStageBytes);
+          tma_load_2d(st, &tm_a, ks * kTfStageK, r0, &full[stage], streamed);
+          tma_load_2d(st + kTfABytes, &tm_hi, ks * kTfStageK, n0, &full[stage], shared_by_all);
+          tma_load_2d(st + kTfABytes + kTfBBytes, &tm_lo, ks * kTfStageK, n0, &full[stage], shared_by_all);
+          if (++stage == kTfStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kF32BK; ++k) {
-      const float wv = ws[k * (kF32BN + 1) + tx];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i] = fmaf(lns[(ty * 8 + i) * C + k0 + k], wv, acc[i]);
-    }
+    return;
   }
-  const int col = n0 + tx;
-  if (col >= f_out) return;
-  const float bias = static_cast<const float*>(p.b)[col];
-  float* y = static_cast<float*>(p.y);
+  setmaxnreg_inc<kTfConsumerRegs>();
+
+  const int wg = (warp >> 2) - 1;
+  const int wl = warp & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const bool lead = (threadIdx.x & 127) == 0;
+  const int row_in_tile = wg * 64 + wl * 16 + g;  // this thread's rows of the tile: row_in_tile and + 8
+  int stage = 0;
+  uint32_t phase = 0;
+  float acc[64], sum[64];
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long r0 = (long long)(tile / ntn) * kTfBM;
+    const int n0 = (tile % ntn) * kBN;
+    const long long row_top = r0 + row_in_tile;
+    float2 top_st = make_float2(0.f, 0.f), bot_st = top_st;  // (mu, rstd); rows past R: zeros, never stored
+    if constexpr (kNorm) {
+      if (row_top < p.rows) top_st = make_float2(p.mu[row_top], p.rstd[row_top]);
+      if (row_top + 8 < p.rows) bot_st = make_float2(p.mu[row_top + 8], p.rstd[row_top + 8]);
+    }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long row = r0 + ty * 8 + i;
-    if (row < rows) y[row * f_out + col] = acc[i] + bias;
+    for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+    TfFrag cur;
+    mbar_wait(&full[stage], phase);
+    load_frag<kNorm>(base + stage * kTfStageBytes, 0, row_in_tile, t, top_st, bot_st, p.gamma, p.beta, cur);
+    for (int ks = 0; ks < chunks; ++ks) {
+      const unsigned char* st = base + stage * kTfStageBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t b_hi = wgmma_desc(st + kTfABytes + kk * 32, 1024, kSwizzle128);
+        const uint64_t b_lo = wgmma_desc(st + kTfABytes + kTfBBytes + kk * 32, 1024, kSwizzle128);
+        WgmmaTf32::rs(acc, cur.lo[kk], b_hi, kk > 0);  // the chunk starts a fresh accumulator
+        WgmmaTf32::rs(acc, cur.hi[kk], b_lo, 1);
+        WgmmaTf32::rs(acc, cur.hi[kk], b_hi, 1);
+      }
+      wgmma_commit();
+      // the next chunk's fragments while these products run
+      const int next = stage + 1 == kTfStages ? 0 : stage + 1;
+      const uint32_t next_phase = next == 0 ? phase ^ 1 : phase;
+      TfFrag nxt;
+      if (ks + 1 < chunks) {
+        mbar_wait(&full[next], next_phase);
+        load_frag<kNorm>(base + next * kTfStageBytes, ks + 1, row_in_tile, t, top_st, bot_st, p.gamma, p.beta,
+                         nxt);
+      }
+      wgmma_wait<0>();
+      fence_operands(acc);
+      fence_frag(cur);
+      if (lead) mbar_arrive(&empty[stage]);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sum[i] += acc[i];
+      cur = nxt;
+      stage = next;
+      phase = next_phase;
+    }
+
+    // sum[4j + e]: row row_top (+ 8 for e >= 2), column n0 + 8j + 2t + (e &
+    // 1). The forward adds the f32 bias; then lanes t and t ^ 1 swap one
+    // pair of each two 8-column blocks, so that each stores 4 contiguous
+    // floats (16-byte streaming stores), columns past N masked (N is a
+    // multiple of 32: a store is wholly in or out).
+    float* out = kNorm ? static_cast<float*>(p.y) : p.dln;
+    if constexpr (kNorm) {
+      const float* bias = static_cast<const float*>(p.b);
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        if (col < n_out) {
+          const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+          sum[4 * j] += bb.x;
+          sum[4 * j + 1] += bb.y;
+          sum[4 * j + 2] += bb.x;
+          sum[4 * j + 3] += bb.y;
+        }
+      }
+    }
+    const bool odd = t & 1;
+#pragma unroll
+    for (int m = 0; m < kBN / 16; ++m) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j0 = 2 * m, j1 = 2 * m + 1;
+        const float send_x = odd ? sum[4 * j0 + 2 * r] : sum[4 * j1 + 2 * r];
+        const float send_y = odd ? sum[4 * j0 + 2 * r + 1] : sum[4 * j1 + 2 * r + 1];
+        const float got_x = __shfl_xor_sync(0xffffffffu, send_x, 1);
+        const float got_y = __shfl_xor_sync(0xffffffffu, send_y, 1);
+        const float4 v = odd ? make_float4(got_x, got_y, sum[4 * j1 + 2 * r], sum[4 * j1 + 2 * r + 1])
+                             : make_float4(sum[4 * j0 + 2 * r], sum[4 * j0 + 2 * r + 1], got_x, got_y);
+        const int col = n0 + 8 * (odd ? j1 : j0) + 2 * (t & 2);
+        const long long row = row_top + 8 * r;
+        if (row < p.rows && col < n_out) __stcs(reinterpret_cast<float4*>(out + row * n_out + col), v);
+      }
+    }
   }
 }
 
-// dln = dY W in f32.
-__global__ void __launch_bounds__(kThreads) vitae_lnd_dln_f32_kernel(const LndParams p) {
-  __shared__ float dys[kF32BM][kF32BK + 1];
-  __shared__ float ws[kF32BK][kF32BN];
-  const int c0 = blockIdx.x * kF32BN;
-  const long long r0 = (long long)blockIdx.y * kF32BM;
-  const int tx = threadIdx.x % kF32BN;
-  const int ty = threadIdx.x / kF32BN;
-  const int cols = p.cols;
-  const int f_out = p.features;
-  const long long rows = p.rows;
-  const float* dy = static_cast<const float*>(p.dy);
-  const float* w = static_cast<const float*>(p.w);
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int f0 = 0; f0 < f_out; f0 += kF32BK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kF32BM * kF32BK; i += kThreads) {
-      const int r = i / kF32BK;
-      const int k = i % kF32BK;
-      dys[r][k] = r0 + r < rows ? dy[(r0 + r) * f_out + f0 + k] : 0.f;
-    }
-    for (int i = threadIdx.x; i < kF32BK * kF32BN; i += kThreads) {
-      const int k = i / kF32BN;
-      const int n = i % kF32BN;
-      ws[k][n] = w[(long long)(f0 + k) * cols + c0 + n];
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kF32BK; ++k) {
-      const float wv = ws[k][tx];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i] = fmaf(dys[ty * 8 + i][k], wv, acc[i]);
-    }
+// The f32 forward (kNorm: the statistics pass first) or dln product: the
+// split of W, then the product.
+template <bool kNorm>
+cudaError_t launch_tf32(const LndParams& p, cudaStream_t stream) {
+  const int n_out = kNorm ? p.features : p.cols;
+  const int depth = kNorm ? p.cols : p.features;
+  vitae_tf32_split_kernel<!kNorm><<<dim3(p.cols / 32, p.features / 32), 256, 0, stream>>>(
+      static_cast<const float*>(p.w), p.w_hi, p.w_lo, p.features, p.cols);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_a, tm_hi, tm_lo;
+  if (sm90::encode_f32_2d(&tm_a, kNorm ? p.x : p.dy, p.rows, depth, kTfBM, kTfStageK, CU_TENSOR_MAP_SWIZZLE_128B) !=
+          CUDA_SUCCESS ||
+      sm90::encode_f32_2d(&tm_hi, p.w_hi, n_out, depth, kBN, kTfStageK, CU_TENSOR_MAP_SWIZZLE_128B) !=
+          CUDA_SUCCESS ||
+      sm90::encode_f32_2d(&tm_lo, p.w_lo, n_out, depth, kBN, kTfStageK, CU_TENSOR_MAP_SWIZZLE_128B) !=
+          CUDA_SUCCESS) {
+    return cudaErrorInvalidValue;
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long row = r0 + ty * 8 + i;
-    if (row < rows) p.dln[row * cols + c0 + tx] = acc[i];
-  }
+  err = cudaFuncSetAttribute(vitae_lnd_tf32_kernel<kNorm>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTfSmem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
+  const long long tiles = (p.rows + kTfBM - 1) / kTfBM * ((n_out + kBN - 1) / kBN);
+  const dim3 grid(static_cast<unsigned>(tiles < sms ? tiles : sms));
+  vitae_lnd_tf32_kernel<kNorm><<<grid, kTfThreads, kTfSmem, stream>>>(tm_a, tm_hi, tm_lo, p);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- launches
@@ -663,13 +901,10 @@ __global__ void __launch_bounds__(kThreads) vitae_lnd_dln_f32_kernel(const LndPa
 template <int C>
 cudaError_t launch_fwd_c(const LndParams& p, int is_bf16, cudaStream_t stream) {
   if (is_bf16) return launch_fwd_bf16<C>(p, stream);
-  constexpr int smem = f32_fwd_smem_bytes<C>();
-  const cudaError_t err = cudaFuncSetAttribute(vitae_lnd_fwd_f32_kernel<C>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.features + kF32BN - 1) / kF32BN, static_cast<unsigned>((p.rows + kF32BM - 1) / kF32BM));
-  vitae_lnd_fwd_f32_kernel<C><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  const dim3 grid(static_cast<unsigned>((p.rows + kRowThreads / 32 - 1) / (kRowThreads / 32)));
+  vitae_lnd_stats_f32_kernel<C><<<grid, kRowThreads, 0, stream>>>(p);
+  const cudaError_t err = cudaGetLastError();
+  return err != cudaSuccess ? err : launch_tf32<true>(p, stream);
 }
 
 }  // namespace
@@ -699,14 +934,7 @@ int ln_dense_bwd(const LndParams* p, int is_bf16, int device, void* stream) {
   if (p->cols != 256 && p->cols != 512 && p->cols != 768 && p->cols != 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err;
-  if (is_bf16) {
-    err = launch_dln_bf16(*p, s);
-  } else {
-    const dim3 grid(p->cols / kF32BN, static_cast<unsigned>((p->rows + kF32BM - 1) / kF32BM));
-    vitae_lnd_dln_f32_kernel<<<grid, kThreads, 0, s>>>(*p);
-    err = cudaGetLastError();
-  }
+  const cudaError_t err = is_bf16 ? launch_dln_bf16(*p, s) : launch_tf32<false>(*p, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const lnrows::RowBwdArgs a{p->x, p->dln, p->gamma, p->mu, p->rstd, p->dx, p->rows};
   return static_cast<int>(is_bf16 ? lnrows::launch_rows_bwd<__nv_bfloat16, float>(a, p->cols, s)

@@ -1,11 +1,17 @@
 // Hopper (sm_90a) building blocks for warp-specialised kernels: mbarriers,
 // TMA tensor loads (rank 2 to 4 tensor maps), wgmma shared-memory
-// descriptors in both majors, and the bf16 wgmma m64nNk16 (N = 32, 64, 128)
-// with A from shared memory or from registers and B K-major or
-// MN-major; on the host the TMA descriptor (cuTensorMapEncodeTiled, looked
-// up through the CUDA runtime, so the library needs no -lcuda). Used by
-// ln_dense.cu (the bf16 forward and the bf16 dln product) and flash_bwd.cu
-// (the bf16 backward).
+// descriptors in both majors, the bf16 wgmma m64nNk16 (N = 32, 64, 128)
+// with A from shared memory or from registers and B K-major or MN-major,
+// and the tf32 wgmma m64n128k8 with A from registers (tf32 operands are
+// K-major only); on the host the TMA descriptor of a bf16 or f32 tensor
+// (cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the
+// library needs no -lcuda). Used by ln_dense.cu (the bf16 forward and dln
+// product, and the f32 ones on 3xTF32) and flash_bwd.cu (the bf16
+// backward).
+//
+// A tf32 operand row of 32 values is 128 bytes, as a bf16 row of 64, and a
+// k8 step spans 32 bytes of it, as a bf16 k16 step does: the K-major
+// descriptors below serve both types unchanged.
 //
 // wgmma operands in shared memory sit in the swizzled layouts that TMA
 // writes: rows of 128 bytes (SWIZZLE_128B: 16-byte chunk c of row r stored
@@ -123,6 +129,18 @@ __device__ __forceinline__ void tma_prefetch_descriptor(const CUtensorMap* map) 
 // visible to the async proxy (wgmma, TMA) before a barrier.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Register reallocation between warpgroups (all 128 threads of the
+// warpgroup execute it): a producer warpgroup gives registers back to the
+// pool, consumer warpgroups take them, up to N a thread.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // Named barrier `id` (1..15) over `threads` threads.
@@ -270,6 +288,30 @@ struct Wgmma<128> {
   }
 };
 
+// The tf32 wgmma m64n128k8 with f32 accumulators and A from registers:
+// d (64 x 128) += A (64 x 8) * B (8 x 128), B K-major behind `desc_b` (tf32
+// has no transpose flag). `a` is the m16n8k8 tf32 A fragment of the
+// thread's warp (rows 16 * warp .. + 15 of the 64): a0 = (row g, k t), a1 =
+// (row g + 8, k t), a2 = (row g, k t + 4), a3 = (row g + 8, k t + 4), g =
+// lane / 4, t = lane % 4, each a tf32 bit pattern (cvt.rna.tf32.f32). The
+// accumulator layout is Wgmma<128>'s; `accumulate` 0 overwrites d.
+struct WgmmaTf32 {
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24),
+          SM90_ACC8(32), SM90_ACC8(40), SM90_ACC8(48), SM90_ACC8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+  }
+};
+
 #undef SM90_ACC8
 
 // d (64 x 128) += A (64 x 16) * B (16 x 128), both K-major in shared memory.
@@ -293,18 +335,19 @@ __device__ __forceinline__ void acc_to_a(const float (&acc)[R], int kk, uint32_t
 
 // ---------------------------------------------------------------------- host
 
-// A bf16 tensor map of `rank` (2 to 5) dimensions at `base`: dims[i]
-// elements along dimension i (0 innermost, contiguous), byte_strides[i]
-// bytes between neighbours along dimension i + 1 (multiples of 16), boxes of
-// box[i] elements, swizzled as `swizzle`; reads past the dims are
-// zero-filled. -> CUDA_SUCCESS or the encoder's error.
-inline CUresult encode_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                            const uint64_t* byte_strides, const uint32_t* box, CUtensorMapSwizzle swizzle) {
+// A tensor map of elements of `type` and `rank` (2 to 5) dimensions at
+// `base`: dims[i] elements along dimension i (0 innermost, contiguous),
+// byte_strides[i] bytes between neighbours along dimension i + 1 (multiples
+// of 16), boxes of box[i] elements, swizzled as `swizzle`; reads past the
+// dims are zero-filled. -> CUDA_SUCCESS or the encoder's error.
+inline CUresult encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                       const uint64_t* dims, const uint64_t* byte_strides, const uint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                               const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                               CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
+  static Encode encode_fn = nullptr;
+  if (encode_fn == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
@@ -316,7 +359,7 @@ inline CUresult encode_bf16(CUtensorMap* map, const void* base, int rank, const 
     if (err != cudaSuccess || found != cudaDriverEntryPointSuccess || fn == nullptr) {
       return CUDA_ERROR_NOT_FOUND;
     }
-    encode = reinterpret_cast<Encode>(fn);
+    encode_fn = reinterpret_cast<Encode>(fn);
   }
   if (rank < 2 || rank > 5) return CUDA_ERROR_INVALID_VALUE;
   cuuint64_t d[5], st[4];
@@ -327,19 +370,34 @@ inline CUresult encode_bf16(CUtensorMap* map, const void* base, int rank, const 
     es[i] = 1;
     if (i + 1 < rank) st[i] = byte_strides[i];
   }
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank), const_cast<void*>(base), d,
-                st, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return encode_fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), d, st, bx, es,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// A 2-D bf16 tensor map over a row-major (rows, cols) array at `base`,
-// boxes of box_rows x box_cols.
+inline CUresult encode_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                            const uint64_t* byte_strides, const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, byte_strides, box, swizzle);
+}
+
+// A 2-D tensor map over a row-major (rows, cols) array of `elt`-byte
+// elements of `type` at `base`, boxes of box_rows x box_cols.
+inline CUresult encode_2d(CUtensorMap* map, CUtensorMapDataType type, uint64_t elt, const void* base, uint64_t rows,
+                          uint64_t cols, uint32_t box_rows, uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+  const uint64_t dims[2] = {cols, rows};
+  const uint64_t strides[1] = {cols * elt};
+  const uint32_t box[2] = {box_cols, box_rows};
+  return encode(map, type, base, 2, dims, strides, box, swizzle);
+}
+
 inline CUresult encode_bf16_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols, uint32_t box_rows,
                                uint32_t box_cols, CUtensorMapSwizzle swizzle) {
-  const uint64_t dims[2] = {cols, rows};
-  const uint64_t strides[1] = {cols * 2};
-  const uint32_t box[2] = {box_cols, box_rows};
-  return encode_bf16(map, base, 2, dims, strides, box, swizzle);
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, box_rows, box_cols, swizzle);
+}
+
+inline CUresult encode_f32_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols, uint32_t box_rows,
+                              uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rows, cols, box_rows, box_cols, swizzle);
 }
 
 }  // namespace sm90

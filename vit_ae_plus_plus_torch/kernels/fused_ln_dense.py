@@ -16,7 +16,10 @@ under `ln_fusion="on"` (models/vit.py).
   Hopper's wgmma with W streamed through TMA: each block normalises a slab
   of rows once, in shared memory, for a run of 128-column tiles. The bf16
   backward's dln product runs on wgmma too, dY and W streamed by TMA (W
-  read MN-major), before the LayerNorm row pass.
+  read MN-major), before the LayerNorm row pass. In f32 both products run
+  as 3xTF32 on wgmma: a pre-pass splits W into tf32 hi and lo copies
+  (scratch the wrapper allocates, transposed for the dln product), and x
+  (normalised in registers) or dY is split as it is read.
 - `fused_ln_dense(x, gamma, beta, w, b, eps)`: the differentiable op over
   the f32 parameters; W in PyTorch's (F, C) layout.
 """
@@ -39,10 +42,10 @@ from vit_ae_plus_plus_torch.kernels.fused_ln import (
 
 def _check(x2: torch.Tensor, w: torch.Tensor) -> None:
     """The kernels' contract: C a built width (`check_rows`), w (F, C) with
-    F a multiple of 32 on CUDA (the kernels store output columns in pairs
-    and the f32 dln product steps F by 32; any R). The wrappers hand the
-    kernels contiguous, 16-byte aligned operands (`cuda_operand`), as the
-    bf16 kernels' TMA descriptors need."""
+    F a multiple of 32 on CUDA (the kernels store output columns in pairs,
+    and the f32 ones split W in 32 x 32 tiles and step the depth by 32; any
+    R). The wrappers hand the kernels contiguous, 16-byte aligned operands
+    (`cuda_operand`), as the kernels' TMA descriptors need."""
     check_rows(x2, "ln_dense")
     if w.dim() != 2 or w.shape[1] != x2.shape[1]:
         raise ValueError(f"w must be (F, C) with C={x2.shape[1]}, got {tuple(w.shape)}")
@@ -83,10 +86,23 @@ class LndParams(ctypes.Structure):
 
     _fields_ = [
         *[(name, ctypes.c_void_p) for name in
-          ("x", "gamma", "beta", "w", "b", "y", "mu", "rstd", "dy", "dln", "dx")],
+          ("x", "gamma", "beta", "w", "b", "y", "mu", "rstd", "dy", "dln", "dx", "w_hi", "w_lo")],
         ("rows", ctypes.c_longlong), ("cols", ctypes.c_int), ("features", ctypes.c_int),
         ("eps", ctypes.c_float),
     ]
+
+
+def _split_scratch(w: torch.Tensor, transposed: bool) -> list:
+    """The f32 kernels' scratch for W split into tf32 hi and lo: two f32
+    tensors of (F, C), or (C, F) transposed; [None, None] for bf16."""
+    if w.dtype != torch.float32:
+        return [None, None]
+    shape = w.shape[::-1] if transposed else w.shape
+    return [torch.empty(shape, dtype=torch.float32, device=w.device) for _ in range(2)]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def ln_dense_fwd(x2, gamma, beta, w, b, eps: float):
@@ -100,9 +116,11 @@ def ln_dense_fwd(x2, gamma, beta, w, b, eps: float):
     gamma, beta = (cuda_operand(t, torch.float32) for t in (gamma, beta))
     y = torch.empty((r, f), dtype=x2.dtype, device=x2.device)
     mu, rstd = (torch.empty(r, dtype=torch.float32, device=x2.device) for _ in range(2))
+    w_hi, w_lo = _split_scratch(w, transposed=False)
     launch("ln_dense", "ln_dense_fwd",
            LndParams(x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), b.data_ptr(),
-                     y.data_ptr(), mu.data_ptr(), rstd.data_ptr(), None, None, None, r, c, f, float(eps)),
+                     y.data_ptr(), mu.data_ptr(), rstd.data_ptr(), None, None, None, _ptr(w_hi), _ptr(w_lo),
+                     r, c, f, float(eps)),
            x2)
     count_launch(fused_ln_dense, r, c, f, x2.dtype)
     return y, mu, rstd
@@ -119,9 +137,11 @@ def ln_dense_bwd(x2, gamma, w, dy2, mu, rstd):
     gamma, mu, rstd = (cuda_operand(t, torch.float32) for t in (gamma, mu, rstd))
     dx = torch.empty_like(x2)
     dln = torch.empty((r, c), dtype=torch.float32, device=x2.device)
+    w_hi, w_lo = _split_scratch(w, transposed=True)
     launch("ln_dense", "ln_dense_bwd",
            LndParams(x2.data_ptr(), gamma.data_ptr(), None, w.data_ptr(), None, None, mu.data_ptr(),
-                     rstd.data_ptr(), dy2.data_ptr(), dln.data_ptr(), dx.data_ptr(), r, c, f, 0.0),
+                     rstd.data_ptr(), dy2.data_ptr(), dln.data_ptr(), dx.data_ptr(), _ptr(w_hi), _ptr(w_lo),
+                     r, c, f, 0.0),
            x2)
     count_launch(ln_dense_bwd, r, c, f, x2.dtype)
     return dx, dln
@@ -177,6 +197,7 @@ def dln_tolerance(want: torch.Tensor, inputs_dtype: torch.dtype) -> float:
     """Max-abs tolerance of the kernel's f32 dln against the plain version's.
     Both multiply the same operands exactly and sum in f32 in another order
     (the tensor cores for bf16 operands): 1e-4 relative to the largest
-    magnitude for bf16 operands, 1e-5 for f32 (FMAs on both sides)."""
+    magnitude for bf16 operands, 1e-5 for f32 (where the kernel's 3xTF32
+    products are exact to about 2^-22, tests/test_torch_port_tf32_split.py)."""
     top = want.abs().max().item()
     return (1e-4 if inputs_dtype == torch.bfloat16 else 1e-5) * max(top, 1.0)
