@@ -58,12 +58,14 @@ non-zero exit when it fails:
    rows against 4,097 keys (the sequence-sharded shard); library times
    from `scaled_dot_product_attention` with the bias as a float mask, the
    fastest fused backend that takes it named;
-   6b. with `--parent DIR` (a checkout of another commit), the f32
-   LayerNorm+Dense rows, forward and backward at the training step's four
-   shapes, timed in turns against DIR's bodies: each checkout's own case
-   functions in a process of its own, parent, this checkout, this checkout,
-   parent; the rows' `in_turns` hold the four times (null without
-   `--parent`);
+   6b. with `--parent DIR` (a checkout of another commit), the bf16
+   attention forward rows of the main paths (serving, the step's encoder
+   and decoder in both layouts, N4097, the ring blocks and the
+   sequence-sharded shard) timed in turns against DIR's bodies: each
+   checkout's own case functions in a process of its own, parent, this
+   checkout, this checkout, parent; the rows' `in_turns` hold the four
+   times (null without `--parent`); each turn also times the host's side of
+   one packed forward call at the serving shape;
 7. a world of 4 spawned ranks on the one card, in one gloo group (NCCL
    takes one rank per device; the kernels stay on the card and the blocks
    travel through pinned host memory), every join bounded: ring and
@@ -117,6 +119,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # cores: a bound that no f32 kernel can beat, whatever it runs on
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 F32_SIMT_FLOPS = 67e12  # f32 elementwise work (the LayerNorm rows), without tensor cores
+# exponentials a second: the SFU's 16 a clock and SM, about 3.9e12 on an
+# H100 SXM against its 989 TFLOP/s of bf16 (FlashAttention-3, Shah et al.
+# 2024, section 3.1); attention's softmax takes one a score
+EXP_PER_S = 3.9e12
 KERNEL_SOURCE = "vit_ae_plus_plus_torch/kernels/csrc/flash_fwd.cu"
 BWD_SOURCE = "vit_ae_plus_plus_torch/kernels/csrc/flash_bwd.cu"
 REPLACES = {
@@ -140,7 +146,7 @@ LN_SOURCES = {  # kernel row -> (source, the TPU kernel it replaces)
                      "vit_ae_plus_plus_tpu/kernels/fused_ln_dense.py:159"),
 }
 BODIES = {  # (kernel row or attention direction, dtype) -> the CUDA bodies it launches
-    ("fwd", "bfloat16"): "flash_fwd_bf16_kernel (mma.sync)",
+    ("fwd", "bfloat16"): "flash_fwd_wgmma_kernel (wgmma + TMA)",
     ("fwd", "float32"): "flash_fwd_f32_kernel (3xTF32 on mma.sync)",
     ("bwd", "bfloat16"): "flash_bwd_delta_kernel + flash_bwd_dkdv_wgmma_kernel + flash_bwd_dq_wgmma_kernel "
                          "(wgmma + TMA)",
@@ -297,15 +303,21 @@ def graph_ms(fn, calls: int = 20, reps: int = 5, cold: bool = False) -> float:
 def bound(b: int, h: int, n: int, d: int, dtype: str, elt: int, nk: int = None, bwd: bool = False,
           extra_bytes: int = 0):
     """Least time the card could take for attention of n query rows against
-    nk keys (default n), the larger of two times. Bytes: forward, q, k, v
+    nk keys (default n), the largest of three times. Bytes: forward, q, k, v
     read once and o written once; backward, q, k, v, o and do read once and
     dq, dk and dv written once; plus `extra_bytes` (an f32 lse, a key bias).
-    Operations: 4*B*H*N*NK*d forward, 10*B*H*N*NK*d backward (five
-    N x NK x d products), at the type's peak."""
+    Products: 4*B*H*N*NK*d forward, 10*B*H*N*NK*d backward (five N x NK x d
+    products), at the type's peak. Forward, also the exponentials: one a
+    score, B*H*N*NK, at EXP_PER_S. -> (ms, "bytes" or "operations", which
+    limit: "bytes", "products" or "exp")."""
     nk = n if nk is None else nk
-    t_bytes = ((2 * n + 2 * nk) * b * h * d * elt * (2 if bwd else 1) + extra_bytes) / HBM_BYTES_PER_S
-    t_ops = (10 if bwd else 4) * b * h * n * nk * d / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+    times = {
+        "bytes": ((2 * n + 2 * nk) * b * h * d * elt * (2 if bwd else 1) + extra_bytes) / HBM_BYTES_PER_S,
+        "products": (10 if bwd else 4) * b * h * n * nk * d / PEAK_FLOPS[dtype],
+        "exp": 0.0 if bwd else b * h * n * nk / EXP_PER_S,
+    }
+    limit = max(times, key=times.get)
+    return times[limit] * 1e3, ("bytes" if limit == "bytes" else "operations"), limit
 
 
 def sdpa_calls(heads, scale, mask=None) -> dict:
@@ -378,14 +390,15 @@ def fwd_row(label, row, got, want, times, bnd, lse_relative=False) -> dict:
         lse_err, lse_tol = lse_err / want_lse.abs().max().item(), 1e-6
     check(err <= tol and lse_err <= lse_tol,
           f"{label}: max abs err {err:.3g} (tol {tol:.3g}), lse {lse_err:.3g} (tol {lse_tol:.3g})")
-    (ms, plain_ms, library_ms, backend), (bound_ms, bound_by) = times, bnd
+    (ms, plain_ms, library_ms, backend), (bound_ms, bound_by, limit) = times, bnd
     print(f"kernel {label}: max_abs_err {err:.3g} (tol {tol:.3g}), lse {lse_err:.3g} (tol {lse_tol:.3g}); "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({backend}) {library_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+          f"bound {bound_ms:.4f} ms ({bound_by}: {limit})", flush=True)
     return {"launches": None, **row, "route": "cuda", "source": KERNEL_SOURCE,
             "body": BODIES[("fwd", row["dtype"])], "in_turns": None, "max_abs_err": err, "tol": tol,
             "lse_err": lse_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "library": f"scaled_dot_product_attention ({backend})"}
+            "bound_limit": limit, "library_ms": library_ms,
+            "library": f"scaled_dot_product_attention ({backend})"}
 
 
 def bwd_row(label, row, grads, want_grads, times, bnd) -> dict:
@@ -401,7 +414,7 @@ def bwd_row(label, row, grads, want_grads, times, bnd) -> dict:
         errs[name] = (g.float() - w.float()).abs().max().item()
         tols[name] = bwd_tolerance(w)
         check(errs[name] <= tols[name], f"{label}: {name} max abs err {errs[name]:.3g} (tol {tols[name]:.3g})")
-    (ms, plain_ms, library_ms, backend), (bound_ms, bound_by) = times, bnd
+    (ms, plain_ms, library_ms, backend), (bound_ms, bound_by, _) = times, bnd
     print(f"kernel {label}: max_abs_err " + ", ".join(f"{k} {errs[k]:.3g} (tol {tols[k]:.3g})" for k in errs)
           + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({backend}) bwd {library_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
@@ -445,6 +458,31 @@ def kernel_case(label, layout, b, h, n, d, dtype_name, seed):
            "shape": f"B={b} H={h} N={n} d={d}", "dtype": dtype_name, "key": (b, h, n, d, dtype_name)}
     elt = torch.empty((), dtype=dtype).element_size()
     return fwd_row(label, row, got, want, times, bound(b, h, n, d, dtype_name, elt))
+
+
+def encoder_breakdown(b: int, h: int, n: int, d: int) -> None:
+    """Where the bf16 forward's time goes at the step's encoder shape: the
+    per-head kernel over the same n query rows against 64, 192 and n keys
+    (1, 3 and ceil(n / 64) key tiles a block). The slope is one key tile's
+    time over the whole grid; what is left at one tile is the blocks' fixed
+    cost (launch, barrier set-up, the Q tile and the first K/V stage in
+    flight, the epilogue)."""
+    import torch
+
+    from vit_ae_plus_plus_torch.kernels.flash_attention import flash_attention_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    rand = lambda rows: torch.randn((b, h, rows, d), generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+    q, tiles, times = rand(n), {}, {}
+    for nk in (64, 192, n):
+        k, v = rand(nk), rand(nk)
+        tiles[nk], times[nk] = -(-nk // 64), graph_ms(lambda: flash_attention_fwd(q, k, v, d**-0.5))
+    per_tile = (times[n] - times[64]) / (tiles[n] - 1)
+    fixed = times[64] - per_tile
+    print(f"encoder forward B{b} H{h} N{n} d{d}: "
+          + ", ".join(f"{tiles[k]} key tiles {times[k]:.4f} ms" for k in times)
+          + f"; {per_tile:.4f} ms a key tile over the grid, fixed {fixed:.4f} ms ({fixed / times[n]:.0%} of "
+          f"{times[n]:.4f})", flush=True)
 
 
 def bwd_case(label, layout, b, h, n, d, dtype_name, seed):
@@ -748,22 +786,44 @@ def f32_lnd_cases(cfg) -> list:
 
 
 def turn_cases(cfg) -> list:
-    """(row name, row key, case call) for every row of the f32
-    LayerNorm+Dense forward and backward at the training step's shapes: the
+    """(row name, row key, case call) for every bf16 attention forward row of
+    the main paths: serving, the step's encoder and decoder (packed and
+    per-head), N4097, the ring blocks and the sequence-sharded shard; the
     rows that `--parent` times in turns against another checkout's bodies.
     The calls are this script's case functions, which that checkout's copy
     has too."""
-    return [(name, (r, c, f, "float32"), f"ln_dense_cases('{label}', {r}, {c}, {f}, 'float32', seed={seed})")
-            for label, r, c, f, seed in f32_lnd_cases(cfg) for name in ("ln_dense_fwd", "ln_dense_bwd")]
+    from vit_ae_plus_plus_torch.parallel import padded_len
+
+    enc, dec = (2 * BATCH, 12, 433, 64), (BATCH, 16, 1729, 32)
+    heads = [("packed bf16 N1729 d64", "packed", (BATCH, 12, 1729, 64), 0),
+             ("per-head bf16 N1729 d64", "per_head", (BATCH, 12, 1729, 64), 1),
+             ("per-head bf16 N4097 d64", "per_head", (BATCH, 12, 4097, 64), 2),
+             ("per-head bf16 N1729 d32", "per_head", dec, 3),
+             ("packed bf16 N433 d64 (encoder)", "packed", enc, 10),
+             ("packed bf16 N1729 d32 (decoder)", "packed", dec, 11),
+             ("per-head bf16 N433 d64 (encoder)", "per_head", enc, 14)]
+    cases = [("packed_flash_fwd" if layout == "packed" else "flash_fwd", (*shape, "bfloat16"),
+              f"kernel_case('{label}', '{layout}', {', '.join(map(str, shape))}, 'bfloat16', seed={seed})")
+             for label, layout, shape, seed in heads]
+    for i, (label, b, h, n, d) in enumerate(ring_shapes(cfg)):
+        nb = padded_len(n, GROUP_RANKS) // GROUP_RANKS
+        cases.append(("ring_flash_fwd", (b, h, nb, d, "bfloat16"),
+                      f"ring_case('{label}', {b}, {h}, {n}, {d}, {GROUP_RANKS}, seed={70 + i})"))
+    nq = padded_len(4097, GROUP_RANKS) // GROUP_RANKS
+    cases.append(("flash_fwd", (2, 12, nq, 64, "bfloat16"),
+                  f"seq_case('seq bf16 N1032 Nk4097 d64', 2, 12, 4097, 64, {GROUP_RANKS}, seed=80)"))
+    return cases
 
 
 # One turn in another checkout: its own chip_smoke's case functions (each
-# call once), each call's row of the given name -> its kernel ms, as one
-# JSON line
+# call once), each call's row of the given name -> its kernel ms; and the
+# host's time for one call of the packed forward wrapper at the serving
+# shape (the tensor-map encodes are host work), as one JSON line
 TURN_CHILD = """
-import json, sys
+import json, sys, time
 import torch
 import chip_smoke as cs
+from vit_ae_plus_plus_torch.kernels import packed_flash_attention
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 out, done = [], {}
@@ -772,13 +832,23 @@ for name, call in json.loads(sys.argv[1]):
         got = eval("cs." + call)
         done[call] = got if isinstance(got, list) else [got]
     out.append(next(r["ms"] for r in done[call] if r["name"] == name))
-print("TURN " + json.dumps(out))
+qkv = torch.randn((cs.BATCH, 1729, 3 * 768), device="cuda").to(torch.bfloat16)
+for _ in range(3):
+    packed_flash_attention(qkv, 64)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+for _ in range(50):  # some 15 ms of device work: the launch queue never fills
+    packed_flash_attention(qkv, 64)
+host_us = (time.perf_counter() - t0) / 50 * 1e6
+torch.cuda.synchronize()
+print("TURN " + json.dumps({"ms": out, "host_us": host_us}))
 """
 
 
-def turn_ms(checkout: Path, cases: list) -> list:
-    """Kernel ms of each case's row, timed by `checkout`'s own copy of this
-    script in a process of its own, on the card this process leaves idle."""
+def turn_ms(checkout: Path, cases: list) -> dict:
+    """Kernel ms of each case's row and the host's µs for one wrapper call,
+    timed by `checkout`'s own copy of this script in a process of its own,
+    on the card this process leaves idle."""
     import torch
 
     torch.cuda.empty_cache()
@@ -803,9 +873,13 @@ def in_turns_phase(rows: list, cfg, parent: Path, parent_build) -> None:
     last = turn_ms(parent, cases)
     for i, (name, key, _) in enumerate(cases):
         row = next(r for r in rows if r["name"] == name and r["key"] == key)
-        row["in_turns"] = {"parent_ms": [first[i], last[i]], "ms": [mine[0][i], mine[1][i]]}
-        print(f"in turns {name} {key[:-1]}: parent {first[i]:.4f}, {last[i]:.4f} ms -> "
-              f"{mine[0][i]:.4f}, {mine[1][i]:.4f} ms", flush=True)
+        row["in_turns"] = {"parent_ms": [first["ms"][i], last["ms"][i]],
+                           "ms": [mine[0]["ms"][i], mine[1]["ms"][i]]}
+        print(f"in turns {name} {key[:-1]}: parent {first['ms'][i]:.4f}, {last['ms'][i]:.4f} ms -> "
+              f"{mine[0]['ms'][i]:.4f}, {mine[1]['ms'][i]:.4f} ms", flush=True)
+    print("in turns, host time of one packed forward call at B8 N1729 d64: parent "
+          f"{first['host_us']:.1f}, {last['host_us']:.1f} us -> {mine[0]['host_us']:.1f}, "
+          f"{mine[1]['host_us']:.1f} us", flush=True)
     print(f"in-turns phase {time.perf_counter() - t0:.1f}s", flush=True)
 
 
@@ -1739,6 +1813,7 @@ def main(argv) -> int:
     ]
     rows += [case(label, layout, *shape, dtype, seed=10 + i)
              for i, (case, label, layout, shape, dtype) in enumerate(train_cases)]
+    encoder_breakdown(*enc)
     # kernels #6 and #7 at the shapes of the ln_fusion="on" paths: each
     # block's qkv (F = 3C) and fc1 (F = 4C) in the training encoder and
     # decoder and in one serving slab, the training shapes in f32 too, and

@@ -64,22 +64,34 @@ GROUP_CASE = "chip_smoke.check_group_attention(chip_smoke.run_group(chip_smoke.a
 # every occurrence, main-path check); a kernel mutant's file is under
 # kernels/csrc/
 MUTANTS = {
-    "drop_last_key_tile": (
+    "drop_last_key_tile": (  # the bf16 forward walks one key tile fewer: the ragged last one is left out
         "kernels/csrc/flash_fwd.cu",
-        "for (int k0 = 0; k0 < nk; k0 += kBlockK)",
-        "for (int k0 = 0; k0 + kBlockK < nk; k0 += kBlockK)",
+        "const int ktiles = (keys + kBlock - 1) / kBlock;",
+        "const int ktiles = (keys - 1) / kBlock;",
         FWD_CASE,
     ),
-    "unmasked_key_tail": (
+    "unmasked_key_tail": (  # the first key past kv_len counts (a zero row of K and V)
         "kernels/csrc/flash_fwd.cu",
-        "float x = key < nk ? s[j][e] * scale2 : -INFINITY;",
-        "float x = key <= nk ? s[j][e] * scale2 : -INFINITY;",
+        "(i & 1) >= keys ?",
+        "(i & 1) > keys ?",
         FWD_CASE,
     ),
     "scale_off_1pct": (
         "kernels/csrc/flash_fwd.cu",
-        "const float scale2 = p.scale * kLog2e;",
-        "const float scale2 = p.scale * kLog2e * 1.01f;",
+        "const float scale_log2 = p.scale * kLog2e;",
+        "const float scale_log2 = p.scale * kLog2e * 1.01f;",
+        FWD_CASE,
+    ),
+    "fwd_no_rescale": (  # O is not scaled by alpha when the running max grows
+        "kernels/csrc/flash_fwd.cu",
+        "o[i] *= alpha[(i >> 1) & 1];",
+        "o[i] *= 1.f;",
+        FWD_CASE,
+    ),
+    "fwd_v_not_transposed": (  # O += P V reads the MN-major V tile as K-major
+        "kernels/csrc/flash_fwd.cu",
+        "Wgmma<D>::template rs<1>(o, pa[kk], desc_mn<D>(vs, kk), 1)",
+        "Wgmma<D>::template rs<0>(o, pa[kk], desc_mn<D>(vs, kk), 1)",
         FWD_CASE,
     ),
     "bwd_drop_last_query_tile": (  # the dK/dV ring skips its last stage: the ragged last query tile
@@ -212,8 +224,8 @@ MUTANTS = {
     ),
     "fwd_bias_dropped": (  # the bf16 forward's S without the key bias
         "kernels/csrc/flash_fwd.cu",
-        "if constexpr (HAS_BIAS) x += bias_s[j * 8 + 2 * t + (e & 1)];",
-        "if constexpr (HAS_BIAS) x += 0.f;",
+        "const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * t);",
+        "const float2 bb = make_float2(0.f, 0.f);",
         RING_CASE,
     ),
     "dkdv_bias_dropped": (  # the bf16 dK/dV kernel's S^T without the key bias
@@ -222,10 +234,10 @@ MUTANTS = {
         "fmaf(st[4 * j + e], scale2, 0.f)",
         RING_CASE,
     ),
-    "kv_len_as_seq_len": (  # the forward reads the key count from the query count
+    "kv_len_as_seq_len": (  # the bf16 forward reads the key count from the query count
         "kernels/csrc/flash_fwd.cu",
-        "const int nk = p.kv_len;",
-        "const int nk = p.seq_len;",
+        "const int keys = p.kv_len;",
+        "const int keys = p.seq_len;",
         SEQ_CASE,
     ),
     "ring_bias_not_rotated": (  # K/V rotate without their bias: pad keys count, valid ones are masked

@@ -8,11 +8,14 @@ imports no JAX, so it runs on a GPU machine with
 Tolerances: `kernel_tolerance` (kernels/flash_attention.py): for o, two bf16
 spacings at the plain output's largest magnitude in bf16 (both sides round o
 to bf16; the kernel also rounds P for the P V product), 1e-5 in f32; for the
-f32 lse, 1e-4. `kernel_mutants.py` shows that these catch a kernel that
-drops its last key tile, leaves the ragged key tail unmasked, or is off in
-its scale by 1%, and an f32 kernel that drops its last key tile or the
-3xTF32 low terms (plain TF32; tests/test_torch_port_tf32_split.py shows the
-same on the CPU).
+f32 lse, 1e-4. `kernel_mutants.py` shows that these catch a bf16 kernel
+that drops its last key tile, leaves the ragged key tail unmasked, is off
+in its scale by 1%, leaves O unscaled when the running max grows or reads
+V's MN-major tile as K-major, and an f32 kernel that drops its last key
+tile or the 3xTF32 low terms (plain TF32; tests/test_torch_port_tf32_split.py
+shows the same on the CPU). The bf16 forward runs on wgmma with K and V
+streamed by TMA; its cases walk more key tiles than its ring has stages,
+and two calls must give bitwise equal o and lse.
 
 Backward: `bwd_tolerance` (kernels/flash_attention.py): eight bf16 spacings
 at the plain gradient's largest magnitude in bf16 (the kernel rounds P and
@@ -173,6 +176,54 @@ def test_f32_forward_kernel_matches_plain(cuda, d, with_bias, nq, nk):
     want_o, want_lse = attention_plain(q, k, v, scale, return_lse=True, bias=bias)
     assert o.dtype == torch.float32 and bool(torch.isfinite(o).all())
     _assert_close(o, lse, want_o, want_lse)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("nq,nk", [(1, 1), (64, 64), (65, 129), (200, 63), (333, 200), (130, 1000)])
+def test_bf16_fwd_instances_match_plain(cuda, d, with_bias, nq, nk):
+    """Every bf16 forward instance (head_dim, key bias on and off): one key,
+    whole and ragged key tiles, query blocks past the rows, kv_len != seq_len,
+    and at nk = 1000 more key tiles than the ring has stages, so that a
+    missing rescale of O or a misturned phase shows; with the bias, the last
+    keys of the block are padded."""
+    q = _rand((2, 3, nq, d), torch.bfloat16, cuda, nq)
+    k, v = (_rand((2, 3, nk, d), torch.bfloat16, cuda, s) for s in (nk + 1, nk + 2))
+    scale = d**-0.5
+    if with_bias:
+        bias = torch.zeros(nk, device=cuda)
+        bias[nk - nk // 5:] = NEG_INF
+        o, lse = ring_partial_fwd(q, k, v, bias, scale)
+    else:
+        bias = None
+        o, lse = flash_attention_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    want_o, want_lse = attention_plain(q, k, v, scale, return_lse=True, bias=bias)
+    assert o.dtype == torch.bfloat16 and bool(torch.isfinite(o).all())
+    _assert_close(o, lse, want_o, want_lse)
+
+
+@pytest.mark.parametrize("layout", ["packed", "per_head", "ring"])
+def test_bf16_fwd_is_bitwise_repeatable(cuda, layout):
+    """Each row's sums have one owner and a fixed order: two calls on the
+    same inputs give bitwise equal o and lse."""
+    d, n = 64, 300
+    if layout == "packed":
+        qkv = _rand((2, n, 3 * 128), torch.bfloat16, cuda, seed=13)
+        call = lambda: packed_flash_attention(qkv, d, return_lse=True)  # noqa: E731
+    else:
+        q, k, v = (_rand((2, 3, n, d), torch.bfloat16, cuda, s) for s in range(30, 33))
+        if layout == "per_head":
+            call = lambda: flash_attention_fwd(q, k, v, d**-0.5)  # noqa: E731
+        else:
+            bias = torch.zeros(n, device=cuda)
+            bias[n - 9:] = NEG_INF
+            call = lambda: ring_partial_fwd(q, k, v, bias, d**-0.5)  # noqa: E731
+    first = [t.clone() for t in call()]
+    second = call()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "lse"), first, second):
+        assert torch.equal(a, b), name
 
 
 def _assert_grads_close(got, want):

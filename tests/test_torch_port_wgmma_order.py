@@ -1,9 +1,17 @@
-"""The arithmetic order of the wgmma backward kernels, emulated on the CPU.
+"""The arithmetic order of the wgmma kernels, emulated on the CPU.
 
-csrc/flash_bwd.cu's bf16 backward and csrc/ln_dense.cu's bf16 dln product
-run only on the card. This file repeats their order in torch at small
-ragged shapes and holds it to the plain versions within the tolerances the
-card's checks use (`bwd_tolerance`, `dln_tolerance`, `fused_ln.compare`):
+csrc/flash_fwd.cu's bf16 forward, csrc/flash_bwd.cu's bf16 backward and
+csrc/ln_dense.cu's bf16 dln product run only on the card. This file repeats
+their order in torch at small ragged shapes and holds it to the plain
+versions within the tolerances the card's checks use (`kernel_tolerance`,
+`bwd_tolerance`, `dln_tolerance`, `fused_ln.compare`):
+
+- attention forward: 64-key tiles walked last to first (the ragged one,
+  keys past kv_len masked to -inf, first); per tile S in f32, x = S scale
+  log2(e) + bias log2(e), the running max m, alpha = exp2(m_old - m_new),
+  P = exp2(x - m) in f32 summed into l, O += P V with P rounded to bf16
+  for the tile before, then O scaled by alpha; o = O / l, lse = (m +
+  log2 l) ln 2.
 
 - attention: delta = rowsum(dO * O) in f32; the dK/dV kernel walks 64-query
   tiles (zero-filled past seq_len, where lse reads +inf and delta 0), forms
@@ -16,7 +24,8 @@ card's checks use (`bwd_tolerance`, `dln_tolerance`, `fused_ln.compare`):
 - #7b: dln = dY W summed over 64-deep stages of F in order, each stage's
   f32 product added to one f32 accumulator; then the LayerNorm row pass.
 
-A deliberately wrong order falls outside: a dropped tile or stage.
+A deliberately wrong order falls outside: a dropped tile or stage, and in
+the forward O left unscaled when the running max grows.
 """
 
 import math
@@ -25,18 +34,95 @@ import numpy as np
 import pytest
 import torch
 
-from vit_ae_plus_plus_torch.kernels import attention_bwd_plain, attention_plain, bwd_tolerance
+from vit_ae_plus_plus_torch.kernels import attention_bwd_plain, attention_plain, bwd_tolerance, kernel_tolerance
 from vit_ae_plus_plus_torch.kernels.fused_ln import compare, layernorm_bwd_plain, row_stats_plain
 from vit_ae_plus_plus_torch.kernels.fused_ln_dense import dln_tolerance, ln_dense_bwd_plain
 
 TILE = 64
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 NEG_INF = -1e30
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     """Round to bf16 and back to f32 (the kernels' __floats2bfloat162_rn)."""
     return x.to(torch.bfloat16).float()
+
+
+def attention_fwd_tiled(q, k, v, scale, bias=None, rescale=True, drop_last_tile=False):
+    """(o, lse) in the bf16 forward kernel's order over bf16 q (B, H, N, D)
+    and k, v (B, H, Nk, D); `rescale=False` leaves O unscaled when the
+    running max grows and `drop_last_tile` skips the last key tile (wrong
+    orders for the tests)."""
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    nk = k.shape[2]
+    ktiles = math.ceil(nk / TILE)
+    kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, ktiles * TILE - nk)) for t in (kf, vf))
+    kb = torch.zeros(ktiles * TILE)
+    if bias is not None:
+        kb[:nk] = bias.float() * LOG2E
+    live = torch.arange(ktiles * TILE) < nk
+    m = torch.full(q.shape[:3], -math.inf)
+    l = torch.zeros(q.shape[:3])
+    o = torch.zeros(qf.shape)
+    p_prev = v_prev = None
+    for kt in reversed(range(ktiles - 1 if drop_last_tile else ktiles)):  # the ragged last tile first
+        keys = slice(kt * TILE, (kt + 1) * TILE)
+        x = torch.where(live[keys], qf @ kp[:, :, keys].transpose(-1, -2) * (scale * LOG2E) + kb[keys], -math.inf)
+        m_new = torch.maximum(m, x.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        if p_prev is not None:
+            o = o + p_prev @ v_prev  # the tile before's P V, P in bf16
+        if rescale:
+            o = o * alpha[..., None]
+        m, p_prev, v_prev = m_new, _bf16(p), vp[:, :, keys]
+    o = o + p_prev @ v_prev
+    return (o / l[..., None]).to(q.dtype), (m + torch.log2(l)) * LN2
+
+
+def _fwd_operands(d, nq, nk, with_bias, seed):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((2, 2, nq, d)).astype(np.float32)).bfloat16()
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, nk, d)).astype(np.float32)).bfloat16() for _ in range(2))
+    bias = None
+    if with_bias:  # a ring block with its last keys padded
+        bias = torch.zeros(nk)
+        bias[nk - nk // 5:] = NEG_INF
+    return q, k, v, bias
+
+
+def _fwd_within(got, want):
+    tol_o, tol_lse = kernel_tolerance(want[0])
+    return (float((got[0].float() - want[0].float()).abs().max()) <= tol_o
+            and float((got[1] - want[1]).abs().max()) <= tol_lse)
+
+
+FWD_SHAPES = [(65, 129), (130, 200), (200, 63), (64, 700)]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("nq,nk", FWD_SHAPES)
+def test_tiled_bf16_forward_is_within_kernel_tolerance(d, with_bias, nq, nk):
+    q, k, v, bias = _fwd_operands(d, nq, nk, with_bias, seed=d + nq + nk)
+    want = attention_plain(q, k, v, d**-0.5, return_lse=True, bias=bias)
+    got = attention_fwd_tiled(q, k, v, d**-0.5, bias)
+    tol_o, tol_lse = kernel_tolerance(want[0])
+    assert float((got[0].float() - want[0].float()).abs().max()) <= tol_o / 2  # room for the card's order
+    assert float((got[1] - want[1]).abs().max()) <= tol_lse / 2
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("wrong", ["no_rescale", "drop_last_tile"])
+def test_a_wrong_forward_order_is_outside_kernel_tolerance(d, wrong):
+    """O not scaled by alpha (kernel_mutants.py's `fwd_no_rescale`), or the
+    last key tile skipped (`drop_last_key_tile`), over eleven key tiles."""
+    q, k, v, _ = _fwd_operands(d, 64, 700, False, seed=d)
+    want = attention_plain(q, k, v, d**-0.5, return_lse=True)
+    wrong_order = {"rescale": False} if wrong == "no_rescale" else {"drop_last_tile": True}
+    assert not _fwd_within(attention_fwd_tiled(q, k, v, d**-0.5, **wrong_order), want)
 
 
 def attention_bwd_tiled(q, k, v, o, lse, do, scale, bias=None, drop_query_tile=None, drop_key_tile=None):

@@ -61,7 +61,7 @@
 // dQ summed across key tiles would need atomics or ordered semaphores.
 // Tiles: 64 rows of d bf16 as TMA writes them, k-blocks of 64 columns
 // swizzled 128B (d = 32: 64-byte rows swizzled 64B, d = 128: two k-blocks),
-// each serving K-major and MN-major descriptors (sm90_common.cuh). Ragged
+// each serving K-major and MN-major descriptors (flash_sm90.cuh). Ragged
 // tails arrive zero-filled from TMA; nothing is stored past seq_len (dq) or
 // kv_len (dk, dv). P and dS are rounded to bf16 before their products, as
 // before. A gradient sums over up to 4,097 rows in one f32 accumulator:
@@ -77,8 +77,7 @@
 // scalar FMAs: D/16 neighbouring threads share one key (or query) row, each
 // holding 16 of its dims, and reduce their dot products with shuffles.
 
-#include "flash_common.cuh"
-#include "sm90_common.cuh"
+#include "flash_sm90.cuh"
 
 struct FlashBwdParams {
   const void* q;
@@ -119,7 +118,6 @@ namespace {
 using namespace flash;
 
 constexpr int kThreads = 128;
-constexpr int kBlock = 64;  // rows of a block's own tile, and of each staged tile
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -158,75 +156,8 @@ flash_bwd_delta_kernel(const FlashBwdParams p) {
 // shared memory; one producer warp streams the other side's 64-row tiles
 // through TMA into a ring of stages behind full/empty mbarriers.
 
-constexpr int kWsThreads = 128 + 32;  // one consumer warpgroup and one producer warp
 
-// A tile is 64 rows of D bf16, as TMA writes it: k-blocks of 64 columns
-// (128-byte rows, swizzled 128B; D = 32 is one block of 64-byte rows,
-// swizzled 64B), each of 64 rows. The same tile serves K-major (its rows
-// are a product's M or N, D its depth) and MN-major (its rows are the
-// depth, D the N).
-template <int D>
-struct BwdTiling {
-  static constexpr int kBoxCols = D < 64 ? D : 64;
-  static constexpr int kKBlocks = D / kBoxCols;
-  static constexpr int kSwizzle = D == 32 ? sm90::kSwizzle64 : sm90::kSwizzle128;
-  static constexpr uint32_t kAtomBytes = kBoxCols * 2 * 8;  // 8 rows
-  static constexpr int kBoxBytes = kBlock * kBoxCols * 2;   // one k-block of a tile
-  static constexpr int kTileBytes = kBlock * D * 2;
-  static constexpr int kStages = D == 32 ? 4 : (D == 64 ? 3 : 2);
-  static constexpr int kMinBlocks = D == 128 ? 1 : 2;  // blocks an SM holds: the register budget
-  // [two resident tiles][kStages x two streamed tiles][kStages x 2 x 64
-  // f32 (lse and delta, or the key bias)][barriers], after 1,024 bytes of
-  // alignment room
-  static constexpr int kRowsOffset = (2 + 2 * kStages) * kTileBytes;
-  static constexpr int kBarOffset = kRowsOffset + kStages * 2 * kBlock * 4;
-  static constexpr int kSmem = 1024 + kBarOffset + (2 * kStages + 1) * 8;
-  static_assert(kSmem * kMinBlocks <= 228 * 1024, "over the shared memory of an SM");
-};
-
-// K-major descriptor of a tile's 16-deep step kk over D.
-template <int D>
-__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int kk) {
-  using T = BwdTiling<D>;
-  return sm90::wgmma_desc(tile + (kk * 16 / T::kBoxCols) * T::kBoxBytes + (kk * 16 % T::kBoxCols) * 2,
-                          T::kAtomBytes, T::kSwizzle);
-}
-
-// MN-major descriptor of a tile's 16-deep step kk over its rows.
-template <int D>
-__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int kk) {
-  using T = BwdTiling<D>;
-  return sm90::wgmma_desc_mn(tile + kk * 2 * T::kAtomBytes, T::kBoxBytes, T::kAtomBytes, T::kSwizzle);
-}
-
-// Rows row0 .. row0 + 63 of head (b, h) of a 4-D (D, token, head, batch)
-// tensor map into `tile`; rows past the tensor arrive as zeros.
-template <int D>
-__device__ __forceinline__ void load_rows(unsigned char* tile, const CUtensorMap* map, int row0, int h, int b,
-                                          uint64_t* bar, uint64_t policy) {
-  using T = BwdTiling<D>;
-#pragma unroll
-  for (int kb = 0; kb < T::kKBlocks; ++kb) {
-    sm90::tma_load_4d(tile + kb * T::kBoxBytes, map, kb * T::kBoxCols, row0, h, b, bar, policy);
-  }
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Keeps registers that an async wgmma reads (register A fragments) live
-// and unchanged until its wait.
-template <int N>
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-  }
-}
+// Tiles: BwdTiling, desc_k, desc_mn and load_rows (flash_sm90.cuh).
 
 // Stores rows (16 * warp + g, + 8) of a 64 x D accumulator, times `mul`, as
 // bf16 pairs at columns 8j + 2t; rows at or past `rows` are not stored.
@@ -552,21 +483,6 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
 
   store_tile<D>(dq, p.scale, static_cast<__nv_bfloat16*>(p.dq) + bh_offset(p.dq_sb, p.dq_sh, b, h), p.dq_sn, q0, n,
                 warp, g, t);
-}
-
-// The rank-4 (D, token, head, batch) tensor map of one bf16 operand from
-// its element strides, boxes of 64 rows by one k-block.
-template <int D>
-CUresult encode_rows(CUtensorMap* map, const void* ptr, long long sb, long long sn, long long sh, int rows,
-                     int heads, int batch) {
-  using T = BwdTiling<D>;
-  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(rows), static_cast<uint64_t>(heads),
-                            static_cast<uint64_t>(batch)};
-  const uint64_t strides[3] = {static_cast<uint64_t>(sn) * 2, static_cast<uint64_t>(sh) * 2,
-                               static_cast<uint64_t>(sb) * 2};
-  const uint32_t box[4] = {static_cast<uint32_t>(T::kBoxCols), static_cast<uint32_t>(kBlock), 1, 1};
-  return sm90::encode_bf16(map, ptr, 4, dims, strides, box,
-                           D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int D, bool HAS_BIAS>

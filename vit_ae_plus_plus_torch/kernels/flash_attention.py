@@ -27,10 +27,10 @@ Counterpart of the JAX package's kernels/flash_attention.py
 The kernels read operands through (batch, token, head) strides, so the
 launchers take (B, N, H, D) views: a per-head tensor is passed transposed,
 the packed (B, N, 3C) projection as three views of itself. Both dtypes run
-on the tensor cores: the bf16 forward through mma.sync, the bf16 backward
-through Hopper's wgmma with its operands streamed by TMA (`wgmma_tile`
-checks one tile of those helpers), f32 through 3xTF32 (each f32 operand
-split into two TF32 parts, f32-accurate products).
+on the tensor cores: the bf16 forward and backward through Hopper's wgmma
+with their operands streamed by TMA (`wgmma_tile` checks one tile of those
+helpers), f32 through 3xTF32 on mma.sync (each f32 operand split into two
+TF32 parts, f32-accurate products).
 """
 
 from __future__ import annotations
@@ -232,7 +232,7 @@ class WgmmaProbeParams(ctypes.Structure):
 
 def wgmma_tile(a: torch.Tensor, b: torch.Tensor, a_from_registers: bool) -> torch.Tensor:
     """a (64, 64) @ b (64, N) in f32 through one tile of the Hopper helpers
-    that the bf16 backward builds on (csrc/flash_bwd.cu `wgmma_probe`): b
+    that the bf16 forward and backward build on (csrc/flash_bwd.cu `wgmma_probe`): b
     loaded by TMA and read MN-major through wgmma's transpose flag, a from
     shared memory or from registers. Contiguous bf16 CUDA tensors, N in
     (32, 64, 128). A check of those helpers, on no path of the model."""
