@@ -39,9 +39,10 @@ non-zero exit when it fails:
    same start (losses, metrics and three gradients), launch counts read
    around every step (20 packed forward and 20 packed backward: 12 at the
    encoder's shape, 8 at the decoder's), then one step with
-   attn_impl="flash" (the per-head kernels) and one f32 step against f32
-   plain; step time, volumes/s, peak memory and a torch.profiler breakdown
-   of one step's device time as information;
+   attn_impl="flash" (the per-head kernels), one f32 step against f32
+   plain and one f32 step with attn_impl="flash" against it (the per-head
+   f32 backward's path); step time, volumes/s, peak memory and a
+   torch.profiler breakdown of one step's device time as information;
    5b. three bf16 steps with `ln_fusion="on"` against three with "off"
    from the same weights and noise (losses, metrics, five gradients), counts
    read around every step (40 LayerNorm+Dense forward and 40 backward: 12
@@ -58,14 +59,13 @@ non-zero exit when it fails:
    rows against 4,097 keys (the sequence-sharded shard); library times
    from `scaled_dot_product_attention` with the bias as a float mask, the
    fastest fused backend that takes it named;
-   6b. with `--parent DIR` (a checkout of another commit), the bf16
-   attention forward rows of the main paths (serving, the step's encoder
-   and decoder in both layouts, N4097, the ring blocks and the
-   sequence-sharded shard) timed in turns against DIR's bodies: each
+   6b. with `--parent DIR` (a checkout of another commit), the f32
+   attention backward rows of the training step (its encoder and decoder
+   shapes, packed and per-head) timed in turns against DIR's bodies: each
    checkout's own case functions in a process of its own, parent, this
    checkout, this checkout, parent; the rows' `in_turns` hold the four
-   times (null without `--parent`); each turn also times the host's side of
-   one packed forward call at the serving shape;
+   times (null without `--parent`); each turn also times the f32 step
+   (TrainConfig's default dtype), unfused and with `ln_fusion="on"`;
 7. a world of 4 spawned ranks on the one card, in one gloo group (NCCL
    takes one rank per device; the kernels stay on the card and the blocks
    travel through pinned host memory), every join bounded: ring and
@@ -150,7 +150,9 @@ BODIES = {  # (kernel row or attention direction, dtype) -> the CUDA bodies it l
     ("fwd", "float32"): "flash_fwd_f32_kernel (3xTF32 on mma.sync)",
     ("bwd", "bfloat16"): "flash_bwd_delta_kernel + flash_bwd_dkdv_wgmma_kernel + flash_bwd_dq_wgmma_kernel "
                          "(wgmma + TMA)",
-    ("bwd", "float32"): "flash_bwd_delta_kernel + flash_bwd_dkdv_f32_kernel + flash_bwd_dq_f32_kernel",
+    ("bwd", "float32"): "flash_bwd_delta_kernel + flash_bwd_split_kernel + flash_bwd_dkdv_tf32_kernel + "
+                        "flash_bwd_dq_tf32_kernel (3xTF32 on wgmma + TMA; at d = 128, the opt-in fast preset's "
+                        "head dim, flash_bwd_dkdv_f32_kernel + flash_bwd_dq_f32_kernel, scalar)",
     ("layernorm_fwd", "bfloat16"): "vitae_ln_fwd_kernel",
     ("layernorm_bwd", "bfloat16"): "vitae_ln_rows_bwd_kernel",
     ("ln_dense_fwd", "bfloat16"): "vitae_lnd_fwd_bf16_kernel (wgmma + TMA)",
@@ -786,44 +788,31 @@ def f32_lnd_cases(cfg) -> list:
 
 
 def turn_cases(cfg) -> list:
-    """(row name, row key, case call) for every bf16 attention forward row of
-    the main paths: serving, the step's encoder and decoder (packed and
-    per-head), N4097, the ring blocks and the sequence-sharded shard; the
-    rows that `--parent` times in turns against another checkout's bodies.
-    The calls are this script's case functions, which that checkout's copy
-    has too."""
-    from vit_ae_plus_plus_torch.parallel import padded_len
-
-    enc, dec = (2 * BATCH, 12, 433, 64), (BATCH, 16, 1729, 32)
-    heads = [("packed bf16 N1729 d64", "packed", (BATCH, 12, 1729, 64), 0),
-             ("per-head bf16 N1729 d64", "per_head", (BATCH, 12, 1729, 64), 1),
-             ("per-head bf16 N4097 d64", "per_head", (BATCH, 12, 4097, 64), 2),
-             ("per-head bf16 N1729 d32", "per_head", dec, 3),
-             ("packed bf16 N433 d64 (encoder)", "packed", enc, 10),
-             ("packed bf16 N1729 d32 (decoder)", "packed", dec, 11),
-             ("per-head bf16 N433 d64 (encoder)", "per_head", enc, 14)]
-    cases = [("packed_flash_fwd" if layout == "packed" else "flash_fwd", (*shape, "bfloat16"),
-              f"kernel_case('{label}', '{layout}', {', '.join(map(str, shape))}, 'bfloat16', seed={seed})")
-             for label, layout, shape, seed in heads]
-    for i, (label, b, h, n, d) in enumerate(ring_shapes(cfg)):
-        nb = padded_len(n, GROUP_RANKS) // GROUP_RANKS
-        cases.append(("ring_flash_fwd", (b, h, nb, d, "bfloat16"),
-                      f"ring_case('{label}', {b}, {h}, {n}, {d}, {GROUP_RANKS}, seed={70 + i})"))
-    nq = padded_len(4097, GROUP_RANKS) // GROUP_RANKS
-    cases.append(("flash_fwd", (2, 12, nq, 64, "bfloat16"),
-                  f"seq_case('seq bf16 N1032 Nk4097 d64', 2, 12, 4097, 64, {GROUP_RANKS}, seed=80)"))
-    return cases
+    """(row name, row key, case call) for every f32 attention backward row
+    of the training step: its encoder and decoder shapes, packed and
+    per-head (the seeds of `main`'s rows); the rows that `--parent` times in
+    turns against another checkout's bodies. The calls are this script's
+    case functions, which that checkout's copy has too."""
+    enc, dec = train_shapes(cfg)
+    heads = [("packed bwd f32 N433 d64 (encoder)", "packed", enc, 21),
+             ("per-head bwd f32 N433 d64 (encoder)", "per_head", enc, 22),
+             ("packed bwd f32 N1729 d32 (decoder)", "packed", dec, 18),
+             ("per-head bwd f32 N1729 d32 (decoder)", "per_head", dec, 23)]
+    return [("packed_flash_bwd" if layout == "packed" else "flash_bwd", (*shape, "float32"),
+             f"bwd_case('{label}', '{layout}', {', '.join(map(str, shape))}, 'float32', seed={seed})")
+            for label, layout, shape, seed in heads]
 
 
 # One turn in another checkout: its own chip_smoke's case functions (each
 # call once), each call's row of the given name -> its kernel ms; and the
-# host's time for one call of the packed forward wrapper at the serving
-# shape (the tensor-map encodes are host work), as one JSON line
+# f32 training step's time (CUDA events over 3 steps after one warm-up),
+# unfused and with ln_fusion="on", from that checkout's Trainer, as one JSON
+# line
 TURN_CHILD = """
-import json, sys, time
+import json, sys
 import torch
 import chip_smoke as cs
-from vit_ae_plus_plus_torch.kernels import packed_flash_attention
+from vit_ae_plus_plus_torch.models import MODEL_ZOO
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 out, done = [], {}
@@ -832,23 +821,23 @@ for name, call in json.loads(sys.argv[1]):
         got = eval("cs." + call)
         done[call] = got if isinstance(got, list) else [got]
     out.append(next(r["ms"] for r in done[call] if r["name"] == name))
-qkv = torch.randn((cs.BATCH, 1729, 3 * 768), device="cuda").to(torch.bfloat16)
-for _ in range(3):
-    packed_flash_attention(qkv, 64)
-torch.cuda.synchronize()
-t0 = time.perf_counter()
-for _ in range(50):  # some 15 ms of device work: the launch queue never fills
-    packed_flash_attention(qkv, 64)
-host_us = (time.perf_counter() - t0) / 50 * 1e6
-torch.cuda.synchronize()
-print("TURN " + json.dumps({"ms": out, "host_us": host_us}))
+cfg = MODEL_ZOO[cs.MODEL](volume_size=cs.VOLUME, patch_size=cs.PATCH)
+tree, stats = cs.mae_tree(cfg, seed=0)
+views, _ = cs.train_inputs(cfg)
+steps = {}
+for fusion in ("auto", "on"):
+    trainer = cs.Trainer(tree, stats, "float32", "auto", ln_fusion=fusion)
+    steps[fusion] = cs.step_ms(trainer, views, reps=3)[0]
+    del trainer
+    torch.cuda.empty_cache()
+print("TURN " + json.dumps({"ms": out, "step_ms": steps}))
 """
 
 
 def turn_ms(checkout: Path, cases: list) -> dict:
-    """Kernel ms of each case's row and the host's µs for one wrapper call,
-    timed by `checkout`'s own copy of this script in a process of its own,
-    on the card this process leaves idle."""
+    """Kernel ms of each case's row and the f32 step's ms, timed by
+    `checkout`'s own copy of this script in a process of its own, on the
+    card this process leaves idle."""
     import torch
 
     torch.cuda.empty_cache()
@@ -877,9 +866,10 @@ def in_turns_phase(rows: list, cfg, parent: Path, parent_build) -> None:
                            "ms": [mine[0]["ms"][i], mine[1]["ms"][i]]}
         print(f"in turns {name} {key[:-1]}: parent {first['ms'][i]:.4f}, {last['ms'][i]:.4f} ms -> "
               f"{mine[0]['ms'][i]:.4f}, {mine[1]['ms'][i]:.4f} ms", flush=True)
-    print("in turns, host time of one packed forward call at B8 N1729 d64: parent "
-          f"{first['host_us']:.1f}, {last['host_us']:.1f} us -> {mine[0]['host_us']:.1f}, "
-          f"{mine[1]['host_us']:.1f} us", flush=True)
+    for fusion, what in (("auto", "unfused"), ("on", "ln_fusion='on'")):
+        print(f"in turns, f32 step {what}, ms per step of {BATCH} (CUDA events over 3 steps): parent "
+              f"{first['step_ms'][fusion]:.2f}, {last['step_ms'][fusion]:.2f} -> {mine[0]['step_ms'][fusion]:.2f}, "
+              f"{mine[1]['step_ms'][fusion]:.2f}", flush=True)
     print(f"in-turns phase {time.perf_counter() - t0:.1f}s", flush=True)
 
 
@@ -1333,7 +1323,13 @@ def train_phase(rows: list) -> dict:
     [(mp, gp)], _ = first_steps(f32_plain, 1, {})
     hold("f32 auto", step_rel_errs(m32, mp, g32, gp), STEP_TOL["float32"])
     f32_ms, _ = step_ms(f32, views, reps=2)
-    del f32, f32_plain
+    del f32
+    torch.cuda.empty_cache()
+    f32_flash = Trainer(tree, stats, "float32", "flash")
+    [(mf, gf)], cf = first_steps(f32_flash, 1, per_step("flash", "float32"))
+    fill_launches(rows, cf, "make_train_step, compute_dtype='float32', attn_impl='flash', one step")
+    hold("f32 flash", step_rel_errs(mf, mp, gf, gp), STEP_TOL["float32"])
+    del f32_flash, f32_plain
     torch.cuda.empty_cache()
 
     # 5b: ln_fusion="on" against "off" from the same start, counts read
@@ -1810,6 +1806,9 @@ def main(argv) -> int:
         (bwd_case, "packed bwd f32 N1729 d32 (decoder)", "packed", dec, "float32"),
         (kernel_case, "packed f32 N433 d64 (encoder)", "packed", enc, "float32"),
         (kernel_case, "packed f32 N1729 d32 (decoder)", "packed", dec, "float32"),
+        (bwd_case, "packed bwd f32 N433 d64 (encoder)", "packed", enc, "float32"),
+        (bwd_case, "per-head bwd f32 N433 d64 (encoder)", "per_head", enc, "float32"),
+        (bwd_case, "per-head bwd f32 N1729 d32 (decoder)", "per_head", dec, "float32"),
     ]
     rows += [case(label, layout, *shape, dtype, seed=10 + i)
              for i, (case, label, layout, shape, dtype) in enumerate(train_cases)]

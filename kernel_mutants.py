@@ -15,7 +15,8 @@ copy is built at once, and two checks run against each broken kernel:
   (packed, B=8, N=1729, C=768, d=64, bf16) for a forward mutant, and in
   f32 (the f32 slab's shape) for an f32-forward mutant,
   `chip_smoke.bwd_case` at the decoder's training shape (packed, B=8,
-  N=1729, C=512, d=32, bf16) for a backward mutant;
+  N=1729, C=512, d=32, bf16) for a backward mutant, and in f32 for a
+  mutant of the f32 (3xTF32 wgmma) backward;
   `chip_smoke.ln_dense_cases` at the training encoder's qkv shape (R=6928,
   C=768, F=2304, bf16, forward and backward) for a LayerNorm+Dense or
   LayerNorm row-pass mutant, and at the decoder's qkv shape (R=13832,
@@ -55,6 +56,7 @@ KERNEL_TESTS = Path("tests/test_torch_port_kernels_cuda.py")
 FWD_CASE = "chip_smoke.kernel_case('packed bf16 N1729 d64', 'packed', 8, 12, 1729, 64, 'bfloat16', seed=0)"
 F32_CASE = "chip_smoke.kernel_case('packed f32 N1729 d64', 'packed', 8, 12, 1729, 64, 'float32', seed=4)"
 BWD_CASE = "chip_smoke.bwd_case('packed bwd bf16 N1729 d32', 'packed', 8, 16, 1729, 32, 'bfloat16', seed=13)"
+F32_BWD_CASE = "chip_smoke.bwd_case('packed bwd f32 N1729 d32', 'packed', 8, 16, 1729, 32, 'float32', seed=18)"
 LND_CASE = "chip_smoke.ln_dense_cases('ln_dense bf16 encoder qkv', 6928, 768, 2304, 'bfloat16', seed=40)"
 LND_F32_CASE = "chip_smoke.ln_dense_cases('ln_dense f32 decoder qkv', 13832, 512, 1536, 'float32', seed=52)"
 RING_CASE = "chip_smoke.ring_case('ring bf16 NB1032', 2, 12, 4097, 64, 4, seed=70)"
@@ -130,6 +132,50 @@ MUTANTS = {
         "Wgmma<64>::ss<0>(st, desc_k<D>(ks, kk), desc_k<D>(qs, kk), 1)",
         BWD_CASE,
     ),
+    "f32_bwd_dkdv_tf32_low_terms_dropped": (  # dV += P^T dO and dK += dS^T Q in plain TF32: hi * hi alone
+        "kernels/csrc/flash_bwd.cu",
+        """    chunk_3xtf32<D>(dv_chunk, pa_hi, pa_lo, st + 6 * kRow, st + 7 * kRow);  // P^T dO, B = dO^T
+    chunk_3xtf32<D>(dk_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);  // dS^T Q, B = Q^T""",
+        """    for (int kk = 0; kk < 4; ++kk) WgmmaTf32<D>::rs(dv_chunk, pa_hi[kk], desc_tf32<D>(st + 6 * kRow, kk), kk > 0);
+    for (int kk = 0; kk < 4; ++kk) WgmmaTf32<D>::rs(dk_chunk, da_hi[kk], desc_tf32<D>(st + 4 * kRow, kk), kk > 0);""",
+        F32_BWD_CASE,
+    ),
+    "f32_bwd_dq_tf32_low_terms_dropped": (  # dQ += dS K in plain TF32
+        "kernels/csrc/flash_bwd.cu",
+        "    chunk_3xtf32<D>(dq_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);  // dS K, B = K^T",
+        "    for (int kk = 0; kk < 4; ++kk) WgmmaTf32<D>::rs(dq_chunk, da_hi[kk], desc_tf32<D>(st + 4 * kRow, kk), kk > 0);",
+        F32_BWD_CASE,
+    ),
+    "f32_bwd_drop_last_query_stage": (  # the f32 dK/dV ring skips its last stage: the ragged last 32 queries
+        "kernels/csrc/flash_bwd.cu",
+        "const int qtiles = (n + kTfRows - 1) / kTfRows;",
+        "const int qtiles = (n - 1) / kTfRows;",
+        F32_BWD_CASE,
+    ),
+    "f32_bwd_drop_last_key_stage": (  # the f32 dQ ring skips its last stage: the ragged last 32 keys
+        "kernels/csrc/flash_bwd.cu",
+        "const int ktiles = (nk + kTfRows - 1) / kTfRows;",
+        "const int ktiles = (nk - 1) / kTfRows;",
+        F32_BWD_CASE,
+    ),
+    "f32_bwd_chunk_acc_not_reset": (  # a stage's dK, dV or dQ accumulator starts from the last stage's
+        "kernels/csrc/flash_bwd.cu",
+        "sm90::WgmmaTf32<D>::rs(d, a_lo[kk], desc_tf32<D>(b_hi, kk), kk > 0);",
+        "sm90::WgmmaTf32<D>::rs(d, a_lo[kk], desc_tf32<D>(b_hi, kk), 1);",
+        F32_BWD_CASE,
+    ),
+    "f32_bwd_copies_not_permuted": (  # the transposed copies in token order, the A fragments permuted
+        "kernels/csrc/flash_bwd.cu",
+        "split_tf32(tile[(pos & ~7) + tf32_token(pos & 7)][c])",
+        "split_tf32(tile[pos][c])",
+        F32_BWD_CASE,
+    ),
+    "f32_bwd_no_delta": (  # the f32 backward's dS = P * dP: delta left out
+        "kernels/csrc/flash_bwd.cu",
+        "if (lane == 0) p.delta[r] = acc;",
+        "if (lane == 0) p.delta[r] = 0.f;",
+        F32_BWD_CASE,
+    ),
     "lnd_bias_before_rounding": (  # y = bf16(acc + b): the bias added before acc is rounded
         "kernels/csrc/ln_dense.cu",
         "return __bfloat162float(__float2bfloat16(acc)) + bias;",
@@ -180,22 +226,22 @@ MUTANTS = {
     ),
     "lnd_f32_fwd_tf32_low_terms_dropped": (  # the f32 forward's product in plain TF32: hi * hi alone
         "kernels/csrc/ln_dense.cu",
-        """        WgmmaTf32::rs(acc, cur.lo[kk], b_hi, kk > 0);  // the chunk starts a fresh accumulator
-        WgmmaTf32::rs(acc, cur.hi[kk], b_lo, 1);
-        WgmmaTf32::rs(acc, cur.hi[kk], b_hi, 1);""",
-        """        if (!kNorm) WgmmaTf32::rs(acc, cur.lo[kk], b_hi, kk > 0);
-        if (!kNorm) WgmmaTf32::rs(acc, cur.hi[kk], b_lo, 1);
-        WgmmaTf32::rs(acc, cur.hi[kk], b_hi, !kNorm || kk > 0);""",
+        """        WgmmaTf32<128>::rs(acc, cur.lo[kk], b_hi, kk > 0);  // the chunk starts a fresh accumulator
+        WgmmaTf32<128>::rs(acc, cur.hi[kk], b_lo, 1);
+        WgmmaTf32<128>::rs(acc, cur.hi[kk], b_hi, 1);""",
+        """        if (!kNorm) WgmmaTf32<128>::rs(acc, cur.lo[kk], b_hi, kk > 0);
+        if (!kNorm) WgmmaTf32<128>::rs(acc, cur.hi[kk], b_lo, 1);
+        WgmmaTf32<128>::rs(acc, cur.hi[kk], b_hi, !kNorm || kk > 0);""",
         LND_F32_CASE,
     ),
     "lnd_f32_dln_tf32_low_terms_dropped": (  # the f32 dln product in plain TF32
         "kernels/csrc/ln_dense.cu",
-        """        WgmmaTf32::rs(acc, cur.lo[kk], b_hi, kk > 0);  // the chunk starts a fresh accumulator
-        WgmmaTf32::rs(acc, cur.hi[kk], b_lo, 1);
-        WgmmaTf32::rs(acc, cur.hi[kk], b_hi, 1);""",
-        """        if (kNorm) WgmmaTf32::rs(acc, cur.lo[kk], b_hi, kk > 0);
-        if (kNorm) WgmmaTf32::rs(acc, cur.hi[kk], b_lo, 1);
-        WgmmaTf32::rs(acc, cur.hi[kk], b_hi, kNorm || kk > 0);""",
+        """        WgmmaTf32<128>::rs(acc, cur.lo[kk], b_hi, kk > 0);  // the chunk starts a fresh accumulator
+        WgmmaTf32<128>::rs(acc, cur.hi[kk], b_lo, 1);
+        WgmmaTf32<128>::rs(acc, cur.hi[kk], b_hi, 1);""",
+        """        if (kNorm) WgmmaTf32<128>::rs(acc, cur.lo[kk], b_hi, kk > 0);
+        if (kNorm) WgmmaTf32<128>::rs(acc, cur.hi[kk], b_lo, 1);
+        WgmmaTf32<128>::rs(acc, cur.hi[kk], b_hi, kNorm || kk > 0);""",
         LND_F32_CASE,
     ),
     "lnd_f32_drop_last_chunk": (  # both f32 products skip the last 32-deep chunk of their depth
@@ -206,8 +252,8 @@ MUTANTS = {
     ),
     "lnd_f32_chunk_acc_not_reset": (  # a chunk's accumulator starts from the last one's sums
         "kernels/csrc/ln_dense.cu",
-        "WgmmaTf32::rs(acc, cur.lo[kk], b_hi, kk > 0);",
-        "WgmmaTf32::rs(acc, cur.lo[kk], b_hi, 1);",
+        "WgmmaTf32<128>::rs(acc, cur.lo[kk], b_hi, kk > 0);",
+        "WgmmaTf32<128>::rs(acc, cur.lo[kk], b_hi, 1);",
         LND_F32_CASE,
     ),
     "lnd_f32_split_not_permuted": (  # W's split copies in the original depth order, A's fragments permuted

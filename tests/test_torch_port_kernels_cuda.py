@@ -27,7 +27,15 @@ dk, clears dV's transpose flag or does not reset S^T between query tiles.
 The bf16 backward runs on wgmma: `wgmma_tile` holds one tile of its
 helpers (B MN-major through the transpose flag, A from shared memory or
 registers) to `torch.matmul`; two calls must give bitwise equal
-gradients (no atomics).
+gradients (no atomics). The f32 backward at d = 32 and 64 runs 3xTF32 on
+tf32 wgmma: every instance (d, key bias on and off, kv_len equal to or
+apart from seq_len, up to 17 tiles of 32 rows) against the plain version,
+two calls bitwise equal, and one tf32 tile of its helpers (both forms, N
+32, 64 and 128) against `torch.matmul` in f64. `kernel_mutants.py` shows
+that `bwd_tolerance` catches an f32 backward that drops the low terms in
+the dK/dV or the dQ kernel, skips the last query or key stage, carries a
+stage's accumulator into the next, writes its transposed copies
+unpermuted, or leaves delta out.
 
 The ring's partial kernels (the same sources with a key bias, 0 or -1e30)
 and the per-head kernels with fewer or more keys than queries (the
@@ -594,3 +602,78 @@ def test_ln_kernels_raise_where_no_instance_is_built(cuda):
         fused_layernorm(x.double(), gamma, beta)
     with pytest.raises(ValueError, match="multiple of 32"):
         fused_ln_dense(x, gamma, beta, w[:48].float(), b[:48].float())
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """The nearest tf32 value (cvt.rna.tf32.f32), as an f32 tensor."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("n", [32, 64, 128])
+@pytest.mark.parametrize("a_from_registers", [False, True], ids=["a_smem", "a_regs"])
+def test_wgmma_tf32_tile_matches_matmul(cuda, n, a_from_registers):
+    """One tile of the tf32 helpers under the f32 backward: a (64, 32) and
+    b^T (N, 32) loaded by TMA, both K-major, a from shared memory or from
+    registers. The operands are tf32 values, so each product is exact; the
+    tensor cores' truncating f32 sum of 32 terms is off by at most 32 units
+    of 2^-23 of the sum of |a b|."""
+    a = _tf32(_rand((64, 32), torch.float32, cuda, seed=n))
+    b = _tf32(_rand((32, n), torch.float32, cuda, seed=n + 1))
+    got = wgmma_tile(a, b, a_from_registers)
+    torch.cuda.synchronize()
+    want = a.double() @ b.double()
+    bound = 2.0**-18 * (a.abs().double() @ b.abs().double()).max().item()
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=bound)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("nq,nk", [(1, 1), (32, 32), (33, 65), (64, 129), (200, 63), (333, 200), (540, 47),
+                                   (47, 540)])
+def test_f32_bwd_instances_match_plain(cuda, d, with_bias, nq, nk):
+    """Every f32 backward instance (head_dim, key bias on and off) at ragged
+    lengths, with kv_len equal to and different from seq_len, up to 17
+    streamed tiles of 32 rows; with the bias, the last keys of the block are
+    padded and o and lse are the merged row's, as the ring hands them over."""
+    q, do = (_rand((2, 3, nq, d), torch.float32, cuda, s) for s in (nq, nq + 1))
+    k, v = (_rand((2, 3, nk, d), torch.float32, cuda, s) for s in (nk + 2, nk + 3))
+    scale = d**-0.5
+    bias = None
+    if with_bias:
+        bias = torch.zeros(nk, device=cuda)
+        bias[nk - max(1, nk // 8):] = NEG_INF
+        o, lse = _row_stats(q, k, v, bias, scale)
+        got = ring_partial_bwd(q, do, o, lse, k, v, bias, scale)
+    else:
+        o, lse = flash_attention_fwd(q, k, v, scale)
+        got = flash_attention_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, attention_bwd_plain(q, k, v, o, lse, do, scale, bias))
+
+
+@pytest.mark.parametrize("layout", ["packed", "per_head", "ring"])
+@pytest.mark.parametrize("d", [32, 64])
+def test_f32_bwd_is_bitwise_repeatable(cuda, layout, d):
+    """The f32 wgmma backward has no atomics either: two calls on the same
+    inputs give bitwise equal dq, dk and dv."""
+    n = 300
+    if layout == "packed":
+        qkv = _rand((2, n, 3 * 128), torch.float32, cuda, seed=31)
+        do = _rand((2, n, 128), torch.float32, cuda, seed=32)
+        o, lse = packed_flash_attention(qkv, d, return_lse=True)
+        call = lambda: packed_flash_attention_bwd(qkv, o, lse, do, d, d**-0.5).chunk(3, dim=-1)  # noqa: E731
+    else:
+        q, k, v, do = (_rand((2, 3, n, d), torch.float32, cuda, s) for s in range(40, 44))
+        if layout == "per_head":
+            o, lse = flash_attention_fwd(q, k, v, d**-0.5)
+            call = lambda: flash_attention_bwd(q, k, v, o, lse, do, d**-0.5)  # noqa: E731
+        else:
+            bias = torch.zeros(n, device=cuda)
+            bias[n - 9:] = NEG_INF
+            o, lse = ring_partial_fwd(q, k, v, bias, d**-0.5)
+            call = lambda: ring_partial_bwd(q, do, o, lse, k, v, bias, d**-0.5)  # noqa: E731
+    first = [g.clone() for g in call()]
+    second = call()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name

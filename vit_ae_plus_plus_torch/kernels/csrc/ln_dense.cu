@@ -801,9 +801,9 @@ vitae_lnd_tf32_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_con
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t b_hi = wgmma_desc(st + kTfABytes + kk * 32, 1024, kSwizzle128);
         const uint64_t b_lo = wgmma_desc(st + kTfABytes + kTfBBytes + kk * 32, 1024, kSwizzle128);
-        WgmmaTf32::rs(acc, cur.lo[kk], b_hi, kk > 0);  // the chunk starts a fresh accumulator
-        WgmmaTf32::rs(acc, cur.hi[kk], b_lo, 1);
-        WgmmaTf32::rs(acc, cur.hi[kk], b_hi, 1);
+        WgmmaTf32<128>::rs(acc, cur.lo[kk], b_hi, kk > 0);  // the chunk starts a fresh accumulator
+        WgmmaTf32<128>::rs(acc, cur.hi[kk], b_lo, 1);
+        WgmmaTf32<128>::rs(acc, cur.hi[kk], b_hi, 1);
       }
       wgmma_commit();
       // the next chunk's fragments while these products run

@@ -2,12 +2,12 @@
 // TMA tensor loads (rank 2 to 4 tensor maps), wgmma shared-memory
 // descriptors in both majors, the bf16 wgmma m64nNk16 (N = 32, 64, 128)
 // with A from shared memory or from registers and B K-major or MN-major,
-// and the tf32 wgmma m64n128k8 with A from registers (tf32 operands are
-// K-major only); on the host the TMA descriptor of a bf16 or f32 tensor
+// and the tf32 wgmma m64nNk8 in the same forms (tf32 operands are K-major
+// only); on the host the TMA descriptor of a bf16 or f32 tensor
 // (cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the
 // library needs no -lcuda). Used by ln_dense.cu (the bf16 forward and dln
-// product, and the f32 ones on 3xTF32) and flash_bwd.cu (the bf16
-// backward).
+// product, and the f32 ones on 3xTF32), flash_fwd.cu (the bf16 forward) and
+// flash_bwd.cu (the bf16 backward, and the f32 one on 3xTF32).
 //
 // A tf32 operand row of 32 values is 128 bytes, as a bf16 row of 64, and a
 // k8 step spans 32 bytes of it, as a bf16 k16 step does: the K-major
@@ -288,14 +288,80 @@ struct Wgmma<128> {
   }
 };
 
-// The tf32 wgmma m64n128k8 with f32 accumulators and A from registers:
-// d (64 x 128) += A (64 x 8) * B (8 x 128), B K-major behind `desc_b` (tf32
-// has no transpose flag). `a` is the m16n8k8 tf32 A fragment of the
+// The tf32 wgmma m64nNk8 (N = 32, 64, 128) with f32 accumulators: d (64 x
+// N) += A (64 x 8) * B (8 x N), both operands K-major (tf32 has no transpose
+// flag). `ss` reads A and B from shared memory behind descriptors, `rs`
+// takes A from registers: `a` is the m16n8k8 tf32 A fragment of the
 // thread's warp (rows 16 * warp .. + 15 of the 64): a0 = (row g, k t), a1 =
 // (row g + 8, k t), a2 = (row g, k t + 4), a3 = (row g + 8, k t + 4), g =
 // lane / 4, t = lane % 4, each a tf32 bit pattern (cvt.rna.tf32.f32). The
-// accumulator layout is Wgmma<128>'s; `accumulate` 0 overwrites d.
-struct WgmmaTf32 {
+// accumulator layout is Wgmma<N>'s; `accumulate` 0 overwrites d.
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : SM90_ACC8(0), SM90_ACC8(8)
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : SM90_ACC8(0), SM90_ACC8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24)
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaTf32<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1;\n}\n"
+        : SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24),
+          SM90_ACC8(32), SM90_ACC8(40), SM90_ACC8(48), SM90_ACC8(56)
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  }
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
                                             int accumulate) {
     asm volatile(

@@ -29,8 +29,10 @@ launchers take (B, N, H, D) views: a per-head tensor is passed transposed,
 the packed (B, N, 3C) projection as three views of itself. Both dtypes run
 on the tensor cores: the bf16 forward and backward through Hopper's wgmma
 with their operands streamed by TMA (`wgmma_tile` checks one tile of those
-helpers), f32 through 3xTF32 on mma.sync (each f32 operand split into two
-TF32 parts, f32-accurate products).
+helpers), f32 through 3xTF32 (each f32 operand split into two TF32 parts,
+f32-accurate products): the forward on mma.sync, the backward on tf32 wgmma
+at head dims 32 and 64, after a pre-pass that writes the split copies into
+scratch this module allocates at the size csrc/flash_bwd.cu asks for.
 """
 
 from __future__ import annotations
@@ -150,7 +152,8 @@ class FlashBwdParams(ctypes.Structure):
 
     _fields_ = [
         *[(name, ctypes.c_void_p) for name in _BWD_TENSORS],
-        ("lse", ctypes.c_void_p), ("delta", ctypes.c_void_p), ("key_bias", ctypes.c_void_p),
+        ("lse", ctypes.c_void_p), ("delta", ctypes.c_void_p), ("split", ctypes.c_void_p),
+        ("key_bias", ctypes.c_void_p),
         *[(f"{t}_s{a}", ctypes.c_longlong) for t in _BWD_TENSORS for a in "bnh"],
         ("batch", ctypes.c_int), ("heads", ctypes.c_int),
         ("seq_len", ctypes.c_int), ("kv_len", ctypes.c_int), ("head_dim", ctypes.c_int),
@@ -215,11 +218,18 @@ def launch_flash_bwd(q, k, v, o, lse, do, dq, dk, dv, scale: float,
     _check_bias(key_bias, nk, q.device)
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     params = FlashBwdParams(
-        *[t.data_ptr() for t in tensors], lse.data_ptr(), delta.data_ptr(),
+        *[t.data_ptr() for t in tensors], lse.data_ptr(), delta.data_ptr(), None,
         key_bias.data_ptr() if key_bias is not None else None,
         *[t.stride(i) for t in tensors for i in (0, 1, 2)],
         b, h, n, nk, d, float(scale),
     )
+    # the f32 bodies' tf32 copies of the operands (csrc/flash_bwd.cu sizes them)
+    split_floats = _build.load("flash_bwd").flash_bwd_split_floats
+    split_floats.argtypes = [ctypes.POINTER(FlashBwdParams), ctypes.c_int]
+    split_floats.restype = ctypes.c_longlong
+    floats = split_floats(ctypes.byref(params), int(q.dtype == torch.bfloat16))
+    split = torch.empty(floats, dtype=torch.float32, device=q.device) if floats else None
+    params.split = split.data_ptr() if split is not None else None
     _build.launch("flash_bwd", "flash_bwd", params, q)
 
 
@@ -231,16 +241,20 @@ class WgmmaProbeParams(ctypes.Structure):
 
 
 def wgmma_tile(a: torch.Tensor, b: torch.Tensor, a_from_registers: bool) -> torch.Tensor:
-    """a (64, 64) @ b (64, N) in f32 through one tile of the Hopper helpers
-    that the bf16 forward and backward build on (csrc/flash_bwd.cu `wgmma_probe`): b
-    loaded by TMA and read MN-major through wgmma's transpose flag, a from
-    shared memory or from registers. Contiguous bf16 CUDA tensors, N in
-    (32, 64, 128). A check of those helpers, on no path of the model."""
+    """a @ b in f32 through one tile of the Hopper helpers that the wgmma
+    bodies build on (csrc/flash_bwd.cu `wgmma_probe`), a from shared memory
+    or from registers. bf16: a (64, 64), b (64, N) loaded by TMA and read
+    MN-major through wgmma's transpose flag. f32: a (64, 32), b (32, N), one
+    tf32 product (tf32 operands are K-major only: b goes in transposed).
+    CUDA tensors of one dtype, N in (32, 64, 128). A check of those helpers,
+    on no path of the model."""
     n = b.shape[1]
-    if (a.shape != (64, 64) or b.shape != (64, n) or n not in HEAD_DIMS or a.dtype != torch.bfloat16
-            or b.dtype != torch.bfloat16 or not a.is_cuda or not b.is_cuda):
-        raise ValueError("wgmma_tile takes bf16 CUDA tensors a (64, 64) and b (64, N), N in (32, 64, 128)")
-    a, b = a.contiguous(), b.contiguous()
+    depth = 64 if a.dtype == torch.bfloat16 else 32
+    if (a.shape != (64, depth) or b.shape != (depth, n) or n not in HEAD_DIMS or a.dtype not in DTYPES
+            or b.dtype != a.dtype or not a.is_cuda or not b.is_cuda):
+        raise ValueError("wgmma_tile takes CUDA tensors a (64, 64) and b (64, N) in bf16, or a (64, 32) and "
+                         "b (32, N) in f32, N in (32, 64, 128)")
+    a, b = a.contiguous(), (b if a.dtype == torch.bfloat16 else b.t()).contiguous()
     d = torch.empty((64, n), dtype=torch.float32, device=a.device)
     _build.launch("flash_bwd", "wgmma_probe",
                   WgmmaProbeParams(a.data_ptr(), b.data_ptr(), d.data_ptr(), n, int(a_from_registers)), a)
