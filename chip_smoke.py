@@ -52,6 +52,17 @@ non-zero exit when it fails:
    and unfused steps' times and profiles; and one forward and
    backward of `FusedLayerNorm` at the encoder's norm shape, the path of
    the LayerNorm kernels;
+   5c. the host data path feeds the step: 48 seeded 96^3 volumes written
+   to a temporary directory and split by the port's `prepare-data brats`
+   (file names and shapes checked, x_whole against the input), then
+   `get_dataset` with the native augmenter (`native="require"`) ->
+   `Loader` (batch 8, 8 threads) -> `cuda_prefetch(size=2)` -> phase 5's
+   step, one warm-up and 5 timed steps in f32 and in bf16, each against
+   the resident-views step on the same trainer; the first batch on the
+   card must be its numpy batch bitwise, the staging buffers pinned, every
+   metric finite and each step's attention launches phase 5's; prints the
+   step times, the collate, queue-wait and H2D times and the device's idle
+   share of a loader-fed step;
 6. the ring's partial kernels (csrc/flash_fwd.cu and flash_bwd.cu with a
    key bias) against their plain versions at the ring blocks of the paths
    in phase 7, each the block that holds the padded tail, and at a fully
@@ -209,6 +220,9 @@ TIMED_STEPS = 5
 GROUP_RANKS = 4  # the 'model' group of phase 7, all on the one card
 GROUP_VOLUME = 128  # 128^3 / patch 8: 4,097 tokens, a length the sequence-parallel paths exist for
 GROUP_TIMEOUT = 600.0  # seconds for the whole of phase 7, spawn and joins included
+# phase 5c's synthetic BraTS input: 48 single-channel 96^3 f32 volumes
+# (170 MB, six batches of 8 an epoch), balanced labels
+DATA_VOLUMES, DATA_SEED = 48, 51
 
 def stop(proc) -> None:
     """End a child process that is still running (at exit, failed or not)."""
@@ -1181,10 +1195,10 @@ def profile_step(trainer, views, step_ms_events: float) -> None:
     profile_run(step, f"{trainer.cfg.dtype} {trainer.label} step", step_ms_events)
 
 
-def profile_run(fn, what: str, ms_events: float) -> None:
+def profile_run(fn, what: str, ms_events: float) -> float:
     """`fn` once under torch.profiler: the device kernels' time by family and
     by name (top 15), their count, and the device's busy share of `what`'s
-    time measured without the profiler."""
+    time measured without the profiler. -> the device's busy ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1211,6 +1225,7 @@ def profile_run(fn, what: str, ms_events: float) -> None:
         print(f"  {us / 1e3:8.2f} ms  {us / 1e3 / busy_ms:6.1%}  {family}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {us / 1e3:8.2f} ms  {name[:110]}")
+    return busy_ms
 
 
 def train_inputs(cfg):
@@ -1238,6 +1253,14 @@ def train_shapes(cfg):
     return enc, dec
 
 
+def step_launches(cfg, prefix: str, dtype: str) -> dict:
+    """The attention launches one training step should make: one forward
+    and one backward per block, at the encoder's and the decoder's shape."""
+    enc, dec = train_shapes(cfg)
+    return {(f"{prefix}_{way}", (*shape, dtype)): depth for way in ("fwd", "bwd")
+            for shape, depth in ((enc, cfg.depth), (dec, cfg.decoder_depth))}
+
+
 def train_phase(rows: list) -> dict:
     """The pretraining step at full width: kernels against plain, launch
     counts per step and by shape, then the per-head path and the f32 path.
@@ -1251,13 +1274,6 @@ def train_phase(rows: list) -> dict:
     cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
     tree, stats = mae_tree(cfg, seed=0)
     views, noise = train_inputs(cfg)
-    enc, dec = train_shapes(cfg)
-
-    def per_step(prefix: str, dtype: str) -> dict:
-        """The launches one step should make: one forward and one backward
-        per block, at the encoder's and the decoder's shape."""
-        return {(f"{prefix}_{way}", (*shape, dtype)): depth for way in ("fwd", "bwd")
-                for shape, depth in ((enc, cfg.depth), (dec, cfg.decoder_depth))}
 
     def first_steps(trainer, steps, want_counts):
         before = trainer.model.blocks[0].attn.qkv.weight.detach().clone()
@@ -1288,7 +1304,7 @@ def train_phase(rows: list) -> dict:
 
     # the main path: three steps, counts set to 0 before each and read after
     auto = Trainer(tree, stats, "bfloat16", "auto")
-    auto_step = per_step("packed_flash", "bfloat16")
+    auto_step = step_launches(cfg, "packed_flash", "bfloat16")
     got, run_counts = first_steps(auto, TRAIN_STEPS, auto_step)
     fill_launches(rows, run_counts, f"make_train_step, attn_impl='auto', {TRAIN_STEPS} steps")
     tol = STEP_TOL["bfloat16"]
@@ -1309,7 +1325,7 @@ def train_phase(rows: list) -> dict:
     torch.cuda.empty_cache()
 
     flash = Trainer(tree, stats, "bfloat16", "flash")
-    [(fm, fgrads)], fcounts = first_steps(flash, 1, per_step("flash", "bfloat16"))
+    [(fm, fgrads)], fcounts = first_steps(flash, 1, step_launches(cfg, "flash", "bfloat16"))
     fill_launches(rows, fcounts, "make_train_step, attn_impl='flash', one step")
     hold("bf16 flash", step_rel_errs(fm, want[0][0], fgrads, want[0][1]), tol)
     flash_ms, _ = step_ms(flash, views, reps=3)
@@ -1318,7 +1334,7 @@ def train_phase(rows: list) -> dict:
 
     f32 = Trainer(tree, stats, "float32", "auto")
     f32_plain = Trainer(tree, stats, "float32", "plain")
-    [(m32, g32)], c32 = first_steps(f32, 1, per_step("packed_flash", "float32"))
+    [(m32, g32)], c32 = first_steps(f32, 1, step_launches(cfg, "packed_flash", "float32"))
     fill_launches(rows, c32, "make_train_step, compute_dtype='float32', one step")
     [(mp, gp)], _ = first_steps(f32_plain, 1, {})
     hold("f32 auto", step_rel_errs(m32, mp, g32, gp), STEP_TOL["float32"])
@@ -1326,7 +1342,7 @@ def train_phase(rows: list) -> dict:
     del f32
     torch.cuda.empty_cache()
     f32_flash = Trainer(tree, stats, "float32", "flash")
-    [(mf, gf)], cf = first_steps(f32_flash, 1, per_step("flash", "float32"))
+    [(mf, gf)], cf = first_steps(f32_flash, 1, step_launches(cfg, "flash", "float32"))
     fill_launches(rows, cf, "make_train_step, compute_dtype='float32', attn_impl='flash', one step")
     hold("f32 flash", step_rel_errs(mf, mp, gf, gp), STEP_TOL["float32"])
     del f32_flash, f32_plain
@@ -1339,7 +1355,7 @@ def train_phase(rows: list) -> dict:
     trunk = ((shapes["encoder"], shapes["decoder"]), (cfg.depth, cfg.decoder_depth))
 
     def fused_step(dtype):
-        return {**per_step("packed_flash", dtype), **ln_dense_launches(trunk[0], dtype, depths=trunk[1])}
+        return {**step_launches(cfg, "packed_flash", dtype), **ln_dense_launches(trunk[0], dtype, depths=trunk[1])}
 
     off = Trainer(tree, stats, "bfloat16", "auto", ln_fusion="off")
     want_off, _ = first_steps(off, TRAIN_STEPS, auto_step)
@@ -1366,7 +1382,7 @@ def train_phase(rows: list) -> dict:
     f32_off = Trainer(tree, stats, "float32", "auto", ln_fusion="off")
     [(m_on, g_on)], c_on = first_steps(f32_on, 1, fused_step("float32"))
     fill_launches(rows, c_on, "make_train_step, compute_dtype='float32', ln_fusion='on', one step")
-    [(m_off, g_off)], _ = first_steps(f32_off, 1, per_step("packed_flash", "float32"))
+    [(m_off, g_off)], _ = first_steps(f32_off, 1, step_launches(cfg, "packed_flash", "float32"))
     hold("f32 ln_fusion=on", step_rel_errs(m_on, m_off, g_on, g_off), STEP_TOL["float32"], "ln_fusion=off")
     # both f32 steps timed in turns (on, off, on, off: a step's wall time
     # moves more between runs than its device time does) and profiled:
@@ -1375,7 +1391,7 @@ def train_phase(rows: list) -> dict:
     for which, trainer in (("on", f32_on), ("off", f32_off), ("on", f32_on), ("off", f32_off)):
         t_ms, timed = step_ms(trainer, views, reps=3)
         f32_turns[which].append(t_ms)
-        want_timed = fused_step("float32") if which == "on" else per_step("packed_flash", "float32")
+        want_timed = fused_step("float32") if which == "on" else step_launches(cfg, "packed_flash", "float32")
         check(timed == {k: 3 * n for k, n in want_timed.items()}, f"3 timed f32 ln_fusion={which} steps launched {timed}")
     f32_on_ms, f32_off_ms = f32_turns["on"][-1], f32_turns["off"][-1]
     profile_step(f32_on, views, f32_on_ms)
@@ -1403,6 +1419,154 @@ def train_phase(rows: list) -> dict:
           f"rounds in turns); f32 LayerNorm+Dense kernels, 40 forward + 40 backward = {lnd32_ms:.2f} ms = "
           f"{lnd32_ms / f32_on_ms:.1%} of the fused step", flush=True)
     return reference
+
+
+def mean_max(values) -> str:
+    return f"mean {np.mean(values):.2f}, max {np.max(values):.2f}"
+
+
+def write_brats_input(tmp: Path) -> Path:
+    """Phase 5c's data: seeded volumes in the disk layout (N, S, S, S, C)
+    with balanced labels, split by the port's `prepare-data brats`; the
+    split files' names and shapes checked, and x_whole against the input.
+    -> the split directory."""
+    from vit_ae_plus_plus_torch.cli import main as cli_main
+
+    rng = np.random.default_rng(DATA_SEED)
+    vols = rng.standard_normal((DATA_VOLUMES, VOLUME, VOLUME, VOLUME, 1), dtype=np.float32)
+    labels = np.arange(DATA_VOLUMES) % 2
+    np.save(tmp / "flair_all.npy", vols)
+    np.save(tmp / "label_all.npy", labels)
+    out = tmp / "splits"
+    check(cli_main(["prepare-data", "brats", "--volumes", str(tmp / "flair_all.npy"),
+                    "--labels", str(tmp / "label_all.npy"), "--out-dir", str(out)]) == 0, "prepare-data brats")
+    # stratified 90/10 twice: 43 + 5, then 38 + 5
+    sizes = {"train": 38, "val": 5, "test": 5, "whole": DATA_VOLUMES}
+    want = {f"x_{m}_ssl.npy": (n, VOLUME, VOLUME, VOLUME, 1) for m, n in sizes.items()}
+    want.update({f"y_{m}_ssl.npy": (n,) for m, n in sizes.items()})
+    want.update({f"{m}_indices.npy": (n,) for m, n in sizes.items() if m != "whole"})
+    got = {p.name: np.load(p, mmap_mode="r").shape for p in out.iterdir()}
+    check(got == want, f"prepare-data wrote {got} (want {want})")
+    check(np.array_equal(np.load(out / "x_whole_ssl.npy", mmap_mode="r"), vols), "x_whole_ssl.npy != the input")
+    check(np.array_equal(np.load(out / "y_whole_ssl.npy"), labels), "y_whole_ssl.npy != the labels")
+    return out
+
+
+def data_phase() -> None:
+    """Phase 5c: the host data path feeds the step. The port's
+    `prepare-data brats` splits a synthetic input on disk; `get_dataset`
+    with the native augmenter (`native="require"`) and z-score,
+    `Loader(batch_size=8, shuffle, drop_last, 8 threads)` and
+    `cuda_prefetch(size=2)` feed phase 5's full-width step (attn_impl
+    "auto", TrainConfig's defaults): one warm-up and 5 timed steps in f32,
+    then in bf16, each against the resident-views step of phase 5 on the
+    same trainer. Checks: the first batch on the card is its numpy batch
+    bitwise, the staging buffers are pinned, every metric is finite, and
+    each step launches phase 5's attention kernels by shape."""
+    import tempfile
+
+    import torch
+
+    from vit_ae_plus_plus_torch.configs import DataConfig
+    from vit_ae_plus_plus_torch.data import Loader, default_ssl_transforms, get_dataset
+    from vit_ae_plus_plus_torch.data import native_augment as na
+    from vit_ae_plus_plus_torch.data.loader import cuda_prefetch
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+
+    t0 = time.perf_counter()
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    tree, stats = mae_tree(cfg, seed=0)
+    views, _ = train_inputs(cfg)
+    card = card_line()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        split_dir = write_brats_input(Path(tmp))
+        policy = default_ssl_transforms(native="require")
+        check(isinstance(policy.transforms[0], na.NativeRandomAffine3D), f"not the native policy: {policy}")
+        dataset = get_dataset("brats", "whole", DataConfig(base_path=str(split_dir)), transforms=policy,
+                              use_z_score=True)
+        print(f"data phase: prepare-data brats on {DATA_VOLUMES} volumes of {VOLUME}^3 in "
+              f"{time.perf_counter() - t0:.1f}s; policy {[type(t).__name__ for t in policy.transforms]}", flush=True)
+        for dtype in ("float32", "bfloat16"):
+            trainer = Trainer(tree, stats, dtype, "auto")
+            want_step = step_launches(cfg, "packed_flash", dtype)
+            loader = Loader(dataset, batch_size=BATCH, shuffle=True, drop_last=True, seed=0, num_workers=8)
+            check(len(loader) == 1 + TIMED_STEPS, f"{len(loader)} batches an epoch")
+            first = []
+
+            def keep_first(batches):
+                for batch in batches:
+                    if not first:
+                        first.append((batch[0].copy(), batch[1].copy()))
+                    yield batch
+
+            record = {}
+            fed = cuda_prefetch(keep_first(loader), size=2, record=record)
+
+            pulls, calls = [], []
+
+            def fed_step():
+                t_pull = time.perf_counter()
+                aug, orig, _ = next(fed)
+                pulls.append((time.perf_counter() - t_pull) * 1e3)
+                reset_launch_counts()
+                t_call = time.perf_counter()
+                trainer.state, metrics = trainer.step(trainer.state, aug, orig, trainer.emw)
+                calls.append((time.perf_counter() - t_call) * 1e3)
+                counts = shape_counts()
+                check(counts == want_step, f"{dtype} loader-fed step launched {counts} (want {want_step})")
+                return aug, orig, metrics
+
+            aug, orig, metrics = fed_step()
+            for name, dev, host in (("aug", aug, first[0][0]), ("orig", orig, first[0][1])):
+                check(np.array_equal(dev.cpu().numpy(), host), f"{dtype}: the first batch's {name} on the "
+                      "card differs from its numpy batch")
+            all_metrics = [metrics]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(TIMED_STEPS):
+                all_metrics.append(fed_step()[2])
+            end.record()
+            torch.cuda.synchronize()
+            fed_ms = start.elapsed_time(end) / TIMED_STEPS
+            check(next(fed, None) is None, "the loader yielded more than one epoch's batches")
+            buffers = [b for ring in record["staging"].values() for b in ring if b is not None]
+            check(len(buffers) == 2 * 3 and all(b.is_pinned() for b in buffers),
+                  f"staging buffers: {[(tuple(b.shape), b.is_pinned()) for b in buffers]}")
+            for i, m in enumerate(all_metrics):
+                m = {k: float(v) for k, v in m.items()}
+                check(all(np.isfinite(v) for v in m.values()), f"{dtype} loader-fed step {i + 1}: {m}")
+            collate, wait, pull, call = list(loader.collate_ms), list(loader.wait_ms), pulls[1:], calls[1:]
+            h2d = [s.elapsed_time(e) for s, e in record["copies"]]
+            resident_ms, timed = step_ms(trainer, views)
+            check(timed == {k: TIMED_STEPS * n for k, n in want_step.items()}, f"resident steps launched {timed}")
+            # the host's time to issue a step on resident views, no loader running
+            resident_calls = []
+            for _ in range(TIMED_STEPS):
+                t_call = time.perf_counter()
+                trainer.state, _ = trainer.step(trainer.state, *views, trainer.emw)
+                resident_calls.append((time.perf_counter() - t_call) * 1e3)
+            torch.cuda.synchronize()
+            # one more loader-fed step, from the next epoch, under the profiler
+            fed = cuda_prefetch(loader, size=2)
+            busy = profile_run(fed_step, f"{dtype} loader-fed step", fed_ms)
+            fed.close()
+            mb = 2 * BATCH * VOLUME**3 * 4 / 1e6
+            print(f"data path {dtype} ({card}): loader-fed step {fed_ms:.2f} ms, resident views {resident_ms:.2f} "
+                  f"ms per step of {BATCH} (CUDA events over {TIMED_STEPS} steps after one warm-up; "
+                  f"{BATCH / fed_ms * 1e3:.1f} vs {BATCH / resident_ms * 1e3:.1f} volumes/s); device idle "
+                  f"{1 - busy / fed_ms:.1%} of a loader-fed step", flush=True)
+            print(f"data path {dtype} host ({card}): collate ms per batch {mean_max(collate)} "
+                  f"(8 threads, native augmenter, {len(collate)} batches); consumer wait on the queue ms "
+                  f"per step {mean_max(wait)}; the step loop's host ms in `next` (queue wait, pinned "
+                  f"staging copy, copy launch) over the timed steps {mean_max(pull)}; H2D ms per batch of "
+                  f"aug + orig ({mb:.1f} MB) {mean_max(h2d)} (events on the side stream); host ms to issue "
+                  f"a step, loader-fed {mean_max(call)}, resident views {mean_max(resident_calls)}", flush=True)
+            del trainer, fed
+            gc.collect()
+            torch.cuda.empty_cache()
+    print(f"data phase {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def fused_layernorm_run(rows: list, cfg) -> None:
@@ -1897,6 +2061,8 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     reference = train_phase(rows)
     print(f"train phase {time.perf_counter() - t0:.1f}s", flush=True)
+    # phase 5c: the host data path feeds the step
+    data_phase()
     fused_layernorm_run(rows, cfg)
 
     # phase 6: the ring's partial kernels at the ring blocks of phase 7 (the

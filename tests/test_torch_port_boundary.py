@@ -61,3 +61,14 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_native_augmenter_builds_from_the_ports_source_into_its_build_dir():
+    from vit_ae_plus_plus_torch.data import native_augment as na
+    from vit_ae_plus_plus_torch.kernels import _build
+
+    pkg = (REPO / "vit_ae_plus_plus_torch").resolve()
+    assert na.SRC.resolve().is_relative_to(pkg) and na.SRC.is_file()
+    assert na.BUILD_DIR.resolve() == _build.BUILD_DIR.resolve() == pkg / "build"
+    assert na.library_path().parent == na.BUILD_DIR
+    assert "vit_ae_plus_plus_torch/build/" in (REPO / ".gitignore").read_text().split()

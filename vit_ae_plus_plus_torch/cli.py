@@ -1,15 +1,21 @@
 """Command-line interface of the port.
 
     python -m vit_ae_plus_plus_torch.cli serve --checkpoint mae.pth [...]
+    python -m vit_ae_plus_plus_torch.cli prepare-data brats --volumes flair_all.npy \
+        --labels label_all.npy --out-dir splits
+    python -m vit_ae_plus_plus_torch.cli prepare-data egd --csv rad.csv \
+        --scans-root pre_processed --out-dir splits
 
-Only `serve` is ported so far. Its checkpoint is a reference-layout `.pth`,
-as the JAX package's `export-torch` writes it. It runs on `cuda` unless
-`--device cpu` is given.
+`serve` and `prepare-data` are ported so far. The checkpoint of `serve` is
+a reference-layout `.pth`, as the JAX package's `export-torch` writes it;
+it runs on `cuda` unless `--device cpu` is given. `prepare-data` runs on
+the host and writes the same split files as the JAX package's command.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -43,7 +49,53 @@ def build_parser() -> argparse.ArgumentParser:
                      help="torch device (default: cuda; 'cpu' to run on the CPU)")
     srv.add_argument("--host", default="127.0.0.1")
     srv.add_argument("--port", type=int, default=8000)
+
+    prep = sub.add_parser(
+        "prepare-data",
+        help="one-time split bootstrap (data/splits.py): BraTS x/y_{train,val,"
+             "test,whole}_ssl.npy, or the EGD split lists")
+    prep.add_argument("kind", choices=["brats", "egd"])
+    prep.add_argument("--volumes", help="brats: flair_all.npy")
+    prep.add_argument("--labels", help="brats: label_all.npy")
+    prep.add_argument("--nifti-dir", help="ingest raw NIfTI instead of npy: "
+                      "brats: a directory of .nii/.nii.gz scans (replaces "
+                      "--volumes/--labels); egd: per-scan dirs holding "
+                      "{flair,t1ce,t1,t2}.nii[.gz] (replaces --scans-root)")
+    prep.add_argument("--labels-csv", help="brats with --nifti-dir: "
+                      "name,label rows keyed by the scan file stem")
+    prep.add_argument("--csv", help="egd: radiologist csv")
+    prep.add_argument("--scans-root", help="egd: pre_processed dir")
+    prep.add_argument("--out-dir", required=True)
+    prep.add_argument("--overwrite", action="store_true")
     return parser
+
+
+def prepare_data(args) -> None:
+    """The `prepare-data` subcommand's body (the JAX package's, unchanged)."""
+    from vit_ae_plus_plus_torch.data import splits as S
+
+    if args.kind == "brats":
+        volumes, labels = args.volumes, args.labels
+        if args.nifti_dir:
+            if not args.labels_csv:
+                raise SystemExit("--nifti-dir needs --labels-csv")
+            volumes, labels = S.ingest_nifti_volumes(
+                args.nifti_dir, args.labels_csv, args.out_dir,
+                overwrite=args.overwrite,
+            )
+        S.split_brats_data(volumes, labels, args.out_dir, args.overwrite)
+    else:
+        if not args.csv:
+            raise SystemExit("prepare-data egd needs --csv (radiologist labels)")
+        scans_root = args.scans_root
+        if args.nifti_dir:
+            scans_root = os.path.join(args.out_dir, "scans")
+            S.convert_egd_nifti_scans(args.nifti_dir, scans_root)
+        S.prepare_egd_splits(args.csv, scans_root, args.out_dir,
+                             "who_idh_mutation_status")
+        S.prepare_egd_splits(args.csv, scans_root, args.out_dir,
+                             "who_1p19q_codeletion")
+        S.refine_1p19q_scans(args.out_dir)
 
 
 def main(argv=None) -> int:
@@ -59,6 +111,8 @@ def main(argv=None) -> int:
             max_wait_ms=args.max_wait_ms, host=args.host, port=args.port,
             max_body_mb=args.max_body_mb, device=args.device,
         )
+    elif args.cmd == "prepare-data":
+        prepare_data(args)
     return 0
 
 

@@ -1,3 +1,3 @@
-from vit_ae_plus_plus_torch.configs.config import MAEConfig, TrainConfig, ViTConfig
+from vit_ae_plus_plus_torch.configs.config import DataConfig, MAEConfig, TrainConfig, ViTConfig
 
-__all__ = ["MAEConfig", "TrainConfig", "ViTConfig"]
+__all__ = ["DataConfig", "MAEConfig", "TrainConfig", "ViTConfig"]

@@ -1,6 +1,6 @@
 """Model configuration for the PyTorch port.
 
-A copy of the JAX package's `ViTConfig`, `MAEConfig` and `TrainConfig`
+A copy of the JAX package's `ViTConfig`, `MAEConfig`, `TrainConfig` and `DataConfig`
 (vit_ae_plus_plus_tpu/configs/config.py) holding only the fields the port
 reads. Field names and defaults are the same, so a preset means the same
 model, and a config the same training run, in both packages.
@@ -135,3 +135,18 @@ class TrainConfig:
     compute_dtype: str = "float32"  # "bfloat16" for throughput
     ln_dtype: str = "float32"
     loss_filters_dtype: str = "float32"  # "bfloat16": edge-loss filters in bf16
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset selection, mirroring config.ini [DATASET] (the JAX package's
+    `DataConfig`, all fields)."""
+
+    name: str = "brats"  # 'brats' | 'egd'
+    mode: str = "whole"
+    split: str = "idh"  # egd only: 'idh' | '1p19q'
+    use_z_score: bool = True
+    in_channels: int = 1
+    volume_size: int = 96
+    num_classes: int = 2
+    base_path: str = ""  # root of the prepared split arrays
