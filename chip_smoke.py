@@ -63,6 +63,16 @@ non-zero exit when it fails:
    metric finite and each step's attention launches phase 5's; prints the
    step times, the collate, queue-wait and H2D times and the device's idle
    share of a loader-fed step;
+   5d. the port's `pretrain-kfold` command on 5c's split directory, in f32
+   and in its default bf16: 2 folds, 3 epochs of 3 steps at batch 8, then
+   3 extraction slabs each of a fold's 24 train and 24 test volumes. Exit
+   0, the fold index files, 6 finite `log.txt` rows, each fold's min-loss
+   `.pth` through `load_reference_state_dict`, (24, 768) f32 features with
+   their labels, the attention launches by shape (18 steps of phase 5's
+   plus 12 slabs of 12), and fold 0's test features against the same
+   `.pth` run with attn_impl="plain"; prints each epoch's ms per step and
+   volumes/s beside 5c's step times, the `.pth` writes, extraction ms per
+   slab and each fold's wall time;
 6. the ring's partial kernels (csrc/flash_fwd.cu and flash_bwd.cu with a
    key bias) against their plain versions at the ring blocks of the paths
    in phase 7, each the block that holds the padded tail, and at a fully
@@ -108,8 +118,11 @@ import atexit
 import gc
 import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -1452,9 +1465,9 @@ def write_brats_input(tmp: Path) -> Path:
     return out
 
 
-def data_phase() -> None:
+def data_phase(tmp: Path) -> tuple:
     """Phase 5c: the host data path feeds the step. The port's
-    `prepare-data brats` splits a synthetic input on disk; `get_dataset`
+    `prepare-data brats` splits a synthetic input in `tmp`; `get_dataset`
     with the native augmenter (`native="require"`) and z-score,
     `Loader(batch_size=8, shuffle, drop_last, 8 threads)` and
     `cuda_prefetch(size=2)` feed phase 5's full-width step (attn_impl
@@ -1462,9 +1475,8 @@ def data_phase() -> None:
     then in bf16, each against the resident-views step of phase 5 on the
     same trainer. Checks: the first batch on the card is its numpy batch
     bitwise, the staging buffers are pinned, every metric is finite, and
-    each step launches phase 5's attention kernels by shape."""
-    import tempfile
-
+    each step launches phase 5's attention kernels by shape. -> the split
+    directory, and by dtype the loader-fed and the resident-views step ms."""
     import torch
 
     from vit_ae_plus_plus_torch.configs import DataConfig
@@ -1479,94 +1491,248 @@ def data_phase() -> None:
     tree, stats = mae_tree(cfg, seed=0)
     views, _ = train_inputs(cfg)
     card = card_line()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
-        split_dir = write_brats_input(Path(tmp))
-        policy = default_ssl_transforms(native="require")
-        check(isinstance(policy.transforms[0], na.NativeRandomAffine3D), f"not the native policy: {policy}")
-        dataset = get_dataset("brats", "whole", DataConfig(base_path=str(split_dir)), transforms=policy,
-                              use_z_score=True)
-        print(f"data phase: prepare-data brats on {DATA_VOLUMES} volumes of {VOLUME}^3 in "
-              f"{time.perf_counter() - t0:.1f}s; policy {[type(t).__name__ for t in policy.transforms]}", flush=True)
-        for dtype in ("float32", "bfloat16"):
-            trainer = Trainer(tree, stats, dtype, "auto")
-            want_step = step_launches(cfg, "packed_flash", dtype)
-            loader = Loader(dataset, batch_size=BATCH, shuffle=True, drop_last=True, seed=0, num_workers=8)
-            check(len(loader) == 1 + TIMED_STEPS, f"{len(loader)} batches an epoch")
-            first = []
+    step_times = {}
+    split_dir = write_brats_input(tmp)
+    policy = default_ssl_transforms(native="require")
+    check(isinstance(policy.transforms[0], na.NativeRandomAffine3D), f"not the native policy: {policy}")
+    dataset = get_dataset("brats", "whole", DataConfig(base_path=str(split_dir)), transforms=policy,
+                          use_z_score=True)
+    print(f"data phase: prepare-data brats on {DATA_VOLUMES} volumes of {VOLUME}^3 in "
+          f"{time.perf_counter() - t0:.1f}s; policy {[type(t).__name__ for t in policy.transforms]}", flush=True)
+    for dtype in ("float32", "bfloat16"):
+        trainer = Trainer(tree, stats, dtype, "auto")
+        want_step = step_launches(cfg, "packed_flash", dtype)
+        loader = Loader(dataset, batch_size=BATCH, shuffle=True, drop_last=True, seed=0, num_workers=8)
+        check(len(loader) == 1 + TIMED_STEPS, f"{len(loader)} batches an epoch")
+        first = []
 
-            def keep_first(batches):
-                for batch in batches:
-                    if not first:
-                        first.append((batch[0].copy(), batch[1].copy()))
-                    yield batch
+        def keep_first(batches):
+            for batch in batches:
+                if not first:
+                    first.append((batch[0].copy(), batch[1].copy()))
+                yield batch
 
-            record = {}
-            fed = cuda_prefetch(keep_first(loader), size=2, record=record)
+        record = {}
+        fed = cuda_prefetch(keep_first(loader), size=2, record=record)
 
-            pulls, calls = [], []
+        pulls, calls = [], []
 
-            def fed_step():
-                t_pull = time.perf_counter()
-                aug, orig, _ = next(fed)
-                pulls.append((time.perf_counter() - t_pull) * 1e3)
-                reset_launch_counts()
-                t_call = time.perf_counter()
-                trainer.state, metrics = trainer.step(trainer.state, aug, orig, trainer.emw)
-                calls.append((time.perf_counter() - t_call) * 1e3)
-                counts = shape_counts()
-                check(counts == want_step, f"{dtype} loader-fed step launched {counts} (want {want_step})")
-                return aug, orig, metrics
+        def fed_step():
+            t_pull = time.perf_counter()
+            aug, orig, _ = next(fed)
+            pulls.append((time.perf_counter() - t_pull) * 1e3)
+            reset_launch_counts()
+            t_call = time.perf_counter()
+            trainer.state, metrics = trainer.step(trainer.state, aug, orig, trainer.emw)
+            calls.append((time.perf_counter() - t_call) * 1e3)
+            counts = shape_counts()
+            check(counts == want_step, f"{dtype} loader-fed step launched {counts} (want {want_step})")
+            return aug, orig, metrics
 
-            aug, orig, metrics = fed_step()
-            for name, dev, host in (("aug", aug, first[0][0]), ("orig", orig, first[0][1])):
-                check(np.array_equal(dev.cpu().numpy(), host), f"{dtype}: the first batch's {name} on the "
-                      "card differs from its numpy batch")
-            all_metrics = [metrics]
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            for _ in range(TIMED_STEPS):
-                all_metrics.append(fed_step()[2])
-            end.record()
-            torch.cuda.synchronize()
-            fed_ms = start.elapsed_time(end) / TIMED_STEPS
-            check(next(fed, None) is None, "the loader yielded more than one epoch's batches")
-            buffers = [b for ring in record["staging"].values() for b in ring if b is not None]
-            check(len(buffers) == 2 * 3 and all(b.is_pinned() for b in buffers),
-                  f"staging buffers: {[(tuple(b.shape), b.is_pinned()) for b in buffers]}")
-            for i, m in enumerate(all_metrics):
-                m = {k: float(v) for k, v in m.items()}
-                check(all(np.isfinite(v) for v in m.values()), f"{dtype} loader-fed step {i + 1}: {m}")
-            collate, wait, pull, call = list(loader.collate_ms), list(loader.wait_ms), pulls[1:], calls[1:]
-            h2d = [s.elapsed_time(e) for s, e in record["copies"]]
-            resident_ms, timed = step_ms(trainer, views)
-            check(timed == {k: TIMED_STEPS * n for k, n in want_step.items()}, f"resident steps launched {timed}")
-            # the host's time to issue a step on resident views, no loader running
-            resident_calls = []
-            for _ in range(TIMED_STEPS):
-                t_call = time.perf_counter()
-                trainer.state, _ = trainer.step(trainer.state, *views, trainer.emw)
-                resident_calls.append((time.perf_counter() - t_call) * 1e3)
-            torch.cuda.synchronize()
-            # one more loader-fed step, from the next epoch, under the profiler
-            fed = cuda_prefetch(loader, size=2)
-            busy = profile_run(fed_step, f"{dtype} loader-fed step", fed_ms)
-            fed.close()
-            mb = 2 * BATCH * VOLUME**3 * 4 / 1e6
-            print(f"data path {dtype} ({card}): loader-fed step {fed_ms:.2f} ms, resident views {resident_ms:.2f} "
-                  f"ms per step of {BATCH} (CUDA events over {TIMED_STEPS} steps after one warm-up; "
-                  f"{BATCH / fed_ms * 1e3:.1f} vs {BATCH / resident_ms * 1e3:.1f} volumes/s); device idle "
-                  f"{1 - busy / fed_ms:.1%} of a loader-fed step", flush=True)
-            print(f"data path {dtype} host ({card}): collate ms per batch {mean_max(collate)} "
-                  f"(8 threads, native augmenter, {len(collate)} batches); consumer wait on the queue ms "
-                  f"per step {mean_max(wait)}; the step loop's host ms in `next` (queue wait, pinned "
-                  f"staging copy, copy launch) over the timed steps {mean_max(pull)}; H2D ms per batch of "
-                  f"aug + orig ({mb:.1f} MB) {mean_max(h2d)} (events on the side stream); host ms to issue "
-                  f"a step, loader-fed {mean_max(call)}, resident views {mean_max(resident_calls)}", flush=True)
-            del trainer, fed
-            gc.collect()
-            torch.cuda.empty_cache()
+        aug, orig, metrics = fed_step()
+        for name, dev, host in (("aug", aug, first[0][0]), ("orig", orig, first[0][1])):
+            check(np.array_equal(dev.cpu().numpy(), host), f"{dtype}: the first batch's {name} on the "
+                  "card differs from its numpy batch")
+        all_metrics = [metrics]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(TIMED_STEPS):
+            all_metrics.append(fed_step()[2])
+        end.record()
+        torch.cuda.synchronize()
+        fed_ms = start.elapsed_time(end) / TIMED_STEPS
+        check(next(fed, None) is None, "the loader yielded more than one epoch's batches")
+        buffers = [b for ring in record["staging"].values() for b in ring if b is not None]
+        check(len(buffers) == 2 * 3 and all(b.is_pinned() for b in buffers),
+              f"staging buffers: {[(tuple(b.shape), b.is_pinned()) for b in buffers]}")
+        for i, m in enumerate(all_metrics):
+            m = {k: float(v) for k, v in m.items()}
+            check(all(np.isfinite(v) for v in m.values()), f"{dtype} loader-fed step {i + 1}: {m}")
+        collate, wait, pull, call = list(loader.collate_ms), list(loader.wait_ms), pulls[1:], calls[1:]
+        h2d = [s.elapsed_time(e) for s, e in record["copies"]]
+        resident_ms, timed = step_ms(trainer, views)
+        check(timed == {k: TIMED_STEPS * n for k, n in want_step.items()}, f"resident steps launched {timed}")
+        # the host's time to issue a step on resident views, no loader running
+        resident_calls = []
+        for _ in range(TIMED_STEPS):
+            t_call = time.perf_counter()
+            trainer.state, _ = trainer.step(trainer.state, *views, trainer.emw)
+            resident_calls.append((time.perf_counter() - t_call) * 1e3)
+        torch.cuda.synchronize()
+        # one more loader-fed step, from the next epoch, under the profiler
+        fed = cuda_prefetch(loader, size=2)
+        busy = profile_run(fed_step, f"{dtype} loader-fed step", fed_ms)
+        fed.close()
+        mb = 2 * BATCH * VOLUME**3 * 4 / 1e6
+        print(f"data path {dtype} ({card}): loader-fed step {fed_ms:.2f} ms, resident views {resident_ms:.2f} "
+              f"ms per step of {BATCH} (CUDA events over {TIMED_STEPS} steps after one warm-up; "
+              f"{BATCH / fed_ms * 1e3:.1f} vs {BATCH / resident_ms * 1e3:.1f} volumes/s); device idle "
+              f"{1 - busy / fed_ms:.1%} of a loader-fed step", flush=True)
+        print(f"data path {dtype} host ({card}): collate ms per batch {mean_max(collate)} "
+              f"(8 threads, native augmenter, {len(collate)} batches); consumer wait on the queue ms "
+              f"per step {mean_max(wait)}; the step loop's host ms in `next` (queue wait, pinned "
+              f"staging copy, copy launch) over the timed steps {mean_max(pull)}; H2D ms per batch of "
+              f"aug + orig ({mb:.1f} MB) {mean_max(h2d)} (events on the side stream); host ms to issue "
+              f"a step, loader-fed {mean_max(call)}, resident views {mean_max(resident_calls)}", flush=True)
+        step_times[dtype] = {"fed": fed_ms, "resident": resident_ms}
+        del trainer, fed
+        gc.collect()
+        torch.cuda.empty_cache()
     print(f"data phase {time.perf_counter() - t0:.1f}s", flush=True)
+    return split_dir, step_times
+
+
+def pretrain_phase(split_dir: Path, step_times: dict) -> None:
+    """Phase 5d: the port's `pretrain-kfold` command on phase 5c's split
+    directory (48 volumes of 96^3): 2 folds of 24 training volumes, 3 epochs
+    of 3 steps at batch 8, then 3 extraction slabs each of the fold's train
+    and test volumes; once in f32 and once in the command's default bf16.
+    Checks: exit 0; the fold index files partition the volumes, 12 of each
+    label in each test fold; `log.txt` has 6 finite rows; each fold's
+    `checkpoint-min_loss.pth` loads through `load_reference_state_dict`;
+    each features file is (24, 768) f32 and finite, its labels y_whole at
+    the sorted ids; the attention launches by shape are 18 steps of phase
+    5's plus 12 slabs of 12 at the features' shape; fold 0's test features
+    recomputed from its `.pth` with attn_impl="plain" lie within
+    ENGINE_TOL. Prints, beside the card: each epoch's ms per step and
+    volumes/s from `log.txt` (the epoch's wall time, first batch included)
+    against phase 5c's step times, the min-loss `.pth` writes, extraction ms
+    per slab and each fold's wall time."""
+    import contextlib
+
+    import torch
+
+    from vit_ae_plus_plus_torch.cli import main as cli_main
+    from vit_ae_plus_plus_torch.configs import DataConfig
+    from vit_ae_plus_plus_torch.data import get_dataset
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+    from vit_ae_plus_plus_torch.pipelines import pretrain_kfold as pk
+    from vit_ae_plus_plus_torch.serving import FeatureEngine
+    from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict
+
+    t0 = time.perf_counter()
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    folds, epochs, fold_train = 2, 3, DATA_VOLUMES // 2
+    steps_per_epoch, slabs = fold_train // BATCH, fold_train // BATCH
+    labels = np.load(split_dir / "y_whole_ssl.npy")
+    plain_ds = get_dataset("brats", "whole", DataConfig(base_path=str(split_dir)), transforms=None, use_z_score=True)
+    card = card_line()
+    real = {name: getattr(pk, name) for name in ("pretrain_one_fold", "extract_fold_features", "save_state_dict",
+                                                  "cuda_prefetch")}
+    for dtype in ("float32", "bfloat16"):
+        work = split_dir.parent / f"pretrain_{dtype}"
+        argv = ["pretrain-kfold", "--data-path", str(split_dir), "--work-dir", str(work), "--model", MODEL,
+                "--volume-size", str(VOLUME), "--patch-size", str(PATCH), "--batch-size", str(BATCH),
+                "--epochs", str(epochs), "--n-splits", str(folds)]
+        if dtype == "float32":
+            argv += ["--compute-dtype", "float32"]
+        fold_start, fold_end, extract_ms, writes, fills = {}, {}, [], [], []
+
+        def pretrain_one_fold(fold_idx, *args, **kwargs):
+            fold_start[fold_idx] = time.perf_counter()
+            return real["pretrain_one_fold"](fold_idx, *args, **kwargs)
+
+        def extract_fold_features(*args, **kwargs):
+            t = time.perf_counter()
+            real["extract_fold_features"](*args, **kwargs)  # ends in a copy to the host
+            extract_ms.append((time.perf_counter() - t) * 1e3)
+            fold_end[args[7]] = time.perf_counter()
+
+        def save_state_dict(path, state_dict):
+            t = time.perf_counter()
+            real["save_state_dict"](path, state_dict)
+            writes.append(((time.perf_counter() - t) * 1e3, os.path.getsize(path)))
+
+        def cuda_prefetch(loader, *args, **kwargs):
+            # a training epoch's wait for its first batch on the card: the
+            # loader's start and the prefetch's fill of `size` batches
+            t = time.perf_counter()
+            for i, batch in enumerate(real["cuda_prefetch"](loader, *args, **kwargs)):
+                if i == 0 and kwargs.get("put_orig", True):
+                    fills.append((time.perf_counter() - t) * 1e3)
+                yield batch
+
+        for name, fn in (("pretrain_one_fold", pretrain_one_fold), ("extract_fold_features", extract_fold_features),
+                         ("save_state_dict", save_state_dict), ("cuda_prefetch", cuda_prefetch)):
+            setattr(pk, name, fn)
+        out = io.StringIO()
+        reset_launch_counts()
+        t_run = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli_main(argv)
+        except BaseException:
+            print("\n".join(out.getvalue().splitlines()[-20:]), file=sys.stderr)
+            raise
+        finally:
+            for name, fn in real.items():
+                setattr(pk, name, fn)
+        run_s = time.perf_counter() - t_run
+        counts = shape_counts()
+        printed = out.getvalue().strip().splitlines()
+        check(rc == 0, f"pretrain-kfold {dtype} exit {rc}: " + "\n".join(printed[-20:]))
+        results = json.loads(printed[-1])
+        check(sorted(results) == ["0", "1"] and all(np.isfinite(r["min_loss"]) for r in results.values()),
+              f"pretrain-kfold {dtype} results {results}")
+
+        index_dir = work / "k_fold" / "indices_file"
+        ids = {(s, k): np.load(index_dir / f"{s}_{k}.npy") for s in ("train", "test") for k in range(folds)}
+        for k in range(folds):
+            both = np.concatenate([ids[("train", k)], ids[("test", k)]])
+            check(sorted(both.tolist()) == list(range(DATA_VOLUMES)) and len(ids[("test", k)]) == fold_train
+                  and int(labels[ids[("test", k)]].sum()) == fold_train // 2, f"fold {k} index files")
+        with open(work / "checkpoints" / "log.txt") as f:
+            rows = [json.loads(line) for line in f]
+        check([(r["fold"], r["epoch"]) for r in rows] == [(k, e) for k in range(folds) for e in range(epochs)]
+              and all(np.isfinite(v) for r in rows for v in r.values()), f"{dtype} log.txt rows {rows}")
+        for k in range(folds):
+            sd = load_reference_state_dict(str(work / "checkpoints" / f"fold_{k}" / "checkpoint-min_loss.pth"))
+            check(sd["blocks.0.attn.qkv.weight"].dtype == torch.float32, f"fold {k} checkpoint")
+            for tag in ("train", "test"):
+                feats = np.load(work / "ssl_features_dir" / f"{tag}_contrast_ssl_features_split_{k}.npy")
+                labs = np.load(work / "ssl_features_dir" / f"{tag}_contrast_ssl_labels_split_{k}.npy")
+                check(feats.shape == (fold_train, cfg.embed_dim) and feats.dtype == np.float32
+                      and bool(np.isfinite(feats).all()), f"{dtype} fold {k} {tag} features {feats.shape}")
+                check(np.array_equal(labs, labels[np.sort(ids[(tag, k)])]), f"{dtype} fold {k} {tag} labels")
+
+        steps = folds * epochs * steps_per_epoch
+        want = {key: steps * n for key, n in step_launches(cfg, "packed_flash", dtype).items()}
+        slab_key = ("packed_flash_fwd", (BATCH, cfg.num_heads, cfg.num_patches + 1,
+                                         cfg.embed_dim // cfg.num_heads, dtype))
+        want[slab_key] = want.get(slab_key, 0) + folds * 2 * slabs * cfg.depth
+        check(counts == want, f"pretrain-kfold {dtype} launched {counts} (want {want})")
+
+        test_ids = np.sort(ids[("test", 0)])
+        engine = FeatureEngine(str(work / "checkpoints" / "fold_0" / "checkpoint-min_loss.pth"), model_name=MODEL,
+                               volume_size=VOLUME, patch_size=PATCH, batch_size=BATCH, compute_dtype=dtype,
+                               attn_impl="plain")
+        ref = engine.infer(np.stack([plain_ds[int(i)][0] for i in test_ids]))
+        err = rel_err(np.load(work / "ssl_features_dir" / "test_contrast_ssl_features_split_0.npy"), ref)
+        check(err <= ENGINE_TOL[dtype], f"{dtype} fold 0 test features vs plain from the .pth: rel err {err:.3g}")
+        del engine
+
+        ms = [1e3 * BATCH / r["train_volumes_per_sec"] for r in rows]
+        later = [m for r, m in zip(rows, ms) if r["epoch"] >= 1]
+        print(f"pretrain-kfold {dtype} ({card}): exit 0 in {run_s:.1f}s; ms per step by (fold, epoch) "
+              + ", ".join(f"({r['fold']}, {r['epoch']}) {m:.2f}" for r, m in zip(rows, ms))
+              + f"; epochs >= 1 {mean_max(later)} ms, {BATCH / np.mean(later) * 1e3:.1f} volumes/s (the epoch's "
+              f"wall time over its {steps_per_epoch} steps, loader start included); an epoch's wait for its "
+              f"first batch {mean_max(fills)} ms; phase 5c: loader-fed "
+              f"{step_times[dtype]['fed']:.2f} ms, resident views {step_times[dtype]['resident']:.2f} ms; "
+              f"{steps} steps, {folds * 2 * slabs} slabs", flush=True)
+        print(f"pretrain-kfold {dtype} ({card}): min-loss .pth writes {len(writes)}, ms "
+              + ", ".join(f"{w:.1f}" for w, _ in writes) + f", {writes[0][1] / 1e6:.1f} MB each; extraction ms "
+              f"per slab (a call's wall time over its {slabs} slabs, graft and loader start included) "
+              + ", ".join(f"{e / slabs:.2f}" for e in extract_ms) + "; fold wall s "
+              + ", ".join(f"{fold_end[k] - fold_start[k]:.2f}" for k in range(folds))
+              + f"; fold 0 test features vs plain from the .pth rel err {err:.3g} (tol {ENGINE_TOL[dtype]})",
+              flush=True)
+        shutil.rmtree(work)  # four min-loss files of about 450 MB each
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"pretrain phase {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def fused_layernorm_run(rows: list, cfg) -> None:
@@ -2061,8 +2227,10 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     reference = train_phase(rows)
     print(f"train phase {time.perf_counter() - t0:.1f}s", flush=True)
-    # phase 5c: the host data path feeds the step
-    data_phase()
+    # phase 5c: the host data path feeds the step; 5d: pretrain-kfold on its split
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        split_dir, step_times = data_phase(Path(tmp))
+        pretrain_phase(split_dir, step_times)
     fused_layernorm_run(rows, cfg)
 
     # phase 6: the ring's partial kernels at the ring blocks of phase 7 (the

@@ -42,6 +42,7 @@ def test_importing_serving_and_cli_loads_no_jax():
     code = (
         "import sys, vit_ae_plus_plus_torch.serving, vit_ae_plus_plus_torch.cli\n"
         "import vit_ae_plus_plus_torch.parallel, vit_ae_plus_plus_torch.kernels.ring_flash\n"
+        "import vit_ae_plus_plus_torch.pipelines.pretrain_kfold\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -61,6 +62,18 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_pretrain_kfold_raises_without_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from vit_ae_plus_plus_torch.configs import DataConfig, TrainConfig
+    from vit_ae_plus_plus_torch.pipelines.pretrain_kfold import pretrain_kfold
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data_cfg = DataConfig(base_path=str(tmp_path / "no_data"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_kfold(data_cfg, TrainConfig(), str(tmp_path / "w"))
+    with pytest.raises(FileNotFoundError):  # on the CPU it goes on, to the data
+        pretrain_kfold(data_cfg, TrainConfig(), str(tmp_path / "w"), device="cpu")
 
 
 def test_native_augmenter_builds_from_the_ports_source_into_its_build_dir():

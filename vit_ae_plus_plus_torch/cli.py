@@ -5,16 +5,24 @@
         --labels label_all.npy --out-dir splits
     python -m vit_ae_plus_plus_torch.cli prepare-data egd --csv rad.csv \
         --scans-root pre_processed --out-dir splits
+    python -m vit_ae_plus_plus_torch.cli pretrain-kfold --data-path splits \
+        --work-dir run1 [--config config.ini] [...]
 
-`serve` and `prepare-data` are ported so far. The checkpoint of `serve` is
-a reference-layout `.pth`, as the JAX package's `export-torch` writes it;
-it runs on `cuda` unless `--device cpu` is given. `prepare-data` runs on
-the host and writes the same split files as the JAX package's command.
+`serve`, `prepare-data` and `pretrain-kfold` are ported so far. The
+checkpoint of `serve` is a reference-layout `.pth`, as the JAX package's
+`export-torch` and this package's `pretrain-kfold` write it. `serve` and
+`pretrain-kfold` run on `cuda` unless `--device cpu` is given.
+`prepare-data` runs on the host and writes the same split files as the JAX
+package's command. `pretrain-kfold` takes the JAX command's flags and, as
+there, `--config` loads a config.ini section over them (configs/ini.py);
+it prints its per-fold results as one JSON line last.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
 import sys
 
@@ -67,7 +75,115 @@ def build_parser() -> argparse.ArgumentParser:
     prep.add_argument("--scans-root", help="egd: pre_processed dir")
     prep.add_argument("--out-dir", required=True)
     prep.add_argument("--overwrite", action="store_true")
+
+    pre = sub.add_parser(
+        "pretrain-kfold",
+        help="k-fold MAE pretraining and per-fold SSL feature extraction "
+             "(pipelines/pretrain_kfold.py)")
+    _add_common(pre)
+    pre.add_argument("--pipe-devices", type=int, default=1,
+                     help="GPipe pipeline stages (not ported yet: > 1 is refused)")
+    pre.add_argument("--pp-microbatches", type=int, default=None,
+                     help="GPipe microbatches (not ported yet)")
+    pre.add_argument("--fsdp", action="store_true",
+                     help="ZeRO/FSDP (not ported yet: refused)")
+    pre.add_argument("--device", default=None,
+                     help="torch device (default: cuda; 'cpu' to run on the CPU)")
     return parser
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    """The JAX command's common flags, with its defaults."""
+    p.add_argument("--config", default=None, help="config.ini path (overrides CLI)")
+    p.add_argument("--config-key", default="K_FOLD", help="INI section for this run")
+    p.add_argument("--dataset", default="brats", choices=["brats", "egd"])
+    p.add_argument("--data-path", default="", help="root of prepared split arrays")
+    p.add_argument("--work-dir", default="output_dir/run")
+    p.add_argument("--volume-size", type=int, default=96)
+    p.add_argument("--in-channels", type=int, default=1)
+    p.add_argument("--num-classes", type=int, default=2)
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--patch-size", type=int, default=8)
+    p.add_argument("--use-z-score", action=argparse.BooleanOptionalAction,
+                   default=True, help="--no-use-z-score selects min-max [-1,1]")
+    p.add_argument("--compute-dtype", default="bfloat16", choices=["float32", "bfloat16"])
+    p.add_argument("--loss-filters-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="opt-in bfloat16 runs the edge-loss Sobel/blur filters in bf16")
+    p.add_argument("--ln-dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="opt-in bf16 block-LN statistics")
+    p.add_argument("--model", default="contr_mae_vit_base_patch16")
+    p.add_argument("--n-splits", type=int, default=5)
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="data-parallel devices (not ported yet: > 1 is refused)")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device-augment", action="store_true",
+                   help="augmentation on the card (not ported yet: refused)")
+    p.add_argument("--device-data", action="store_true",
+                   help="the whole raw fold on the card (not ported yet: refused)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume folds from their resume checkpoints")
+    p.add_argument("--ckpt-every", type=int, default=1,
+                   help="flush the min-loss and resume checkpoints every N epochs "
+                        "(the interim best is kept on the device)")
+    p.add_argument("--profile-dir", default=None,
+                   help="torch.profiler trace dir (one steady epoch, Chrome JSON)")
+    p.add_argument("--perceptual-weight", type=float, default=0.0)
+    p.add_argument("--vgg-ckpt", default=None, help="torch VGG16 weights")
+
+
+def configs_from_args(args) -> tuple:
+    """(DataConfig, TrainConfig) from the parsed flags, as the JAX command
+    builds them; with `--config`, the INI's sections override the training
+    hyperparameters and the flags still give the execution options."""
+    from vit_ae_plus_plus_torch.configs import DataConfig, TrainConfig
+
+    if args.config:
+        from vit_ae_plus_plus_torch.configs.ini import bootstrap
+
+        data_cfg, train_cfg, extras = bootstrap(args.config, args.config_key)
+        data_cfg = dataclasses.replace(data_cfg, base_path=args.data_path or data_cfg.base_path)
+        train_cfg = dataclasses.replace(
+            train_cfg,
+            compute_dtype=args.compute_dtype,
+            patch_size=extras.get("patch_size", args.patch_size),
+            seed=args.seed,
+            device_augment=args.device_augment or args.device_data,
+            device_data=args.device_data,
+            resume=args.resume,
+            ckpt_every=args.ckpt_every,
+            profile_dir=args.profile_dir,
+            vgg_ckpt=args.vgg_ckpt,
+            loss_filters_dtype=args.loss_filters_dtype,
+            ln_dtype=args.ln_dtype,
+            pipe_devices=args.pipe_devices,
+            pp_microbatches=args.pp_microbatches,
+            fsdp=args.fsdp,
+        )
+        return data_cfg, train_cfg
+    data_cfg = DataConfig(
+        name=args.dataset, base_path=args.data_path, volume_size=args.volume_size,
+        in_channels=args.in_channels, num_classes=args.num_classes,
+        use_z_score=args.use_z_score,
+    )
+    train_cfg = TrainConfig(
+        epochs=args.epochs, batch_size=args.batch_size, seed=args.seed,
+        patch_size=args.patch_size, compute_dtype=args.compute_dtype,
+        device_augment=args.device_augment or args.device_data,
+        device_data=args.device_data,
+        resume=args.resume,
+        ckpt_every=args.ckpt_every,
+        profile_dir=args.profile_dir,
+        perceptual_weight=args.perceptual_weight,
+        vgg_ckpt=args.vgg_ckpt,
+        loss_filters_dtype=args.loss_filters_dtype,
+        ln_dtype=args.ln_dtype,
+        pipe_devices=args.pipe_devices,
+        pp_microbatches=args.pp_microbatches,
+        fsdp=args.fsdp,
+    )
+    return data_cfg, train_cfg
 
 
 def prepare_data(args) -> None:
@@ -113,14 +229,24 @@ def main(argv=None) -> int:
         )
     elif args.cmd == "prepare-data":
         prepare_data(args)
+    elif args.cmd == "pretrain-kfold":
+        from vit_ae_plus_plus_torch.pipelines.pretrain_kfold import pretrain_kfold
+
+        data_cfg, train_cfg = configs_from_args(args)
+        out = pretrain_kfold(data_cfg, train_cfg, args.work_dir, model_name=args.model,
+                             n_splits=args.n_splits, n_devices=args.n_devices,
+                             device=args.device)
+        print(json.dumps(out, default=str))
     return 0
 
 
-def run() -> int:
-    """Console entry with friendly error reporting."""
+def run(argv=None) -> int:
+    """Console entry with friendly error reporting: exit 2 on a bad input, a
+    refused setting, a missing card or a work dir locked by another run
+    (`WorkdirLockedError` and `NotImplementedError` are `RuntimeError`s)."""
     try:
-        return main()
-    except (FileNotFoundError, KeyError, ValueError, RuntimeError) as e:
+        return main(argv)
+    except (FileNotFoundError, FileExistsError, KeyError, ValueError, RuntimeError) as e:
         print(f"error: {type(e).__name__}: {e}", file=sys.stderr)
         return 2
 

@@ -9,7 +9,7 @@ model, and a config the same training run, in both packages.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 LN_FUSION_MODES = ("auto", "on", "off")
 
@@ -109,9 +109,12 @@ class MAEConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """SSL pretraining hyperparameters: the JAX package's `TrainConfig`
-    fields that the training step and its optimizer read, with its
-    defaults (the reference's config.ini [K_FOLD] and argparse defaults)."""
+    """SSL pretraining hyperparameters: every field of the JAX package's
+    `TrainConfig`, with its defaults (the reference's config.ini [K_FOLD]
+    and argparse defaults). `pretrain_kfold` refuses the fields whose
+    paths are not ported yet (`device_augment`, `device_data`, `fsdp`,
+    `pipe_devices > 1`, a data mesh); `donate_state` has no meaning in
+    eager PyTorch and nothing reads it."""
 
     epochs: int = 50
     batch_size: int = 4
@@ -135,6 +138,22 @@ class TrainConfig:
     compute_dtype: str = "float32"  # "bfloat16" for throughput
     ln_dtype: str = "float32"
     loss_filters_dtype: str = "float32"  # "bfloat16": edge-loss filters in bf16
+    device_augment: bool = False  # augment on the card (not ported yet)
+    device_data: bool = False  # the whole raw fold resident on the card (not ported yet)
+    donate_state: bool = True
+    mesh_shape: Tuple[int, ...] = (1,)  # (data,) mesh; data > 1 is not ported yet
+    pipe_devices: int = 1  # > 1: GPipe pipeline (not ported yet)
+    pp_microbatches: Optional[int] = None
+    fsdp: bool = False  # ZeRO/FSDP (not ported yet)
+    start_epoch: int = 0
+    resume: bool = False  # restore model, optimizer and epoch from the fold's resume checkpoint
+    ckpt_every: int = 1  # write the resume checkpoint and flush the min-loss weights every N
+    # epochs; in between, the best weights are held as a copy on the device
+    nan_check_every: int = 50  # fetch the loss every k steps and stop on a non-finite one
+    # (the only sync inside an epoch); 0 disables, the per-epoch check always runs
+    profile_dir: Optional[str] = None  # torch.profiler trace of one steady epoch
+    output_dir: str = "output_dir/k_fold"
+    log_dir: str = "output_dir/k_fold"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,14 +1,28 @@
-"""The weight bridge: JAX parameters and reference `.pth` files into the port.
+"""Checkpoints of the port, and the weight bridge from the JAX package.
 
-The port cannot read the JAX package's orbax checkpoints (that needs JAX),
-so it reads exactly two inputs:
+The port cannot read or write the JAX package's orbax checkpoints (that
+needs JAX). Its pipelines write two kinds of file instead, each through a
+temporary file that `os.replace` moves into place, so a killed run leaves
+the previous file whole:
+
+- `save_state_dict(path, state_dict)`: the reference-layout state dict
+  (CPU tensors under the reference PyTorch keys), as
+  `checkpoint-min_loss.pth`;
+  `load_reference_state_dict` and `serve --checkpoint` read it;
+- `CheckpointManager`: a fold's resume checkpoint, one `torch.save` file
+  holding the model (BatchNorm statistics included), the AdamW state and
+  its update count, the step, the masking generator's state, the epoch
+  and the best loss so far.
+
+The weight bridge reads exactly two inputs:
 
 - `params_from_jax(tree, patch_size, in_chans, batch_stats)`: a JAX param
   tree (MAE or ViT) and, for the contrastive heads, its flax `batch_stats`
   tree, as nested dicts of arrays, e.g. loaded by the JAX package and
   passed on as numpy;
 - `load_reference_state_dict(path)`: the `.pth` that the JAX package's
-  `export-torch` command writes (`export_mae_torch_state_dict` + `torch.save`).
+  `export-torch` command writes (`export_mae_torch_state_dict` + `torch.save`),
+  or this package's `checkpoint-min_loss.pth`.
 
 Both give a state dict under the reference PyTorch keys, which are the
 port's parameter names. The mapping is this package's own copy of the JAX
@@ -17,6 +31,7 @@ package's `export_torch_state_dict` (train/checkpoint.py there).
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -106,3 +121,62 @@ def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
     if not isinstance(sd, dict) or "patch_embed.proj.weight" not in sd:
         raise ValueError(f"{path} is not a reference-layout state dict")
     return sd
+
+
+def _save_atomic(obj, path: str) -> None:
+    """`torch.save` into a temporary file beside `path`, synced to disk, then
+    moved over `path`: a reader never sees a half-written file."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            torch.save(obj, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def save_state_dict(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
+    """Write a reference-layout state dict as `path`, CPU tensors,
+    atomically."""
+    _save_atomic({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+
+
+class CheckpointManager:
+    """A fold's resume checkpoint: `directory/checkpoint.pth`, one file that
+    each `save` replaces. The JAX package keeps the same payload in orbax
+    directories; the port cannot read those."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.path = os.path.join(self.directory, "checkpoint.pth")
+
+    def save(self, state, epoch: int, min_loss: float = float("inf")) -> None:
+        _save_atomic({
+            "model": state.model.state_dict(),
+            "optimizer": state.tx.opt.state_dict(),
+            "count": state.tx.count,
+            "step": state.step,
+            "generator": state.generator.get_state(),
+            "epoch": int(epoch),
+            "min_loss": float(min_loss),
+        }, self.path)
+
+    def restore(self, state):
+        """-> (state, epoch, min_loss); epoch is None when no checkpoint exists
+        (epoch 0 is a valid resumable checkpoint). min_loss restores the best
+        so far, so a resumed run cannot overwrite the min-loss checkpoint with
+        worse weights."""
+        if not os.path.exists(self.path):
+            return state, None, float("inf")
+        payload = torch.load(self.path, map_location="cpu", weights_only=True)
+        state.model.load_state_dict(payload["model"], strict=True)
+        state.tx.opt.load_state_dict(payload["optimizer"])
+        state.tx.count = payload["count"]
+        state.step = payload["step"]
+        state.generator.set_state(payload["generator"])
+        return state, payload["epoch"], payload["min_loss"]
