@@ -8,7 +8,7 @@ non-zero exit when it fails:
 
 1. print the card and build the CUDA kernels from the repository's sources;
 2. hold every kernel against its plain PyTorch version on the card at the
-   shapes the serving and training paths give it, and time kernel, plain
+   shapes the serving, training and fine-tuning paths give it, and time kernel, plain
    version and a PyTorch call the port never uses (a yardstick:
    `scaled_dot_product_attention` by the fastest fused backend that takes
    the inputs, named in the row, forward+backward minus forward for the
@@ -73,6 +73,18 @@ non-zero exit when it fails:
    `.pth` run with attn_impl="plain"; prints each epoch's ms per step and
    volumes/s beside 5c's step times, the `.pth` writes, extraction ms per
    slab and each fold's wall time;
+   5e. the port's downstream commands on 5d's bf16 work dir and 5c's
+   split, at batch 8: `extract-features` from fold 0's `.pth` (the files,
+   and the test features against the same `.pth` run with
+   attn_impl="plain"), `probe-kfold` and `finetune-kfold` in bf16 (2 folds
+   of 2 epochs) and `finetune` in f32 (2 epochs): exit 0, the best-model
+   `.pth` files, test stats finite in [0, 1], the attention launches by
+   shape (12 packed forward a step or evaluation slab, 12 packed backward
+   a fine-tune step, none for the probe); then one full-width fine-tune
+   step (the classifier ViT at B8 H12 N1729 d64) with the kernels against
+   attn_impl="plain" in bf16 and f32 (loss and four gradients within
+   STEP_TOL) and one with "flash"; prints each command's wall time, ms per
+   fine-tune and probe step, evaluation ms per slab and peak memory;
 6. the ring's partial kernels (csrc/flash_fwd.cu and flash_bwd.cu with a
    key bias) against their plain versions at the ring blocks of the paths
    in phase 7, each the block that holds the padded tail, and at a fully
@@ -233,6 +245,20 @@ TIMED_STEPS = 5
 GROUP_RANKS = 4  # the 'model' group of phase 7, all on the one card
 GROUP_VOLUME = 128  # 128^3 / patch 8: 4,097 tokens, a length the sequence-parallel paths exist for
 GROUP_TIMEOUT = 600.0  # seconds for the whole of phase 7, spawn and joins included
+# the fine-tune step's gradients held to STEP_TOL: the last block's and the
+# first block's qkv (after one attention backward, and after all twelve),
+# the patch embed's and the head's. The gated step's batch is of one class:
+# with both classes the gradient into the trunk is a difference between the
+# classes' samples, sum_i (p_i - y_i) J_i^T v with p near 0.5 (the head
+# starts at 2e-5), which cancels over nearly equal random volumes and
+# magnifies rounding of either kind. An H100 read, with four of each class,
+# 1.07e-5 in f32 and 1.5e-2 in bf16 on blocks.11's qkv and 3.8e-2 in bf16
+# on the head. That balanced step is printed as information beside the same
+# plain step run on the batch reversed (the same arithmetic summed in
+# another order), which reads the cancellation alone.
+FT_GRAD_NAMES = ("blocks.11.attn.qkv.weight", "blocks.0.attn.qkv.weight", "patch_embed.proj.weight",
+                 "head.weight")
+FT_METRICS = ("roc_auc_score", "specificity", "sensitivity")
 # phase 5c's synthetic BraTS input: 48 single-channel 96^3 f32 volumes
 # (170 MB, six batches of 8 an epoch), balanced labels
 DATA_VOLUMES, DATA_SEED = 48, 51
@@ -1583,7 +1609,33 @@ def data_phase(tmp: Path) -> tuple:
     return split_dir, step_times
 
 
-def pretrain_phase(split_dir: Path, step_times: dict) -> None:
+def run_cli(argv: list, label: str) -> tuple:
+    """The port's CLI `main(argv)` in this process, its prints captured, with
+    the launch counts set to 0 just before and read just after. Fails unless
+    it exits 0. -> (its last printed line, wall seconds, launches by
+    (wrapper, shape))."""
+    import contextlib
+
+    from vit_ae_plus_plus_torch.cli import main as cli_main
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+
+    out = io.StringIO()
+    reset_launch_counts()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(argv)
+    except BaseException:
+        print("\n".join(out.getvalue().splitlines()[-20:]), file=sys.stderr)
+        raise
+    wall = time.perf_counter() - t
+    counts = shape_counts()
+    printed = out.getvalue().strip().splitlines()
+    check(rc == 0, f"{label} exit {rc}: " + "\n".join(printed[-20:]))
+    return printed[-1], wall, counts
+
+
+def pretrain_phase(split_dir: Path, step_times: dict) -> Path:
     """Phase 5d: the port's `pretrain-kfold` command on phase 5c's split
     directory (48 volumes of 96^3): 2 folds of 24 training volumes, 3 epochs
     of 3 steps at batch 8, then 3 extraction slabs each of the fold's train
@@ -1598,15 +1650,12 @@ def pretrain_phase(split_dir: Path, step_times: dict) -> None:
     ENGINE_TOL. Prints, beside the card: each epoch's ms per step and
     volumes/s from `log.txt` (the epoch's wall time, first batch included)
     against phase 5c's step times, the min-loss `.pth` writes, extraction ms
-    per slab and each fold's wall time."""
-    import contextlib
-
+    per slab and each fold's wall time. -> the bf16 run's work dir, which
+    phase 5e reads."""
     import torch
 
-    from vit_ae_plus_plus_torch.cli import main as cli_main
     from vit_ae_plus_plus_torch.configs import DataConfig
     from vit_ae_plus_plus_torch.data import get_dataset
-    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
     from vit_ae_plus_plus_torch.models import MODEL_ZOO
     from vit_ae_plus_plus_torch.pipelines import pretrain_kfold as pk
     from vit_ae_plus_plus_torch.serving import FeatureEngine
@@ -1657,23 +1706,12 @@ def pretrain_phase(split_dir: Path, step_times: dict) -> None:
         for name, fn in (("pretrain_one_fold", pretrain_one_fold), ("extract_fold_features", extract_fold_features),
                          ("save_state_dict", save_state_dict), ("cuda_prefetch", cuda_prefetch)):
             setattr(pk, name, fn)
-        out = io.StringIO()
-        reset_launch_counts()
-        t_run = time.perf_counter()
         try:
-            with contextlib.redirect_stdout(out):
-                rc = cli_main(argv)
-        except BaseException:
-            print("\n".join(out.getvalue().splitlines()[-20:]), file=sys.stderr)
-            raise
+            last, run_s, counts = run_cli(argv, f"pretrain-kfold {dtype}")
         finally:
             for name, fn in real.items():
                 setattr(pk, name, fn)
-        run_s = time.perf_counter() - t_run
-        counts = shape_counts()
-        printed = out.getvalue().strip().splitlines()
-        check(rc == 0, f"pretrain-kfold {dtype} exit {rc}: " + "\n".join(printed[-20:]))
-        results = json.loads(printed[-1])
+        results = json.loads(last)
         check(sorted(results) == ["0", "1"] and all(np.isfinite(r["min_loss"]) for r in results.values()),
               f"pretrain-kfold {dtype} results {results}")
 
@@ -1729,10 +1767,305 @@ def pretrain_phase(split_dir: Path, step_times: dict) -> None:
               + ", ".join(f"{fold_end[k] - fold_start[k]:.2f}" for k in range(folds))
               + f"; fold 0 test features vs plain from the .pth rel err {err:.3g} (tol {ENGINE_TOL[dtype]})",
               flush=True)
-        shutil.rmtree(work)  # four min-loss files of about 450 MB each
+        if dtype == "float32":
+            shutil.rmtree(work)  # two min-loss files of about 450 MB each
         gc.collect()
         torch.cuda.empty_cache()
     print(f"pretrain phase {time.perf_counter() - t0:.1f}s", flush=True)
+    return work
+
+
+def vit_attention_shape() -> tuple:
+    """(B, H, N, d) of the classifier ViT's attention, every token of a slab
+    (B8 H12 N1729 d64 for ViT-B at 96^3 / patch 8), and its depth: the
+    launches of each kernel in one pass."""
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    return (BATCH, cfg.num_heads, cfg.num_patches + 1, cfg.embed_dim // cfg.num_heads), cfg.depth
+
+
+def slabs(n: int) -> int:
+    """Slabs of BATCH that n volumes take, the last one padded."""
+    return -(-n // BATCH)
+
+
+def check_eval_stats(results: dict, label: str) -> None:
+    """Each best model's test stats: AUC, specificity and sensitivity finite
+    in [0, 1] (the tiny sets make their values meaningless), loss finite."""
+    for name, stats in results.items():
+        check(all(np.isfinite(stats[k]) and 0.0 <= stats[k] <= 1.0 for k in FT_METRICS)
+              and np.isfinite(stats["loss"]), f"{label} {name} test stats {stats}")
+
+
+def best_files(work: Path, fold=None) -> list:
+    """The best-model checkpoints a run wrote (of a fold, or of the single
+    run), each loaded as a reference-layout classifier state dict."""
+    from vit_ae_plus_plus_torch.pipelines.finetune import BestModelTracker
+    from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict
+
+    tracker = BestModelTracker(str(work / "checkpoints"))
+    names = [n for n in tracker.names if os.path.exists(tracker.path(n, fold))]
+    for n in names:
+        sd = load_reference_state_dict(tracker.path(n, fold))
+        check(sd["head.weight"].shape[0] == 2, f"{work.name} {n} fold {fold}: head {sd['head.weight'].shape}")
+    return names
+
+
+class FineTuner:
+    """One classifier of the fine-tune path, through the port's public API:
+    the MAE `.pth` grafted into the classifier ViT (`build_grafted_vit`),
+    `head_init_2e5`, layer-wise AdamW (or the frozen backbone's SGD),
+    `create_train_state` and `make_supervised_steps`."""
+
+    def __init__(self, mae_sd, dtype: str, attn_impl: str = "auto", frozen: bool = False):
+        import torch
+
+        from vit_ae_plus_plus_torch.models import MODEL_ZOO
+        from vit_ae_plus_plus_torch.pipelines.finetune import head_init_2e5, make_supervised_steps
+        from vit_ae_plus_plus_torch.pipelines.transfer import build_grafted_vit
+        from vit_ae_plus_plus_torch.train import create_train_state
+        from vit_ae_plus_plus_torch.train.optim import freeze_backbone_tx, make_layerwise_adamw, make_sgd
+
+        mae_cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH, dtype=dtype, attn_impl=attn_impl)
+        vit_cfg = mae_cfg.encoder_vit_config(num_classes=2)
+        self.model = build_grafted_vit(mae_sd, mae_cfg, vit_cfg, torch.device("cuda"))
+        head_init_2e5(self.model, torch.Generator().manual_seed(49))
+        # a constant learning rate above 0: the fine-tune warmup's first is 0
+        tx = freeze_backbone_tx(make_sgd(1e-3)) if frozen else make_layerwise_adamw(vit_cfg.depth, 1e-4)
+        self.state = create_train_state(self.model, tx)
+        self.train_step, self.eval_step = make_supervised_steps(self.model, num_classes=2)
+
+    def run(self, batch, labels):
+        """One step, counts read around it. -> (loss, the FT_GRAD_NAMES
+        gradients of trained parameters, launches by (wrapper, shape))."""
+        import torch
+
+        from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+
+        reset_launch_counts()
+        self.state, metrics = self.train_step(self.state, batch, labels, 0)
+        loss = float(metrics["loss"])
+        counts = shape_counts()
+        named = dict(self.model.named_parameters())
+        check(np.isfinite(loss) and all(bool(torch.isfinite(p.grad).all()) for p in self.state.tx.params),
+              f"fine-tune step: loss {loss} or a gradient not finite")
+        return loss, {n: named[n].grad.float().clone() for n in FT_GRAD_NAMES if named[n].requires_grad}, counts
+
+
+def finetune_step_checks(mae_sd, rows: list) -> None:
+    """Phase 5e's full-width steps: one fine-tune step with the kernels
+    against one with attn_impl="plain" from the same weights and batch (of
+    one class, see FT_GRAD_NAMES), in bf16 and in f32 (loss and
+    FT_GRAD_NAMES gradients within STEP_TOL; 12 packed forward and 12 packed
+    backward launches at B8 H12 N1729 d64); one bf16 step with
+    attn_impl="flash" against the same plain step (12 + 12 per-head
+    launches). Then, as information: the same with both classes in the
+    batch, beside the plain step on the batch reversed; ms per fine-tune
+    step (bf16, f32) and volumes/s, ms per probe step (frozen backbone,
+    bf16: 12 forward launches and no backward), evaluation ms per slab, and
+    each step's peak memory."""
+    import torch
+
+    rng = np.random.default_rng(61)
+    batch = torch.from_numpy(rng.standard_normal((BATCH, 1, VOLUME, VOLUME, VOLUME), dtype=np.float32)).cuda()
+    one_class = torch.ones(BATCH, dtype=torch.int64, device="cuda")
+    balanced = torch.tensor([0, 1] * (BATCH // 2), device="cuda")
+    key, depth = vit_attention_shape()
+    card = card_line()
+    times, peak = {}, {}
+
+    def errs_line(errs: dict) -> str:
+        return ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+
+    for dtype in ("bfloat16", "float32"):
+        tol = STEP_TOL[dtype]
+        plain_loss, plain_grads, counts = FineTuner(mae_sd, dtype, "plain").run(batch, one_class)
+        check(totals(counts) == NO_LAUNCHES, f"plain {dtype} fine-tune step launched {totals(counts)}")
+        for impl in ("auto", "flash") if dtype == "bfloat16" else ("auto",):
+            base = reset_peak()
+            tuner = FineTuner(mae_sd, dtype, impl)
+            loss, grads, counts = tuner.run(batch, one_class)
+            prefix = "packed_flash" if impl == "auto" else "flash"
+            want = {(f"{prefix}_{way}", (*key, dtype)): depth for way in ("fwd", "bwd")}
+            check(counts == want, f"fine-tune {dtype} {impl} step launched {counts} (want {want})")
+            fill_launches(rows, counts, f"one full-width fine-tune step, {dtype}, attn_impl='{impl}'")
+            errs = step_rel_errs({"loss": loss}, {"loss": plain_loss}, grads, plain_grads)
+            bad = {k: e for k, e in errs.items() if e > (tol["loss"] if k == "loss" else tol["grad"])}
+            print(f"fine-tune step {dtype} {impl} vs plain: {errs_line(errs)} (tol loss {tol['loss']}, "
+                  f"grads {tol['grad']})", flush=True)
+            check(not bad, f"fine-tune step {dtype} {impl} vs plain: {bad}")
+            if impl == "auto":
+                times[dtype] = cuda_ms(lambda: tuner.train_step(tuner.state, batch, one_class, 0), reps=3, warmup=1)
+                peak[dtype] = (torch.cuda.max_memory_allocated() - base) / 2**30
+                if dtype == "bfloat16":
+                    times["eval"] = cuda_ms(lambda: tuner.eval_step(batch, one_class), reps=5)
+            del tuner
+        runs = {name: FineTuner(mae_sd, dtype, impl).run(*args)
+                for name, impl, args in (("plain", "plain", (batch, balanced)), ("kernels", "auto", (batch, balanced)),
+                                         ("reversed", "plain", (batch.flip(0), balanced.flip(0))))}
+        (want_loss, want_grads, _) = runs.pop("plain")
+        print(f"fine-tune step {dtype}, both classes in the batch, information: " + "; ".join(
+            f"{name} vs plain {errs_line(step_rel_errs({'loss': l}, {'loss': want_loss}, g, want_grads))}"
+            for name, (l, g, _) in runs.items()), flush=True)
+    probe = FineTuner(mae_sd, "bfloat16", frozen=True)
+    _, _, counts = probe.run(batch, balanced)
+    want = {("packed_flash_fwd", (*key, "bfloat16")): depth}
+    check(counts == want, f"probe step launched {counts} (want {want}: no backward)")
+    times["probe"] = cuda_ms(lambda: probe.train_step(probe.state, batch, balanced, 0), reps=5)
+    del probe
+    reset_peak()
+    print(f"fine-tune steps ({card}, CUDA events, batch {BATCH}): bf16 {times['bfloat16']:.2f} ms "
+          f"({BATCH / times['bfloat16'] * 1e3:.1f} volumes/s), f32 {times['float32']:.2f} ms "
+          f"({BATCH / times['float32'] * 1e3:.1f} volumes/s); probe step (frozen backbone, bf16) "
+          f"{times['probe']:.2f} ms; evaluation bf16 {times['eval']:.2f} ms per slab; peak memory above the "
+          f"weights' start bf16 {peak['bfloat16']:.2f} GiB, f32 {peak['float32']:.2f} GiB", flush=True)
+
+
+class Spans:
+    """Host seconds spent in the port's functions that `patches` names
+    ((module, attribute, span)) while installed. Each of them ends in a
+    fetch from the card or a finished file write, so its span holds its
+    work."""
+
+    def __init__(self, patches):
+        self.patches, self.seconds, self.calls = patches, Counter(), Counter()
+
+    def __enter__(self):
+        self.real = [(module, attr, getattr(module, attr)) for module, attr, _ in self.patches]
+        for (module, attr, span), (_, _, fn) in zip(self.patches, self.real):
+            setattr(module, attr, self._timed(fn, span))
+        return self
+
+    def _timed(self, fn, span):
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[span] += time.perf_counter() - t
+                self.calls[span] += 1
+        return timed
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self.real:
+            setattr(module, attr, fn)
+
+    def line(self, wall: float) -> str:
+        """`wall` split into the spans and the rest."""
+        spans = dict.fromkeys(span for _, _, span in self.patches)
+        parts = [f"{span} {self.seconds[span]:.2f} s ({self.calls[span]} calls)" for span in spans
+                 if self.calls[span]]
+        return f"wall {wall:.2f} s: " + ", ".join(parts) + f", rest {wall - sum(self.seconds.values()):.2f} s"
+
+
+def downstream_phase(split_dir: Path, pre_work: Path, rows: list) -> None:
+    """Phase 5e: the port's downstream commands on phase 5d's bf16 work dir
+    and phase 5c's split, at batch 8, each through `run_cli` with the counts
+    read around it:
+    - `extract-features` from fold 0's min-loss `.pth` (bf16): the train
+      and test features (38 and 5, 768, f32, finite) with their labels,
+      the test features against the same `.pth` run with
+      attn_impl="plain" within ENGINE_TOL, 12 forward launches a slab;
+    - `probe-kfold` (frozen backbone, bf16), 2 folds of 2 epochs: packed
+      forward launches only, 12 for each step and each evaluation slab,
+      and no backward;
+    - `finetune-kfold` (bf16) and `finetune` (f32, fold 0's `.pth`): 12
+      forward and 12 backward launches a step at B8 H12 N1729 d64, 12
+      forward an evaluation slab;
+    each: its best-model `.pth` files and its test stats finite in [0, 1].
+    Then `finetune_step_checks`. Prints, beside the card, each command's
+    wall time and where it went: training epochs (loader included),
+    evaluation, best-model writes, the graft, the rest."""
+    import torch
+
+    from vit_ae_plus_plus_torch.configs import DataConfig
+    from vit_ae_plus_plus_torch.data import get_dataset
+    from vit_ae_plus_plus_torch.data.splits import train_test_split
+    from vit_ae_plus_plus_torch.pipelines import finetune as ft
+    from vit_ae_plus_plus_torch.pipelines import probe_kfold as pkf
+    from vit_ae_plus_plus_torch.serving import FeatureEngine
+    from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict
+
+    t0 = time.perf_counter()
+    card = card_line()
+    folds, epochs = 2, 2
+    pth = pre_work / "checkpoints" / "fold_0" / "checkpoint-min_loss.pth"
+    common = ["--data-path", str(split_dir), "--model", MODEL, "--volume-size", str(VOLUME), "--patch-size",
+              str(PATCH), "--batch-size", str(BATCH), "--epochs", str(epochs), "--n-splits", str(folds)]
+    n = {m: len(np.load(split_dir / f"y_{m}_ssl.npy")) for m in ("train", "val", "test")}
+    shape, depth = vit_attention_shape()
+    spans = [(ft, "train_one_epoch", "training epochs"), (pkf, "train_one_epoch", "training epochs"),
+             (ft, "evaluate", "evaluation"), (pkf, "evaluate", "evaluation"),
+             (ft, "save_state_dict", "best-model writes"),
+             (ft, "build_classifier", "graft"), (pkf, "build_classifier", "graft")]
+
+    # extract-features
+    work = split_dir.parent / "features"
+    last, wall, counts = run_cli(
+        ["extract-features", *common, "--work-dir", str(work), "--checkpoint", str(pth)], "extract-features")
+    check(last == "done", f"extract-features printed {last!r}")
+    want = {("packed_flash_fwd", (*shape, "bfloat16")): depth * (slabs(n["train"]) + slabs(n["test"]))}
+    check(counts == want, f"extract-features launched {counts} (want {want})")
+    for split in ("train", "test"):
+        feats, labs = np.load(work / f"{split}_features.npy"), np.load(work / f"{split}_gt_labels.npy")
+        check(feats.shape == (n[split], shape[1] * shape[3]) and feats.dtype == np.float32
+              and bool(np.isfinite(feats).all()), f"extract-features {split} features {feats.shape} {feats.dtype}")
+        check(np.array_equal(labs, np.load(split_dir / f"y_{split}_ssl.npy")), f"extract-features {split} labels")
+    test_ds = get_dataset("brats", "test", DataConfig(base_path=str(split_dir)), transforms=None, use_z_score=True)
+    engine = FeatureEngine(str(pth), model_name=MODEL, volume_size=VOLUME, patch_size=PATCH, batch_size=BATCH,
+                           attn_impl="plain")
+    ref = engine.infer(np.stack([test_ds[i][0] for i in range(len(test_ds))]))
+    del engine
+    feat_err = rel_err(np.load(work / "test_features.npy"), ref)
+    check(feat_err <= ENGINE_TOL["bfloat16"], f"extract-features test features vs plain: rel err {feat_err:.3g}")
+    print(f"downstream extract-features bf16 ({card}): wall {wall:.2f} s for "
+          f"{slabs(n['train']) + slabs(n['test'])} slabs (graft and loader start included); test features vs "
+          f"plain from the .pth rel err {feat_err:.3g} (tol {ENGINE_TOL['bfloat16']})", flush=True)
+
+    # probe-kfold and finetune-kfold in bf16, finetune in f32
+    runs = (("probe-kfold", "bfloat16", ["--pretrain-dir", str(pre_work)]),
+            ("finetune-kfold", "bfloat16", ["--pretrain-dir", str(pre_work)]),
+            ("finetune", "float32", ["--checkpoint", str(pth), "--compute-dtype", "float32"]))
+    for cmd, dtype, extra in runs:
+        work = split_dir.parent / cmd
+        base = reset_peak()
+        with Spans(spans) as timed:
+            last, wall, counts = run_cli([cmd, *common, "--work-dir", str(work), *extra], f"{cmd} {dtype}")
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        results = json.loads(last)
+        if cmd == "finetune":  # one run over the train / val / test splits
+            results, sets = {"0": results}, [(n["train"], n["val"], n["test"], None)]
+        else:
+            sets = []
+            for k in range(folds):
+                ids = {s: np.load(work / "k_fold" / "indices_file" / f"{s}_{k}.npy") for s in ("train", "test")}
+                train_ids, val_ids = train_test_split(ids["train"], test_size=0.20, random_state=42)
+                sets.append((len(train_ids), len(val_ids), len(ids["test"]), k))
+        check(sorted(results) == [str(k) for k in range(len(sets))], f"{cmd} results {results}")
+        steps = evals = 0
+        for i, (n_train, n_val, n_test, fold) in enumerate(sets):
+            names = best_files(work, fold)
+            check(sorted(results[str(i)]) == sorted(names) and names, f"{cmd} {i}: {results[str(i)]}, files {names}")
+            check_eval_stats(results[str(i)], f"{cmd} {i}")
+            steps += epochs * (n_train // BATCH)
+            evals += epochs * (slabs(n_train) + slabs(n_val)) + len(names) * slabs(n_test)
+        want = {("packed_flash_fwd", (*shape, dtype)): depth * (steps + evals)}
+        if cmd != "probe-kfold":
+            want[("packed_flash_bwd", (*shape, dtype))] = depth * steps
+        check(counts == want, f"{cmd} {dtype} launched {counts} (want {want})")
+        fill_launches(rows, counts, f"{cmd} ({dtype}, {len(sets)} x {epochs} epochs of "
+                                    f"{steps // (len(sets) * epochs)} steps, batch 8)")
+        with open(work / "log.txt") as f:
+            logged = [json.loads(line) for line in f]
+        check(len(logged) == len(sets) * epochs and all(np.isfinite(r["val_loss"]) for r in logged),
+              f"{cmd} log.txt")
+        print(f"downstream {cmd} {dtype} ({card}): {timed.line(wall)}; {steps} steps, {evals} evaluation slabs; "
+              f"peak memory above its start {peak:.2f} GiB", flush=True)
+        shutil.rmtree(work)
+
+    finetune_step_checks(load_reference_state_dict(str(pth)), rows)
+    print(f"downstream phase {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def fused_layernorm_run(rows: list, cfg) -> None:
@@ -2139,6 +2472,9 @@ def main(argv) -> int:
         (bwd_case, "packed bwd f32 N433 d64 (encoder)", "packed", enc, "float32"),
         (bwd_case, "per-head bwd f32 N433 d64 (encoder)", "per_head", enc, "float32"),
         (bwd_case, "per-head bwd f32 N1729 d32 (decoder)", "per_head", dec, "float32"),
+        # the fine-tune step's shape (phase 5e), packed, bf16 and f32
+        (bwd_case, "packed bwd bf16 N1729 d64 (fine-tune)", "packed", (BATCH, 12, 1729, 64), "bfloat16"),
+        (bwd_case, "packed bwd f32 N1729 d64 (fine-tune)", "packed", (BATCH, 12, 1729, 64), "float32"),
     ]
     rows += [case(label, layout, *shape, dtype, seed=10 + i)
              for i, (case, label, layout, shape, dtype) in enumerate(train_cases)]
@@ -2227,10 +2563,12 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     reference = train_phase(rows)
     print(f"train phase {time.perf_counter() - t0:.1f}s", flush=True)
-    # phase 5c: the host data path feeds the step; 5d: pretrain-kfold on its split
+    # phase 5c: the host data path feeds the step; 5d: pretrain-kfold on its
+    # split; 5e: the downstream commands on 5d's work dir
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
         split_dir, step_times = data_phase(Path(tmp))
-        pretrain_phase(split_dir, step_times)
+        pre_work = pretrain_phase(split_dir, step_times)
+        downstream_phase(split_dir, pre_work, rows)
     fused_layernorm_run(rows, cfg)
 
     # phase 6: the ring's partial kernels at the ring blocks of phase 7 (the

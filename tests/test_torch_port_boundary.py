@@ -43,6 +43,8 @@ def test_importing_serving_and_cli_loads_no_jax():
         "import sys, vit_ae_plus_plus_torch.serving, vit_ae_plus_plus_torch.cli\n"
         "import vit_ae_plus_plus_torch.parallel, vit_ae_plus_plus_torch.kernels.ring_flash\n"
         "import vit_ae_plus_plus_torch.pipelines.pretrain_kfold\n"
+        "import vit_ae_plus_plus_torch.pipelines.extract_features, vit_ae_plus_plus_torch.pipelines.finetune\n"
+        "import vit_ae_plus_plus_torch.pipelines.probe_kfold, vit_ae_plus_plus_torch.utils.metrics\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -74,6 +76,29 @@ def test_pretrain_kfold_raises_without_cuda_unless_cpu_is_asked(monkeypatch, tmp
         pretrain_kfold(data_cfg, TrainConfig(), str(tmp_path / "w"))
     with pytest.raises(FileNotFoundError):  # on the CPU it goes on, to the data
         pretrain_kfold(data_cfg, TrainConfig(), str(tmp_path / "w"), device="cpu")
+
+
+def test_downstream_pipelines_raise_without_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from vit_ae_plus_plus_torch.configs import DataConfig, TrainConfig
+    from vit_ae_plus_plus_torch.pipelines.extract_features import extract_ssl_features
+    from vit_ae_plus_plus_torch.pipelines.finetune import finetune_single
+    from vit_ae_plus_plus_torch.pipelines.probe_kfold import probe_kfold
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data_cfg = DataConfig(base_path=str(tmp_path / "no_data"))
+    ckpt = str(tmp_path / "none.pth")
+    runs = (
+        lambda **kw: extract_ssl_features(data_cfg, ckpt, str(tmp_path / "f"), **kw),
+        lambda **kw: probe_kfold(data_cfg, TrainConfig(), str(tmp_path / "p"), str(tmp_path), **kw),
+        lambda **kw: probe_kfold(data_cfg, TrainConfig(), str(tmp_path / "k"), str(tmp_path),
+                                 fix_backbone=False, **kw),
+        lambda **kw: finetune_single(data_cfg, TrainConfig(), str(tmp_path / "s"), ckpt, **kw),
+    )
+    for run in runs:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
+        with pytest.raises(FileNotFoundError):  # on the CPU it goes on, to the files
+            run(device="cpu")
 
 
 def test_native_augmenter_builds_from_the_ports_source_into_its_build_dir():

@@ -7,15 +7,23 @@
         --scans-root pre_processed --out-dir splits
     python -m vit_ae_plus_plus_torch.cli pretrain-kfold --data-path splits \
         --work-dir run1 [--config config.ini] [...]
+    python -m vit_ae_plus_plus_torch.cli extract-features --data-path splits \
+        --work-dir feats --checkpoint run1/checkpoints/fold_0/checkpoint-min_loss.pth
+    python -m vit_ae_plus_plus_torch.cli probe-kfold --data-path splits \
+        --work-dir probe1 --pretrain-dir run1 [--use-mixup] [--eval-only]
+    python -m vit_ae_plus_plus_torch.cli finetune-kfold ... (the same flags)
+    python -m vit_ae_plus_plus_torch.cli finetune --data-path splits \
+        --work-dir ft1 --checkpoint mae.pth [--fix-backbone] [--use-mixup]
 
-`serve`, `prepare-data` and `pretrain-kfold` are ported so far. The
-checkpoint of `serve` is a reference-layout `.pth`, as the JAX package's
-`export-torch` and this package's `pretrain-kfold` write it. `serve` and
-`pretrain-kfold` run on `cuda` unless `--device cpu` is given.
-`prepare-data` runs on the host and writes the same split files as the JAX
-package's command. `pretrain-kfold` takes the JAX command's flags and, as
-there, `--config` loads a config.ini section over them (configs/ini.py);
-it prints its per-fold results as one JSON line last.
+`serve`, `prepare-data`, `pretrain-kfold`, `extract-features`,
+`probe-kfold`, `finetune-kfold` and `finetune` are ported so far. Every
+checkpoint they read is a reference-layout `.pth`, as the JAX package's
+`export-torch` and this package's `pretrain-kfold` write it. All but
+`prepare-data` run on `cuda` unless `--device cpu` is given. `prepare-data`
+runs on the host and writes the same split files as the JAX package's
+command. The training and extraction commands take the JAX commands' flags
+and, as there, `--config` loads a config.ini section over them
+(configs/ini.py); they print their results as one JSON line last.
 """
 
 from __future__ import annotations
@@ -89,6 +97,37 @@ def build_parser() -> argparse.ArgumentParser:
                      help="ZeRO/FSDP (not ported yet: refused)")
     pre.add_argument("--device", default=None,
                      help="torch device (default: cuda; 'cpu' to run on the CPU)")
+
+    helps = {
+        "extract-features": "SSL features of a pretrained MAE checkpoint "
+                            "(pipelines/extract_features.py)",
+        "probe-kfold": "k-fold linear probe on pretrain-kfold's fold checkpoints "
+                       "(pipelines/probe_kfold.py)",
+        "finetune-kfold": "k-fold fine-tune on pretrain-kfold's fold checkpoints "
+                          "(pipelines/probe_kfold.py)",
+        "finetune": "single-run fine-tune over the train/val/test splits "
+                    "(pipelines/finetune.py)",
+    }
+    for name, text in helps.items():
+        p = sub.add_parser(name, help=text)
+        _add_common(p)
+        if name in ("probe-kfold", "finetune-kfold"):
+            p.add_argument("--pretrain-dir", required=True,
+                           help="pretrain-kfold's work dir (checkpoints/fold_k/checkpoint-min_loss.pth)")
+            p.add_argument("--use-mixup", action="store_true")
+            p.add_argument("--eval-only", action="store_true")
+        if name == "finetune":
+            p.add_argument("--checkpoint", required=True, help="MAE checkpoint (.pth)")
+            p.add_argument("--fix-backbone", action="store_true")
+            p.add_argument("--use-mixup", action="store_true")
+            p.add_argument("--eval-only", action="store_true")
+        if name == "extract-features":
+            p.add_argument("--checkpoint", required=True, help="MAE checkpoint (.pth)")
+            p.add_argument("--only-test-split", action="store_true")
+            p.add_argument("--quantize", default="none", choices=["none", "int8"],
+                           help="int8: the int8 engine (not ported yet: refused)")
+        p.add_argument("--device", default=None,
+                       help="torch device (default: cuda; 'cpu' to run on the CPU)")
     return parser
 
 
@@ -157,9 +196,9 @@ def configs_from_args(args) -> tuple:
             vgg_ckpt=args.vgg_ckpt,
             loss_filters_dtype=args.loss_filters_dtype,
             ln_dtype=args.ln_dtype,
-            pipe_devices=args.pipe_devices,
-            pp_microbatches=args.pp_microbatches,
-            fsdp=args.fsdp,
+            pipe_devices=getattr(args, "pipe_devices", 1),
+            pp_microbatches=getattr(args, "pp_microbatches", None),
+            fsdp=getattr(args, "fsdp", False),
         )
         return data_cfg, train_cfg
     data_cfg = DataConfig(
@@ -179,9 +218,9 @@ def configs_from_args(args) -> tuple:
         vgg_ckpt=args.vgg_ckpt,
         loss_filters_dtype=args.loss_filters_dtype,
         ln_dtype=args.ln_dtype,
-        pipe_devices=args.pipe_devices,
-        pp_microbatches=args.pp_microbatches,
-        fsdp=args.fsdp,
+        pipe_devices=getattr(args, "pipe_devices", 1),
+        pp_microbatches=getattr(args, "pp_microbatches", None),
+        fsdp=getattr(args, "fsdp", False),
     )
     return data_cfg, train_cfg
 
@@ -237,6 +276,41 @@ def main(argv=None) -> int:
                              n_splits=args.n_splits, n_devices=args.n_devices,
                              device=args.device)
         print(json.dumps(out, default=str))
+    elif args.cmd in ("probe-kfold", "finetune-kfold"):
+        from vit_ae_plus_plus_torch.pipelines.probe_kfold import probe_kfold
+
+        data_cfg, train_cfg = configs_from_args(args)
+        out = probe_kfold(
+            data_cfg, train_cfg, args.work_dir, args.pretrain_dir, model_name=args.model,
+            n_splits=args.n_splits, fix_backbone=(args.cmd == "probe-kfold"),
+            use_mixup=args.use_mixup, eval_only=args.eval_only, n_devices=args.n_devices,
+            device=args.device,
+        )
+        print(json.dumps(out, default=str))
+    elif args.cmd == "finetune":
+        from vit_ae_plus_plus_torch.pipelines.finetune import finetune_single
+
+        data_cfg, train_cfg = configs_from_args(args)
+        out = finetune_single(
+            data_cfg, train_cfg, args.work_dir, args.checkpoint, model_name=args.model,
+            fix_backbone=args.fix_backbone, use_mixup=args.use_mixup, eval_only=args.eval_only,
+            n_devices=args.n_devices, device=args.device,
+        )
+        print(json.dumps(out, default=str))
+    elif args.cmd == "extract-features":
+        from vit_ae_plus_plus_torch.pipelines.extract_features import extract_ssl_features
+
+        data_cfg, _ = configs_from_args(args)
+        if (args.n_devices or 1) > 1:
+            raise NotImplementedError(
+                "extract-features: n_devices > 1 is not ported yet (ROADMAP Queue 1 item 7)")
+        extract_ssl_features(
+            data_cfg, args.checkpoint, args.work_dir, model_name=args.model,
+            batch_size=args.batch_size, only_test_split=args.only_test_split,
+            patch_size=args.patch_size, compute_dtype=args.compute_dtype,
+            quantize=args.quantize, device=args.device,
+        )
+        print("done")
     return 0
 
 

@@ -2,9 +2,10 @@
 
 The port's copy of the JAX package's `data/splits.py`: the same files with
 the same contents. The JAX package draws its splits with scikit-learn's
-`train_test_split(stratify=...)` and `StratifiedKFold`; this module carries
-numpy copies of those two algorithms (`stratified_train_test_split`,
-`stratified_kfold`) with the same random streams, so it runs where
+`train_test_split(stratify=...)` and `StratifiedKFold`, and its probe the
+unstratified `train_test_split`; this module carries numpy copies of those
+algorithms (`stratified_train_test_split`, `stratified_kfold`,
+`train_test_split`) with the same random streams, so it runs where
 scikit-learn is not installed and writes the same indices.
 
 Parity targets:
@@ -86,6 +87,26 @@ def stratified_train_test_split(
         train.extend(perm[: n_i[i]])
         test.extend(perm[n_i[i]: n_i[i] + t_i[i]])
     return array[rng.permutation(train)], array[rng.permutation(test)]
+
+
+def train_test_split(
+    array: np.ndarray, test_size: float, random_state: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """`(array[train], array[test])`, unstratified: scikit-learn's
+    `train_test_split(array, test_size=test_size, random_state=random_state,
+    stratify=None)` for a float `test_size` in (0, 1) (its `ShuffleSplit`):
+    ceil(test_size * n) test items, the first of one
+    `RandomState(random_state).permutation(n)`, the rest for training."""
+    array = np.asarray(array)
+    n = len(array)
+    if not 0 < test_size < 1:
+        raise ValueError(f"test_size={test_size} should be a float in the (0, 1) range")
+    n_test = math.ceil(test_size * n)
+    n_train = n - n_test
+    if n_train == 0:
+        raise ValueError(f"test_size={test_size} of {n} samples leaves an empty train split")
+    perm = np.random.RandomState(random_state).permutation(n)
+    return array[perm[n_test:]], array[perm[:n_test]]
 
 
 def stratified_kfold(labels: np.ndarray, n_splits: int) -> List[Tuple[np.ndarray, np.ndarray]]:

@@ -4,6 +4,8 @@ from vit_ae_plus_plus_torch.ops.losses import (
     edge_map_loss,
     masked_mse_loss,
     negative_cosine_loss,
+    soft_cross_entropy_with_weights,
+    weighted_ce,
 )
 from vit_ae_plus_plus_torch.ops.masking import random_masking, restore_tokens
 from vit_ae_plus_plus_torch.ops.patches import patch_grid_size, patchify, unpatchify
@@ -22,5 +24,7 @@ __all__ = [
     "random_masking",
     "restore_tokens",
     "sobel_edges_3d",
+    "soft_cross_entropy_with_weights",
     "unpatchify",
+    "weighted_ce",
 ]

@@ -1,10 +1,14 @@
 """Loss terms of the ViT-AE++ composite objective.
 
-Counterpart of the JAX package's ops/losses.py. Reductions run in at least
-f32 whatever the compute dtype; f64 stays f64 (the CPU trajectory tests).
+Counterpart of the JAX package's ops/losses.py, with the supervised
+downstream losses (`soft_cross_entropy_with_weights`, and `weighted_ce` from
+the JAX package's pipelines/finetune.py). Reductions run in at least f32
+whatever the compute dtype; f64 stays f64 (the CPU trajectory tests).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -41,3 +45,31 @@ def negative_cosine_loss(p1, p2, z1, z2, eps: float = 1e-8) -> torch.Tensor:
         return (a * b).sum(dim=1) / (na * nb)
 
     return -(_cos(p1, z2).mean() + _cos(p2, z1).mean()) * 0.5
+
+
+def soft_cross_entropy_with_weights(
+    logits: torch.Tensor, soft_targets: torch.Tensor, weights: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Class-weighted soft-target cross entropy with the reference's own
+    reduction (utils/custom_loss.py:7-18, through the JAX package):
+    sum over the batch and classes of -t * w * log_softmax(x), divided by
+    C * sum(w)."""
+    logits = at_least_f32(logits)
+    log_probs = logits - logits.amax(dim=-1, keepdim=True)
+    log_probs = log_probs - torch.log(torch.exp(log_probs).sum(dim=-1, keepdim=True))
+    if weights is None:
+        weights = torch.ones(logits.shape[-1], dtype=logits.dtype, device=logits.device)
+    else:
+        weights = at_least_f32(weights).to(logits.dtype)
+    num_classes = logits.shape[-1]
+    total = (-at_least_f32(soft_targets).to(logits.dtype) * log_probs * weights[None, :]).sum()
+    return total / (weights.sum() * num_classes)
+
+
+def weighted_ce(logits: torch.Tensor, labels: torch.Tensor, class_weights: torch.Tensor) -> torch.Tensor:
+    """`torch.nn.CrossEntropyLoss(weight=w)` semantics: per-sample weighted
+    NLL over the sum of the samples' weights, in at least f32."""
+    logits = at_least_f32(logits)
+    nll = -torch.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
+    w = class_weights[labels]
+    return (nll * w).sum() / w.sum()

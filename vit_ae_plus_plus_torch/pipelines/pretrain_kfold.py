@@ -42,7 +42,8 @@ from vit_ae_plus_plus_torch.data.loader import ConcatDataset, all_labels, cuda_p
 from vit_ae_plus_plus_torch.data.splits import kfold_indices
 from vit_ae_plus_plus_torch.device import resolve_device
 from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_model
-from vit_ae_plus_plus_torch.pipelines.transfer import mae_params_to_vit
+from vit_ae_plus_plus_torch.pipelines.extract_features import loader_features
+from vit_ae_plus_plus_torch.pipelines.transfer import build_grafted_vit
 from vit_ae_plus_plus_torch.train import (
     create_train_state,
     make_adamw,
@@ -55,7 +56,6 @@ from vit_ae_plus_plus_torch.train.checkpoint import (
     save_state_dict,
 )
 from vit_ae_plus_plus_torch.train.metrics import JsonlLogger, MetricLogger, TBWriter
-from vit_ae_plus_plus_torch.train.step import feature_step
 from vit_ae_plus_plus_torch.utils.locking import locked_workdir
 
 MIN_LOSS_CHECKPOINT = "checkpoint-min_loss.pth"
@@ -280,31 +280,12 @@ def extract_fold_features(
     (reference k_fold_…_brats.py:256-281 + utils/feature_extraction.py:9-45)."""
     dev = resolve_device(device)
     vit_cfg = mae_cfg.encoder_vit_config(num_classes=num_classes, global_pool=True)
-    with torch.device("meta"):
-        model = build_model(vit_cfg)
-    sd = mae_params_to_vit(mae_sd, model.state_dict(), mae_cfg, vit_cfg)
-    model = model.to_empty(device=dev)
-    model.load_state_dict(sd, strict=True)
-    model.eval()
-
-    loader = Loader(
-        dataset_no_aug, batch_size, indices=ids, shuffle=False, drop_last=False,
-        num_workers=8,
-    )
-    feats, labels = [], []
-    for aug, _orig, lab in cuda_prefetch(loader, size=2, device=dev, put_orig=False):
-        n = aug.shape[0]
-        if n < batch_size:  # pad the final partial slab with its first volume
-            aug = torch.cat([aug, aug[:1].expand(batch_size - n, *aug.shape[1:])])
-        feats.append(feature_step(model, aug)[:n])
-        labels.append(lab)
+    model = build_grafted_vit(mae_sd, mae_cfg, vit_cfg, dev)
+    loader = Loader(dataset_no_aug, batch_size, indices=ids, shuffle=False, drop_last=False)
+    feats, labels = loader_features(model, loader, batch_size, dev)
     os.makedirs(out_dir, exist_ok=True)
-    # float32 on disk whatever the compute dtype: numpy has no bfloat16, and
-    # the downstream readers are numpy and scikit-learn
-    np.save(os.path.join(out_dir, f"{tag}_contrast_ssl_features_split_{fold_idx}.npy"),
-            torch.cat(feats).float().cpu().numpy())
-    np.save(os.path.join(out_dir, f"{tag}_contrast_ssl_labels_split_{fold_idx}.npy"),
-            np.concatenate(labels))
+    np.save(os.path.join(out_dir, f"{tag}_contrast_ssl_features_split_{fold_idx}.npy"), feats)
+    np.save(os.path.join(out_dir, f"{tag}_contrast_ssl_labels_split_{fold_idx}.npy"), labels)
 
 
 @locked_workdir  # refuse a second live writer (utils/locking.py)

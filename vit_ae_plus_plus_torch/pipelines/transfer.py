@@ -6,7 +6,8 @@ from the MAE; the MAE's fixed sincos table is written into the ViT's learned
 `pos_embed`; `fc_norm` (or, without global pooling, the MAE's `norm`) and
 the classifier head follow the reference: fc_norm fresh (ones and zeros),
 head fresh (normal, std 0.02). The set of fresh modules is asserted as the
-reference asserts its missing keys.
+reference asserts its missing keys. `build_grafted_vit` builds the ViT
+with the grafted weights on a device.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Dict
 import torch
 
 from vit_ae_plus_plus_torch.configs import MAEConfig, ViTConfig
+from vit_ae_plus_plus_torch.models import build_model
 from vit_ae_plus_plus_torch.ops import get_3d_sincos_pos_embed
 
 
@@ -72,3 +74,17 @@ def mae_params_to_vit(
         else:
             out[key] = torch.zeros(ref.shape)
     return out
+
+
+def build_grafted_vit(
+    mae_sd: Dict[str, torch.Tensor], mae_cfg: MAEConfig, vit_cfg: ViTConfig, device: torch.device
+) -> torch.nn.Module:
+    """The ViT of `vit_cfg` on `device` holding `mae_params_to_vit`'s
+    weights; it is built on the `meta` device, so no weight is initialised
+    only to be replaced."""
+    with torch.device("meta"):
+        model = build_model(vit_cfg)
+    sd = mae_params_to_vit(mae_sd, model.state_dict(), mae_cfg, vit_cfg)
+    model = model.to_empty(device=device)
+    model.load_state_dict(sd, strict=True)
+    return model

@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from vit_ae_plus_plus_torch.device import resolve_device
-from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_model
-from vit_ae_plus_plus_torch.pipelines.transfer import mae_params_to_vit
+from vit_ae_plus_plus_torch.models import MODEL_ZOO
+from vit_ae_plus_plus_torch.pipelines.transfer import build_grafted_vit
 from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict, params_from_jax
 from vit_ae_plus_plus_torch.train.step import feature_step
 
@@ -130,12 +130,7 @@ class FeatureEngine(_SlabEngine):
             mae_sd = load_reference_state_dict(checkpoint_path)
         else:
             raise ValueError("need checkpoint_path or mae_params")
-        with torch.device("meta"):
-            model = build_model(vit_cfg)
-        sd = mae_params_to_vit(mae_sd, model.state_dict(), mae_cfg, vit_cfg)
-        model = model.to_empty(device=self.device)
-        model.load_state_dict(sd, strict=True)
-        self.model = model.eval()
+        self.model = build_grafted_vit(mae_sd, mae_cfg, vit_cfg, self.device).eval()
         self._step = lambda batch: feature_step(self.model, batch)
 
         self.batch_size = int(batch_size)

@@ -123,7 +123,7 @@ def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def _save_atomic(obj, path: str) -> None:
+def save_atomic(obj, path: str) -> None:
     """`torch.save` into a temporary file beside `path`, synced to disk, then
     moved over `path`: a reader never sees a half-written file."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -142,7 +142,7 @@ def _save_atomic(obj, path: str) -> None:
 def save_state_dict(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
     """Write a reference-layout state dict as `path`, CPU tensors,
     atomically."""
-    _save_atomic({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+    save_atomic({k: v.detach().cpu() for k, v in state_dict.items()}, path)
 
 
 class CheckpointManager:
@@ -156,7 +156,7 @@ class CheckpointManager:
         self.path = os.path.join(self.directory, "checkpoint.pth")
 
     def save(self, state, epoch: int, min_loss: float = float("inf")) -> None:
-        _save_atomic({
+        save_atomic({
             "model": state.model.state_dict(),
             "optimizer": state.tx.opt.state_dict(),
             "count": state.tx.count,

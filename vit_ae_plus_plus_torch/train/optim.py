@@ -1,14 +1,24 @@
-"""Optimizer and learning-rate schedule of SSL pretraining.
+"""Optimizers and learning-rate schedule of pretraining and fine-tuning.
 
 Counterpart of the JAX package's train/optim.py (`warmup_cosine_schedule`,
-`weight_decay_mask`, `make_adamw`), with optax's semantics:
+`weight_decay_mask`, `make_adamw`, `finetune_weight_decay_mask`,
+`layerwise_lr_decay_mask`, `make_layerwise_adamw`, `make_sgd`, and the
+frozen backbone of its pipelines/finetune.py), with optax's semantics:
 
 - AdamW(0.9, 0.95), eps 1e-8, as `torch.optim.AdamW` over two parameter
   groups: decay for every parameter with ndim > 1 (cls_token and
   mask_token included), none for biases and norm scales;
 - update k (counted from 0, as optax counts) uses the learning rate
   `schedule(k)`;
-- `clip_grad`: optax's `clip_by_global_norm`, applied before the update.
+- `clip_grad`: optax's `clip_by_global_norm`, applied before the update;
+- the fine-tune AdamW(0.9, 0.999) with BEiT layer-wise decay: optax's
+  update -lr * s * (adam + wd * p) for a decayed parameter of scale s, and
+  -lr * s * adam for an exempt one, is `torch.optim.AdamW`'s decoupled
+  decay over one group per (scale, decay) with the group's learning rate
+  lr * s;
+- SGD with momentum: optax's `trace` is torch SGD's buffer with
+  dampening 0; a frozen backbone trains only the classifier head, and the
+  optimizer's update count advances with the head's updates.
 """
 
 from __future__ import annotations
@@ -56,7 +66,11 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 class AdamW:
     """optax's masked AdamW chain over a module's parameters: global-norm
     clipping (optional), then `torch.optim.AdamW` with the learning rate of
-    the update's count. `step()` reads the parameters' `.grad`."""
+    the update's count. `step()` reads the parameters' `.grad`.
+
+    `decay_mask` picks the decayed parameters by name; `lr_scales` (name ->
+    scale, default 1) multiplies a parameter's learning rate, as the JAX
+    package's `scale_by_trees` multiplies its updates."""
 
     def __init__(
         self,
@@ -66,18 +80,24 @@ class AdamW:
         b1: float = 0.9,
         b2: float = 0.95,
         clip_grad: Optional[float] = None,
+        decay_mask: Callable = weight_decay_mask,
+        lr_scales: Optional[Dict[str, float]] = None,
     ):
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-        decay = weight_decay_mask(named)
+        decay = decay_mask(named)
+        scales = lr_scales or {}
         self.params = [p for _, p in named]
         self.schedule = learning_rate if callable(learning_rate) else (lambda _k: learning_rate)
         self.clip_grad = clip_grad
         self.count = 0
+        groups: Dict[Tuple[float, bool], list] = {}
+        for want in (True, False):  # the decayed groups first
+            for n, p in named:
+                if decay[n] == want:
+                    groups.setdefault((scales.get(n, 1.0), want), []).append(p)
         self.opt = torch.optim.AdamW(
-            [
-                {"params": [p for n, p in named if decay[n]], "weight_decay": weight_decay},
-                {"params": [p for n, p in named if not decay[n]], "weight_decay": 0.0},
-            ],
+            [{"params": ps, "weight_decay": weight_decay if d else 0.0, "lr_scale": s}
+             for (s, d), ps in groups.items()],
             lr=self.schedule(0), betas=(b1, b2), eps=1e-8,
         )
 
@@ -88,11 +108,14 @@ class AdamW:
             keep = norm < self.clip_grad
             for g in grads:
                 g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * self.clip_grad))
-        lr = self.schedule(self.count)
-        for group in self.opt.param_groups:
-            group["lr"] = lr
+        _set_lr(self.opt, self.schedule(self.count))
         self.opt.step()
         self.count += 1
+
+
+def _set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    for group in opt.param_groups:
+        group["lr"] = lr * group.get("lr_scale", 1.0)
 
 
 def make_adamw(
@@ -111,5 +134,98 @@ def make_adamw(
 
     def init(model: nn.Module) -> AdamW:
         return AdamW(model, learning_rate, weight_decay, b1, b2, clip_grad)
+
+    return init
+
+
+def finetune_weight_decay_mask(named_params: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, bool]:
+    """The fine-tune decay mask: ndim > 1 and not in the model's
+    no_weight_decay set (reference lr_decay.py:32, vit.py:251). The
+    patch-embed weight decays in both packages: a 5-D Conv3d weight here, a
+    2-D Dense kernel in the JAX package."""
+    exempt = {"pos_embed", "cls_token", "dist_token", "mask_token"}
+    return {n: p.ndim > 1 and n.split(".")[0] not in exempt for n, p in named_params}
+
+
+def vit_layer_id(name: str, num_layers: int) -> int:
+    """Layer id of a ViT parameter (reference lr_decay.py:64-75): 0 for the
+    tokens and the patch embed, i + 1 for block i, num_layers for the rest
+    (fc_norm, head)."""
+    top = name.split(".")[0]
+    if top in ("cls_token", "pos_embed") or top.startswith("patch_embed"):
+        return 0
+    if top == "blocks":
+        return int(name.split(".")[1]) + 1
+    return num_layers
+
+
+def layerwise_lr_decay_mask(
+    named_params: Iterable[Tuple[str, torch.Tensor]], depth: int, layer_decay: float = 0.75
+) -> Dict[str, float]:
+    """Per-parameter learning-rate scale layer_decay ** (num_layers -
+    layer_id), num_layers = depth + 1 (reference lr_decay.py:23-25)."""
+    num_layers = depth + 1
+    return {n: layer_decay ** (num_layers - vit_layer_id(n, num_layers)) for n, _ in named_params}
+
+
+def make_layerwise_adamw(
+    depth: int,
+    learning_rate: Union[Schedule, float],
+    weight_decay: float = 0.05,
+    layer_decay: float = 0.75,
+) -> Callable[[nn.Module], AdamW]:
+    """AdamW(0.9, 0.999) with BEiT layer-wise learning-rate decay and the
+    fine-tune decay mask, no clipping (post_training_utils/
+    fine_tune_epoch.py:358-363): a recipe to call on the classifier ViT."""
+
+    def init(model: nn.Module) -> AdamW:
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        return AdamW(model, learning_rate, weight_decay, b1=0.9, b2=0.999,
+                     decay_mask=finetune_weight_decay_mask,
+                     lr_scales=layerwise_lr_decay_mask(named, depth, layer_decay))
+
+    return init
+
+
+class SGD:
+    """optax's `sgd(schedule, momentum)` over a module's trainable
+    parameters: torch SGD with dampening 0 at the learning rate of the
+    update's count."""
+
+    def __init__(self, model: nn.Module, learning_rate: Union[Schedule, float], momentum: float = 0.9):
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.schedule = learning_rate if callable(learning_rate) else (lambda _k: learning_rate)
+        self.count = 0
+        self.opt = torch.optim.SGD(self.params, lr=self.schedule(0), momentum=momentum, dampening=0.0)
+
+    def step(self) -> None:
+        _set_lr(self.opt, self.schedule(self.count))
+        self.opt.step()
+        self.count += 1
+
+
+def make_sgd(learning_rate: Union[Schedule, float], momentum: float = 0.9) -> Callable[[nn.Module], SGD]:
+    """SGD with momentum for the linear probe
+    (k_fold_cross_valid_linear_projection.py:270-272): a recipe."""
+
+    def init(model: nn.Module) -> SGD:
+        return SGD(model, learning_rate, momentum)
+
+    return init
+
+
+def freeze_backbone_tx(inner: Callable[[nn.Module], object]) -> Callable[[nn.Module], object]:
+    """Train only `head.weight` and `head.bias` (linear_projection.py:235-240,
+    267-268): the recipe turns `requires_grad` off on every other parameter,
+    so the trunk's forward builds no autograd graph and its backward never
+    runs (the JAX package's `set_to_zero` updates, whose backward XLA drops),
+    then builds `inner` over the two."""
+
+    def init(model: nn.Module):
+        for name, p in model.named_parameters():
+            p.requires_grad_(name.split(".")[0] == "head")
+        n_train = sum(p.requires_grad for p in model.parameters())
+        assert n_train == 2, f"expected exactly 2 trainable tensors, got {n_train}"
+        return inner(model)
 
     return init

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's train/step.py: `make_train_step` builds
 forward, composite loss, backward, global-norm metric and AdamW update as
-one call; `feature_step` is batched encoder inference. PyTorch runs
+one call; `make_eval_step` the reconstruction-loss evaluation;
+`feature_step` is batched encoder inference. PyTorch runs
 eagerly, so the step is a plain function over a mutable `TrainState`.
 
 The JAX step shards the batch over the mesh's 'data' axis and so takes the
@@ -100,6 +101,34 @@ def check_data_axis() -> None:
             "the 'data' group; data-parallel training (DDP) is not ported yet. Train on a mesh "
             "of data=1 (the sequence-parallel paths' (1, M)) or without a mesh."
         )
+
+
+def make_eval_step(
+    model,
+    patch_size: int,
+    *,
+    mask_ratio: float = 0.75,
+    norm_pix_loss: bool = False,
+) -> Callable:
+    """Build `eval_step(model, view1, generator=None, noise=None) -> metrics`:
+    the reconstruction loss terms of one view without gradients, the
+    contrastive heads' BatchNorm on its running statistics. The masking
+    noise is `noise` when given, else drawn from `generator`."""
+
+    def eval_step(m, view1, generator: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        was_training = m.training
+        m.eval()
+        try:
+            with torch.no_grad():
+                outputs = m(view1, None, mask_ratio=mask_ratio, noise=noise, generator=generator)
+                _, metrics = mae_loss_terms(outputs, at_least_f32(view1), patch_size,
+                                            norm_pix_loss=norm_pix_loss)
+        finally:
+            m.train(was_training)
+        return metrics
+
+    return eval_step
 
 
 def feature_step(model: VisionTransformer3D, batch: torch.Tensor) -> torch.Tensor:
