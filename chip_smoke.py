@@ -8,7 +8,9 @@ non-zero exit when it fails:
 
 1. print the card and build the CUDA kernels from the repository's sources;
 2. hold every kernel against its plain PyTorch version on the card at the
-   shapes the serving, training and fine-tuning paths give it, and time kernel, plain
+   shapes the serving, training and fine-tuning paths give it (and the f32
+   attention backward at the opt-in `_fast` preset's d = 128, which no
+   main path runs), and time kernel, plain
    version and a PyTorch call the port never uses (a yardstick:
    `scaled_dot_product_attention` by the fastest fused backend that takes
    the inputs, named in the row, forward+backward minus forward for the
@@ -85,6 +87,21 @@ non-zero exit when it fails:
    attn_impl="plain" in bf16 and f32 (loss and four gradients within
    STEP_TOL) and one with "flash"; prints each command's wall time, ms per
    fine-tune and probe step, evaluation ms per slab and peak memory;
+   5f. the supervised 3D ResNet and the classical evaluation: ResNet-10 at
+   full width (widths 64-512) on 96^3, one f32 step on the card against the
+   same step on the CPU (loss, every gradient, every BatchNorm buffer
+   within RESNET_TOL), the same card step with TF32 allowed, which must miss
+   that gate, and one bf16 step against the same step with plain
+   convolutions (f32 sums of bf16-rounded operands), which the f32 step and
+   wrong class weights must miss; the step's ms,
+   volumes/s, evaluation ms per slab, peak memory and profile at batch 8;
+   then `resnet-kfold` through the CLI on 5c's split (2 folds x 2 epochs at
+   batch 8, bf16 and f32; no custom kernel launched, 4 finite log rows,
+   each fold's best `.pth` loads into `ResNet3D`, `--eval-only` reads each
+   best ROC back bitwise), its wall time by span; and `eval-classical` on
+   5d's bf16 features, twice (the port's copy of scikit-learn's libsvm,
+   built with g++: the summary's keys, AUCs finite in [0, 1], the second
+   run equal), with the build and wall times;
 6. the ring's partial kernels (csrc/flash_fwd.cu and flash_bwd.cu with a
    key bias) against their plain versions at the ring blocks of the paths
    in phase 7, each the block that holds the padded tail, and at a fully
@@ -127,6 +144,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import gc
 import io
 import json
@@ -259,6 +277,31 @@ GROUP_TIMEOUT = 600.0  # seconds for the whole of phase 7, spawn and joins inclu
 FT_GRAD_NAMES = ("blocks.11.attn.qkv.weight", "blocks.0.attn.qkv.weight", "patch_embed.proj.weight",
                  "head.weight")
 FT_METRICS = ("roc_auc_score", "specificity", "sensitivity")
+# phase 5f's ResNet-10 step gates, by `resnet_errs`: the loss over its
+# magnitude; each gradient's and each BatchNorm buffer's largest error over
+# its largest magnitude, the worst tensor ("grads", "buffers") and the
+# median one ("grads_median"). f32 on the card (cuDNN, TF32 off) against
+# f32 on the CPU (oneDNN) differ in summation order only, but a 3D conv's
+# weight gradient sums millions of products that train-mode BatchNorm's
+# backward has made cancel: the CPU's own f32 step reads up to 3e-2 on
+# layer3.0.conv1's gradient against its f64 step (printed beside the
+# gates). An H100 read loss 9.4e-8, grads 7.6e-3 (median 7.8e-4), buffers
+# 8.1e-7; with TF32 allowed, loss 1.8e-5, grads 0.17 (median 7.6e-2),
+# buffers 3.7e-4. The limits are about four times the f32 readings. bf16:
+# against the same step with plain convolutions (f32 sums of bf16-rounded
+# operands, rounded outputs: the same rounding points), whose sums run in
+# another order and flip a few bf16 roundings, which train-mode BatchNorm
+# carries far. Each limit sits between the floor (the plain step on the
+# input scaled by 1 + 2^-20) and the nearest control that must miss; an
+# H100 read, bf16 / floor / control: loss 2.8e-4 / 5.4e-4 / 3.3e-3 (the
+# f32 step), buffers 1.2e-3 / 1.4e-3 / 6.2e-3 (f32), worst gradient 0.28 /
+# 0.24 / 1.6 (class weights 1, 1), median gradient 0.13 / 0.17 / 0.37
+# (class weights); a single gradient at half its size reads 0.5 and misses.
+# BatchNorm's output rounded to bf16 reads as the floor does here (loss
+# 5.5e-4, median 0.20) and is held on the CPU instead
+# (tests/test_torch_port_resnet.py, where few roundings flip)
+RESNET_TOL = {"float32": {"loss": 4e-7, "grads": 3e-2, "grads_median": 3e-3, "buffers": 4e-6},
+              "bfloat16": {"loss": 1.5e-3, "grads": 0.45, "grads_median": 0.3, "buffers": 3e-3}}
 # phase 5c's synthetic BraTS input: 48 single-channel 96^3 f32 volumes
 # (170 MB, six batches of 8 an epoch), balanced labels
 DATA_VOLUMES, DATA_SEED = 48, 51
@@ -1614,8 +1657,6 @@ def run_cli(argv: list, label: str) -> tuple:
     the launch counts set to 0 just before and read just after. Fails unless
     it exits 0. -> (its last printed line, wall seconds, launches by
     (wrapper, shape))."""
-    import contextlib
-
     from vit_ae_plus_plus_torch.cli import main as cli_main
     from vit_ae_plus_plus_torch.kernels import reset_launch_counts
 
@@ -1924,9 +1965,8 @@ def finetune_step_checks(mae_sd, rows: list) -> None:
 
 class Spans:
     """Host seconds spent in the port's functions that `patches` names
-    ((module, attribute, span)) while installed. Each of them ends in a
-    fetch from the card or a finished file write, so its span holds its
-    work."""
+    ((module, attribute, span)) while installed. Each span waits for the
+    card at its end, so it holds its own work."""
 
     def __init__(self, patches):
         self.patches, self.seconds, self.calls = patches, Counter(), Counter()
@@ -1938,11 +1978,15 @@ class Spans:
         return self
 
     def _timed(self, fn, span):
+        import torch
+
         def timed(*args, **kwargs):
             t = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
             finally:
+                if torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
                 self.seconds[span] += time.perf_counter() - t
                 self.calls[span] += 1
         return timed
@@ -2066,6 +2110,291 @@ def downstream_phase(split_dir: Path, pre_work: Path, rows: list) -> None:
 
     finetune_step_checks(load_reference_state_dict(str(pth)), rows)
     print(f"downstream phase {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+RESNET_DEPTH, RESNET_GATE_BATCH = 10, 4
+
+
+@contextlib.contextmanager
+def tf32_convolutions():
+    """The TF32 control of phase 5f: the port's ResNet with its
+    `conv_precision()` made to allow TF32, so cuDNN may take the TF32
+    tensor cores for its f32 convolutions, as it does by default."""
+    import torch
+
+    from vit_ae_plus_plus_torch.models import resnet3d as tr
+    from vit_ae_plus_plus_torch.pipelines import resnet_kfold as trk
+
+    cudnn = torch.backends.cudnn
+    real = tr.conv_precision
+
+    def allow_tf32():
+        return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
+                           allow_tf32=True)
+
+    tr.conv_precision = trk.conv_precision = allow_tf32
+    try:
+        yield
+    finally:
+        tr.conv_precision = trk.conv_precision = real
+
+
+class ResNetStep:
+    """The full-width ResNet-10 (widths 64-512) through the port's public
+    API on `device` in `dtype`, from a state dict: `generate_model`,
+    `create_train_state` with `make_resnet_tx`, `make_resnet_steps` (class
+    weights 3, 1 unless given). `bn_in_bf16` rounds every BatchNorm's
+    output to its input's dtype (a control: the port keeps it f32)."""
+
+    def __init__(self, sd, device: str, dtype: str, class_weights=(3.0, 1.0), bn_in_bf16: bool = False):
+        import torch
+
+        from vit_ae_plus_plus_torch.models.resnet3d import generate_model
+        from vit_ae_plus_plus_torch.models.vit import FlaxBatchNorm
+        from vit_ae_plus_plus_torch.pipelines.resnet_kfold import make_resnet_steps, make_resnet_tx
+        from vit_ae_plus_plus_torch.train import create_train_state
+
+        self.model = generate_model(RESNET_DEPTH, n_classes=2, dtype=dtype)
+        self.model.load_state_dict(sd, strict=True)
+        self.model.to(device, torch.float64 if dtype == "float64" else torch.float32)
+        if bn_in_bf16:
+            for m in self.model.modules():
+                if isinstance(m, FlaxBatchNorm):
+                    m.forward = (lambda f: lambda h: f(h).to(h.dtype))(m.forward)
+        self.device = device
+        # warmup over 5 epochs of 1 step: update k at lr 1e-4 * k / 5
+        self.state = create_train_state(self.model, make_resnet_tx(1e-4, 10, 1))
+        self.train_step, self.eval_step = make_resnet_steps(self.model, class_weights)
+
+    def run(self, batch, labels) -> tuple:
+        """One step. -> (loss, every gradient, every BatchNorm buffer after
+        it), on the host in f32."""
+        self.state, metrics = self.train_step(self.state, batch.to(self.device), labels)
+        grads = {n: p.grad.detach().float().cpu() for n, p in self.model.named_parameters()}
+        bufs = {n: b.detach().float().cpu() for n, b in self.model.named_buffers()}
+        return float(metrics["loss"]), grads, bufs
+
+
+@contextlib.contextmanager
+def plain_convolutions():
+    """The port's ResNet with every convolution `conv_plain`: f32
+    convolutions (TF32 off) over operands rounded to the compute dtype,
+    outputs rounded to it. Under bf16 the same rounding points as cuDNN's
+    bf16 convolutions, the f32 sums in another order."""
+    from vit_ae_plus_plus_torch.models import resnet3d as tr
+
+    real = tr._conv
+    tr._conv = lambda x, conv, dtype: tr.conv_plain(x, conv.weight, conv.stride, conv.padding, dtype)
+    try:
+        yield
+    finally:
+        tr._conv = real
+
+
+def resnet_errs(got: tuple, want: tuple) -> dict:
+    """The loss over its magnitude; each gradient's and each BatchNorm
+    buffer's largest error over its largest magnitude: the worst gradient,
+    the median gradient and the worst buffer."""
+    def each(g: dict, w: dict) -> list:
+        return [float((g[n] - w[n]).abs().max() / w[n].abs().max().clamp_min(1e-30)) for n in w]
+
+    grads = each(got[1], want[1])
+    return {"loss": abs(got[0] - want[0]) / abs(want[0]), "grads": max(grads),
+            "grads_median": float(np.median(grads)), "buffers": max(each(got[2], want[2]))}
+
+
+def resnet_step_phase() -> None:
+    """Phase 5f (a): ResNet-10 at full width (widths 64-512) on 96^3
+    volumes. Gates, from one seeded init and one seeded batch of
+    RESNET_GATE_BATCH with both classes: the f32 step on the card (cuDNN's
+    convolutions, with PyTorch's process-wide `cudnn.allow_tf32` left at
+    its default True, so that only the model's `conv_precision()` keeps
+    TF32 off) against the same step on the CPU, within RESNET_TOL["float32"]
+    on the loss, every gradient and every BatchNorm buffer; the same card
+    step with TF32 allowed (`tf32_convolutions`) must miss that gate; the
+    bf16 step on the card against the same step with `plain_convolutions`
+    within RESNET_TOL["bfloat16"], which the f32 step and the step with
+    class weights (1, 1) must miss. As information: the CPU's f64 step (how
+    far f32 itself is from exact), the bf16 step against the f32 one, and
+    BatchNorm's output rounded to bf16 against the plain step. Then, at the CLI's batch of 8, as information
+    beside the card: ms per step and volumes/s in bf16 and f32 (CUDA
+    events), evaluation ms per slab, peak memory, and a torch.profiler
+    breakdown of one bf16 step with its device-idle share."""
+    import torch
+
+    from vit_ae_plus_plus_torch.models.resnet3d import generate_model
+
+    t0 = time.perf_counter()
+    card = card_line()
+    model = generate_model(RESNET_DEPTH, n_classes=2)
+    model.init_weights(torch.Generator().manual_seed(71))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    rng = np.random.default_rng(73)
+    batch = torch.from_numpy(rng.standard_normal((RESNET_GATE_BATCH, 1, VOLUME, VOLUME, VOLUME), dtype=np.float32))
+    labels = np.arange(RESNET_GATE_BATCH) % 2
+    t = time.perf_counter()
+    cpu = ResNetStep(sd, "cpu", "float32").run(batch, labels)
+    cpu_s = time.perf_counter() - t
+    cpu64 = ResNetStep(sd, "cpu", "float64").run(batch, labels)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default: the model has to keep TF32 off itself
+    try:
+        f32 = ResNetStep(sd, "cuda", "float32").run(batch, labels)
+        with tf32_convolutions():
+            tf32 = ResNetStep(sd, "cuda", "float32").run(batch, labels)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    bf16 = ResNetStep(sd, "cuda", "bfloat16").run(batch, labels)
+    # the bf16 gate's reference: the same step with plain convolutions; the
+    # floor: that step on the input scaled by 1 + 2^-20, how far a change in
+    # the last bits carries through bf16 roundings and train-mode BatchNorm
+    with plain_convolutions():
+        plain = ResNetStep(sd, "cuda", "bfloat16").run(batch, labels)
+        floor = ResNetStep(sd, "cuda", "bfloat16").run(batch * (1 + 2**-20), labels)
+        bn_bf16 = ResNetStep(sd, "cuda", "bfloat16", bn_in_bf16=True).run(batch, labels)
+        cw11 = ResNetStep(sd, "cuda", "bfloat16", class_weights=(1.0, 1.0)).run(batch, labels)
+
+    def within(errs: dict, tol: dict) -> bool:
+        return all(errs[k] <= tol[k] for k in tol)
+
+    def line(errs: dict) -> str:
+        return ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+
+    print(f"resnet step, information: the CPU's f32 step vs its f64 step {line(resnet_errs(cpu, cpu64))}; "
+          f"the card's f32 step vs the CPU's f64 {line(resnet_errs(f32, cpu64))}; the bf16 step vs the f32 "
+          f"step {line(resnet_errs(bf16, f32))}; BatchNorm's output rounded to bf16 (plain convolutions) vs "
+          f"the plain step {line(resnet_errs(bn_bf16, plain))}", flush=True)
+    errs = {"f32 card vs CPU": (resnet_errs(f32, cpu), "float32"),
+            "f32 card with TF32 allowed vs CPU (control)": (resnet_errs(tf32, cpu), "float32"),
+            "bf16 card vs plain convolutions": (resnet_errs(bf16, plain), "bfloat16"),
+            "plain convolutions on the nudged input (floor)": (resnet_errs(floor, plain), "bfloat16"),
+            "f32 card vs plain convolutions (control)": (resnet_errs(f32, plain), "bfloat16"),
+            "class weights (1, 1) vs plain convolutions (control)": (resnet_errs(cw11, plain), "bfloat16")}
+    for what, (e, dtype) in errs.items():
+        print(f"resnet step {what}: {line(e)} (gate {line(RESNET_TOL[dtype])})", flush=True)
+    check(np.isfinite(cpu[0]) and np.isfinite(f32[0]) and np.isfinite(bf16[0]), "resnet step losses finite")
+    check(within(errs["f32 card vs CPU"][0], RESNET_TOL["float32"]), "resnet f32 step on the card vs the CPU")
+    check(not within(errs["f32 card with TF32 allowed vs CPU (control)"][0], RESNET_TOL["float32"]),
+          "the f32 gate did not see TF32 convolutions")
+    check(within(errs["bf16 card vs plain convolutions"][0], RESNET_TOL["bfloat16"]),
+          "resnet bf16 step vs its plain convolutions")
+    for what in ("f32 card vs plain convolutions (control)", "class weights (1, 1) vs plain convolutions (control)"):
+        check(not within(errs[what][0], RESNET_TOL["bfloat16"]), f"the bf16 gate did not see {what}")
+    print(f"resnet step gates ({card}): CPU step of batch {RESNET_GATE_BATCH} {cpu_s:.1f} s "
+          f"({torch.get_num_threads()} threads)", flush=True)
+
+    big = torch.from_numpy(rng.standard_normal((BATCH, 1, VOLUME, VOLUME, VOLUME), dtype=np.float32)).cuda()
+    big_labels = np.arange(BATCH) % 2
+    times, peak = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        base = reset_peak()
+        step = ResNetStep(sd, "cuda", dtype)
+
+        def one():
+            step.state, _ = step.train_step(step.state, big, big_labels)
+
+        times[dtype] = cuda_ms(one, reps=5)
+        peak[dtype] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        times[f"eval {dtype}"] = cuda_ms(lambda: step.eval_step(big, big_labels), reps=5)
+        if dtype == "bfloat16":
+            profile_run(one, f"bf16 ResNet-10 step of batch {BATCH}", times[dtype])
+        del step
+    reset_peak()
+    print(f"resnet-10 steps ({card}, CUDA events, batch {BATCH}, 96^3): bf16 {times['bfloat16']:.2f} ms "
+          f"({BATCH / times['bfloat16'] * 1e3:.1f} volumes/s), f32 {times['float32']:.2f} ms "
+          f"({BATCH / times['float32'] * 1e3:.1f} volumes/s); evaluation per slab bf16 "
+          f"{times['eval bfloat16']:.2f} ms, f32 {times['eval float32']:.2f} ms; peak memory above the start "
+          f"bf16 {peak['bfloat16']:.2f} GiB, f32 {peak['float32']:.2f} GiB", flush=True)
+    print(f"resnet step phase {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def resnet_kfold_phase(split_dir: Path) -> None:
+    """Phase 5f (b): the port's `resnet-kfold` command on phase 5c's split
+    (48 volumes of 96^3), 2 folds of 24 training and 24 test volumes, 2
+    epochs of 3 steps at batch 8, in its default bf16 and in f32, counts
+    read around it. Checks: exit 0, no custom kernel launched (the ResNet
+    runs cuDNN's convolutions), 4 finite `log.txt` rows, each fold's best
+    `.pth` loads into `ResNet3D` and its best ROC is the best of its rows;
+    then `--eval-only` on the same work dir reads each fold's best ROC back
+    bitwise (the same weights, inputs and padding through cuDNN's
+    deterministic forward). Prints, beside the card, the command's wall
+    time split into training epochs, evaluation, best-model writes and the
+    rest, and the eval-only run's."""
+    import torch
+
+    from vit_ae_plus_plus_torch.models.resnet3d import generate_model
+    from vit_ae_plus_plus_torch.pipelines import resnet_kfold as trk
+
+    t0 = time.perf_counter()
+    card = card_line()
+    folds, epochs = 2, 2
+    spans = [(trk, "train_epoch", "training epochs"), (trk, "evaluate", "evaluation"),
+             (trk, "save_state_dict", "best-model writes")]
+    for dtype in ("bfloat16", "float32"):
+        work = split_dir.parent / f"resnet_{dtype}"
+        argv = ["resnet-kfold", "--data-path", str(split_dir), "--work-dir", str(work), "--volume-size",
+                str(VOLUME), "--batch-size", str(BATCH), "--epochs", str(epochs), "--n-splits", str(folds)]
+        if dtype == "float32":
+            argv += ["--compute-dtype", "float32"]
+        with Spans(spans) as timed:
+            last, wall, counts = run_cli(argv, f"resnet-kfold {dtype}")
+        check(totals(counts) == NO_LAUNCHES, f"resnet-kfold {dtype} launched {totals(counts)}")
+        results = json.loads(last)
+        with open(work / "log.txt") as f:
+            logged = [json.loads(line) for line in f]
+        check([(r["fold"], r["epoch"]) for r in logged] == [(k, e) for k in range(folds) for e in range(epochs)]
+              and all(np.isfinite(v) for r in logged for v in r.values()), f"resnet-kfold {dtype} log.txt {logged}")
+        for k in range(folds):
+            best = max(r["test_roc_auc_score"] for r in logged if r["fold"] == k)
+            check(results[str(k)]["best_roc"] == best and 0.0 <= best <= 1.0,
+                  f"resnet-kfold {dtype} fold {k}: best_roc {results[str(k)]} vs rows {best}")
+            sd = torch.load(work / "checkpoints" / f"best_ft_model_split{k}.pth", map_location="cpu",
+                            weights_only=True)
+            generate_model(RESNET_DEPTH, n_classes=2).load_state_dict(sd, strict=True)
+        train_line = timed.line(wall)
+        with Spans(spans) as timed:
+            last, eval_wall, counts = run_cli(argv + ["--eval-only"], f"resnet-kfold {dtype} --eval-only")
+        check(totals(counts) == NO_LAUNCHES, f"resnet-kfold --eval-only launched {totals(counts)}")
+        evaluated = json.loads(last)
+        with open(work / "log.txt") as f:
+            check(len(f.readlines()) == folds * epochs, "resnet-kfold --eval-only wrote a log row")
+        for k in range(folds):
+            check(evaluated[str(k)]["roc_auc_score"] == results[str(k)]["best_roc"],
+                  f"resnet-kfold {dtype} --eval-only fold {k}: {evaluated[str(k)]} vs {results[str(k)]}")
+        print(f"resnet-kfold {dtype} ({card}): {train_line}; {folds * epochs * 3} steps, "
+              f"{folds * epochs * 3} evaluation slabs; best ROC by fold "
+              + ", ".join(f"{results[str(k)]['best_roc']:.4f}" for k in range(folds))
+              + f", read back bitwise by --eval-only ({timed.line(eval_wall)})", flush=True)
+        shutil.rmtree(work)
+    print(f"resnet-kfold phase {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def eval_classical_phase(feature_dir: Path) -> None:
+    """Phase 5f (c): the port's `eval-classical` on phase 5d's bf16
+    per-fold features (24 training rows, 12 of each label, and 24 test rows
+    of 768 features a fold), `--n-splits 2`, twice. Checks: exit 0, the
+    summary's keys, each fold's AUC finite in [0, 1], the second run's
+    summary equal to the first. Prints the libsvm build time (g++ on the
+    card's host) and each run's wall time."""
+    from vit_ae_plus_plus_torch.utils import libsvm
+
+    card = card_line()
+    t = time.perf_counter()
+    libsvm.load()
+    build_s = time.perf_counter() - t
+    argv = ["eval-classical", "--feature-dir", str(feature_dir), "--n-splits", "2"]
+    first, wall1, _ = run_cli(argv, "eval-classical")
+    second, wall2, _ = run_cli(argv, "eval-classical (again)")
+    summary = json.loads(first)
+    check(sorted(summary) == ["auroc_mean", "auroc_std", "per_fold", "sensitivity_mean", "specificity_mean"]
+          and sorted(summary["per_fold"]) == ["auroc", "sensitivity", "specificity"]
+          and all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in summary["per_fold"]["auroc"])
+          and len(summary["per_fold"]["auroc"]) == 2, f"eval-classical summary {summary}")
+    check(first == second, f"eval-classical twice: {first} vs {second}")
+    print(f"eval-classical ({card}, host only): libsvm build {build_s:.2f} s; wall {wall1:.2f} s and "
+          f"{wall2:.2f} s for 2 folds of 41 SVM fits each (8 candidates x 5 splits + the refit); AUC by fold "
+          + ", ".join(f"{a:.4f}" for a in summary["per_fold"]["auroc"]) + "; equal on the second run", flush=True)
 
 
 def fused_layernorm_run(rows: list, cfg) -> None:
@@ -2475,6 +2804,12 @@ def main(argv) -> int:
         # the fine-tune step's shape (phase 5e), packed, bf16 and f32
         (bwd_case, "packed bwd bf16 N1729 d64 (fine-tune)", "packed", (BATCH, 12, 1729, 64), "bfloat16"),
         (bwd_case, "packed bwd f32 N1729 d64 (fine-tune)", "packed", (BATCH, 12, 1729, 64), "float32"),
+        # the opt-in contr_mae_vit_base_patch16_fast preset's step (d = 128:
+        # 6 encoder heads, 4 decoder heads), f32: the scalar backward body
+        (bwd_case, "packed bwd f32 N433 d128 (encoder, fast preset)", "packed", (2 * BATCH, 6, 433, 128),
+         "float32"),
+        (bwd_case, "packed bwd f32 N1729 d128 (decoder, fast preset)", "packed", (BATCH, 4, 1729, 128),
+         "float32"),
     ]
     rows += [case(label, layout, *shape, dtype, seed=10 + i)
              for i, (case, label, layout, shape, dtype) in enumerate(train_cases)]
@@ -2569,6 +2904,11 @@ def main(argv) -> int:
         split_dir, step_times = data_phase(Path(tmp))
         pre_work = pretrain_phase(split_dir, step_times)
         downstream_phase(split_dir, pre_work, rows)
+        # phase 5f: the supervised ResNet baseline and the classical
+        # evaluation of 5d's features
+        resnet_step_phase()
+        resnet_kfold_phase(split_dir)
+        eval_classical_phase(pre_work / "ssl_features_dir")
     fused_layernorm_run(rows, cfg)
 
     # phase 6: the ring's partial kernels at the ring blocks of phase 7 (the

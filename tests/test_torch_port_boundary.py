@@ -45,6 +45,8 @@ def test_importing_serving_and_cli_loads_no_jax():
         "import vit_ae_plus_plus_torch.pipelines.pretrain_kfold\n"
         "import vit_ae_plus_plus_torch.pipelines.extract_features, vit_ae_plus_plus_torch.pipelines.finetune\n"
         "import vit_ae_plus_plus_torch.pipelines.probe_kfold, vit_ae_plus_plus_torch.utils.metrics\n"
+        "import vit_ae_plus_plus_torch.pipelines.resnet_kfold, vit_ae_plus_plus_torch.pipelines.eval_classical\n"
+        "import vit_ae_plus_plus_torch.models.resnet3d, vit_ae_plus_plus_torch.utils.libsvm\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -110,3 +112,42 @@ def test_native_augmenter_builds_from_the_ports_source_into_its_build_dir():
     assert na.BUILD_DIR.resolve() == _build.BUILD_DIR.resolve() == pkg / "build"
     assert na.library_path().parent == na.BUILD_DIR
     assert "vit_ae_plus_plus_torch/build/" in (REPO / ".gitignore").read_text().split()
+
+
+def test_resnet_kfold_raises_without_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from vit_ae_plus_plus_torch.configs import DataConfig, TrainConfig
+    from vit_ae_plus_plus_torch.pipelines.resnet_kfold import resnet_kfold
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data_cfg = DataConfig(base_path=str(tmp_path / "no_data"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet_kfold(data_cfg, TrainConfig(), str(tmp_path / "r"))
+    with pytest.raises(FileNotFoundError):  # on the CPU it goes on, to the data
+        resnet_kfold(data_cfg, TrainConfig(), str(tmp_path / "r"), device="cpu")
+
+
+def test_libsvm_builds_from_the_ports_sources_into_its_build_dir():
+    """The copy of scikit-learn's libsvm is the port's own: every source in
+    the package's native/libsvm/, every quoted include naming a file there
+    (none outside it, none of scikit-learn's or the JAX package's), the
+    library in the package's build/, built without fast-math or FMA
+    contraction."""
+    import re
+
+    from vit_ae_plus_plus_torch.kernels import _build
+    from vit_ae_plus_plus_torch.utils import libsvm
+
+    pkg = (REPO / "vit_ae_plus_plus_torch").resolve()
+    src = libsvm.SRC_DIR.resolve()
+    assert src == pkg / "native" / "libsvm"
+    names = set(libsvm.SOURCES)
+    assert names == {p.name for p in src.iterdir() if p.suffix in (".c", ".cpp", ".h")}
+    for name in names:
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', (src / name).read_text(), flags=re.M):
+            assert inc in names, f"{name} includes {inc}"
+    assert "Copyright (c) 2000-2009 Chih-Chung Chang and Chih-Jen Lin" in (src / "svm.cpp").read_text()
+    assert "BSD" in (src / "COPYING").read_text()
+    assert libsvm.BUILD_DIR.resolve() == _build.BUILD_DIR.resolve() == pkg / "build"
+    assert libsvm.library_path().parent == libsvm.BUILD_DIR
+    assert "-ffp-contract=off" in libsvm.GXX_FLAGS
+    assert not any(f.startswith(("-ffast-math", "-march", "-Ofast")) for f in libsvm.GXX_FLAGS)

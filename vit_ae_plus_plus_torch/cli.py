@@ -14,16 +14,23 @@
     python -m vit_ae_plus_plus_torch.cli finetune-kfold ... (the same flags)
     python -m vit_ae_plus_plus_torch.cli finetune --data-path splits \
         --work-dir ft1 --checkpoint mae.pth [--fix-backbone] [--use-mixup]
+    python -m vit_ae_plus_plus_torch.cli eval-classical \
+        --feature-dir run1/ssl_features_dir [--n-splits 5] [--method svm]
+    python -m vit_ae_plus_plus_torch.cli resnet-kfold --data-path splits \
+        --work-dir resnet1 [--eval-only]
 
 `serve`, `prepare-data`, `pretrain-kfold`, `extract-features`,
-`probe-kfold`, `finetune-kfold` and `finetune` are ported so far. Every
-checkpoint they read is a reference-layout `.pth`, as the JAX package's
-`export-torch` and this package's `pretrain-kfold` write it. All but
-`prepare-data` run on `cuda` unless `--device cpu` is given. `prepare-data`
-runs on the host and writes the same split files as the JAX package's
-command. The training and extraction commands take the JAX commands' flags
-and, as there, `--config` loads a config.ini section over them
-(configs/ini.py); they print their results as one JSON line last.
+`probe-kfold`, `finetune-kfold`, `finetune`, `eval-classical` (`--method
+svm`) and `resnet-kfold` are ported so far. Every ViT checkpoint they read
+is a reference-layout `.pth`, as the JAX package's `export-torch` and this
+package's `pretrain-kfold` write it. All but `prepare-data` and
+`eval-classical` run on `cuda` unless `--device cpu` is given.
+`prepare-data` runs on the host and writes the same split files as the JAX
+package's command; `eval-classical` fits the SVM on the host, through the
+port's copy of scikit-learn's libsvm. The training and extraction commands
+take the JAX commands' flags and, as there, `--config` loads a config.ini
+section over them (configs/ini.py); they print their results as one JSON
+line last.
 """
 
 from __future__ import annotations
@@ -107,6 +114,7 @@ def build_parser() -> argparse.ArgumentParser:
                           "(pipelines/probe_kfold.py)",
         "finetune": "single-run fine-tune over the train/val/test splits "
                     "(pipelines/finetune.py)",
+        "resnet-kfold": "supervised 3D-ResNet k-fold baseline (pipelines/resnet_kfold.py)",
     }
     for name, text in helps.items():
         p = sub.add_parser(name, help=text)
@@ -115,6 +123,8 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument("--pretrain-dir", required=True,
                            help="pretrain-kfold's work dir (checkpoints/fold_k/checkpoint-min_loss.pth)")
             p.add_argument("--use-mixup", action="store_true")
+            p.add_argument("--eval-only", action="store_true")
+        if name == "resnet-kfold":
             p.add_argument("--eval-only", action="store_true")
         if name == "finetune":
             p.add_argument("--checkpoint", required=True, help="MAE checkpoint (.pth)")
@@ -128,6 +138,15 @@ def build_parser() -> argparse.ArgumentParser:
                            help="int8: the int8 engine (not ported yet: refused)")
         p.add_argument("--device", default=None,
                        help="torch device (default: cuda; 'cpu' to run on the CPU)")
+
+    ev = sub.add_parser(
+        "eval-classical",
+        help="SVM on pretrain-kfold's per-fold SSL features (pipelines/eval_classical.py; host only)")
+    ev.add_argument("--feature-dir", required=True,
+                    help="{train,test}_contrast_ssl_{features,labels}_split_{k}.npy, as pretrain-kfold writes them")
+    ev.add_argument("--n-splits", type=int, default=5)
+    ev.add_argument("--method", default="svm", choices=["svm", "rf", "linear"],
+                    help="svm; rf and linear are not ported yet (refused)")
     return parser
 
 
@@ -296,6 +315,18 @@ def main(argv=None) -> int:
             fix_backbone=args.fix_backbone, use_mixup=args.use_mixup, eval_only=args.eval_only,
             n_devices=args.n_devices, device=args.device,
         )
+        print(json.dumps(out, default=str))
+    elif args.cmd == "resnet-kfold":
+        from vit_ae_plus_plus_torch.pipelines.resnet_kfold import resnet_kfold
+
+        data_cfg, train_cfg = configs_from_args(args)
+        out = resnet_kfold(data_cfg, train_cfg, args.work_dir, n_splits=args.n_splits, eval_only=args.eval_only,
+                           n_devices=args.n_devices, device=args.device)
+        print(json.dumps(out, default=str))
+    elif args.cmd == "eval-classical":
+        from vit_ae_plus_plus_torch.pipelines.eval_classical import evaluate_features
+
+        out = evaluate_features(args.feature_dir, n_splits=args.n_splits, method=args.method)
         print(json.dumps(out, default=str))
     elif args.cmd == "extract-features":
         from vit_ae_plus_plus_torch.pipelines.extract_features import extract_ssl_features

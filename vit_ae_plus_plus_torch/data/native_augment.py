@@ -32,7 +32,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import math
-import os
 import platform
 import subprocess
 import sys
@@ -43,10 +42,10 @@ from typing import Optional
 import numpy as np
 
 from vit_ae_plus_plus_torch.data.transforms import Transform
+from vit_ae_plus_plus_torch.kernels._build import BUILD_DIR, build_shared
 
 # the C++ source ships inside the package (native/) so installs carry it
 SRC = Path(__file__).resolve().parents[1] / "native" / "augment3d.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 GXX_FLAGS = ("-O3", "-march=native", "-ffast-math", "-funroll-loops", "-shared", "-fPIC")
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -78,16 +77,9 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
         so_path = library_path()
         try:
             if not so_path.exists() or so_path.stat().st_mtime < SRC.stat().st_mtime:
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-                try:
-                    subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(SRC)],
-                                   check=True, capture_output=True)
-                    os.replace(tmp, so_path)
-                finally:
-                    tmp.unlink(missing_ok=True)
+                build_shared(SRC, GXX_FLAGS, so_path)
             lib = ctypes.CDLL(str(so_path))
-        except (OSError, subprocess.CalledProcessError):
+        except (OSError, RuntimeError):
             return None
         lib.affine3d_f32.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),

@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources with nvcc at first use and load them with ctypes.
+"""Build the port's CUDA sources with nvcc at first use and load them with ctypes;
+build its host C++ libraries with g++ (`build_shared`).
 
 Each source under `csrc/` has a plain C interface, so it compiles in
 seconds with `nvcc -shared` (no PyTorch headers) into
@@ -86,6 +87,25 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: library_path(name) for name in names}
+
+
+def build_shared(src: Path, flags: Iterable[str], so_path: Path) -> None:
+    """Compile the host C++ source `src` with g++ `flags` into the shared
+    library `so_path`, through a temporary file beside it that `os.replace`
+    moves into place, so a process loading the library while another
+    builds it never opens half a file. Raises `RuntimeError` naming the
+    cause when g++ is missing or fails."""
+    so_path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    try:
+        proc = subprocess.run(["g++", *flags, "-o", str(tmp), str(src)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed to build {src}:\n{proc.stderr}")
+        os.replace(tmp, so_path)
+    except FileNotFoundError as e:
+        raise RuntimeError(f"g++ is needed to build {src} and was not found") from e
+    finally:
+        tmp.unlink(missing_ok=True)
 
 
 def load(name: str) -> ctypes.CDLL:

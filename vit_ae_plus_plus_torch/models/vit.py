@@ -10,7 +10,7 @@ Precision follows the JAX package: parameters stay f32; every product runs
 in the compute dtype (weights are cast per call); LayerNorm statistics are
 at least f32 and the result is cast back; attention's softmax is at least
 f32 (kernels/). The contrastive heads' BatchNorm follows flax, not torch
-(`FlaxBatchNorm1d`).
+(`FlaxBatchNorm`).
 
 A block's LayerNorms run one of three ways, as in the JAX package:
 `ln_fusion="on"` fuses norm1 into attn.qkv and norm2 into mlp.fc1
@@ -249,12 +249,13 @@ class VisionTransformer3D(nn.Module):
         return feats
 
 
-class FlaxBatchNorm1d(nn.Module):
-    """BatchNorm over the rows of (M, D) with flax's semantics, which the JAX
-    package trains with: the running statistics move as
-    `0.9 * running + 0.1 * batch` (flax momentum 0.9), the running variance
-    is the BIASED batch variance (torch's BatchNorm1d keeps the unbiased
-    one), eps 1e-5, and the batch variance is E[x^2] - E[x]^2 clipped at 0.
+class FlaxBatchNorm(nn.Module):
+    """BatchNorm over dim 1 (the features of (M, D), the channels of
+    (N, C, D, H, W)) with flax's semantics, which the JAX package trains
+    with: the running statistics move as `0.9 * running + 0.1 * batch`
+    (flax momentum 0.9), the running variance is the BIASED batch variance
+    (torch's BatchNorm keeps the unbiased one), eps 1e-5, and the batch
+    variance is E[x^2] - E[x]^2 over every dim but 1, clipped at 0.
     Statistics and output are in at least f32. Trains on batch statistics
     and updates the running ones in `training` mode, normalises with the
     running ones otherwise."""
@@ -273,10 +274,12 @@ class FlaxBatchNorm1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(torch.promote_types(x.dtype, torch.float32), self.running_mean.dtype)
+        dims = [0, *range(2, x.ndim)]
+        shape = (1, -1) + (1,) * (x.ndim - 2)
         if self.training:
             xf = x.to(dt)
-            mean = xf.mean(dim=0)
-            var = torch.clamp_min((xf * xf).mean(dim=0) - mean * mean, 0.0)
+            mean = xf.mean(dim=dims)
+            var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -286,8 +289,8 @@ class FlaxBatchNorm1d(nn.Module):
         mul = torch.rsqrt(var + self.eps)
         if self.affine:
             mul = mul * self.weight
-        y = (x - mean) * mul
-        return y + self.bias if self.affine else y
+        y = (x - mean.view(shape)) * mul.view(shape)
+        return y + self.bias.view(shape) if self.affine else y
 
 
 class MLPHead(nn.Sequential):
@@ -304,11 +307,11 @@ class MLPHead(nn.Sequential):
                  dtype: torch.dtype = torch.float32):
         layers = []
         for _ in range(num_hidden):
-            layers += [nn.Linear(dim, dim, bias=False), FlaxBatchNorm1d(dim), nn.ReLU()]
+            layers += [nn.Linear(dim, dim, bias=False), FlaxBatchNorm(dim), nn.ReLU()]
         if final_dense:
             layers.append(nn.Linear(dim, dim))
         else:
-            layers += [nn.Linear(dim, dim, bias=False), FlaxBatchNorm1d(dim, affine=False)]
+            layers += [nn.Linear(dim, dim, bias=False), FlaxBatchNorm(dim, affine=False)]
         super().__init__(*layers)
         self.dtype = dtype
 

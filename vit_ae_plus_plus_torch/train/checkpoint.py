@@ -17,16 +17,19 @@ the previous file whole:
 The weight bridge reads exactly two inputs:
 
 - `params_from_jax(tree, patch_size, in_chans, batch_stats)`: a JAX param
-  tree (MAE or ViT) and, for the contrastive heads, its flax `batch_stats`
-  tree, as nested dicts of arrays, e.g. loaded by the JAX package and
-  passed on as numpy;
+  tree (MAE, ViT or 3D ResNet) and its flax `batch_stats` tree (the
+  contrastive heads', the ResNet's), as nested dicts of arrays, e.g.
+  loaded by the JAX package and passed on as numpy;
 - `load_reference_state_dict(path)`: the `.pth` that the JAX package's
   `export-torch` command writes (`export_mae_torch_state_dict` + `torch.save`),
   or this package's `checkpoint-min_loss.pth`.
 
 Both give a state dict under the reference PyTorch keys, which are the
-port's parameter names. The mapping is this package's own copy of the JAX
-package's `export_torch_state_dict` (train/checkpoint.py there).
+port's parameter names. The ViT mapping is this package's own copy of the
+JAX package's `export_torch_state_dict` (train/checkpoint.py there); the
+ResNet's follows flax's module order (Conv_k, BatchNorm_k and the blocks
+numbered through all four stages) onto the reference's `conv1`, `bn1`,
+`layer{s}.{b}.conv{i}` / `bn{i}` / `downsample.{0,1}` and `fc`.
 """
 
 from __future__ import annotations
@@ -98,14 +101,67 @@ def _batch_stat_name(path: Tuple[str, ...]) -> str:
     return f"{_HEAD_TORCH_NAME[head]}.{idx}.running_{leaf}"
 
 
+def _resnet_layout(tree: Dict) -> Dict[str, str]:
+    """flax's top-level ResNet3D module names -> the reference prefixes:
+    Conv_0 / BatchNorm_0 / Dense_0 -> conv1 / bn1 / fc, the k-th block ->
+    layer{s}.{b} by the depth the tree's block class and count give."""
+    from vit_ae_plus_plus_torch.models.resnet3d import DEPTH_CONFIGS
+
+    blocks = [k for k in tree if k.startswith(("BasicBlock3D_", "Bottleneck3D_"))]
+    kind = blocks[0].rsplit("_", 1)[0] if blocks else None
+    layers = next((ls for cls, ls in DEPTH_CONFIGS.values() if cls.__name__ == kind and sum(ls) == len(blocks)),
+                  None)
+    if layers is None:
+        raise ValueError(f"no ResNet depth has {len(blocks)} blocks of {kind}")
+    names = {"Conv_0": "conv1", "BatchNorm_0": "bn1", "Dense_0": "fc"}
+    k = 0
+    for stage, n in enumerate(layers):
+        for b in range(n):
+            names[f"{kind}_{k}"] = f"layer{stage + 1}.{b}"
+            k += 1
+    return names
+
+
+def _resnet_block_layer(layer: str, n_convs: int) -> str:
+    """A block's Conv_i / BatchNorm_i -> conv{i+1} / bn{i+1}, the last one
+    (past the block's own n_convs) -> the shortcut's downsample.{0,1}."""
+    kind, i = layer.rsplit("_", 1)
+    if int(i) == n_convs:
+        return "downsample.0" if kind == "Conv" else "downsample.1"
+    return f"conv{int(i) + 1}" if kind == "Conv" else f"bn{int(i) + 1}"
+
+
+def _resnet_state_dict(tree: Dict, batch_stats: Optional[Dict]) -> Dict[str, torch.Tensor]:
+    prefixes = _resnet_layout(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    leaf_names = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean",
+                  "var": "running_var"}
+    for source in (tree, batch_stats or {}):
+        for path, w in _flatten(source):
+            w = np.asarray(w)
+            name = prefixes[path[0]]
+            if len(path) == 3:  # inside a block
+                name += "." + _resnet_block_layer(path[1], 2 if path[0].startswith("Basic") else 3)
+            if path[-1] == "kernel":  # conv (kd, kh, kw, cin, cout) / dense (in, out)
+                w = w.transpose(4, 3, 0, 1, 2) if w.ndim == 5 else w.T
+            sd[f"{name}.{leaf_names[path[-1]]}"] = torch.from_numpy(np.array(w))
+    return sd
+
+
 def params_from_jax(
-    tree: Dict, patch_size: int, in_chans: int = 1, batch_stats: Optional[Dict] = None
+    tree: Dict, patch_size: Optional[int] = None, in_chans: int = 1, batch_stats: Optional[Dict] = None
 ) -> Dict[str, torch.Tensor]:
-    """A JAX param tree (MAE or ViT; nested dicts of arrays) and optionally
-    its flax `batch_stats` tree -> a state dict under the reference keys
-    (BatchNorm statistics as `predictor.1.running_mean` / `running_var`).
-    `patch_size` and `in_chans` unfold the (p^3*C, D) patch-embed kernel
-    into the Conv3d layout."""
+    """A JAX param tree (MAE, ViT or ResNet3D; nested dicts of arrays) and
+    optionally its flax `batch_stats` tree -> a state dict under the
+    reference keys (BatchNorm statistics as `*.running_mean` /
+    `running_var`). For a ViT tree, `patch_size` and `in_chans` unfold the
+    (p^3*C, D) patch-embed kernel into the Conv3d layout; a ResNet tree
+    (top-level `Conv_0`) needs neither: its conv kernels go from (kd, kh,
+    kw, cin, cout) to (cout, cin, kd, kh, kw)."""
+    if "Conv_0" in tree:
+        return _resnet_state_dict(tree, batch_stats)
+    if patch_size is None:
+        raise ValueError("params_from_jax: a ViT tree needs patch_size")
     sd: Dict[str, torch.Tensor] = {}
     for path, w in _flatten(tree):
         name, value = _torch_name_and_value(path, np.asarray(w), patch_size, in_chans)

@@ -18,7 +18,9 @@ frozen backbone of its pipelines/finetune.py), with optax's semantics:
   lr * s;
 - SGD with momentum: optax's `trace` is torch SGD's buffer with
   dampening 0; a frozen backbone trains only the classifier head, and the
-  optimizer's update count advances with the head's updates.
+  optimizer's update count advances with the head's updates;
+- Adam with torch's defaults (0.9, 0.999, eps 1e-8, no weight decay) for
+  the supervised ResNet, optax's `adam` under a schedule.
 """
 
 from __future__ import annotations
@@ -202,6 +204,28 @@ class SGD:
         _set_lr(self.opt, self.schedule(self.count))
         self.opt.step()
         self.count += 1
+
+
+class Adam(SGD):
+    """optax's `adam(schedule)`: torch Adam (0.9, 0.999, eps 1e-8) over a
+    module's trainable parameters at the learning rate of the update's
+    count."""
+
+    def __init__(self, model: nn.Module, learning_rate: Union[Schedule, float]):
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.schedule = learning_rate if callable(learning_rate) else (lambda _k: learning_rate)
+        self.count = 0
+        self.opt = torch.optim.Adam(self.params, lr=self.schedule(0), betas=(0.9, 0.999), eps=1e-8)
+
+
+def make_adam(learning_rate: Union[Schedule, float]) -> Callable[[nn.Module], Adam]:
+    """Adam for the supervised 3D ResNet (train_3d_resnet.py:262): a
+    recipe."""
+
+    def init(model: nn.Module) -> Adam:
+        return Adam(model, learning_rate)
+
+    return init
 
 
 def make_sgd(learning_rate: Union[Schedule, float], momentum: float = 0.9) -> Callable[[nn.Module], SGD]:

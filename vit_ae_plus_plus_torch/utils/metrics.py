@@ -9,8 +9,9 @@ tests/test_torch_port_eval_metrics.py):
 - `confusion_matrix(y_true, y_pred, labels)`: rows indexed by `y_true`,
   columns by `y_pred`, pairs with a value outside `labels` not counted;
 - `roc_auc_score(one_hot, scores)`: the macro average over the columns of a
-  label-indicator matrix of each column's binary ROC AUC, ties ranked by
-  their average rank; a column holding a single class raises `ValueError`.
+  label-indicator matrix of each column's binary ROC AUC, computed as
+  scikit-learn computes it (equal bit for bit); a column holding a single
+  class raises `ValueError`.
 
 Kept from the reference (used_metrics.py:12-41) through the JAX package: the
 transposed confusion-matrix convention, `confusion_matrix(predictions,
@@ -43,24 +44,24 @@ def confusion_matrix(y_true, y_pred, labels: Sequence[int]) -> np.ndarray:
 
 
 def _binary_auc(y: np.ndarray, score: np.ndarray) -> float:
-    """Area under the ROC curve of one binary column: the Mann-Whitney
-    statistic over average ranks, the trapezoids' area under the curve of
-    every distinct threshold."""
-    n_pos = int(np.count_nonzero(y))
-    n_neg = len(y) - n_pos
-    if n_pos == 0 or n_neg == 0:
+    """Area under the ROC curve of one binary column, in scikit-learn's
+    arithmetic (metrics/_ranking.py `roc_curve` with drop_intermediate,
+    then `auc`): true and false positives at each distinct threshold of the
+    descending scores, collinear points dropped, the trapezoids summed."""
+    y = np.asarray(y) != 0
+    if np.all(y) or not np.any(y):
         raise ValueError("Only one class present in y_true. ROC AUC score is not defined in that case.")
-    order = np.argsort(score, kind="mergesort")
-    sorted_scores = score[order]
-    ranks = np.empty(len(score), dtype=np.float64)
-    start = 0
-    while start < len(score):
-        end = start
-        while end + 1 < len(score) and sorted_scores[end + 1] == sorted_scores[start]:
-            end += 1
-        ranks[order[start:end + 1]] = (start + end) / 2.0 + 1.0
-        start = end + 1
-    return float((ranks[y != 0].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
+    order = np.argsort(score, kind="stable")[::-1]
+    score, y = score[order], y[order].astype(np.float64)
+    threshold_idxs = np.r_[np.nonzero(np.diff(score))[0], y.size - 1]
+    tps = np.cumsum(y)[threshold_idxs]
+    fps = 1 + threshold_idxs.astype(np.float64) - tps
+    if fps.shape[0] > 2:
+        keep = np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)), True]
+        fps, tps = fps[keep], tps[keep]
+    fpr = np.r_[0.0, fps] / fps[-1]
+    tpr = np.r_[0.0, tps] / tps[-1]
+    return float(np.sum((fpr[1:] - fpr[:-1]) * (tpr[1:] + tpr[:-1]) / 2.0))
 
 
 def roc_auc_score(y_true: np.ndarray, y_score: np.ndarray) -> float:
