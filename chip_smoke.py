@@ -102,6 +102,23 @@ non-zero exit when it fails:
    5d's bf16 features, twice (the port's copy of scikit-learn's libsvm,
    built with g++: the summary's keys, AUCs finite in [0, 1], the second
    run equal), with the build and wall times;
+   5g. the MoCo-v3 baseline: the full-width MoCo-ViT step (ViT-B at 96^3 /
+   patch 8, every token, heads 4096 / 256, LARS) from seeded numpy
+   weights and batch statistics through `params_from_jax`, one step of 8
+   with the kernels against one with attn_impl="plain", in bf16 and f32
+   (loss, three gradients, a momentum leaf after the EMA and running
+   statistics, each within STEP_TOL or, where the plain step on its views
+   nudged by one part in 2^20 moves further, four times that floor); the
+   launches around the step (48 packed forward and 24 packed backward at
+   B8 H12 N1729 d64, reported in the kernel rows' `moco_launches`), its
+   ms, volumes/s, peak memory and profile; then `moco-kfold` through the CLI on 5c's split (2 folds x 2
+   epochs at batch 8, bf16 and f32: exit 0, finite log rows, each fold's
+   min-loss `.pth` loads into `MoCoViT3D`, (24, 768) features with their
+   labels, the attention launches by shape, fold 0's test features
+   against the same `.pth` with attn_impl="plain"), `moco-extract` on the
+   bf16 work dir (its files equal `moco-kfold`'s bitwise) and
+   `moco-kfold --moco-arch resnet` in bf16 (2 folds x 1 epoch, no custom
+   kernel launched, (24, 512) features), each with its wall time by span;
 6. the ring's partial kernels (csrc/flash_fwd.cu and flash_bwd.cu with a
    key bias) against their plain versions at the ring blocks of the paths
    in phase 7, each the block that holds the padded tail, and at a fully
@@ -1260,7 +1277,7 @@ KERNEL_FAMILIES = (
     ("attention (flash_fwd.cu, flash_bwd.cu)", ("flash_",)),
     ("LayerNorm+Dense, LayerNorm (ln_dense.cu, layernorm.cu)", ("vitae_ln",)),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "sm80_")),
-    ("AdamW (foreach)", ("multi_tensor_apply",)),
+    ("optimizer, EMA (foreach: AdamW, LARS)", ("multi_tensor_apply",)),
     ("LayerNorm fwd/bwd", ("layer_norm", "LayerNorm", "GammaBeta")),
     ("memcpy/memset", ("Memcpy", "Memset")),
 )
@@ -2397,6 +2414,292 @@ def eval_classical_phase(feature_dir: Path) -> None:
           + ", ".join(f"{a:.4f}" for a in summary["per_fold"]["auroc"]) + "; equal on the second run", flush=True)
 
 
+# phase 5g: the MoCo-v3 baseline. Its step's kernel-against-plain gate runs
+# at batch 8 (the command's batch; a plain step holds 40 GB in bf16, 45 GB
+# in f32). Each quantity is held to STEP_TOL (the gradients, the momentum
+# leaf and the running statistics to its "grad" limit, the loss to its
+# "loss" limit) or, where the plain step moves further than that on its own
+# views scaled by 1 + 2^-20 or 1 - 2^-20 (the floor), to MOCO_FLOOR_FACTOR
+# times the larger floor. The symmetric InfoNCE after two BatchNorms over
+# the batch makes the gradients ill-conditioned at a random init: an H100
+# read, plain against the nudged plain step, 2.5e-5 to 3.9e-5 on the f32
+# gradients, 0.38 to 0.45 on the bf16 ones and 5.7e-4 on the bf16 loss;
+# the kernels read the same
+MOCO_M, MOCO_FLOOR_FACTOR = 0.99, 4
+MOCO_GRADS = ("base_encoder.blocks.0.attn.qkv.weight", "base_encoder.patch_embed.proj.weight",
+              "base_encoder.head.0.weight")
+MOCO_STATS = ("base_encoder.head.1.running_mean", "base_encoder.head.1.running_var",
+              "base_encoder.head.7.running_var", "predictor.1.running_var")
+
+
+def moco_tree(seed: int):
+    """Seeded numpy weights in the JAX package's MoCo-ViT tree (`trunk`:
+    ViT-B at 96^3 / patch 8 with its learned pos_embed and `norm`;
+    `projector` 768-4096-4096-256 and `predictor` 256-4096-256, each with
+    its last BatchNorm) and its flax `batch_stats`."""
+    from vit_ae_plus_plus_torch.configs import ViTConfig
+
+    cfg = ViTConfig(volume_size=VOLUME, patch_size=PATCH)
+    rng = np.random.default_rng(seed + 1)
+    trunk = mae_encoder_tree(cfg, seed)
+    trunk["pos_embed"] = (0.02 * rng.standard_normal((1, cfg.num_patches + 1, cfg.embed_dim))).astype(np.float32)
+    tree, stats = {"trunk": trunk}, {}
+    for name, dims in (("projector", (cfg.embed_dim, 4096, 4096, 256)), ("predictor", (256, 4096, 256))):
+        layers, bn = {}, {}
+        for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+            layers[f"Dense_{i}"] = dense(rng, a, b, bias=False)
+            if i < len(dims) - 2:
+                layers[f"BatchNorm_{i}"] = ln(rng, b)
+            bn[f"BatchNorm_{i}"] = {"mean": (0.1 * rng.standard_normal(b)).astype(np.float32),
+                                    "var": (1 + 0.1 * rng.random(b)).astype(np.float32)}
+        tree[name], stats[name] = layers, bn
+    return tree, stats
+
+
+class MoCoTrainer:
+    """One MoCo-ViT training run of the port's public API on the card:
+    `build_moco_model` (ViT-B at 96^3 / patch 8, heads 4096 / 256), the
+    base model's state dict (`params_from_jax` of `moco_tree`) and its
+    momentum encoder's (another seeded tree, so that the EMA mixes two sets
+    of weights), `create_moco_state` with `make_lars` (lr 0.6 x 8 / 256, no
+    warmup: the warmup's first learning rate is 0), `make_moco_train_step`."""
+
+    def __init__(self, base_sd, momentum_sd, dtype: str, attn_impl: str):
+        from vit_ae_plus_plus_torch.configs import DataConfig
+        from vit_ae_plus_plus_torch.pipelines.moco_kfold import (
+            build_moco_model, create_moco_state, make_moco_train_step,
+        )
+        from vit_ae_plus_plus_torch.train import warmup_cosine_schedule
+        from vit_ae_plus_plus_torch.train.optim import make_lars
+
+        self.label = f"{dtype} {attn_impl}"
+        self.model = build_moco_model(DataConfig(volume_size=VOLUME), dtype, "vit",
+                                      vit_overrides={"attn_impl": attn_impl})
+        self.model.load_state_dict(base_sd, strict=True)
+        self.model.cuda()
+        schedule = warmup_cosine_schedule(0.6 * BATCH / 256, 0.0, 0, 100, 3)
+        self.state = create_moco_state(self.model, make_lars(schedule, weight_decay=1e-6))
+        prefix = "base_encoder."
+        self.state.momentum_encoder.load_state_dict(
+            {k[len(prefix):]: v for k, v in momentum_sd.items() if k.startswith(prefix)}, strict=True)
+        self.step = make_moco_train_step(self.model)
+
+    def run(self, x1, x2) -> tuple:
+        """One step, counts set to 0 before and read after. -> ({loss,
+        MOCO_GRADS, MOCO_STATS, a momentum leaf and statistic} on the card
+        in f32, launch counts by (wrapper, shape))."""
+        from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+
+        reset_launch_counts()
+        self.state, metrics = self.step(self.state, x1, x2, MOCO_M)
+        out = {"loss": float(metrics["loss"])}
+        counts = shape_counts()
+        named, bufs = dict(self.model.named_parameters()), dict(self.model.named_buffers())
+        mom = self.state.momentum_encoder
+        out.update({n: named[n].grad.float().clone() for n in MOCO_GRADS})
+        out.update({n: bufs[n].float().clone() for n in MOCO_STATS})
+        out["momentum_encoder.blocks.0.attn.qkv.weight"] = mom.blocks[0].attn.qkv.weight.float().clone()
+        out["momentum_encoder.head.1.running_mean"] = mom.head[1].running_mean.float().clone()
+        check(np.isfinite(out["loss"]) and all(bool(p.grad.isfinite().all()) for p in self.model.parameters()),
+              f"MoCo {self.label} step: non-finite loss or gradients")
+        return out, counts
+
+
+def moco_step_launches(dtype: str, batch: int) -> dict:
+    """One MoCo step's attention launches: four trunk passes of 12 blocks
+    forward (base and momentum encoder on both views), two backward."""
+    key = (batch, 12, (VOLUME // PATCH) ** 3 + 1, 64, dtype)
+    return {("packed_flash_fwd", key): 48, ("packed_flash_bwd", key): 24}
+
+
+def moco_errs(got: dict, want: dict) -> dict:
+    """The loss over its magnitude; every tensor's largest error over its
+    largest magnitude."""
+    errs = {"loss": abs(got["loss"] - want["loss"]) / abs(want["loss"])}
+    for n in want:
+        if n != "loss":
+            errs[n] = float((got[n] - want[n]).abs().max() / want[n].abs().max().clamp_min(1e-30))
+    return errs
+
+
+def moco_step_phase(rows: list) -> None:
+    """Phase 5g (a): the full-width MoCo-ViT step (ViT-B at 96^3 / patch 8,
+    B8 H12 N1729 d64, every token: nothing is masked) from seeded numpy
+    weights and batch statistics through `params_from_jax`, on seeded views,
+    in bf16 and f32: one step with attn_impl="auto" (the packed kernels)
+    against one with "plain" from the same state and views: the loss,
+    MOCO_GRADS, the momentum encoder's qkv after the EMA and its
+    projector's running mean after the last EMA, and MOCO_STATS, each
+    within its STEP_TOL limit or MOCO_FLOOR_FACTOR times its floor (see
+    MOCO_FLOOR_FACTOR); the launches around the step (48 packed forward and
+    24 packed backward at B8 H12 N1729 d64, into the kernel rows'
+    `moco_launches`). Then, as information beside the card: ms per step and
+    volumes/s (CUDA events), peak memory and a torch.profiler breakdown of
+    a step with the device's idle share."""
+    import torch
+
+    t0 = time.perf_counter()
+    card = card_line()
+    from vit_ae_plus_plus_torch.train.checkpoint import params_from_jax
+
+    base, momentum = (params_from_jax(tree, PATCH, 1, stats) for tree, stats in (moco_tree(81), moco_tree(82)))
+    rng = np.random.default_rng(83)
+    views = [torch.from_numpy(rng.standard_normal((BATCH, 1, VOLUME, VOLUME, VOLUME), dtype=np.float32)).cuda()
+             for _ in range(2)]
+
+    def line(errs: dict) -> str:
+        return ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+
+    times, peak = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        tol = STEP_TOL[dtype]
+        want, counts = MoCoTrainer(base, momentum, dtype, "plain").run(*views)
+        check(totals(counts) == NO_LAUNCHES, f"plain {dtype} MoCo step launched {totals(counts)}")
+        floors = [moco_errs(MoCoTrainer(base, momentum, dtype, "plain").run(*[v * f for v in views])[0], want)
+                  for f in (1 + 2**-20, 1 - 2**-20)]
+        floor = {k: max(f[k] for f in floors) for k in floors[0]}
+        base_bytes = reset_peak()
+        trainer = MoCoTrainer(base, momentum, dtype, "auto")
+        got, counts = trainer.run(*views)
+        want_counts = moco_step_launches(dtype, BATCH)
+        check(counts == want_counts, f"MoCo {dtype} step launched {counts} (want {want_counts})")
+        for row in rows:
+            n = counts.get((row["name"], row["key"]), 0)
+            if n:
+                row["moco_launches"], row["moco_path"] = n, f"make_moco_train_step, one {dtype} step of {BATCH}"
+        errs = moco_errs(got, want)
+        limits = {k: max(tol["loss"] if k == "loss" else tol["grad"], MOCO_FLOOR_FACTOR * floor[k]) for k in errs}
+        print(f"MoCo step {dtype} auto vs plain: {line(errs)}; floor (the plain step on the views scaled by "
+              f"1 +- 2^-20): {line(floor)}; limits: {line(limits)}", flush=True)
+        bad = {k: e for k, e in errs.items() if e > limits[k]}
+        check(not bad, f"MoCo step {dtype} auto vs plain: {bad}")
+
+        def one():
+            trainer.state, _ = trainer.step(trainer.state, *views, MOCO_M)
+
+        times[dtype] = cuda_ms(one, reps=3 if dtype == "bfloat16" else 2, warmup=1)
+        peak[dtype] = (torch.cuda.max_memory_allocated() - base_bytes) / 2**30
+        profile_run(one, f"{dtype} MoCo step of {BATCH}", times[dtype])
+        del trainer
+        reset_peak()
+    print(f"MoCo steps ({card}, CUDA events, batch {BATCH}, ViT-B at 96^3, 4 trunk passes of 1,729 tokens): "
+          f"bf16 {times['bfloat16']:.2f} ms ({BATCH / times['bfloat16'] * 1e3:.1f} volumes/s), f32 "
+          f"{times['float32']:.2f} ms ({BATCH / times['float32'] * 1e3:.1f} volumes/s); peak memory above the "
+          f"weights bf16 {peak['bfloat16']:.2f} GiB, f32 {peak['float32']:.2f} GiB", flush=True)
+    print(f"MoCo step phase {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def moco_kfold_phase(split_dir: Path) -> None:
+    """Phase 5g (b): the port's `moco-kfold` command on phase 5c's split (48
+    volumes of 96^3: 2 folds of 24 training and 24 test volumes), 2 epochs
+    of 3 steps at batch 8 with `--ckpt-every 2`, in its default bf16 and in
+    f32, counts read around each run. Checks: exit 0; 4 finite `log.txt`
+    rows; each fold's min-loss `.pth` loads into `MoCoViT3D`; (24, 768) f32
+    features with the labels y_whole at the sorted ids; the attention
+    launches by shape (12 steps of 48 forward and 24 backward, 12 slabs of
+    12 forward); fold 0's test features against the same `.pth` run with
+    attn_impl="plain" within ENGINE_TOL. Then `moco-extract` on the bf16
+    work dir, whose files must equal `moco-kfold`'s dumps bitwise, and
+    `moco-kfold --moco-arch resnet` in bf16, 2 folds of 1 epoch: exit 0, no
+    custom kernel launched, (24, 512) features. Prints each command's wall
+    time by span beside the card."""
+    import torch
+
+    from vit_ae_plus_plus_torch.configs import DataConfig
+    from vit_ae_plus_plus_torch.data import Loader, get_dataset
+    from vit_ae_plus_plus_torch.pipelines import moco_kfold as tmk
+    from vit_ae_plus_plus_torch.pipelines.extract_features import loader_features
+
+    t0 = time.perf_counter()
+    card = card_line()
+    folds, epochs, fold_vols = 2, 2, DATA_VOLUMES // 2
+    steps, slab_count = folds * epochs * (fold_vols // BATCH), folds * 2 * slabs(fold_vols)
+    labels = np.load(split_dir / "y_whole_ssl.npy")
+    data_cfg = DataConfig(base_path=str(split_dir))
+    plain_ds = get_dataset("brats", "whole", data_cfg, transforms=None, use_z_score=True)
+    spans = [(tmk, "train_epoch", "training epochs"), (tmk, "extract_moco_features", "extraction"),
+             (tmk, "save_state_dict", "min-loss writes"), (tmk, "save_resume", "resume writes")]
+    common = ["--data-path", str(split_dir), "--volume-size", str(VOLUME), "--batch-size", str(BATCH),
+              "--n-splits", str(folds)]
+
+    def features(work: Path, width: int, what: str) -> dict:
+        out = {}
+        for k in range(folds):
+            for tag in ("train", "test"):
+                ids = np.sort(np.load(work / "k_fold" / "indices_file" / f"{tag}_{k}.npy"))
+                feats = np.load(work / "ssl_features_dir" / f"{tag}_contrast_ssl_features_split_{k}.npy")
+                labs = np.load(work / "ssl_features_dir" / f"{tag}_contrast_ssl_labels_split_{k}.npy")
+                check(feats.shape == (fold_vols, width) and feats.dtype == np.float32
+                      and bool(np.isfinite(feats).all()), f"{what} fold {k} {tag} features {feats.shape}")
+                check(np.array_equal(labs, labels[ids]), f"{what} fold {k} {tag} labels")
+                out[(k, tag)] = (ids, feats)
+        return out
+
+    key = (BATCH, 12, (VOLUME // PATCH) ** 3 + 1, 64)
+    for dtype in ("bfloat16", "float32"):
+        work = split_dir.parent / f"moco_{dtype}"
+        argv = ["moco-kfold", *common, "--work-dir", str(work), "--epochs", str(epochs), "--ckpt-every", "2"]
+        if dtype == "float32":
+            argv += ["--compute-dtype", "float32"]
+        with Spans(spans) as timed:
+            last, wall, counts = run_cli(argv, f"moco-kfold {dtype}")
+        results = json.loads(last)
+        check(sorted(results) == ["0", "1"] and all(np.isfinite(r["min_loss"]) for r in results.values()),
+              f"moco-kfold {dtype} results {results}")
+        with open(work / "log.txt") as f:
+            logged = [json.loads(line) for line in f]
+        check([(r["fold"], r["epoch"]) for r in logged] == [(k, e) for k in range(folds) for e in range(epochs)]
+              and all(np.isfinite(r["train_loss"]) for r in logged), f"moco-kfold {dtype} log.txt {logged}")
+        want = {("packed_flash_fwd", (*key, dtype)): 48 * steps + 12 * slab_count,
+                ("packed_flash_bwd", (*key, dtype)): 24 * steps}
+        check(counts == want, f"moco-kfold {dtype} launched {counts} (want {want})")
+        feats = features(work, 768, f"moco-kfold {dtype}")
+        model = tmk.build_moco_model(DataConfig(volume_size=VOLUME), dtype, vit_overrides={"attn_impl": "plain"})
+        for k in (1, 0):  # each fold's .pth loads; fold 0's stays
+            model.load_state_dict(torch.load(tmk.min_loss_path(str(work), k), map_location="cpu", weights_only=True),
+                                  strict=True)
+        ids, got = feats[(0, "test")]
+        loader = Loader(plain_ds, BATCH, indices=ids, shuffle=False, drop_last=False)
+        ref, _ = loader_features(model.to("cuda").base_encoder, loader, BATCH, torch.device("cuda"))
+        err = rel_err(got, ref)
+        check(err <= ENGINE_TOL[dtype], f"moco-kfold {dtype} fold 0 test features vs plain: rel err {err:.3g}")
+        del model
+        print(f"moco-kfold {dtype} ({card}): {timed.line(wall)}; {steps} steps, {slab_count} extraction slabs; "
+              f"losses by (fold, epoch) " + ", ".join(f"{r['train_loss']:.4f}" for r in logged)
+              + f"; fold 0 test features vs plain from the .pth rel err {err:.3g} (tol {ENGINE_TOL[dtype]})",
+              flush=True)
+        if dtype == "bfloat16":
+            ext = split_dir.parent / "moco_extract"
+            last, ext_wall, counts = run_cli(["moco-extract", *common, "--work-dir", str(ext), "--checkpoint",
+                                              str(work)], "moco-extract")
+            check(counts == {("packed_flash_fwd", (*key, dtype)): 12 * slab_count},
+                  f"moco-extract launched {counts}")
+            names = sorted(os.listdir(work / "ssl_features_dir"))
+            check(names == sorted(os.listdir(ext / "ssl_features_dir")) and len(names) == 4 * folds
+                  and all(np.array_equal(np.load(work / "ssl_features_dir" / n), np.load(ext / "ssl_features_dir" / n))
+                          for n in names), "moco-extract's files differ from moco-kfold's dumps")
+            print(f"moco-extract bf16 ({card}): exit 0 in {ext_wall:.2f} s, {slab_count} slabs; its "
+                  f"{len(names)} files equal moco-kfold's bitwise", flush=True)
+            shutil.rmtree(ext)
+        shutil.rmtree(work)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    work = split_dir.parent / "moco_resnet"
+    with Spans(spans) as timed:
+        last, wall, counts = run_cli(["moco-kfold", *common, "--work-dir", str(work), "--epochs", "1",
+                                      "--moco-arch", "resnet"], "moco-kfold --moco-arch resnet")
+    check(totals(counts) == NO_LAUNCHES, f"moco-kfold --moco-arch resnet launched {totals(counts)}")
+    results = json.loads(last)
+    check(sorted(results) == ["0", "1"] and all(np.isfinite(r["min_loss"]) for r in results.values()),
+          f"moco-kfold resnet results {results}")
+    features(work, 512, "moco-kfold resnet")
+    print(f"moco-kfold --moco-arch resnet bf16 ({card}): {timed.line(wall)}; {folds * (fold_vols // BATCH)} "
+          f"steps, no custom kernel launched", flush=True)
+    shutil.rmtree(work)
+    print(f"moco-kfold phase {time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def fused_layernorm_run(rows: list, cfg) -> None:
     """The path of the LayerNorm kernels (#6): one forward and backward of
     `FusedLayerNorm` at the encoder's norm shape in the training step,
@@ -2909,6 +3212,11 @@ def main(argv) -> int:
         resnet_step_phase()
         resnet_kfold_phase(split_dir)
         eval_classical_phase(pre_work / "ssl_features_dir")
+        # phase 5g: the MoCo-v3 baseline, its step and its commands
+        t0 = time.perf_counter()
+        moco_step_phase(rows)
+        moco_kfold_phase(split_dir)
+        print(f"MoCo phase {time.perf_counter() - t0:.1f}s", flush=True)
     fused_layernorm_run(rows, cfg)
 
     # phase 6: the ring's partial kernels at the ring blocks of phase 7 (the

@@ -47,6 +47,7 @@ def test_importing_serving_and_cli_loads_no_jax():
         "import vit_ae_plus_plus_torch.pipelines.probe_kfold, vit_ae_plus_plus_torch.utils.metrics\n"
         "import vit_ae_plus_plus_torch.pipelines.resnet_kfold, vit_ae_plus_plus_torch.pipelines.eval_classical\n"
         "import vit_ae_plus_plus_torch.models.resnet3d, vit_ae_plus_plus_torch.utils.libsvm\n"
+        "import vit_ae_plus_plus_torch.models.moco, vit_ae_plus_plus_torch.pipelines.moco_kfold\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -151,3 +152,29 @@ def test_libsvm_builds_from_the_ports_sources_into_its_build_dir():
     assert libsvm.library_path().parent == libsvm.BUILD_DIR
     assert "-ffp-contract=off" in libsvm.GXX_FLAGS
     assert not any(f.startswith(("-ffast-math", "-march", "-Ofast")) for f in libsvm.GXX_FLAGS)
+
+
+def test_moco_refuses_before_any_file_is_read(monkeypatch, tmp_path):
+    """`moco_kfold` refuses FSDP, more than one device and a mesh with
+    `NotImplementedError`, and a default device without CUDA with
+    `RuntimeError`, before it reads the (missing) data or writes the work
+    dir; `moco_extract` refuses the missing card likewise."""
+    from vit_ae_plus_plus_torch.configs import DataConfig, TrainConfig
+    from vit_ae_plus_plus_torch.pipelines.moco_kfold import moco_extract, moco_kfold
+
+    data_cfg = DataConfig(base_path=str(tmp_path / "no_data"))
+    work = tmp_path / "w"
+    refused = ({"fsdp": True}, {"n_devices": 2}, {"mesh": object()}, {"train_cfg": TrainConfig(fsdp=True)},
+               {"train_cfg": TrainConfig(mesh_shape=(2,))})
+    for kw in refused:
+        train_cfg = kw.pop("train_cfg", TrainConfig())
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+            moco_kfold(data_cfg, train_cfg, str(work), device="cpu", **kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        moco_kfold(data_cfg, TrainConfig(), str(work))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        moco_extract(data_cfg, str(tmp_path / "none.pth"), str(work))
+    assert {p.name for p in work.iterdir()} <= {".writer.lock"}  # nothing written but the lock
+    with pytest.raises(FileNotFoundError):  # on the CPU it goes on, to the data
+        moco_kfold(data_cfg, TrainConfig(), str(work), device="cpu")

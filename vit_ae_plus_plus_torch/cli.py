@@ -18,10 +18,14 @@
         --feature-dir run1/ssl_features_dir [--n-splits 5] [--method svm]
     python -m vit_ae_plus_plus_torch.cli resnet-kfold --data-path splits \
         --work-dir resnet1 [--eval-only]
+    python -m vit_ae_plus_plus_torch.cli moco-kfold --data-path splits \
+        --work-dir moco1 [--moco-arch vit|resnet]
+    python -m vit_ae_plus_plus_torch.cli moco-extract --data-path splits \
+        --work-dir feats --checkpoint moco1 [--fold K]
 
 `serve`, `prepare-data`, `pretrain-kfold`, `extract-features`,
 `probe-kfold`, `finetune-kfold`, `finetune`, `eval-classical` (`--method
-svm`) and `resnet-kfold` are ported so far. Every ViT checkpoint they read
+svm`), `resnet-kfold`, `moco-kfold` and `moco-extract` are ported so far. Every ViT checkpoint they read
 is a reference-layout `.pth`, as the JAX package's `export-torch` and this
 package's `pretrain-kfold` write it. All but `prepare-data` and
 `eval-classical` run on `cuda` unless `--device cpu` is given.
@@ -115,6 +119,8 @@ def build_parser() -> argparse.ArgumentParser:
         "finetune": "single-run fine-tune over the train/val/test splits "
                     "(pipelines/finetune.py)",
         "resnet-kfold": "supervised 3D-ResNet k-fold baseline (pipelines/resnet_kfold.py)",
+        "moco-kfold": "MoCo-v3 k-fold pretraining and per-fold trunk features (pipelines/moco_kfold.py)",
+        "moco-extract": "trunk features of MoCo checkpoints without training (pipelines/moco_kfold.py)",
     }
     for name, text in helps.items():
         p = sub.add_parser(name, help=text)
@@ -131,6 +137,19 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument("--fix-backbone", action="store_true")
             p.add_argument("--use-mixup", action="store_true")
             p.add_argument("--eval-only", action="store_true")
+        if name == "moco-kfold":
+            p.add_argument("--fsdp", action="store_true",
+                           help="both encoders and the LARS traces sharded (not ported yet: refused)")
+        if name in ("moco-kfold", "moco-extract"):
+            p.add_argument("--moco-arch", default="vit", choices=["vit", "resnet"],
+                           help="MoCo trunk (reference builder.py:101-124)")
+            p.add_argument("--resnet-depth", type=int, default=10)
+            p.add_argument("--moco-dim", type=int, default=256)
+            p.add_argument("--moco-mlp-dim", type=int, default=4096)
+        if name == "moco-extract":
+            p.add_argument("--checkpoint", required=True,
+                           help="a moco-kfold work dir, or one checkpoint (.pth)")
+            p.add_argument("--fold", type=int, default=None)
         if name == "extract-features":
             p.add_argument("--checkpoint", required=True, help="MAE checkpoint (.pth)")
             p.add_argument("--only-test-split", action="store_true")
@@ -322,6 +341,23 @@ def main(argv=None) -> int:
         data_cfg, train_cfg = configs_from_args(args)
         out = resnet_kfold(data_cfg, train_cfg, args.work_dir, n_splits=args.n_splits, eval_only=args.eval_only,
                            n_devices=args.n_devices, device=args.device)
+        print(json.dumps(out, default=str))
+    elif args.cmd == "moco-kfold":
+        from vit_ae_plus_plus_torch.pipelines.moco_kfold import moco_kfold
+
+        data_cfg, train_cfg = configs_from_args(args)
+        out = moco_kfold(data_cfg, train_cfg, args.work_dir, n_splits=args.n_splits, arch=args.moco_arch,
+                         resnet_depth=args.resnet_depth, moco_dim=args.moco_dim, moco_mlp_dim=args.moco_mlp_dim,
+                         fsdp=args.fsdp, n_devices=args.n_devices, device=args.device)
+        print(json.dumps(out, default=str))
+    elif args.cmd == "moco-extract":
+        from vit_ae_plus_plus_torch.pipelines.moco_kfold import moco_extract
+
+        data_cfg, _ = configs_from_args(args)
+        out = moco_extract(data_cfg, args.checkpoint, args.work_dir, batch_size=args.batch_size,
+                           arch=args.moco_arch, resnet_depth=args.resnet_depth, moco_dim=args.moco_dim,
+                           moco_mlp_dim=args.moco_mlp_dim, n_splits=args.n_splits, fold_idx=args.fold,
+                           compute_dtype=args.compute_dtype, device=args.device)
         print(json.dumps(out, default=str))
     elif args.cmd == "eval-classical":
         from vit_ae_plus_plus_torch.pipelines.eval_classical import evaluate_features

@@ -179,27 +179,42 @@ class ResNet3D(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """The JAX package's initialisers, drawn on the host from
-        `generator` in module order: each convolution a normal truncated at
-        two deviations with variance 2 / fan-out (fan-out = out channels x
-        kernel volume), the head one with variance 1 / fan-in and a zero
-        bias, BatchNorm at scale 1, bias 0, mean 0, variance 1."""
+        `generator` in module order: each convolution as `init_conv`, the
+        head a normal truncated at two deviations with variance 1 / fan-in
+        and a zero bias, BatchNorm as `init_batchnorm`."""
         for module in self.modules():
             if isinstance(module, nn.Conv3d):
-                fan_out = module.weight.shape[0] * math.prod(module.weight.shape[2:])
-                std = math.sqrt(2.0 / fan_out) / _TRUNC_STD
+                init_conv(module, generator)
             elif isinstance(module, nn.Linear):
-                std = math.sqrt(1.0 / module.weight.shape[1]) / _TRUNC_STD
                 module.bias.zero_()
-            else:
-                if isinstance(module, FlaxBatchNorm):
-                    module.weight.fill_(1.0)
-                    module.bias.zero_()
-                    module.running_mean.zero_()
-                    module.running_var.fill_(1.0)
-                continue
-            w = torch.empty(module.weight.shape)
-            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-            module.weight.copy_(std * w)
+                _trunc_normal(module.weight, math.sqrt(1.0 / module.weight.shape[1]), generator)
+            elif isinstance(module, FlaxBatchNorm):
+                init_batchnorm(module)
+
+
+def _trunc_normal(weight: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """`weight` <- a normal of deviation `std` truncated at two deviations
+    (jax.nn.initializers' truncated normal), drawn on the host."""
+    w = torch.empty(weight.shape)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    weight.copy_(std / _TRUNC_STD * w)
+
+
+@torch.no_grad()
+def init_conv(conv: nn.Conv3d, generator: torch.Generator) -> None:
+    """A convolution's init in the JAX package: truncated normal with
+    variance 2 / fan-out (fan-out = out channels x kernel volume)."""
+    fan_out = conv.weight.shape[0] * math.prod(conv.weight.shape[2:])
+    _trunc_normal(conv.weight, math.sqrt(2.0 / fan_out), generator)
+
+
+@torch.no_grad()
+def init_batchnorm(bn: FlaxBatchNorm) -> None:
+    """BatchNorm at its identity: scale 1, bias 0, mean 0, variance 1."""
+    bn.weight.fill_(1.0)
+    bn.bias.zero_()
+    bn.running_mean.zero_()
+    bn.running_var.fill_(1.0)
 
 
 def generate_model(model_depth: int, n_classes: int = 2, n_input_channels: int = 1, **kw) -> ResNet3D:

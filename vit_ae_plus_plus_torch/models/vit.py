@@ -48,10 +48,23 @@ def compute_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def _dense(x: torch.Tensor, weight: torch.Tensor, bias) -> torch.Tensor:
+    """x W^T + b in x's dtype over f32 parameters, rounded where flax's Dense
+    rounds: below f32 the product is rounded to x's dtype before the bias
+    is added (two roundings, where a bias fused into the product makes
+    one); in f32 and f64 the fused bias differs from that by one rounding
+    of the sum and saves a pass."""
+    w = weight.to(x.dtype)
+    if bias is None:
+        return F.linear(x, w)
+    if x.dtype.itemsize < 4:
+        return F.linear(x, w) + bias.to(x.dtype)
+    return F.linear(x, w, bias.to(x.dtype))
+
+
 def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """Dense in x's dtype over f32 parameters."""
-    bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.linear(x, layer.weight.to(x.dtype), bias)
+    """Dense in x's dtype over f32 parameters (`_dense`)."""
+    return _dense(x, layer.weight, layer.bias)
 
 
 def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -202,7 +215,7 @@ class PatchEmbed3D(nn.Module):
     def forward(self, volume: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         x = patchify(volume.to(dtype), self.patch_size)
         w = self.proj.weight.permute(0, 2, 3, 4, 1).reshape(self.proj.out_channels, -1)
-        return F.linear(x, w.to(dtype), self.proj.bias.to(dtype))
+        return _dense(x, w, self.proj.bias)
 
 
 class VisionTransformer3D(nn.Module):

@@ -17,9 +17,9 @@ the previous file whole:
 The weight bridge reads exactly two inputs:
 
 - `params_from_jax(tree, patch_size, in_chans, batch_stats)`: a JAX param
-  tree (MAE, ViT or 3D ResNet) and its flax `batch_stats` tree (the
-  contrastive heads', the ResNet's), as nested dicts of arrays, e.g.
-  loaded by the JAX package and passed on as numpy;
+  tree (MAE, ViT, 3D ResNet or MoCo) and its flax `batch_stats` tree (the
+  contrastive heads', the ResNet's, the MoCo heads'), as nested dicts of
+  arrays, e.g. loaded by the JAX package and passed on as numpy;
 - `load_reference_state_dict(path)`: the `.pth` that the JAX package's
   `export-torch` command writes (`export_mae_torch_state_dict` + `torch.save`),
   or this package's `checkpoint-min_loss.pth`.
@@ -29,7 +29,12 @@ port's parameter names. The ViT mapping is this package's own copy of the
 JAX package's `export_torch_state_dict` (train/checkpoint.py there); the
 ResNet's follows flax's module order (Conv_k, BatchNorm_k and the blocks
 numbered through all four stages) onto the reference's `conv1`, `bn1`,
-`layer{s}.{b}.conv{i}` / `bn{i}` / `downsample.{0,1}` and `fc`.
+`layer{s}.{b}.conv{i}` / `bn{i}` / `downsample.{0,1}` and `fc`. A MoCo
+tree (top-level `trunk`, `projector`, `predictor`) goes to the reference
+MoCo layout: the trunk under `base_encoder.`, the projector where the
+reference grafts it (`base_encoder.head.` on a ViT, `base_encoder.fc.` on a
+ResNet), the predictor under `predictor.`, each head's `Dense_l` /
+`BatchNorm_l` at Sequential index 3l / 3l + 1.
 """
 
 from __future__ import annotations
@@ -148,6 +153,32 @@ def _resnet_state_dict(tree: Dict, batch_stats: Optional[Dict]) -> Dict[str, tor
     return sd
 
 
+def _moco_head(tree: Dict, stats: Dict, prefix: str) -> Dict[str, torch.Tensor]:
+    """A MoCoMLP's flax leaves (Dense_l kernel, BatchNorm_l scale / bias /
+    mean / var) -> `prefix{3l}.weight`, `prefix{3l+1}.{weight,bias,
+    running_mean,running_var}`."""
+    names = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+    sd: Dict[str, torch.Tensor] = {}
+    for source in (tree, stats):
+        for (layer, leaf), w in _flatten(source):
+            kind, i = layer.rsplit("_", 1)
+            idx = 3 * int(i) + (0 if kind == "Dense" else 1)
+            w = np.asarray(w)
+            sd[f"{prefix}{idx}.{names[leaf]}"] = torch.from_numpy(np.array(w.T if leaf == "kernel" else w))
+    return sd
+
+
+def _moco_state_dict(tree: Dict, patch_size: Optional[int], in_chans: int,
+                     batch_stats: Optional[Dict]) -> Dict[str, torch.Tensor]:
+    stats = batch_stats or {}
+    trunk = params_from_jax(tree["trunk"], patch_size, in_chans, stats.get("trunk"))
+    projector = "base_encoder.fc." if "Conv_0" in tree["trunk"] else "base_encoder.head."
+    sd = {f"base_encoder.{k}": v for k, v in trunk.items()}
+    sd.update(_moco_head(tree["projector"], stats.get("projector", {}), projector))
+    sd.update(_moco_head(tree["predictor"], stats.get("predictor", {}), "predictor."))
+    return sd
+
+
 def params_from_jax(
     tree: Dict, patch_size: Optional[int] = None, in_chans: int = 1, batch_stats: Optional[Dict] = None
 ) -> Dict[str, torch.Tensor]:
@@ -157,7 +188,11 @@ def params_from_jax(
     `running_var`). For a ViT tree, `patch_size` and `in_chans` unfold the
     (p^3*C, D) patch-embed kernel into the Conv3d layout; a ResNet tree
     (top-level `Conv_0`) needs neither: its conv kernels go from (kd, kh,
-    kw, cin, cout) to (cout, cin, kd, kh, kw)."""
+    kw, cin, cout) to (cout, cin, kd, kh, kw); a MoCo tree (top-level
+    `trunk`, `projector`, `predictor`, either trunk) takes its trunk's
+    arguments."""
+    if "trunk" in tree and "projector" in tree:
+        return _moco_state_dict(tree, patch_size, in_chans, batch_stats)
     if "Conv_0" in tree:
         return _resnet_state_dict(tree, batch_stats)
     if patch_size is None:

@@ -20,7 +20,11 @@ frozen backbone of its pipelines/finetune.py), with optax's semantics:
   dampening 0; a frozen backbone trains only the classifier head, and the
   optimizer's update count advances with the head's updates;
 - Adam with torch's defaults (0.9, 0.999, eps 1e-8, no weight decay) for
-  the supervised ResNet, optax's `adam` under a schedule.
+  the supervised ResNet, optax's `adam` under a schedule;
+- LARS for the MoCo baseline, the JAX package's optax chain and not a
+  stock LARS: decay and trust ratio on the ndim > 1 parameters, a trace of
+  the raw updates, then the learning rate of the update's count over the
+  whole trace (`make_lars`).
 """
 
 from __future__ import annotations
@@ -251,5 +255,75 @@ def freeze_backbone_tx(inner: Callable[[nn.Module], object]) -> Callable[[nn.Mod
         n_train = sum(p.requires_grad for p in model.parameters())
         assert n_train == 2, f"expected exactly 2 trainable tensors, got {n_train}"
         return inner(model)
+
+    return init
+
+
+class _LarsChain(torch.optim.Optimizer):
+    """The JAX package's LARS chain as one torch optimizer, in optax's order:
+    for a group with `decay`, u = g + wd * p, then u * (tc * |p| / |u|), the
+    ratio 1 where either norm is 0 (the norms over the whole tensor);
+    u = g otherwise; then trace = u + momentum * trace, p = p + (-lr) *
+    trace. Each product is rounded on its own, as optax rounds it."""
+
+    def __init__(self, groups, lr: float, weight_decay: float, momentum: float, trust_coefficient: float):
+        super().__init__(groups, dict(lr=lr, weight_decay=weight_decay, momentum=momentum,
+                                      trust_coefficient=trust_coefficient, decay=False))
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for group in self.param_groups:
+            params = group["params"]
+            if not params:
+                continue
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            if group["decay"]:
+                u = torch._foreach_add(grads, torch._foreach_mul(params, group["weight_decay"]))
+                p_norm = torch.stack(torch._foreach_norm(params))
+                u_norm = torch.stack(torch._foreach_norm(u))
+                ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                                    group["trust_coefficient"] * p_norm / u_norm)
+                torch._foreach_mul_(u, list(ratio.unbind(0)))
+            else:
+                u = grads
+            traces = []
+            for p in params:
+                if "trace" not in self.state[p]:
+                    self.state[p]["trace"] = torch.zeros_like(p)
+                traces.append(self.state[p]["trace"])
+            torch._foreach_mul_(traces, group["momentum"])
+            torch._foreach_add_(traces, u)
+            torch._foreach_add_(params, torch._foreach_mul(traces, -group["lr"]))
+
+
+class LARS(SGD):
+    """The JAX package's `make_lars` chain over a module's trainable
+    parameters (`_LarsChain`), at the learning rate of the update's count:
+    decay and trust ratio on the parameters `weight_decay_mask` picks
+    (ndim > 1: weight matrices, the patch embed's Conv3d weight, cls_token
+    and pos_embed), the trace over all of them."""
+
+    def __init__(self, model: nn.Module, learning_rate: Union[Schedule, float], weight_decay: float = 1e-6,
+                 momentum: float = 0.9, trust_coefficient: float = 0.001):
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        decay = weight_decay_mask(named)
+        self.params = [p for _, p in named]
+        self.schedule = learning_rate if callable(learning_rate) else (lambda _k: learning_rate)
+        self.count = 0
+        self.opt = _LarsChain(
+            [{"params": [p for n, p in named if decay[n] == want], "decay": want} for want in (True, False)],
+            lr=self.schedule(0), weight_decay=weight_decay, momentum=momentum, trust_coefficient=trust_coefficient,
+        )
+
+
+def make_lars(learning_rate: Union[Schedule, float], weight_decay: float = 1e-6, momentum: float = 0.9,
+              trust_coefficient: float = 0.001) -> Callable[[nn.Module], LARS]:
+    """LARS for the MoCo baseline (moco/optimizer.py:10-43, the JAX
+    package's `make_lars`): a recipe. Under a per-step schedule the trace of
+    raw updates, rescaled by each step's learning rate, is what separates
+    it from optax's `lars`, whose trace accumulates lr-scaled steps."""
+
+    def init(model: nn.Module) -> LARS:
+        return LARS(model, learning_rate, weight_decay, momentum, trust_coefficient)
 
     return init
