@@ -15,13 +15,15 @@
   in f32; BatchNorm's output rounded to bf16, where a BatchNorm output is
   not rounded next anyway) must miss.
 - `info_nce` and `moco_loss` in f64 (loss and the base encoder's running
-  statistics within 1e-12).
+  statistics within 1e-12), JAX's `moco_loss` read through its jitted step
+  with m = 1, which the trajectory below shares.
 - 10 f64 steps of `make_moco_train_step` with the cosine m and a warmup,
   against the JAX package's jitted step from the same weights and views:
   losses within 1e-9 relative at every step; base parameters, momentum
   parameters and both sets of BatchNorm statistics within rtol 1e-9 /
   atol 1e-11 (tests/test_moco_trajectory.py's limits). The control, the
-  EMA applied after the optimizer step (m one step late), must miss.
+  EMA applied after the optimizer step (m one step late), must miss after
+  3 steps.
 
 Sizes: ViT depth 2, width 24, 3 heads, 16^3 volumes at patch 4; heads of
 mlp_dim 16 and dim 8; ResNet-10 at a quarter width; batch 4.
@@ -104,11 +106,16 @@ def _port_model(arch, dtype="float32"):
                                 vit_overrides=VIT)
 
 
-def _seeded_variables(model, dtype, seed):
+@functools.lru_cache
+def _shapes(arch):
+    model = _jax_model(arch)
+    return jax.eval_shape(functools.partial(model.init, use_predictor=True), {"params": jax.random.PRNGKey(0)},
+                          jnp.zeros((B, 1, VOL, VOL, VOL), jnp.float32))
+
+
+def _seeded_variables(arch, dtype, seed):
     """Numpy values for every leaf of the JAX model's variables: kernels at
     their init scale, scales and variances around 1, the rest small."""
-    shapes = jax.eval_shape(functools.partial(model.init, use_predictor=True), {"params": jax.random.PRNGKey(0)},
-                            jnp.zeros((B, 1, VOL, VOL, VOL)))
     rng = np.random.default_rng(seed)
 
     def draw(path, leaf):
@@ -120,7 +127,7 @@ def _seeded_variables(model, dtype, seed):
             return rng.uniform(0.5, 1.5, leaf.shape)
         return 0.1 * rng.standard_normal(leaf.shape)  # biases, means, tokens
 
-    return jax.tree_util.tree_map_with_path(lambda p, leaf: draw(p, leaf).astype(dtype), shapes)
+    return jax.tree_util.tree_map_with_path(lambda p, leaf: draw(p, leaf).astype(dtype), _shapes(arch))
 
 
 def _load(model, variables, dtype=torch.float32):
@@ -183,7 +190,7 @@ def test_moco_models_match_jax_f32(arch, narrow_resnet):
     eval mode: q = predictor(projector(trunk)), z = projector(trunk), the
     trunk features; the running statistics after one training forward."""
     jmodel = _jax_model(arch)
-    variables = _seeded_variables(jmodel, np.float32, seed=11)
+    variables = _seeded_variables(arch, np.float32, seed=11)
     x = _vols(12)
 
     def jax_fn(v, x):
@@ -285,9 +292,35 @@ def test_moco_heads_bf16_match_jax(head):
         assert not all(errs[k] <= BF16_TOL[k] for k in BF16_TOL), (control, errs)
 
 
-# ---------------------------------------------------------------- loss
+# ---------------------------------------------------------------- loss and trajectory
 
-def test_info_nce_and_moco_loss_match_jax_f64(x64):
+STEPS, SPE, EPOCHS, WARMUP, LR, WD, MOCO_M = 10, 2, 5, 2, 0.05, 0.01, 0.9
+CONTROL_STEPS = 3  # the EMA-late control: lr is 0 at step 0, so it shows from step 2 on
+
+
+@pytest.fixture(scope="module")
+def jax_f64():
+    """The JAX package's f64 MoCo-ViT, its LARS and its jitted
+    `make_moco_train_step` (temperature 1), compiled once for the loss and
+    the trajectory."""
+    jmodel = _jax_model("vit", "float64")
+    tx = jax_make_lars(jax_schedule(LR, 0.0, WARMUP, EPOCHS, SPE), weight_decay=WD)
+    return jmodel, tx, jmk.make_moco_train_step(jmodel)
+
+
+def _jax_state(tx, base, mom):
+    copy = lambda tree: jax.tree.map(jnp.array, tree)  # noqa: E731  (the step donates its state)
+    return jmk.MoCoState(step=jnp.zeros((), jnp.int32), params=copy(base["params"]),
+                         batch_stats=copy(base["batch_stats"]), momentum_params=copy(mom["params"]),
+                         momentum_batch_stats=copy(mom["batch_stats"]), opt_state=tx.init(copy(base["params"])),
+                         tx=tx)
+
+
+def test_info_nce_and_moco_loss_match_jax_f64(x64, jax_f64):
+    """`info_nce` at two temperatures; `moco_loss` with a momentum encoder
+    of other weights: JAX's through its jitted step with m = 1 (the EMA
+    then keeps the momentum parameters as they are), its loss and the base
+    encoder's running statistics after the two base passes."""
     rng = np.random.default_rng(31)
     q, k = rng.standard_normal((2, 6, DIM))
     for t in (1.0, 0.2):
@@ -295,23 +328,19 @@ def test_info_nce_and_moco_loss_match_jax_f64(x64):
         got = float(tm.info_nce(torch.from_numpy(q), torch.from_numpy(k), t))
         assert abs(got - want) <= 1e-12 * abs(want), t
 
-    jmodel = _jax_model("vit", "float64")
-    base = _seeded_variables(jmodel, np.float64, seed=32)
-    mom = _seeded_variables(jmodel, np.float64, seed=33)
+    _, tx, jstep = jax_f64
+    base = _seeded_variables("vit", np.float64, seed=32)
+    mom = _seeded_variables("vit", np.float64, seed=33)
     x1, x2 = _vols(34).astype(np.float64), _vols(35).astype(np.float64)
-    want, new_bs = jax.jit(lambda b, m, x1, x2: jm.moco_loss(jmodel, b, m, x1, x2, 0.5))(base, mom, x1, x2)
+    jstate, metrics = jstep(_jax_state(tx, base, mom), jnp.asarray(x1), jnp.asarray(x2), jnp.float32(1.0))
+    want = float(metrics["loss"])
     model = _load(_port_model("vit", "float64"), base, torch.float64)
     mom_model = _load(_port_model("vit", "float64"), mom, torch.float64)
-    got = tm.moco_loss(model, mom_model.base_encoder, torch.from_numpy(x1), torch.from_numpy(x2), 0.5)
-    assert abs(float(got) - float(want)) <= 1e-12 * abs(float(want))
-    want_sd = params_from_jax(base["params"], PATCH, 1, jax.device_get(new_bs))
+    got = tm.moco_loss(model, mom_model.base_encoder, torch.from_numpy(x1), torch.from_numpy(x2), 1.0)
+    assert abs(float(got.detach()) - want) <= 1e-12 * abs(want)
+    want_sd = params_from_jax(base["params"], PATCH, 1, jax.device_get(jstate.batch_stats))
     for key, value in model.state_dict().items():
         assert _rel(value, want_sd[key]) <= 1e-12, key
-
-
-# ---------------------------------------------------------------- trajectory
-
-STEPS, SPE, EPOCHS, WARMUP, LR, WD, MOCO_M = 10, 2, 5, 2, 0.05, 0.01, 0.9
 
 
 def _worst(got: dict, want: dict, rtol=1e-9, atol=1e-11):
@@ -349,8 +378,8 @@ def _late_ema_step(model, temperature=1.0):
     return step
 
 
-def test_moco_trajectory_matches_jax_f64(x64):
-    jmodel = _jax_model("vit", "float64")
+def test_moco_trajectory_matches_jax_f64(x64, jax_f64):
+    jmodel, tx, jstep = jax_f64
     rng = np.random.default_rng(23)
     x1, x2 = rng.standard_normal((2, STEPS, B, 1, VOL, VOL, VOL))
     init = jax.jit(functools.partial(jmodel.init, use_predictor=True))
@@ -358,28 +387,32 @@ def test_moco_trajectory_matches_jax_f64(x64):
     variables = jax.tree.map(lambda v: np.asarray(v, np.float64), variables)
     ms = [jmk.adjust_moco_momentum(i / SPE, MOCO_M, EPOCHS) for i in range(STEPS)]
 
-    tx = jax_make_lars(jax_schedule(LR, 0.0, WARMUP, EPOCHS, SPE), weight_decay=WD)
-    copy = lambda tree: jax.tree.map(jnp.array, tree)  # noqa: E731  (the step donates its state)
-    jstate = jmk.MoCoState(step=jnp.zeros((), jnp.int32), params=copy(variables["params"]),
-                           batch_stats=copy(variables["batch_stats"]), momentum_params=copy(variables["params"]),
-                           momentum_batch_stats=copy(variables["batch_stats"]),
-                           opt_state=tx.init(copy(variables["params"])), tx=tx)
-    jstep = jmk.make_moco_train_step(jmodel)
+    def momentum(jstate) -> dict:
+        """The momentum encoder, trunk and projector, parameters and
+        statistics (JAX's momentum tree also carries an unused predictor
+        copy)."""
+        jstate = jax.device_get(jstate)
+        sd = params_from_jax(jstate.momentum_params, PATCH, 1, jstate.momentum_batch_stats)
+        return {k: v for k, v in sd.items() if k.startswith("base_encoder.")}
+
+    jstate = _jax_state(tx, variables, variables)
     want_losses = []
     for i in range(STEPS):
         jstate, metrics = jstep(jstate, jnp.asarray(x1[i]), jnp.asarray(x2[i]), jnp.float32(ms[i]))
         want_losses.append(float(metrics["loss"]))
+        if i + 1 == CONTROL_STEPS:
+            want_mom_early = momentum(jstate)
+    want_mom = momentum(jstate)
     jstate = jax.device_get(jstate)
     want_base = params_from_jax(jstate.params, PATCH, 1, jstate.batch_stats)
-    want_mom = params_from_jax(jstate.momentum_params, PATCH, 1, jstate.momentum_batch_stats)
 
-    def run(make_step):
+    def run(make_step, steps=STEPS):
         model = _load(_port_model("vit", "float64"), variables, torch.float64)
         state = tmk.create_moco_state(model, make_lars(warmup_cosine_schedule(LR, 0.0, WARMUP, EPOCHS, SPE),
                                                        weight_decay=WD))
         step = make_step(model)
         losses = []
-        for i in range(STEPS):
+        for i in range(steps):
             state, metrics = step(state, torch.from_numpy(x1[i]), torch.from_numpy(x2[i]), ms[i])
             losses.append(float(metrics["loss"]))
         mom = {f"base_encoder.{k}": v for k, v in state.momentum_encoder.state_dict().items()}
@@ -391,13 +424,10 @@ def test_moco_trajectory_matches_jax_f64(x64):
     assert set(base) == set(want_base)
     err = _worst(base, want_base)
     assert err[0] < 1, f"base parameters and statistics: {err}"
-    # the momentum encoder: trunk and projector, parameters and statistics
-    # (JAX's momentum tree also carries an unused predictor copy)
-    want_mom = {k: v for k, v in want_mom.items() if k.startswith("base_encoder.")}
     assert set(mom) == set(want_mom)
     err = _worst(mom, want_mom)
     assert err[0] < 1, f"momentum encoder: {err}"
 
-    _, _, late = run(_late_ema_step)
-    err = _worst(late, want_mom)
+    _, _, late = run(_late_ema_step, CONTROL_STEPS)
+    err = _worst(late, want_mom_early)
     assert err[0] > 1, f"the EMA one step late went unseen: {err}"

@@ -11,7 +11,7 @@ the CPU.
   24, patch 4; the heads mlp_dim 16, dim 8; the ResNet-10 a quarter wide.
 - Kill and resume (transform-free, as in test_torch_port_pretrain_resume.py:
   augmentation draws restart with the process): a run killed after epoch
-  1's resume state and resumed equals an uninterrupted one bitwise (rows,
+  0's resume state and resumed equals an uninterrupted one bitwise (rows,
   min-loss weights, features), and `ckpt_every` 2 equals 1 bitwise.
 - `moco_extract` on a work dir (every fold, then `fold_idx`) rewrites
   `moco_kfold`'s own dumps bitwise; on one `.pth` it extracts the whole
@@ -52,8 +52,9 @@ MOCO = dict(moco_dim=DIM, moco_mlp_dim=MLP_DIM, vit_overrides=VIT)
 LOSS_RTOL, FEAT_TOL = 1e-5, 1e-4
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
+    """Module-wide, so that it holds in the module-scoped `runs` too."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -101,15 +102,42 @@ def _narrow(arch):
         yield mp
 
 
+class _JaxOnce:
+    """`jax` as the JAX pipeline module sees it, but `jit` compiles a
+    function once for its code and what it closes over (by repr): the
+    extraction re-creates its jitted lambda over the same model on every
+    call."""
+
+    def __init__(self):
+        self.jitted = {}
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+    def jit(self, fn, **kwargs):
+        key = (fn.__code__, tuple(repr(c.cell_contents) for c in fn.__closure__ or ()), repr(sorted(kwargs.items())))
+        if key not in self.jitted:
+            self.jitted[key] = jax.jit(fn, **kwargs)
+        return self.jitted[key]
+
+
 def _jax_fast(mp, inits, saved):
     """The JAX package's pipeline as it runs, compiled once: its model's
-    init jitted (and recorded into `inits`), one step for every fold (the
-    fold's schedule, optimizer and jitted step built once), and its orbax
-    checkpoints held in memory by path."""
+    init jitted (and recorded into `inits`; the extraction's init of one
+    volume, of which its caller reads only the shapes, given the zeros of
+    the recorded one), one step for every fold (the fold's schedule,
+    optimizer and jitted step built once), the extraction's jitted trunk
+    compiled once (`_JaxOnce`), and its orbax checkpoints held in memory by
+    path."""
     real_build, real_step = jmk.build_moco_model, jmk.make_moco_train_step
 
     def build(*args, **kwargs):
-        model = real_build(*args, **kwargs)
+        key = repr((args, sorted(kwargs.items())))
+        if key not in _JAX_MODELS:
+            _JAX_MODELS[key] = recorded(real_build(*args, **kwargs))
+        return _JAX_MODELS[key]
+
+    def recorded(model):
         init = jax.jit(functools.partial(model.init, use_predictor=True))
 
         class Recorded:
@@ -117,6 +145,8 @@ def _jax_fast(mp, inits, saved):
                 return getattr(model, name)
 
             def init(self, rngs, x, use_predictor=True):
+                if x.shape[0] == 1 and inits:
+                    return jax.tree.map(np.zeros_like, inits[0])
                 inits.append(jax.tree.map(np.asarray, init(rngs, x)))
                 return inits[-1]
 
@@ -134,6 +164,11 @@ def _jax_fast(mp, inits, saved):
     mp.setattr(jmk, "warmup_cosine_schedule", functools.lru_cache()(jmk.warmup_cosine_schedule))
     mp.setattr(jmk, "make_lars", functools.lru_cache()(jmk.make_lars))
     mp.setattr(jmk, "default_ssl_transforms", lambda: jt.default_ssl_transforms(native="never"))
+    mp.setattr(jmk, "jax", _JAX_ONCE)
+
+
+_JAX_ONCE = _JaxOnce()
+_JAX_MODELS = {}  # one JAX model (and so one compile of its init and trunk) per configuration
 
 
 @pytest.fixture(scope="module", params=["vit", "resnet"])
@@ -238,7 +273,7 @@ class _Killed(Exception):
 
 def _port_run(data_dir, work, **train):
     _, (td, tc) = _configs(data_dir, **train)
-    return tmk.moco_kfold(td, tc, str(work), n_splits=FOLDS, epochs=3, device="cpu", **MOCO)
+    return tmk.moco_kfold(td, tc, str(work), n_splits=FOLDS, device="cpu", **MOCO)
 
 
 def _outputs(work):
@@ -260,20 +295,20 @@ def test_killed_run_resumes_bitwise_and_ckpt_every(data_dir, tmp_path, monkeypat
     whole = _port_run(data_dir, tmp_path / "whole", resume=True)
     real = tmk.save_resume
 
-    def killed_after_epoch_1(path, state, epoch, min_loss):
+    def killed_after_epoch_0(path, state, epoch, min_loss):
         real(path, state, epoch, min_loss)
-        if epoch == 1:
+        if epoch == 0:
             raise _Killed
 
-    monkeypatch.setattr(tmk, "save_resume", killed_after_epoch_1)
+    monkeypatch.setattr(tmk, "save_resume", killed_after_epoch_0)
     with pytest.raises(_Killed):
         _port_run(data_dir, tmp_path / "killed", resume=True)
-    assert [r["epoch"] for r in _rows(tmp_path / "killed" / "log.txt")] == [0, 1]
+    assert [r["epoch"] for r in _rows(tmp_path / "killed" / "log.txt")] == [0]
     monkeypatch.setattr(tmk, "save_resume", real)
     assert _port_run(data_dir, tmp_path / "killed", resume=True) == whole
     resumed, want = _outputs(tmp_path / "killed"), _outputs(tmp_path / "whole")
-    # fold 0 resumed at epoch 2 after the killed run's rows for 0 and 1
-    assert [(r["fold"], r["epoch"]) for r in resumed[0]] == [(0, e) for e in range(3)] + [(1, e) for e in range(3)]
+    # fold 0 resumed at epoch 1 after the killed run's row for epoch 0
+    assert [(r["fold"], r["epoch"]) for r in resumed[0]] == [(k, e) for k in range(FOLDS) for e in range(EPOCHS)]
     _assert_same(resumed, want)
     assert sorted(os.listdir(tmp_path / "killed" / "checkpoints" / "fold_0")) == [
         "checkpoint-min_loss.pth", "resume-state.pth"]

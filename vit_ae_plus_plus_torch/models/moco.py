@@ -27,7 +27,6 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -96,7 +95,7 @@ class _MoCo(nn.Module):
         return enc
 
     @torch.no_grad()
-    def _init_heads(self, generator: Optional[torch.Generator]) -> None:
+    def _init_heads(self, generator: torch.Generator) -> None:
         """The heads' init in the JAX package: each Linear uniform with
         variance 1 / (3 fan_in) (torch's Linear default, `torch_linear_init`),
         each BatchNorm at scale 1, bias 0, mean 0, variance 1."""
@@ -127,7 +126,7 @@ class MoCoViT3D(_MoCo):
         self.predictor = MoCoMLP(2, dim, mlp_dim, dim, last_bn=True, dtype=dt)
 
     @torch.no_grad()
-    def init_weights(self, generator: Optional[torch.Generator] = None) -> "MoCoViT3D":
+    def init_weights(self, generator: torch.Generator) -> "MoCoViT3D":
         """The JAX package's init: the trunk's Linear weights and the patch
         embed (as its (p^3 C, D) matrix) xavier-uniform with zero biases,
         cls_token and pos_embed N(0, 0.02), LayerNorm 1 / 0; the heads as
@@ -174,8 +173,6 @@ class MoCoResNet3D(_MoCo):
     def init_weights(self, generator: torch.Generator) -> "MoCoResNet3D":
         """The trunk's convolutions and BatchNorms as `ResNet3D.init_weights`,
         the heads as `_init_heads`."""
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
         head_modules = set(self.projector.modules())
         for m in self.base_encoder.modules():
             if m in head_modules:
