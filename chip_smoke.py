@@ -8,9 +8,11 @@ non-zero exit when it fails:
 
 1. print the card and build the CUDA kernels from the repository's sources;
 2. hold every kernel against its plain PyTorch version on the card at the
-   shapes the serving, training and fine-tuning paths give it (and the f32
-   attention backward at the opt-in `_fast` preset's d = 128, which no
-   main path runs), and time kernel, plain
+   shapes the serving, training and fine-tuning paths give it (and at the
+   shapes of the opt-in `contr_mae_vit_base_patch16_fast` preset's step,
+   d = 128: the attention forward in bf16 and f32 and the backward packed
+   in bf16 and f32 and per-head in f32, and in f32 one ring block with a
+   padded key tail), and time kernel, plain
    version and a PyTorch call the port never uses (a yardstick:
    `scaled_dot_product_attention` by the fastest fused backend that takes
    the inputs, named in the row, forward+backward minus forward for the
@@ -43,7 +45,11 @@ non-zero exit when it fails:
    encoder's shape, 8 at the decoder's), then one step with
    attn_impl="flash" (the per-head kernels), one f32 step against f32
    plain and one f32 step with attn_impl="flash" against it (the per-head
-   f32 backward's path); step time, volumes/s, peak memory and a
+   f32 backward's path), then one f32 step of the `_fast` preset (d = 128
+   heads, phase 5's weights and noise) against its f32 plain step (20
+   packed forward and 20 packed backward launches at d = 128: 12 at the
+   encoder's B16 H6 N433, 8 at the decoder's B8 H4 N1729), its device time
+   and profile; step time, volumes/s, peak memory and a
    torch.profiler breakdown of one step's device time as information;
    5b. three bf16 steps with `ln_fusion="on"` against three with "off"
    from the same weights and noise (losses, metrics, five gradients), counts
@@ -132,11 +138,13 @@ non-zero exit when it fails:
    fastest fused backend that takes it named;
    6b. with `--parent DIR` (a checkout of another commit), the f32
    attention backward rows of the training step (its encoder and decoder
-   shapes, packed and per-head) timed in turns against DIR's bodies: each
-   checkout's own case functions in a process of its own, parent, this
-   checkout, this checkout, parent; the rows' `in_turns` hold the four
-   times (null without `--parent`); each turn also times the f32 step
-   (TrainConfig's default dtype), unfused and with `ln_fusion="on"`;
+   shapes and the `_fast` preset's two d = 128 shapes, packed and
+   per-head) timed in turns against DIR's bodies: each checkout's
+   own case functions in a process of its own, parent, this checkout,
+   this checkout, parent; the rows' `in_turns` hold the four times (null
+   without `--parent`); each turn also times the f32 step (TrainConfig's
+   default dtype), unfused and with `ln_fusion="on"`, and the `_fast`
+   preset's f32 step;
 7. a world of 4 spawned ranks on the one card, in one gloo group (NCCL
    takes one rank per device; the kernels stay on the card and the blocks
    travel through pinned host memory), every join bounded: ring and
@@ -149,6 +157,9 @@ non-zero exit when it fails:
    backward launches a rank and step: 48 in the encoder, 32 in the
    decoder), and the parameters after the steps, which must be bitwise
    equal on every rank (the replicated trunk is right only while they are);
+   then one f32 MAE step with "flash_ring" (the f32 ring kernels), held
+   against phase 5's f32 step within STEP_TOL["float32"], its parameters
+   bitwise equal on every rank after it;
 8. print one JSON line of kernels, the card's name and power limit, and as
    the last line `{"ok": true, "device": {...}}`. Each kernel row names
    the CUDA bodies it launched (`body`). Each kernel row's
@@ -185,6 +196,10 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 MODEL = "contr_mae_vit_base_patch16"
+# the opt-in preset of d = 128 heads (6 in the encoder, 4 in the decoder) at
+# MODEL's parameter shapes: phase 5's weights load into it
+FAST_MODEL = "contr_mae_vit_base_patch16_fast"
+FAST_ENC, FAST_DEC = (16, 6, 433, 128), (8, 4, 1729, 128)  # its step's attention shapes (B, H, N, d)
 VOLUME, PATCH, BATCH = 96, 8, 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # dense tensor-core rates of an H100 SXM (NVIDIA data sheet). f32-accurate
@@ -226,8 +241,9 @@ BODIES = {  # (kernel row or attention direction, dtype) -> the CUDA bodies it l
     ("bwd", "bfloat16"): "flash_bwd_delta_kernel + flash_bwd_dkdv_wgmma_kernel + flash_bwd_dq_wgmma_kernel "
                          "(wgmma + TMA)",
     ("bwd", "float32"): "flash_bwd_delta_kernel + flash_bwd_split_kernel + flash_bwd_dkdv_tf32_kernel + "
-                        "flash_bwd_dq_tf32_kernel (3xTF32 on wgmma + TMA; at d = 128, the opt-in fast preset's "
-                        "head dim, flash_bwd_dkdv_f32_kernel + flash_bwd_dq_f32_kernel, scalar)",
+                        "flash_bwd_dq_tf32_kernel (3xTF32 on wgmma + TMA; at d = 128 the dK/dV kernel runs as "
+                        "two, flash_bwd_dkdv_tf32_kernel<128, .., DK=false, DV=true> and <.., DK=true, "
+                        "DV=false>)",
     ("layernorm_fwd", "bfloat16"): "vitae_ln_fwd_kernel",
     ("layernorm_bwd", "bfloat16"): "vitae_ln_rows_bwd_kernel",
     ("ln_dense_fwd", "bfloat16"): "vitae_lnd_fwd_bf16_kernel (wgmma + TMA)",
@@ -614,6 +630,7 @@ def bwd_case(label, layout, b, h, n, d, dtype_name, seed):
         attention_bwd_plain, flash_attention, flash_attention_bwd, packed_attention_bwd_plain,
         packed_flash_attention, packed_flash_attention_bwd,
     )
+    from vit_ae_plus_plus_torch.kernels.flash_attention import bwd_scratch_bytes
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -645,8 +662,12 @@ def bwd_case(label, layout, b, h, n, d, dtype_name, seed):
     library = sdpa_calls(heads, scale)
     times = (graph_ms(kernel), graph_ms(plain, calls=3, reps=2), *sdpa_bwd_ms(library, leaves, do_heads))
     torch.cuda.empty_cache()
+    scratch = bwd_scratch_bytes(b, h, n, n, d, dtype)
     row = {"name": "packed_flash_bwd" if layout == "packed" else "flash_bwd", "replaces": BWD_REPLACES[layout],
-           "shape": f"B={b} H={h} N={n} d={d}", "dtype": dtype_name, "key": (b, h, n, d, dtype_name)}
+           "shape": f"B={b} H={h} N={n} d={d}", "dtype": dtype_name, "key": (b, h, n, d, dtype_name),
+           "split_scratch_mb": scratch / 1e6}
+    if scratch:
+        print(f"{label}: the f32 bodies' split scratch {scratch / 1e6:.1f} MB a launch", flush=True)
     elt = torch.empty((), dtype=dtype).element_size()
     return bwd_row(label, row, got, want, times, bound(b, h, n, d, dtype_name, elt, bwd=True))
 
@@ -796,13 +817,13 @@ def layernorm_cases(label, r, c, dtype_name, seed):
     return [fwd, bwd]
 
 
-def ring_case(label, b, h, n, d, shards, seed, full_pad=False):
+def ring_case(label, b, h, n, d, shards, seed, full_pad=False, dtype_name="bfloat16"):
     """Phase 6 for one ring block, forward and backward: rank 0's query rows
     against the last rank's block (where the padded tail lies; K and V pad
     rows are zeros, as the ring pads them) with its key bias, or with every
     key padded (`full_pad`). The backward takes the o and lse of each row
     over the whole sequence, as the merge hands them over. SDPA takes the
-    bias as a bf16 float mask."""
+    bias as a float mask of the operands' dtype."""
     import torch
 
     from vit_ae_plus_plus_torch.kernels import (
@@ -814,7 +835,8 @@ def ring_case(label, b, h, n, d, shards, seed, full_pad=False):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     scale, pn = d**-0.5, padded_len(n, shards)
     nb = pn // shards
-    rand = lambda rows: torch.randn((b, h, rows, d), generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+    dtype = getattr(torch, dtype_name)
+    rand = lambda rows: torch.randn((b, h, rows, d), generator=gen, device="cuda").to(dtype)  # noqa: E731
     q, k, v = (torch.nn.functional.pad(rand(n), (0, 0, 0, pn - n)) for _ in range(3))
     bias = torch.where(torch.arange(pn, device="cuda") < n, 0.0, NEG_INF).float()
     q_l, do = q[:, :, :nb].contiguous(), rand(nb)
@@ -832,20 +854,21 @@ def ring_case(label, b, h, n, d, shards, seed, full_pad=False):
         check(float(got[1].max()) < -1e29 and float(grads[1].abs().max()) == 0.0
               and float(grads[2].abs().max()) == 0.0, f"{label}: a fully padded block is not inert")
     leaves = tuple(t.detach().requires_grad_() for t in (q_l, kb, vb))
-    library = sdpa_calls(lambda: leaves, scale, mask=bb.to(torch.bfloat16).view(1, 1, 1, nb))
+    library = sdpa_calls(lambda: leaves, scale, mask=bb.to(dtype).view(1, 1, 1, nb))
     times = ((graph_ms(fwd), graph_ms(plain_fwd, calls=3, reps=2), *sdpa_fwd_ms(library)),
              (graph_ms(bwd), graph_ms(plain_bwd, calls=3, reps=2), *sdpa_bwd_ms(library, leaves, do)))
     torch.cuda.empty_cache()
-    row = {"shape": f"B={b} H={h} NB={nb} d={d} (of N={n} over {shards})", "dtype": "bfloat16",
-           "key": (b, h, nb, d, "bfloat16")}
+    row = {"shape": f"B={b} H={h} NB={nb} d={d} (of N={n} over {shards})", "dtype": dtype_name,
+           "key": (b, h, nb, d, dtype_name)}
     if full_pad:
         row.update(launches=0, path="none: a fully padded block, correctness only")
     lse_bias = b * h * nb * 4 + nb * 4  # the f32 lse and the f32 key bias
+    elt = torch.empty((), dtype=dtype).element_size()
     return [
         fwd_row(label, {**row, "name": "ring_flash_fwd", "replaces": RING_REPLACES["fwd"]}, got, plain_fwd(),
-                times[0], bound(b, h, nb, d, "bfloat16", 2, extra_bytes=lse_bias), lse_relative=full_pad),
+                times[0], bound(b, h, nb, d, dtype_name, elt, extra_bytes=lse_bias), lse_relative=full_pad),
         bwd_row(f"{label} bwd", {**row, "name": "ring_flash_bwd", "replaces": RING_REPLACES["bwd"]}, grads,
-                plain_bwd(), times[1], bound(b, h, nb, d, "bfloat16", 2, bwd=True, extra_bytes=lse_bias)),
+                plain_bwd(), times[1], bound(b, h, nb, d, dtype_name, elt, bwd=True, extra_bytes=lse_bias)),
     ]
 
 
@@ -906,15 +929,20 @@ def f32_lnd_cases(cfg) -> list:
 
 def turn_cases(cfg) -> list:
     """(row name, row key, case call) for every f32 attention backward row
-    of the training step: its encoder and decoder shapes, packed and
-    per-head (the seeds of `main`'s rows); the rows that `--parent` times in
+    of the training step: its encoder and decoder shapes and the fast
+    preset's two, packed and per-head (the seeds of `main`'s rows); the
+    rows that `--parent` times in
     turns against another checkout's bodies. The calls are this script's
     case functions, which that checkout's copy has too."""
     enc, dec = train_shapes(cfg)
     heads = [("packed bwd f32 N433 d64 (encoder)", "packed", enc, 21),
              ("per-head bwd f32 N433 d64 (encoder)", "per_head", enc, 22),
              ("packed bwd f32 N1729 d32 (decoder)", "packed", dec, 18),
-             ("per-head bwd f32 N1729 d32 (decoder)", "per_head", dec, 23)]
+             ("per-head bwd f32 N1729 d32 (decoder)", "per_head", dec, 23),
+             ("packed bwd f32 N433 d128 (encoder, fast preset)", "packed", FAST_ENC, 26),
+             ("packed bwd f32 N1729 d128 (decoder, fast preset)", "packed", FAST_DEC, 27),
+             ("per-head bwd f32 N433 d128 (encoder, fast preset)", "per_head", FAST_ENC, 90),
+             ("per-head bwd f32 N1729 d128 (decoder, fast preset)", "per_head", FAST_DEC, 91)]
     return [("packed_flash_bwd" if layout == "packed" else "flash_bwd", (*shape, "float32"),
              f"bwd_case('{label}', '{layout}', {', '.join(map(str, shape))}, 'float32', seed={seed})")
             for label, layout, shape, seed in heads]
@@ -923,8 +951,9 @@ def turn_cases(cfg) -> list:
 # One turn in another checkout: its own chip_smoke's case functions (each
 # call once), each call's row of the given name -> its kernel ms; and the
 # f32 training step's time (CUDA events over 3 steps after one warm-up),
-# unfused and with ln_fusion="on", from that checkout's Trainer, as one JSON
-# line
+# unfused and with ln_fusion="on", and the fast preset's (its Trainer built
+# with that checkout's MODEL set to the preset), from that checkout's
+# Trainer, as one JSON line
 TURN_CHILD = """
 import json, sys
 import torch
@@ -942,9 +971,12 @@ cfg = MODEL_ZOO[cs.MODEL](volume_size=cs.VOLUME, patch_size=cs.PATCH)
 tree, stats = cs.mae_tree(cfg, seed=0)
 views, _ = cs.train_inputs(cfg)
 steps = {}
-for fusion in ("auto", "on"):
+for which, model, fusion in (("auto", cs.MODEL, "auto"), ("on", cs.MODEL, "on"),
+                             ("fast", "contr_mae_vit_base_patch16_fast", "auto")):
+    cs.MODEL, main_model = model, cs.MODEL
     trainer = cs.Trainer(tree, stats, "float32", "auto", ln_fusion=fusion)
-    steps[fusion] = cs.step_ms(trainer, views, reps=3)[0]
+    cs.MODEL = main_model
+    steps[which] = cs.step_ms(trainer, views, reps=3)[0]
     del trainer
     torch.cuda.empty_cache()
 print("TURN " + json.dumps({"ms": out, "step_ms": steps}))
@@ -983,7 +1015,7 @@ def in_turns_phase(rows: list, cfg, parent: Path, parent_build) -> None:
                            "ms": [mine[0]["ms"][i], mine[1]["ms"][i]]}
         print(f"in turns {name} {key[:-1]}: parent {first['ms'][i]:.4f}, {last['ms'][i]:.4f} ms -> "
               f"{mine[0]['ms'][i]:.4f}, {mine[1]['ms'][i]:.4f} ms", flush=True)
-    for fusion, what in (("auto", "unfused"), ("on", "ln_fusion='on'")):
+    for fusion, what in (("auto", "unfused"), ("on", "ln_fusion='on'"), ("fast", FAST_MODEL)):
         print(f"in turns, f32 step {what}, ms per step of {BATCH} (CUDA events over 3 steps): parent "
               f"{first['step_ms'][fusion]:.2f}, {last['step_ms'][fusion]:.2f} -> {mine[0]['step_ms'][fusion]:.2f}, "
               f"{mine[1]['step_ms'][fusion]:.2f}", flush=True)
@@ -1214,7 +1246,7 @@ class Trainer:
     """One training run of the port's public API: `build_model`, the weight
     bridge, `make_adamw`, `create_train_state`, `make_train_step`."""
 
-    def __init__(self, tree, stats, dtype: str, attn_impl: str, ln_fusion: str = "auto"):
+    def __init__(self, tree, stats, dtype: str, attn_impl: str, ln_fusion: str = "auto", model: str = None):
         import torch
 
         from vit_ae_plus_plus_torch.configs import TrainConfig
@@ -1225,9 +1257,9 @@ class Trainer:
         from vit_ae_plus_plus_torch.train.checkpoint import params_from_jax
 
         tc = TrainConfig()
-        self.cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH, dtype=dtype, attn_impl=attn_impl,
-                                    ln_fusion=ln_fusion)
-        self.label = f"{attn_impl} ln_fusion={ln_fusion}"
+        self.cfg = MODEL_ZOO[model or MODEL](volume_size=VOLUME, patch_size=PATCH, dtype=dtype, attn_impl=attn_impl,
+                                             ln_fusion=ln_fusion)
+        self.label = f"{attn_impl} ln_fusion={ln_fusion}" + (f" {model}" if model else "")
         self.grad_names = FUSED_GRAD_NAMES if ln_fusion != "auto" else GRAD_NAMES
         model = build_model(self.cfg)
         model.load_state_dict(params_from_jax(tree, PATCH, 1, stats), strict=True)
@@ -1441,6 +1473,7 @@ def train_phase(rows: list) -> dict:
     fill_launches(rows, c32, "make_train_step, compute_dtype='float32', one step")
     [(mp, gp)], _ = first_steps(f32_plain, 1, {})
     hold("f32 auto", step_rel_errs(m32, mp, g32, gp), STEP_TOL["float32"])
+    reference["float32"] = {"metrics": m32, "grads": {n: g.cpu().numpy() for n, g in g32.items()}}
     f32_ms, _ = step_ms(f32, views, reps=2)
     del f32
     torch.cuda.empty_cache()
@@ -1449,6 +1482,26 @@ def train_phase(rows: list) -> dict:
     fill_launches(rows, cf, "make_train_step, compute_dtype='float32', attn_impl='flash', one step")
     hold("f32 flash", step_rel_errs(mf, mp, gf, gp), STEP_TOL["float32"])
     del f32_flash, f32_plain
+    torch.cuda.empty_cache()
+
+    # the opt-in preset of d = 128 heads, f32: its step with the kernels
+    # (the d = 128 backward bodies) against its plain step, same weights
+    fast_cfg = MODEL_ZOO[FAST_MODEL](volume_size=VOLUME, patch_size=PATCH)
+    fast = Trainer(tree, stats, "float32", "auto", model=FAST_MODEL)
+    fast_plain = Trainer(tree, stats, "float32", "plain", model=FAST_MODEL)
+    [(m_fast, g_fast)], c_fast = first_steps(fast, 1, step_launches(fast_cfg, "packed_flash", "float32"))
+    fill_launches(rows, c_fast, f"make_train_step, {FAST_MODEL}, compute_dtype='float32', one step")
+    [(m_fp, g_fp)], _ = first_steps(fast_plain, 1, {})
+    hold(f"f32 {FAST_MODEL}", step_rel_errs(m_fast, m_fp, g_fast, g_fp), STEP_TOL["float32"])
+    del fast_plain
+    torch.cuda.empty_cache()
+    fast_ms, fast_timed = step_ms(fast, views, reps=3)
+    check(fast_timed == {k: 3 * n for k, n in step_launches(fast_cfg, "packed_flash", "float32").items()},
+          f"3 timed {FAST_MODEL} f32 steps launched {fast_timed}")
+    print(f"train step {FAST_MODEL} f32, information only ({card_line()}): {fast_ms:.2f} ms per step of {BATCH} "
+          f"(CUDA events over 3 steps; {MODEL} f32 {f32_ms:.2f} ms)", flush=True)
+    profile_step(fast, views, fast_ms)
+    del fast
     torch.cuda.empty_cache()
 
     # 5b: ln_fusion="on" against "off" from the same start, counts read
@@ -2911,7 +2964,8 @@ def group_train(mesh, reference: dict) -> dict:
     attn_impl="flash_ring" under `set_mesh`, from phase 5's weights, views
     and noise: step-1 errors against `reference` (phase 5's default step),
     the launches of each step, and the parameters' largest difference from
-    the group's first rank after the steps."""
+    the group's first rank after the steps; then one f32 step the same way
+    against phase 5's f32 step (`reference["float32"]`)."""
     import torch
     import torch.distributed as dist
 
@@ -2921,23 +2975,29 @@ def group_train(mesh, reference: dict) -> dict:
     cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
     tree, stats = mae_tree(cfg, seed=0)
     views, noise = train_inputs(cfg)
-    trainer = Trainer(tree, stats, "bfloat16", "flash_ring")
-    torch.cuda.reset_peak_memory_stats()
-    steps = []
-    with set_mesh(mesh):
-        for i in range(TRAIN_STEPS):
-            t0 = time.perf_counter()
-            metrics, counts = trainer.run(views, noise[i])
-            torch.cuda.synchronize()
-            steps.append({"metrics": metrics, "counts": counts, "wall_s": time.perf_counter() - t0})
-            if i == 0:
-                errs = step_rel_errs(metrics, reference["metrics"], {n: g.cpu() for n, g in trainer.grads().items()},
-                                     {n: torch.from_numpy(g) for n, g in reference["grads"].items()})
-    flat = torch.cat([p.detach().flatten() for p in trainer.model.parameters()]).cpu()
-    first = flat.clone()
-    dist.broadcast(first, src=mesh.ranks["model"][0], group=mesh.groups["model"])
-    return {"steps": steps, "errs": errs, "params_max_diff": float((flat - first).abs().max()),
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    def run(dtype: str, steps: int, want: dict) -> dict:
+        trainer = Trainer(tree, stats, dtype, "flash_ring")
+        torch.cuda.reset_peak_memory_stats()
+        out = []
+        with set_mesh(mesh):
+            for i in range(steps):
+                t0 = time.perf_counter()
+                metrics, counts = trainer.run(views, noise[i])
+                torch.cuda.synchronize()
+                out.append({"metrics": metrics, "counts": counts, "wall_s": time.perf_counter() - t0})
+                if i == 0:
+                    errs = step_rel_errs(metrics, want["metrics"], {n: g.cpu() for n, g in trainer.grads().items()},
+                                         {n: torch.from_numpy(g) for n, g in want["grads"].items()})
+        flat = torch.cat([p.detach().flatten() for p in trainer.model.parameters()]).cpu()
+        first = flat.clone()
+        dist.broadcast(first, src=mesh.ranks["model"][0], group=mesh.groups["model"])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del trainer
+        torch.cuda.empty_cache()
+        return {"steps": out, "errs": errs, "params_max_diff": float((flat - first).abs().max()), "peak_gib": peak}
+
+    return {"bfloat16": run("bfloat16", TRAIN_STEPS, reference), "float32": run("float32", 1, reference["float32"])}
 
 
 def rank_mesh():
@@ -3037,29 +3097,33 @@ def group_phase(rows: list, reference: dict) -> None:
     for (b, h, n, d), depth in zip(train_shapes(cfg), (cfg.depth, cfg.decoder_depth)):
         key = (b, h, padded_len(n, GROUP_RANKS) // GROUP_RANKS, d, "bfloat16")
         per_step.update({("ring_flash_fwd", key): depth * GROUP_RANKS, ("ring_flash_bwd", key): depth * GROUP_RANKS})
-    tol = STEP_TOL["bfloat16"]
-    run_counts = Counter()
-    for rank, res in enumerate(results):
-        t = res["train"]
-        print(f"group rank {rank} train bf16 flash_ring vs the default step, step 1 relative errors: "
-              + ", ".join(f"{k} {v:.3g}" for k, v in t["errs"].items())
-              + f" (tol loss terms {tol['loss']}, grads {tol['grad']}); losses "
-              + ", ".join(f"{s['metrics']['loss']:.6f}" for s in t["steps"])
-              + f"; step wall " + ", ".join(f"{s['wall_s']:.2f}" for s in t["steps"])
-              + f" s; peak {t['peak_gib']:.2f} GiB; parameters' largest difference from rank 0 after "
-              f"{TRAIN_STEPS} steps: {t['params_max_diff']:.3g}", flush=True)
-        for k, v in t["errs"].items():
-            check(v <= (tol["grad"] if k in GRAD_NAMES else tol["loss"]), f"rank {rank} flash_ring train {k}: {v:.3g}")
-        # the replicated trunk is right only while every rank holds the same weights
-        check(t["params_max_diff"] == 0.0, f"rank {rank}: parameters differ from rank 0's by "
-              f"{t['params_max_diff']:.3g} after {TRAIN_STEPS} flash_ring steps")
-        for i, step in enumerate(t["steps"]):
-            check(step["counts"] == per_step, f"rank {rank} flash_ring step {i + 1} launched {step['counts']} "
-                  f"(want {per_step})")
-            if rank == 0:
-                run_counts.update(step["counts"])
-    fill_launches(rows, run_counts, f"make_train_step, attn_impl='flash_ring', {TRAIN_STEPS} steps, rank 0 of "
-                  f"{GROUP_RANKS}")
+    for dtype in ("bfloat16", "float32"):
+        tol = STEP_TOL[dtype]
+        want_counts = {(name, (*key[:-1], dtype)): n for (name, key), n in per_step.items()}
+        run_counts = Counter()
+        for rank, res in enumerate(results):
+            t = res["train"][dtype]
+            steps = len(t["steps"])
+            print(f"group rank {rank} train {dtype} flash_ring vs phase 5's {dtype} step (attn_impl='auto'), step 1 "
+                  f"relative errors: " + ", ".join(f"{k} {v:.3g}" for k, v in t["errs"].items())
+                  + f" (tol loss terms {tol['loss']}, grads {tol['grad']}); losses "
+                  + ", ".join(f"{s['metrics']['loss']:.6f}" for s in t["steps"])
+                  + f"; step wall " + ", ".join(f"{s['wall_s']:.2f}" for s in t["steps"])
+                  + f" s; peak {t['peak_gib']:.2f} GiB; parameters' largest difference from rank 0 after "
+                  f"{steps} steps: {t['params_max_diff']:.3g}", flush=True)
+            for k, v in t["errs"].items():
+                check(v <= (tol["grad"] if k in GRAD_NAMES else tol["loss"]),
+                      f"rank {rank} {dtype} flash_ring train {k}: {v:.3g}")
+            # the replicated trunk is right only while every rank holds the same weights
+            check(t["params_max_diff"] == 0.0, f"rank {rank}: {dtype} parameters differ from rank 0's by "
+                  f"{t['params_max_diff']:.3g} after {steps} flash_ring steps")
+            for i, step in enumerate(t["steps"]):
+                check(step["counts"] == want_counts, f"rank {rank} {dtype} flash_ring step {i + 1} launched "
+                      f"{step['counts']} (want {want_counts})")
+                if rank == 0:
+                    run_counts.update(step["counts"])
+        fill_launches(rows, run_counts, f"make_train_step, compute_dtype='{dtype}', attn_impl='flash_ring', "
+                      f"{len(results[0]['train'][dtype]['steps'])} steps, rank 0 of {GROUP_RANKS}")
 
 
 def main(argv) -> int:
@@ -3140,14 +3204,29 @@ def main(argv) -> int:
         (bwd_case, "packed bwd bf16 N1729 d64 (fine-tune)", "packed", (BATCH, 12, 1729, 64), "bfloat16"),
         (bwd_case, "packed bwd f32 N1729 d64 (fine-tune)", "packed", (BATCH, 12, 1729, 64), "float32"),
         # the opt-in contr_mae_vit_base_patch16_fast preset's step (d = 128:
-        # 6 encoder heads, 4 decoder heads), f32: the scalar backward body
-        (bwd_case, "packed bwd f32 N433 d128 (encoder, fast preset)", "packed", (2 * BATCH, 6, 433, 128),
-         "float32"),
-        (bwd_case, "packed bwd f32 N1729 d128 (decoder, fast preset)", "packed", (BATCH, 4, 1729, 128),
-         "float32"),
+        # 6 encoder heads, 4 decoder heads): the f32 backward bodies at d =
+        # 128, packed and per-head, and the other d = 128 rows, measured
+        (bwd_case, "packed bwd f32 N433 d128 (encoder, fast preset)", "packed", FAST_ENC, "float32"),
+        (bwd_case, "packed bwd f32 N1729 d128 (decoder, fast preset)", "packed", FAST_DEC, "float32"),
     ]
     rows += [case(label, layout, *shape, dtype, seed=10 + i)
              for i, (case, label, layout, shape, dtype) in enumerate(train_cases)]
+    fast_cases = [
+        (bwd_case, "per-head bwd f32 N433 d128 (encoder, fast preset)", "per_head", FAST_ENC, "float32"),
+        (bwd_case, "per-head bwd f32 N1729 d128 (decoder, fast preset)", "per_head", FAST_DEC, "float32"),
+        (bwd_case, "packed bwd bf16 N433 d128 (encoder, fast preset)", "packed", FAST_ENC, "bfloat16"),
+        (bwd_case, "packed bwd bf16 N1729 d128 (decoder, fast preset)", "packed", FAST_DEC, "bfloat16"),
+        (kernel_case, "packed f32 N433 d128 (encoder, fast preset)", "packed", FAST_ENC, "float32"),
+        (kernel_case, "packed f32 N1729 d128 (decoder, fast preset)", "packed", FAST_DEC, "float32"),
+        (kernel_case, "packed bf16 N433 d128 (encoder, fast preset)", "packed", FAST_ENC, "bfloat16"),
+        (kernel_case, "packed bf16 N1729 d128 (decoder, fast preset)", "packed", FAST_DEC, "bfloat16"),
+    ]
+    rows += [case(label, layout, *shape, dtype, seed=90 + i)
+             for i, (case, label, layout, shape, dtype) in enumerate(fast_cases)]
+    # a ring block at d = 128 in f32: the fast decoder over 4 ranks, the
+    # block with the padded key tail (the HAS_BIAS instances of the bodies)
+    rows += ring_case("ring f32 NB440 d128 (fast decoder)", *FAST_DEC[:3], 128, GROUP_RANKS, seed=98,
+                      dtype_name="float32")
     encoder_breakdown(*enc)
     # kernels #6 and #7 at the shapes of the ln_fusion="on" paths: each
     # block's qkv (F = 3C) and fc1 (F = 4C) in the training encoder and

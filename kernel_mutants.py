@@ -16,7 +16,9 @@ copy is built at once, and two checks run against each broken kernel:
   f32 (the f32 slab's shape) for an f32-forward mutant,
   `chip_smoke.bwd_case` at the decoder's training shape (packed, B=8,
   N=1729, C=512, d=32, bf16) for a backward mutant, and in f32 for a
-  mutant of the f32 (3xTF32 wgmma) backward;
+  mutant of the f32 (3xTF32 wgmma) backward; at the `_fast` preset's
+  decoder shape (packed, B=8, H=4, N=1729, d=128, f32) for a mutant of the
+  d = 128 dV, dK or dQ kernel;
   `chip_smoke.ln_dense_cases` at the training encoder's qkv shape (R=6928,
   C=768, F=2304, bf16, forward and backward) for a LayerNorm+Dense or
   LayerNorm row-pass mutant, and at the decoder's qkv shape (R=13832,
@@ -57,6 +59,7 @@ FWD_CASE = "chip_smoke.kernel_case('packed bf16 N1729 d64', 'packed', 8, 12, 172
 F32_CASE = "chip_smoke.kernel_case('packed f32 N1729 d64', 'packed', 8, 12, 1729, 64, 'float32', seed=4)"
 BWD_CASE = "chip_smoke.bwd_case('packed bwd bf16 N1729 d32', 'packed', 8, 16, 1729, 32, 'bfloat16', seed=13)"
 F32_BWD_CASE = "chip_smoke.bwd_case('packed bwd f32 N1729 d32', 'packed', 8, 16, 1729, 32, 'float32', seed=18)"
+F32_BWD128_CASE = "chip_smoke.bwd_case('packed bwd f32 N1729 d128', 'packed', 8, 4, 1729, 128, 'float32', seed=27)"
 LND_CASE = "chip_smoke.ln_dense_cases('ln_dense bf16 encoder qkv', 6928, 768, 2304, 'bfloat16', seed=40)"
 LND_F32_CASE = "chip_smoke.ln_dense_cases('ln_dense f32 decoder qkv', 13832, 512, 1536, 'float32', seed=52)"
 RING_CASE = "chip_smoke.ring_case('ring bf16 NB1032', 2, 12, 4097, 64, 4, seed=70)"
@@ -134,35 +137,109 @@ MUTANTS = {
     ),
     "f32_bwd_dkdv_tf32_low_terms_dropped": (  # dV += P^T dO and dK += dS^T Q in plain TF32: hi * hi alone
         "kernels/csrc/flash_bwd.cu",
-        """    chunk_3xtf32<D>(dv_chunk, pa_hi, pa_lo, st + 6 * kRow, st + 7 * kRow);  // P^T dO, B = dO^T
-    chunk_3xtf32<D>(dk_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);  // dS^T Q, B = Q^T""",
-        """    for (int kk = 0; kk < 4; ++kk) WgmmaTf32<D>::rs(dv_chunk, pa_hi[kk], desc_tf32<D>(st + 6 * kRow, kk), kk > 0);
-    for (int kk = 0; kk < 4; ++kk) WgmmaTf32<D>::rs(dk_chunk, da_hi[kk], desc_tf32<D>(st + 4 * kRow, kk), kk > 0);""",
+        """    if constexpr (DV) chunk_3xtf32<D, kRows>(dv_chunk, pa_hi, pa_lo, dot_hi, dot_hi + kRow);  // P^T dO, B = dO^T
+    if constexpr (DK) chunk_3xtf32<D, kRows>(dk_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);  // dS^T Q, B = Q^T""",
+        """    if constexpr (DV) for (int kk = 0; kk < kRows / 8; ++kk) WgmmaTf32<D>::rs(dv_chunk, pa_hi[kk], desc_tf32_t<D, kRows>(dot_hi, kk), kk > 0);
+    if constexpr (DK) for (int kk = 0; kk < kRows / 8; ++kk) WgmmaTf32<D>::rs(dk_chunk, da_hi[kk], desc_tf32_t<D, kRows>(st + 4 * kRow, kk), kk > 0);""",
         F32_BWD_CASE,
     ),
     "f32_bwd_dq_tf32_low_terms_dropped": (  # dQ += dS K in plain TF32
         "kernels/csrc/flash_bwd.cu",
-        "    chunk_3xtf32<D>(dq_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);  // dS K, B = K^T",
-        "    for (int kk = 0; kk < 4; ++kk) WgmmaTf32<D>::rs(dq_chunk, da_hi[kk], desc_tf32<D>(st + 4 * kRow, kk), kk > 0);",
+        "    chunk_3xtf32<D, kRows>(dq_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);  // dS K, B = K^T",
+        "    for (int kk = 0; kk < kRows / 8; ++kk) WgmmaTf32<D>::rs(dq_chunk, da_hi[kk], desc_tf32_t<D, kRows>(st + 4 * kRow, kk), kk > 0);",
         F32_BWD_CASE,
     ),
     "f32_bwd_drop_last_query_stage": (  # the f32 dK/dV ring skips its last stage: the ragged last 32 queries
         "kernels/csrc/flash_bwd.cu",
-        "const int qtiles = (n + kTfRows - 1) / kTfRows;",
-        "const int qtiles = (n - 1) / kTfRows;",
+        "const int qtiles = (n + kRows - 1) / kRows;",
+        "const int qtiles = (n - 1) / kRows;",
         F32_BWD_CASE,
     ),
     "f32_bwd_drop_last_key_stage": (  # the f32 dQ ring skips its last stage: the ragged last 32 keys
         "kernels/csrc/flash_bwd.cu",
-        "const int ktiles = (nk + kTfRows - 1) / kTfRows;",
-        "const int ktiles = (nk - 1) / kTfRows;",
+        "const int ktiles = (nk + kRows - 1) / kRows;",
+        "const int ktiles = (nk - 1) / kRows;",
         F32_BWD_CASE,
     ),
     "f32_bwd_chunk_acc_not_reset": (  # a stage's dK, dV or dQ accumulator starts from the last stage's
         "kernels/csrc/flash_bwd.cu",
-        "sm90::WgmmaTf32<D>::rs(d, a_lo[kk], desc_tf32<D>(b_hi, kk), kk > 0);",
-        "sm90::WgmmaTf32<D>::rs(d, a_lo[kk], desc_tf32<D>(b_hi, kk), 1);",
+        "sm90::WgmmaTf32<D>::rs(d, a_lo[kk], desc_tf32_t<D, T>(b_hi, kk), kk > 0);",
+        "sm90::WgmmaTf32<D>::rs(d, a_lo[kk], desc_tf32_t<D, T>(b_hi, kk), 1);",
         F32_BWD_CASE,
+    ),
+    # the d = 128 kernels, one at a time (each edit leaves the other
+    # instances as they are)
+    "f32_bwd_d128_dv_low_terms_dropped": (  # the dV kernel's dV += P^T dO in plain TF32
+        "kernels/csrc/flash_bwd.cu",
+        "    if constexpr (DV) chunk_3xtf32<D, kRows>(dv_chunk, pa_hi, pa_lo, dot_hi, dot_hi + kRow);  // P^T dO, B = dO^T",
+        """    if constexpr (DV && DK) chunk_3xtf32<D, kRows>(dv_chunk, pa_hi, pa_lo, dot_hi, dot_hi + kRow);
+    if constexpr (DV && !DK) for (int kk = 0; kk < kRows / 8; ++kk) WgmmaTf32<D>::rs(dv_chunk, pa_hi[kk], desc_tf32_t<D, kRows>(dot_hi, kk), kk > 0);""",
+        F32_BWD128_CASE,
+    ),
+    "f32_bwd_d128_dv_drop_last_stage": (  # the dV kernel skips its last stage: the ragged last 32 queries
+        "kernels/csrc/flash_bwd.cu",
+        "const int qtiles = (n + kRows - 1) / kRows;",
+        "const int qtiles = (n + kRows - 1) / kRows - (DV && !DK);",
+        F32_BWD128_CASE,
+    ),
+    "f32_bwd_d128_dv_chunk_acc_not_reset": (  # the dV kernel's chunk starts from the last chunk's accumulator
+        "kernels/csrc/flash_bwd.cu",
+        "    if constexpr (DV) chunk_3xtf32<D, kRows>(dv_chunk, pa_hi, pa_lo, dot_hi, dot_hi + kRow);  // P^T dO, B = dO^T",
+        """    if constexpr (DV && DK) chunk_3xtf32<D, kRows>(dv_chunk, pa_hi, pa_lo, dot_hi, dot_hi + kRow);
+    if constexpr (DV && !DK) for (int kk = 0; kk < kRows / 8; ++kk) {
+      WgmmaTf32<D>::rs(dv_chunk, pa_lo[kk], desc_tf32_t<D, kRows>(dot_hi, kk), 1);
+      WgmmaTf32<D>::rs(dv_chunk, pa_hi[kk], desc_tf32_t<D, kRows>(dot_hi + kRow, kk), 1);
+      WgmmaTf32<D>::rs(dv_chunk, pa_hi[kk], desc_tf32_t<D, kRows>(dot_hi, kk), 1);
+    }""",
+        F32_BWD128_CASE,
+    ),
+    "f32_bwd_d128_dk_low_terms_dropped": (  # the dK kernel's dK += dS^T Q in plain TF32
+        "kernels/csrc/flash_bwd.cu",
+        "    if constexpr (DK) chunk_3xtf32<D, kRows>(dk_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);  // dS^T Q, B = Q^T",
+        """    if constexpr (DK && DV) chunk_3xtf32<D, kRows>(dk_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);
+    if constexpr (DK && !DV) for (int kk = 0; kk < kRows / 8; ++kk) WgmmaTf32<D>::rs(dk_chunk, da_hi[kk], desc_tf32_t<D, kRows>(st + 4 * kRow, kk), kk > 0);""",
+        F32_BWD128_CASE,
+    ),
+    "f32_bwd_d128_dk_drop_last_stage": (  # the dK kernel skips its last stage: the ragged last 16 queries
+        "kernels/csrc/flash_bwd.cu",
+        "const int qtiles = (n + kRows - 1) / kRows;",
+        "const int qtiles = (n + kRows - 1) / kRows - (DK && !DV);",
+        F32_BWD128_CASE,
+    ),
+    "f32_bwd_d128_dk_chunk_acc_not_reset": (  # the dK kernel's chunk starts from the last chunk's accumulator
+        "kernels/csrc/flash_bwd.cu",
+        "    if constexpr (DK) chunk_3xtf32<D, kRows>(dk_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);  // dS^T Q, B = Q^T",
+        """    if constexpr (DK && DV) chunk_3xtf32<D, kRows>(dk_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);
+    if constexpr (DK && !DV) for (int kk = 0; kk < kRows / 8; ++kk) {
+      WgmmaTf32<D>::rs(dk_chunk, da_lo[kk], desc_tf32_t<D, kRows>(st + 4 * kRow, kk), 1);
+      WgmmaTf32<D>::rs(dk_chunk, da_hi[kk], desc_tf32_t<D, kRows>(st + 5 * kRow, kk), 1);
+      WgmmaTf32<D>::rs(dk_chunk, da_hi[kk], desc_tf32_t<D, kRows>(st + 4 * kRow, kk), 1);
+    }""",
+        F32_BWD128_CASE,
+    ),
+    "f32_bwd_d128_dq_low_terms_dropped": (  # the dQ kernel's dQ += dS K in plain TF32 at d = 128
+        "kernels/csrc/flash_bwd.cu",
+        "    chunk_3xtf32<D, kRows>(dq_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);  // dS K, B = K^T",
+        """    if constexpr (D != 128) chunk_3xtf32<D, kRows>(dq_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);
+    if constexpr (D == 128) for (int kk = 0; kk < kRows / 8; ++kk) WgmmaTf32<D>::rs(dq_chunk, da_hi[kk], desc_tf32_t<D, kRows>(st + 4 * kRow, kk), kk > 0);""",
+        F32_BWD128_CASE,
+    ),
+    "f32_bwd_d128_dq_drop_last_stage": (  # the dQ kernel at d = 128 skips its last stage: the ragged last 16 keys
+        "kernels/csrc/flash_bwd.cu",
+        "const int ktiles = (nk + kRows - 1) / kRows;",
+        "const int ktiles = (nk + kRows - 1) / kRows - (D == 128);",
+        F32_BWD128_CASE,
+    ),
+    "f32_bwd_d128_dq_chunk_acc_not_reset": (  # the dQ kernel's chunk at d = 128 starts from the last chunk's
+        "kernels/csrc/flash_bwd.cu",
+        "    chunk_3xtf32<D, kRows>(dq_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);  // dS K, B = K^T",
+        """    if constexpr (D != 128) chunk_3xtf32<D, kRows>(dq_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);
+    if constexpr (D == 128) for (int kk = 0; kk < kRows / 8; ++kk) {
+      WgmmaTf32<D>::rs(dq_chunk, da_lo[kk], desc_tf32_t<D, kRows>(st + 4 * kRow, kk), 1);
+      WgmmaTf32<D>::rs(dq_chunk, da_hi[kk], desc_tf32_t<D, kRows>(st + 5 * kRow, kk), 1);
+      WgmmaTf32<D>::rs(dq_chunk, da_hi[kk], desc_tf32_t<D, kRows>(st + 4 * kRow, kk), 1);
+    }""",
+        F32_BWD128_CASE,
     ),
     "f32_bwd_copies_not_permuted": (  # the transposed copies in token order, the A fragments permuted
         "kernels/csrc/flash_bwd.cu",

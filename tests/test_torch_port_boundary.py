@@ -17,7 +17,7 @@ def _port_sources():
     pkg = REPO / "vit_ae_plus_plus_torch"
     # build/ holds the kernels' build output (gitignored), not sources
     files = sorted(f for f in pkg.rglob("*.py") if f.relative_to(pkg).parts[0] != "build")
-    return files + [REPO / "chip_smoke.py", REPO / "kernel_mutants.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "kernel_mutants.py", REPO / "moco_step_conditioning.py"]
 
 
 def _imported_roots(path: Path):

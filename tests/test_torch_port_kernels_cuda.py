@@ -27,15 +27,18 @@ dk, clears dV's transpose flag or does not reset S^T between query tiles.
 The bf16 backward runs on wgmma: `wgmma_tile` holds one tile of its
 helpers (B MN-major through the transpose flag, A from shared memory or
 registers) to `torch.matmul`; two calls must give bitwise equal
-gradients (no atomics). The f32 backward at d = 32 and 64 runs 3xTF32 on
-tf32 wgmma: every instance (d, key bias on and off, kv_len equal to or
-apart from seq_len, up to 17 tiles of 32 rows) against the plain version,
-two calls bitwise equal, and one tf32 tile of its helpers (both forms, N
-32, 64 and 128) against `torch.matmul` in f64. `kernel_mutants.py` shows
-that `bwd_tolerance` catches an f32 backward that drops the low terms in
-the dK/dV or the dQ kernel, skips the last query or key stage, carries a
-stage's accumulator into the next, writes its transposed copies
-unpermuted, or leaves delta out.
+gradients (no atomics). The f32 backward runs 3xTF32 on tf32 wgmma at
+every head dim (at d = 128 in a dV, a dK and a dQ kernel, with stages of
+32, 16 and 16 rows): every instance (d, key bias on and off, kv_len equal
+to or apart from seq_len, up to 17 stages of 32 rows or 34 of 16) against
+the plain version, two calls bitwise equal, and one tf32 tile of its
+helpers (both forms, N 32, 64 and 128) against `torch.matmul` in f64.
+`kernel_mutants.py` shows that `bwd_tolerance` catches an f32 backward
+that drops the low terms in the dK/dV or the dQ kernel, skips the last
+query or key stage, carries a stage's accumulator into the next, writes
+its transposed copies unpermuted, or leaves delta out; and, at d = 128,
+a dV, dK or dQ kernel that drops the low terms of its chunk product,
+skips its last stage or carries a chunk's accumulator into the next.
 
 The ring's partial kernels (the same sources with a key bias, 0 or -1e30)
 and the per-head kernels with fewer or more keys than queries (the
@@ -633,8 +636,9 @@ def test_wgmma_tf32_tile_matches_matmul(cuda, n, a_from_registers):
 def test_f32_bwd_instances_match_plain(cuda, d, with_bias, nq, nk):
     """Every f32 backward instance (head_dim, key bias on and off) at ragged
     lengths, with kv_len equal to and different from seq_len, up to 17
-    streamed tiles of 32 rows; with the bias, the last keys of the block are
-    padded and o and lse are the merged row's, as the ring hands them over."""
+    streamed stages of 32 rows (34 of 16 at d = 128); with the bias, the
+    last keys of the block are padded and o and lse are the merged row's,
+    as the ring hands them over."""
     q, do = (_rand((2, 3, nq, d), torch.float32, cuda, s) for s in (nq, nq + 1))
     k, v = (_rand((2, 3, nk, d), torch.float32, cuda, s) for s in (nk + 2, nk + 3))
     scale = d**-0.5
@@ -652,7 +656,7 @@ def test_f32_bwd_instances_match_plain(cuda, d, with_bias, nq, nk):
 
 
 @pytest.mark.parametrize("layout", ["packed", "per_head", "ring"])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_f32_bwd_is_bitwise_repeatable(cuda, layout, d):
     """The f32 wgmma backward has no atomics either: two calls on the same
     inputs give bitwise equal dq, dk and dv."""

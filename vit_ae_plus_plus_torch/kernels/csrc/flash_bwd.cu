@@ -102,10 +102,46 @@
 // block, about one byte for 48 FLOP per 64-row warpgroup: at 2,048 tf32
 // FLOP a clock and SM that is ~40 bytes a clock, above what L2 gives an
 // SM when all 132 pull, so the two warpgroups of a d = 32 block share every
-// stage. At d = 128 the sums and fresh accumulators outgrow a warpgroup's
-// registers: the f32 body there (the opt-in fast preset only) stays the
-// scalar one, D/16 neighbouring threads sharing one key (or query) row,
-// each holding 16 of its dims, their dot products reduced with shuffles.
+// stage.
+//
+// Why that layout does not carry over to d = 128 (the opt-in `_fast`
+// preset's head dim), and what runs there instead:
+//   - Shared memory. A 64-row f32 tile at d = 128 is 32 KiB, and its lo
+//     copy another 32 KiB, so the dK/dV kernel's resident K and V (hi and
+//     lo) take 128 KiB. Its 32-query stage of eight tiles (Q, dO, Q^T and
+//     dO^T, each hi and lo) takes another 128 KiB: 256 KiB is over the
+//     232,448 bytes a block may use, so not even one stage fits. The dQ
+//     kernel (128 KiB resident, six 16 KiB tiles a 32-key stage) fits
+//     exactly one stage, which leaves nothing to overlap.
+//   - Registers. One m64n128 f32 accumulator is 64 registers a thread. In
+//     one warpgroup the dK/dV kernel would hold two sums (128), a fresh
+//     accumulator (64), S^T and dP^T (m64n32: 32) and the hi and lo A
+//     fragments of P^T and dS^T (64): about 288, over the 255 a thread may
+//     have.
+// So at d = 128 the dK/dV kernel splits in two, each owning one sum, after
+// the same delta and split pre-passes, and every kernel is one consumer
+// warpgroup (64 rows a block) and a producer warp with two stages:
+//   kernel  resident            a stage                                 shared   registers  products
+//   dV      K hi/lo, 64 KiB     32 queries: Q, dO^T hi/lo, 64 KiB       192 KiB  ~192       S^T, dV
+//   dK      K, V hi/lo, 128 KiB 16 queries: Q, dO, Q^T hi/lo, 48 KiB    224 KiB  ~176       S^T, dP^T, dK
+//   dQ      Q, dO hi/lo, 128 KiB 16 keys: K, V, K^T hi/lo, 48 KiB       224 KiB  ~176       S, dP, dQ
+// (registers: the f32 sum and a fresh accumulator, 64 each, the score
+// accumulators at m64n32 or m64n16 and the A fragments of one chunk). That
+// is eight 3xTF32 products where the bound counts five and the d = 32 / 64
+// bodies run seven: S^T is computed once more, the price of fitting. The
+// chunk depth of a fresh accumulator is the stage's: 32 queries for dV, 16
+// for dK and dQ (two k8 steps, whose 8-token permutation is the one above).
+// Each score product sums its 128 dims in two fresh accumulators of 64,
+// added to nearest (`scores_split`): one accumulator over all of d would
+// truncate 48 times at scores of 1.4 times d = 64's spread, which the CPU
+// witness's emulation reads at 0.6 of `bwd_tolerance`; the halves read
+// 0.3, as d = 64 does.
+// A 16-token transposed tile is 64-byte rows, swizzled 64B (512-byte atoms),
+// read K-major as the d = 32 bf16 tiles are; the 16-row tiles of Q, dO, K
+// and V are one 8-row atom pair per 32-column k-block, read as m64n16k8's B.
+// What bounds it: tensor work, as above; the dK and dQ kernels' m64n16
+// score products read the 64-row A tile from shared memory for 16 columns
+// each, which holds them well under the dV kernel's rate per product.
 
 #include "flash_sm90.cuh"
 
@@ -631,35 +667,54 @@ cudaError_t launch_probe(const WgmmaProbeParams& p, cudaStream_t stream) {
 
 // ---------------------------------------------------- f32 path: 3xTF32 wgmma
 //
-// The f32 bodies at d = 32 and 64 (design in the header comment): a split
-// pre-pass, then a dK/dV and a dQ kernel of kCons consumer warpgroups (64
-// rows each) and one producer warp. Operand tiles are f32 (tf32 bit
-// patterns) in k-blocks of 32 columns: 128-byte rows swizzled 128B, 8-row
-// atoms of 1,024 bytes, one K-major descriptor per k8 step (32 bytes
-// further along the row).
+// The f32 bodies (design in the header comment): a split pre-pass, then the
+// dK/dV side (one kernel at d = 32 and 64; at d = 128 a dV kernel and a dK
+// kernel) and a dQ kernel, each of kCons consumer warpgroups (64 rows each)
+// and one producer warp. Operand tiles are f32 (tf32 bit patterns) in
+// k-blocks of 32 columns: 128-byte rows swizzled 128B, 8-row atoms of 1,024
+// bytes, one K-major descriptor per k8 step (32 bytes further along the
+// row); a transposed tile of 16 tokens has 64-byte rows swizzled 64B.
 
-constexpr int kTfRows = 32;  // rows of a streamed stage: queries (dK/dV) or keys (dQ)
+constexpr int kTfRows = 32;  // tokens a block of the split pre-pass
 
 template <int D>
 struct Tf32Bwd {
   static constexpr int kResBytes = kBlock * D * 4;   // a resident 64-row tile, hi or lo
-  static constexpr int kRowBytes = kTfRows * D * 4;  // a streamed 32-row tile, or a transposed one (D rows of 32 tokens)
   static constexpr int kCons = D == 32 ? 2 : 1;      // consumer warpgroups: a block owns 64 * kCons keys or queries
   static constexpr int kThreads = kCons * 128 + 32;  // and a producer warp
-  // dK/dV: [kCons x (K hi, K lo, V hi, V lo)][kStages x (Q hi, Q lo, dO hi,
-  // dO lo, Q^T hi, Q^T lo, dO^T hi, dO^T lo)][kStages x 64 f32: lse2 and
-  // delta of the stage's rows][barriers]
-  static constexpr int kKvStages = D == 32 ? 4 : 2;
-  static constexpr int kKvRowsOffset = kCons * 4 * kResBytes + kKvStages * 8 * kRowBytes;
-  static constexpr int kKvBarOffset = kKvRowsOffset + kKvStages * 2 * kTfRows * 4;
-  static constexpr int kKvSmem = 1024 + kKvBarOffset + (2 * kKvStages + 1) * 8;
-  // dQ: [kCons x (Q hi, Q lo, dO hi, dO lo)][kStages x (K hi, K lo, V hi, V
-  // lo, K^T hi, K^T lo)][kStages x 32 f32: the stage's key bias][barriers]
-  static constexpr int kQStages = D == 32 ? 4 : 3;
-  static constexpr int kQRowsOffset = kCons * 4 * kResBytes + kQStages * 6 * kRowBytes;
-  static constexpr int kQBarOffset = kQRowsOffset + kQStages * kTfRows * 4;
-  static constexpr int kQSmem = 1024 + kQBarOffset + (2 * kQStages + 1) * 8;
-  static_assert(kKvSmem <= 232448 && kQSmem <= 232448, "over the shared memory a block can use");
+};
+
+// The ring of a dK/dV-side kernel that owns the dK sums (DK), the dV sums
+// (DV) or both: [kCons x (K hi, K lo; with DK V hi, V lo)][kStages x (Q hi,
+// Q lo; with DK dO hi, dO lo, Q^T hi, Q^T lo; with DV dO^T hi, dO^T lo)]
+// [kStages x 2 x kRows f32: lse2 and delta of the stage's rows][barriers]
+template <int D, bool DK, bool DV>
+struct Tf32KvRing {
+  static constexpr int kRows = D == 128 && DK ? 16 : 32;  // queries a stage: the depth of a dK or dV chunk
+  static constexpr int kStages = D == 32 ? 4 : 2;
+  static constexpr int kRowBytes = kRows * D * 4;  // a streamed tile, or a transposed one (D rows of kRows tokens)
+  static constexpr int kResTiles = DK ? 4 : 2;
+  static constexpr int kStageTiles = 2 + (DK ? 4 : 0) + (DV ? 2 : 0);
+  static constexpr int kDot = DK ? 6 : 2;  // the stage's dO^T hi tile
+  static constexpr int kRowsOffset =
+      Tf32Bwd<D>::kCons * kResTiles * Tf32Bwd<D>::kResBytes + kStages * kStageTiles * kRowBytes;
+  static constexpr int kBarOffset = kRowsOffset + kStages * 2 * kRows * 4;
+  static constexpr int kSmem = 1024 + kBarOffset + (2 * kStages + 1) * 8;
+  static_assert(kSmem <= 232448, "over the shared memory a block can use");
+};
+
+// The dQ kernel's ring: [kCons x (Q hi, Q lo, dO hi, dO lo)][kStages x (K
+// hi, K lo, V hi, V lo, K^T hi, K^T lo)][kStages x kRows f32: the stage's
+// key bias][barriers]
+template <int D>
+struct Tf32QRing {
+  static constexpr int kRows = D == 128 ? 16 : 32;  // keys a stage: the depth of a dQ chunk
+  static constexpr int kStages = D == 32 ? 4 : (D == 64 ? 3 : 2);
+  static constexpr int kRowBytes = kRows * D * 4;
+  static constexpr int kRowsOffset = Tf32Bwd<D>::kCons * 4 * Tf32Bwd<D>::kResBytes + kStages * 6 * kRowBytes;
+  static constexpr int kBarOffset = kRowsOffset + kStages * kRows * 4;
+  static constexpr int kSmem = 1024 + kBarOffset + (2 * kStages + 1) * 8;
+  static_assert(kSmem <= 232448, "over the shared memory a block can use");
 };
 
 // The token a transposed copy holds at position p of an 8-token group: t at
@@ -669,9 +724,9 @@ __host__ __device__ constexpr int tf32_token(int p) { return 2 * (p & 3) + (p >>
 
 __host__ __device__ inline long long pad8(int n) { return (n + 7) / 8 * 8; }
 
-// The head dims whose f32 backward runs these bodies (the header comment
-// says why not 128).
-constexpr bool tf32_body(int d) { return d == 32 || d == 64; }
+// The head dims whose f32 backward runs these bodies: all that `flash_bwd`
+// takes.
+constexpr bool tf32_body(int d) { return d == 32 || d == 64 || d == 128; }
 
 // The pre-pass's copies, float offsets into the wrapper's scratch
 // (flash_bwd_split_floats sizes it), each hi at [0] and lo at [1] of its
@@ -757,10 +812,23 @@ __device__ __forceinline__ uint64_t desc_tf32(const unsigned char* tile, int kk)
   return sm90::wgmma_desc(tile + (kk >> 2) * R * 128 + (kk & 3) * 32, 1024, sm90::kSwizzle128);
 }
 
+// K-major descriptor of k8 step kk of a transposed tile, D rows of T
+// tokens: T = 32 is desc_tf32<D>'s layout; T = 16 is 64-byte rows swizzled
+// 64B, 512-byte atoms, as TMA writes a 16-token box.
+template <int D, int T>
+__device__ __forceinline__ uint64_t desc_tf32_t(const unsigned char* tile, int kk) {
+  if constexpr (T == 32) {
+    return desc_tf32<D>(tile, kk);
+  } else {
+    static_assert(T == 16, "a transposed tile holds 16 or 32 tokens");
+    return sm90::wgmma_desc(tile + kk * 32, 512, sm90::kSwizzle64);
+  }
+}
+
 // Rows row0 .. row0 + R - 1 of half hl (0 hi, 1 lo) of head bh of a split
 // copy (2, BH, rows, D) into an R-row tile; rows past the copy arrive as
-// zeros. A transposed copy (2, BH, D, np) is the same map with D rows and
-// the tokens as columns: one box at (tok0, 0, bh, hl).
+// zeros. A transposed copy (2, BH, D, np) is one box of D rows of tokens
+// at (tok0, 0, bh, hl).
 template <int D, int R>
 __device__ __forceinline__ void load_split_rows(unsigned char* tile, const CUtensorMap* map, int row0, int bh, int hl,
                                                 uint64_t* bar, uint64_t policy) {
@@ -783,57 +851,86 @@ __device__ __forceinline__ void acc_to_tf32_a(const float (&acc)[R], int kk, uin
   }
 }
 
-// d (64 x N) = A B^T as 3xTF32 over D in k8 steps, one accumulator: A
-// (64 x D) and B (N x D) K-major in shared memory, hi and lo tiles each
-// (S^T, dP^T, S and dP; the first product overwrites d).
-template <int D, int N>
+// d (64 x N) = A B^T as 3xTF32 over k8 steps K0 .. K1 - 1 of D, one
+// accumulator: A (64 x D) and B (N x D) K-major in shared memory, hi and lo
+// tiles each (S^T, dP^T, S and dP; the first product overwrites d).
+template <int D, int N, int K0 = 0, int K1 = D / 8>
 __device__ __forceinline__ void scores_3xtf32(float (&d)[N / 2], const unsigned char* a_hi, const unsigned char* a_lo,
                                               const unsigned char* b_hi, const unsigned char* b_lo) {
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    sm90::WgmmaTf32<N>::ss(d, desc_tf32<kBlock>(a_lo, kk), desc_tf32<N>(b_hi, kk), kk > 0);
+  for (int kk = K0; kk < K1; ++kk) {
+    sm90::WgmmaTf32<N>::ss(d, desc_tf32<kBlock>(a_lo, kk), desc_tf32<N>(b_hi, kk), kk > K0);
     sm90::WgmmaTf32<N>::ss(d, desc_tf32<kBlock>(a_hi, kk), desc_tf32<N>(b_lo, kk), 1);
     sm90::WgmmaTf32<N>::ss(d, desc_tf32<kBlock>(a_hi, kk), desc_tf32<N>(b_hi, kk), 1);
   }
 }
 
-// d (64 x D) = A B over one 32-deep stage as 3xTF32 into a fresh
-// accumulator: A from registers (four k8 steps, hi and lo), B a transposed
-// D-row tile (hi and lo) whose token order matches A's (dV, dK and dQ).
-template <int D>
-__device__ __forceinline__ void chunk_3xtf32(float (&d)[D / 2], const uint32_t (&a_hi)[4][4],
-                                             const uint32_t (&a_lo)[4][4], const unsigned char* b_hi,
+// A score product over all of D into d; at d = 128 over its first 64 dims
+// into d and its last 64 into d2, two fresh accumulators (one over all 128
+// would truncate twice as often at a larger magnitude: the CPU witness reads
+// the error halved), which `scores_join` adds after the wait.
+template <int D, int N>
+__device__ __forceinline__ void scores_split(float (&d)[N / 2], float (&d2)[N / 2], const unsigned char* a_hi,
+                                             const unsigned char* a_lo, const unsigned char* b_hi,
                                              const unsigned char* b_lo) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    sm90::WgmmaTf32<D>::rs(d, a_lo[kk], desc_tf32<D>(b_hi, kk), kk > 0);  // a fresh accumulator per chunk
-    sm90::WgmmaTf32<D>::rs(d, a_hi[kk], desc_tf32<D>(b_lo, kk), 1);
-    sm90::WgmmaTf32<D>::rs(d, a_hi[kk], desc_tf32<D>(b_hi, kk), 1);
+  if constexpr (D == 128) {
+    scores_3xtf32<D, N, 0, 8>(d, a_hi, a_lo, b_hi, b_lo);
+    scores_3xtf32<D, N, 8, 16>(d2, a_hi, a_lo, b_hi, b_lo);
+  } else {
+    scores_3xtf32<D, N>(d, a_hi, a_lo, b_hi, b_lo);
   }
 }
 
-// dK and dV of 64 * kCons keys, warpgroup w owning keys 64w .. 64w + 63 of
-// the block: per 32-query stage S^T = K Q^T and dP^T = V dO^T (n32, over
-// D), P^T and dS^T in the accumulators, split into tf32 A fragments, dV +=
-// P^T dO and dK += dS^T Q (n = D, over the stage's 32 queries, B the
-// permuted transposed copies) into fresh accumulators added to the f32
-// sums.
-template <int D, bool HAS_BIAS>
+template <int D, int N>
+__device__ __forceinline__ void scores_join(float (&d)[N / 2], float (&d2)[N / 2]) {
+  sm90::fence_operands(d);
+  if constexpr (D == 128) {
+    sm90::fence_operands(d2);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) d[i] += d2[i];
+  }
+}
+
+// d (64 x D) = A B over one T-deep stage as 3xTF32 into a fresh
+// accumulator: A from registers (T / 8 k8 steps, hi and lo), B a transposed
+// D-row tile of T tokens (hi and lo) whose token order matches A's (dV, dK
+// and dQ).
+template <int D, int T>
+__device__ __forceinline__ void chunk_3xtf32(float (&d)[D / 2], const uint32_t (&a_hi)[T / 8][4],
+                                             const uint32_t (&a_lo)[T / 8][4], const unsigned char* b_hi,
+                                             const unsigned char* b_lo) {
+#pragma unroll
+  for (int kk = 0; kk < T / 8; ++kk) {
+    sm90::WgmmaTf32<D>::rs(d, a_lo[kk], desc_tf32_t<D, T>(b_hi, kk), kk > 0);  // a fresh accumulator per chunk
+    sm90::WgmmaTf32<D>::rs(d, a_hi[kk], desc_tf32_t<D, T>(b_lo, kk), 1);
+    sm90::WgmmaTf32<D>::rs(d, a_hi[kk], desc_tf32_t<D, T>(b_hi, kk), 1);
+  }
+}
+
+// dK (DK) and dV (DV) of 64 * kCons keys, warpgroup w owning keys 64w ..
+// 64w + 63 of the block: per stage of kRows queries S^T = K Q^T (and with
+// DK dP^T = V dO^T; n = kRows, over D), P^T (and dS^T) in the
+// accumulators, split into tf32 A fragments, dV += P^T dO (B = dO^T) and
+// dK += dS^T Q (B = Q^T; n = D, over the stage's queries, B the permuted
+// transposed copies) into fresh accumulators added to the f32 sums.
+template <int D, bool HAS_BIAS, bool DK, bool DV>
 __global__ void __launch_bounds__(Tf32Bwd<D>::kThreads, 1)
 flash_bwd_dkdv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
                            const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                            const __grid_constant__ CUtensorMap tm_qt, const __grid_constant__ CUtensorMap tm_dot,
                            const FlashBwdParams p) {
   using T = Tf32Bwd<D>;
+  using S = Tf32KvRing<D, DK, DV>;
   using namespace sm90;
-  constexpr int kStages = T::kKvStages;
+  constexpr int kStages = S::kStages;
+  constexpr int kRows = S::kRows;
   constexpr int kRes = T::kResBytes;
-  constexpr int kRow = T::kRowBytes;
+  constexpr int kRow = S::kRowBytes;
   extern __shared__ unsigned char bwd_smem[];
   unsigned char* base = bwd_smem + ((1024 - (smem_u32(bwd_smem) & 1023)) & 1023);
-  unsigned char* stream = base + T::kCons * 4 * kRes;  // stage s: its eight tiles from stream + 8s kRow
-  float* rows_s = reinterpret_cast<float*>(base + T::kKvRowsOffset);  // stage s: lse2 [64s, +32), delta [+32, +64)
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + T::kKvBarOffset);
+  unsigned char* stream = base + T::kCons * S::kResTiles * kRes;  // stage s: its tiles from stream + kStageTiles s kRow
+  float* rows_s = reinterpret_cast<float*>(base + S::kRowsOffset);  // stage s: lse2 [2 kRows s, +kRows), delta after
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S::kBarOffset);
   uint64_t* empty = full + kStages;
   uint64_t* kvbar = empty + kStages;
 
@@ -843,7 +940,7 @@ flash_bwd_dkdv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
   const int bh = b * p.heads + h;
   const int n = p.seq_len;
   const int nk = p.kv_len;
-  const int qtiles = (n + kTfRows - 1) / kTfRows;
+  const int qtiles = (n + kRows - 1) / kRows;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
@@ -864,14 +961,19 @@ flash_bwd_dkdv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
     const uint64_t shared_by_all = l2_evict_last();  // every key block of the head reads the query side
     if (lane == 0) {
       tma_prefetch_descriptor(&tm_q);
-      tma_prefetch_descriptor(&tm_do);
-      tma_prefetch_descriptor(&tm_qt);
-      tma_prefetch_descriptor(&tm_dot);
-      mbar_arrive_expect_tx(kvbar, T::kCons * 4 * kRes);
+      if constexpr (DK) {
+        tma_prefetch_descriptor(&tm_do);
+        tma_prefetch_descriptor(&tm_qt);
+      }
+      if constexpr (DV) tma_prefetch_descriptor(&tm_dot);
+      mbar_arrive_expect_tx(kvbar, T::kCons * S::kResTiles * kRes);
       for (int w = 0; w < T::kCons; ++w) {
         for (int hl = 0; hl < 2; ++hl) {
-          load_split_rows<D, kBlock>(base + (4 * w + hl) * kRes, &tm_k, k0 + kBlock * w, bh, hl, kvbar, once);
-          load_split_rows<D, kBlock>(base + (4 * w + 2 + hl) * kRes, &tm_v, k0 + kBlock * w, bh, hl, kvbar, once);
+          unsigned char* res = base + S::kResTiles * w * kRes;
+          load_split_rows<D, kBlock>(res + hl * kRes, &tm_k, k0 + kBlock * w, bh, hl, kvbar, once);
+          if constexpr (DK) {
+            load_split_rows<D, kBlock>(res + (2 + hl) * kRes, &tm_v, k0 + kBlock * w, bh, hl, kvbar, once);
+          }
         }
       }
     }
@@ -879,23 +981,29 @@ flash_bwd_dkdv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
     uint32_t phase = 0;
     for (int qt = 0; qt < qtiles; ++qt) {
       mbar_wait(&empty[stage], phase ^ 1);  // the first round passes: every stage starts empty
-      const int q0 = qt * kTfRows;
-      unsigned char* st = stream + 8 * stage * kRow;
+      const int q0 = qt * kRows;
+      unsigned char* st = stream + S::kStageTiles * stage * kRow;
       if (lane == 0) {
-        mbar_arrive_expect_tx(&full[stage], 8 * kRow);
+        mbar_arrive_expect_tx(&full[stage], S::kStageTiles * kRow);
         for (int hl = 0; hl < 2; ++hl) {
-          load_split_rows<D, kTfRows>(st + hl * kRow, &tm_q, q0, bh, hl, &full[stage], shared_by_all);
-          load_split_rows<D, kTfRows>(st + (2 + hl) * kRow, &tm_do, q0, bh, hl, &full[stage], shared_by_all);
-          tma_load_4d(st + (4 + hl) * kRow, &tm_qt, q0, 0, bh, hl, &full[stage], shared_by_all);
-          tma_load_4d(st + (6 + hl) * kRow, &tm_dot, q0, 0, bh, hl, &full[stage], shared_by_all);
+          load_split_rows<D, kRows>(st + hl * kRow, &tm_q, q0, bh, hl, &full[stage], shared_by_all);
+          if constexpr (DK) {
+            load_split_rows<D, kRows>(st + (2 + hl) * kRow, &tm_do, q0, bh, hl, &full[stage], shared_by_all);
+            tma_load_4d(st + (4 + hl) * kRow, &tm_qt, q0, 0, bh, hl, &full[stage], shared_by_all);
+          }
+          if constexpr (DV) {
+            tma_load_4d(st + (S::kDot + hl) * kRow, &tm_dot, q0, 0, bh, hl, &full[stage], shared_by_all);
+          }
         }
       }
       // lse * log2(e) and delta of the stage's rows: +inf and 0 past N, so
       // that P = 0 there
-      float* rs = rows_s + stage * 2 * kTfRows;
-      const bool live = q0 + lane < n;
-      rs[lane] = live ? lse_g[q0 + lane] * kLog2e : INFINITY;
-      rs[kTfRows + lane] = live ? delta_g[q0 + lane] : 0.f;
+      if (lane < kRows) {
+        float* rs = rows_s + stage * 2 * kRows;
+        const bool live = q0 + lane < n;
+        rs[lane] = live ? lse_g[q0 + lane] * kLog2e : INFINITY;
+        rs[kRows + lane] = live ? delta_g[q0 + lane] : 0.f;
+      }
       mbar_arrive(&full[stage]);
       if (++stage == kStages) {
         stage = 0;
@@ -910,7 +1018,7 @@ flash_bwd_dkdv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
   const int g = lane >> 2;
   const int t = lane & 3;
   const bool lead = (threadIdx.x & 127) == 0;
-  const unsigned char* k_hi = base + 4 * wg * kRes;  // then K lo, V hi, V lo
+  const unsigned char* k_hi = base + S::kResTiles * wg * kRes;  // then K lo (and V hi, V lo)
   const int key0 = k0 + kBlock * wg;
   const float scale2 = p.scale * kLog2e;
   float kb[2] = {0.f, 0.f};  // the bias of this thread's key rows (g, g + 8), log2 units
@@ -930,21 +1038,21 @@ flash_bwd_dkdv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
   uint32_t phase = 0;
   for (int qt = 0; qt < qtiles; ++qt) {
     mbar_wait(&full[stage], phase);
-    const unsigned char* st = stream + 8 * stage * kRow;
-    const float* lse2 = rows_s + stage * 2 * kTfRows;
-    const float* delta = lse2 + kTfRows;
-    float s[16], dp[16];  // S^T and dP^T: 64 keys x 32 queries
+    const unsigned char* st = stream + S::kStageTiles * stage * kRow;
+    const float* lse2 = rows_s + stage * 2 * kRows;
+    const float* delta = lse2 + kRows;
+    float s[kRows / 2], dp[kRows / 2], s2[kRows / 2], dp2[kRows / 2];  // S^T and dP^T: 64 keys x kRows queries
     wgmma_fence();
-    scores_3xtf32<D, 32>(s, k_hi, k_hi + kRes, st, st + kRow);
-    scores_3xtf32<D, 32>(dp, k_hi + 2 * kRes, k_hi + 3 * kRes, st + 2 * kRow, st + 3 * kRow);
+    scores_split<D, kRows>(s, s2, k_hi, k_hi + kRes, st, st + kRow);
+    if constexpr (DK) scores_split<D, kRows>(dp, dp2, k_hi + 2 * kRes, k_hi + 3 * kRes, st + 2 * kRow, st + 3 * kRow);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_operands(s);
-    fence_operands(dp);
+    scores_join<D, kRows>(s, s2);
+    if constexpr (DK) scores_join<D, kRows>(dp, dp2);
     // accumulator element 4j + e: key row g (+ 8 for e >= 2) of the warp,
     // query column 8j + 2t + (e & 1)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kRows / 8; ++j) {
       const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
       const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + 2 * t);
 #pragma unroll
@@ -953,32 +1061,37 @@ flash_bwd_dkdv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
         const float x = HAS_BIAS ? fmaf(s[4 * j + e], scale2, kb[e >> 1]) - lv : fmaf(s[4 * j + e], scale2, -lv);
         const float pv = ex2(x);
         s[4 * j + e] = pv;
-        dp[4 * j + e] = pv * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+        if constexpr (DK) dp[4 * j + e] = pv * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
       }
     }
-    uint32_t pa_hi[4][4], pa_lo[4][4], da_hi[4][4], da_lo[4][4];
+    uint32_t pa_hi[kRows / 8][4], pa_lo[kRows / 8][4], da_hi[kRows / 8][4], da_lo[kRows / 8][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      acc_to_tf32_a(s, kk, pa_hi[kk], pa_lo[kk]);
-      acc_to_tf32_a(dp, kk, da_hi[kk], da_lo[kk]);
+    for (int kk = 0; kk < kRows / 8; ++kk) {
+      if constexpr (DV) acc_to_tf32_a(s, kk, pa_hi[kk], pa_lo[kk]);
+      if constexpr (DK) acc_to_tf32_a(dp, kk, da_hi[kk], da_lo[kk]);
     }
     float dv_chunk[D / 2], dk_chunk[D / 2];
     wgmma_fence();
-    chunk_3xtf32<D>(dv_chunk, pa_hi, pa_lo, st + 6 * kRow, st + 7 * kRow);  // P^T dO, B = dO^T
-    chunk_3xtf32<D>(dk_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);  // dS^T Q, B = Q^T
+    const unsigned char* dot_hi = st + S::kDot * kRow;
+    if constexpr (DV) chunk_3xtf32<D, kRows>(dv_chunk, pa_hi, pa_lo, dot_hi, dot_hi + kRow);  // P^T dO, B = dO^T
+    if constexpr (DK) chunk_3xtf32<D, kRows>(dk_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);  // dS^T Q, B = Q^T
     wgmma_commit();
     wgmma_wait<0>();
-    fence_operands(dv_chunk);
-    fence_operands(dk_chunk);
-    fence_frags(pa_hi);
-    fence_frags(pa_lo);
-    fence_frags(da_hi);
-    fence_frags(da_lo);
+    if constexpr (DV) {
+      fence_operands(dv_chunk);
+      fence_frags(pa_hi);
+      fence_frags(pa_lo);
+    }
+    if constexpr (DK) {
+      fence_operands(dk_chunk);
+      fence_frags(da_hi);
+      fence_frags(da_lo);
+    }
     if (lead) mbar_arrive(&empty[stage]);  // the warpgroup's products on the stage are done
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) {
-      dv[i] += dv_chunk[i];
-      dk[i] += dk_chunk[i];
+      if constexpr (DV) dv[i] += dv_chunk[i];
+      if constexpr (DK) dk[i] += dk_chunk[i];
     }
     if (++stage == kStages) {
       stage = 0;
@@ -986,15 +1099,20 @@ flash_bwd_dkdv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
     }
   }
 
-  store_tile<D>(dk, p.scale, static_cast<float*>(p.dk) + bh_offset(p.dk_sb, p.dk_sh, b, h), p.dk_sn, key0, nk, wl, g,
-                t);
-  store_tile<D>(dv, 1.f, static_cast<float*>(p.dv) + bh_offset(p.dv_sb, p.dv_sh, b, h), p.dv_sn, key0, nk, wl, g, t);
+  if constexpr (DK) {
+    store_tile<D>(dk, p.scale, static_cast<float*>(p.dk) + bh_offset(p.dk_sb, p.dk_sh, b, h), p.dk_sn, key0, nk, wl,
+                  g, t);
+  }
+  if constexpr (DV) {
+    store_tile<D>(dv, 1.f, static_cast<float*>(p.dv) + bh_offset(p.dv_sb, p.dv_sh, b, h), p.dv_sn, key0, nk, wl, g,
+                  t);
+  }
 }
 
 // dQ of 64 * kCons queries, warpgroup w owning queries 64w .. 64w + 63:
-// per 32-key stage S = Q K^T and dP = dO V^T (n32, over D), dS = P (dP -
-// delta) with keys past kv_len masked to P = 0, split into tf32 A
-// fragments, dQ += dS K (n = D, B the permuted K^T) into a fresh
+// per stage of kRows keys S = Q K^T and dP = dO V^T (n = kRows, over D),
+// dS = P (dP - delta) with keys past kv_len masked to P = 0, split into
+// tf32 A fragments, dQ += dS K (n = D, B the permuted K^T) into a fresh
 // accumulator added to the f32 sum.
 template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(Tf32Bwd<D>::kThreads, 1)
@@ -1002,15 +1120,17 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
                          const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                          const __grid_constant__ CUtensorMap tm_kt, const FlashBwdParams p) {
   using T = Tf32Bwd<D>;
+  using S = Tf32QRing<D>;
   using namespace sm90;
-  constexpr int kStages = T::kQStages;
+  constexpr int kStages = S::kStages;
+  constexpr int kRows = S::kRows;
   constexpr int kRes = T::kResBytes;
-  constexpr int kRow = T::kRowBytes;
+  constexpr int kRow = S::kRowBytes;
   extern __shared__ unsigned char bwd_smem[];
   unsigned char* base = bwd_smem + ((1024 - (smem_u32(bwd_smem) & 1023)) & 1023);
   unsigned char* stream = base + T::kCons * 4 * kRes;  // stage s: its six tiles from stream + 6s kRow
-  float* bias_s = reinterpret_cast<float*>(base + T::kQRowsOffset);  // stage s: [32s, +32), log2 units
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + T::kQBarOffset);
+  float* bias_s = reinterpret_cast<float*>(base + S::kRowsOffset);  // stage s: [kRows s, +kRows), log2 units
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S::kBarOffset);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
 
@@ -1020,7 +1140,7 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
   const int bh = b * p.heads + h;
   const int n = p.seq_len;
   const int nk = p.kv_len;
-  const int ktiles = (nk + kTfRows - 1) / kTfRows;
+  const int ktiles = (nk + kRows - 1) / kRows;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
@@ -1053,19 +1173,19 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
     uint32_t phase = 0;
     for (int kt = 0; kt < ktiles; ++kt) {
       mbar_wait(&empty[stage], phase ^ 1);
-      const int k0 = kt * kTfRows;
+      const int k0 = kt * kRows;
       unsigned char* st = stream + 6 * stage * kRow;
       if (lane == 0) {
         mbar_arrive_expect_tx(&full[stage], 6 * kRow);
         for (int hl = 0; hl < 2; ++hl) {
-          load_split_rows<D, kTfRows>(st + hl * kRow, &tm_k, k0, bh, hl, &full[stage], shared_by_all);
-          load_split_rows<D, kTfRows>(st + (2 + hl) * kRow, &tm_v, k0, bh, hl, &full[stage], shared_by_all);
+          load_split_rows<D, kRows>(st + hl * kRow, &tm_k, k0, bh, hl, &full[stage], shared_by_all);
+          load_split_rows<D, kRows>(st + (2 + hl) * kRow, &tm_v, k0, bh, hl, &full[stage], shared_by_all);
           tma_load_4d(st + (4 + hl) * kRow, &tm_kt, k0, 0, bh, hl, &full[stage], shared_by_all);
         }
       }
       if constexpr (HAS_BIAS) {
         const int key = k0 + lane;
-        bias_s[stage * kTfRows + lane] = key < nk ? p.key_bias[key] * kLog2e : 0.f;
+        if (lane < kRows) bias_s[stage * kRows + lane] = key < nk ? p.key_bias[key] * kLog2e : 0.f;
         mbar_arrive(&full[stage]);
       }
       if (++stage == kStages) {
@@ -1100,21 +1220,21 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
   uint32_t phase = 0;
   for (int kt = 0; kt < ktiles; ++kt) {
     mbar_wait(&full[stage], phase);
-    const int k0 = kt * kTfRows;
+    const int k0 = kt * kRows;
     const unsigned char* st = stream + 6 * stage * kRow;
-    float s[16], dp[16];  // S and dP: 64 queries x 32 keys
+    float s[kRows / 2], dp[kRows / 2], s2[kRows / 2], dp2[kRows / 2];  // S and dP: 64 queries x kRows keys
     wgmma_fence();
-    scores_3xtf32<D, 32>(s, q_hi, q_hi + kRes, st, st + kRow);
-    scores_3xtf32<D, 32>(dp, q_hi + 2 * kRes, q_hi + 3 * kRes, st + 2 * kRow, st + 3 * kRow);
+    scores_split<D, kRows>(s, s2, q_hi, q_hi + kRes, st, st + kRow);
+    scores_split<D, kRows>(dp, dp2, q_hi + 2 * kRes, q_hi + 3 * kRes, st + 2 * kRow, st + 3 * kRow);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_operands(s);
-    fence_operands(dp);
+    scores_join<D, kRows>(s, s2);
+    scores_join<D, kRows>(dp, dp2);
     // element 4j + e: query row g (+ 8 for e >= 2), key column 8j + 2t + (e & 1)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kRows / 8; ++j) {
       float2 bb = make_float2(0.f, 0.f);
-      if constexpr (HAS_BIAS) bb = *reinterpret_cast<const float2*>(bias_s + stage * kTfRows + 8 * j + 2 * t);
+      if constexpr (HAS_BIAS) bb = *reinterpret_cast<const float2*>(bias_s + stage * kRows + 8 * j + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float x = HAS_BIAS ? fmaf(s[4 * j + e], scale2, (e & 1) ? bb.y : bb.x) - lse2[e >> 1]
@@ -1123,12 +1243,12 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
         dp[4 * j + e] = pv * (dp[4 * j + e] - dl[e >> 1]);
       }
     }
-    uint32_t da_hi[4][4], da_lo[4][4];
+    uint32_t da_hi[kRows / 8][4], da_lo[kRows / 8][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) acc_to_tf32_a(dp, kk, da_hi[kk], da_lo[kk]);
+    for (int kk = 0; kk < kRows / 8; ++kk) acc_to_tf32_a(dp, kk, da_hi[kk], da_lo[kk]);
     float dq_chunk[D / 2];
     wgmma_fence();
-    chunk_3xtf32<D>(dq_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);  // dS K, B = K^T
+    chunk_3xtf32<D, kRows>(dq_chunk, da_hi, da_lo, st + 4 * kRow, st + 5 * kRow);  // dS K, B = K^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(dq_chunk);
@@ -1148,53 +1268,76 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
 }
 
 // A rank-4 tensor map over a split copy (2, BH, rows, cols) of f32, boxes of
-// box_rows x 32 columns, swizzled 128B.
+// box_rows x box_cols (32 columns: 128-byte rows swizzled 128B; 16: 64-byte
+// rows swizzled 64B).
 inline CUresult encode_split(CUtensorMap* map, const float* base, long long bh, long long rows, long long cols,
-                             int box_rows) {
+                             int box_rows, int box_cols = 32) {
   const uint64_t dims[4] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows), static_cast<uint64_t>(bh), 2};
   const uint64_t strides[3] = {static_cast<uint64_t>(cols) * 4, static_cast<uint64_t>(rows * cols) * 4,
                                static_cast<uint64_t>(bh * rows * cols) * 4};
-  const uint32_t box[4] = {32, static_cast<uint32_t>(box_rows), 1, 1};
-  return sm90::encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  const uint32_t box[4] = {static_cast<uint32_t>(box_cols), static_cast<uint32_t>(box_rows), 1, 1};
+  return sm90::encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, 4, dims, strides, box,
+                      box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// The dK/dV-side kernel that owns dK (DK) and dV (DV), over the resident
+// K and V maps, with its own maps of the streamed query side.
+template <int D, bool HAS_BIAS, bool DK, bool DV>
+cudaError_t launch_kv_tf32(const FlashBwdParams& p, const SplitLayout& s, const CUtensorMap& k_res,
+                           const CUtensorMap& v_res, cudaStream_t stream) {
+  using T = Tf32Bwd<D>;
+  using S = Tf32KvRing<D, DK, DV>;
+  CUtensorMap q_str, do_str, qt, dot;
+  if (encode_split(&q_str, p.split + s.qs, s.bh, p.seq_len, D, S::kRows) != CUDA_SUCCESS ||
+      encode_split(&do_str, p.split + s.dos, s.bh, p.seq_len, D, S::kRows) != CUDA_SUCCESS ||
+      encode_split(&qt, p.split + s.qt, s.bh, D, s.npq, D, S::kRows) != CUDA_SUCCESS ||
+      encode_split(&dot, p.split + s.dot, s.bh, D, s.npq, D, S::kRows) != CUDA_SUCCESS) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_tf32_kernel<D, HAS_BIAS, DK, DV>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+  if (err != cudaSuccess) return err;
+  constexpr int kRowsABlock = kBlock * T::kCons;
+  const dim3 key_grid((p.kv_len + kRowsABlock - 1) / kRowsABlock, p.heads, p.batch);
+  flash_bwd_dkdv_tf32_kernel<D, HAS_BIAS, DK, DV><<<key_grid, T::kThreads, S::kSmem, stream>>>(q_str, do_str, k_res,
+                                                                                            v_res, qt, dot, p);
+  return cudaGetLastError();
 }
 
 template <int D, bool HAS_BIAS>
 cudaError_t launch_tf32(const FlashBwdParams& p, cudaStream_t stream) {
   using T = Tf32Bwd<D>;
+  using Q = Tf32QRing<D>;
   const SplitLayout s = split_layout(p);
   const int longest = p.seq_len > p.kv_len ? p.seq_len : p.kv_len;
   flash_bwd_split_kernel<D><<<dim3((longest + kTfRows - 1) / kTfRows, p.heads, p.batch), 256, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  CUtensorMap q_res, do_res, k_res, v_res, q_str, do_str, k_str, v_str, qt, dot, kt;
+  CUtensorMap q_res, do_res, k_res, v_res, k_str, v_str, kt;
   if (encode_split(&q_res, p.split + s.qs, s.bh, p.seq_len, D, kBlock) != CUDA_SUCCESS ||
       encode_split(&do_res, p.split + s.dos, s.bh, p.seq_len, D, kBlock) != CUDA_SUCCESS ||
       encode_split(&k_res, p.split + s.ks, s.bh, p.kv_len, D, kBlock) != CUDA_SUCCESS ||
       encode_split(&v_res, p.split + s.vs, s.bh, p.kv_len, D, kBlock) != CUDA_SUCCESS ||
-      encode_split(&q_str, p.split + s.qs, s.bh, p.seq_len, D, kTfRows) != CUDA_SUCCESS ||
-      encode_split(&do_str, p.split + s.dos, s.bh, p.seq_len, D, kTfRows) != CUDA_SUCCESS ||
-      encode_split(&k_str, p.split + s.ks, s.bh, p.kv_len, D, kTfRows) != CUDA_SUCCESS ||
-      encode_split(&v_str, p.split + s.vs, s.bh, p.kv_len, D, kTfRows) != CUDA_SUCCESS ||
-      encode_split(&qt, p.split + s.qt, s.bh, D, s.npq, D) != CUDA_SUCCESS ||
-      encode_split(&dot, p.split + s.dot, s.bh, D, s.npq, D) != CUDA_SUCCESS ||
-      encode_split(&kt, p.split + s.kt, s.bh, D, s.npk, D) != CUDA_SUCCESS) {
+      encode_split(&k_str, p.split + s.ks, s.bh, p.kv_len, D, Q::kRows) != CUDA_SUCCESS ||
+      encode_split(&v_str, p.split + s.vs, s.bh, p.kv_len, D, Q::kRows) != CUDA_SUCCESS ||
+      encode_split(&kt, p.split + s.kt, s.bh, D, s.npk, D, Q::kRows) != CUDA_SUCCESS) {
     return cudaErrorInvalidValue;
   }
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_tf32_kernel<D, HAS_BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             T::kKvSmem);
+  if constexpr (D == 128) {  // a dV kernel, then a dK kernel (the header comment says why)
+    err = launch_kv_tf32<D, HAS_BIAS, false, true>(p, s, k_res, v_res, stream);
+    if (err != cudaSuccess) return err;
+    err = launch_kv_tf32<D, HAS_BIAS, true, false>(p, s, k_res, v_res, stream);
+  } else {
+    err = launch_kv_tf32<D, HAS_BIAS, true, true>(p, s, k_res, v_res, stream);
+  }
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_bwd_dq_tf32_kernel<D, HAS_BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             T::kQSmem);
+                             Q::kSmem);
   if (err != cudaSuccess) return err;
   constexpr int kRowsABlock = kBlock * T::kCons;
-  const dim3 key_grid((p.kv_len + kRowsABlock - 1) / kRowsABlock, p.heads, p.batch);
   const dim3 query_grid((p.seq_len + kRowsABlock - 1) / kRowsABlock, p.heads, p.batch);
-  flash_bwd_dkdv_tf32_kernel<D, HAS_BIAS><<<key_grid, T::kThreads, T::kKvSmem, stream>>>(q_str, do_str, k_res, v_res,
-                                                                                        qt, dot, p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_tf32_kernel<D, HAS_BIAS><<<query_grid, T::kThreads, T::kQSmem, stream>>>(q_res, do_res, k_str, v_str,
-                                                                                      kt, p);
+  flash_bwd_dq_tf32_kernel<D, HAS_BIAS><<<query_grid, T::kThreads, Q::kSmem, stream>>>(q_res, do_res, k_str, v_str,
+                                                                                     kt, p);
   return cudaGetLastError();
 }
 
@@ -1276,176 +1419,6 @@ cudaError_t launch_probe_tf32(const WgmmaProbeParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------- f32 path at d = 128
-//
-// The scalar body (the header comment says why d = 128 keeps it).
-
-constexpr int kF32Tile = 32;  // rows per shared-memory tile
-
-// D/16 neighbouring threads share one row; thread `sub` of the group holds
-// dims sub, sub + G, ..., sub + 15G (neighbouring threads read neighbouring
-// words of shared memory).
-template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_f32_kernel(const FlashBwdParams p) {
-  constexpr int G = D / 16;
-  constexpr int kRows = kThreads / G;
-  __shared__ float qs[kF32Tile][D];
-  __shared__ float dos[kF32Tile][D];
-  __shared__ float lse_s[kF32Tile];
-  __shared__ float delta_s[kF32Tile];
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int sub = threadIdx.x % G;
-  const int key = blockIdx.x * kRows + threadIdx.x / G;
-  const int n = p.seq_len;
-  const int nk = p.kv_len;
-  const bool live = key < nk;
-
-  const float* qg = static_cast<const float*>(p.q) + bh_offset(p.q_sb, p.q_sh, b, h);
-  const float* kg = static_cast<const float*>(p.k) + bh_offset(p.k_sb, p.k_sh, b, h);
-  const float* vg = static_cast<const float*>(p.v) + bh_offset(p.v_sb, p.v_sh, b, h);
-  const float* dog = static_cast<const float*>(p.do_) + bh_offset(p.do_sb, p.do_sh, b, h);
-  const float* lse_g = p.lse + ((long long)b * p.heads + h) * n;
-  const float* delta_g = p.delta + ((long long)b * p.heads + h) * n;
-
-  float kr[16], vr[16], dk[16], dv[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    kr[i] = live ? kg[key * p.k_sn + sub + G * i] : 0.f;
-    vr[i] = live ? vg[key * p.v_sn + sub + G * i] : 0.f;
-    dk[i] = dv[i] = 0.f;
-  }
-  const float scale2 = p.scale * kLog2e;
-  float kb = 0.f;  // this key's bias, log2 units
-  if constexpr (HAS_BIAS) kb = live ? p.key_bias[key] * kLog2e : 0.f;
-
-  for (int q0 = 0; q0 < n; q0 += kF32Tile) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kF32Tile * D; i += kThreads) {
-      const int r = i / D;
-      const int c = i % D;
-      const bool ok = q0 + r < n;
-      qs[r][c] = ok ? qg[(q0 + r) * p.q_sn + c] : 0.f;
-      dos[r][c] = ok ? dog[(q0 + r) * p.do_sn + c] : 0.f;
-    }
-    if (threadIdx.x < kF32Tile) {
-      const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < n ? lse_g[row] * kLog2e : INFINITY;
-      delta_s[threadIdx.x] = row < n ? delta_g[row] : 0.f;
-    }
-    __syncthreads();
-    const int rows = min(kF32Tile, n - q0);
-    for (int j = 0; j < rows; ++j) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        s = fmaf(kr[i], qs[j][sub + G * i], s);
-        dp = fmaf(vr[i], dos[j][sub + G * i], dp);
-      }
-#pragma unroll
-      for (int off = 1; off < G; off <<= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-        dp += __shfl_xor_sync(0xffffffffu, dp, off);
-      }
-      float x = s * scale2;
-      if constexpr (HAS_BIAS) x += kb;
-      const float pv = exp2f(x - lse_s[j]);
-      const float ds = pv * (dp - delta_s[j]);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        dv[i] = fmaf(pv, dos[j][sub + G * i], dv[i]);
-        dk[i] = fmaf(ds, qs[j][sub + G * i], dk[i]);
-      }
-    }
-  }
-  if (!live) return;
-  float* dkg = static_cast<float*>(p.dk) + bh_offset(p.dk_sb, p.dk_sh, b, h) + key * p.dk_sn;
-  float* dvg = static_cast<float*>(p.dv) + bh_offset(p.dv_sb, p.dv_sh, b, h) + key * p.dv_sn;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    dkg[sub + G * i] = dk[i] * p.scale;
-    dvg[sub + G * i] = dv[i];
-  }
-}
-
-template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_f32_kernel(const FlashBwdParams p) {
-  constexpr int G = D / 16;
-  constexpr int kRows = kThreads / G;
-  __shared__ float ks[kF32Tile][D];
-  __shared__ float vs[kF32Tile][D];
-  __shared__ float bias_s[HAS_BIAS ? kF32Tile : 1];  // log2 units
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int sub = threadIdx.x % G;
-  const int row = blockIdx.x * kRows + threadIdx.x / G;
-  const int n = p.seq_len;
-  const int nk = p.kv_len;
-  const bool live = row < n;
-
-  const float* qg = static_cast<const float*>(p.q) + bh_offset(p.q_sb, p.q_sh, b, h);
-  const float* kg = static_cast<const float*>(p.k) + bh_offset(p.k_sb, p.k_sh, b, h);
-  const float* vg = static_cast<const float*>(p.v) + bh_offset(p.v_sb, p.v_sh, b, h);
-  const float* dog = static_cast<const float*>(p.do_) + bh_offset(p.do_sb, p.do_sh, b, h);
-  const long long bh = ((long long)b * p.heads + h) * n;
-  const float lse2 = live ? p.lse[bh + row] * kLog2e : INFINITY;
-  const float dl = live ? p.delta[bh + row] : 0.f;
-
-  float qr[16], dor[16], dq[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    qr[i] = live ? qg[row * p.q_sn + sub + G * i] : 0.f;
-    dor[i] = live ? dog[row * p.do_sn + sub + G * i] : 0.f;
-    dq[i] = 0.f;
-  }
-  const float scale2 = p.scale * kLog2e;
-
-  for (int k0 = 0; k0 < nk; k0 += kF32Tile) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kF32Tile * D; i += kThreads) {
-      const int r = i / D;
-      const int c = i % D;
-      const bool ok = k0 + r < nk;
-      ks[r][c] = ok ? kg[(k0 + r) * p.k_sn + c] : 0.f;
-      vs[r][c] = ok ? vg[(k0 + r) * p.v_sn + c] : 0.f;
-    }
-    if constexpr (HAS_BIAS) {
-      if (threadIdx.x < kF32Tile) {
-        const int key = k0 + threadIdx.x;
-        bias_s[threadIdx.x] = key < nk ? p.key_bias[key] * kLog2e : 0.f;
-      }
-    }
-    __syncthreads();
-    const int keys = min(kF32Tile, nk - k0);
-    for (int j = 0; j < keys; ++j) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        s = fmaf(qr[i], ks[j][sub + G * i], s);
-        dp = fmaf(dor[i], vs[j][sub + G * i], dp);
-      }
-#pragma unroll
-      for (int off = 1; off < G; off <<= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-        dp += __shfl_xor_sync(0xffffffffu, dp, off);
-      }
-      float x = s * scale2;
-      if constexpr (HAS_BIAS) x += bias_s[j];
-      const float ds = exp2f(x - lse2) * (dp - dl);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) dq[i] = fmaf(ds, ks[j][sub + G * i], dq[i]);
-    }
-  }
-  if (!live) return;
-  float* dqg = static_cast<float*>(p.dq) + bh_offset(p.dq_sb, p.dq_sh, b, h) + row * p.dq_sn;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) dqg[sub + G * i] = dq[i] * p.scale;
-}
-
 template <int D, bool HAS_BIAS>
 cudaError_t launch(const FlashBwdParams& p, int is_bf16, cudaStream_t stream) {
   const long long rows = (long long)p.batch * p.heads * p.seq_len;
@@ -1458,18 +1431,7 @@ cudaError_t launch(const FlashBwdParams& p, int is_bf16, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (is_bf16) return launch_bf16<D, HAS_BIAS>(p, stream);
-  if constexpr (tf32_body(D)) {
-    return launch_tf32<D, HAS_BIAS>(p, stream);
-  } else {
-    constexpr int kRows = kThreads / (D / 16);
-    const dim3 key_grid((p.kv_len + kRows - 1) / kRows, p.heads, p.batch);
-    const dim3 query_grid((p.seq_len + kRows - 1) / kRows, p.heads, p.batch);
-    flash_bwd_dkdv_f32_kernel<D, HAS_BIAS><<<key_grid, kThreads, 0, stream>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_f32_kernel<D, HAS_BIAS><<<query_grid, kThreads, 0, stream>>>(p);
-    return cudaGetLastError();
-  }
+  return launch_tf32<D, HAS_BIAS>(p, stream);
 }
 
 template <int D>
@@ -1496,7 +1458,7 @@ int flash_bwd(const FlashBwdParams* p, int is_bf16, int device, void* stream) {
 }
 
 // Floats of the scratch `flash_bwd` reads from p->split for this call: the
-// f32 bodies' tf32 copies (split_layout) at d = 32 and 64, else none.
+// f32 bodies' tf32 copies (split_layout), none in bf16.
 long long flash_bwd_split_floats(const FlashBwdParams* p, int is_bf16) {
   return is_bf16 || !tf32_body(p->head_dim) ? 0 : split_layout(*p).end;
 }

@@ -2,12 +2,13 @@
 // TMA tensor loads (rank 2 to 4 tensor maps), wgmma shared-memory
 // descriptors in both majors, the bf16 wgmma m64nNk16 (N = 32, 64, 128)
 // with A from shared memory or from registers and B K-major or MN-major,
-// and the tf32 wgmma m64nNk8 in the same forms (tf32 operands are K-major
-// only); on the host the TMA descriptor of a bf16 or f32 tensor
-// (cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the
-// library needs no -lcuda). Used by ln_dense.cu (the bf16 forward and dln
-// product, and the f32 ones on 3xTF32), flash_fwd.cu (the bf16 forward) and
-// flash_bwd.cu (the bf16 backward, and the f32 one on 3xTF32).
+// and the tf32 wgmma m64nNk8 in the same forms, N = 16 from shared memory
+// only (tf32 operands are K-major only); on the host the TMA descriptor of
+// a bf16 or f32 tensor (cuTensorMapEncodeTiled, looked up through the CUDA
+// runtime, so the library needs no -lcuda). Used by ln_dense.cu (the bf16
+// forward and dln product, and the f32 ones on 3xTF32), flash_fwd.cu (the
+// bf16 forward) and flash_bwd.cu (the bf16 backward, and the f32 one on
+// 3xTF32).
 //
 // A tf32 operand row of 32 values is 128 bytes, as a bf16 row of 64, and a
 // k8 step spans 32 bytes of it, as a bf16 k16 step does: the K-major
@@ -288,7 +289,7 @@ struct Wgmma<128> {
   }
 };
 
-// The tf32 wgmma m64nNk8 (N = 32, 64, 128) with f32 accumulators: d (64 x
+// The tf32 wgmma m64nNk8 (N = 16, 32, 64, 128) with f32 accumulators: d (64 x
 // N) += A (64 x 8) * B (8 x N), both operands K-major (tf32 has no transpose
 // flag). `ss` reads A and B from shared memory behind descriptors, `rs`
 // takes A from registers: `a` is the m16n8k8 tf32 A fragment of the
@@ -298,6 +299,19 @@ struct Wgmma<128> {
 // accumulator layout is Wgmma<N>'s; `accumulate` 0 overwrites d.
 template <int N>
 struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<16> {  // the scores of the d = 128 attention backward's 16-row stages: `ss` only
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1;\n}\n"
+        : SM90_ACC8(0)
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  }
+};
 
 template <>
 struct WgmmaTf32<32> {
