@@ -131,7 +131,8 @@ non-zero exit when it fails:
    kernel launched, (24, 512) features), each with its wall time by span;
 6. the ring's partial kernels (csrc/flash_fwd.cu and flash_bwd.cu with a
    key bias) against their plain versions at the ring blocks of the paths
-   in phase 7, each the block that holds the padded tail, and at a fully
+   in phase 7, each the block that holds the padded tail, bf16 and, at
+   the f32 step's decoder and encoder blocks, f32, and at a fully
    padded block (correctness only); the per-head kernels with 1,032 query
    rows against 4,097 keys (the sequence-sharded shard); library times
    from `scaled_dot_product_attention` with the bias as a float mask, the
@@ -159,7 +160,8 @@ non-zero exit when it fails:
    equal on every rank (the replicated trunk is right only while they are);
    then one f32 MAE step with "flash_ring" (the f32 ring kernels), held
    against phase 5's f32 step within STEP_TOL["float32"], its parameters
-   bitwise equal on every rank after it;
+   bitwise equal on every rank after it; every shape a step launches a
+   ring kernel at has a phase 6 row;
 8. print one JSON line of kernels, the card's name and power limit, and as
    the last line `{"ok": true, "device": {...}}`. Each kernel row names
    the CUDA bodies it launched (`body`). Each kernel row's
@@ -630,7 +632,6 @@ def bwd_case(label, layout, b, h, n, d, dtype_name, seed):
         attention_bwd_plain, flash_attention, flash_attention_bwd, packed_attention_bwd_plain,
         packed_flash_attention, packed_flash_attention_bwd,
     )
-    from vit_ae_plus_plus_torch.kernels.flash_attention import bwd_scratch_bytes
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -658,17 +659,24 @@ def bwd_case(label, layout, b, h, n, d, dtype_name, seed):
         leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
         heads = lambda: leaves  # noqa: E731
         do_heads = do
+    # one launch's peak allocation: its dq, dk, dv, the delta pre-pass's f32
+    # rows and, in f32, the split scratch (the rest)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    kernel()
+    torch.cuda.synchronize()
+    launch_mb = (torch.cuda.max_memory_allocated() - before) / 1e6
+    elt = torch.empty((), dtype=dtype).element_size()
+    outputs_mb = (3 * b * h * n * d * elt + 4 * b * h * n) / 1e6
+    print(f"{label}: one launch allocates {launch_mb:.1f} MB at its peak (measured), {outputs_mb:.1f} MB of it "
+          f"dq, dk, dv and delta, the split scratch the rest, {launch_mb - outputs_mb:.1f} MB", flush=True)
     library = sdpa_calls(heads, scale)
     times = (graph_ms(kernel), graph_ms(plain, calls=3, reps=2), *sdpa_bwd_ms(library, leaves, do_heads))
     torch.cuda.empty_cache()
-    scratch = bwd_scratch_bytes(b, h, n, n, d, dtype)
     row = {"name": "packed_flash_bwd" if layout == "packed" else "flash_bwd", "replaces": BWD_REPLACES[layout],
            "shape": f"B={b} H={h} N={n} d={d}", "dtype": dtype_name, "key": (b, h, n, d, dtype_name),
-           "split_scratch_mb": scratch / 1e6}
-    if scratch:
-        print(f"{label}: the f32 bodies' split scratch {scratch / 1e6:.1f} MB a launch", flush=True)
-    elt = torch.empty((), dtype=dtype).element_size()
+           "launch_peak_mb": launch_mb}
     return bwd_row(label, row, got, want, times, bound(b, h, n, d, dtype_name, elt, bwd=True))
 
 
@@ -1246,7 +1254,7 @@ class Trainer:
     """One training run of the port's public API: `build_model`, the weight
     bridge, `make_adamw`, `create_train_state`, `make_train_step`."""
 
-    def __init__(self, tree, stats, dtype: str, attn_impl: str, ln_fusion: str = "auto", model: str = None):
+    def __init__(self, tree, stats, dtype: str, attn_impl: str, ln_fusion: str = "auto"):
         import torch
 
         from vit_ae_plus_plus_torch.configs import TrainConfig
@@ -1257,9 +1265,9 @@ class Trainer:
         from vit_ae_plus_plus_torch.train.checkpoint import params_from_jax
 
         tc = TrainConfig()
-        self.cfg = MODEL_ZOO[model or MODEL](volume_size=VOLUME, patch_size=PATCH, dtype=dtype, attn_impl=attn_impl,
-                                             ln_fusion=ln_fusion)
-        self.label = f"{attn_impl} ln_fusion={ln_fusion}" + (f" {model}" if model else "")
+        self.cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH, dtype=dtype, attn_impl=attn_impl,
+                                    ln_fusion=ln_fusion)
+        self.label = f"{attn_impl} ln_fusion={ln_fusion}"
         self.grad_names = FUSED_GRAD_NAMES if ln_fusion != "auto" else GRAD_NAMES
         model = build_model(self.cfg)
         model.load_state_dict(params_from_jax(tree, PATCH, 1, stats), strict=True)
@@ -1297,6 +1305,19 @@ class Trainer:
         import torch
 
         return all(bool(torch.isfinite(p.grad).all()) for p in self.model.parameters())
+
+
+def preset_trainer(model: str, *args, **kw) -> Trainer:
+    """A `Trainer` of the preset `model` in place of MODEL (TURN_CHILD does
+    the same swap inline, since it runs other checkouts' copies too)."""
+    global MODEL
+    main_model, MODEL = MODEL, model
+    try:
+        trainer = Trainer(*args, **kw)
+    finally:
+        MODEL = main_model
+    trainer.label += f" {model}"
+    return trainer
 
 
 def step_rel_errs(got: dict, want: dict, got_grads: dict, want_grads: dict) -> dict:
@@ -1487,8 +1508,8 @@ def train_phase(rows: list) -> dict:
     # the opt-in preset of d = 128 heads, f32: its step with the kernels
     # (the d = 128 backward bodies) against its plain step, same weights
     fast_cfg = MODEL_ZOO[FAST_MODEL](volume_size=VOLUME, patch_size=PATCH)
-    fast = Trainer(tree, stats, "float32", "auto", model=FAST_MODEL)
-    fast_plain = Trainer(tree, stats, "float32", "plain", model=FAST_MODEL)
+    fast = preset_trainer(FAST_MODEL, tree, stats, "float32", "auto")
+    fast_plain = preset_trainer(FAST_MODEL, tree, stats, "float32", "plain")
     [(m_fast, g_fast)], c_fast = first_steps(fast, 1, step_launches(fast_cfg, "packed_flash", "float32"))
     fill_launches(rows, c_fast, f"make_train_step, {FAST_MODEL}, compute_dtype='float32', one step")
     [(m_fp, g_fp)], _ = first_steps(fast_plain, 1, {})
@@ -3122,6 +3143,9 @@ def group_phase(rows: list, reference: dict) -> None:
                       f"{step['counts']} (want {want_counts})")
                 if rank == 0:
                     run_counts.update(step["counts"])
+        unrowed = sorted(k for k in run_counts if not any((r["name"], r["key"]) == k for r in rows))
+        check(not unrowed, f"the {dtype} flash_ring step launched kernels at shapes that no row holds against "
+              f"plain: {unrowed}")
         fill_launches(rows, run_counts, f"make_train_step, compute_dtype='{dtype}', attn_impl='flash_ring', "
                       f"{len(results[0]['train'][dtype]['steps'])} steps, rank 0 of {GROUP_RANKS}")
 
@@ -3335,6 +3359,9 @@ def main(argv) -> int:
     # block, and the sequence-sharded shard of 1,032 rows against 4,097 keys
     for i, (label, b, h, n, d) in enumerate(ring_shapes(cfg)):
         rows += ring_case(label, b, h, n, d, GROUP_RANKS, seed=70 + i)
+    # the f32 flash_ring step's blocks (phase 7c): the decoder's and the encoder's
+    for i, (label, b, h, n, d) in enumerate(ring_shapes(cfg)[1:]):
+        rows += ring_case(label.replace("bf16", "f32"), b, h, n, d, GROUP_RANKS, seed=76 + i, dtype_name="float32")
     rows += ring_case("ring bf16 NB1032 d64, every key padded", 2, 12, 4097, 64, GROUP_RANKS, seed=75,
                       full_pad=True)
     rows += seq_case("seq bf16 N1032 Nk4097 d64", 2, 12, 4097, 64, GROUP_RANKS, seed=80)

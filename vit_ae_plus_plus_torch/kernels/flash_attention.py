@@ -203,22 +203,6 @@ def launch_flash_fwd(q, k, v, o, lse: Optional[torch.Tensor], scale: float,
     _build.launch("flash_fwd", "flash_fwd", params, q)
 
 
-def _split_floats(params: FlashBwdParams, dtype: torch.dtype) -> int:
-    split_floats = _build.load("flash_bwd").flash_bwd_split_floats
-    split_floats.argtypes = [ctypes.POINTER(FlashBwdParams), ctypes.c_int]
-    split_floats.restype = ctypes.c_longlong
-    return split_floats(ctypes.byref(params), int(dtype == torch.bfloat16))
-
-
-def bwd_scratch_bytes(b: int, h: int, n: int, nk: int, d: int, dtype: torch.dtype) -> int:
-    """Bytes of the scratch one backward launch of `launch_flash_bwd`
-    allocates for the f32 bodies' tf32 copies at (B, H, N, Nk, d); 0 in
-    bf16. Builds the library if needed (on the GPU machine only)."""
-    params = FlashBwdParams()
-    params.batch, params.heads, params.seq_len, params.kv_len, params.head_dim = b, h, n, nk, d
-    return 4 * _split_floats(params, dtype)
-
-
 def launch_flash_bwd(q, k, v, o, lse, do, dq, dk, dv, scale: float,
                      key_bias: Optional[torch.Tensor] = None) -> None:
     """Run csrc/flash_bwd.cu on (B, N, H, D) views of CUDA tensors of one
@@ -240,7 +224,10 @@ def launch_flash_bwd(q, k, v, o, lse, do, dq, dk, dv, scale: float,
         b, h, n, nk, d, float(scale),
     )
     # the f32 bodies' tf32 copies of the operands (csrc/flash_bwd.cu sizes them)
-    floats = _split_floats(params, q.dtype)
+    split_floats = _build.load("flash_bwd").flash_bwd_split_floats
+    split_floats.argtypes = [ctypes.POINTER(FlashBwdParams), ctypes.c_int]
+    split_floats.restype = ctypes.c_longlong
+    floats = split_floats(ctypes.byref(params), int(q.dtype == torch.bfloat16))
     split = torch.empty(floats, dtype=torch.float32, device=q.device) if floats else None
     params.split = split.data_ptr() if split is not None else None
     _build.launch("flash_bwd", "flash_bwd", params, q)
