@@ -8,7 +8,8 @@ non-zero exit when it fails:
 
 1. print the card and build the CUDA kernels from the repository's sources;
 2. hold every kernel against its plain PyTorch version on the card at the
-   shapes the serving, training and fine-tuning paths give it (and at the
+   shapes the serving, training and fine-tuning paths give it, on one
+   process and on a rank of phase 7d's data-parallel paths (and at the
    shapes of the opt-in `contr_mae_vit_base_patch16_fast` preset's step,
    d = 128: the attention forward in bf16 and f32 and the backward packed
    in bf16 and f32 and per-head in f32, and in f32 one ring block with a
@@ -162,6 +163,25 @@ non-zero exit when it fails:
    against phase 5's f32 step within STEP_TOL["float32"], its parameters
    bitwise equal on every rank after it; every shape a step launches a
    ring kernel at has a phase 6 row;
+   7d. data parallelism over the same ranks, a (4, 1) mesh, every rank on
+   its rows of the global batch of 8: three f32 and three bf16 MAE steps
+   from phase 5's weights, views and noise, step 1 against phase 5's
+   one-process step within STEP_TOL (loss terms, GRAD_NAMES gradients,
+   BatchNorm statistics), the parameters bitwise equal on every rank after
+   the steps, the launches of every step at the per-rank shapes; a control
+   with the BatchNorm moments left local, which must fail the f32 gate;
+   three bf16 steps on a (2, 1) mesh of the first two ranks, held the same
+   way; one f32 fine-tune step with timm's mixup from 5d's fold-0 `.pth`
+   against the one-process step; `pretrain_kfold` (5c's split, fold 0, one
+   epoch of 3 steps without warmup, bf16) against the same run in one
+   process (one `.pth`, one `log.txt`, the one-process run's files, the
+   epoch's train_loss within DDP_LOSS_TOL, the features within
+   ENGINE_TOL), and a control with the gradients left unaveraged, whose
+   train_loss must miss that limit; `extract_ssl_features` from 5d's
+   `.pth` against phase 5e's `extract-features` files within ENGINE_TOL, in the same order; every
+   per-rank shape has a phase 2 row. Prints, beside the card, each rank's
+   step wall times, host-staged bytes, the gradient all-reduce's time
+   alone and peak memory, and the one-process step's wall times;
 8. print one JSON line of kernels, the card's name and power limit, and as
    the last line `{"ok": true, "device": {...}}`. Each kernel row names
    the CUDA bodies it launched (`body`). Each kernel row's
@@ -276,6 +296,14 @@ SERVED_TOL = 1e-3
 # about four times those. f32: only summation order differs; an H100 reads
 # at most 1.2e-7 on the loss terms and 5.7e-7 on the gradients.
 STEP_TOL = {"bfloat16": {"loss": 1e-3, "grad": 2e-2}, "float32": {"loss": 1e-5, "grad": 1e-5}}
+# phase 7d (c): the 4-rank bf16 `pretrain_kfold`'s epoch loss (log.txt's
+# train_loss, the mean of 3 steps) against one process's, relative. The two
+# runs make the same products on the same rows and sum the gradients in
+# another order: an H100 reads 8.2e-7 (and 1.9e-6 on 7d (a)'s bf16 losses at
+# steps 2-3). Ranks that each step on their own gradients read 1.3e-4, inside
+# STEP_TOL["bfloat16"]["loss"]; this limit is about ten times the run's
+# largest reading and a sixth of that control's.
+DDP_LOSS_TOL = 2e-5
 # the bf16 step with ln_fusion="on" vs "off", by the same measure: the fused
 # trunk rounds every qkv and fc1 output in another place (the bias added
 # after rounding) and keeps dln in f32. An H100 reads 2.7e-3 on contr_loss
@@ -1301,6 +1329,10 @@ class Trainer:
         named = dict(self.model.named_parameters())
         return {n: named[n].grad.float().clone() for n in self.grad_names}
 
+    def stats(self) -> dict:
+        """The BatchNorm running statistics, on the host."""
+        return {n: b.float().cpu().clone() for n, b in self.state.batch_stats.items()}
+
     def all_grads_finite(self) -> bool:
         import torch
 
@@ -1440,6 +1472,8 @@ def train_phase(rows: list) -> dict:
                   f"{counts} (want {want_counts})")
             run_counts.update(counts)
             out.append((metrics, trainer.grads() if i == 0 else None))
+            if i == 0:
+                trainer.first_stats = trainer.stats()
             check(trainer.all_grads_finite(), f"{trainer.label} step {i + 1}: non-finite gradients")
         moved = float((trainer.model.blocks[0].attn.qkv.weight.detach() - before).abs().max())
         check(moved > 0, f"{trainer.label}: parameters did not move")
@@ -1468,7 +1502,8 @@ def train_phase(rows: list) -> dict:
     print("train bf16 losses, steps 1-3: auto " + ", ".join(f"{m['loss']:.6f}" for m, _ in got)
           + "; plain " + ", ".join(f"{m['loss']:.6f}" for m, _ in want), flush=True)
     print(f"train bf16 step 1 metrics (auto): {json.dumps(got[0][0])}", flush=True)
-    reference = {"metrics": got[0][0], "grads": {n: g.cpu().numpy() for n, g in got[0][1].items()}}
+    reference = {"metrics": got[0][0], "grads": {n: g.cpu().numpy() for n, g in got[0][1].items()},
+                 "stats": {n: t.numpy() for n, t in auto.first_stats.items()}}
 
     # the main path timed: the default noise draw, counts read around the run
     resident = reset_peak()
@@ -1494,7 +1529,8 @@ def train_phase(rows: list) -> dict:
     fill_launches(rows, c32, "make_train_step, compute_dtype='float32', one step")
     [(mp, gp)], _ = first_steps(f32_plain, 1, {})
     hold("f32 auto", step_rel_errs(m32, mp, g32, gp), STEP_TOL["float32"])
-    reference["float32"] = {"metrics": m32, "grads": {n: g.cpu().numpy() for n, g in g32.items()}}
+    reference["float32"] = {"metrics": m32, "grads": {n: g.cpu().numpy() for n, g in g32.items()},
+                            "stats": {n: t.numpy() for n, t in f32.first_stats.items()}}
     f32_ms, _ = step_ms(f32, views, reps=2)
     del f32
     torch.cuda.empty_cache()
@@ -1954,7 +1990,7 @@ class FineTuner:
     `head_init_2e5`, layer-wise AdamW (or the frozen backbone's SGD),
     `create_train_state` and `make_supervised_steps`."""
 
-    def __init__(self, mae_sd, dtype: str, attn_impl: str = "auto", frozen: bool = False):
+    def __init__(self, mae_sd, dtype: str, attn_impl: str = "auto", frozen: bool = False, mixup: bool = False):
         import torch
 
         from vit_ae_plus_plus_torch.models import MODEL_ZOO
@@ -1970,7 +2006,7 @@ class FineTuner:
         # a constant learning rate above 0: the fine-tune warmup's first is 0
         tx = freeze_backbone_tx(make_sgd(1e-3)) if frozen else make_layerwise_adamw(vit_cfg.depth, 1e-4)
         self.state = create_train_state(self.model, tx)
-        self.train_step, self.eval_step = make_supervised_steps(self.model, num_classes=2)
+        self.train_step, self.eval_step = make_supervised_steps(self.model, num_classes=2, use_mixup=mixup)
 
     def run(self, batch, labels):
         """One step, counts read around it. -> (loss, the FT_GRAD_NAMES
@@ -3021,6 +3057,238 @@ def group_train(mesh, reference: dict) -> dict:
     return {"bfloat16": run("bfloat16", TRAIN_STEPS, reference), "float32": run("float32", 1, reference["float32"])}
 
 
+
+# phase 7d: data parallelism on a (4, 1) mesh of phase 7's ranks (and a
+# (2, 1) one of its first two, timed), every rank on its rows of a global
+# batch of BATCH
+DDP_FOLDS = 2  # pretrain_kfold's split; 7d trains and extracts fold 0 only
+
+
+def ddp_shapes(cfg, ranks: int) -> tuple:
+    """The attention shapes (B, H, N, d) of one rank of `ranks` in phase 7d:
+    the MAE step's encoder (both views of its rows) and decoder, and the
+    classifier's (the fine-tune step, extraction)."""
+    enc, dec = train_shapes(cfg)
+    b = BATCH // ranks
+    return (2 * b, *enc[1:]), (b, *dec[1:]), (b, cfg.num_heads, cfg.num_patches + 1, cfg.embed_dim // cfg.num_heads)
+
+
+def ddp_cases(cfg) -> list:
+    """Phase 2's cases at phase 7d's per-rank shapes: (case, label, shape,
+    dtype)."""
+    enc, dec, vit = ddp_shapes(cfg, GROUP_RANKS)
+    enc2, dec2, _ = ddp_shapes(cfg, 2)
+    cases = []
+    for dtype, tag in (("bfloat16", "bf16"), ("float32", "f32")):
+        for where, shape in (("N433 d64 (encoder, a rank of 4)", enc), ("N1729 d32 (decoder, a rank of 4)", dec)):
+            cases += [(kernel_case, f"packed {tag} {where}", shape, dtype),
+                      (bwd_case, f"packed bwd {tag} {where}", shape, dtype)]
+    cases += [(kernel_case, "packed f32 N1729 d64 (fine-tune, a rank of 4)", vit, "float32"),
+              (bwd_case, "packed bwd f32 N1729 d64 (fine-tune, a rank of 4)", vit, "float32"),
+              (kernel_case, "packed bf16 N1729 d64 (extraction, a rank of 4)", vit, "bfloat16")]
+    for where, shape in (("N433 d64 (encoder, a rank of 2)", enc2), ("N1729 d32 (decoder, a rank of 2)", dec2)):
+        cases += [(kernel_case, f"packed bf16 {where}", shape, "bfloat16"),
+                  (bwd_case, f"packed bwd bf16 {where}", shape, "bfloat16")]
+    return cases
+
+
+def ddp_step_launches(cfg, ranks: int, dtype: str) -> dict:
+    """The attention launches of one rank's data-parallel MAE step."""
+    enc, dec, _ = ddp_shapes(cfg, ranks)
+    return {(f"packed_flash_{way}", (*shape, dtype)): depth for way in ("fwd", "bwd")
+            for shape, depth in ((enc, cfg.depth), (dec, cfg.decoder_depth))}
+
+
+def finetune_inputs():
+    """Phase 7d's fine-tune batch on the card: seeded volumes of one class
+    (see FT_GRAD_NAMES)."""
+    import torch
+
+    rng = np.random.default_rng(62)
+    batch = torch.from_numpy(rng.standard_normal((BATCH, 1, VOLUME, VOLUME, VOLUME), dtype=np.float32)).cuda()
+    return batch, torch.ones(BATCH, dtype=torch.int64, device="cuda")
+
+
+def ddp_configs(split_dir: str) -> tuple:
+    """pretrain-kfold's data and training configs as its CLI builds them at
+    batch BATCH, bf16, one epoch without warmup, and fold 0 of its split.
+    No warmup: its learning rates over three steps of 40 epochs' warmup
+    stay below 6e-7 and hardly move the weights; at blr's 3.125e-5 the
+    loss falls by a third a step, as phase 5's does."""
+    from vit_ae_plus_plus_torch.configs import DataConfig, TrainConfig
+    from vit_ae_plus_plus_torch.data.splits import kfold_indices
+
+    data_cfg = DataConfig(name="brats", base_path=split_dir, volume_size=VOLUME, in_channels=1, use_z_score=True)
+    train_cfg = TrainConfig(epochs=1, warmup_epochs=0, batch_size=BATCH, seed=42, patch_size=PATCH,
+                            compute_dtype="bfloat16")
+    folds = kfold_indices(np.load(os.path.join(split_dir, "y_whole_ssl.npy")), DDP_FOLDS)[:1]
+    return data_cfg, train_cfg, folds
+
+
+def stats_errs(got: dict, want: dict) -> dict:
+    """Each BatchNorm statistic's largest error over its largest magnitude."""
+    return {n: float(np.abs(got[n].numpy() - w).max() / np.abs(w).max()) for n, w in want.items()}
+
+
+@contextlib.contextmanager
+def staged_bytes(counter: dict):
+    """Add to `counter["bytes"]` the bytes that the gloo transport copies to
+    pinned host memory (`parallel.mesh._to_host`) while this is open."""
+    from unittest import mock
+
+    from vit_ae_plus_plus_torch.parallel import mesh as transport
+
+    to_host = transport._to_host
+
+    def counted(ts):
+        counter["bytes"] += sum(t.numel() * t.element_size() for t in ts)
+        return to_host(ts)
+
+    with mock.patch.object(transport, "_to_host", counted):
+        yield
+
+
+def ddp_mae(mesh, want: dict, dtype: str, steps: int, local_moments: bool = False) -> dict:
+    """Phase 7d (a) on one rank: `steps` steps of phase 5's trainer (its
+    weights, views and noise) on this rank's rows under `mesh`, step 1's
+    errors against `want` (phase 5's one-process step: metrics, GRAD_NAMES
+    gradients, BatchNorm statistics), each step's launches, wall time and
+    host-staged bytes, the gradient all-reduce alone timed, the parameters'
+    largest difference from the group's first rank after the steps, the
+    peak memory. `local_moments`: the control, BatchNorm on this rank's
+    rows alone (the 'data' group's sum of its moments left out)."""
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO, vit
+    from vit_ae_plus_plus_torch.parallel import all_reduce_flat, set_mesh
+
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    tree, stats = mae_tree(cfg, seed=0)
+    views, noise = train_inputs(cfg)
+    d, b = mesh.coords["data"], BATCH // mesh.size("data")
+
+    def mine(t):
+        return t[d * b:(d + 1) * b]
+
+    trainer = Trainer(tree, stats, dtype, "auto")
+    local = mock.patch.object(vit, "psum", lambda t, _mesh, _axis: t) if local_moments else contextlib.nullcontext()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"steps": []}
+    with set_mesh(mesh), local:
+        for i in range(steps):
+            staged = {"bytes": 0}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with staged_bytes(staged):
+                metrics, counts = trainer.run([mine(v) for v in views],
+                                              torch.cat([mine(noise[i]), mine(noise[i][BATCH:])]))
+            torch.cuda.synchronize()
+            out["steps"].append({"metrics": metrics, "counts": counts, "wall_s": time.perf_counter() - t0,
+                                 "staged_bytes": staged["bytes"]})
+            if i == 0:
+                errs = step_rel_errs(metrics, want["metrics"], {n: g.cpu() for n, g in trainer.grads().items()},
+                                     {n: torch.from_numpy(g) for n, g in want["grads"].items()})
+                out["errs"] = {**errs, **stats_errs(trainer.stats(), want["stats"])}
+        grads = [p.grad for p in trainer.state.tx.params]
+        out["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+        out["allreduce_s"] = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_flat(grads, mesh)
+            torch.cuda.synchronize()
+            out["allreduce_s"].append(time.perf_counter() - t0)
+    flat = torch.cat([p.detach().flatten() for p in trainer.model.parameters()]).cpu()
+    first = flat.clone()
+    dist.broadcast(first, src=mesh.ranks["data"][0], group=mesh.groups["data"])
+    out["params_max_diff"] = float((flat - first).abs().max())
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_finetune(mesh, pth: str, want: dict) -> dict:
+    """Phase 7d (b) on one rank: one f32 fine-tune step with timm's mixup
+    from 5d's fold-0 `.pth` on this rank's rows, against `want` (the
+    one-process step), and its launches."""
+    import torch
+
+    from vit_ae_plus_plus_torch.parallel import set_mesh
+    from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict
+
+    batch, labels = finetune_inputs()
+    d, b = mesh.coords["data"], BATCH // mesh.size("data")
+    tuner = FineTuner(load_reference_state_dict(pth), "float32", mixup=True)
+    with set_mesh(mesh):
+        loss, grads, counts = tuner.run(batch[d * b:(d + 1) * b], labels[d * b:(d + 1) * b])
+    errs = step_rel_errs({"loss": loss}, {"loss": want["loss"]}, {n: g.cpu() for n, g in grads.items()},
+                         {n: torch.from_numpy(g) for n, g in want["grads"].items()})
+    del tuner
+    torch.cuda.empty_cache()
+    return {"errs": errs, "counts": counts}
+
+
+def ddp_commands(mesh, paths: dict) -> dict:
+    """Phase 7d (c) and (d) on one rank: `pretrain_kfold` (fold 0, one
+    epoch, bf16) and `extract_ssl_features` (5d's fold-0 `.pth`, bf16) under
+    `mesh`, with the launches and wall time of each; then the control,
+    `pretrain_kfold` with the gradients left unaveraged (each rank's own
+    update), into `paths["control_work"]`."""
+    from unittest import mock
+
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+    from vit_ae_plus_plus_torch.parallel import set_mesh
+    from vit_ae_plus_plus_torch.pipelines.extract_features import extract_ssl_features
+    from vit_ae_plus_plus_torch.pipelines.pretrain_kfold import pretrain_kfold
+    from vit_ae_plus_plus_torch.train import step
+
+    data_cfg, train_cfg, folds = ddp_configs(paths["split"])
+    size = mesh.size("data")
+    out = {}
+    with set_mesh(mesh):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out["results"] = pretrain_kfold(data_cfg, train_cfg, paths["ranks_work"], model_name=MODEL,
+                                        n_splits=DDP_FOLDS, folds=folds, n_devices=size, device="cuda")
+        out["pretrain"] = {"wall_s": time.perf_counter() - t0, "counts": shape_counts()}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        extract_ssl_features(data_cfg, paths["pth"], paths["ranks_features"], model_name=MODEL, batch_size=BATCH,
+                             patch_size=PATCH, compute_dtype="bfloat16", n_devices=size, device="cuda")
+        out["extract"] = {"wall_s": time.perf_counter() - t0, "counts": shape_counts()}
+        with mock.patch.object(step, "average_grads", lambda params: None):
+            pretrain_kfold(data_cfg, train_cfg, paths["control_work"], model_name=MODEL, n_splits=DDP_FOLDS,
+                           folds=folds, n_devices=size, device="cuda")
+    return out
+
+
+def group_ddp(references: dict, paths: dict) -> dict:
+    """Phase 7d on one rank of phase 7's world: the MAE step on the (4, 1)
+    mesh in f32 and bf16 and the local-moments control, the bf16 step on a
+    (2, 1) mesh of the first two ranks, the fine-tune step and the
+    commands on (4, 1). Every rank makes every mesh (make_mesh is
+    collective; a rank outside one gets None and skips its runs)."""
+    from vit_ae_plus_plus_torch.parallel import make_mesh
+
+    mesh = make_mesh(GROUP_RANKS, 1)
+    with warnings.catch_warnings():  # a mesh of 2 of the 4 ranks warns
+        warnings.simplefilter("ignore")
+        pair = make_mesh(2, 1)
+    reference = references["step"]
+    out = {"float32": ddp_mae(mesh, reference["float32"], "float32", TRAIN_STEPS),
+           "bfloat16": ddp_mae(mesh, reference, "bfloat16", TRAIN_STEPS),
+           "control": ddp_mae(mesh, reference["float32"], "float32", 1, local_moments=True)}
+    if pair is not None:
+        out["pair"] = ddp_mae(pair, reference, "bfloat16", TRAIN_STEPS)
+    out["finetune"] = ddp_finetune(mesh, paths["pth"], references["finetune"])
+    out.update(ddp_commands(mesh, paths))
+    return out
+
+
 def rank_mesh():
     """A rank of phase 7: the one card, f32 kept f32, and the (1, 4) mesh."""
     import torch
@@ -3033,11 +3301,12 @@ def rank_mesh():
     return make_mesh(1, GROUP_RANKS)
 
 
-def group_rank(rank: int, reference: dict) -> dict:
+def group_rank(rank: int, references: dict, paths: dict) -> dict:
     """Phase 7: one rank's program in the 4-rank gloo world, all ranks on
     the one card (the kernels were built by the parent). -> its numbers."""
     mesh = rank_mesh()
-    return {"attention": group_attention(mesh), "vit": group_vit(mesh), "train": group_train(mesh, reference)}
+    return {"attention": group_attention(mesh), "vit": group_vit(mesh),
+            "train": group_train(mesh, references["step"]), "ddp": group_ddp(references, paths)}
 
 
 def attention_rank(rank: int) -> dict:
@@ -3081,17 +3350,202 @@ def check_group_attention(results: list) -> None:
             check(a["counts"] == want_counts[impl], f"rank {rank} {impl} attention launched {a['counts']}")
 
 
-def group_phase(rows: list, reference: dict) -> None:
+def ddp_references(reference: dict, paths: dict) -> dict:
+    """Phase 7d's one-process references, taken here before the ranks
+    start: phase 5's step (`reference`), the f32 fine-tune step with mixup
+    on the whole batch, `pretrain_kfold` (fold 0, one epoch, bf16) into
+    `paths["one_work"]`, and the host time of three bf16 steps of phase 5's
+    trainer on the whole batch."""
+    import torch
+
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+    from vit_ae_plus_plus_torch.pipelines.pretrain_kfold import pretrain_kfold
+    from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict
+
+    tuner = FineTuner(load_reference_state_dict(paths["pth"]), "float32", mixup=True)
+    loss, grads, _ = tuner.run(*finetune_inputs())
+    del tuner
+    data_cfg, train_cfg, folds = ddp_configs(paths["split"])
+    t0 = time.perf_counter()
+    pretrain_kfold(data_cfg, train_cfg, paths["one_work"], model_name=MODEL, n_splits=DDP_FOLDS, folds=folds,
+                   device="cuda")
+    pretrain_s = time.perf_counter() - t0
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    views, noise = train_inputs(cfg)
+    trainer = Trainer(*mae_tree(cfg, seed=0), "bfloat16", "auto")
+    walls = []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run(views, noise[i])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step": reference, "finetune": {"loss": loss, "grads": {n: g.cpu().numpy() for n, g in grads.items()}},
+            "pretrain_s": pretrain_s, "one_process_walls": walls}
+
+
+def files_under(root: str) -> list:
+    return sorted(str(p.relative_to(root)) for p in Path(root).rglob("*") if p.is_file())
+
+
+def check_ddp(results: list, rows: list, refs: dict, paths: dict) -> None:
+    """Phase 7d's limits on the ranks' numbers and files; fills the
+    per-rank rows' `launches` from rank 0's runs."""
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    card = card_line()
+
+    def rowed(counts: dict, what: str) -> None:
+        unrowed = sorted(k for k in counts if not any((r["name"], r["key"]) == k for r in rows))
+        check(not unrowed, f"{what} launched kernels at shapes that no row holds against plain: {unrowed}")
+
+    # (a) the MAE step on (4, 1), and on (2, 1) in bf16
+    for run, ranks in (("float32", GROUP_RANKS), ("bfloat16", GROUP_RANKS), ("pair", 2)):
+        dtype = "bfloat16" if run != "float32" else "float32"
+        tol, want_counts = STEP_TOL[dtype], ddp_step_launches(cfg, ranks, dtype)
+        run_counts = Counter()
+        for rank, res in enumerate(results[:ranks]):
+            t = res["ddp"][run]
+            print(f"ddp rank {rank} of {ranks} {dtype} MAE step vs phase 5's one-process step, step 1 relative "
+                  f"errors: " + ", ".join(f"{k} {v:.3g}" for k, v in t["errs"].items())
+                  + f" (tol loss terms and statistics {tol['loss']}, grads {tol['grad']}); losses "
+                  + ", ".join(f"{s['metrics']['loss']:.6f}" for s in t["steps"])
+                  + f"; parameters' largest difference from rank 0 after {len(t['steps'])} steps: "
+                  f"{t['params_max_diff']:.3g}", flush=True)
+            print(f"ddp rank {rank} of {ranks} {dtype}, information only ({card}): step wall "
+                  + ", ".join(f"{1e3 * s['wall_s']:.1f}" for s in t["steps"])
+                  + " ms (host clock, synchronised; all-reduce included); host-staged "
+                  + ", ".join(f"{s['staged_bytes'] / 1e6:.1f}" for s in t["steps"])
+                  + f" MB a step; the gradient all-reduce alone ({t['grad_bytes'] / 1e6:.1f} MB, gloo through "
+                  f"pinned host memory) " + ", ".join(f"{1e3 * x:.1f}" for x in t["allreduce_s"])
+                  + f" ms; peak {t['peak_gib']:.2f} GiB", flush=True)
+            for k, v in t["errs"].items():
+                check(v <= (tol["grad"] if k in GRAD_NAMES else tol["loss"]),
+                      f"ddp rank {rank} of {ranks} {dtype} MAE step {k}: {v:.3g}")
+            check(t["params_max_diff"] == 0.0, f"ddp rank {rank} of {ranks}: {dtype} parameters differ from rank "
+                  f"0's by {t['params_max_diff']:.3g}")
+            for i, step in enumerate(t["steps"]):
+                check(step["counts"] == want_counts, f"ddp rank {rank} of {ranks} {dtype} step {i + 1} launched "
+                      f"{step['counts']} (want {want_counts})")
+                if rank == 0:
+                    run_counts.update(step["counts"])
+        rowed(run_counts, f"the {dtype} data-parallel step on {ranks} ranks")
+        fill_launches(rows, run_counts, f"make_train_step, compute_dtype='{dtype}', {TRAIN_STEPS} steps on a "
+                      f"({ranks}, 1) data mesh, rank 0 of {ranks}")
+    print(f"ddp, information only ({card}): the one-process bf16 step's wall "
+          + ", ".join(f"{1e3 * x:.1f}" for x in refs["one_process_walls"])
+          + " ms (host clock, synchronised, phase 5's trainer and batch)", flush=True)
+    tol = STEP_TOL["float32"]
+    for rank, res in enumerate(results):
+        errs = res["ddp"]["control"]["errs"]
+        missed = {k: v for k, v in errs.items() if v > (tol["grad"] if k in GRAD_NAMES else tol["loss"])}
+        print(f"ddp rank {rank} f32 control, BatchNorm moments left local: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
+        check(bool(missed), f"ddp rank {rank}: the local-moments control passed the f32 gate ({errs})")
+
+    # (b) the fine-tune step with mixup
+    vit = ddp_shapes(cfg, GROUP_RANKS)[2]
+    want_counts = {(f"packed_flash_{way}", (*vit, "float32")): cfg.depth for way in ("fwd", "bwd")}
+    tol = STEP_TOL["float32"]
+    for rank, res in enumerate(results):
+        f = res["ddp"]["finetune"]
+        print(f"ddp rank {rank} f32 fine-tune step with timm mixup vs one process: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in f["errs"].items()) + f" (tol loss {tol['loss']}, grads {tol['grad']})",
+              flush=True)
+        check(all(v <= (tol["loss"] if k == "loss" else tol["grad"]) for k, v in f["errs"].items()),
+              f"ddp rank {rank} fine-tune step: {f['errs']}")
+        check(f["counts"] == want_counts, f"ddp rank {rank} fine-tune step launched {f['counts']}")
+    rowed(results[0]["ddp"]["finetune"]["counts"], "the data-parallel fine-tune step")
+    fill_launches(rows, results[0]["ddp"]["finetune"]["counts"],
+                  f"make_supervised_steps with mixup, f32, one step on a ({GROUP_RANKS}, 1) data mesh, rank 0")
+
+    # (c) pretrain_kfold and (d) extract_ssl_features: one writer, the
+    # one-process files in the one-process order
+    ranks_work, one_work = paths["ranks_work"], paths["one_work"]
+    pth = "checkpoints/fold_0/checkpoint-min_loss.pth"
+    got_files, one_files = files_under(ranks_work), files_under(one_work)
+    feat_names = [f"ssl_features_dir/{t}_contrast_ssl_{w}_split_0.npy" for t in ("test", "train")
+                  for w in ("features", "labels")]
+    check([f for f in got_files if not f.startswith("logs/")] == sorted([".writer.lock", "checkpoints/log.txt", pth,
+                                                                          *feat_names]),
+          f"ddp pretrain_kfold wrote {got_files}")
+    check(len([f for f in got_files if f.startswith("logs/")]) == 1, f"ddp pretrain_kfold TensorBoard files {got_files}")
+    logged = {}
+    for run in ("ranks_work", "one_work", "control_work"):
+        with open(os.path.join(paths[run], "checkpoints", "log.txt")) as f:
+            logged[run] = [json.loads(line) for line in f]
+        check(len(logged[run]) == 1 and np.isfinite(logged[run][0]["train_loss"]), f"ddp {run} log.txt {logged[run]}")
+    want_loss, tol = logged["one_work"][0]["train_loss"], DDP_LOSS_TOL
+    loss_errs = {run: abs(logged[run][0]["train_loss"] - want_loss) / abs(want_loss)
+                 for run in ("ranks_work", "control_work")}
+    print(f"ddp pretrain_kfold on {GROUP_RANKS} ranks, log.txt train_loss (the epoch's mean of 3 steps at "
+          f"lr {logged['one_work'][0]['train_lr']:.4g} last): {logged['ranks_work'][0]['train_loss']:.6f} against one "
+          f"process's {want_loss:.6f}, rel err {loss_errs['ranks_work']:.3g} (tol {tol}); the control, gradients "
+          f"left unaveraged: {logged['control_work'][0]['train_loss']:.6f}, rel err "
+          f"{loss_errs['control_work']:.3g} (must miss)", flush=True)
+    check(loss_errs["ranks_work"] <= tol, f"ddp pretrain_kfold train_loss: rel err {loss_errs['ranks_work']:.3g}")
+    check(loss_errs["control_work"] > tol, f"ddp pretrain_kfold control (gradients unaveraged) passed the "
+          f"train_loss gate: rel err {loss_errs['control_work']:.3g}")
+    errs = {}
+    for name in feat_names:
+        got, want = np.load(os.path.join(ranks_work, name)), np.load(os.path.join(one_work, name))
+        check(got.shape == want.shape and got.dtype == want.dtype, f"ddp {name}: {got.shape} {got.dtype}")
+        if "labels" in name:
+            check(np.array_equal(got, want), f"ddp {name}: labels differ from one process's")
+        else:
+            errs[name] = rel_err(got, want)
+    pre, ext = results[0]["ddp"]["pretrain"], results[0]["ddp"]["extract"]
+    print(f"ddp pretrain_kfold on {GROUP_RANKS} ranks (fold 0, 1 epoch of 3 steps, bf16) vs one process: features "
+          + ", ".join(f"{n.split('/')[1]} {e:.3g}" for n, e in errs.items()) + f" (tol {ENGINE_TOL['bfloat16']}); "
+          f"files {len(got_files)} (one process {len(one_files)}); wall {pre['wall_s']:.2f} s, one process "
+          f"{refs['pretrain_s']:.2f} s ({card}, information only)", flush=True)
+    check(all(e <= ENGINE_TOL["bfloat16"] for e in errs.values()), f"ddp pretrain_kfold features: {errs}")
+    errs = {}
+    for split in ("train", "test"):
+        got = np.load(os.path.join(paths["ranks_features"], f"{split}_features.npy"))
+        want = np.load(os.path.join(paths["features"], f"{split}_features.npy"))
+        check(got.shape == want.shape, f"ddp extract {split}: {got.shape} (want {want.shape})")
+        check(np.array_equal(np.load(os.path.join(paths["ranks_features"], f"{split}_gt_labels.npy")),
+                             np.load(os.path.join(paths["features"], f"{split}_gt_labels.npy"))),
+              f"ddp extract {split} labels")
+        errs[split] = rel_err(got, want)
+    print(f"ddp extract_ssl_features on {GROUP_RANKS} ranks vs phase 5e's extract-features files: "
+          + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()) + f" (tol {ENGINE_TOL['bfloat16']}); wall "
+          f"{ext['wall_s']:.2f} s ({card}, information only)", flush=True)
+    check(all(e <= ENGINE_TOL["bfloat16"] for e in errs.values()), f"ddp extract features: {errs}")
+    enc, dec, vit = ddp_shapes(cfg, GROUP_RANKS)
+    slab_counts = {("packed_flash_fwd", (*vit, "bfloat16")): cfg.depth * 2 * slabs(24)}
+    want_pre = {k: TRAIN_STEPS * n for k, n in ddp_step_launches(cfg, GROUP_RANKS, "bfloat16").items()}
+    want_pre.update(slab_counts)
+    n_extract = sum(len(np.load(os.path.join(paths["split"], f"y_{m}_ssl.npy"))) for m in ("train", "test"))
+    for rank, res in enumerate(results):
+        check(res["ddp"]["pretrain"]["counts"] == want_pre, f"ddp rank {rank} pretrain_kfold launched "
+              f"{res['ddp']['pretrain']['counts']} (want {want_pre})")
+        check(sum(res["ddp"]["extract"]["counts"].values()) == cfg.depth * (slabs(38) + slabs(5))
+              and set(res["ddp"]["extract"]["counts"]) == set(slab_counts),
+              f"ddp rank {rank} extraction of {n_extract} volumes launched {res['ddp']['extract']['counts']}")
+    for what, key in (("pretrain_kfold", "pretrain"), ("extract_ssl_features", "extract")):
+        rowed(pre["counts"] if key == "pretrain" else ext["counts"], f"the data-parallel {what}")
+        fill_launches(rows, results[0]["ddp"][key]["counts"], f"{what} on a ({GROUP_RANKS}, 1) data mesh, rank 0")
+
+
+def group_phase(rows: list, reference: dict, paths: dict) -> None:
     """Phase 7: run `group_rank` on 4 spawned ranks and hold their numbers
-    to the limits; fills the ring rows' `launches` from rank 0's runs."""
+    to the limits; fills the ring rows' `launches` from rank 0's runs, and
+    7d's per-rank rows'."""
     import torch
 
     from vit_ae_plus_plus_torch.models import MODEL_ZOO
     from vit_ae_plus_plus_torch.parallel import padded_len
 
+    refs = ddp_references(reference, paths)
     gc.collect()
     torch.cuda.empty_cache()
-    results = run_group(group_rank, reference)
+    results = run_group(group_rank, refs, paths)
     check_group_attention(results)  # 7a
 
     # 7b: ViT-B features at 128^3 / p8: 12 blocks x 4 ring steps, or 12 shards
@@ -3148,6 +3602,7 @@ def group_phase(rows: list, reference: dict) -> None:
               f"plain: {unrowed}")
         fill_launches(rows, run_counts, f"make_train_step, compute_dtype='{dtype}', attn_impl='flash_ring', "
                       f"{len(results[0]['train'][dtype]['steps'])} steps, rank 0 of {GROUP_RANKS}")
+    check_ddp(results, rows, refs, paths)  # 7d
 
 
 def main(argv) -> int:
@@ -3269,6 +3724,11 @@ def main(argv) -> int:
         r, c = shapes[where]
         rows += layernorm_cases(f"layernorm bf16 {where} R{r} C{c}", r, c, "bfloat16", seed=60 + i)
     print(f"LayerNorm kernel cases {time.perf_counter() - t0:.1f}s", flush=True)
+    # the per-rank shapes of phase 7d's data-parallel paths
+    t0 = time.perf_counter()
+    rows += [case(label, "packed", *shape, dtype, seed=110 + i)
+             for i, (case, label, shape, dtype) in enumerate(ddp_cases(cfg))]
+    print(f"data-parallel kernel cases {time.perf_counter() - t0:.1f}s", flush=True)
 
     # phase 3: the full-width ViT-B feature engine, kernel against plain
     tree = mae_encoder_tree(cfg, seed=0)
@@ -3352,26 +3812,32 @@ def main(argv) -> int:
         moco_step_phase(rows)
         moco_kfold_phase(split_dir)
         print(f"MoCo phase {time.perf_counter() - t0:.1f}s", flush=True)
-    fused_layernorm_run(rows, cfg)
+        fused_layernorm_run(rows, cfg)
 
-    # phase 6: the ring's partial kernels at the ring blocks of phase 7 (the
-    # feature path's, the step's decoder's and encoder's), a fully padded
-    # block, and the sequence-sharded shard of 1,032 rows against 4,097 keys
-    for i, (label, b, h, n, d) in enumerate(ring_shapes(cfg)):
-        rows += ring_case(label, b, h, n, d, GROUP_RANKS, seed=70 + i)
-    # the f32 flash_ring step's blocks (phase 7c): the decoder's and the encoder's
-    for i, (label, b, h, n, d) in enumerate(ring_shapes(cfg)[1:]):
-        rows += ring_case(label.replace("bf16", "f32"), b, h, n, d, GROUP_RANKS, seed=76 + i, dtype_name="float32")
-    rows += ring_case("ring bf16 NB1032 d64, every key padded", 2, 12, 4097, 64, GROUP_RANKS, seed=75,
-                      full_pad=True)
-    rows += seq_case("seq bf16 N1032 Nk4097 d64", 2, 12, 4097, 64, GROUP_RANKS, seed=80)
+        # phase 6: the ring's partial kernels at the ring blocks of phase 7 (the
+        # feature path's, the step's decoder's and encoder's), a fully padded
+        # block, and the sequence-sharded shard of 1,032 rows against 4,097 keys
+        for i, (label, b, h, n, d) in enumerate(ring_shapes(cfg)):
+            rows += ring_case(label, b, h, n, d, GROUP_RANKS, seed=70 + i)
+        # the f32 flash_ring step's blocks (phase 7c): the decoder's and the encoder's
+        for i, (label, b, h, n, d) in enumerate(ring_shapes(cfg)[1:]):
+            rows += ring_case(label.replace("bf16", "f32"), b, h, n, d, GROUP_RANKS, seed=76 + i, dtype_name="float32")
+        rows += ring_case("ring bf16 NB1032 d64, every key padded", 2, 12, 4097, 64, GROUP_RANKS, seed=75,
+                          full_pad=True)
+        rows += seq_case("seq bf16 N1032 Nk4097 d64", 2, 12, 4097, 64, GROUP_RANKS, seed=80)
 
-    # with --parent: the redesigned rows in turns against the parent's bodies
-    if parent is not None:
-        in_turns_phase(rows, cfg, parent, parent_build)
+        # with --parent: the redesigned rows in turns against the parent's bodies
+        if parent is not None:
+            in_turns_phase(rows, cfg, parent, parent_build)
 
-    # phase 7: the sequence-parallel paths in a group of ranks on the card
-    group_phase(rows, reference)
+        # phase 7: the sequence-parallel paths in a group of ranks on the
+        # card, then (7d) data parallelism over the same ranks on 5c's split
+        # and 5d's and 5e's files
+        paths = {"split": str(split_dir), "features": str(split_dir.parent / "features"),
+                 "pth": str(pre_work / "checkpoints" / "fold_0" / "checkpoint-min_loss.pth"),
+                 **{name: str(Path(tmp) / f"ddp_{name}")
+                    for name in ("ranks_work", "one_work", "control_work", "ranks_features")}}
+        group_phase(rows, reference, paths)
     for row in rows:
         if row["launches"] is None:
             row["launches"], row["path"] = 0, "none: a reference case at a shape no path runs"

@@ -168,7 +168,7 @@ def test_moco_refuses_before_any_file_is_read(monkeypatch, tmp_path):
                {"train_cfg": TrainConfig(mesh_shape=(2,))})
     for kw in refused:
         train_cfg = kw.pop("train_cfg", TrainConfig())
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item (1b|6)"):
             moco_kfold(data_cfg, train_cfg, str(work), device="cpu", **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

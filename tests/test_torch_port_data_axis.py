@@ -1,21 +1,34 @@
-"""The training step on a mesh whose 'data' axis has more than one rank.
+"""The training step and the data-parallel launch on a mesh's 'data' axis,
+in one process.
 
 The JAX step (vit_ae_plus_plus_tpu/train/step.py) shards the batch over
 'data' and so takes the gradient and the contrastive BatchNorm's statistics
-over the global batch. The port's step reduces neither over a data group
-yet, so it refuses such a mesh before any forward: no rank takes an update
-of its own. A mesh of data = 1 (the sequence-parallel paths' (1, M)) and no
-mesh at all train as before. The meshes here are built directly, with no
-process group: the step must decide from the mesh's shape alone.
+over the global batch. The port's step does the same on a mesh of (D, 1):
+those cases need a process group, so they run in the 8-rank world of
+tests/test_torch_port_ring_flash.py (against JAX's data-mesh step). Here:
+
+- a mesh with data > 1 and model > 1 is refused before any forward, and
+  the refusal changes nothing; a mesh of data = 1 (the sequence-parallel
+  paths' (1, M)) and no mesh at all train as before. These meshes are
+  built directly, with no process group: the step must decide from the
+  mesh's shape alone.
+- the masking noise drawn from the generator under a (D, 1) mesh: each
+  data coordinate's rows of the global batch's noise, for both views, so
+  the masks are the one-process run's rows (the model in eval mode: its
+  BatchNorm reads its running statistics and reduces over no group).
+- the NCCL launch refuses more ranks than visible cards before any spawn,
+  through `run_ranks` and the CLI's `--n-devices`, and the CLI refuses a
+  batch size the ranks do not divide before any spawn.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from vit_ae_plus_plus_torch import cli
 from vit_ae_plus_plus_torch.configs import MAEConfig
 from vit_ae_plus_plus_torch.models import build_model
-from vit_ae_plus_plus_torch.parallel import Mesh, set_mesh
+from vit_ae_plus_plus_torch.parallel import Mesh, run_ranks, set_mesh
 from vit_ae_plus_plus_torch.train import create_train_state, make_adamw, make_train_step
 
 B, VOL, PATCH = 2, 16, 4
@@ -24,9 +37,17 @@ TINY = dict(volume_size=VOL, patch_size=PATCH, embed_dim=24, depth=1, num_heads=
             in_chans=1, contrastive=True, use_proj=False, dtype="float32")
 
 
-def _mesh(data: int, model: int) -> Mesh:
-    """Rank 0's place in a (data, model) grid, without process groups."""
-    return Mesh(shape={"data": data, "model": model}, coords={"data": 0, "model": 0},
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _mesh(data: int, model: int, d: int = 0) -> Mesh:
+    """The place (d, 0) in a (data, model) grid, without process groups."""
+    return Mesh(shape={"data": data, "model": model}, coords={"data": d, "model": 0},
                 ranks={"data": [m * model for m in range(data)], "model": list(range(model))},
                 groups={"data": None, "model": None})
 
@@ -48,11 +69,13 @@ def _step_and_state():
     return step, state, calls, v1, v2
 
 
-@pytest.mark.parametrize("data,model", [(2, 1), (2, 4), (4, 2)])
+@pytest.mark.parametrize("data,model", [(2, 4), (4, 2)])
 def test_step_refuses_a_data_axis_before_any_forward(data, model):
+    """data > 1 with model > 1: neither the data-parallel step (a replicated
+    trunk) nor the sequence-parallel one (one data coordinate)."""
     step, state, calls, v1, v2 = _step_and_state()
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
-    with set_mesh(_mesh(data, model)), pytest.raises(ValueError, match=r"data=\d.*DDP"):
+    with set_mesh(_mesh(data, model)), pytest.raises(ValueError, match=r"data=\d.*DDP.*item 6"):
         step(state, v1, v2, 0.01)
     assert calls == [] and state.step == 0
     after = state.model.state_dict()
@@ -75,10 +98,59 @@ def test_a_refused_step_leaves_the_next_step_on_no_mesh_equal_to_a_fresh_one():
     """The refusal changes nothing: a step taken afterwards without the mesh
     gives the parameters of a step taken without ever trying."""
     step, state, _, v1, v2 = _step_and_state()
-    with set_mesh(_mesh(2, 1)), pytest.raises(ValueError):
+    with set_mesh(_mesh(2, 4)), pytest.raises(ValueError):
         step(state, v1, v2, 0.01)
     state, _ = step(state, v1, v2, 0.01)
     step2, fresh, _, w1, w2 = _step_and_state()
     fresh, _ = step2(fresh, w1, w2, 0.01)
     got, want = state.model.state_dict(), fresh.model.state_dict()
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.parametrize("data", [2, 4])
+@pytest.mark.parametrize("contrastive", [True, False], ids=["contrastive", "plain"])
+def test_generator_noise_follows_the_global_batch(data, contrastive):
+    """Each data coordinate's masks are its volumes' rows of the one-process
+    masks of the global batch, for both views; the generator moves alike on
+    every coordinate."""
+    model = build_model(MAEConfig(**{**TINY, "contrastive": contrastive})).eval()
+    rng = np.random.default_rng(4)
+    v1, v2 = (torch.from_numpy(rng.standard_normal((8, 1, VOL, VOL, VOL)).astype(np.float32)) for _ in range(2))
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        want = model(v1, v2, generator=gen)
+        after = torch.rand(1, generator=gen)
+    b = 8 // data
+    for d in range(data):
+        gen = torch.Generator().manual_seed(5)
+        rows = slice(d * b, (d + 1) * b)
+        with set_mesh(_mesh(data, 1, d)), torch.no_grad():
+            got = model(v1[rows], v2[rows], generator=gen)
+        np.testing.assert_array_equal(got["mask"].numpy(), want["mask"][rows].numpy())
+        if contrastive:  # view 2's encoded tokens, masked by its own rows of the noise
+            np.testing.assert_allclose(got["z2"].reshape(b, -1, 24).numpy(),
+                                       want["z2"].reshape(8, -1, 24)[rows].numpy(), rtol=1e-5, atol=1e-6)
+        assert torch.equal(torch.rand(1, generator=gen), after)
+
+
+def test_nccl_launch_refuses_more_ranks_than_cards(tmp_path):
+    """No spawn, no store, no fall-back to gloo: NCCL takes one card a rank
+    (this machine sees none)."""
+    store = tmp_path / "store"
+    with pytest.raises(RuntimeError, match="2 NCCL ranks need 2 CUDA devices"):
+        run_ranks(print, 2, store_dir=str(store), backend="nccl")
+    assert not store.exists()
+    with pytest.raises(ValueError, match="backend"):
+        run_ranks(print, 2, store_dir=str(store), backend="mpi")
+
+
+@pytest.mark.parametrize("cmd", ["pretrain-kfold", "extract-features", "finetune"])
+def test_cli_n_devices_refusals_come_before_any_spawn(cmd, tmp_path, capsys):
+    extra = {"extract-features": ["--checkpoint", "none.pth"], "finetune": ["--checkpoint", "none.pth"]}.get(cmd, [])
+    work = tmp_path / "w"
+    argv = [cmd, "--data-path", str(tmp_path / "no_data"), "--work-dir", str(work), "--batch-size", "4", *extra]
+    assert cli.run(argv + ["--n-devices", "2"]) == 2  # cuda by default, and no card here
+    assert "2 NCCL ranks need 2 CUDA devices" in capsys.readouterr().err
+    assert cli.run(argv + ["--n-devices", "3", "--device", "cpu"]) == 2
+    assert "--batch-size 4 does not split into 3" in capsys.readouterr().err
+    assert not work.exists()

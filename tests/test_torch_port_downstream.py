@@ -209,7 +209,7 @@ def test_extract_features_matches_jax(data_dir, pretrain_dir, tmp_path, monkeypa
                                       np.load(tmp_path / "jax" / f"{split}_gt_labels.npy"))
     with pytest.raises(ValueError, match="only_test_split"):
         tef.extract_ssl_features(DataConfig(name="egd"), ckpt + ".pth", str(tmp_path / "egd"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         tef.extract_ssl_features(td, ckpt + ".pth", str(tmp_path / "q"), quantize="int8", device="cpu")
     assert not (tmp_path / "egd").exists() and not (tmp_path / "q").exists()
 
@@ -328,18 +328,27 @@ def test_cli_refusals(cmd, tmp_path, capsys, monkeypatch):
         cmd, ["--pretrain-dir", str(tmp_path / "none")])
     work = tmp_path / "w"
     argv = _argv(cmd, str(tmp_path / "no_data"), str(work), *extra)
-    assert cli_run(argv + ["--n-devices", "2"]) == 2
-    assert "item 7" in capsys.readouterr().err
+    assert cli_run(argv + ["--n-devices", "3"]) == 2  # the batch of 4 does not split in 3
+    assert "does not split into 3" in capsys.readouterr().err
+    assert not work.exists()  # before any spawn
     if cmd == "extract-features":
         assert cli_run(argv + ["--quantize", "int8"]) == 2
-        assert "item 6" in capsys.readouterr().err
+        assert "item 4" in capsys.readouterr().err
         assert cli_run(argv[:1] + ["--dataset", "egd"] + argv[1:]) == 2
         assert "only-test-split" in capsys.readouterr().err
         assert not work.exists()
     else:
+        # n_devices > 1 in a process that is not one of so many ranks
+        _, (td, ttc) = _configs(str(tmp_path / "no_data"))
+        with pytest.raises(ValueError, match="n_devices=2 trains on 2 ranks"):
+            if cmd == "finetune":
+                tft.finetune_single(td, ttc, str(work), "none.pth", n_devices=2, device="cpu")
+            else:
+                tpk.probe_kfold(td, ttc, str(work), "none", fix_backbone=cmd == "probe-kfold", n_devices=2,
+                                device="cpu")
         assert os.listdir(work) == [".writer.lock"]  # refused after the lock, before any data
     _, (td, ttc) = _configs(str(tmp_path / "no_data"), accum_iter=2)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         if cmd == "finetune":
             tft.finetune_single(td, ttc, str(tmp_path / "a"), "none.pth", device="cpu")
         else:

@@ -125,6 +125,22 @@ def test_losses_match_jax(dtype, weighted):
     assert abs(got - want) <= LOSS_TOL * abs(want), (got, want)
 
 
+@pytest.mark.parametrize("shards", [2, 4])
+def test_weighted_ce_shards_over_the_global_weight_sum_add_up_to_jaxs(shards):
+    """A data-parallel step's `weighted_ce` of each shard of the rows over
+    the global batch's sum of weights (`weight_sum`): the shards' losses add
+    up to JAX's weighted CE of the whole batch."""
+    rng = np.random.default_rng(6)
+    logits = (3 * rng.standard_normal((8, CLASSES))).astype(np.float32)
+    labels = np.array([0, 0, 0, 1, 1, 0, 1, 1])
+    cw = np.array([0.25, 1.75], np.float32)
+    want = float(jft.weighted_ce(jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(cw)))
+    total = torch.from_numpy(cw[labels]).sum()
+    got = sum(float(weighted_ce(torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(cw), total))
+              for x, y in zip(np.split(logits, shards), np.split(labels, shards)))
+    assert abs(got - want) <= LOSS_TOL * abs(want), (got, want)
+
+
 def test_mixups_match_jax_with_injected_draws():
     rng = np.random.default_rng(9)
     x = rng.standard_normal((B, 1, VOL, VOL, VOL)).astype(np.float32)

@@ -1,5 +1,5 @@
 """The port's loader (data/loader.py) against the JAX package's: epoch
-sharding, batches and their order over epochs, `set_epoch`, the helpers,
+orders, batches and their order over epochs, `set_epoch`, the helpers,
 the producer's failure and abandonment behaviour, and `cuda_prefetch` on
 the CPU.
 
@@ -40,15 +40,15 @@ class _IdxDataset:
         return v, -v, int(i)
 
 
-@pytest.mark.parametrize("n_proc", [1, 3, 4])
+@pytest.mark.parametrize("seed", [0, 7, 11])
 @pytest.mark.parametrize("n_items", [12, 17])
 @pytest.mark.parametrize("shuffle", [True, False])
-def test_epoch_shard_equal_for_every_rank(n_proc, n_items, shuffle):
+def test_epoch_order_matches_the_jax_loaders(seed, n_items, shuffle):
+    """Each epoch's order is the JAX package's `epoch_shard` on one process."""
     indices = np.arange(100, 100 + n_items)
-    for epoch in (1, 2):
-        for rank in range(n_proc):
-            got = tl.epoch_shard(indices, epoch, 7, rank, n_proc, shuffle=shuffle)
-            np.testing.assert_array_equal(got, jl.epoch_shard(indices, epoch, 7, rank, n_proc, shuffle=shuffle))
+    for epoch in (1, 2, 3):
+        got = tl.epoch_order(indices, epoch, seed, shuffle=shuffle)
+        np.testing.assert_array_equal(got, jl.epoch_shard(indices, epoch, seed, 0, 1, shuffle=shuffle))
 
 
 def _batches(loader):
@@ -63,24 +63,30 @@ def _assert_batches_equal(got, want):
 
 
 @pytest.mark.parametrize("drop_last", [True, False])
-@pytest.mark.parametrize("shard", [None, (1, 3)])
+@pytest.mark.parametrize("shard", [None, (1, 2)])
 def test_loader_batches_over_epochs_and_set_epoch(drop_last, shard):
     """Two epochs, then `set_epoch(5)`: order and contents equal to the JAX
-    loader's, and every epoch draws a new order."""
+    loader's (with `shard_rows` (1, 2): rows 2-3 of each of its batches,
+    the last partial one padded with its first item), and every epoch
+    draws a new order."""
     kw = dict(batch_size=4, shuffle=True, drop_last=drop_last, num_workers=3, prefetch=2, seed=11)
-    if shard:
-        kw.update(shard_across_processes=True, rank=shard[0], n_proc=shard[1])
-    t, j = tl.Loader(_IdxDataset(19), **kw), jl.Loader(_IdxDataset(19), **kw)
+    t, j = tl.Loader(_IdxDataset(19), **kw, shard_rows=shard), jl.Loader(_IdxDataset(19), **kw)
+
+    def jax_batches():
+        if shard is None:
+            return _batches(j)
+        return [tuple(np.concatenate([x, np.repeat(x[:1], 4 - len(x), axis=0)])[2:] for x in b) for b in j]
+
     assert len(t) == len(j)
     epochs = []
     for _ in range(2):
         got = _batches(t)
-        _assert_batches_equal(got, _batches(j))
+        _assert_batches_equal(got, jax_batches())
         epochs.append(np.concatenate([b[2] for b in got]))
     assert not np.array_equal(epochs[0], epochs[1])
     t.set_epoch(5)
     j.set_epoch(5)
-    _assert_batches_equal(_batches(t), _batches(j))
+    _assert_batches_equal(_batches(t), jax_batches())
     assert len(t.collate_ms) == len(t.wait_ms) == len(t)
 
 
@@ -117,14 +123,6 @@ def test_helpers_match():
         indices = [("a", 1), ("b", 0)]
 
     np.testing.assert_array_equal(tl.all_labels(_Labelled()), [1, 0])
-
-
-def test_without_a_process_group_the_process_is_rank_0_of_1():
-    assert not torch.distributed.is_initialized()
-    assert tl.process_rank_and_count() == (0, 1)
-    np.testing.assert_array_equal(tl.process_local_indices(np.arange(9)), np.arange(9))
-    loader = tl.Loader(_IdxDataset(9), 3, shard_across_processes=True)
-    assert (loader._rank, loader._n_proc) == (0, 1) and len(loader) == 3
 
 
 def test_producer_exception_reaches_the_consumer():
@@ -200,3 +198,51 @@ def test_prefetch_overlaps_loading_with_compute():
     epoch."""
     stall, total = tl.measure_prefetch_overlap(load_ms=20, compute_ms=30, n_batches=10, device="cpu")
     assert stall < 0.22, f"consumer stalled {stall:.0%} of the epoch ({total:.2f}s)"
+
+
+class _CountedDataset(_IdxDataset):
+    """-> (volume holding the index and its access count, ..., index): a
+    batch shows each item's augmentation stream (data/brats.py draws it
+    from the item and its access count)."""
+
+    def __init__(self, n):
+        super().__init__(n)
+        self.counts = {}
+        self._lock = threading.Lock()
+
+    def count_access(self, item, n=1):
+        with self._lock:
+            self.counts[item] = self.counts.get(item, 0) + n
+
+    def __getitem__(self, i):
+        self.count_access(i)
+        v = np.full((1, 2, 2, 2), 1000.0 * i + self.counts[i], np.float32)
+        return v, -v, int(i)
+
+
+@pytest.mark.parametrize("n,ranks,batch", [(15, 2, 4), (17, 4, 8), (12, 3, 6)])
+@pytest.mark.parametrize("drop_last", [True, False])
+def test_row_shards_make_up_the_one_process_batches(n, ranks, batch, drop_last):
+    """`shard_rows=(d, D)`: over three epochs, rank d's batches are rows
+    [d b, (d + 1) b) of the one-process loader's (n // batch of them with
+    `drop_last`, not one more from wrap padding: 3 for n = 15, D = 2,
+    B = 4), the last partial one padded with copies of its first item; every
+    item's access count, and so its augmentation, is the one-process run's."""
+    kw = dict(batch_size=batch, shuffle=True, drop_last=drop_last, num_workers=3, seed=9)
+    one = tl.Loader(_CountedDataset(n), **kw)
+    shards = [tl.Loader(_CountedDataset(n), **kw, shard_rows=(d, ranks)) for d in range(ranks)]
+    assert all(len(s) == len(one) == (n // batch if drop_last else -(-n // batch)) for s in shards)
+    for _ in range(3):
+        want = _batches(one)
+        got = [_batches(s) for s in shards]
+        for k, (aug, orig, labels) in enumerate(want):
+            pad = batch - len(labels)
+            full = [np.concatenate([x, np.repeat(x[:1], pad, axis=0)]) for x in (aug, orig, labels)]
+            for i, whole in enumerate(full):
+                np.testing.assert_array_equal(np.concatenate([g[k][i] for g in got]), whole)
+    assert all(s.dataset.counts == one.dataset.counts for s in shards)
+
+
+def test_row_shards_refuse_a_batch_the_ranks_do_not_divide():
+    with pytest.raises(ValueError, match="does not split into 3 equal shards"):
+        tl.Loader(_IdxDataset(12), 4, shard_rows=(0, 3))

@@ -161,11 +161,16 @@ REFUSED = {
 
 @pytest.mark.parametrize("setting", list(REFUSED))
 def test_unported_settings_are_refused_before_any_work(setting, tmp_path):
+    """Each refused before any data is read; n_devices > 1 (or a mesh_shape
+    with data > 1) is ported, but only as one of so many ranks under a data
+    mesh (tests/test_torch_port_ring_flash.py), and this process is none."""
     # a data path that does not exist: reading it would raise another error
     data_cfg, train_cfg = _cfgs(str(tmp_path / "no_data"), **REFUSED[setting])
     n_devices = 2 if setting == "n_devices" else None
     work = tmp_path / "work"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    error = ((ValueError, "n_devices=2 trains on 2 ranks") if setting in ("n_devices", "mesh_shape")
+             else (NotImplementedError, "ROADMAP Queue 1 item"))
+    with pytest.raises(error[0], match=error[1]):
         tpk.pretrain_kfold(data_cfg, train_cfg, str(work), model_name=MODEL, n_splits=FOLDS,
                            n_devices=n_devices, device="cpu")
     assert os.listdir(work) == [".writer.lock"]

@@ -27,18 +27,37 @@ from the same numpy inputs):
   1e-4 of its largest magnitude (as tests/test_torch_port_mae.py holds the
   step to JAX), and the parameters after the step bitwise equal on the 4
   ranks.
+- data parallelism on (2, 1) and (4, 1) meshes, each rank on its rows of a
+  global batch of 8: the tiny contrastive MAE's step against JAX
+  `make_train_step(..., mesh=make_mesh(data=D))` on the same weights and
+  global noise (loss terms 1e-5 relative, every gradient 1e-4 of its
+  largest magnitude, `batch_stats` 1e-6: tests/test_torch_port_mae.py's
+  f32 limits), the parameters bitwise equal across ranks, and a control
+  with the BatchNorm moments left local that must miss; the step with the
+  masking noise drawn from the state's generator against the port's
+  one-process step on the global batch; the supervised step with unequal
+  class weights on the ranks, plain and with timm's mixup (JAX's lambda
+  injected), against JAX `make_supervised_steps(..., mesh=...)` (loss 1e-5
+  relative, each parameter's update 1e-4 of its largest), and a control
+  whose `weighted_ce` divides by each rank's own weights, which must miss;
+  `pretrain_kfold` on 2 ranks, then resumed, and `extract_ssl_features` on
+  2 ranks, against one process's files.
 
 JAX is imported inside the functions that run it: the ranks import this
 module by name and need none of it.
 """
 
+import contextlib
+import dataclasses
+import json
+import os
 import warnings
 
 import numpy as np
 import pytest
 import torch
 
-from vit_ae_plus_plus_torch.configs import MAEConfig, ViTConfig
+from vit_ae_plus_plus_torch.configs import DataConfig, MAEConfig, TrainConfig, ViTConfig
 from vit_ae_plus_plus_torch.kernels import (
     attention_bwd_plain,
     attention_plain,
@@ -51,10 +70,11 @@ from vit_ae_plus_plus_torch.kernels import (
     seq_sharded_flash_attention,
 )
 from vit_ae_plus_plus_torch.kernels.ring_flash import NEG_INF
-from vit_ae_plus_plus_torch.models import VisionTransformer3D, build_model
-from vit_ae_plus_plus_torch.parallel import Mesh, get_mesh, make_mesh, run_ranks, set_mesh
+from vit_ae_plus_plus_torch.models import MODEL_ZOO, VisionTransformer3D, build_model
+from vit_ae_plus_plus_torch.parallel import Mesh, barrier, get_mesh, make_mesh, run_ranks, set_mesh
 from vit_ae_plus_plus_torch.train import create_train_state, make_adamw, make_train_step
-from vit_ae_plus_plus_torch.train.checkpoint import params_from_jax
+from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict, params_from_jax
+from vit_ae_plus_plus_torch.train.optim import make_sgd
 from vit_ae_plus_plus_torch.train.step import feature_step
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -229,7 +249,7 @@ def _run_mae(mesh):
             torch.cat([p.detach().flatten() for p in named.values()]).numpy())
 
 
-def _group_rank(rank, tree, x):
+def _group_rank(rank, tree, x, ddp):
     """One rank's program: every case on its mesh, in the same order on
     every rank (make_mesh is collective). -> {case: (data coord, result)}."""
     torch.set_num_threads(1)  # the test workers run beside the ranks
@@ -248,6 +268,13 @@ def _group_rank(rank, tree, x):
     for impl in ("flash_ring", "flash_seq"):
         on(2, 4, f"trunk_{impl}", lambda mesh: _run_trunk(mesh, impl, tree, x))
     on(1, 4, "mae_flash_ring", _run_mae)
+    for data in DDP_MESHES:
+        on(data, 1, f"ddp_mae_{data}", lambda mesh: _run_ddp_mae(mesh, ddp["mae"]))
+    on(4, 1, "ddp_mae_local_moments", lambda mesh: _run_ddp_mae(mesh, ddp["mae"], local_moments=True))
+    on(2, 1, "ddp_mae_generator", lambda mesh: _run_ddp_mae(mesh, ddp["mae"], noise=False))
+    for case in SUPERVISED:
+        on(4, 1, f"ddp_{case}", lambda mesh: _run_ddp_supervised(mesh, case, ddp["vit"], ddp["lam"]))
+    on(2, 1, "ddp_pipelines", lambda mesh: _run_ddp_pipelines(mesh, ddp["dirs"]))
     return out
 
 
@@ -295,15 +322,22 @@ def group(tmp_path_factory):
     result]}}) and the JAX references, computed while the ranks run."""
     import threading
 
+    torch.set_num_threads(1)  # the ranks and the other test workers share the cores
     tree, x, want_trunk = _jax_trunk()
+    ddp = {"mae": _jax_mae_weights(), "vit": _jax_vit_weights(), "lam": _jax_mixup_lam(),
+           "dirs": _ddp_dirs(tmp_path_factory)}
     results = {}
     ranks = threading.Thread(target=lambda: results.update(ranks=run_ranks(
-        _group_rank, WORLD, (tree, x), store_dir=str(tmp_path_factory.mktemp("store")), timeout=600)))
+        _group_rank, WORLD, (tree, x, ddp), store_dir=str(tmp_path_factory.mktemp("store")), timeout=600)))
     ranks.start()
     try:
         want = {case: _jax_attention(case) for case in ATTENTION}
         want["trunk"] = want_trunk
         want["mae"] = _mae_step("plain")
+        want["ddp_mae"] = _jax_ddp_mae(ddp["mae"])
+        want["ddp_mae_generator"] = _ddp_mae_one_process(ddp["mae"])
+        want["ddp_supervised"] = {case: _jax_ddp_supervised(case, ddp["vit"]) for case in SUPERVISED}
+        want["ddp_pretrain"] = {"dirs": ddp["dirs"], "results": _pretrain_one_process(ddp["dirs"])}
     finally:
         ranks.join(timeout=900)
     assert not ranks.is_alive() and "ranks" in results, "the group of ranks did not finish"
@@ -349,3 +383,480 @@ def test_mae_step_with_flash_ring_matches_plain_and_stays_equal_across_ranks(gro
     flat = [r[2] for r in per_rank]
     for other in flat[1:]:
         np.testing.assert_array_equal(other, flat[0])
+
+
+# ------------------------------------------- data parallelism on (D, 1)
+
+DDP_MESHES = (2, 4)
+DDP_B = 8  # the global batch: 4 rows a rank at D = 2, 2 at D = 4
+MAE_TINY = "contr_mae_vit_tiny_patch4"  # 16^3 / patch 4: 64 tokens
+DDP_LR = 1e-3
+SUP_CFG = dict(volume_size=16, patch_size=4, in_chans=1, embed_dim=32, depth=1, num_heads=2, num_classes=2,
+               global_pool=True, dtype="float32")
+SUP_LABELS = np.array([0, 0, 0, 1, 1, 1, 1, 0])  # at D = 4 the ranks' weight sums are 0.5, 2, 3.5 and 2
+CLASS_WEIGHTS = np.array([0.25, 1.75], np.float32)
+SUP_LR = 1e-2
+SUPERVISED = ("sup_weighted", "sup_mixup", "sup_weighted_local_denominator")
+PIPE_FOLDS, PIPE_BATCH = 2, 4
+
+
+def _ddp_mae_data():
+    """The global batch's two views and the masking noise of its 2B rows."""
+    rng = np.random.default_rng(21)
+    v1, v2 = (rng.standard_normal((DDP_B, 1, 16, 16, 16)).astype(np.float32) for _ in range(2))
+    return v1, v2, rng.random((2 * DDP_B, 64)).astype(np.float32)
+
+
+def _randomised(shapes):
+    """Leaves of the shapes of `shapes` (a `jax.eval_shape` of an init):
+    LayerNorm and BatchNorm scales and variances near 1, every other leaf
+    small, statistics away from their 0/1 start (tests/test_torch_port_mae.py)."""
+    import jax
+
+    rng = np.random.default_rng(3)
+
+    def leaf(path, x):
+        key = jax.tree_util.keystr(path)
+        if key.endswith("['scale']") or key.endswith("['var']"):
+            return (1.0 + 0.1 * rng.standard_normal(x.shape)).astype(np.float32)
+        return (0.05 * rng.standard_normal(x.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def _jax_mae():
+    from vit_ae_plus_plus_tpu.models import MODEL_ZOO as JAX_ZOO
+    from vit_ae_plus_plus_tpu.models import build_model as jax_build
+
+    return jax_build(JAX_ZOO[MAE_TINY](volume_size=16, dtype="float32"))
+
+
+def _jax_mae_weights():
+    """The tiny contrastive MAE's JAX params and batch_stats (numpy)."""
+    import jax
+    import jax.numpy as jnp
+
+    v1, v2, _ = _ddp_mae_data()
+    variables = _randomised(jax.eval_shape(_jax_mae().init, {"params": jax.random.PRNGKey(1),
+                                                             "mask": jax.random.PRNGKey(2)},
+                                           jnp.asarray(v1[:2]), jnp.asarray(v2[:2])))
+    return variables["params"], variables["batch_stats"]
+
+
+def _jax_ddp_mae(weights):
+    """JAX `make_train_step` on a data mesh of each of `DDP_MESHES` over the
+    global batch with its noise injected -> {D: (metrics, the gradients of
+    its loss as a state dict, the batch_stats after the step)}."""
+    import jax
+    import jax.numpy as jnp
+
+    from vit_ae_plus_plus_tpu.parallel import make_mesh as jax_mesh
+    from vit_ae_plus_plus_tpu.train import TrainState as JaxTrainState
+    from vit_ae_plus_plus_tpu.train import make_adamw as jax_adamw
+    from vit_ae_plus_plus_tpu.train import make_train_step as jax_train_step
+    from vit_ae_plus_plus_tpu.train.objective import mae_loss_terms as jax_loss_terms
+
+    params, bs = weights
+    model = _jax_mae()
+    v1, v2, noise = _ddp_mae_data()
+
+    def forward(variables, a, b, _rng):
+        out, mutated = model.apply(variables, a, b, mask_ratio=0.75, noise=jnp.asarray(noise),
+                                   mutable=["batch_stats"])
+        return out, mutated["batch_stats"]
+
+    def loss(p):
+        out, _ = forward({"params": p, "batch_stats": bs}, jnp.asarray(v1), jnp.asarray(v2), None)
+        return jax_loss_terms(out, jnp.asarray(v1), 4, edge_map_weight=EMW, contr_weight=CONTR_W)[0]
+
+    grads = jax.jit(jax.grad(loss))(params)
+    grads = {n: t.numpy() for n, t in params_from_jax(jax.tree.map(np.asarray, grads), 4, 1).items()}
+    tx = jax_adamw(DDP_LR)
+    state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=bs,
+                          opt_state=tx.init(params), tx=tx)
+    out = {}
+    for data in DDP_MESHES:
+        step = jax_train_step(model, 4, contr_weight=CONTR_W, forward_fn=forward, donate=False,
+                              mesh=jax_mesh(data=data, devices=jax.devices()[:data]))
+        new, metrics = step(state, jnp.asarray(v1), jnp.asarray(v2), jax.random.PRNGKey(0), jnp.float32(EMW))
+        new_bs = params_from_jax({}, 4, batch_stats=jax.tree.map(np.asarray, new.batch_stats))
+        out[data] = ({k: float(v) for k, v in metrics.items()}, grads, {n: t.numpy() for n, t in new_bs.items()})
+    return out
+
+
+def _port_mae(weights):
+    params, bs = weights
+    model = build_model(MODEL_ZOO[MAE_TINY](volume_size=16, dtype="float32"))
+    model.load_state_dict(params_from_jax(params, 4, 1, bs), strict=True)
+    return model
+
+
+def _mae_step_result(model, state, step, v1, v2):
+    state, metrics = step(state, torch.from_numpy(v1), torch.from_numpy(v2), EMW)
+    named = dict(model.named_parameters())
+    return ({k: float(v) for k, v in metrics.items()}, {n: p.grad.numpy() for n, p in named.items()},
+            {n: b.numpy().copy() for n, b in state.batch_stats.items()},
+            torch.cat([p.detach().flatten() for p in named.values()]).numpy())
+
+
+def _run_ddp_mae(mesh, weights, local_moments=False, noise=True):
+    """One data-parallel step of the tiny MAE on this rank's rows of the
+    global batch: with the global noise's rows injected, or drawn from the
+    state's generator (`noise=False`). `local_moments`: the control, each
+    rank's BatchNorm on its own rows (the 'data' group's sum of its moments
+    left out)."""
+    from unittest import mock
+
+    from vit_ae_plus_plus_torch.models import vit
+
+    model = _port_mae(weights)
+    state = create_train_state(model, make_adamw(DDP_LR))
+    v1, v2, global_noise = _ddp_mae_data()
+    d, b = mesh.coords["data"], DDP_B // mesh.size("data")
+    rows = slice(d * b, (d + 1) * b)
+    kw = {}
+    if noise:
+        mine = torch.from_numpy(np.concatenate([global_noise[rows], global_noise[DDP_B:][rows]]))
+        kw["forward_fn"] = lambda m, a, c, _g: m(a, c, noise=mine)
+    step = make_train_step(model, 4, contr_weight=CONTR_W, **kw)
+    local = mock.patch.object(vit, "psum", lambda t, _mesh, _axis: t) if local_moments else contextlib.nullcontext()
+    with set_mesh(mesh), local:
+        return _mae_step_result(model, state, step, v1[rows], v2[rows])
+
+
+def _ddp_mae_one_process(weights):
+    """The port's one-process step on the global batch, its noise drawn from
+    the state's generator."""
+    model = _port_mae(weights)
+    state = create_train_state(model, make_adamw(DDP_LR))
+    v1, v2, _ = _ddp_mae_data()
+    return _mae_step_result(model, state, make_train_step(model, 4, contr_weight=CONTR_W), v1, v2)
+
+
+def _mae_gate(result, want_metrics, want_grads, want_bs) -> float:
+    """The largest of each reading over its f32 limit (loss terms 1e-5
+    relative, gradients 1e-4 of their largest magnitude, statistics 1e-6):
+    at most 1 inside the gate."""
+    metrics, grads, bs, _ = result
+    ratios = [abs(metrics[k] - v) / (1e-5 * abs(v) + 1e-7) for k, v in want_metrics.items()]
+    ratios += [np.abs(grads[n] - w).max() / (1e-4 * max(np.abs(w).max(), 1e-30)) for n, w in want_grads.items()]
+    ratios += [np.abs(bs[n] - w).max() / 1e-6 for n, w in want_bs.items()]
+    return float(max(ratios))
+
+
+def _sup_data():
+    x = np.random.default_rng(8).standard_normal((DDP_B, 1, 16, 16, 16)).astype(np.float32)
+    return x, SUP_LABELS
+
+
+def _jax_vit_weights():
+    import jax
+    import jax.numpy as jnp
+
+    from vit_ae_plus_plus_tpu.configs import ViTConfig as JaxViTConfig
+    from vit_ae_plus_plus_tpu.models.vit import VisionTransformer3D as JaxViT
+
+    model = JaxViT(JaxViTConfig(**SUP_CFG, attn_impl="xla"))
+    shapes = jax.eval_shape(model.init, {"params": jax.random.PRNGKey(1)}, jnp.asarray(_sup_data()[0][:2]))
+    return _randomised(shapes)["params"]
+
+
+def _jax_mixup_lam() -> float:
+    """The lambda of JAX's timm mixup at the first step of key 3."""
+    import jax
+
+    return float(jax.random.beta(jax.random.fold_in(jax.random.PRNGKey(3), 0), 0.1, 0.1).astype(np.float32))
+
+
+def _jax_ddp_supervised(case, params):
+    """JAX `make_supervised_steps(..., mesh=make_mesh(data=4))`, one SGD
+    step -> (loss, each parameter's update as a state dict)."""
+    import jax
+    import jax.numpy as jnp
+
+    from vit_ae_plus_plus_tpu.configs import ViTConfig as JaxViTConfig
+    from vit_ae_plus_plus_tpu.models.vit import VisionTransformer3D as JaxViT
+    from vit_ae_plus_plus_tpu.parallel import make_mesh as jax_mesh
+    from vit_ae_plus_plus_tpu.parallel import replicate, shard_batch
+    from vit_ae_plus_plus_tpu.pipelines.finetune import make_supervised_steps as jax_steps
+    from vit_ae_plus_plus_tpu.train import TrainState as JaxTrainState
+    from vit_ae_plus_plus_tpu.train.optim import make_sgd as jax_sgd
+
+    if case == "sup_weighted_local_denominator":
+        return None
+    mesh = jax_mesh(data=4, devices=jax.devices()[:4])
+    tx = jax_sgd(SUP_LR, momentum=0.9)
+    state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats={},
+                          opt_state=tx.init(params), tx=tx)
+    train, _ = jax_steps(JaxViT(JaxViTConfig(**SUP_CFG, attn_impl="xla")), num_classes=2,
+                         class_weights=CLASS_WEIGHTS, use_mixup=case == "sup_mixup", mesh=mesh)
+    x, labels = _sup_data()
+    new, metrics = train(replicate(state, mesh), shard_batch(jnp.asarray(x), mesh),
+                         shard_batch(jnp.asarray(labels), mesh), jax.random.PRNGKey(3))
+    delta = jax.tree.map(lambda a, b: np.asarray(a) - np.asarray(b), new.params, params)
+    return float(metrics["loss"]), {n: t.numpy() for n, t in params_from_jax(delta, 4).items()}
+
+
+class _Lambda:
+    """Draws that give every Beta draw one lambda (JAX's)."""
+
+    def __init__(self, lam):
+        self.lam = lam
+
+    def beta(self, a, b):
+        return self.lam
+
+
+def _local_weighted_ce(logits, labels, class_weights, weight_sum):
+    """The control: each rank's weighted CE over its own sum of weights, the
+    global one (`weight_sum`) ignored; with the step's factor D, the group
+    then averages the ranks' own losses, as a plain DDP would."""
+    from vit_ae_plus_plus_torch.ops import weighted_ce
+
+    return weighted_ce(logits, labels, class_weights, class_weights[labels].sum() * get_mesh().size("data"))
+
+
+def _run_ddp_supervised(mesh, case, params, lam):
+    """One data-parallel SGD step of the supervised ViT on this rank's rows
+    -> (loss, each parameter's update)."""
+    from unittest import mock
+
+    from vit_ae_plus_plus_torch.pipelines import finetune as tft
+
+    model = VisionTransformer3D(ViTConfig(**SUP_CFG))
+    model.load_state_dict(params_from_jax(params, 4), strict=True)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = create_train_state(model, make_sgd(SUP_LR, momentum=0.9))
+    train, _ = tft.make_supervised_steps(model, num_classes=2, class_weights=CLASS_WEIGHTS,
+                                         use_mixup=case == "sup_mixup")
+    x, labels = _sup_data()
+    b = DDP_B // mesh.size("data")
+    rows = slice(mesh.coords["data"] * b, (mesh.coords["data"] + 1) * b)
+    with contextlib.ExitStack() as patches, set_mesh(mesh):
+        if case == "sup_mixup":
+            patches.enter_context(mock.patch.object(tft.np.random, "default_rng", lambda seed: _Lambda(lam)))
+        if case == "sup_weighted_local_denominator":
+            patches.enter_context(mock.patch.object(tft, "weighted_ce", _local_weighted_ce))
+        _, metrics = train(state, torch.from_numpy(x[rows]), labels[rows], 0)
+    return float(metrics["loss"]), {n: (p.detach() - before[n]).numpy() for n, p in model.named_parameters()}
+
+
+def _ddp_dirs(tmp_path_factory):
+    """A BraTS split of 16^3 volumes (whole, train, test) and the work dirs."""
+    root = tmp_path_factory.mktemp("ddp_pipelines")
+    rng = np.random.default_rng(0)
+    for split, n in (("whole", 18), ("train", 9), ("test", 5)):
+        np.save(root / f"x_{split}_ssl.npy", rng.standard_normal((n, 16, 16, 16, 1)).astype(np.float32))
+        np.save(root / f"y_{split}_ssl.npy", np.arange(n) % 2)
+    names = ("ranks", "one", "extract_ranks", "extract_one", "finetune_ranks", "finetune_one")
+    return {name: str(root / name) for name in names} | {"data": str(root)}
+
+
+def _pretrain_cfgs(data_dir):
+    """2 epochs of 2 steps of 4 a fold (9 training volumes), with resume
+    checkpoints; the features of 9 volumes a split take a padded batch."""
+    data_cfg = DataConfig(name="brats", base_path=data_dir, volume_size=16, in_channels=1)
+    train_cfg = TrainConfig(batch_size=PIPE_BATCH, patch_size=4, warmup_epochs=1, epochs=2,
+                            compute_dtype="float32", contr_weight=0.001, resume=True)
+    return data_cfg, train_cfg
+
+
+def _scipy_policy():
+    """The scipy augmentation policy (the native library is left to the
+    data tests, which build it)."""
+    import contextlib
+    from unittest import mock
+
+    from vit_ae_plus_plus_torch.data import transforms as tt
+    from vit_ae_plus_plus_torch.pipelines import pretrain_kfold, probe_kfold
+
+    stack = contextlib.ExitStack()
+    for module in (pretrain_kfold, probe_kfold):
+        stack.enter_context(mock.patch.object(module, "default_ssl_transforms",
+                                              lambda: tt.default_ssl_transforms(native="never")))
+    return stack
+
+
+def _finetune_kfold(work, pretrain_dir, **kw):
+    """`finetune-kfold` with MixUp3D (the probe pipeline's mixup), one epoch."""
+    from vit_ae_plus_plus_torch.pipelines.probe_kfold import probe_kfold
+
+    data_cfg, train_cfg = _pretrain_cfgs(os.path.dirname(work))
+    with _scipy_policy():
+        return probe_kfold(data_cfg, dataclasses.replace(train_cfg, resume=False), work, pretrain_dir,
+                           model_name=MAE_TINY, n_splits=PIPE_FOLDS, fix_backbone=False, use_mixup=True,
+                           epochs=1, device="cpu", **kw)
+
+
+def _run_ddp_pipelines(mesh, dirs):
+    """On 2 ranks: `pretrain_kfold`; again with resume after fold 1's
+    features were moved aside (the fold restores its last epoch, trains no
+    more and extracts again from its min-loss `.pth`); `extract_ssl_features`
+    from fold 0's `.pth`; `finetune-kfold` with mixup on the pretrained
+    folds. -> (results, resumed results, TensorBoard files after the first
+    run, the fine-tune's results)."""
+    from vit_ae_plus_plus_torch.pipelines.extract_features import extract_ssl_features
+    from vit_ae_plus_plus_torch.pipelines.pretrain_kfold import pretrain_kfold
+
+    data_cfg, train_cfg = _pretrain_cfgs(dirs["data"])
+    kw = dict(model_name=MAE_TINY, n_splits=PIPE_FOLDS, n_devices=2, device="cpu")
+    feat_dir = os.path.join(dirs["ranks"], "ssl_features_dir")
+    with _scipy_policy(), set_mesh(mesh):
+        first = pretrain_kfold(data_cfg, train_cfg, dirs["ranks"], **kw)
+        tb_files = sorted(os.listdir(os.path.join(dirs["ranks"], "logs")))
+        barrier(mesh)
+        if mesh.coords["data"] == 0:
+            for tag in ("train", "test"):
+                name = os.path.join(feat_dir, f"{tag}_contrast_ssl_features_split_1.npy")
+                os.replace(name, name + ".first")
+        barrier(mesh)
+        resumed = pretrain_kfold(data_cfg, train_cfg, dirs["ranks"], **kw)
+        extract_ssl_features(data_cfg, _min_loss(dirs["ranks"], 0), dirs["extract_ranks"], model_name=MAE_TINY,
+                             batch_size=PIPE_BATCH, patch_size=4, compute_dtype="float32", n_devices=2, device="cpu")
+        finetune = _finetune_kfold(dirs["finetune_ranks"], dirs["ranks"], n_devices=2)
+    return first, resumed, tb_files, finetune
+
+
+def _min_loss(work, fold):
+    return os.path.join(work, "checkpoints", f"fold_{fold}", "checkpoint-min_loss.pth")
+
+
+def _pretrain_one_process(dirs):
+    from vit_ae_plus_plus_torch.pipelines.pretrain_kfold import pretrain_kfold
+
+    data_cfg, train_cfg = _pretrain_cfgs(dirs["data"])
+    with _scipy_policy():
+        return pretrain_kfold(data_cfg, train_cfg, dirs["one"], model_name=MAE_TINY, n_splits=PIPE_FOLDS,
+                              device="cpu")
+
+
+def _ddp_results(group, case, data):
+    got = group[0][case]
+    assert sorted(got) == list(range(data)) and all(len(r) == 1 for r in got.values())
+    return [got[d][0] for d in range(data)]
+
+
+@pytest.mark.parametrize("data", DDP_MESHES)
+def test_data_parallel_mae_step_matches_jax(group, data):
+    per_rank = _ddp_results(group, f"ddp_mae_{data}", data)
+    want_metrics, want_grads, want_bs = group[1]["ddp_mae"][data]
+    assert set(want_bs) and set(per_rank[0][1]) == set(want_grads)
+    for result in per_rank:
+        assert _mae_gate(result, want_metrics, want_grads, want_bs) <= 1.0
+    for other in per_rank[1:]:  # one update on every rank, and the same statistics
+        np.testing.assert_array_equal(other[3], per_rank[0][3])
+        for n, b in per_rank[0][2].items():
+            np.testing.assert_array_equal(other[2][n], b)
+
+
+def test_data_parallel_mae_step_with_local_moments_misses_the_gate(group):
+    per_rank = _ddp_results(group, "ddp_mae_local_moments", 4)
+    want = group[1]["ddp_mae"][4]
+    assert min(_mae_gate(result, *want) for result in per_rank) > 1.0
+
+
+def test_data_parallel_mae_step_draws_the_global_batch_noise(group):
+    """The masking noise from the state's generator: each rank's rows of the
+    global batch's noise, so the step is the one-process step's."""
+    per_rank = _ddp_results(group, "ddp_mae_generator", 2)
+    metrics, grads, bs, _ = group[1]["ddp_mae_generator"]
+    for result in per_rank:
+        assert _mae_gate(result, metrics, grads, bs) <= 1.0
+    np.testing.assert_array_equal(per_rank[0][3], per_rank[1][3])
+
+
+@pytest.mark.parametrize("case", ["sup_weighted", "sup_mixup"])
+def test_data_parallel_supervised_step_matches_jax(group, case):
+    """Unequal class weights on the ranks; with mixup, timm's flip pairs
+    rows of different ranks."""
+    per_rank = _ddp_results(group, f"ddp_{case}", 4)
+    want_loss, want_delta = group[1]["ddp_supervised"][case]
+    for loss, delta in per_rank:
+        assert abs(loss - want_loss) <= 1e-5 * abs(want_loss), (loss, want_loss)
+        for n, w in want_delta.items():
+            assert np.abs(delta[n] - w).max() <= 1e-4 * np.abs(w).max(), n
+    for _, delta in per_rank[1:]:
+        for n, w in per_rank[0][1].items():
+            np.testing.assert_array_equal(delta[n], w)
+
+
+def test_data_parallel_supervised_step_with_local_weight_sums_misses(group):
+    per_rank = _ddp_results(group, "ddp_sup_weighted_local_denominator", 4)
+    want_loss, want_delta = group[1]["ddp_supervised"]["sup_weighted"]
+    for loss, delta in per_rank:
+        assert abs(loss - want_loss) > 1e-5 * abs(want_loss)
+        assert max(np.abs(delta[n] - w).max() / np.abs(w).max() for n, w in want_delta.items()) > 1e-4
+
+
+def _features(work, fold, tag, what="features"):
+    return np.load(os.path.join(work, "ssl_features_dir", f"{tag}_contrast_ssl_{what}_split_{fold}.npy"))
+
+
+def test_data_parallel_pretrain_kfold_and_its_resume_match_one_process(group):
+    (first, resumed, tb_files, _), _ = _ddp_results(group, "ddp_pipelines", 2)
+    dirs = group[1]["ddp_pretrain"]["dirs"]
+    want = group[1]["ddp_pretrain"]["results"]
+    ranks, one = dirs["ranks"], dirs["one"]
+    assert set(first) == set(want) == {0, 1} and resumed[0] == {"skipped": True}
+    for fold in range(PIPE_FOLDS):
+        assert abs(first[fold]["min_loss"] - want[fold]["min_loss"]) <= 1e-5 * abs(want[fold]["min_loss"])
+        got_sd, want_sd = load_reference_state_dict(_min_loss(ranks, fold)), load_reference_state_dict(_min_loss(one, fold))
+        assert set(got_sd) == set(want_sd)
+        for n, w in want_sd.items():
+            assert float((got_sd[n] - w).abs().max()) <= 1e-5 * max(float(w.abs().max()), 1.0), n
+        for tag in ("train", "test"):
+            got, w = _features(ranks, fold, tag), _features(one, fold, tag)
+            assert got.shape == w.shape == (9, 24) and got.dtype == np.float32
+            assert np.abs(got - w).max() <= 1e-5 * np.abs(w).max(), (fold, tag)
+            np.testing.assert_array_equal(_features(ranks, fold, tag, "labels"), _features(one, fold, tag, "labels"))
+    for tag in ("train", "test"):  # the resumed fold's features again, from the same .pth
+        first_copy = os.path.join(ranks, "ssl_features_dir", f"{tag}_contrast_ssl_features_split_1.npy.first")
+        np.testing.assert_array_equal(_features(ranks, 1, tag), np.load(first_copy))
+    # one writer: the one-process run's log rows, one TensorBoard file
+    with open(os.path.join(ranks, "checkpoints", "log.txt")) as f, open(os.path.join(one, "checkpoints", "log.txt")) as g:
+        got_rows, want_rows = [json.loads(x) for x in f], [json.loads(x) for x in g]
+    assert len(got_rows) == len(want_rows) == PIPE_FOLDS * 2
+    for r, w in zip(got_rows, want_rows):
+        assert (r["fold"], r["epoch"]) == (w["fold"], w["epoch"])
+        assert abs(r["train_loss"] - w["train_loss"]) <= 1e-5 * abs(w["train_loss"])
+    assert len(tb_files) == 1 and os.listdir(os.path.join(ranks, "k_fold", "indices_file"))
+
+
+def test_data_parallel_extract_features_matches_one_process(group):
+    from vit_ae_plus_plus_torch.pipelines.extract_features import extract_ssl_features
+
+    _ddp_results(group, "ddp_pipelines", 2)
+    dirs = group[1]["ddp_pretrain"]["dirs"]
+    data_cfg, _ = _pretrain_cfgs(dirs["data"])
+    extract_ssl_features(data_cfg, _min_loss(dirs["ranks"], 0), dirs["extract_one"], model_name=MAE_TINY,
+                         batch_size=PIPE_BATCH, patch_size=4, compute_dtype="float32", device="cpu")
+    for split, n in (("train", 9), ("test", 5)):
+        got = np.load(os.path.join(dirs["extract_ranks"], f"{split}_features.npy"))
+        want = np.load(os.path.join(dirs["extract_one"], f"{split}_features.npy"))
+        assert got.shape == want.shape == (n, 24)
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), split
+        np.testing.assert_array_equal(np.load(os.path.join(dirs["extract_ranks"], f"{split}_gt_labels.npy")),
+                                      np.load(os.path.join(dirs["extract_one"], f"{split}_gt_labels.npy")))
+
+
+def test_data_parallel_finetune_kfold_matches_one_process(group):
+    """`finetune-kfold` with MixUp3D's permutation over the global batch, on
+    2 ranks: every rank returns the one-process run's test statistics, and
+    the best models are written once, as one process writes them."""
+    (*_, got), (*_, other) = _ddp_results(group, "ddp_pipelines", 2)
+    dirs = group[1]["ddp_pretrain"]["dirs"]
+    want = _finetune_kfold(dirs["finetune_one"], dirs["ranks"])
+    assert got.keys() == other.keys() == want.keys() == {0, 1}
+    for fold, by_name in want.items():
+        assert got[fold].keys() == other[fold].keys() == by_name.keys() and by_name
+        for name, stats in by_name.items():
+            assert got[fold][name] == other[fold][name]
+            for k, v in stats.items():
+                assert abs(got[fold][name][k] - v) <= 1e-5 * max(abs(v), 1.0), (fold, name, k)
+    best = sorted(os.listdir(os.path.join(dirs["finetune_one"], "checkpoints")))
+    assert sorted(os.listdir(os.path.join(dirs["finetune_ranks"], "checkpoints"))) == best
+    for name in best:
+        got_sd = load_reference_state_dict(os.path.join(dirs["finetune_ranks"], "checkpoints", name))
+        want_sd = load_reference_state_dict(os.path.join(dirs["finetune_one"], "checkpoints", name))
+        for n, w in want_sd.items():
+            assert float((got_sd[n] - w).abs().max()) <= 1e-5 * max(float(w.abs().max()), 1.0), (name, n)

@@ -35,6 +35,13 @@ port's copy of scikit-learn's libsvm. The training and extraction commands
 take the JAX commands' flags and, as there, `--config` loads a config.ini
 section over them (configs/ini.py); they print their results as one JSON
 line last.
+
+`--n-devices N` (N > 1) on `pretrain-kfold`, `probe-kfold`,
+`finetune-kfold`, `finetune` and `extract-features` runs the command on N
+spawned ranks (`parallel.run_ranks`), each under a data mesh of (N, 1):
+NCCL with rank r on `cuda:r`, refused before any spawn when fewer than N
+cards are visible, or gloo ranks on the CPU with `--device cpu`. The
+batch size stays the global batch and must split into N equal shards.
 """
 
 from __future__ import annotations
@@ -193,7 +200,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model", default="contr_mae_vit_base_patch16")
     p.add_argument("--n-splits", type=int, default=5)
     p.add_argument("--n-devices", type=int, default=None,
-                   help="data-parallel devices (not ported yet: > 1 is refused)")
+                   help="data-parallel devices: pretrain-kfold, probe-kfold, finetune-kfold, finetune "
+                        "and extract-features run on N ranks, one per card over NCCL (gloo ranks on "
+                        "the CPU with --device cpu), each on batch-size / N rows of every batch; "
+                        "moco-kfold and resnet-kfold refuse N > 1")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device-augment", action="store_true",
                    help="augmentation on the card (not ported yet: refused)")
@@ -291,8 +301,47 @@ def prepare_data(args) -> None:
         S.refine_1p19q_scans(args.out_dir)
 
 
+DATA_PARALLEL = ("pretrain-kfold", "probe-kfold", "finetune-kfold", "finetune", "extract-features")
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    n = getattr(args, "n_devices", None) or 1
+    out = launch_ranks(args, argv, n) if n > 1 and args.cmd in DATA_PARALLEL else command(args)
+    if out is not None:
+        print(out if isinstance(out, str) else json.dumps(out, default=str))
+    return 0
+
+
+def launch_ranks(args, argv: list, n: int):
+    """`argv`'s command on `n` spawned ranks, each under a data mesh of
+    (n, 1) (module docstring); -> rank 0's result. The ranks meet through a
+    file store under the work dir."""
+    import torch
+
+    from vit_ae_plus_plus_torch.parallel import run_ranks
+
+    if args.batch_size % n:
+        raise ValueError(f"--batch-size {args.batch_size} does not split into {n} equal shards: a "
+                         "data-parallel run needs a batch size that --n-devices divides")
+    backend = "gloo" if args.device is not None and torch.device(args.device).type == "cpu" else "nccl"
+    return run_ranks(_rank_command, n, (argv,), store_dir=os.path.join(args.work_dir, ".ranks"),
+                     timeout=None, backend=backend)[0]
+
+
+def _rank_command(rank: int, argv: list):
+    """One rank of `launch_ranks`: the command under the data mesh."""
+    from vit_ae_plus_plus_torch.parallel import make_mesh, set_mesh
+
+    args = build_parser().parse_args(argv)
+    with set_mesh(make_mesh(args.n_devices)):
+        return command(args)
+
+
+def command(args):
+    """Run the parsed command -> what `main` prints last (a JSON-able
+    result, a line, or None)."""
     if args.cmd == "serve":
         from vit_ae_plus_plus_torch.serving import serve
 
@@ -310,75 +359,65 @@ def main(argv=None) -> int:
         from vit_ae_plus_plus_torch.pipelines.pretrain_kfold import pretrain_kfold
 
         data_cfg, train_cfg = configs_from_args(args)
-        out = pretrain_kfold(data_cfg, train_cfg, args.work_dir, model_name=args.model,
-                             n_splits=args.n_splits, n_devices=args.n_devices,
-                             device=args.device)
-        print(json.dumps(out, default=str))
+        return pretrain_kfold(data_cfg, train_cfg, args.work_dir, model_name=args.model,
+                              n_splits=args.n_splits, n_devices=args.n_devices,
+                              device=args.device)
     elif args.cmd in ("probe-kfold", "finetune-kfold"):
         from vit_ae_plus_plus_torch.pipelines.probe_kfold import probe_kfold
 
         data_cfg, train_cfg = configs_from_args(args)
-        out = probe_kfold(
+        return probe_kfold(
             data_cfg, train_cfg, args.work_dir, args.pretrain_dir, model_name=args.model,
             n_splits=args.n_splits, fix_backbone=(args.cmd == "probe-kfold"),
             use_mixup=args.use_mixup, eval_only=args.eval_only, n_devices=args.n_devices,
             device=args.device,
         )
-        print(json.dumps(out, default=str))
     elif args.cmd == "finetune":
         from vit_ae_plus_plus_torch.pipelines.finetune import finetune_single
 
         data_cfg, train_cfg = configs_from_args(args)
-        out = finetune_single(
+        return finetune_single(
             data_cfg, train_cfg, args.work_dir, args.checkpoint, model_name=args.model,
             fix_backbone=args.fix_backbone, use_mixup=args.use_mixup, eval_only=args.eval_only,
             n_devices=args.n_devices, device=args.device,
         )
-        print(json.dumps(out, default=str))
     elif args.cmd == "resnet-kfold":
         from vit_ae_plus_plus_torch.pipelines.resnet_kfold import resnet_kfold
 
         data_cfg, train_cfg = configs_from_args(args)
-        out = resnet_kfold(data_cfg, train_cfg, args.work_dir, n_splits=args.n_splits, eval_only=args.eval_only,
-                           n_devices=args.n_devices, device=args.device)
-        print(json.dumps(out, default=str))
+        return resnet_kfold(data_cfg, train_cfg, args.work_dir, n_splits=args.n_splits, eval_only=args.eval_only,
+                            n_devices=args.n_devices, device=args.device)
     elif args.cmd == "moco-kfold":
         from vit_ae_plus_plus_torch.pipelines.moco_kfold import moco_kfold
 
         data_cfg, train_cfg = configs_from_args(args)
-        out = moco_kfold(data_cfg, train_cfg, args.work_dir, n_splits=args.n_splits, arch=args.moco_arch,
-                         resnet_depth=args.resnet_depth, moco_dim=args.moco_dim, moco_mlp_dim=args.moco_mlp_dim,
-                         fsdp=args.fsdp, n_devices=args.n_devices, device=args.device)
-        print(json.dumps(out, default=str))
+        return moco_kfold(data_cfg, train_cfg, args.work_dir, n_splits=args.n_splits, arch=args.moco_arch,
+                          resnet_depth=args.resnet_depth, moco_dim=args.moco_dim, moco_mlp_dim=args.moco_mlp_dim,
+                          fsdp=args.fsdp, n_devices=args.n_devices, device=args.device)
     elif args.cmd == "moco-extract":
         from vit_ae_plus_plus_torch.pipelines.moco_kfold import moco_extract
 
         data_cfg, _ = configs_from_args(args)
-        out = moco_extract(data_cfg, args.checkpoint, args.work_dir, batch_size=args.batch_size,
-                           arch=args.moco_arch, resnet_depth=args.resnet_depth, moco_dim=args.moco_dim,
-                           moco_mlp_dim=args.moco_mlp_dim, n_splits=args.n_splits, fold_idx=args.fold,
-                           compute_dtype=args.compute_dtype, device=args.device)
-        print(json.dumps(out, default=str))
+        return moco_extract(data_cfg, args.checkpoint, args.work_dir, batch_size=args.batch_size,
+                            arch=args.moco_arch, resnet_depth=args.resnet_depth, moco_dim=args.moco_dim,
+                            moco_mlp_dim=args.moco_mlp_dim, n_splits=args.n_splits, fold_idx=args.fold,
+                            compute_dtype=args.compute_dtype, device=args.device)
     elif args.cmd == "eval-classical":
         from vit_ae_plus_plus_torch.pipelines.eval_classical import evaluate_features
 
-        out = evaluate_features(args.feature_dir, n_splits=args.n_splits, method=args.method)
-        print(json.dumps(out, default=str))
+        return evaluate_features(args.feature_dir, n_splits=args.n_splits, method=args.method)
     elif args.cmd == "extract-features":
         from vit_ae_plus_plus_torch.pipelines.extract_features import extract_ssl_features
 
         data_cfg, _ = configs_from_args(args)
-        if (args.n_devices or 1) > 1:
-            raise NotImplementedError(
-                "extract-features: n_devices > 1 is not ported yet (ROADMAP Queue 1 item 7)")
         extract_ssl_features(
             data_cfg, args.checkpoint, args.work_dir, model_name=args.model,
             batch_size=args.batch_size, only_test_split=args.only_test_split,
             patch_size=args.patch_size, compute_dtype=args.compute_dtype,
-            quantize=args.quantize, device=args.device,
+            quantize=args.quantize, n_devices=args.n_devices, device=args.device,
         )
-        print("done")
-    return 0
+        return "done"
+    return None
 
 
 def run(argv=None) -> int:

@@ -141,7 +141,7 @@ class TrainConfig:
     device_augment: bool = False  # augment on the card (not ported yet)
     device_data: bool = False  # the whole raw fold resident on the card (not ported yet)
     donate_state: bool = True
-    mesh_shape: Tuple[int, ...] = (1,)  # (data,) mesh; data > 1 is not ported yet
+    mesh_shape: Tuple[int, ...] = (1,)  # (data,) mesh; data > 1 asks for that many data-parallel ranks
     pipe_devices: int = 1  # > 1: GPipe pipeline (not ported yet)
     pp_microbatches: Optional[int] = None
     fsdp: bool = False  # ZeRO/FSDP (not ported yet)

@@ -63,6 +63,13 @@ class BraTSDataset:
     def __len__(self) -> int:
         return self.data.shape[0]
 
+    def count_access(self, item: int, n: int = 1) -> None:
+        """Move `item`'s access count by `n` without loading it: a loader
+        whose ranks share a global batch counts the other ranks' rows, so
+        each item's augmentation stream stays a one-process run's."""
+        with self._access_lock:
+            self._access_counts[item] = self._access_counts.get(item, 0) + n
+
     def __getitem__(self, item: int) -> Tuple[np.ndarray, np.ndarray, int]:
         # disk layout (S, S, S, C) -> channel-first (C, S, S, S) (brats.py:17)
         volume = np.ascontiguousarray(

@@ -114,6 +114,13 @@ class EGDDataset:
             ]
         )
 
+    def count_access(self, item: int, n: int = 1) -> None:
+        """Move `item`'s access count by `n` without loading it: a loader
+        whose ranks share a global batch counts the other ranks' rows, so
+        each item's augmentation stream stays a one-process run's."""
+        with self._access_lock:
+            self._access_counts[item] = self._access_counts.get(item, 0) + n
+
     def __getitem__(self, item: int) -> Tuple[np.ndarray, np.ndarray, int]:
         if self.has_labels:
             scan, label = self.indices[item][0], int(self.indices[item][1])

@@ -12,10 +12,13 @@ blocked on `cuda.synchronize()` every step (train_one_epoch.py:76).
 next batches' host-to-device copies run on a side stream from page-locked
 buffers while the card runs the current step.
 
-Where the JAX package reads `jax.process_index()` / `jax.process_count()`,
-this module reads the rank and world size of the initialised
-`torch.distributed` group, and 0 / 1 without one. The JAX package's
-`DeviceResidentBatches` has no counterpart here yet.
+`Loader(..., shard_rows=(d, D))` is the data-parallel loader: the batches
+of a one-process loader of `batch_size` (the global batch), of which rank
+d loads and yields rows [d b, (d + 1) b), b = batch_size / D; the last
+partial batch of `drop_last=False` is padded with its first item, as the
+JAX package pads its eval batches. The JAX package's round-robin process
+sharding (`epoch_shard` over `jax.process_count()`) and its
+`DeviceResidentBatches` have no counterpart here.
 """
 
 from __future__ import annotations
@@ -43,51 +46,14 @@ def all_labels(dataset) -> np.ndarray:
     return np.full(len(dataset), -100)
 
 
-def epoch_shard(
-    indices,
-    epoch: int,
-    seed: int,
-    rank: int,
-    n_proc: int,
-    shuffle: bool = True,
-) -> np.ndarray:
-    """Per-epoch multi-host sharding, DistributedSampler-equivalent (torch's
-    sampler semantics the reference relies on: reshuffle GLOBALLY every epoch
-    with an identical seed on all ranks, pad by wrapping so every rank gets
-    the same batch count, never silently drop the remainder).
-
-    The global order is drawn from `seed + epoch` — identical on every host —
-    then dealt round-robin, so each original index is visited at least once
-    per epoch and exactly once when len(indices) % n_proc == 0.
-    """
+def epoch_order(indices, epoch: int, seed: int, shuffle: bool = True) -> np.ndarray:
+    """One epoch's order of `indices`: shuffled by a generator of `seed +
+    epoch`, so every rank draws the same order and each epoch a new one
+    (the JAX package's `epoch_shard` on one process)."""
     order = np.asarray(indices).copy()
     if shuffle:
         np.random.default_rng(seed + epoch).shuffle(order)
-    if n_proc == 1:
-        return order
-    per = -(-len(order) // n_proc)  # ceil: pad rather than drop
-    total = per * n_proc
-    if total > len(order):
-        order = np.concatenate([order, order[: total - len(order)]])
-    return order[rank::n_proc]
-
-
-def process_rank_and_count() -> Tuple[int, int]:
-    """(rank, world size) of the initialised `torch.distributed` group, else
-    (0, 1): the port's `jax.process_index()` / `jax.process_count()`."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
-def process_local_indices(indices) -> np.ndarray:
-    """Static (epoch-independent) host shard of a global index list. Prefer
-    `Loader(..., shard_across_processes=True)`, which reshuffles globally every
-    epoch; this exists for one-shot sharding (e.g. eval loaders)."""
-    rank, n_proc = process_rank_and_count()
-    return epoch_shard(indices, epoch=0, seed=0, rank=rank, n_proc=n_proc, shuffle=False)
+    return order
 
 
 def all_items(dataset) -> Tuple[np.ndarray, np.ndarray]:
@@ -108,9 +74,18 @@ class ConcatDataset:
     def __len__(self):
         return int(self._offsets[-1])
 
-    def __getitem__(self, item):
+    def _locate(self, item):
         ds_idx = int(np.searchsorted(self._offsets, item, side="right") - 1)
-        return self.datasets[ds_idx][item - int(self._offsets[ds_idx])]
+        return self.datasets[ds_idx], item - int(self._offsets[ds_idx])
+
+    def __getitem__(self, item):
+        ds, i = self._locate(item)
+        return ds[i]
+
+    def count_access(self, item, n: int = 1) -> None:
+        ds, i = self._locate(item)
+        if hasattr(ds, "count_access"):
+            ds.count_access(i, n)
 
 
 def cuda_prefetch(iterator, size: int = 2, device=None, put_orig: bool = True,
@@ -265,9 +240,7 @@ class Loader:
         num_workers: int = 8,
         prefetch: int = 2,
         seed: int = 0,
-        shard_across_processes: bool = False,
-        rank: Optional[int] = None,
-        n_proc: Optional[int] = None,
+        shard_rows: Optional[Tuple[int, int]] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -280,19 +253,16 @@ class Loader:
         self._seed = seed
         self.collate_ms: list = []
         self.wait_ms: list = []
-        if shard_across_processes and (rank is None or n_proc is None):
-            group_rank, group_size = process_rank_and_count()
-            rank = group_rank if rank is None else rank
-            n_proc = group_size if n_proc is None else n_proc
-        self._rank = rank if shard_across_processes else 0
-        self._n_proc = n_proc if shard_across_processes else 1
-
-    def _local_len(self) -> int:
-        n = len(self.indices)
-        return -(-n // self._n_proc) if self._n_proc > 1 else n  # wrap-padded
+        if shard_rows is not None:
+            d, size = shard_rows
+            if batch_size % size or not 0 <= d < size:
+                raise ValueError(
+                    f"the global batch of {batch_size} does not split into {size} equal shards (rank {d}): "
+                    "data-parallel runs need a batch size that the number of devices divides")
+        self.shard_rows = shard_rows
 
     def __len__(self) -> int:
-        n = self._local_len()
+        n = len(self.indices)
         length = n // self.batch_size if self.drop_last else -(-n // self.batch_size)
         if length == 0:
             raise ValueError(
@@ -309,13 +279,19 @@ class Loader:
         self._epoch = int(epoch)
 
     def _batches(self) -> Iterator[np.ndarray]:
-        order = epoch_shard(
-            self.indices, self._epoch, self._seed, self._rank, self._n_proc,
-            shuffle=self.shuffle,
-        )
+        order = epoch_order(self.indices, self._epoch, self._seed, shuffle=self.shuffle)
         n_batches = len(self)
         for b in range(n_batches):
             yield order[b * self.batch_size : (b + 1) * self.batch_size]
+
+    def _rows(self, batch_idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray, int]:
+        """Under `shard_rows` (d, D): this rank's items of one global batch,
+        the other ranks' items, and the number of pad rows after its own."""
+        d, size = self.shard_rows
+        b = self.batch_size // size
+        mine = batch_idx[d * b:(d + 1) * b]
+        others = np.concatenate([batch_idx[:d * b], batch_idx[(d + 1) * b:]])
+        return mine, others, b - len(mine)
 
     def __iter__(self):
         self._epoch += 1
@@ -324,8 +300,24 @@ class Loader:
         stop = threading.Event()
         collate_ms, wait_ms = self.collate_ms, self.wait_ms = [], []
 
+        counted = hasattr(self.dataset, "count_access")
+
         def collate(batch_idx):
+            pad = 0
+            if self.shard_rows is not None:
+                first, (batch_idx, others, pad) = batch_idx[0], self._rows(batch_idx)
+                if counted:  # the other ranks' loads of this batch
+                    for item in others:
+                        self.dataset.count_access(int(item))
             items = list(pool.map(self.dataset.__getitem__, batch_idx))
+            if pad:  # copies of the global batch's first row
+                if self.shard_rows[0] == 0:
+                    row0 = items[0]
+                else:  # loaded again at rank 0's access of it
+                    if counted:
+                        self.dataset.count_access(int(first), -1)
+                    row0 = self.dataset[first]
+                items += [row0] * pad
             aug = np.stack([it[0] for it in items])
             orig = np.stack([it[1] for it in items])
             labels = np.asarray([it[2] for it in items])

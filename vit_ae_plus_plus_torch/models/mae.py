@@ -5,7 +5,8 @@ Counterpart of the JAX package's models/mae.py (`MaskedAutoencoderViT3D`):
 - fixed 3D sincos position tables for encoder and decoder, held as buffers
   (not parameters, and not in the state dict);
 - random masking by stable argsort of uniform noise (ops/masking.py), the
-  noise drawn from the caller's `torch.Generator` or passed in;
+  noise drawn from the caller's `torch.Generator` (under a data mesh, the
+  global batch's noise, of which each rank keeps its rows) or passed in;
 - encoder: cls token + kept tokens through `depth` blocks + LayerNorm;
 - decoder: Linear embed, mask tokens scattered back by the inverse
   permutation, decoder position table, `decoder_depth` blocks, per-patch
@@ -44,6 +45,7 @@ from vit_ae_plus_plus_torch.models.vit import (
     compute_dtype,
 )
 from vit_ae_plus_plus_torch.ops import get_3d_sincos_pos_embed, random_masking, restore_tokens
+from vit_ae_plus_plus_torch.parallel import data_coords
 
 
 class MaskedAutoencoderViT3D(nn.Module):
@@ -148,14 +150,22 @@ class MaskedAutoencoderViT3D(nn.Module):
 
         `noise` (rows, L) is the masking noise, one row per encoded volume
         (2B rows when both views are encoded); without it, uniform noise is
-        drawn from `generator`."""
+        drawn from `generator`: under an ambient mesh with data = D > 1 the
+        noise of the global batch's 2DB rows, of which this rank keeps its
+        volumes' rows."""
         contrastive = self.cfg.contrastive and view2 is not None
         both = torch.cat([view1, view2], dim=0) if contrastive else view1
-        if noise is None and mask_ratio > 0:
-            noise = torch.rand((both.shape[0], self.cfg.num_patches), generator=generator,
-                               device=both.device)
-        latent_all, mask_all, ids_all = self.forward_encoder(both, mask_ratio, noise)
         b = view1.shape[0]
+        if noise is None and mask_ratio > 0:
+            # the global batch's rows, each view's volumes in data order;
+            # this rank keeps its own: the masks of a one-process run on the
+            # global batch, and the generators stay equal across ranks
+            d, size = data_coords()
+            views = both.shape[0] // b
+            noise = torch.rand((views * size * b, self.cfg.num_patches), generator=generator,
+                               device=both.device)
+            noise = noise.view(views, size, b, -1)[:, d].reshape(views * b, -1)
+        latent_all, mask_all, ids_all = self.forward_encoder(both, mask_ratio, noise)
         latent, mask, ids_restore = latent_all[:b], mask_all[:b], ids_all[:b]
         out = {"pred": self.forward_decoder(latent, ids_restore), "mask": mask,
                "ids_restore": ids_restore, "latent": latent}

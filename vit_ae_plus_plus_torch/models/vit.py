@@ -37,6 +37,7 @@ from vit_ae_plus_plus_torch.kernels import (
     packed_flash_attention,
 )
 from vit_ae_plus_plus_torch.ops import patchify
+from vit_ae_plus_plus_torch.parallel import get_mesh, psum
 
 # float64 serves the CPU trajectory tests, as in the JAX package
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
@@ -271,7 +272,14 @@ class FlaxBatchNorm(nn.Module):
     variance is E[x^2] - E[x]^2 over every dim but 1, clipped at 0.
     Statistics and output are in at least f32. Trains on batch statistics
     and updates the running ones in `training` mode, normalises with the
-    running ones otherwise."""
+    running ones otherwise.
+
+    Under an ambient mesh whose 'data' axis has more than one rank, the
+    batch statistics are the global batch's, as the JAX step takes them
+    over a batch sharded `P('data')`: the rows' sums, sums of squares and
+    count go through one differentiable all-reduce (`parallel.psum`), so
+    every rank normalises with, and moves its running statistics by, the
+    same moments."""
 
     momentum = 0.9
     eps = 1e-5
@@ -291,8 +299,15 @@ class FlaxBatchNorm(nn.Module):
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if self.training:
             xf = x.to(dt)
-            mean = xf.mean(dim=dims)
-            var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+            mesh = get_mesh()
+            if mesh is not None and mesh.size("data") > 1:
+                count = torch.full((1,), xf.numel() // xf.shape[1], dtype=dt, device=x.device)
+                sums = psum(torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]), mesh, "data")
+                c = xf.shape[1]
+                mean, mean_sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+            else:
+                mean, mean_sq = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+            var = torch.clamp_min(mean_sq - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

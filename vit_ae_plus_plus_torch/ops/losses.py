@@ -66,10 +66,13 @@ def soft_cross_entropy_with_weights(
     return total / (weights.sum() * num_classes)
 
 
-def weighted_ce(logits: torch.Tensor, labels: torch.Tensor, class_weights: torch.Tensor) -> torch.Tensor:
+def weighted_ce(logits: torch.Tensor, labels: torch.Tensor, class_weights: torch.Tensor,
+                weight_sum: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`torch.nn.CrossEntropyLoss(weight=w)` semantics: per-sample weighted
-    NLL over the sum of the samples' weights, in at least f32."""
+    NLL over the sum of the samples' weights, in at least f32. `weight_sum`
+    replaces that denominator (a data-parallel step's shard passes the
+    global batch's sum)."""
     logits = at_least_f32(logits)
     nll = -torch.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
     w = class_weights[labels]
-    return (nll * w).sum() / w.sum()
+    return (nll * w).sum() / (w.sum() if weight_sum is None else weight_sum)

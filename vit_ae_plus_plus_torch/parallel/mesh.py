@@ -13,9 +13,12 @@ position of the mesh, rank = d * model + m, and runs its own program:
   `jax.set_mesh` does; `get_mesh()` reads it (None outside). The
   sequence-parallel attention ('flash_ring', 'flash_seq') reads it.
 - The data axis only names the groups: slicing the batch over it is the
-  caller's work. The attention paths shard over the 'model' group.
+  caller's work (`data_coords` gives this rank's coordinate on it). The
+  data-parallel steps reduce over the 'data' group, the attention paths
+  shard over the 'model' group.
 
-Transport (`ring_shift`, `all_gather_rows`, `all_reduce_sum`) follows the
+Transport (`ring_shift`, `all_gather_rows`, `all_gather_batch`,
+`all_reduce_sum`, the differentiable `psum`, `all_reduce_flat`) follows the
 group's backend. An NCCL group moves CUDA tensors itself. A gloo group moves
 host memory, so CUDA tensors go through pinned host buffers once the current
 stream has finished producing them, and come back to the card after. That
@@ -29,7 +32,7 @@ import contextlib
 import contextvars
 import dataclasses
 import warnings
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -116,6 +119,49 @@ def set_mesh(mesh: Optional[Mesh]):
         _current.reset(token)
 
 
+def data_coords(mesh: Optional[Mesh] = None) -> Tuple[int, int]:
+    """(d, D): the coordinate of this rank on the 'data' axis of `mesh` (the
+    ambient mesh by default) and the axis' size; (0, 1) without a mesh."""
+    mesh = get_mesh() if mesh is None else mesh
+    return (mesh.coords["data"], mesh.size("data")) if mesh is not None else (0, 1)
+
+
+def barrier(mesh: Optional[Mesh], axis: str = "data") -> None:
+    """Wait until every rank along `axis` has reached this call."""
+    if mesh is not None and mesh.size(axis) > 1:
+        dist.barrier(group=mesh.groups[axis])
+
+
+def data_parallel(n_devices: Optional[int], what: str) -> Tuple[int, int]:
+    """(d, D) of the ambient mesh (`data_coords`), after checking that it is
+    the data mesh a pipeline was asked for: `n_devices` > 1 runs as that
+    many ranks, each under a mesh of (n_devices, 1) (the CLI's
+    `--n-devices` launches them); None takes the ambient mesh as it is."""
+    mesh = get_mesh()
+    d, size = data_coords(mesh)
+    if mesh is not None and mesh.size("model") > 1:
+        raise NotImplementedError(
+            f"{what}: a mesh with model={mesh.size('model')} is not ported for this pipeline: data "
+            "parallelism runs on a mesh of (D, 1) (ROADMAP Queue 1 item 6 brings the rest)")
+    if n_devices is not None and max(n_devices, 1) != size:
+        raise ValueError(
+            f"{what}: n_devices={n_devices} trains on {n_devices} ranks, each under a data mesh of "
+            f"{n_devices} (parallel.run_ranks + set_mesh(make_mesh({n_devices})), as the CLI's --n-devices "
+            f"launches them), but this process sits on a 'data' axis of {size}")
+    return d, size
+
+
+def writer_first(fn, mesh: Optional[Mesh] = None):
+    """`fn()` on the 'data' group's first rank, then on the others once it
+    has returned: for a call that may write the files that the others then
+    read (the fold index files). -> its result on this rank."""
+    mesh = get_mesh() if mesh is None else mesh
+    d, _ = data_coords(mesh)
+    out = fn() if d == 0 else None
+    barrier(mesh)
+    return fn() if d > 0 else out
+
+
 def _staged(t: torch.Tensor, group) -> bool:
     """Whether `t` must travel through host memory: a CUDA tensor on a
     group whose backend moves host memory only (gloo)."""
@@ -174,3 +220,62 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh, axis: str = "model") -> torch.Te
     out = _to_host([t])[0] if staged else t.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out.to(t.device, non_blocking=True) if staged else out
+
+
+def all_gather_batch(t: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:
+    """The ranks' batch rows `t` (b, ...) along `axis`, concatenated along
+    dim 0 in the order of their coordinates: the global batch of a batch
+    sharded `P('data')`. Every rank passes the same shape. Not
+    differentiable."""
+    size = mesh.size(axis)
+    if size == 1:
+        return t
+    group = mesh.groups[axis]
+    staged = _staged(t, group)
+    src = _to_host([t])[0] if staged else t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(size)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=0)
+    return out.to(t.device, non_blocking=True) if staged else out
+
+
+class _PSum(torch.autograd.Function):
+    """`all_reduce_sum` whose backward is the same sum of the incoming
+    gradients: every rank's loss depends on every rank's input through the
+    sum, so the gradient of the summed losses wrt one input sums the
+    ranks' gradients wrt the output (`lax.psum`'s transpose)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_reduce_sum(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.mesh, ctx.axis), None, None
+
+
+def psum(t: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:
+    """The differentiable sum of the ranks' `t` along `axis`, on every rank."""
+    if mesh.size(axis) == 1:
+        return t
+    return _PSum.apply(t, mesh, axis)
+
+
+def all_reduce_flat(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str = "data") -> List[torch.Tensor]:
+    """The sums of the ranks' `tensors` along `axis`, in one all-reduce per
+    dtype: the tensors are flattened into one buffer (staged to host
+    memory once on a gloo group), summed, and cut back into new tensors
+    of the inputs' shapes."""
+    if mesh.size(axis) == 1:
+        return list(tensors)
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        total = all_reduce_sum(flat, mesh, axis)
+        for i, part in zip(idx, torch.split(total, [tensors[i].numel() for i in idx])):
+            out[i] = part.view(tensors[i].shape)
+    return out

@@ -25,6 +25,21 @@ Random streams differ from the JAX package's: the head is drawn from a
 `Generator` seeded with (rng, step), the counterpart of JAX's
 `fold_in(rng, step)` (torch has no Beta sampler that takes a generator).
 The mixup functions themselves take their draws as arguments.
+
+Data parallelism (`n_devices` > 1, each of that many ranks under a mesh of
+(n_devices, 1), as the CLI's `--n-devices` launches them; the JAX package's
+`make_supervised_steps(..., mesh=...)`): `batch_size` is the global batch,
+and each rank loads and steps on its rows of the one-process batches
+(`Loader(shard_rows=...)`). The step takes this rank's share of the
+global batch's loss (the soft cross entropy sums over the rows,
+`weighted_ce` divides by the global batch's sum of weights) times D, and
+averages the gradients and the loss over the 'data' group. Mixup pairs
+rows across the global batch (timm's flip, MixUp3D's permutation), so the
+step gathers the global batch, mixes it with the draws every rank shares
+and keeps its own rows. `evaluate` gathers the logits in the one-process
+order, so every rank computes the same statistics and the trackers decide
+alike; the group's first rank alone writes the best models, logs and
+resume files, and the others read them after a barrier.
 """
 
 from __future__ import annotations
@@ -42,24 +57,36 @@ from vit_ae_plus_plus_torch.data.loader import cuda_prefetch
 from vit_ae_plus_plus_torch.device import resolve_device
 from vit_ae_plus_plus_torch.models import MODEL_ZOO
 from vit_ae_plus_plus_torch.ops import soft_cross_entropy_with_weights, weighted_ce
+from vit_ae_plus_plus_torch.parallel import (
+    all_gather_batch,
+    all_reduce_sum,
+    barrier,
+    data_coords,
+    data_parallel,
+    get_mesh,
+)
+from vit_ae_plus_plus_torch.pipelines.extract_features import global_rows
+from vit_ae_plus_plus_torch.pipelines.pretrain_kfold import requested_devices
 from vit_ae_plus_plus_torch.pipelines.transfer import build_grafted_vit
 from vit_ae_plus_plus_torch.train import create_train_state, warmup_cosine_schedule
 from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict, save_state_dict
-from vit_ae_plus_plus_torch.train.metrics import JsonlLogger, MetricLogger, TBWriter
+from vit_ae_plus_plus_torch.train.metrics import Discard, JsonlLogger, MetricLogger, TBWriter
 from vit_ae_plus_plus_torch.train.optim import freeze_backbone_tx, make_layerwise_adamw, make_sgd
+from vit_ae_plus_plus_torch.train.step import average_grads, data_mean
 from vit_ae_plus_plus_torch.utils.locking import locked_workdir
 from vit_ae_plus_plus_torch.utils.metrics import roc_auc
 
 
-def check_supported(train_cfg: TrainConfig, n_devices: Optional[int] = None, command: str = "finetune") -> None:
+def check_supported(train_cfg: TrainConfig, n_devices: Optional[int] = None,
+                    command: str = "finetune") -> Tuple[int, int]:
     """Raise `NotImplementedError` for a setting whose path the port does not
-    have yet, naming the ROADMAP item that brings it."""
-    if (n_devices or 1) > 1 or train_cfg.mesh_shape[0] > 1:
-        raise NotImplementedError(
-            f"{command}: n_devices > 1 (data-parallel training) is not ported yet (ROADMAP Queue 1 item 7)")
+    have yet, naming the ROADMAP item that brings it, and `ValueError` when
+    the ambient mesh is not the data mesh of `n_devices`
+    (`parallel.data_parallel`). -> (d, D) on the 'data' axis."""
     if train_cfg.accum_iter > 1:
         raise NotImplementedError(
-            f"{command}: accum_iter > 1 (gradient accumulation) is not ported yet (ROADMAP Queue 1 item 4)")
+            f"{command}: accum_iter > 1 (gradient accumulation) is not ported yet (ROADMAP Queue 1 item 5)")
+    return data_parallel(requested_devices(train_cfg, n_devices), command)
 
 
 def mixup_3d_draws(rng: np.random.Generator, n: int, alpha: float = 0.1) -> Tuple[np.ndarray, float, float]:
@@ -124,43 +151,63 @@ def make_supervised_steps(
     timm Mixup, 'reference' the probe reference's MixUp3D.
     `eval_step(batch, labels) -> (logits, loss)` without gradients, the
     unmixed weighted CE. Both take tensors on the model's device; the loss
-    stays there."""
+    stays there. Under a data mesh each rank passes its rows of the global
+    batch (module docstring), and both losses are the global batch's."""
     device = next(model.parameters()).device
     cw = torch.as_tensor(
         class_weights if class_weights is not None else np.ones(num_classes), dtype=torch.float32,
         device=device,
     )
 
+    def weight_sum(labels, mesh, size):
+        """`weighted_ce`'s denominator for this rank's rows: the global
+        batch's sum of weights (None: the rows' own, without a data mesh)."""
+        return all_reduce_sum(cw[labels].sum(), mesh, "data") if size > 1 else None
+
     def train_step(state, batch: torch.Tensor, labels, rng: int):
         labels = torch.as_tensor(labels, dtype=torch.int64, device=batch.device)
         m = state.model
         m.train()
+        mesh = get_mesh()
+        d, size = data_coords(mesh)
         if use_mixup:
+            # the partners come from the whole global batch, so mix it and
+            # keep this rank's rows
+            b = batch.shape[0]
+            batch_g, labels_g = (all_gather_batch(t, mesh) if size > 1 else t for t in (batch, labels))
             draws = np.random.default_rng([rng, state.step])
             if mixup_impl == "timm":
-                x, y = timm_mixup(batch, labels, num_classes, float(draws.beta(mixup_alpha, mixup_alpha)))
+                x, y = timm_mixup(batch_g, labels_g, num_classes, float(draws.beta(mixup_alpha, mixup_alpha)))
             else:
-                one_hot = torch.nn.functional.one_hot(labels, num_classes).float()
-                x, y = mixup_3d(batch, one_hot, *mixup_3d_draws(draws, batch.shape[0], mixup_alpha))
-            loss = soft_cross_entropy_with_weights(m(x), y, cw)
+                one_hot = torch.nn.functional.one_hot(labels_g, num_classes).float()
+                x, y = mixup_3d(batch_g, one_hot, *mixup_3d_draws(draws, batch_g.shape[0], mixup_alpha))
+            loss = soft_cross_entropy_with_weights(m(x[d * b:(d + 1) * b]), y[d * b:(d + 1) * b], cw)
         else:
-            loss = weighted_ce(m(batch), labels, cw)
+            loss = weighted_ce(m(batch), labels, cw, weight_sum(labels, mesh, size))
+        # this rank's share of the global batch's loss, times D: the group's
+        # means of it and of its gradients (`average_grads`) are the global
+        # batch's
+        loss = loss * size
         for p in state.tx.params:
             p.grad = None
         loss.backward()
         for p in state.tx.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        average_grads(state.tx.params)
         state.tx.step()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, data_mean({"loss": loss.detach()})
 
     def eval_step(batch: torch.Tensor, labels):
         labels = torch.as_tensor(labels, dtype=torch.int64, device=batch.device)
         model.eval()
+        mesh = get_mesh()
+        size = data_coords(mesh)[1]
         with torch.inference_mode():
             logits = model(batch)
-            return logits, weighted_ce(logits, labels, cw)
+            loss = weighted_ce(logits, labels, cw, weight_sum(labels, mesh, size))
+            return logits, all_reduce_sum(loss, mesh, "data") if size > 1 else loss
 
     return train_step, eval_step
 
@@ -192,21 +239,24 @@ def evaluate(eval_step, loader: Loader, pad_batch: int, device=None) -> Dict[str
     sensitivity / loss (fine_tune_epoch.py:104-145). A partial batch is
     padded to `pad_batch` with its first volume and label; the loss is the
     mean of the batches' losses, as the JAX package takes it. Logits and
-    losses are fetched from the card once."""
+    losses are fetched from the card once. A row-sharded loader
+    (`shard_rows`) pads its own rows; the logits and labels are gathered in
+    the one-process order, and the eval step's losses are the global
+    batch's, so every rank returns the same dict."""
     dev = resolve_device(device)
     all_logits, all_labels, losses = [], [], []
     for aug, _orig, labels in cuda_prefetch(loader, size=2, device=dev, put_orig=False):
         n = aug.shape[0]
         lab = torch.as_tensor(labels, dtype=torch.int64, device=dev)
-        if n < pad_batch:
+        if n < pad_batch and loader.shard_rows is None:
             aug = torch.cat([aug, aug[:1].expand(pad_batch - n, *aug.shape[1:])])
             lab = torch.cat([lab, lab[:1].expand(pad_batch - n)])
         logits, loss = eval_step(aug, lab)
         all_logits.append(logits[:n])
-        all_labels.append(labels)
+        all_labels.append(lab[:n])
         losses.append(loss)
-    logits = torch.cat(all_logits).float().cpu().numpy()
-    labels = np.concatenate(all_labels)
+    logits = global_rows(loader, torch.cat(all_logits)).float().cpu().numpy()
+    labels = global_rows(loader, torch.cat(all_labels)).cpu().numpy()
     auc, spec, sens = roc_auc(logits, labels)
     return {
         "roc_auc_score": auc,
@@ -220,15 +270,18 @@ def evaluate(eval_step, loader: Loader, pad_batch: int, device=None) -> Dict[str
 class BestModelTracker:
     """3-criteria best-model selection (fine_tune_epoch.py:436-463): each
     criterion that improves on validation writes the model's weights as a
-    reference-layout `checkpoint-{name}[_{fold}].pth` in `out_dir`."""
+    reference-layout `checkpoint-{name}[_{fold}].pth` in `out_dir` (where
+    `write`: on a data group's first rank only)."""
 
     out_dir: str
+    write: bool = True
     criteria: Tuple[str, ...] = ("roc_auc_score", "specificity", "sensitivity")
     names: Tuple[str, ...] = ("best_ft_model", "best_spec_model", "best_sens_model")
 
     def __post_init__(self):
         self.best = {c: 0.0 for c in self.criteria}
-        os.makedirs(self.out_dir, exist_ok=True)
+        if self.write:
+            os.makedirs(self.out_dir, exist_ok=True)
 
     def path(self, name: str, fold: Optional[int] = None) -> str:
         tag = f"{name}_{fold}" if fold is not None else name
@@ -239,6 +292,8 @@ class BestModelTracker:
         for crit, name in zip(self.criteria, self.names):
             if val_stats[crit] > self.best[crit]:
                 self.best[crit] = val_stats[crit]
+                if not self.write:
+                    continue
                 if host is None:  # one copy to the host for all the criteria
                     host = {k: v.detach().cpu() for k, v in model.state_dict().items()}
                 save_state_dict(self.path(name, fold), host)
@@ -298,8 +353,9 @@ def finetune_single(
     train and train/val evaluation, best models by three criteria, final
     test evaluation of each -> {name: test stats}. Runs on `cuda` unless
     `device` names another device, and raises when CUDA is asked for and
-    absent."""
-    check_supported(train_cfg, n_devices, "finetune")
+    absent. `n_devices` > 1: one of that many ranks (module docstring)."""
+    d, size = check_supported(train_cfg, n_devices, "finetune")
+    shard = (d, size) if size > 1 else None
     dev = resolve_device(device)
     ds_train = get_dataset(data_cfg.name, "train", data_cfg, transforms=default_ssl_transforms(),
                            use_z_score=data_cfg.use_z_score)
@@ -308,7 +364,8 @@ def finetune_single(
 
     vit_cfg, model = build_classifier(data_cfg, train_cfg, model_name, checkpoint_path, dev,
                                       patch_size=train_cfg.patch_size)
-    loader = Loader(ds_train, train_cfg.batch_size, shuffle=True, drop_last=True, seed=train_cfg.seed)
+    loader = Loader(ds_train, train_cfg.batch_size, shuffle=True, drop_last=True, seed=train_cfg.seed,
+                    shard_rows=shard)
     # effective batch incl. grad accumulation (fine_tune_epoch.py:343-346)
     eff_batch = train_cfg.batch_size * train_cfg.accum_iter
     lr = train_cfg.lr if train_cfg.lr is not None else blr * eff_batch / 256
@@ -319,13 +376,14 @@ def finetune_single(
         model, num_classes=data_cfg.num_classes, class_weights=class_weights, use_mixup=use_mixup,
     )
 
-    tracker = BestModelTracker(os.path.join(work_dir, "checkpoints"))
-    jsonl = JsonlLogger(work_dir)
+    writer = d == 0
+    tracker = BestModelTracker(os.path.join(work_dir, "checkpoints"), write=writer)
+    jsonl = JsonlLogger(work_dir) if writer else Discard()
     # the reference's two TensorBoard channels (fine_tune_epoch.py:271-272)
-    tb_train = TBWriter(os.path.join(work_dir, "logs", "train_ft"))
-    tb_val = TBWriter(os.path.join(work_dir, "logs", "val_ft"))
+    tb_train = TBWriter(os.path.join(work_dir, "logs", "train_ft")) if writer else Discard()
+    tb_val = TBWriter(os.path.join(work_dir, "logs", "val_ft")) if writer else Discard()
     rng = train_cfg.seed
-    val_loader = Loader(ds_val, train_cfg.batch_size, shuffle=False, drop_last=False)
+    val_loader = Loader(ds_val, train_cfg.batch_size, shuffle=False, drop_last=False, shard_rows=shard)
     # trainable-parameter count, requires_grad semantics (fine_tune_epoch.py:340)
     n_parameters = int(sum(p.numel() for p in model.parameters() if p.requires_grad))
     try:
@@ -333,7 +391,8 @@ def finetune_single(
             state, _ = train_one_epoch(train_step, state, loader, rng, sched, epoch, tb_train,
                                        f"FT Epoch [{epoch}]", dev)
             train_stats = evaluate(eval_step, Loader(ds_train, train_cfg.batch_size, shuffle=False,
-                                                     drop_last=False), train_cfg.batch_size, dev)
+                                                     drop_last=False, shard_rows=shard),
+                                   train_cfg.batch_size, dev)
             val_stats = evaluate(eval_step, val_loader, train_cfg.batch_size, dev)
             tracker.update(val_stats, model)
             log_epoch(tb_train, tb_val, train_stats, val_stats, epoch)
@@ -346,8 +405,10 @@ def finetune_single(
         tb_train.close()
         tb_val.close()
 
-    # final test evaluation of the three best checkpoints (fine_tune_epoch.py:436-443)
-    test_loader = Loader(ds_test, train_cfg.batch_size, shuffle=False, drop_last=False)
+    # final test evaluation of the three best checkpoints (fine_tune_epoch.py:436-443),
+    # which the group's first rank has written
+    barrier(get_mesh())
+    test_loader = Loader(ds_test, train_cfg.batch_size, shuffle=False, drop_last=False, shard_rows=shard)
     results = {}
     for name in tracker.names:
         path = tracker.path(name)

@@ -28,8 +28,9 @@ best loss), where the JAX package writes orbax directories of those names;
 draw of JAX's distributions from a `torch.Generator` seeded with the
 train config's seed, the same for every fold.
 
-Not ported yet, and refused before any data is read: FSDP, data
-parallelism over more than one device and a mesh (ROADMAP Queue 1 item 7).
+Not ported yet, and refused before any data is read: data parallelism
+over more than one device and a mesh (ROADMAP Queue 1 item 1b), and FSDP
+(item 6).
 """
 
 from __future__ import annotations
@@ -153,13 +154,14 @@ def check_supported(train_cfg: TrainConfig, n_devices: Optional[int] = None, mes
     """Raise `NotImplementedError` for a setting whose path the port does not
     have yet."""
     refused = [
-        (fsdp or train_cfg.fsdp, "fsdp (both encoders and the LARS traces sharded over 'data')"),
+        (fsdp or train_cfg.fsdp, "fsdp (both encoders and the LARS traces sharded over 'data')", "item 6"),
         ((n_devices or 1) > 1 or train_cfg.mesh_shape[0] > 1 or mesh is not None,
-         "n_devices > 1, a data mesh or a mesh (data-parallel training)"),
+         "n_devices > 1, a data mesh or a mesh (data-parallel training: the keys all-gathered for the "
+         "global batch's logits, the momentum encoder's moments)", "item 1b"),
     ]
-    for bad, what in refused:
+    for bad, what, item in refused:
         if bad:
-            raise NotImplementedError(f"moco-kfold: {what} is not ported yet (ROADMAP Queue 1 item 7)")
+            raise NotImplementedError(f"moco-kfold: {what} is not ported yet (ROADMAP Queue 1 {item})")
 
 
 def min_loss_path(work_dir: str, fold_idx: int) -> str:

@@ -19,10 +19,22 @@ The step's metrics are summed on the device and fetched once an epoch; the
 only sync inside an epoch is the NaN check every `nan_check_every` steps
 (the reference synchronised every iteration, train_one_epoch.py:76,105).
 
+Data parallelism: `n_devices` > 1 runs on that many ranks, each under a
+mesh of (n_devices, 1) (the CLI's `--n-devices` launches them; the JAX
+package's `make_mesh(data=n_devices)`). `batch_size` stays the global
+batch and the learning rate's `eff_batch`; each rank loads and trains on
+its rows of the one-process run's batches (`Loader(shard_rows=...)`), the
+step averages over the group (train/step.py), and the extraction gathers
+the features in the one-process order. The group's first rank alone takes
+the work-dir lock and writes: the fold index files (which the others then
+read), the min-loss `.pth`, the resume state, `log.txt`, the TensorBoard
+events and the features. The others choose the same best state, since the
+epoch's loss is the group's mean, and read the same resume file.
+
 Not ported yet, and refused before any data is read or any file written:
 `device_augment`, `device_data`, the perceptual term and `accum_iter > 1`
-(ROADMAP Queue 1 item 4); FSDP, the GPipe pipeline and data parallelism
-over more than one device (item 7).
+(ROADMAP Queue 1 item 5); FSDP, the GPipe pipeline and a mesh with a model
+axis (item 6).
 """
 
 from __future__ import annotations
@@ -31,7 +43,7 @@ import json
 import math
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +54,7 @@ from vit_ae_plus_plus_torch.data.loader import ConcatDataset, all_labels, cuda_p
 from vit_ae_plus_plus_torch.data.splits import kfold_indices
 from vit_ae_plus_plus_torch.device import resolve_device
 from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_model
+from vit_ae_plus_plus_torch.parallel import data_coords, data_parallel, writer_first
 from vit_ae_plus_plus_torch.pipelines.extract_features import loader_features
 from vit_ae_plus_plus_torch.pipelines.transfer import build_grafted_vit
 from vit_ae_plus_plus_torch.train import (
@@ -55,29 +68,38 @@ from vit_ae_plus_plus_torch.train.checkpoint import (
     load_reference_state_dict,
     save_state_dict,
 )
-from vit_ae_plus_plus_torch.train.metrics import JsonlLogger, MetricLogger, TBWriter
+from vit_ae_plus_plus_torch.train.metrics import Discard, JsonlLogger, MetricLogger, TBWriter
 from vit_ae_plus_plus_torch.utils.locking import locked_workdir
 
 MIN_LOSS_CHECKPOINT = "checkpoint-min_loss.pth"
 
 
-def check_supported(train_cfg: TrainConfig, n_devices: Optional[int] = None) -> None:
+def check_supported(train_cfg: TrainConfig, n_devices: Optional[int] = None) -> Tuple[int, int]:
     """Raise `NotImplementedError` for a setting whose path the port does not
-    have yet, naming the ROADMAP item that brings it."""
+    have yet, naming the ROADMAP item that brings it, and `ValueError` when
+    the ambient mesh is not the data mesh of `n_devices`
+    (`parallel.data_parallel`). -> (d, D) on the 'data' axis."""
     refused = [
-        (train_cfg.device_augment, "device_augment (augmentation on the card)", "item 4"),
-        (train_cfg.device_data, "device_data (the whole raw fold resident on the card)", "item 4"),
-        (train_cfg.perceptual_weight > 0, "perceptual_weight > 0 (the VGG perceptual term)", "item 4"),
-        (train_cfg.accum_iter > 1, "accum_iter > 1 (gradient accumulation)", "item 4"),
-        (train_cfg.fsdp, "fsdp (parameters and optimizer state sharded over 'data')", "item 7"),
-        ((train_cfg.pipe_devices or 1) > 1, "pipe_devices > 1 (the GPipe pipeline)", "item 7"),
-        ((n_devices or 1) > 1 or train_cfg.mesh_shape[0] > 1,
-         "n_devices > 1 or a mesh_shape with data > 1 (data-parallel training)", "item 7"),
+        (train_cfg.device_augment, "device_augment (augmentation on the card)", "item 5"),
+        (train_cfg.device_data, "device_data (the whole raw fold resident on the card)", "item 5"),
+        (train_cfg.perceptual_weight > 0, "perceptual_weight > 0 (the VGG perceptual term)", "item 5"),
+        (train_cfg.accum_iter > 1, "accum_iter > 1 (gradient accumulation)", "item 5"),
+        (train_cfg.fsdp, "fsdp (parameters and optimizer state sharded over 'data')", "item 6"),
+        ((train_cfg.pipe_devices or 1) > 1, "pipe_devices > 1 (the GPipe pipeline)", "item 6"),
     ]
     for bad, what, item in refused:
         if bad:
             raise NotImplementedError(
                 f"pretrain-kfold: {what} is not ported yet (ROADMAP Queue 1 {item})")
+    return data_parallel(requested_devices(train_cfg, n_devices), "pretrain-kfold")
+
+
+def requested_devices(train_cfg: TrainConfig, n_devices: Optional[int]) -> Optional[int]:
+    """The data-parallel device count asked for: `n_devices`, else
+    `train_cfg.mesh_shape`'s data size when it is above 1, else None."""
+    if n_devices is not None:
+        return n_devices
+    return train_cfg.mesh_shape[0] if train_cfg.mesh_shape[0] > 1 else None
 
 
 def pretrain_one_fold(
@@ -91,8 +113,12 @@ def pretrain_one_fold(
     tb: Optional[TBWriter] = None,
     device=None,
 ):
-    """Train the MAE on one fold -> (mae_cfg, min-loss state dict, stats)."""
+    """Train the MAE on one fold -> (mae_cfg, min-loss state dict, stats).
+    Under a data mesh, each rank trains on its rows of the global batches
+    and the first rank alone writes (module docstring)."""
     dev = resolve_device(device)
+    d, size = data_coords()
+    writer = d == 0
     mae_cfg = MODEL_ZOO[model_name](
         volume_size=data_cfg.volume_size,
         in_chans=data_cfg.in_channels,
@@ -105,9 +131,9 @@ def pretrain_one_fold(
     loader = Loader(
         dataset_aug, train_cfg.batch_size, indices=train_ids,
         shuffle=True, drop_last=True, seed=train_cfg.seed,
-        # global per-epoch reshuffle, then a round-robin shard with wrap
-        # padding (data/loader.py epoch_shard)
-        shard_across_processes=True,
+        # a global per-epoch reshuffle; under a data mesh, this rank's rows
+        # of each global batch
+        shard_rows=(d, size) if size > 1 else None,
     )
     steps_per_epoch = len(loader)
     eff_batch = train_cfg.batch_size * train_cfg.accum_iter
@@ -133,7 +159,7 @@ def pretrain_one_fold(
 
     ckpt_dir = os.path.join(work_dir, "checkpoints", f"fold_{fold_idx}")
     min_loss_path = os.path.join(ckpt_dir, MIN_LOSS_CHECKPOINT)
-    jsonl = JsonlLogger(os.path.join(work_dir, "checkpoints"))
+    jsonl = JsonlLogger(os.path.join(work_dir, "checkpoints")) if writer else Discard()
     min_loss = float("inf")
     # the best weights as device copies (the optimizer updates the live
     # tensors in place), written to disk on the `ckpt_every` cadence
@@ -146,22 +172,7 @@ def pretrain_one_fold(
     resume_mgr = None
     if train_cfg.resume:
         resume_dir = os.path.join(ckpt_dir, "resume")
-        # the JAX package's guard against restoring a pipeline-parallel
-        # layout; the port trains one layout only
-        layout_file = os.path.join(resume_dir, "layout.json")
-        if os.path.exists(layout_file):
-            with open(layout_file) as f:
-                have = json.load(f).get("pipe", 1)
-            if have != 1:
-                raise ValueError(
-                    f"resume checkpoints in {resume_dir} were written with --pipe-devices "
-                    f"{have}; the port trains with --pipe-devices 1. Start from the "
-                    "layout-independent min-loss checkpoint in a fresh work dir."
-                )
-        else:
-            os.makedirs(resume_dir, exist_ok=True)
-            with open(layout_file, "w") as f:
-                json.dump({"pipe": 1}, f)
+        writer_first(lambda: _check_layout(resume_dir, write=writer))
         resume_mgr = CheckpointManager(resume_dir)
         state, restored_epoch, restored_min = resume_mgr.restore(state)
         if restored_epoch is not None:
@@ -223,13 +234,13 @@ def pretrain_one_fold(
             )
         if not math.isfinite(stats["loss"]):
             raise FloatingPointError(f"Loss is {stats['loss']}, stopping training")
-        if stats["loss"] < min_loss:
+        if stats["loss"] < min_loss:  # the group's mean loss: every rank keeps the same best
             min_loss = stats["loss"]
             best = {n: v.detach().clone() for n, v in model.state_dict().items()}
             best_dirty = True
         jsonl.write({**{f"train_{n}": v for n, v in stats.items()}, "epoch": epoch,
                      "fold": fold_idx})
-        if epoch % ck_every == ck_every - 1 or epoch == train_cfg.epochs - 1:
+        if writer and (epoch % ck_every == ck_every - 1 or epoch == train_cfg.epochs - 1):
             if best_dirty:
                 save_state_dict(min_loss_path, best)
                 best_dirty = False
@@ -248,6 +259,26 @@ def pretrain_one_fold(
     print(f"Fold {fold_idx}: trained epochs [{start_epoch}, {train_cfg.epochs}) in "
           f"{time.time() - t_start:.0f}s, min loss {min_loss:.4f}")
     return mae_cfg, best, {"min_loss": min_loss}
+
+
+def _check_layout(resume_dir: str, write: bool) -> None:
+    """The JAX package's guard against restoring a pipeline-parallel
+    layout (the port trains one layout only); `write` records the layout
+    of a fresh resume dir."""
+    layout_file = os.path.join(resume_dir, "layout.json")
+    if os.path.exists(layout_file):
+        with open(layout_file) as f:
+            have = json.load(f).get("pipe", 1)
+        if have != 1:
+            raise ValueError(
+                f"resume checkpoints in {resume_dir} were written with --pipe-devices "
+                f"{have}; the port trains with --pipe-devices 1. Start from the "
+                "layout-independent min-loss checkpoint in a fresh work dir."
+            )
+    elif write:
+        os.makedirs(resume_dir, exist_ok=True)
+        with open(layout_file, "w") as f:
+            json.dump({"pipe": 1}, f)
 
 
 def _start_profile(dev: torch.device):
@@ -277,12 +308,18 @@ def extract_fold_features(
 ) -> None:
     """Graft the MAE's encoder into a ViT (in the compute dtype), run batched
     `feature_step` over `ids`, save float32 features and the labels as npy
-    (reference k_fold_…_brats.py:256-281 + utils/feature_extraction.py:9-45)."""
+    (reference k_fold_…_brats.py:256-281 + utils/feature_extraction.py:9-45).
+    Under a data mesh each rank runs its rows of each batch, and the first
+    rank writes the gathered features."""
     dev = resolve_device(device)
     vit_cfg = mae_cfg.encoder_vit_config(num_classes=num_classes, global_pool=True)
     model = build_grafted_vit(mae_sd, mae_cfg, vit_cfg, dev)
-    loader = Loader(dataset_no_aug, batch_size, indices=ids, shuffle=False, drop_last=False)
+    d, size = data_coords()
+    loader = Loader(dataset_no_aug, batch_size, indices=ids, shuffle=False, drop_last=False,
+                    shard_rows=(d, size) if size > 1 else None)
     feats, labels = loader_features(model, loader, batch_size, dev)
+    if d > 0:
+        return
     os.makedirs(out_dir, exist_ok=True)
     np.save(os.path.join(out_dir, f"{tag}_contrast_ssl_features_split_{fold_idx}.npy"), feats)
     np.save(os.path.join(out_dir, f"{tag}_contrast_ssl_labels_split_{fold_idx}.npy"), labels)
@@ -302,8 +339,9 @@ def pretrain_kfold(
     """The combined pipeline over all folds -> {fold: {"min_loss": ...}}, or
     {fold: {"skipped": True}} for a fold that `resume` finds complete.
     Runs on `cuda` unless `device` names another device, and raises when
-    CUDA is asked for and absent."""
-    check_supported(train_cfg, n_devices)
+    CUDA is asked for and absent. `n_devices` > 1: one of that many ranks
+    (module docstring)."""
+    d, _ = check_supported(train_cfg, n_devices)
     dev = resolve_device(device)
     transforms = default_ssl_transforms()
     if data_cfg.name == "egd":
@@ -328,11 +366,11 @@ def pretrain_kfold(
                                      use_z_score=data_cfg.use_z_score)
         labels = all_labels(dataset_no_aug)
         ssl_offset_ids = None
-    fold_list = folds if folds is not None else kfold_indices(
+    fold_list = folds if folds is not None else writer_first(lambda: kfold_indices(
         labels, n_splits, index_dir=os.path.join(work_dir, "k_fold", "indices_file")
-    )
+    ))
 
-    tb = TBWriter(os.path.join(work_dir, "logs"))
+    tb = TBWriter(os.path.join(work_dir, "logs")) if d == 0 else Discard()
     results = {}
     feat_dir = os.path.join(work_dir, "ssl_features_dir")
     try:

@@ -15,6 +15,11 @@ checkpoint `checkpoints/resume_fold_k.pth` (`torch.save`, where the JAX
 package writes an orbax directory): the weights, the optimizer's state and
 update count, the step, the epoch and the tracker's bests, so a resumed
 fold neither repeats an epoch nor overwrites a better best model.
+
+`n_devices` > 1 runs on that many ranks as pipelines/finetune.py says: the
+loaders' rows split over the 'data' group, the group's first rank writes
+the fold index files (the others read them), the best models, logs and
+resume files, and every rank reads the same resume file.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from vit_ae_plus_plus_torch.data import Loader, default_ssl_transforms, get_data
 from vit_ae_plus_plus_torch.data.loader import all_labels
 from vit_ae_plus_plus_torch.data.splits import kfold_indices, sanity_check_disjoint, train_test_split
 from vit_ae_plus_plus_torch.device import resolve_device
+from vit_ae_plus_plus_torch.parallel import barrier, get_mesh, writer_first
 from vit_ae_plus_plus_torch.pipelines.finetune import (
     BestModelTracker,
     build_classifier,
@@ -43,7 +49,7 @@ from vit_ae_plus_plus_torch.pipelines.finetune import (
 from vit_ae_plus_plus_torch.pipelines.pretrain_kfold import MIN_LOSS_CHECKPOINT
 from vit_ae_plus_plus_torch.train import create_train_state, warmup_cosine_schedule
 from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict, save_atomic
-from vit_ae_plus_plus_torch.train.metrics import JsonlLogger, TBWriter
+from vit_ae_plus_plus_torch.train.metrics import Discard, JsonlLogger, TBWriter
 from vit_ae_plus_plus_torch.utils.locking import locked_workdir
 
 
@@ -84,7 +90,8 @@ def probe_kfold(
     Runs on `cuda` unless `device` names another device, and raises when
     CUDA is asked for and absent."""
     command = "probe-kfold" if fix_backbone else "finetune-kfold"
-    check_supported(train_cfg, n_devices, command)
+    d, size = check_supported(train_cfg, n_devices, command)
+    shard, writer = (d, size) if size > 1 else None, d == 0
     dev = resolve_device(device)
     epochs = epochs if epochs is not None else train_cfg.epochs
     dataset_aug = get_dataset(data_cfg.name, "whole", data_cfg, transforms=default_ssl_transforms(),
@@ -92,10 +99,10 @@ def probe_kfold(
     dataset_no_aug = get_dataset(data_cfg.name, "whole", data_cfg, transforms=None,
                                  use_z_score=data_cfg.use_z_score)
     labels = all_labels(dataset_aug)
-    fold_list = folds if folds is not None else kfold_indices(
+    fold_list = folds if folds is not None else writer_first(lambda: kfold_indices(
         labels, n_splits, index_dir=os.path.join(work_dir, "k_fold", "indices_file")
-    )
-    jsonl = JsonlLogger(work_dir)
+    ))
+    jsonl = JsonlLogger(work_dir) if writer else Discard()
     batch = train_cfg.batch_size
 
     results = {}
@@ -110,7 +117,7 @@ def probe_kfold(
         vit_cfg, model = build_classifier(data_cfg, train_cfg, model_name, ckpt, dev)
 
         loader = Loader(dataset_aug, batch, indices=train_ids, shuffle=True, drop_last=True,
-                        seed=train_cfg.seed)
+                        seed=train_cfg.seed, shard_rows=shard)
         eff_batch = batch * train_cfg.accum_iter
         lr = train_cfg.lr if train_cfg.lr is not None else blr * eff_batch / 256
         sched = warmup_cosine_schedule(lr, train_cfg.min_lr, train_cfg.warmup_epochs, epochs,
@@ -123,7 +130,7 @@ def probe_kfold(
             use_mixup=use_mixup, mixup_impl="reference",
         )
 
-        tracker = BestModelTracker(os.path.join(work_dir, "checkpoints"))
+        tracker = BestModelTracker(os.path.join(work_dir, "checkpoints"), write=writer)
         rng = train_cfg.seed + fold_idx
         start_epoch = 0
         resume_on = train_cfg.resume and not eval_only
@@ -137,13 +144,15 @@ def probe_kfold(
             tracker.best = dict(payload["bests"])
             loader.set_epoch(start_epoch)
             print(f"Probe fold {fold_idx}: resumed at epoch {start_epoch} (bests {tracker.best})")
-        val_loader = Loader(dataset_no_aug, batch, indices=val_ids, shuffle=False, drop_last=False)
+        val_loader = Loader(dataset_no_aug, batch, indices=val_ids, shuffle=False, drop_last=False,
+                            shard_rows=shard)
         # the probe reference logs the same train_ft/val_ft TensorBoard
         # channels as fine-tune AND evaluates the train split per epoch
         # (linear_projection.py:212-213,302-303,321-324)
-        tb_train = TBWriter(os.path.join(work_dir, "logs", f"fold_{fold_idx}", "train_ft"))
-        tb_val = TBWriter(os.path.join(work_dir, "logs", f"fold_{fold_idx}", "val_ft"))
-        train_eval_loader = Loader(dataset_no_aug, batch, indices=train_ids, shuffle=False, drop_last=False)
+        tb_train, tb_val = (TBWriter(os.path.join(work_dir, "logs", f"fold_{fold_idx}", channel)) if writer
+                            else Discard() for channel in ("train_ft", "val_ft"))
+        train_eval_loader = Loader(dataset_no_aug, batch, indices=train_ids, shuffle=False, drop_last=False,
+                                   shard_rows=shard)
         try:
             for epoch in range(start_epoch, 0 if eval_only else epochs):
                 state, _ = train_one_epoch(train_step, state, loader, rng, sched, epoch, tb_train,
@@ -155,14 +164,17 @@ def probe_kfold(
                 jsonl.write({**{f"train_val_{k}": v for k, v in train_stats.items()},
                              **{f"val_{k}": v for k, v in val_stats.items()},
                              "epoch": epoch, "fold": fold_idx})
-                if resume_on:
+                if resume_on and writer:
                     save_atomic(_resume_payload(state, tracker, epoch), resume_path)
         finally:
             tb_train.close()
             tb_val.close()
 
-        # final test evaluation of the three best checkpoints
-        test_loader = Loader(dataset_no_aug, batch, indices=test_ids, shuffle=False, drop_last=False)
+        # final test evaluation of the three best checkpoints, which the
+        # group's first rank has written
+        barrier(get_mesh())
+        test_loader = Loader(dataset_no_aug, batch, indices=test_ids, shuffle=False, drop_last=False,
+                             shard_rows=shard)
         fold_result = {}
         for name in tracker.names:
             path = tracker.path(name, fold_idx)

@@ -99,7 +99,8 @@ def train_epoch(train_step, state, loader: Loader, device: torch.device):
 def check_supported(n_devices: Optional[int]) -> None:
     if (n_devices or 1) > 1:
         raise NotImplementedError(
-            "resnet-kfold: n_devices > 1 (data-parallel training) is not ported yet (ROADMAP Queue 1 item 7)")
+            "resnet-kfold: n_devices > 1 (data-parallel training) has no path to port: the JAX package "
+            "has no data-parallel ResNet (its CLI passes resnet-kfold no mesh)")
 
 
 @locked_workdir  # refuse a second live writer (utils/locking.py)

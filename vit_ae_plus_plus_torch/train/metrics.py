@@ -115,6 +115,27 @@ class JsonlLogger:
             f.write(json.dumps(record) + "\n")
 
 
+class Discard:
+    """Stands in for a `JsonlLogger` or a `TBWriter` on a rank that writes no
+    files (every rank of a data group but the first): takes their calls and
+    writes nothing."""
+
+    def write(self, record: Dict):
+        pass
+
+    def scalars(self, values: Dict[str, float], epoch_frac: float):
+        pass
+
+    def scalars_at(self, values: Dict[str, float], step: int):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
 class TBWriter:
     """TensorBoard scalars with the reference's epoch_1000x x-axis, through
     the native event writer (utils/tb_events.py)."""

@@ -6,13 +6,23 @@ one call; `make_eval_step` the reconstruction-loss evaluation;
 `feature_step` is batched encoder inference. PyTorch runs
 eagerly, so the step is a plain function over a mutable `TrainState`.
 
-The JAX step shards the batch over the mesh's 'data' axis and so takes the
-gradient and the contrastive BatchNorm's statistics over the global batch.
-The port reduces neither over a data group yet (data parallelism is its own
-later work), so its step refuses an ambient mesh with data > 1 before any
-forward, rather than let each data coordinate take its own update. A mesh
-of (1, M), as the sequence-parallel attention paths train on, and no mesh
-at all run as before.
+The JAX step shards the batch over the mesh's 'data' axis with the state
+replicated, so its gradient and the contrastive BatchNorm's statistics are
+the global batch's. Under an ambient mesh of (D, 1), each rank passes its
+b = B / D rows of the global batch; the BatchNorm takes its moments over
+the 'data' group (models/vit.py `FlaxBatchNorm`), the masking noise is the
+global batch's (models/mae.py), and after `backward` the gradients are
+averaged over the group in one flat all-reduce, before the global norm,
+the clip and AdamW, so every rank applies the same update; the metrics are
+the group's means. That is the global batch's step because every loss term
+is a mean over equally many elements on every rank (train/objective.py
+`mae_loss_terms`): the masked reconstruction divides by the rank's masked
+patch count, which is b times the same count per volume; the edge term is
+a mean over the rank's whole volumes; the contrastive term a mean over its
+b (1 + kept) tokens of each view. A mesh with data > 1 and model > 1 is
+refused before any forward (ROADMAP Queue 1 item 6); a mesh of (1, M), as
+the sequence-parallel attention paths train on, and no mesh at all run in
+one process's way.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ import torch
 
 from vit_ae_plus_plus_torch.models.vit import VisionTransformer3D
 from vit_ae_plus_plus_torch.ops import at_least_f32
-from vit_ae_plus_plus_torch.parallel import get_mesh
+from vit_ae_plus_plus_torch.parallel import all_reduce_flat, all_reduce_sum, get_mesh
 from vit_ae_plus_plus_torch.train.objective import mae_loss_terms
 from vit_ae_plus_plus_torch.train.optim import global_norm
 from vit_ae_plus_plus_torch.train.state import TrainState
@@ -53,8 +63,10 @@ def make_train_step(
     the loss terms and `grad_norm` (the global norm of all gradients before
     clipping) as device scalars, so the step does not wait for the card.
 
-    The step raises `ValueError` under a `parallel.set_mesh` mesh whose
-    'data' axis has more than one rank (see the module's docstring)."""
+    Under a `parallel.set_mesh` mesh of (D, 1) the step is data parallel
+    and the metrics are the 'data' group's means; it raises `ValueError`
+    under a mesh with data > 1 and model > 1 (see the module's
+    docstring)."""
     contrastive = model.cfg.contrastive
 
     if forward_fn is None:
@@ -80,7 +92,8 @@ def make_train_step(
         for p in state.tx.params:
             if p.grad is None:  # never used (the projector): a zero gradient, as in JAX
                 p.grad = torch.zeros_like(p)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = data_mean({k: v.detach() for k, v in metrics.items()})
+        average_grads(state.tx.params)
         metrics["grad_norm"] = global_norm(p.grad for p in state.tx.params)
         state.tx.step()
         state.step += 1
@@ -90,17 +103,38 @@ def make_train_step(
 
 
 def check_data_axis() -> None:
-    """Raise when the ambient mesh has data > 1: the step would neither
-    average the gradient nor take the BatchNorm statistics over the data
-    group, so the ranks along it would drift apart."""
+    """Raise when the ambient mesh has data > 1 and model > 1: the
+    data-parallel step replicates the trunk, and the sequence-parallel
+    paths train on a 'model' group of one data coordinate only."""
     mesh = get_mesh()
-    if mesh is not None and mesh.size("data") > 1:
+    if mesh is not None and mesh.size("data") > 1 and mesh.size("model") > 1:
         raise ValueError(
-            f"make_train_step: the mesh has data={mesh.size('data')}, but the step does not "
-            "all-reduce the gradient mean or the contrastive BatchNorm's batch statistics over "
-            "the 'data' group; data-parallel training (DDP) is not ported yet. Train on a mesh "
-            "of data=1 (the sequence-parallel paths' (1, M)) or without a mesh."
+            f"make_train_step: the mesh is data={mesh.size('data')} x model={mesh.size('model')}; "
+            "data parallelism (DDP) runs on a mesh of (D, 1) and sequence parallelism on (1, M), "
+            "and the two together are not ported yet (ROADMAP Queue 1 item 6)."
         )
+
+
+def average_grads(params) -> None:
+    """Replace each parameter's gradient by its mean over the ambient mesh's
+    'data' group, in one flat all-reduce per dtype (nothing without one)."""
+    mesh = get_mesh()
+    if mesh is None or mesh.size("data") == 1:
+        return
+    params = list(params)
+    for p, g in zip(params, all_reduce_flat([p.grad for p in params], mesh, "data")):
+        p.grad = g.div_(mesh.size("data"))
+
+
+def data_mean(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The device scalars of `metrics` averaged over the ambient mesh's
+    'data' group, in one all-reduce (as they are without one)."""
+    mesh = get_mesh()
+    if mesh is None or mesh.size("data") == 1:
+        return metrics
+    names = list(metrics)
+    mean = all_reduce_sum(torch.stack([metrics[n] for n in names]), mesh, "data") / mesh.size("data")
+    return dict(zip(names, mean.unbind()))
 
 
 def make_eval_step(

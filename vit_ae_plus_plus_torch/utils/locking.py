@@ -27,6 +27,11 @@ Semantics
 * A second live holder raises :class:`WorkdirLockedError` naming the
   holder's pid and the remediation.
 
+Under an ambient mesh with data > 1 the ranks of the 'data' group are one
+run: the group's first rank takes the lock, the others wait on it and
+write nothing (the pipelines leave every file to the first rank), and all
+of them fail if the lock is refused.
+
 Scope: single host (flock does not span NFS reliably).
 """
 from __future__ import annotations
@@ -39,6 +44,10 @@ import os
 import threading
 import time
 from typing import Dict
+
+import torch.distributed
+
+from vit_ae_plus_plus_torch.parallel import data_coords, get_mesh
 
 _LOCK_NAME = ".writer.lock"
 # realpath -> [fd, hold_count]; the open fd IS the lock
@@ -133,10 +142,27 @@ def locked_workdir(fn):
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
         work_dir = sig.bind_partial(*args, **kwargs).arguments["work_dir"]
-        acquire_workdir_lock(work_dir)
+        mesh = get_mesh()
+        d, size = data_coords(mesh)
+        if size > 1:
+            # one run on `size` ranks: the first holds the lock for all, and
+            # the others learn whether it did before they touch anything
+            refusal = [None]
+            if d == 0:
+                try:
+                    acquire_workdir_lock(work_dir)
+                except WorkdirLockedError as e:
+                    refusal[0] = str(e)
+            torch.distributed.broadcast_object_list(refusal, src=mesh.ranks["data"][0],
+                                                    group=mesh.groups["data"])
+            if refusal[0] is not None:
+                raise WorkdirLockedError(refusal[0])
+        else:
+            acquire_workdir_lock(work_dir)
         try:
             return fn(*args, **kwargs)
         finally:
-            release_workdir_lock(work_dir)
+            if d == 0:
+                release_workdir_lock(work_dir)
 
     return wrapper
