@@ -130,6 +130,21 @@ non-zero exit when it fails:
    bf16 work dir (its files equal `moco-kfold`'s bitwise) and
    `moco-kfold --moco-arch resnet` in bf16 (2 folds x 1 epoch, no custom
    kernel launched, (24, 512) features), each with its wall time by span;
+   last, one f32 MoCo-ResNet-10 step of 8 and its floor, the reference of
+   7d (e);
+   5h. `contrastive-train`: the full-width contrastive step (ViT-B at
+   96^3 / patch 8, global pooling, the predictor; batch 8, every volume
+   its own intensity offset, see `contrastive_views`) with the kernels
+   against attn_impl="plain": in f32 the loss, four gradients and the
+   predictor's running statistics within STEP_TOL; in bf16 the statistics
+   within STEP_TOL, the loss and the gradients within STEP_TOL or four
+   times the plain step's floor (bf16 rounding alone moves those gradients
+   past STEP_TOL); 24 packed
+   forward and 24 packed backward launches at B8 H12 N1729 d64 a step
+   (the kernel rows' `contrastive_launches`), ms per step, volumes/s and
+   peak memory; then the command on 5c's split, 2 epochs of 6 steps in
+   bf16, without and with `--use-proj` (exit 0, 2 finite `log.txt` rows,
+   the `.pth` loads, the launches by shape), its wall time by span;
 6. the ring's partial kernels (csrc/flash_fwd.cu and flash_bwd.cu with a
    key bias) against their plain versions at the ring blocks of the paths
    in phase 7, each the block that holds the padded tail, bf16 and, at
@@ -182,6 +197,26 @@ non-zero exit when it fails:
    per-rank shape has a phase 2 row. Prints, beside the card, each rank's
    step wall times, host-staged bytes, the gradient all-reduce's time
    alone and peak memory, and the one-process step's wall times;
+   (e) the MoCo step over the same ranks (MOCO_DDP_RUNS): the ViT at
+   (4, 1) and (2, 1) in f32 and bf16 and the ResNet-10 at both in f32,
+   one step each from phase 5g's weights and views (every rank waits
+   for the others before each), against 5g's
+   one-process step (f32 within 5g's limits, bf16 printed only), the
+   parameters bitwise equal on every rank, the launches; two controls
+   that must miss, each rank's queries against its own keys (the loss)
+   and BatchNorm moments left local (the predictor's running variance);
+   then `moco_kfold` (f32, fold 0's first 16 training volumes: 2 epochs
+   of 2 steps, no warmup) against the same run in one process: the same
+   files, `log.txt`'s train_loss and the features within DDP_LOSS_TOL and
+   ENGINE_TOL or four times their floor (one process on its volumes
+   scaled by 1 + 2^-20: f32 MoCo training carries rounding that far in a
+   few steps; a floor above MOCO_KFOLD_FLOOR_CEIL fails), and a control
+   with the gradients unaveraged that must miss;
+   (f) the f32 contrastive step of 5h on (4, 1) against 5h's one-process
+   step within STEP_TOL, the parameters bitwise equal, the launches, and a
+   local-moments control that must miss on the predictor's statistics.
+   Prints each rank's step wall times, host stagings (count and bytes),
+   the gradient all-reduce alone and peak memory;
 8. print one JSON line of kernels, the card's name and power limit, and as
    the last line `{"ok": true, "device": {...}}`. Each kernel row names
    the CUDA bodies it launched (`body`). Each kernel row's
@@ -199,6 +234,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import functools
 import gc
 import io
 import json
@@ -304,6 +340,15 @@ STEP_TOL = {"bfloat16": {"loss": 1e-3, "grad": 2e-2}, "float32": {"loss": 1e-5, 
 # STEP_TOL["bfloat16"]["loss"]; this limit is about ten times the run's
 # largest reading and a sixth of that control's.
 DDP_LOSS_TOL = 2e-5
+# phase 7d (e): `moco_kfold`'s floor, one process against itself on its
+# volumes scaled by 1 + 2^-20 (log.txt's train_loss, relative; the
+# features, the largest error over the largest magnitude). f32 MoCo
+# training carries rounding far in 4 LARS steps: an H100 reads 1.7e-4 and
+# 1.6e-2, so the 4-rank run is held to four times the floor, and a floor
+# above these ceilings (about three and two times those readings) fails
+# rather than widening the limits. The unaveraged control reads 1.2e-2 on
+# the loss, six times the largest limit the ceiling allows.
+MOCO_KFOLD_FLOOR_CEIL = {"loss": 5e-4, "features": 3e-2}
 # the bf16 step with ln_fusion="on" vs "off", by the same measure: the fused
 # trunk rounds every qkv and fc1 output in another place (the bias added
 # after rounding) and keeps dln in f32. An H100 reads 2.7e-3 on contr_loss
@@ -2550,6 +2595,16 @@ MOCO_GRADS = ("base_encoder.blocks.0.attn.qkv.weight", "base_encoder.patch_embed
               "base_encoder.head.0.weight")
 MOCO_STATS = ("base_encoder.head.1.running_mean", "base_encoder.head.1.running_var",
               "base_encoder.head.7.running_var", "predictor.1.running_var")
+# by trunk: the gradients, the running statistics and the momentum
+# encoder's leaves (a parameter after the EMA, a statistic after the last
+# EMA) that a MoCo step's readings hold
+MOCO_NAMES = {
+    "vit": (MOCO_GRADS, MOCO_STATS, ("blocks.0.attn.qkv.weight", "head.1.running_mean")),
+    "resnet": (("base_encoder.conv1.weight", "base_encoder.layer4.0.conv2.weight", "base_encoder.fc.0.weight"),
+               ("base_encoder.bn1.running_mean", "base_encoder.layer4.0.bn2.running_var",
+                "base_encoder.fc.4.running_var", "predictor.1.running_var"),
+               ("conv1.weight", "fc.1.running_mean")),
+}
 
 
 def moco_tree(seed: int):
@@ -2576,16 +2631,43 @@ def moco_tree(seed: int):
     return tree, stats
 
 
-class MoCoTrainer:
-    """One MoCo-ViT training run of the port's public API on the card:
-    `build_moco_model` (ViT-B at 96^3 / patch 8, heads 4096 / 256), the
-    base model's state dict (`params_from_jax` of `moco_tree`) and its
-    momentum encoder's (`momentum_sd`, or a copy of the base as
-    `moco-kfold` starts it), `create_moco_state` with `make_lars` (lr 0.6 x
-    8 / 256, no warmup: the warmup's first learning rate is 0),
-    `make_moco_train_step`."""
+@functools.lru_cache(maxsize=None)
+def moco_base_sd(arch: str) -> dict:
+    """The base model's state dict of the MoCo step checks, on the host, made
+    once a process: the ViT's from `moco_tree(81)` through `params_from_jax`,
+    the ResNet-10's (widths 64-512) from the port's `init_weights` at seed
+    84. Every process makes the same."""
+    import torch
 
-    def __init__(self, base_sd, dtype: str, attn_impl: str, momentum_sd=None):
+    from vit_ae_plus_plus_torch.configs import DataConfig
+    from vit_ae_plus_plus_torch.pipelines.moco_kfold import build_moco_model
+    from vit_ae_plus_plus_torch.train.checkpoint import params_from_jax
+
+    if arch == "vit":
+        tree, stats = moco_tree(81)
+        return params_from_jax(tree, PATCH, 1, stats)
+    model = build_moco_model(DataConfig(volume_size=VOLUME), "float32", "resnet")
+    return model.init_weights(torch.Generator().manual_seed(84)).state_dict()
+
+
+def moco_views(device="cuda") -> list:
+    """The two seeded views of phase 5g's MoCo step (B8, 96^3), f32."""
+    import torch
+
+    rng = np.random.default_rng(83)
+    return [torch.from_numpy(rng.standard_normal((BATCH, 1, VOLUME, VOLUME, VOLUME), dtype=np.float32)).to(device)
+            for _ in range(2)]
+
+
+class MoCoTrainer:
+    """One MoCo training run of the port's public API on the card:
+    `build_moco_model` (ViT-B at 96^3 / patch 8 or ResNet-10, heads 4096 /
+    256), the base model's state dict and its momentum encoder's
+    (`momentum_sd`, or a copy of the base as `moco-kfold` starts it),
+    `create_moco_state` with `make_lars` (lr 0.6 x 8 / 256, no warmup: the
+    warmup's first learning rate is 0), `make_moco_train_step`."""
+
+    def __init__(self, base_sd, dtype: str, attn_impl: str, momentum_sd=None, arch: str = "vit"):
         from vit_ae_plus_plus_torch.configs import DataConfig
         from vit_ae_plus_plus_torch.pipelines.moco_kfold import (
             build_moco_model, create_moco_state, make_moco_train_step,
@@ -2593,8 +2675,8 @@ class MoCoTrainer:
         from vit_ae_plus_plus_torch.train import warmup_cosine_schedule
         from vit_ae_plus_plus_torch.train.optim import make_lars
 
-        self.label = f"{dtype} {attn_impl}"
-        self.model = build_moco_model(DataConfig(volume_size=VOLUME), dtype, "vit",
+        self.label, self.arch = f"{arch} {dtype} {attn_impl}", arch
+        self.model = build_moco_model(DataConfig(volume_size=VOLUME), dtype, arch,
                                       vit_overrides={"attn_impl": attn_impl})
         self.model.load_state_dict(base_sd, strict=True)
         self.model.cuda()
@@ -2607,9 +2689,9 @@ class MoCoTrainer:
         self.step = make_moco_train_step(self.model)
 
     def run(self, x1, x2) -> tuple:
-        """One step, counts set to 0 before and read after. -> ({loss,
-        MOCO_GRADS, MOCO_STATS, a momentum leaf and statistic} on the card
-        in f32, launch counts by (wrapper, shape))."""
+        """One step, counts set to 0 before and read after. -> ({loss and the
+        trunk's MOCO_NAMES: gradients, statistics, momentum leaves} on the
+        card in f32, launch counts by (wrapper, shape))."""
         from vit_ae_plus_plus_torch.kernels import reset_launch_counts
 
         reset_launch_counts()
@@ -2618,10 +2700,11 @@ class MoCoTrainer:
         counts = shape_counts()
         named, bufs = dict(self.model.named_parameters()), dict(self.model.named_buffers())
         mom = self.state.momentum_encoder
-        out.update({n: named[n].grad.float().clone() for n in MOCO_GRADS})
-        out.update({n: bufs[n].float().clone() for n in MOCO_STATS})
-        out["momentum_encoder.blocks.0.attn.qkv.weight"] = mom.blocks[0].attn.qkv.weight.float().clone()
-        out["momentum_encoder.head.1.running_mean"] = mom.head[1].running_mean.float().clone()
+        grads, stats, mom_leaves = MOCO_NAMES[self.arch]
+        out.update({n: named[n].grad.float().clone() for n in grads})
+        out.update({n: bufs[n].float().clone() for n in stats})
+        mom_named = {**dict(mom.named_parameters()), **dict(mom.named_buffers())}
+        out.update({f"momentum_encoder.{n}": mom_named[n].float().clone() for n in mom_leaves})
         check(np.isfinite(out["loss"]) and all(bool(p.grad.isfinite().all()) for p in self.model.parameters()),
               f"MoCo {self.label} step: non-finite loss or gradients")
         return out, counts
@@ -2644,7 +2727,13 @@ def moco_errs(got: dict, want: dict) -> dict:
     return errs
 
 
-def moco_step_phase(rows: list) -> None:
+def on_host(readings: dict) -> dict:
+    """A step's readings with its tensors copied to the host (for the
+    ranks of phase 7)."""
+    return {k: v if isinstance(v, float) else v.cpu() for k, v in readings.items()}
+
+
+def moco_step_phase(rows: list) -> dict:
     """Phase 5g (a): the full-width MoCo-ViT step (ViT-B at 96^3 / patch 8,
     B8 H12 N1729 d64, every token: nothing is masked) from seeded numpy
     weights and batch statistics through `params_from_jax`, the momentum
@@ -2659,18 +2748,16 @@ def moco_step_phase(rows: list) -> None:
     B8 H12 N1729 d64, into the kernel rows' `moco_launches`). Then, as
     information beside the card: ms per step and volumes/s (CUDA events),
     peak memory and a torch.profiler breakdown of a step with the device's
-    idle share."""
+    idle share. Last, the MoCo-ResNet-10's f32 reference (`moco_resnet_step`).
+    -> the one-process steps that phase 7d(e) holds its ranks to: by trunk
+    and dtype the kernel step's readings on the host (`want`), and in f32
+    the limits."""
     import torch
 
     t0 = time.perf_counter()
     card = card_line()
-    from vit_ae_plus_plus_torch.train.checkpoint import params_from_jax
-
-    tree, stats = moco_tree(81)
-    base = params_from_jax(tree, PATCH, 1, stats)
-    rng = np.random.default_rng(83)
-    views = [torch.from_numpy(rng.standard_normal((BATCH, 1, VOLUME, VOLUME, VOLUME), dtype=np.float32)).cuda()
-             for _ in range(2)]
+    base = moco_base_sd("vit")
+    views = moco_views()
 
     def line(errs: dict) -> str:
         return ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
@@ -2684,7 +2771,7 @@ def moco_step_phase(rows: list) -> None:
         check(totals(counts) == NO_LAUNCHES, f"plain {dtype} MoCo step launched {totals(counts)}")
         return out
 
-    times, peak = {}, {}
+    times, peak, refs = {}, {}, {"vit": {}}
     for dtype in ("bfloat16", "float32"):
         tol = STEP_TOL[dtype]
         want = plain_step(dtype)
@@ -2701,6 +2788,7 @@ def moco_step_phase(rows: list) -> None:
             if n:
                 row["moco_launches"], row["moco_path"] = n, f"make_moco_train_step, one {dtype} step of {BATCH}"
         errs = moco_errs(got, want)
+        refs["vit"][dtype] = {"want": on_host(got)}
         if dtype == "bfloat16":
             print(f"MoCo step bf16 auto vs plain, information (bf16 rounding moves these as far, see "
                   f"MOCO_FLOOR_FACTOR): {line(errs)}", flush=True)
@@ -2715,6 +2803,7 @@ def moco_step_phase(rows: list) -> None:
             check(not bad, f"MoCo step f32 auto vs plain: {bad}")
             seen = {k: tf32[k] for k in MOCO_GRADS if tf32[k] <= limits[k]}
             check(not seen, f"the MoCo f32 gradient limits let TF32 products through: {seen}")
+            refs["vit"][dtype]["limits"] = limits
 
         def one():
             trainer.state, _ = trainer.step(trainer.state, *views, MOCO_M)
@@ -2728,7 +2817,45 @@ def moco_step_phase(rows: list) -> None:
           f"bf16 {times['bfloat16']:.2f} ms ({BATCH / times['bfloat16'] * 1e3:.1f} volumes/s), f32 "
           f"{times['float32']:.2f} ms ({BATCH / times['float32'] * 1e3:.1f} volumes/s); peak memory above the "
           f"weights bf16 {peak['bfloat16']:.2f} GiB, f32 {peak['float32']:.2f} GiB", flush=True)
+    refs["resnet"] = {"float32": moco_resnet_step()}
     print(f"MoCo step phase {time.perf_counter() - t0:.1f}s", flush=True)
+    return refs
+
+
+def moco_resnet_step() -> dict:
+    """Phase 5g (c): one f32 step of the MoCo-ResNet-10 (widths 64-512, heads
+    4096 / 256, `moco_base_sd("resnet")`) at batch 8 on phase 5g's views,
+    no custom kernel launched, and the same step on the views scaled by 1
+    +- 2^-20: its floor. No kernel of the port runs in it, so nothing holds
+    it here; it is the one-process step that phase 7d(e)'s ranks are held
+    to, every reading within STEP_TOL or MOCO_FLOOR_FACTOR times its floor
+    (cuDNN's f32 convolutions and train-mode BatchNorm carry the summation
+    order as far as the nudge does). Prints its ms (CUDA events) and the
+    floor beside the card. -> {"want", "limits"}."""
+    base, views = moco_base_sd("resnet"), moco_views()
+
+    def step(scale: float = 1.0):
+        trainer = MoCoTrainer(base, "float32", "auto", arch="resnet")
+        out, counts = trainer.run(*[v * scale for v in views])
+        check(totals(counts) == NO_LAUNCHES, f"the MoCo-ResNet step launched {totals(counts)}")
+        return trainer, out
+
+    trainer, want = step()
+
+    def one():
+        trainer.state, _ = trainer.step(trainer.state, *views, MOCO_M)
+
+    ms = cuda_ms(one, reps=2, warmup=1)
+    del trainer
+    floors = [moco_errs(step(scale)[1], want) for scale in (1 + 2**-20, 1 - 2**-20)]
+    tol = STEP_TOL["float32"]
+    floor = {k: max(f[k] for f in floors) for k in floors[0]}
+    limits = {k: max(tol["loss"] if k == "loss" else tol["grad"], MOCO_FLOOR_FACTOR * e) for k, e in floor.items()}
+    print(f"MoCo-ResNet-10 f32 step of {BATCH} ({card_line()}): {ms:.2f} ms (CUDA events), no custom kernel; "
+          f"its floor (the views scaled by 1 +- 2^-20): " + ", ".join(f"{k} {e:.3g}" for k, e in floor.items()),
+          flush=True)
+    reset_peak()
+    return {"want": on_host(want), "limits": limits}
 
 
 def moco_kfold_phase(split_dir: Path) -> None:
@@ -2840,6 +2967,201 @@ def moco_kfold_phase(split_dir: Path) -> None:
           f"steps, no custom kernel launched", flush=True)
     shutil.rmtree(work)
     print(f"moco-kfold phase {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+# phase 5h: `contrastive-train`, the two-view SimSiam ViT (ViT-B trunk at
+# 96^3 / patch 8 with global pooling, the predictor 768-768-768; with
+# --use-proj the projector too), its step at batch 8 from the port's seeded
+# init: both views through the trunk, 24 packed forward and 24 packed
+# backward launches at B8 H12 N1729 d64 a step.
+CONTR_GRADS = ("trunk.blocks.0.attn.qkv.weight", "trunk.blocks.11.mlp.fc2.weight", "trunk.patch_embed.proj.weight",
+               "heads.predictor.0.weight")
+CONTR_STATS = ("heads.predictor.1.running_mean", "heads.predictor.1.running_var")
+@functools.lru_cache(maxsize=None)
+def contrastive_sd() -> dict:
+    """The contrastive ViT-B's state dict on the host, from the port's
+    `init_weights` at seed 85, made once a process (every process makes the
+    same)."""
+    import torch
+
+    from vit_ae_plus_plus_torch.configs import ViTConfig
+    from vit_ae_plus_plus_torch.models import VisionTransformer3DContrastive
+
+    model = VisionTransformer3DContrastive(ViTConfig(volume_size=VOLUME, patch_size=PATCH))
+    return model.init_weights(torch.Generator().manual_seed(85)).state_dict()
+
+
+def contrastive_views(device="cuda") -> list:
+    """The step's seeded (original, augmented) batch of 8, f32: noise over an
+    intensity offset of its own for each volume, -1.75 to 1.75, the same in
+    both views. On noise alone the trunk's pooled features of the 8 volumes
+    nearly coincide, the heads' BatchNorm divides by their tiny spread, and
+    bf16 rounding alone then moves the gradients by 0.25-0.52 of their size
+    (the plain step on its views nudged by 2^-20, an H100), as in the MoCo
+    step: a gate there reads noise, not the kernels."""
+    import torch
+
+    rng = np.random.default_rng(86)
+    offsets = (np.arange(BATCH) - (BATCH - 1) / 2) * 0.5
+    return [torch.from_numpy((rng.standard_normal((BATCH, 1, VOLUME, VOLUME, VOLUME))
+                              + offsets[:, None, None, None, None]).astype(np.float32)).to(device)
+            for _ in range(2)]
+
+
+class ContrastiveTrainer:
+    """One `contrastive-train` run of the port's public API on the card:
+    `VisionTransformer3DContrastive` (ViT-B at 96^3 / patch 8, global
+    pooling, no projector) loaded from `contrastive_sd()`, the unmasked
+    AdamW (`AdamW(..., decay_mask=decay_everything)`, TrainConfig's
+    blr x 8 / 256 and weight decay, no warmup), `make_contrastive_step`."""
+
+    def __init__(self, dtype: str, attn_impl: str):
+        from vit_ae_plus_plus_torch.configs import TrainConfig, ViTConfig
+        from vit_ae_plus_plus_torch.models import VisionTransformer3DContrastive
+        from vit_ae_plus_plus_torch.pipelines.contrastive import ContrastiveState, make_contrastive_step
+        from vit_ae_plus_plus_torch.train.optim import AdamW, decay_everything
+
+        tc = TrainConfig()
+        self.label = f"{dtype} {attn_impl}"
+        cfg = ViTConfig(volume_size=VOLUME, patch_size=PATCH, dtype=dtype, attn_impl=attn_impl)
+        self.model = VisionTransformer3DContrastive(cfg)
+        self.model.load_state_dict(contrastive_sd(), strict=True)
+        self.model.cuda()
+        tx = AdamW(self.model, tc.blr * BATCH / 256, tc.weight_decay, decay_mask=decay_everything)
+        self.state = ContrastiveState(model=self.model, tx=tx)
+        self.step = make_contrastive_step(self.model)
+
+    def run(self, original, augmented) -> tuple:
+        """One step, counts set to 0 before and read after. -> ({loss,
+        CONTR_GRADS, CONTR_STATS} on the card in f32, launch counts by
+        (wrapper, shape))."""
+        import torch
+
+        from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+
+        reset_launch_counts()
+        self.state, metrics = self.step(self.state, original, augmented)
+        out = {"loss": float(metrics["loss"])}
+        counts = shape_counts()
+        named, bufs = dict(self.model.named_parameters()), dict(self.model.named_buffers())
+        out.update({n: named[n].grad.float().clone() for n in CONTR_GRADS})
+        out.update({n: bufs[n].float().clone() for n in CONTR_STATS})
+        check(np.isfinite(out["loss"]) and all(bool(torch.isfinite(p.grad).all()) for p in self.model.parameters()),
+              f"contrastive {self.label} step: non-finite loss or gradients")
+        return out, counts
+
+
+def contrastive_launches(dtype: str, batch: int) -> dict:
+    """One contrastive step's attention launches: both views through the
+    trunk's 12 blocks, forward and backward."""
+    key = (batch, 12, (VOLUME // PATCH) ** 3 + 1, 64, dtype)
+    return {("packed_flash_fwd", key): 24, ("packed_flash_bwd", key): 24}
+
+
+def contrastive_step_phase(rows: list) -> dict:
+    """Phase 5h (a): the full-width contrastive step (B8 H12 N1729 d64) with
+    attn_impl="auto" (the packed kernels) against "plain" from the same
+    weights and views (`contrastive_views`), in f32 and bf16, each reading
+    a tensor's largest error over its largest magnitude: in f32 the loss,
+    CONTR_GRADS and CONTR_STATS within STEP_TOL; in bf16 CONTR_STATS within
+    STEP_TOL, the loss and the gradients within STEP_TOL or
+    MOCO_FLOOR_FACTOR times the plain step's floor (its views scaled by
+    1 + 2^-20), whichever is larger, as phase 5g holds the MoCo-ResNet:
+    bf16 rounding alone puts that floor at 6e-4 on the loss and 0.06-0.19
+    on the gradients, above STEP_TOL (an H100). The launches around the
+    step (24 + 24, into the kernel rows' `contrastive_launches`); beside
+    the card, ms per step
+    and volumes/s (CUDA events) and peak memory. -> the f32 kernel step's
+    readings on the host, which phase 7d(f)'s ranks are held to."""
+    import torch
+
+    t0 = time.perf_counter()
+    card = card_line()
+    views = contrastive_views()
+    times, peak, ref = {}, {}, None
+    for dtype in ("float32", "bfloat16"):
+        tol = STEP_TOL[dtype]
+        want, counts = ContrastiveTrainer(dtype, "plain").run(*views)
+        check(totals(counts) == NO_LAUNCHES, f"plain {dtype} contrastive step launched {totals(counts)}")
+        floor = moco_errs(ContrastiveTrainer(dtype, "plain").run(*[v * (1 + 2**-20) for v in views])[0], want)
+        base_bytes = reset_peak()
+        trainer = ContrastiveTrainer(dtype, "auto")
+        got, counts = trainer.run(*views)
+        want_counts = contrastive_launches(dtype, BATCH)
+        check(counts == want_counts, f"contrastive {dtype} step launched {counts} (want {want_counts})")
+        for row in rows:
+            n = counts.get((row["name"], row["key"]), 0)
+            if n:
+                row["contrastive_launches"] = n
+                row["contrastive_path"] = f"make_contrastive_step, one {dtype} step of {BATCH}"
+        errs = moco_errs(got, want)
+        limits = {k: tol["loss"] if k == "loss" else tol["grad"] for k in errs}
+        if dtype == "bfloat16":
+            limits.update({k: max(limits[k], MOCO_FLOOR_FACTOR * floor[k]) for k in ("loss", *CONTR_GRADS)})
+        print(f"contrastive step {dtype} auto vs plain: " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+              + " (limits " + ", ".join(f"{k} {v:.3g}" for k, v in limits.items()) + ": STEP_TOL"
+              + (f", or {MOCO_FLOOR_FACTOR} times the floor on the loss and gradients" if dtype == "bfloat16" else "")
+              + "); the plain step's floor: " + ", ".join(f"{k} {e:.3g}" for k, e in floor.items()), flush=True)
+        bad = {k: e for k, e in errs.items() if e > limits[k]}
+        check(not bad, f"contrastive step {dtype} auto vs plain: {bad}")
+        if dtype == "float32":
+            ref = on_host(got)
+
+        def one():
+            trainer.state, _ = trainer.step(trainer.state, *views)
+
+        times[dtype] = cuda_ms(one, reps=3, warmup=1)
+        peak[dtype] = (torch.cuda.max_memory_allocated() - base_bytes) / 2**30
+        del trainer
+        reset_peak()
+    print(f"contrastive steps ({card}, CUDA events, batch {BATCH}, ViT-B at 96^3, 2 trunk passes of 1,729 tokens, "
+          f"24 + 24 attention launches a step): bf16 {times['bfloat16']:.2f} ms "
+          f"({BATCH / times['bfloat16'] * 1e3:.1f} volumes/s), f32 {times['float32']:.2f} ms "
+          f"({BATCH / times['float32'] * 1e3:.1f} volumes/s); peak memory above the weights bf16 "
+          f"{peak['bfloat16']:.2f} GiB, f32 {peak['float32']:.2f} GiB", flush=True)
+    print(f"contrastive step phase {time.perf_counter() - t0:.1f}s", flush=True)
+    return ref
+
+
+def contrastive_command_phase(split_dir: Path) -> None:
+    """Phase 5h (b): the port's `contrastive-train` command on phase 5c's
+    split (48 volumes: 6 steps of 8 an epoch), 2 epochs in its default
+    bf16, without and with `--use-proj`, counts read around each run.
+    Checks: exit 0; the result's keys; 2 finite `log.txt` rows, the min
+    loss theirs; the min-loss `.pth` loads into the model; the attention
+    launches by shape (12 steps of 24 forward and 24 backward). Prints the
+    wall time by span beside the card."""
+    import torch
+
+    from vit_ae_plus_plus_torch.configs import ViTConfig
+    from vit_ae_plus_plus_torch.models import VisionTransformer3DContrastive
+    from vit_ae_plus_plus_torch.pipelines import contrastive as tc
+
+    t0 = time.perf_counter()
+    card = card_line()
+    epochs, steps = 2, 2 * (DATA_VOLUMES // BATCH)
+    spans = [(tc, "train_epoch", "training epochs"), (tc, "save_state_dict", "min-loss writes")]
+    for use_proj in (False, True):
+        work = split_dir.parent / f"contrastive_{int(use_proj)}"
+        argv = ["contrastive-train", "--data-path", str(split_dir), "--work-dir", str(work), "--volume-size",
+                str(VOLUME), "--batch-size", str(BATCH), "--epochs", str(epochs)] + (["--use-proj"] if use_proj else [])
+        label = "contrastive-train" + (" --use-proj" if use_proj else "")
+        with Spans(spans) as timed:
+            last, wall, counts = run_cli(argv, label)
+        result = json.loads(last)
+        with open(work / "log.txt") as f:
+            logged = [json.loads(line) for line in f]
+        check(sorted(result) == ["checkpoint", "min_loss"] and [r["epoch"] for r in logged] == list(range(epochs))
+              and all(np.isfinite(r["train_loss"]) for r in logged)
+              and result["min_loss"] == min(r["train_loss"] for r in logged), f"{label}: {result}, log.txt {logged}")
+        model = VisionTransformer3DContrastive(ViTConfig(volume_size=VOLUME, patch_size=PATCH), use_proj=use_proj)
+        model.load_state_dict(torch.load(result["checkpoint"], map_location="cpu", weights_only=True), strict=True)
+        want = {k: steps * n for k, n in contrastive_launches("bfloat16", BATCH).items()}
+        check(counts == want, f"{label} launched {counts} (want {want})")
+        print(f"{label} bf16 ({card}): {timed.line(wall)}; {steps} steps; losses by epoch "
+              + ", ".join(f"{r['train_loss']:.6f}" for r in logged) + "; the .pth loads", flush=True)
+        shutil.rmtree(work)
+    print(f"contrastive command phase {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def fused_layernorm_run(rows: list, cfg) -> None:
@@ -3089,6 +3411,13 @@ def ddp_cases(cfg) -> list:
     for where, shape in (("N433 d64 (encoder, a rank of 2)", enc2), ("N1729 d32 (decoder, a rank of 2)", dec2)):
         cases += [(kernel_case, f"packed bf16 {where}", shape, "bfloat16"),
                   (bwd_case, f"packed bwd bf16 {where}", shape, "bfloat16")]
+    # the MoCo step's trunk passes over the 'data' group (phase 7d (e)): at a
+    # rank of 4 the fine-tune and extraction rows' shape, and at a rank of 2
+    moco2 = (BATCH // 2, *vit[1:])
+    cases.append((bwd_case, "packed bwd bf16 N1729 d64 (MoCo, a rank of 4)", vit, "bfloat16"))
+    for dtype, tag in (("bfloat16", "bf16"), ("float32", "f32")):
+        cases += [(kernel_case, f"packed {tag} N1729 d64 (MoCo, a rank of 2)", moco2, dtype),
+                  (bwd_case, f"packed bwd {tag} N1729 d64 (MoCo, a rank of 2)", moco2, dtype)]
     return cases
 
 
@@ -3133,7 +3462,9 @@ def stats_errs(got: dict, want: dict) -> dict:
 @contextlib.contextmanager
 def staged_bytes(counter: dict):
     """Add to `counter["bytes"]` the bytes that the gloo transport copies to
-    pinned host memory (`parallel.mesh._to_host`) while this is open."""
+    pinned host memory (`parallel.mesh._to_host`) while this is open, and
+    to `counter["calls"]` (when it has that key) the number of copies: one
+    a collective."""
     from unittest import mock
 
     from vit_ae_plus_plus_torch.parallel import mesh as transport
@@ -3142,10 +3473,40 @@ def staged_bytes(counter: dict):
 
     def counted(ts):
         counter["bytes"] += sum(t.numel() * t.element_size() for t in ts)
+        if "calls" in counter:
+            counter["calls"] += 1
         return to_host(ts)
 
     with mock.patch.object(transport, "_to_host", counted):
         yield
+
+
+def rank_peak_and_diff(model, mesh) -> dict:
+    """The parameters' largest difference from the 'data' group's first
+    rank's, and this process's peak memory."""
+    import torch
+    import torch.distributed as dist
+
+    flat = torch.cat([p.detach().flatten() for p in model.parameters()]).cpu()
+    first = flat.clone()
+    dist.broadcast(first, src=mesh.ranks["data"][0], group=mesh.groups["data"])
+    return {"params_max_diff": float((flat - first).abs().max()),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def ddp_control(control):
+    """Phase 7d's controls: 'local_keys', the loss on one rank's 'data' axis
+    (each rank's queries against its own keys); 'local_moments', BatchNorm
+    on this rank's rows alone (the group's sum of its moments left out)."""
+    from unittest import mock
+
+    from vit_ae_plus_plus_torch.models import moco, vit
+
+    if control == "local_keys":
+        return mock.patch.object(moco, "data_coords", lambda mesh=None: (0, 1))
+    if control == "local_moments":
+        return mock.patch.object(vit, "psum", lambda t, _mesh, _axis: t)
+    return contextlib.nullcontext()
 
 
 def ddp_mae(mesh, want: dict, dtype: str, steps: int, local_moments: bool = False) -> dict:
@@ -3157,12 +3518,9 @@ def ddp_mae(mesh, want: dict, dtype: str, steps: int, local_moments: bool = Fals
     largest difference from the group's first rank after the steps, the
     peak memory. `local_moments`: the control, BatchNorm on this rank's
     rows alone (the 'data' group's sum of its moments left out)."""
-    from unittest import mock
-
     import torch
-    import torch.distributed as dist
 
-    from vit_ae_plus_plus_torch.models import MODEL_ZOO, vit
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
     from vit_ae_plus_plus_torch.parallel import all_reduce_flat, set_mesh
 
     cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
@@ -3174,10 +3532,9 @@ def ddp_mae(mesh, want: dict, dtype: str, steps: int, local_moments: bool = Fals
         return t[d * b:(d + 1) * b]
 
     trainer = Trainer(tree, stats, dtype, "auto")
-    local = mock.patch.object(vit, "psum", lambda t, _mesh, _axis: t) if local_moments else contextlib.nullcontext()
     torch.cuda.reset_peak_memory_stats()
     out = {"steps": []}
-    with set_mesh(mesh), local:
+    with set_mesh(mesh), ddp_control("local_moments" if local_moments else None):
         for i in range(steps):
             staged = {"bytes": 0}
             torch.cuda.synchronize()
@@ -3201,11 +3558,7 @@ def ddp_mae(mesh, want: dict, dtype: str, steps: int, local_moments: bool = Fals
             all_reduce_flat(grads, mesh)
             torch.cuda.synchronize()
             out["allreduce_s"].append(time.perf_counter() - t0)
-    flat = torch.cat([p.detach().flatten() for p in trainer.model.parameters()]).cpu()
-    first = flat.clone()
-    dist.broadcast(first, src=mesh.ranks["data"][0], group=mesh.groups["data"])
-    out["params_max_diff"] = float((flat - first).abs().max())
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out.update(rank_peak_and_diff(trainer.model, mesh))
     del trainer
     torch.cuda.empty_cache()
     return out
@@ -3266,13 +3619,164 @@ def ddp_commands(mesh, paths: dict) -> dict:
     return out
 
 
+# phase 7d (e): the MoCo step over the 'data' group, (trunk, dtype, ranks),
+# one step each, held to phase 5g's one-process step
+MOCO_DDP_RUNS = (("vit", "float32", GROUP_RANKS), ("vit", "bfloat16", GROUP_RANKS), ("vit", "float32", 2),
+                 ("vit", "bfloat16", 2), ("resnet", "float32", GROUP_RANKS), ("resnet", "float32", 2))
+MOCO_CONTROLS = ("local_keys", "local_moments")
+
+
+def ddp_moco(mesh, want: dict, arch: str, dtype: str, steps: int, control: str = None) -> dict:
+    """Phase 7d (e) on one rank: `steps` MoCo steps of phase 5g's trainer
+    (its weights and views) on this rank's rows under `mesh`, step 1's
+    readings against `want` (phase 5g's one-process step), each step's
+    launches, wall time and host stagings (bytes and count), the gradient
+    all-reduce alone timed, the parameters' largest difference from the
+    group's first rank after the steps, the peak memory; `control` as
+    `ddp_control`."""
+    import torch
+
+    from vit_ae_plus_plus_torch.parallel import all_reduce_flat, set_mesh
+
+    d, b = mesh.coords["data"], BATCH // mesh.size("data")
+    views = [v[d * b:(d + 1) * b] for v in moco_views()]
+    torch.cuda.reset_peak_memory_stats()
+    trainer = MoCoTrainer(moco_base_sd(arch), dtype, "auto", arch=arch)
+    out = {"steps": []}
+    with set_mesh(mesh), ddp_control(control):
+        for i in range(steps):
+            staged = {"bytes": 0, "calls": 0}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with staged_bytes(staged):
+                got, counts = trainer.run(*views)
+            torch.cuda.synchronize()
+            out["steps"].append({"loss": got["loss"], "counts": counts, "wall_s": time.perf_counter() - t0,
+                                 "staged_bytes": staged["bytes"], "staged_calls": staged["calls"]})
+            if i == 0:
+                out["errs"] = moco_errs(on_host(got), want["want"])
+        grads = [p.grad for p in trainer.state.tx.params]
+        out["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+        out["allreduce_s"] = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_flat(grads, mesh)
+            torch.cuda.synchronize()
+            out["allreduce_s"].append(time.perf_counter() - t0)
+    out.update(rank_peak_and_diff(trainer.model, mesh))
+    del trainer, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_contrastive(mesh, want: dict, control: str = None) -> dict:
+    """Phase 7d (f) on one rank: one f32 contrastive step of phase 5h's
+    trainer on this rank's rows under `mesh`, its readings against `want`
+    (phase 5h's one-process f32 step), its launches, wall time and host
+    stagings, the parameters' difference from the first rank's, the peak
+    memory; `control` as `ddp_control`."""
+    import torch
+
+    from vit_ae_plus_plus_torch.parallel import set_mesh
+
+    d, b = mesh.coords["data"], BATCH // mesh.size("data")
+    views = [v[d * b:(d + 1) * b] for v in contrastive_views()]
+    torch.cuda.reset_peak_memory_stats()
+    trainer = ContrastiveTrainer("float32", "auto")
+    staged = {"bytes": 0, "calls": 0}
+    with set_mesh(mesh), ddp_control(control), staged_bytes(staged):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, counts = trainer.run(*views)
+        torch.cuda.synchronize()
+    out = {"errs": moco_errs(on_host(got), want), "counts": counts, "wall_s": time.perf_counter() - t0,
+           "staged_bytes": staged["bytes"], "staged_calls": staged["calls"]}
+    out.update(rank_peak_and_diff(trainer.model, mesh))
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def moco_kfold_ddp_configs(split_dir: str) -> tuple:
+    """`moco_kfold`'s data and training configs for phase 7d (e): f32 (bf16
+    rounding alone moves the MoCo loss by about 1e-3, phase 5g), batch
+    BATCH, 2 epochs, one resume and min-loss write, and one fold: fold 0's
+    first 16 training volumes (2 steps an epoch) and its 24 test volumes."""
+    from vit_ae_plus_plus_torch.configs import DataConfig, TrainConfig
+    from vit_ae_plus_plus_torch.data.splits import kfold_indices
+
+    data_cfg = DataConfig(name="brats", base_path=split_dir, volume_size=VOLUME, in_channels=1, use_z_score=True)
+    train_cfg = TrainConfig(epochs=2, batch_size=BATCH, seed=42, patch_size=PATCH, compute_dtype="float32",
+                            ckpt_every=2)
+    train, test = kfold_indices(np.load(os.path.join(split_dir, "y_whole_ssl.npy")), DDP_FOLDS)[0]
+    return data_cfg, train_cfg, [(train[:2 * BATCH], test)]
+
+
+class Nudged:
+    """A dataset whose volumes come out scaled by `scale` (after the
+    z-score and the augmentation): the input of the floor run."""
+
+    def __init__(self, dataset, scale: float):
+        self.dataset, self.scale = dataset, scale
+
+    def __getattr__(self, name):
+        return getattr(self.dataset, name)
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, item):
+        aug, orig, label = self.dataset[item]
+        return aug * self.scale, orig * self.scale, label
+
+
+def run_moco_kfold(paths: dict, work: str, n_devices=None, scale: float = 1.0) -> dict:
+    """`moco_kfold` on `moco_kfold_ddp_configs` into `paths[work]`, without
+    warmup (its first learning rate would be 0): lr 0.6 x 8 / 256; with
+    `scale`, on the volumes scaled by it (`Nudged`)."""
+    from unittest import mock
+
+    from vit_ae_plus_plus_torch.pipelines import moco_kfold as tmk
+
+    data_cfg, train_cfg, folds = moco_kfold_ddp_configs(paths["split"])
+    real = tmk.get_dataset
+    nudged = mock.patch.object(tmk, "get_dataset", lambda *a, **kw: Nudged(real(*a, **kw), scale))
+    with nudged if scale != 1.0 else contextlib.nullcontext():
+        return tmk.moco_kfold(data_cfg, train_cfg, paths[work], n_splits=DDP_FOLDS, folds=folds, warmup_epochs=0,
+                              n_devices=n_devices, device="cuda")
+
+
+def ddp_moco_commands(mesh, paths: dict) -> dict:
+    """Phase 7d (e)'s command on one rank: `moco_kfold` under `mesh`, its
+    launches and wall time; then the control, the gradients left unaveraged
+    (each rank's own LARS update), into `paths["moco_control_work"]`."""
+    from unittest import mock
+
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+    from vit_ae_plus_plus_torch.parallel import set_mesh
+    from vit_ae_plus_plus_torch.pipelines import moco_kfold as tmk
+
+    size = mesh.size("data")
+    with set_mesh(mesh):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = run_moco_kfold(paths, "moco_ranks_work", size)
+        out = {"moco_kfold": {"results": results, "wall_s": time.perf_counter() - t0, "counts": shape_counts()}}
+        with mock.patch.object(tmk, "average_grads", lambda params: None):
+            run_moco_kfold(paths, "moco_control_work", size)
+    return out
+
+
 def group_ddp(references: dict, paths: dict) -> dict:
     """Phase 7d on one rank of phase 7's world: the MAE step on the (4, 1)
     mesh in f32 and bf16 and the local-moments control, the bf16 step on a
     (2, 1) mesh of the first two ranks, the fine-tune step and the
-    commands on (4, 1). Every rank makes every mesh (make_mesh is
-    collective; a rank outside one gets None and skips its runs)."""
-    from vit_ae_plus_plus_torch.parallel import make_mesh
+    commands on (4, 1); (e) the MoCo step (MOCO_DDP_RUNS), its controls
+    and `moco_kfold`; (f) the contrastive step and its control. Every rank
+    makes every mesh (make_mesh is collective; a rank outside one gets None
+    and skips its runs)."""
+    from vit_ae_plus_plus_torch.parallel import barrier, make_mesh
 
     mesh = make_mesh(GROUP_RANKS, 1)
     with warnings.catch_warnings():  # a mesh of 2 of the 4 ranks warns
@@ -3286,6 +3790,18 @@ def group_ddp(references: dict, paths: dict) -> dict:
         out["pair"] = ddp_mae(pair, reference, "bfloat16", TRAIN_STEPS)
     out["finetune"] = ddp_finetune(mesh, paths["pth"], references["finetune"])
     out.update(ddp_commands(mesh, paths))
+    moco = references["moco"]
+    for arch, dtype, ranks in MOCO_DDP_RUNS:
+        barrier(mesh)  # the ranks outside a (2, 1) run wait here, not in their next run's step
+        on = mesh if ranks == GROUP_RANKS else pair
+        if on is not None:
+            out[f"moco_{arch}_{dtype}_{ranks}"] = ddp_moco(on, moco[arch][dtype], arch, dtype, 1)
+    barrier(mesh)
+    for control in MOCO_CONTROLS:
+        out[f"moco_{control}"] = ddp_moco(mesh, moco["vit"]["float32"], "vit", "float32", 1, control)
+    for control in (None, "local_moments"):
+        out[f"contrastive_{control}"] = ddp_contrastive(mesh, references["contrastive"], control)
+    out.update(ddp_moco_commands(mesh, paths))
     return out
 
 
@@ -3350,12 +3866,14 @@ def check_group_attention(results: list) -> None:
             check(a["counts"] == want_counts[impl], f"rank {rank} {impl} attention launched {a['counts']}")
 
 
-def ddp_references(reference: dict, paths: dict) -> dict:
+def ddp_references(reference: dict, paths: dict, moco: dict, contrastive: dict) -> dict:
     """Phase 7d's one-process references, taken here before the ranks
     start: phase 5's step (`reference`), the f32 fine-tune step with mixup
     on the whole batch, `pretrain_kfold` (fold 0, one epoch, bf16) into
-    `paths["one_work"]`, and the host time of three bf16 steps of phase 5's
-    trainer on the whole batch."""
+    `paths["one_work"]`, the host time of three bf16 steps of phase 5's
+    trainer on the whole batch; phase 5g's MoCo steps (`moco`) and 5h's
+    contrastive step (`contrastive`), and `moco_kfold` into
+    `paths["moco_one_work"]`."""
     import torch
 
     from vit_ae_plus_plus_torch.models import MODEL_ZOO
@@ -3383,8 +3901,15 @@ def ddp_references(reference: dict, paths: dict) -> dict:
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_moco_kfold(paths, "moco_one_work")
+    moco_kfold_s = time.perf_counter() - t0
+    run_moco_kfold(paths, "moco_nudged_work", scale=1 + 2**-20)
+    gc.collect()
+    torch.cuda.empty_cache()
     return {"step": reference, "finetune": {"loss": loss, "grads": {n: g.cpu().numpy() for n, g in grads.items()}},
-            "pretrain_s": pretrain_s, "one_process_walls": walls}
+            "pretrain_s": pretrain_s, "one_process_walls": walls, "moco": moco, "contrastive": contrastive,
+            "moco_kfold_s": moco_kfold_s}
 
 
 def files_under(root: str) -> list:
@@ -3531,18 +4056,157 @@ def check_ddp(results: list, rows: list, refs: dict, paths: dict) -> None:
     for what, key in (("pretrain_kfold", "pretrain"), ("extract_ssl_features", "extract")):
         rowed(pre["counts"] if key == "pretrain" else ext["counts"], f"the data-parallel {what}")
         fill_launches(rows, results[0]["ddp"][key]["counts"], f"{what} on a ({GROUP_RANKS}, 1) data mesh, rank 0")
+    check_ddp_moco(results, rows, refs, paths, rowed)  # (e), (f)
 
 
-def group_phase(rows: list, reference: dict, paths: dict) -> None:
+def check_ddp_moco(results: list, rows: list, refs: dict, paths: dict, rowed) -> None:
+    """Phase 7d (e) and (f)'s limits on the ranks' numbers and files; fills
+    the per-rank rows' `launches` from rank 0's runs."""
+    card = card_line()
+
+    def line(errs: dict) -> str:
+        return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+
+    # (e) the MoCo step: f32 within phase 5g's limits, bf16 printed only
+    for arch, dtype, ranks in MOCO_DDP_RUNS:
+        ref = refs["moco"][arch][dtype]
+        limits = ref.get("limits")
+        want_counts = moco_step_launches(dtype, BATCH // ranks) if arch == "vit" else {}
+        run_counts = Counter()
+        for rank, res in enumerate(results[:ranks]):
+            t = res["ddp"][f"moco_{arch}_{dtype}_{ranks}"]
+            grad_mb = t["grad_bytes"] / 1e6
+            print(f"ddp rank {rank} of {ranks} MoCo-{arch} {dtype} step vs phase 5g's one-process step: "
+                  f"{line(t['errs'])}" + (f" (limits {line(limits)})" if limits else " (information: bf16 rounding "
+                  "moves these as far, see MOCO_FLOOR_FACTOR)") + "; losses "
+                  + ", ".join(f"{s['loss']:.6f}" for s in t["steps"])
+                  + f"; parameters' largest difference from rank 0: {t['params_max_diff']:.3g}", flush=True)
+            print(f"ddp rank {rank} of {ranks} MoCo-{arch} {dtype}, information only ({card}): step wall "
+                  + ", ".join(f"{1e3 * s['wall_s']:.1f}" for s in t["steps"])
+                  + " ms (host clock, synchronised); host stagings a step "
+                  + ", ".join(f"{s['staged_calls']} of {s['staged_bytes'] / 1e6:.1f} MB" for s in t["steps"])
+                  + f" (one the gradient all-reduce of {grad_mb:.1f} MB; the rest the BatchNorm moments and their "
+                  f"gradients, the keys' gather and the loss: "
+                  + ", ".join(f"{(s['staged_bytes'] - t['grad_bytes']) / 1e3:.1f} kB" for s in t["steps"])
+                  + "); the gradient all-reduce alone " + ", ".join(f"{1e3 * x:.1f}" for x in t["allreduce_s"])
+                  + f" ms; peak {t['peak_gib']:.2f} GiB", flush=True)
+            if limits:
+                bad = {k: v for k, v in t["errs"].items() if v > limits[k]}
+                check(not bad, f"ddp rank {rank} of {ranks} MoCo-{arch} f32 step: {bad}")
+            check(t["params_max_diff"] == 0.0, f"ddp rank {rank} of {ranks} MoCo-{arch} {dtype}: parameters differ "
+                  f"from rank 0's by {t['params_max_diff']:.3g}")
+            for i, step in enumerate(t["steps"]):
+                check(step["counts"] == want_counts, f"ddp rank {rank} of {ranks} MoCo-{arch} {dtype} step {i + 1} "
+                      f"launched {step['counts']} (want {want_counts})")
+                if rank == 0:
+                    run_counts.update(step["counts"])
+        if run_counts:
+            rowed(run_counts, f"the {dtype} data-parallel MoCo step on {ranks} ranks")
+            fill_launches(rows, run_counts, f"make_moco_train_step, compute_dtype='{dtype}', one step on a "
+                          f"({ranks}, 1) data mesh, rank 0 of {ranks}")
+            for row in rows:
+                n = run_counts.get((row["name"], row["key"]), 0)
+                if n:
+                    row.setdefault("moco_ddp_launches", {})[f"{dtype} ({ranks}, 1)"] = n
+    limits = refs["moco"]["vit"]["float32"]["limits"]
+    for control, keys in (("local_keys", ("loss",)), ("local_moments", ("predictor.1.running_var",))):
+        for rank, res in enumerate(results):
+            errs = res["ddp"][f"moco_{control}"]["errs"]
+            print(f"ddp rank {rank} MoCo-ViT f32 control, {control.replace('_', ' ')}: {line(errs)}", flush=True)
+            check(all(errs[k] > limits[k] for k in keys), f"ddp rank {rank}: the MoCo {control} control passed "
+                  f"the f32 gate on {keys} ({errs})")
+
+    # (e) moco_kfold: one writer, the one-process run's files, its losses
+    ranks_work, one_work = paths["moco_ranks_work"], paths["moco_one_work"]
+    got_files, one_files = files_under(ranks_work), files_under(one_work)
+    check(got_files == one_files, f"ddp moco_kfold wrote {got_files} (one process {one_files})")
+    logged = {}
+    runs = ("moco_ranks_work", "moco_one_work", "moco_control_work", "moco_nudged_work")
+    for run in runs:
+        with open(os.path.join(paths[run], "log.txt")) as f:
+            logged[run] = [json.loads(line) for line in f]
+        check([(r["fold"], r["epoch"]) for r in logged[run]] == [(0, 0), (0, 1)]
+              and all(np.isfinite(r["train_loss"]) for r in logged[run]), f"ddp {run} log.txt {logged[run]}")
+    loss_errs = {run: max(abs(r["train_loss"] - w["train_loss"]) / abs(w["train_loss"])
+                          for r, w in zip(logged[run], logged["moco_one_work"]))
+                 for run in runs if run != "moco_one_work"}
+    check(loss_errs["moco_nudged_work"] <= MOCO_KFOLD_FLOOR_CEIL["loss"], f"ddp moco_kfold: the floor run's "
+          f"train_loss reads {loss_errs['moco_nudged_work']:.3g}, above MOCO_KFOLD_FLOOR_CEIL")
+    limit = max(DDP_LOSS_TOL, MOCO_FLOOR_FACTOR * loss_errs["moco_nudged_work"])
+    fmt = lambda run: ", ".join(f"{r['train_loss']:.7f}" for r in logged[run])  # noqa: E731
+    print(f"ddp moco_kfold on {GROUP_RANKS} ranks (f32, fold 0: 2 epochs of 2 steps, lr 0.01875, no warmup), "
+          f"log.txt train_loss {fmt('moco_ranks_work')} against one process's {fmt('moco_one_work')}, largest rel "
+          f"err {loss_errs['moco_ranks_work']:.3g} (limit {limit:.3g}: DDP_LOSS_TOL or {MOCO_FLOOR_FACTOR} times the "
+          f"floor, one process on its volumes scaled by 1 + 2^-20: {fmt('moco_nudged_work')}, "
+          f"{loss_errs['moco_nudged_work']:.3g}); the control, gradients left unaveraged: "
+          f"{fmt('moco_control_work')}, {loss_errs['moco_control_work']:.3g} (must miss)", flush=True)
+    check(loss_errs["moco_ranks_work"] <= limit, f"ddp moco_kfold train_loss: {loss_errs['moco_ranks_work']:.3g}")
+    check(loss_errs["moco_control_work"] > limit, f"ddp moco_kfold control (gradients unaveraged) passed the "
+          f"train_loss gate: {loss_errs['moco_control_work']:.3g}")
+    errs, floors = {}, {}
+    for name in (f for f in one_files if f.startswith("ssl_features_dir/")):
+        got, want = np.load(os.path.join(ranks_work, name)), np.load(os.path.join(one_work, name))
+        check(got.shape == want.shape and got.dtype == want.dtype, f"ddp moco_kfold {name}: {got.shape} {got.dtype}")
+        if "labels" in name:
+            check(np.array_equal(got, want), f"ddp moco_kfold {name}: labels differ from one process's")
+        else:
+            errs[name.split("/")[1]] = rel_err(got, want)
+            floors[name.split("/")[1]] = rel_err(np.load(os.path.join(paths["moco_nudged_work"], name)), want)
+    check(max(floors.values()) <= MOCO_KFOLD_FLOOR_CEIL["features"], f"ddp moco_kfold: the floor run's features "
+          f"read {line(floors)}, above MOCO_KFOLD_FLOOR_CEIL")
+    feat_limit = max(ENGINE_TOL["float32"], MOCO_FLOOR_FACTOR * max(floors.values()))
+    mk = results[0]["ddp"]["moco_kfold"]
+    print(f"ddp moco_kfold on {GROUP_RANKS} ranks vs one process: features {line(errs)} (limit {feat_limit:.3g}: "
+          f"ENGINE_TOL or {MOCO_FLOOR_FACTOR} times the floor run's {line(floors)}); files {len(got_files)}; wall "
+          f"{mk['wall_s']:.2f} s, one process {refs['moco_kfold_s']:.2f} s ({card}, information only)", flush=True)
+    check(all(e <= feat_limit for e in errs.values()), f"ddp moco_kfold features: {errs}")
+    key = (BATCH // GROUP_RANKS, 12, (VOLUME // PATCH) ** 3 + 1, 64, "float32")
+    want_counts = {("packed_flash_fwd", key): 4 * 48 + 12 * (slabs(2 * BATCH) + slabs(24)),
+                   ("packed_flash_bwd", key): 4 * 24}
+    for rank, res in enumerate(results):
+        got = res["ddp"]["moco_kfold"]["counts"]
+        check(got == want_counts, f"ddp rank {rank} moco_kfold launched {got} (want {want_counts})")
+    rowed(mk["counts"], "the data-parallel moco_kfold")
+    fill_launches(rows, mk["counts"], f"moco_kfold on a ({GROUP_RANKS}, 1) data mesh, rank 0")
+
+    # (f) the contrastive step
+    tol = STEP_TOL["float32"]
+    want_counts = contrastive_launches("float32", BATCH // GROUP_RANKS)
+    for rank, res in enumerate(results):
+        t = res["ddp"]["contrastive_None"]
+        print(f"ddp rank {rank} of {GROUP_RANKS} contrastive f32 step vs phase 5h's one-process step: "
+              f"{line(t['errs'])} (tol loss {tol['loss']}, the rest {tol['grad']}); parameters' largest difference "
+              f"from rank 0: {t['params_max_diff']:.3g}; information only ({card}): step wall "
+              f"{1e3 * t['wall_s']:.1f} ms, {t['staged_calls']} host stagings of {t['staged_bytes'] / 1e6:.1f} MB, "
+              f"peak {t['peak_gib']:.2f} GiB", flush=True)
+        bad = {k: v for k, v in t["errs"].items() if v > (tol["loss"] if k == "loss" else tol["grad"])}
+        check(not bad, f"ddp rank {rank} contrastive step: {bad}")
+        check(t["params_max_diff"] == 0.0, f"ddp rank {rank} contrastive: parameters differ from rank 0's")
+        check(t["counts"] == want_counts, f"ddp rank {rank} contrastive step launched {t['counts']}")
+        errs = res["ddp"]["contrastive_local_moments"]["errs"]
+        print(f"ddp rank {rank} contrastive f32 control, BatchNorm moments left local: {line(errs)}", flush=True)
+        check(any(errs[k] > tol["grad"] for k in CONTR_STATS), f"ddp rank {rank}: the contrastive local-moments "
+              f"control passed the f32 gate ({errs})")
+    counts = results[0]["ddp"]["contrastive_None"]["counts"]
+    rowed(counts, "the data-parallel contrastive step")
+    fill_launches(rows, counts, f"make_contrastive_step, f32, one step on a ({GROUP_RANKS}, 1) data mesh, rank 0")
+    for row in rows:
+        n = counts.get((row["name"], row["key"]), 0)
+        if n:
+            row["contrastive_ddp_launches"] = n
+
+
+def group_phase(rows: list, reference: dict, paths: dict, moco: dict, contrastive: dict) -> None:
     """Phase 7: run `group_rank` on 4 spawned ranks and hold their numbers
     to the limits; fills the ring rows' `launches` from rank 0's runs, and
-    7d's per-rank rows'."""
+    7d's per-rank rows'. `moco` and `contrastive`: phases 5g's and 5h's
+    one-process steps."""
     import torch
 
     from vit_ae_plus_plus_torch.models import MODEL_ZOO
     from vit_ae_plus_plus_torch.parallel import padded_len
 
-    refs = ddp_references(reference, paths)
+    refs = ddp_references(reference, paths, moco, contrastive)
     gc.collect()
     torch.cuda.empty_cache()
     results = run_group(group_rank, refs, paths)
@@ -3809,9 +4473,12 @@ def main(argv) -> int:
         eval_classical_phase(pre_work / "ssl_features_dir")
         # phase 5g: the MoCo-v3 baseline, its step and its commands
         t0 = time.perf_counter()
-        moco_step_phase(rows)
+        moco_refs = moco_step_phase(rows)
         moco_kfold_phase(split_dir)
         print(f"MoCo phase {time.perf_counter() - t0:.1f}s", flush=True)
+        # phase 5h: contrastive-train, its step and the command
+        contrastive_ref = contrastive_step_phase(rows)
+        contrastive_command_phase(split_dir)
         fused_layernorm_run(rows, cfg)
 
         # phase 6: the ring's partial kernels at the ring blocks of phase 7 (the
@@ -3836,8 +4503,9 @@ def main(argv) -> int:
         paths = {"split": str(split_dir), "features": str(split_dir.parent / "features"),
                  "pth": str(pre_work / "checkpoints" / "fold_0" / "checkpoint-min_loss.pth"),
                  **{name: str(Path(tmp) / f"ddp_{name}")
-                    for name in ("ranks_work", "one_work", "control_work", "ranks_features")}}
-        group_phase(rows, reference, paths)
+                    for name in ("ranks_work", "one_work", "control_work", "ranks_features", "moco_ranks_work",
+                                 "moco_one_work", "moco_control_work", "moco_nudged_work")}}
+        group_phase(rows, reference, paths, moco_refs, contrastive_ref)
     for row in rows:
         if row["launches"] is None:
             row["launches"], row["path"] = 0, "none: a reference case at a shape no path runs"

@@ -155,8 +155,9 @@ def test_libsvm_builds_from_the_ports_sources_into_its_build_dir():
 
 
 def test_moco_refuses_before_any_file_is_read(monkeypatch, tmp_path):
-    """`moco_kfold` refuses FSDP, more than one device and a mesh with
-    `NotImplementedError`, and a default device without CUDA with
+    """`moco_kfold` refuses FSDP with `NotImplementedError`, more devices
+    than the process's 'data' axis has (`n_devices`, a data mesh shape)
+    with `ValueError`, and a default device without CUDA with
     `RuntimeError`, before it reads the (missing) data or writes the work
     dir; `moco_extract` refuses the missing card likewise."""
     from vit_ae_plus_plus_torch.configs import DataConfig, TrainConfig
@@ -164,11 +165,13 @@ def test_moco_refuses_before_any_file_is_read(monkeypatch, tmp_path):
 
     data_cfg = DataConfig(base_path=str(tmp_path / "no_data"))
     work = tmp_path / "w"
-    refused = ({"fsdp": True}, {"n_devices": 2}, {"mesh": object()}, {"train_cfg": TrainConfig(fsdp=True)},
-               {"train_cfg": TrainConfig(mesh_shape=(2,))})
-    for kw in refused:
+    refused = ((NotImplementedError, "ROADMAP Queue 1 item 6", {"fsdp": True}),
+               (NotImplementedError, "ROADMAP Queue 1 item 6", {"train_cfg": TrainConfig(fsdp=True)}),
+               (ValueError, "n_devices=2 trains on 2 ranks", {"n_devices": 2}),
+               (ValueError, "n_devices=2 trains on 2 ranks", {"train_cfg": TrainConfig(mesh_shape=(2,))}))
+    for error, match, kw in refused:
         train_cfg = kw.pop("train_cfg", TrainConfig())
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item (1b|6)"):
+        with pytest.raises(error, match=match):
             moco_kfold(data_cfg, train_cfg, str(work), device="cpu", **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -17,7 +17,8 @@ the CPU.
   `moco_kfold`'s own dumps bitwise; on one `.pth` it extracts the whole
   dataset (a last partial batch padded), within `FEAT_TOL` of the JAX
   package's `moco_extract` on its own fold-0 checkpoint.
-- The CLI on the CPU, and its refusals before any data is read.
+- The CLI on the CPU, and its refusal of `--fsdp` before any data is read
+  (`--n-devices N` runs N ranks: tests/test_torch_port_moco_ddp.py).
 """
 
 import contextlib
@@ -334,9 +335,8 @@ def test_moco_cli_and_refusals(data_dir, tmp_path, monkeypatch, capsys):
         work, "ssl_features_dir", "test_contrast_ssl_features_split_0.npy")))
     # refused before any data is read
     missing = ["--data-path", str(tmp_path / "none"), "--work-dir", str(tmp_path / "w")]
-    for flags, what in ((["--fsdp"], "fsdp"), (["--n-devices", "2"], "n_devices > 1")):
-        assert cli_run(["moco-kfold", *missing, *flags]) == 2
-        assert what in capsys.readouterr().err
+    assert cli_run(["moco-kfold", *missing, "--fsdp"]) == 2
+    assert "fsdp" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for cmd in (["moco-kfold"], ["moco-extract", "--checkpoint", work]):
         assert cli_run([*cmd, *missing]) == 2

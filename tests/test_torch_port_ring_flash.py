@@ -42,6 +42,11 @@ from the same numpy inputs):
   whose `weighted_ce` divides by each rank's own weights, which must miss;
   `pretrain_kfold` on 2 ranks, then resumed, and `extract_ssl_features` on
   2 ranks, against one process's files.
+- the MoCo step (both trunks, f64, on (2, 1) and (4, 1)) and the
+  contrastive step (f64, (2, 1)) against JAX's data-mesh steps, their
+  controls, and `moco_kfold` on 2 ranks with its resume against one
+  process's run: tests/test_torch_port_moco_ddp.py holds the cases'
+  helpers and says what each checks.
 
 JAX is imported inside the functions that run it: the ranks import this
 module by name and need none of it.
@@ -76,6 +81,8 @@ from vit_ae_plus_plus_torch.train import create_train_state, make_adamw, make_tr
 from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict, params_from_jax
 from vit_ae_plus_plus_torch.train.optim import make_sgd
 from vit_ae_plus_plus_torch.train.step import feature_step
+
+import test_torch_port_moco_ddp as md
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 D = 32
@@ -275,6 +282,14 @@ def _group_rank(rank, tree, x, ddp):
     for case in SUPERVISED:
         on(4, 1, f"ddp_{case}", lambda mesh: _run_ddp_supervised(mesh, case, ddp["vit"], ddp["lam"]))
     on(2, 1, "ddp_pipelines", lambda mesh: _run_ddp_pipelines(mesh, ddp["dirs"]))
+    for arch in MOCO_ARCHS:
+        for data in DDP_MESHES:
+            on(data, 1, f"ddp_moco_{arch}_{data}", lambda mesh: md.run_ddp_moco(mesh, arch, ddp[f"moco_{arch}"]))
+    for control in MOCO_CONTROLS:
+        on(4, 1, f"ddp_moco_{control}", lambda mesh: md.run_ddp_moco(mesh, "vit", ddp["moco_vit"], control))
+    for control in (None, "local_moments"):
+        on(2, 1, f"ddp_contrastive_{control}", lambda mesh: md.run_ddp_contrastive(mesh, ddp["contrastive"], control))
+    on(2, 1, "ddp_moco_kfold", lambda mesh: md.run_ddp_moco_kfold(mesh, ddp["dirs"]["moco_ranks"], ddp["dirs"]["data"]))
     return out
 
 
@@ -325,7 +340,8 @@ def group(tmp_path_factory):
     torch.set_num_threads(1)  # the ranks and the other test workers share the cores
     tree, x, want_trunk = _jax_trunk()
     ddp = {"mae": _jax_mae_weights(), "vit": _jax_vit_weights(), "lam": _jax_mixup_lam(),
-           "dirs": _ddp_dirs(tmp_path_factory)}
+           "dirs": _ddp_dirs(tmp_path_factory), "contrastive": md.jax_contrastive_weights(),
+           **{f"moco_{arch}": md.jax_moco_weights(arch) for arch in MOCO_ARCHS}}
     results = {}
     ranks = threading.Thread(target=lambda: results.update(ranks=run_ranks(
         _group_rank, WORLD, (tree, x, ddp), store_dir=str(tmp_path_factory.mktemp("store")), timeout=600)))
@@ -338,6 +354,9 @@ def group(tmp_path_factory):
         want["ddp_mae_generator"] = _ddp_mae_one_process(ddp["mae"])
         want["ddp_supervised"] = {case: _jax_ddp_supervised(case, ddp["vit"]) for case in SUPERVISED}
         want["ddp_pretrain"] = {"dirs": ddp["dirs"], "results": _pretrain_one_process(ddp["dirs"])}
+        want["ddp_moco"] = {arch: md.jax_ddp_moco(arch, ddp[f"moco_{arch}"]) for arch in MOCO_ARCHS}
+        want["ddp_contrastive"] = md.jax_ddp_contrastive(ddp["contrastive"])
+        want["ddp_moco_kfold"] = md.run_moco_kfold(ddp["dirs"]["moco_one"], ddp["dirs"]["data"])
     finally:
         ranks.join(timeout=900)
     assert not ranks.is_alive() and "ranks" in results, "the group of ranks did not finish"
@@ -398,6 +417,8 @@ CLASS_WEIGHTS = np.array([0.25, 1.75], np.float32)
 SUP_LR = 1e-2
 SUPERVISED = ("sup_weighted", "sup_mixup", "sup_weighted_local_denominator")
 PIPE_FOLDS, PIPE_BATCH = 2, 4
+MOCO_ARCHS = ("vit", "resnet")
+MOCO_CONTROLS = ("local_keys", "local_moments")
 
 
 def _ddp_mae_data():
@@ -505,10 +526,6 @@ def _run_ddp_mae(mesh, weights, local_moments=False, noise=True):
     state's generator (`noise=False`). `local_moments`: the control, each
     rank's BatchNorm on its own rows (the 'data' group's sum of its moments
     left out)."""
-    from unittest import mock
-
-    from vit_ae_plus_plus_torch.models import vit
-
     model = _port_mae(weights)
     state = create_train_state(model, make_adamw(DDP_LR))
     v1, v2, global_noise = _ddp_mae_data()
@@ -519,8 +536,7 @@ def _run_ddp_mae(mesh, weights, local_moments=False, noise=True):
         mine = torch.from_numpy(np.concatenate([global_noise[rows], global_noise[DDP_B:][rows]]))
         kw["forward_fn"] = lambda m, a, c, _g: m(a, c, noise=mine)
     step = make_train_step(model, 4, contr_weight=CONTR_W, **kw)
-    local = mock.patch.object(vit, "psum", lambda t, _mesh, _axis: t) if local_moments else contextlib.nullcontext()
-    with set_mesh(mesh), local:
+    with set_mesh(mesh), md.ddp_control("local_moments" if local_moments else None):
         return _mae_step_result(model, state, step, v1[rows], v2[rows])
 
 
@@ -648,7 +664,8 @@ def _ddp_dirs(tmp_path_factory):
     for split, n in (("whole", 18), ("train", 9), ("test", 5)):
         np.save(root / f"x_{split}_ssl.npy", rng.standard_normal((n, 16, 16, 16, 1)).astype(np.float32))
         np.save(root / f"y_{split}_ssl.npy", np.arange(n) % 2)
-    names = ("ranks", "one", "extract_ranks", "extract_one", "finetune_ranks", "finetune_one")
+    names = ("ranks", "one", "extract_ranks", "extract_one", "finetune_ranks", "finetune_one", "moco_ranks",
+             "moco_one")
     return {name: str(root / name) for name in names} | {"data": str(root)}
 
 
@@ -860,3 +877,88 @@ def test_data_parallel_finetune_kfold_matches_one_process(group):
         want_sd = load_reference_state_dict(os.path.join(dirs["finetune_one"], "checkpoints", name))
         for n, w in want_sd.items():
             assert float((got_sd[n] - w).abs().max()) <= 1e-5 * max(float(w.abs().max()), 1.0), (name, n)
+
+
+@pytest.mark.parametrize("arch", MOCO_ARCHS)
+@pytest.mark.parametrize("data", DDP_MESHES)
+def test_data_parallel_moco_step_matches_jax(group, arch, data):
+    """Each rank's loss, gradients and both encoders' statistics against
+    JAX's data-mesh step (`md.ddp_gate`); the parameters after the LARS
+    step and the statistics bitwise equal on every rank."""
+    per_rank = _ddp_results(group, f"ddp_moco_{arch}_{data}", data)
+    want = group[1]["ddp_moco"][arch][data]
+    for result in per_rank:
+        assert md.ddp_gate(result, want, md.MOCO_TOL[arch]) <= 1.0
+    for other in per_rank[1:]:
+        np.testing.assert_array_equal(other[3], per_rank[0][3])
+        for n, b in per_rank[0][2].items():
+            np.testing.assert_array_equal(other[2][n], b)
+
+
+@pytest.mark.parametrize("control", MOCO_CONTROLS)
+def test_data_parallel_moco_step_controls_miss(group, control):
+    """Each rank's queries against its own keys only miss the loss's limit;
+    BatchNorm on each rank's rows alone misses on the predictor's running
+    statistics."""
+    per_rank = _ddp_results(group, f"ddp_moco_{control}", 4)
+    want_loss, want_grads, want_stats = group[1]["ddp_moco"]["vit"][4]
+    for loss, grads, stats, _ in per_rank:
+        if control == "local_keys":
+            assert md.ddp_gate((loss, want_grads, want_stats), group[1]["ddp_moco"]["vit"][4]) > 1.0
+        else:
+            predictor = {n: w for n, w in want_stats.items() if n.startswith("predictor.")}
+            assert predictor and md.ddp_gate((want_loss, want_grads, stats), (want_loss, want_grads, predictor)) > 1.0
+
+
+def test_data_parallel_contrastive_step_matches_jax(group):
+    per_rank = _ddp_results(group, "ddp_contrastive_None", 2)
+    want = group[1]["ddp_contrastive"]
+    for result in per_rank:
+        assert md.ddp_gate(result, want) <= 1.0
+    np.testing.assert_array_equal(per_rank[1][3], per_rank[0][3])
+
+
+def test_data_parallel_contrastive_step_with_local_moments_misses(group):
+    per_rank = _ddp_results(group, "ddp_contrastive_local_moments", 2)
+    for result in per_rank:
+        assert md.ddp_gate(result, group[1]["ddp_contrastive"]) > 1.0
+
+
+def test_data_parallel_moco_kfold_and_its_resume_match_one_process(group):
+    """`moco_kfold` on 2 ranks against one process's run (f32: the losses
+    within 1e-5 relative, the min-loss weights within 1e-5 of their
+    magnitude, the features within 1e-4 of their largest after 4 LARS
+    steps); the resumed run restores every fold on both ranks, trains no
+    more and writes the same features bitwise."""
+    per_rank = _ddp_results(group, "ddp_moco_kfold", 2)
+    dirs = group[1]["ddp_pretrain"]["dirs"]
+    want = group[1]["ddp_moco_kfold"]
+    ranks, one = dirs["moco_ranks"], dirs["moco_one"]
+    for first, resumed in per_rank:
+        assert first == resumed and sorted(first) == sorted(want) == [0, 1]
+        for fold in (0, 1):
+            assert abs(first[fold]["min_loss"] - want[fold]["min_loss"]) <= 1e-5 * abs(want[fold]["min_loss"])
+    with open(os.path.join(ranks, "log.txt")) as f, open(os.path.join(one, "log.txt")) as g:
+        got_rows, want_rows = [json.loads(x) for x in f], [json.loads(x) for x in g]
+    assert [(r["fold"], r["epoch"]) for r in got_rows] == [(r["fold"], r["epoch"]) for r in want_rows] == [
+        (k, e) for k in (0, 1) for e in (0, 1)]
+    for r, w in zip(got_rows, want_rows):
+        assert abs(r["train_loss"] - w["train_loss"]) <= 1e-5 * abs(w["train_loss"])
+    for fold in (0, 1):
+        got_sd, want_sd = (torch.load(os.path.join(work, "checkpoints", f"fold_{fold}", "checkpoint-min_loss.pth"),
+                                      map_location="cpu", weights_only=True) for work in (ranks, one))
+        assert set(got_sd) == set(want_sd)
+        for n, w in want_sd.items():
+            assert float((got_sd[n] - w).abs().max()) <= 1e-5 * max(float(w.abs().max()), 1.0), n
+        assert os.path.exists(os.path.join(ranks, "checkpoints", f"fold_{fold}", "resume-state.pth"))
+    feat_dir, want_dir = os.path.join(ranks, "ssl_features_dir"), os.path.join(one, "ssl_features_dir")
+    names = sorted(os.listdir(want_dir))
+    assert len(names) == 8 and sorted(n for n in os.listdir(feat_dir) if not n.endswith(".first")) == names
+    for name in names:
+        got, w = np.load(os.path.join(feat_dir, name)), np.load(os.path.join(want_dir, name))
+        np.testing.assert_array_equal(got, np.load(os.path.join(feat_dir, name + ".first")))
+        assert got.shape == w.shape and got.dtype == w.dtype
+        if "labels" in name:
+            np.testing.assert_array_equal(got, w)
+        else:
+            assert np.abs(got - w).max() <= 1e-4 * np.abs(w).max(), name

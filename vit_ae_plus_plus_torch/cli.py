@@ -22,10 +22,13 @@
         --work-dir moco1 [--moco-arch vit|resnet]
     python -m vit_ae_plus_plus_torch.cli moco-extract --data-path splits \
         --work-dir feats --checkpoint moco1 [--fold K]
+    python -m vit_ae_plus_plus_torch.cli contrastive-train --data-path splits \
+        --work-dir contr1 [--use-proj]
 
 `serve`, `prepare-data`, `pretrain-kfold`, `extract-features`,
 `probe-kfold`, `finetune-kfold`, `finetune`, `eval-classical` (`--method
-svm`), `resnet-kfold`, `moco-kfold` and `moco-extract` are ported so far. Every ViT checkpoint they read
+svm`), `resnet-kfold`, `moco-kfold`, `moco-extract` and
+`contrastive-train` are ported so far. Every ViT checkpoint they read
 is a reference-layout `.pth`, as the JAX package's `export-torch` and this
 package's `pretrain-kfold` write it. All but `prepare-data` and
 `eval-classical` run on `cuda` unless `--device cpu` is given.
@@ -37,7 +40,8 @@ section over them (configs/ini.py); they print their results as one JSON
 line last.
 
 `--n-devices N` (N > 1) on `pretrain-kfold`, `probe-kfold`,
-`finetune-kfold`, `finetune` and `extract-features` runs the command on N
+`finetune-kfold`, `finetune`, `extract-features`, `moco-kfold` and
+`contrastive-train` runs the command on N
 spawned ranks (`parallel.run_ranks`), each under a data mesh of (N, 1):
 NCCL with rank r on `cuda:r`, refused before any spawn when fewer than N
 cards are visible, or gloo ranks on the CPU with `--device cpu`. The
@@ -128,6 +132,7 @@ def build_parser() -> argparse.ArgumentParser:
         "resnet-kfold": "supervised 3D-ResNet k-fold baseline (pipelines/resnet_kfold.py)",
         "moco-kfold": "MoCo-v3 k-fold pretraining and per-fold trunk features (pipelines/moco_kfold.py)",
         "moco-extract": "trunk features of MoCo checkpoints without training (pipelines/moco_kfold.py)",
+        "contrastive-train": "two-view contrastive ViT training, negative cosine loss (pipelines/contrastive.py)",
     }
     for name, text in helps.items():
         p = sub.add_parser(name, help=text)
@@ -157,6 +162,9 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument("--checkpoint", required=True,
                            help="a moco-kfold work dir, or one checkpoint (.pth)")
             p.add_argument("--fold", type=int, default=None)
+        if name == "contrastive-train":
+            p.add_argument("--use-proj", action="store_true",
+                           help="apply the 3-layer projector (reference use_proj)")
         if name == "extract-features":
             p.add_argument("--checkpoint", required=True, help="MAE checkpoint (.pth)")
             p.add_argument("--only-test-split", action="store_true")
@@ -200,10 +208,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model", default="contr_mae_vit_base_patch16")
     p.add_argument("--n-splits", type=int, default=5)
     p.add_argument("--n-devices", type=int, default=None,
-                   help="data-parallel devices: pretrain-kfold, probe-kfold, finetune-kfold, finetune "
-                        "and extract-features run on N ranks, one per card over NCCL (gloo ranks on "
-                        "the CPU with --device cpu), each on batch-size / N rows of every batch; "
-                        "moco-kfold and resnet-kfold refuse N > 1")
+                   help="data-parallel devices: pretrain-kfold, probe-kfold, finetune-kfold, finetune, "
+                        "extract-features, moco-kfold and contrastive-train run on N ranks, one per card "
+                        "over NCCL (gloo ranks on the CPU with --device cpu), each on batch-size / N rows "
+                        "of every batch; resnet-kfold refuses N > 1")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device-augment", action="store_true",
                    help="augmentation on the card (not ported yet: refused)")
@@ -301,7 +309,8 @@ def prepare_data(args) -> None:
         S.refine_1p19q_scans(args.out_dir)
 
 
-DATA_PARALLEL = ("pretrain-kfold", "probe-kfold", "finetune-kfold", "finetune", "extract-features")
+DATA_PARALLEL = ("pretrain-kfold", "probe-kfold", "finetune-kfold", "finetune", "extract-features", "moco-kfold",
+                 "contrastive-train")
 
 
 def main(argv=None) -> int:
@@ -402,6 +411,12 @@ def command(args):
                             arch=args.moco_arch, resnet_depth=args.resnet_depth, moco_dim=args.moco_dim,
                             moco_mlp_dim=args.moco_mlp_dim, n_splits=args.n_splits, fold_idx=args.fold,
                             compute_dtype=args.compute_dtype, device=args.device)
+    elif args.cmd == "contrastive-train":
+        from vit_ae_plus_plus_torch.pipelines.contrastive import contrastive_train
+
+        data_cfg, train_cfg = configs_from_args(args)
+        return contrastive_train(data_cfg, train_cfg, args.work_dir, use_proj=args.use_proj,
+                                 n_devices=args.n_devices, device=args.device)
     elif args.cmd == "eval-classical":
         from vit_ae_plus_plus_torch.pipelines.eval_classical import evaluate_features
 

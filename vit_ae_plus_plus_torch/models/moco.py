@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import math
 
 import torch
 import torch.nn.functional as F
@@ -34,7 +33,15 @@ from torch import nn
 
 from vit_ae_plus_plus_torch.configs import ViTConfig
 from vit_ae_plus_plus_torch.models.resnet3d import ResNet3D, init_batchnorm, init_conv
-from vit_ae_plus_plus_torch.models.vit import FlaxBatchNorm, VisionTransformer3D, _linear, compute_dtype
+from vit_ae_plus_plus_torch.models.vit import (
+    FlaxBatchNorm,
+    VisionTransformer3D,
+    _linear,
+    compute_dtype,
+    init_heads,
+    init_vit_trunk,
+)
+from vit_ae_plus_plus_torch.parallel import all_gather_batch, data_coords, get_mesh
 
 
 class MoCoMLP(nn.Sequential):
@@ -94,22 +101,10 @@ class _MoCo(nn.Module):
             p.requires_grad_(False)
         return enc
 
-    @torch.no_grad()
     def _init_heads(self, generator: torch.Generator) -> None:
-        """The heads' init in the JAX package: each Linear uniform with
-        variance 1 / (3 fan_in) (torch's Linear default, `torch_linear_init`),
-        each BatchNorm at scale 1, bias 0, mean 0, variance 1."""
-        for head in (self.projector, self.predictor):
-            for m in head:
-                if isinstance(m, nn.Linear):
-                    lim = math.sqrt(1.0 / m.weight.shape[1])
-                    m.weight.uniform_(-lim, lim, generator=generator)
-                elif isinstance(m, FlaxBatchNorm):
-                    if m.affine:
-                        m.weight.fill_(1.0)
-                        m.bias.zero_()
-                    m.running_mean.zero_()
-                    m.running_var.fill_(1.0)
+        """The heads' init in the JAX package (`init_heads`), the projector
+        first."""
+        init_heads([*self.projector, *self.predictor], generator)
 
 
 class MoCoViT3D(_MoCo):
@@ -127,27 +122,10 @@ class MoCoViT3D(_MoCo):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "MoCoViT3D":
-        """The JAX package's init: the trunk's Linear weights and the patch
-        embed (as its (p^3 C, D) matrix) xavier-uniform with zero biases,
-        cls_token and pos_embed N(0, 0.02), LayerNorm 1 / 0; the heads as
+        """The JAX package's init: the trunk as `init_vit_trunk` (the
+        projector's Linear layers left to `_init_heads`), the heads as
         `_init_heads`."""
-        trunk = self.base_encoder
-        heads = set(self.projector.modules()) | set(self.predictor.modules())
-        for m in trunk.modules():
-            if isinstance(m, nn.Linear) and m not in heads:
-                fan_out, fan_in = m.weight.shape
-                lim = math.sqrt(6.0 / (fan_in + fan_out))
-                m.weight.uniform_(-lim, lim, generator=generator)
-                m.bias.zero_()
-            elif isinstance(m, nn.LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-        w = trunk.patch_embed.proj.weight
-        lim = math.sqrt(6.0 / (w[0].numel() + w.shape[0]))
-        w.uniform_(-lim, lim, generator=generator)
-        trunk.patch_embed.proj.bias.zero_()
-        for t in (trunk.cls_token, trunk.pos_embed):
-            t.normal_(0.0, 0.02, generator=generator)
+        init_vit_trunk(self.base_encoder, generator, skip=set(self.projector.modules()))
         self._init_heads(generator)
         return self
 
@@ -195,14 +173,16 @@ def ema_update(momentum: list, base: list, m: float) -> None:
     torch._foreach_add_(momentum, torch._foreach_mul(base, 1.0 - m))
 
 
-def info_nce(q: torch.Tensor, k: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
-    """InfoNCE with arange labels (builder.py:63-75): the cross-entropy of
-    the cosine logits / T, times 2T."""
+def info_nce(q: torch.Tensor, k: torch.Tensor, temperature: float = 1.0, first_label: int = 0) -> torch.Tensor:
+    """InfoNCE (builder.py:63-75): the cross-entropy of the cosine logits of
+    the queries `q` (b, dim) against the keys `k` (B, dim) over T, the label
+    of query i the key first_label + i, times 2T. One process: B = b and
+    the labels arange(b)."""
     q = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
     k = k / torch.linalg.vector_norm(k, dim=1, keepdim=True)
     dt = torch.promote_types(q.dtype, k.dtype)
     logits = (q.to(dt) @ k.to(dt).T) / temperature
-    labels = torch.arange(logits.shape[0], device=logits.device)
+    labels = first_label + torch.arange(logits.shape[0], device=logits.device)
     return F.cross_entropy(logits, labels) * (2.0 * temperature)
 
 
@@ -213,7 +193,9 @@ def moco_loss(model: _MoCo, momentum_encoder: nn.Module, x1: torch.Tensor, x2: t
     pass sees the running statistics x1's pass moved), keys through the
     momentum encoder on batch statistics without gradients. The key
     passes move the momentum encoder's running statistics too; the caller
-    restores them (the JAX package discards those updates)."""
+    restores them (the JAX package discards those updates). Under a data
+    mesh, x1 and x2 are this rank's rows and the keys are the global
+    batch's (module docstring)."""
     model.train()
     momentum_encoder.train()
     q1 = model(x1, use_predictor=True)
@@ -221,4 +203,10 @@ def moco_loss(model: _MoCo, momentum_encoder: nn.Module, x1: torch.Tensor, x2: t
     with torch.no_grad():
         k1 = model.encode(momentum_encoder, x1)
         k2 = model.encode(momentum_encoder, x2)
-    return info_nce(q1, k2, temperature) + info_nce(q2, k1, temperature)
+    d, size = data_coords()
+    first = 0
+    if size > 1:
+        keys = all_gather_batch(torch.cat([k1, k2], dim=1), get_mesh())
+        k1, k2 = keys.split(k1.shape[1], dim=1)
+        first = d * q1.shape[0]
+    return info_nce(q1, k2, temperature, first) + info_nce(q2, k1, temperature, first)

@@ -12,6 +12,11 @@ at least f32 and the result is cast back; attention's softmax is at least
 f32 (kernels/). The contrastive heads' BatchNorm follows flax, not torch
 (`FlaxBatchNorm`).
 
+`VisionTransformer3DContrastive` is the two-view contrastive model that
+`contrastive-train` trains: a headless trunk and `ContrastiveHeads` (a
+predictor, and optionally a projector), the JAX package's module of that
+name.
+
 A block's LayerNorms run one of three ways, as in the JAX package:
 `ln_fusion="on"` fuses norm1 into attn.qkv and norm2 into mlp.fc1
 (kernels/fused_ln_dense.py; 'auto' never fuses), `ln_dtype="bfloat16"`
@@ -22,6 +27,8 @@ all three, so one state dict loads into any of them.
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import warnings
 
 import torch
@@ -347,3 +354,97 @@ class MLPHead(nn.Sequential):
         for layer in self:
             x = _linear(x.to(self.dtype), layer) if isinstance(layer, nn.Linear) else layer(x)
         return x
+
+
+class ContrastiveHeads(nn.Module):
+    """The predictor (`MLPHead`, one hidden layer and a biased Linear) and,
+    with `use_proj`, the projector (two hidden layers, a bias-free Linear
+    and an affine-free BatchNorm) of two-view contrastive training (the
+    JAX package's `ContrastiveHeads`, reference model/vit.py:301-337). The
+    projector, where it exists, is applied to both views before the
+    predictor."""
+
+    def __init__(self, dim: int, use_proj: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.use_proj = use_proj
+        if use_proj:
+            self.projector = MLPHead(dim, num_hidden=2, final_dense=False, dtype=dtype)
+        self.predictor = MLPHead(dim, num_hidden=1, final_dense=True, dtype=dtype)
+
+    def forward(self, z1: torch.Tensor, z2: torch.Tensor):
+        if self.use_proj:
+            z1, z2 = self.projector(z1), self.projector(z2)
+        return self.predictor(z1), self.predictor(z2), z1, z2
+
+
+class VisionTransformer3DContrastive(nn.Module):
+    """The classifier trunk with SimSiam heads (JAX package
+    `VisionTransformer3DContrastive`): z = trunk(x) for each view, the
+    projector when `use_proj`, the predictor; `forward(x1, x2)` returns
+    (p1, p2, z1, z2) with z1 and z2 detached. The trunk is built headless
+    (num_classes 0), the only setting in which the reference's heads at
+    embed_dim can run. Train or eval mode is the module's (the heads'
+    BatchNorm). State dict: `trunk.*` and `heads.predictor.*` /
+    `heads.projector.*` at `MLPHead`'s Sequential indices."""
+
+    def __init__(self, cfg: ViTConfig, use_proj: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.use_proj = use_proj
+        self.trunk = VisionTransformer3D(dataclasses.replace(cfg, num_classes=0))
+        self.heads = ContrastiveHeads(cfg.embed_dim, use_proj, compute_dtype(cfg.dtype))
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor):
+        p1, p2, z1, z2 = self.heads(self.trunk(x1), self.trunk(x2))
+        return p1, p2, z1.detach(), z2.detach()
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "VisionTransformer3DContrastive":
+        """The JAX package's init: the trunk as `init_vit_trunk`, the heads as
+        `init_heads`."""
+        init_vit_trunk(self.trunk, generator)
+        init_heads(self.heads.modules(), generator)
+        return self
+
+
+@torch.no_grad()
+def init_vit_trunk(trunk: VisionTransformer3D, generator: torch.Generator, skip=frozenset()) -> None:
+    """The JAX package's init of a ViT trunk, drawn from `generator`: the
+    Linear weights (but those of `skip`, a set of modules) and the patch
+    embed (as its (p^3 C, D) matrix) xavier-uniform with zero biases,
+    cls_token and pos_embed N(0, 0.02), LayerNorm 1 / 0."""
+    for m in trunk.modules():
+        if isinstance(m, nn.Linear) and m not in skip:
+            fan_out, fan_in = m.weight.shape
+            lim = math.sqrt(6.0 / (fan_in + fan_out))
+            m.weight.uniform_(-lim, lim, generator=generator)
+            m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    w = trunk.patch_embed.proj.weight
+    lim = math.sqrt(6.0 / (w[0].numel() + w.shape[0]))
+    w.uniform_(-lim, lim, generator=generator)
+    trunk.patch_embed.proj.bias.zero_()
+    for t in (trunk.cls_token, trunk.pos_embed):
+        t.normal_(0.0, 0.02, generator=generator)
+
+
+@torch.no_grad()
+def init_heads(modules, generator: torch.Generator) -> None:
+    """The JAX package's init of SimSiam and MoCo heads, over `modules` in
+    order: each Linear uniform with variance 1 / (3 fan_in) (torch's Linear
+    default, `torch_linear_init`) and a zero bias, each BatchNorm at scale
+    1, bias 0, mean 0, variance 1."""
+    for m in modules:
+        if isinstance(m, nn.Linear):
+            lim = math.sqrt(1.0 / m.weight.shape[1])
+            m.weight.uniform_(-lim, lim, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, FlaxBatchNorm):
+            if m.affine:
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)

@@ -28,9 +28,22 @@ best loss), where the JAX package writes orbax directories of those names;
 draw of JAX's distributions from a `torch.Generator` seeded with the
 train config's seed, the same for every fold.
 
-Not ported yet, and refused before any data is read: data parallelism
-over more than one device and a mesh (ROADMAP Queue 1 item 1b), and FSDP
-(item 6).
+Data parallelism: `n_devices` > 1 runs on that many ranks, each under a
+mesh of (n_devices, 1) (the CLI's `--n-devices` launches them; the JAX
+package's data mesh). `batch_size` stays the global batch and the
+learning rate's; each rank loads and trains on its rows of the
+one-process run's batches (`Loader(shard_rows=...)`), the loss takes the
+global batch's keys and BatchNorm moments (models/moco.py), and the step
+averages the gradients and the loss over the group, so every rank applies
+the same LARS update and keeps the same EMA. The group's first rank alone
+takes the work-dir lock and writes: the fold index files (which the others
+then read), `log.txt`, the min-loss `.pth`, the resume state and the
+features; every rank reads the resume state, and after a barrier the
+min-loss `.pth`, from which the ranks extract their rows of each batch
+and gather them in the one-process order.
+
+Not ported yet, and refused before any data is read: FSDP (ROADMAP Queue
+1 item 6) and a mesh with a model axis (item 6).
 """
 
 from __future__ import annotations
@@ -50,10 +63,13 @@ from vit_ae_plus_plus_torch.data.loader import all_labels, cuda_prefetch
 from vit_ae_plus_plus_torch.data.splits import kfold_indices
 from vit_ae_plus_plus_torch.device import resolve_device
 from vit_ae_plus_plus_torch.models.moco import MoCoResNet3D, MoCoViT3D, ema_update, moco_loss
+from vit_ae_plus_plus_torch.parallel import barrier, data_coords, data_parallel, get_mesh, writer_first
 from vit_ae_plus_plus_torch.pipelines.extract_features import loader_features
+from vit_ae_plus_plus_torch.pipelines.pretrain_kfold import requested_devices
 from vit_ae_plus_plus_torch.train import warmup_cosine_schedule
 from vit_ae_plus_plus_torch.train.checkpoint import save_atomic, save_state_dict
-from vit_ae_plus_plus_torch.train.metrics import JsonlLogger
+from vit_ae_plus_plus_torch.train.metrics import Discard, JsonlLogger
+from vit_ae_plus_plus_torch.train.step import average_grads, check_data_axis, data_mean
 from vit_ae_plus_plus_torch.train.optim import LARS, make_lars
 from vit_ae_plus_plus_torch.utils.locking import locked_workdir
 
@@ -98,6 +114,13 @@ class TwoCropsDataset:
         v2, _, _ = self.dataset[item]
         return v1, v2, label
 
+    def count_access(self, item: int, n: int = 1) -> None:
+        """Count `n` accesses of `item` without loading it, two of the
+        underlying dataset's each (a row-sharded loader counts the other
+        ranks' rows: data/loader.py)."""
+        if hasattr(self.dataset, "count_access"):
+            self.dataset.count_access(item, 2 * n)
+
 
 def _batch_stats(module: nn.Module) -> list:
     return [b for n, b in module.named_buffers() if n.endswith(("running_mean", "running_var"))]
@@ -106,9 +129,14 @@ def _batch_stats(module: nn.Module) -> list:
 def make_moco_train_step(model: nn.Module, temperature: float = 1.0):
     """`train_step(state, x1, x2, m) -> (state, {"loss"})`: one MoCo update
     in the order the module docstring gives. Takes tensors on the model's
-    device; the loss stays there."""
+    device; the loss stays there. Under a `parallel.set_mesh` mesh of
+    (D, 1), x1 and x2 are this rank's rows of the global batch, the
+    gradients are averaged over the 'data' group before LARS and the loss
+    is the group's mean; a mesh with data > 1 and model > 1 raises
+    `ValueError`."""
 
     def train_step(state: MoCoState, x1: torch.Tensor, x2: torch.Tensor, m: float):
+        check_data_axis()
         mom = state.momentum_encoder
         ema_update(list(mom.parameters()), list(state.model.base_encoder.parameters()), m)
         mom_stats = _batch_stats(mom)
@@ -117,12 +145,13 @@ def make_moco_train_step(model: nn.Module, temperature: float = 1.0):
         for p in state.tx.params:
             p.grad = None
         loss.backward()
+        average_grads(state.tx.params)
         state.tx.step()
         with torch.no_grad():
             torch._foreach_copy_(mom_stats, kept)
         ema_update(mom_stats, _batch_stats(state.model.base_encoder), m)
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, data_mean({"loss": loss.detach()})
 
     return train_step
 
@@ -149,19 +178,14 @@ def build_moco_model(
     return MoCoViT3D(vit_cfg, dim=moco_dim, mlp_dim=moco_mlp_dim)
 
 
-def check_supported(train_cfg: TrainConfig, n_devices: Optional[int] = None, mesh=None,
-                    fsdp: bool = False) -> None:
+def check_supported(train_cfg: TrainConfig, n_devices: Optional[int] = None, fsdp: bool = False):
     """Raise `NotImplementedError` for a setting whose path the port does not
-    have yet."""
-    refused = [
-        (fsdp or train_cfg.fsdp, "fsdp (both encoders and the LARS traces sharded over 'data')", "item 6"),
-        ((n_devices or 1) > 1 or train_cfg.mesh_shape[0] > 1 or mesh is not None,
-         "n_devices > 1, a data mesh or a mesh (data-parallel training: the keys all-gathered for the "
-         "global batch's logits, the momentum encoder's moments)", "item 1b"),
-    ]
-    for bad, what, item in refused:
-        if bad:
-            raise NotImplementedError(f"moco-kfold: {what} is not ported yet (ROADMAP Queue 1 {item})")
+    have yet, and `ValueError` when the ambient mesh is not the data mesh of
+    `n_devices` (`parallel.data_parallel`). -> (d, D) on the 'data' axis."""
+    if fsdp or train_cfg.fsdp:
+        raise NotImplementedError("moco-kfold: fsdp (both encoders and the LARS traces sharded over 'data') "
+                                  "is not ported yet (ROADMAP Queue 1 item 6)")
+    return data_parallel(requested_devices(train_cfg, n_devices), "moco-kfold")
 
 
 def min_loss_path(work_dir: str, fold_idx: int) -> str:
@@ -227,28 +251,30 @@ def moco_kfold(
     vit_overrides: Optional[Dict] = None,
     arch: str = "vit",
     resnet_depth: int = 10,
-    mesh=None,
     fsdp: bool = False,
     n_devices: Optional[int] = None,
     device=None,
 ) -> Dict:
     """-> {fold: {"min_loss"}}. Runs on `cuda` unless `device` names another
-    device, and raises when CUDA is asked for and absent."""
-    check_supported(train_cfg, n_devices, mesh, fsdp)
+    device, and raises when CUDA is asked for and absent. `n_devices` > 1:
+    one of that many ranks (module docstring)."""
+    d, size = check_supported(train_cfg, n_devices, fsdp)
     dev = resolve_device(device)
+    writer = d == 0
     epochs = epochs if epochs is not None else train_cfg.epochs
     dataset_v1 = get_dataset(data_cfg.name, "whole", data_cfg, transforms=default_ssl_transforms(),
                              use_z_score=data_cfg.use_z_score)
     dataset_no_aug = get_dataset(data_cfg.name, "whole", data_cfg, transforms=None,
                                  use_z_score=data_cfg.use_z_score)
     labels = all_labels(dataset_v1)
-    fold_list = folds if folds is not None else kfold_indices(
+    fold_list = folds if folds is not None else writer_first(lambda: kfold_indices(
         labels, n_splits, index_dir=os.path.join(work_dir, "k_fold", "indices_file")
-    )
-    jsonl = JsonlLogger(work_dir)
+    ))
+    jsonl = JsonlLogger(work_dir) if writer else Discard()
     two_crops = TwoCropsDataset(dataset_v1)
     ck_every = max(1, train_cfg.ckpt_every)
     feat_dir = os.path.join(work_dir, "ssl_features_dir")
+    shard = (d, size) if size > 1 else None
 
     results = {}
     for fold_idx, (train_ids, test_ids) in enumerate(fold_list):
@@ -256,9 +282,11 @@ def moco_kfold(
                                  vit_overrides)
         model.init_weights(torch.Generator().manual_seed(train_cfg.seed))
         model.to(dev)
+        # a global per-epoch reshuffle; under a data mesh, this rank's rows
+        # of each global batch
         loader = Loader(two_crops, train_cfg.batch_size, indices=train_ids, shuffle=True, drop_last=True,
-                        seed=train_cfg.seed)
-        actual_lr = lr * train_cfg.batch_size / 256
+                        seed=train_cfg.seed, shard_rows=shard)
+        actual_lr = lr * train_cfg.batch_size / 256  # the global batch, as JAX
         sched = warmup_cosine_schedule(actual_lr, 0.0, warmup_epochs, epochs, len(loader))
         state = create_moco_state(model, make_lars(sched, weight_decay=weight_decay))
         train_step = make_moco_train_step(model, temperature)
@@ -274,14 +302,14 @@ def moco_kfold(
             print(f"Fold {fold_idx}: resumed at epoch {start_epoch} (min loss so far {min_loss:.4f})")
         for epoch in range(start_epoch, epochs):
             state, mean_loss = train_epoch(train_step, state, loader, epoch, epochs, moco_m, moco_m_cos, dev)
-            if mean_loss < min_loss:
+            if mean_loss < min_loss:  # the group's mean loss: every rank keeps the same best
                 min_loss = mean_loss
                 # parameters and BatchNorm statistics, as the reference saves
                 # and reloads (main_3d_moco_k_fold.py:261-268, 295-322)
                 best = {k: v.detach().clone() for k, v in model.state_dict().items()}
                 best_dirty = True
             jsonl.write({"train_loss": mean_loss, "epoch": epoch, "fold": fold_idx})
-            if epoch % ck_every == ck_every - 1 or epoch == epochs - 1:
+            if writer and (epoch % ck_every == ck_every - 1 or epoch == epochs - 1):
                 if best_dirty:
                     save_state_dict(ckpt, best)
                     best_dirty = False
@@ -289,7 +317,9 @@ def moco_kfold(
         results[fold_idx] = {"min_loss": min_loss}
 
         # features from the saved min-loss weights, as the reference reloads
-        # min_loss.pth.tar before extracting (main_3d_moco_k_fold.py:295-322)
+        # min_loss.pth.tar before extracting (main_3d_moco_k_fold.py:295-322);
+        # the first rank wrote them
+        barrier(get_mesh())
         for tag, ids in (("train", train_ids), ("test", test_ids)):
             extract_moco_features(model, ckpt, dataset_no_aug, np.sort(ids), train_cfg.batch_size, feat_dir, tag,
                                   fold_idx, device=dev)
@@ -310,17 +340,21 @@ def extract_moco_features(
     """Trunk-only features (eval mode) of `ids` from a saved MoCo checkpoint
     loaded into `model` (reference main_extract_ssl_features.py:100-284):
     `{tag}_contrast_ssl_features_split_{fold}.npy` (f32) and its labels
-    file; the last partial batch is padded with its first volume. -> the
-    features' path."""
+    file; the last partial batch is padded with its first volume. Under a
+    data mesh each rank runs its rows of each batch, and the first rank
+    writes the gathered features. -> the features' path."""
     dev = resolve_device(device)
     model.load_state_dict(torch.load(checkpoint_path, map_location="cpu", weights_only=True), strict=True)
     model.to(dev)
-    loader = Loader(dataset, batch_size, indices=ids, shuffle=False, drop_last=False)
+    d, size = data_coords()
+    loader = Loader(dataset, batch_size, indices=ids, shuffle=False, drop_last=False,
+                    shard_rows=(d, size) if size > 1 else None)
     feats, labels = loader_features(model.base_encoder, loader, batch_size, dev)
-    os.makedirs(out_dir, exist_ok=True)
     feat_path = os.path.join(out_dir, f"{tag}_contrast_ssl_features_split_{fold_idx}.npy")
-    np.save(feat_path, feats)
-    np.save(os.path.join(out_dir, f"{tag}_contrast_ssl_labels_split_{fold_idx}.npy"), labels)
+    if d == 0:
+        os.makedirs(out_dir, exist_ok=True)
+        np.save(feat_path, feats)
+        np.save(os.path.join(out_dir, f"{tag}_contrast_ssl_labels_split_{fold_idx}.npy"), labels)
     return feat_path
 
 

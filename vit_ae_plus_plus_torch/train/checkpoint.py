@@ -34,7 +34,10 @@ tree (top-level `trunk`, `projector`, `predictor`) goes to the reference
 MoCo layout: the trunk under `base_encoder.`, the projector where the
 reference grafts it (`base_encoder.head.` on a ViT, `base_encoder.fc.` on a
 ResNet), the predictor under `predictor.`, each head's `Dense_l` /
-`BatchNorm_l` at Sequential index 3l / 3l + 1.
+`BatchNorm_l` at Sequential index 3l / 3l + 1. A contrastive ViT tree
+(top-level `trunk` and `heads`, `VisionTransformer3DContrastive`) goes to
+`trunk.*` and `heads.predictor.*` / `heads.projector.*`, each head's
+layers where the MAE's heads put them.
 """
 
 from __future__ import annotations
@@ -179,6 +182,17 @@ def _moco_state_dict(tree: Dict, patch_size: Optional[int], in_chans: int,
     return sd
 
 
+def _contrastive_state_dict(tree: Dict, patch_size: Optional[int], in_chans: int,
+                            batch_stats: Optional[Dict]) -> Dict[str, torch.Tensor]:
+    heads = params_from_jax({"heads": tree["heads"]}, patch_size, in_chans,
+                            {"heads": (batch_stats or {}).get("heads", {})})
+    sd = {f"trunk.{k}": v for k, v in params_from_jax(tree["trunk"], patch_size, in_chans).items()}
+    for k, v in heads.items():
+        head, rest = k.split(".", 1)
+        sd[f"heads.{'projector' if head == _HEAD_TORCH_NAME['projector'] else head}.{rest}"] = v
+    return sd
+
+
 def params_from_jax(
     tree: Dict, patch_size: Optional[int] = None, in_chans: int = 1, batch_stats: Optional[Dict] = None
 ) -> Dict[str, torch.Tensor]:
@@ -189,10 +203,12 @@ def params_from_jax(
     (p^3*C, D) patch-embed kernel into the Conv3d layout; a ResNet tree
     (top-level `Conv_0`) needs neither: its conv kernels go from (kd, kh,
     kw, cin, cout) to (cout, cin, kd, kh, kw); a MoCo tree (top-level
-    `trunk`, `projector`, `predictor`, either trunk) takes its trunk's
-    arguments."""
+    `trunk`, `projector`, `predictor`, either trunk) and a contrastive ViT
+    tree (top-level `trunk`, `heads`) take their trunk's arguments."""
     if "trunk" in tree and "projector" in tree:
         return _moco_state_dict(tree, patch_size, in_chans, batch_stats)
+    if "trunk" in tree and "heads" in tree:
+        return _contrastive_state_dict(tree, patch_size, in_chans, batch_stats)
     if "Conv_0" in tree:
         return _resnet_state_dict(tree, batch_stats)
     if patch_size is None:

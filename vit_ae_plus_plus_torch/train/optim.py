@@ -62,6 +62,12 @@ def weight_decay_mask(named_params: Iterable[Tuple[str, torch.Tensor]]) -> Dict[
     return {name: p.ndim > 1 for name, p in named_params}
 
 
+def decay_everything(named_params: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, bool]:
+    """True for every parameter, biases and norms included: optax's `adamw`
+    without a mask (the JAX package's contrastive trainer)."""
+    return {name: True for name, _ in named_params}
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax `global_norm`),
     accumulated in at least f32, without a host sync."""
