@@ -36,6 +36,19 @@ non-zero exit when it fails:
    `VisionTransformer3D(ln_fusion="on")` with the engine's weights, held
    to the engine's features: 24 LayerNorm+Dense forward launches (12 at
    qkv, 12 at fc1) and 12 packed attention launches, and a profile of it;
+   4c. the rest of serving: a bf16 `ClassifierEngine` of 5 folds over
+   phase 3's trunk (each fold its own seeded head, fc_norm and last block)
+   held to the same weights with attn_impl="plain" and to the mean of the
+   five single-fold engines (CLASSIFY_TOL), 60 packed launches a slab;
+   `POST /predict` from 4 concurrent clients, each answer against
+   `engine.infer`, 60 packed launches a slab; a `.nii.gz` body against
+   the `.npy` body of the same volume; a 240x240x155 and a 128^3 request
+   resized on the card (`--resize-inputs`), the card's `resize_trilinear`
+   against its CPU run; the int8 `FeatureEngine` and `ClassifierEngine`
+   against the bf16 ones at the JAX package's bars (cosine, nearest
+   neighbour; probabilities within 0.05, same argmax), 12 per-head
+   launches a fold and slab; each path's device ms per slab printed
+   beside bf16 features, and a profile of the int8 feature slab;
 5. the full-width MAE pretraining step (96^3, patch 8, batch 8, bf16,
    ViT-B encoder over 2B = 16 masked views, 8-block decoder, composite loss,
    AdamW) from seeded numpy weights and batch statistics through
@@ -3229,6 +3242,277 @@ def step_ms(trainer, views, reps: int = TIMED_STEPS):
     return start.elapsed_time(end) / reps, shape_counts()
 
 
+# phase 4c: the rest of serving. A 5-fold bf16 classifier ensemble over
+# phase 3's trunk (each fold its own seeded head, fc_norm and last block),
+# POST /predict, NIfTI bodies, resized requests and the int8 engines
+FOLDS = 5
+# the ensemble's fold-mean probabilities, largest absolute difference: vs
+# the same weights with attn_impl="plain" (the kernel's bf16 P moves the
+# bf16 features, ENGINE_TOL, and the head and softmax carry that into the
+# probabilities; an H100 reads 9.5e-4, the limit is about four times it),
+# and vs the mean of the five single-fold engines (the same products, only
+# the f32 sum of five softmaxes in another order: an H100 reads 1.5e-8)
+CLASSIFY_TOL = {"plain": 4e-3, "folds": 1e-6}
+# the int8 engines vs the bf16 ones, the JAX package's own bars: features,
+# cosine above INT8_COS for every volume and every volume's nearest
+# neighbour kept (tests/test_quant_extract.py); the fold-mean
+# probabilities within INT8_PROB_TOL with the same argmax
+# (tests/test_serving.py)
+INT8_COS, INT8_PROB_TOL = 0.99, 0.05
+# resize_trilinear on the card vs its CPU run, largest error over the
+# largest magnitude: f32 products summed in another order (TF32 is off)
+RESIZE_TOL = 1e-5
+RESIZED_SHAPES = ((240, 240, 155), (128, 128, 128))  # a BraTS scan, and an upsample-free cube
+
+
+def classifier_trees(base: dict, cfg, folds: int) -> list:
+    """`folds` classifier trees in the JAX package's ViT layout over phase
+    3's MAE encoder weights `base` (patch embed, cls token, blocks) and the
+    graft's sincos pos_embed; each fold has its own seeded head (2
+    classes), fc_norm and last block, so the fold mean is no one fold's
+    answer. The shared leaves are the same arrays in every tree."""
+    from vit_ae_plus_plus_torch.ops import get_3d_sincos_pos_embed
+
+    d, hidden = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio)
+    shared = {k: v for k, v in base.items() if k != "norm"}
+    shared["pos_embed"] = get_3d_sincos_pos_embed(d, cfg.grid_size, cls_token=True)[None].astype(np.float32)
+    trees = []
+    for k in range(folds):
+        rng = np.random.default_rng(200 + k)
+        last = {"norm1": ln(rng, d), "norm2": ln(rng, d),
+                "attn": {"qkv": dense(rng, d, 3 * d), "proj": dense(rng, d, d)},
+                "mlp": {"Dense_0": dense(rng, d, hidden), "Dense_1": dense(rng, hidden, d)}}
+        trees.append({**shared, f"blocks_{cfg.depth - 1}": last, "fc_norm": ln(rng, d), "head": dense(rng, d, 2)})
+    return trees
+
+
+def classify_volumes() -> np.ndarray:
+    """Phase 4c's slab: 8 seeded 96^3 volumes, each with its own intensity
+    offset and scale, so that their features have nearest neighbours to
+    keep (i.i.d. noise volumes sit nearly equidistant)."""
+    rng = np.random.default_rng(21)
+    i = np.arange(BATCH, dtype=np.float32)[:, None, None, None, None]
+    noise = rng.standard_normal((BATCH, 1, VOLUME, VOLUME, VOLUME)).astype(np.float32)
+    return (1 + 0.25 * i) * noise + 0.5 * (i - 3.5)
+
+
+def note_launches(rows: list, counts: dict, field: str, path: str) -> None:
+    """Each kernel row that `counts` (one path's slab) launched at its shape
+    takes the count as `<field>_launches`, and the path's name."""
+    for row in rows:
+        n = counts.get((row["name"], row["key"]), 0)
+        if n:
+            row[f"{field}_launches"], row[f"{field}_path"] = n, path
+
+
+def int8_feature_check(engine, q_engine, vols) -> dict:
+    """The int8 FeatureEngine against the bf16 one on `vols`: every
+    volume's cosine above INT8_COS and its nearest neighbour kept, 12
+    per-head forward launches a slab and nothing else. -> its readings
+    and launches."""
+    want = engine.infer(vols)
+    got, counts = path_launches(q_engine, vols)
+    check(got.shape == want.shape and bool(np.isfinite(got).all()), f"int8 features: shape {got.shape}")
+    cos = np.sum(got * want, -1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(want, axis=-1))
+    d_want = np.linalg.norm(want[:, None] - want[None], axis=-1)
+    d_got = np.linalg.norm(got[:, None] - got[None], axis=-1)
+    order = np.argsort(d_want, -1)
+    kept = bool((order[:, 1] == np.argsort(d_got, -1)[:, 1]).all())
+    rows = np.arange(len(want))
+    margin = float(((d_want[rows, order[:, 2]] - d_want[rows, order[:, 1]]) / d_want[rows, order[:, 1]]).min())
+    print(f"int8 features vs bf16: cosine min {cos.min():.6f} (bar {INT8_COS}), nearest neighbour kept {kept} "
+          f"(the bf16 features' smallest gap to the second nearest {margin:.3g} of the nearest), "
+          f"rel err {rel_err(got, want):.3g}", flush=True)
+    check(cos.min() > INT8_COS, f"int8 features: cosine {cos.min():.6f} <= {INT8_COS}")
+    check(kept, "int8 features: a nearest neighbour changed")
+    check(totals(counts) == {**NO_LAUNCHES, "flash_fwd": 12},
+          f"int8 feature slab launched {totals(counts)} (want 12 per-head forward and nothing else)")
+    return counts
+
+
+def int8_case() -> None:
+    """Phase 4c's int8 feature check on its own (kernel_mutants.py's
+    main-path check for a broken dequantise): phase 3's weights, the bf16
+    engine against the int8 one on phase 4c's slab."""
+    sys.path.insert(0, str(REPO))
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+    from vit_ae_plus_plus_torch.serving import FeatureEngine
+
+    tree = mae_encoder_tree(MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH), seed=0)
+    common = dict(model_name=MODEL, volume_size=VOLUME, patch_size=PATCH, batch_size=BATCH, mae_params=tree)
+    int8_feature_check(FeatureEngine(**common), FeatureEngine(quantize="int8", **common), classify_volumes())
+
+
+def post_predict(port: int, body: bytes):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, json.loads(r.read())
+
+
+def npy_bytes(arr: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def predict_phase(ens, tmp: Path) -> dict:
+    """POST /predict through a BatchingQueue over the ensemble (built with
+    `resize`), counts set to 0 just before the concurrent requests and read
+    just after: 12 requests of 1-2 volumes from 4 clients, each answer
+    against `ens.infer`; then one `.nii.gz` body against the `.npy` body
+    of the same volume, and a 240x240x155 and a 128^3 request resized on
+    the card, each against `ens.infer` of the card's resize, which is held
+    to its CPU run. -> the run's launches."""
+    import torch
+
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+    from vit_ae_plus_plus_torch.ops import resize_trilinear
+    from vit_ae_plus_plus_torch.serving import BatchingQueue, make_http_server
+    from vit_ae_plus_plus_torch.utils.nifti import write_nifti
+
+    rng = np.random.default_rng(22)
+    sizes = [1, 2] * 6
+    requests = [rng.standard_normal((s, 1, VOLUME, VOLUME, VOLUME)).astype(np.float32) for s in sizes]
+    want = [ens.infer(r) for r in requests]
+    queue = BatchingQueue(ens, max_wait_ms=5.0)
+    server = make_http_server(classifier_queue=queue, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    results = [None] * len(requests)
+
+    def client(idxs):
+        for i in idxs:
+            results[i] = post_predict(port, npy_bytes(requests[i]))
+
+    clients = [threading.Thread(target=client, args=(list(range(c, len(requests), 4)),)) for c in range(4)]
+    try:
+        reset_launch_counts()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        counts = shape_counts()
+        stats = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=60).read())
+
+        vol = requests[0][0]
+        write_nifti(str(tmp / "v.nii.gz"), vol[0])
+        nifti = post_predict(port, (tmp / "v.nii.gz").read_bytes())
+        npy = post_predict(port, npy_bytes(vol))
+        resized = []
+        for i, shape in enumerate(RESIZED_SHAPES):
+            big = np.random.default_rng(30 + i).standard_normal((1, *shape)).astype(np.float32)
+            cpu = resize_trilinear(torch.from_numpy(big[None]), (1, 1, VOLUME, VOLUME, VOLUME))
+            card = resize_trilinear(torch.from_numpy(big[None]).cuda(), (1, 1, VOLUME, VOLUME, VOLUME))
+            resize_ms = cuda_ms(lambda: resize_trilinear(torch.from_numpy(big[None]).cuda(),
+                                                         (1, 1, VOLUME, VOLUME, VOLUME)), reps=3)
+            resized.append((shape, rel_err(card.cpu().numpy(), cpu.numpy()), resize_ms,
+                            post_predict(port, npy_bytes(big)), ens.infer(card.cpu().numpy())))
+    finally:
+        server.shutdown()
+        queue.close()
+        server.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "server thread did not stop")
+    check(all(r is not None for r in results), "a /predict request got no answer")
+    served_err = 0.0
+    for i, ((status, out), ref) in enumerate(zip(results, want)):
+        probs = np.asarray(out["probs"], np.float32)
+        check(status == 200 and out["num_folds"] == FOLDS, f"/predict {i}: status {status}, {out.get('num_folds')}")
+        check(probs.shape == (sizes[i], 2) and out["pred"] == probs.argmax(-1).tolist(), f"/predict {i}: {out}")
+        served_err = max(served_err, rel_err(probs, ref))
+    check(served_err <= SERVED_TOL, f"/predict vs engine.infer rel err {served_err:.3g}")
+    slabs = stats["total_batches"]
+    check(stats["total_requests"] == sum(sizes), f"/stats counted {stats['total_requests']}")
+    check(totals(counts) == {**NO_LAUNCHES, "packed_flash_fwd": 12 * FOLDS * slabs},
+          f"{slabs} /predict slabs launched {totals(counts)} (want {12 * FOLDS} packed forward per slab)")
+    nifti_err = rel_err(np.asarray(nifti[1]["probs"]), np.asarray(npy[1]["probs"]))
+    check(nifti[0] == 200 and nifti_err <= SERVED_TOL, f".nii.gz body vs .npy body: {nifti[0]}, {nifti_err:.3g}")
+    print(f"/predict: {len(sizes)} requests of {sum(sizes)} volumes in {slabs} slabs, served vs engine.infer rel "
+          f"err {served_err:.3g}, {12 * FOLDS} packed launches a slab; .nii.gz vs .npy body rel err {nifti_err:.3g}",
+          flush=True)
+    for shape, card_err, resize_ms, (status, out), ref in resized:
+        err = rel_err(np.asarray(out["probs"], np.float32), ref)
+        print(f"/predict with resize of {shape}: card vs CPU resize_trilinear rel err {card_err:.3g} (tol "
+              f"{RESIZE_TOL}), {resize_ms:.2f} ms on the card (CUDA events, with the upload); answer vs "
+              f"engine.infer of the resized volume rel err {err:.3g}", flush=True)
+        check(card_err <= RESIZE_TOL, f"resize {shape} on the card vs the CPU: rel err {card_err:.3g}")
+        check(status == 200 and err <= SERVED_TOL, f"resized request {shape}: status {status}, rel err {err:.3g}")
+    return counts
+
+
+def classify_phase(engine, tree: dict, rows: list, feature_ms: float) -> None:
+    """Phase 4c: the 5-fold bf16 ensemble held to plain and to its single
+    folds (60 packed launches a slab), /predict over HTTP with NIfTI and
+    resized requests, the int8 feature and classify engines held to the
+    bf16 ones (12 per-head launches a fold and slab), and each path's
+    device ms per slab beside bf16 features (information)."""
+    import torch
+
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+    from vit_ae_plus_plus_torch.serving import ClassifierEngine, FeatureEngine
+
+    t0 = time.perf_counter()
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    trees = classifier_trees(tree, cfg, FOLDS)
+    common = dict(model_name=MODEL, volume_size=VOLUME, patch_size=PATCH, batch_size=BATCH)
+    vols = classify_volumes()
+    ens = ClassifierEngine(vit_params_list=trees, resize=True, **common)
+    check(ens.num_folds == FOLDS, f"{ens.num_folds} folds")
+    ens.warmup()
+    probs, counts = path_launches(ens, vols)
+    check(probs.shape == (BATCH, 2) and bool(np.isfinite(probs).all())
+          and float(np.abs(probs.sum(-1) - 1).max()) < 1e-5, f"ensemble probabilities {probs}")
+    check(totals(counts) == {**NO_LAUNCHES, "packed_flash_fwd": 12 * FOLDS},
+          f"one ensemble slab launched {totals(counts)} (want {12 * FOLDS} packed forward and nothing else)")
+    note_launches(rows, counts, "classify", f"ClassifierEngine({FOLDS} folds, bf16).infer, one slab")
+    plain = ClassifierEngine(vit_params_list=trees, attn_impl="plain", **common).infer(vols)
+    plain_err = float(np.abs(probs - plain).max())
+    singles = []
+    for t in trees:
+        singles.append(ClassifierEngine(vit_params_list=[t], **common).infer(vols))
+        gc.collect()
+    folds_err = float(np.abs(probs - np.mean(singles, axis=0)).max())
+    spread = float(max(np.abs(s - singles[0]).max() for s in singles))
+    print(f"classify bf16, {FOLDS} folds: fold-mean probabilities vs attn_impl=plain max abs err {plain_err:.3g} "
+          f"(tol {CLASSIFY_TOL['plain']}), vs the mean of the single-fold engines {folds_err:.3g} (tol "
+          f"{CLASSIFY_TOL['folds']}); the folds' answers differ by up to {spread:.3g}", flush=True)
+    check(plain_err <= CLASSIFY_TOL["plain"], f"ensemble vs plain: {plain_err:.3g}")
+    check(folds_err <= CLASSIFY_TOL["folds"], f"ensemble vs single folds: {folds_err:.3g}")
+    check(spread > CLASSIFY_TOL["plain"], f"the folds' answers differ by only {spread:.3g}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_classify_") as tmp:
+        counts = predict_phase(ens, Path(tmp))
+    note_launches(rows, counts, "predict", f"serve: POST /predict through BatchingQueue ({FOLDS} folds)")
+
+    common["mae_params"] = tree
+    q_feat = FeatureEngine(quantize="int8", **common)
+    counts = int8_feature_check(engine, q_feat, vols)
+    note_launches(rows, counts, "int8_features", "FeatureEngine(quantize='int8').infer, one slab")
+    del common["mae_params"]
+    q_cls = ClassifierEngine(vit_params_list=trees, quantize="int8", **common)
+    q_probs, counts = path_launches(q_cls, vols)
+    q_err = float(np.abs(q_probs - probs).max())
+    same = bool((q_probs.argmax(-1) == probs.argmax(-1)).all())
+    print(f"int8 classify vs bf16, {FOLDS} folds: fold-mean probabilities max abs diff {q_err:.3g} (bar "
+          f"{INT8_PROB_TOL}), argmax kept {same} (the bf16 probabilities' nearest to 0.5: "
+          f"{float(np.abs(probs[:, 0] - 0.5).min()):.3g} away)", flush=True)
+    check(q_err < INT8_PROB_TOL and same, f"int8 classify vs bf16: {q_err:.3g}, argmax kept {same}")
+    check(totals(counts) == {**NO_LAUNCHES, "flash_fwd": 12 * FOLDS},
+          f"int8 classify slab launched {totals(counts)} (want {12 * FOLDS} per-head forward and nothing else)")
+    note_launches(rows, counts, "int8_classify", f"ClassifierEngine({FOLDS} folds, quantize='int8').infer, one slab")
+
+    slab = torch.from_numpy(vols).cuda()
+    times = {"bf16 features": feature_ms,
+             f"bf16 classify ({FOLDS} folds)": cuda_ms(lambda: ens._step(slab), reps=3),
+             "int8 features": cuda_ms(lambda: q_feat._step(slab), reps=5),
+             f"int8 classify ({FOLDS} folds)": cuda_ms(lambda: q_cls._step(slab), reps=3)}
+    print(f"serving device ms per slab of {BATCH} (CUDA events, {card_line()}): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in times.items()), flush=True)
+    profile_run(lambda: q_feat._step(slab), "int8 feature slab", times["int8 features"])
+    print(f"classify phase {time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def fused_vit_phase(engine, vols, engine_feats, rows) -> None:
     """One slab through `feature_step` on VisionTransformer3D(ln_fusion="on")
     with the engine's (grafted) weights: held to the engine's features, and
@@ -4455,6 +4739,10 @@ def main(argv) -> int:
     print(f"engine f32 auto forward_features on a device slab: {f32_device_ms:.2f} ms (CUDA events); "
           f"12 attention launches {f32_attn_ms:.2f} ms = {f32_attn_ms / f32_device_ms:.1%}", flush=True)
     profile_run(lambda: feature_step(f32.model, slab), "f32 slab", f32_device_ms)
+
+    # phase 4c: the classifier ensemble, /predict, NIfTI and resized
+    # requests, the int8 engines
+    classify_phase(engine, tree, rows, device_ms)
 
     # phase 5: the pretraining step at full width (5b: ln_fusion="on")
     t0 = time.perf_counter()

@@ -37,6 +37,11 @@ one check runs against it: `chip_smoke`'s phase 7a, ring and sequence-sharded
 attention at B=2, H=12, N=4,097, d=64 in 4 ranks on the card against
 `flash_attention`.
 
+The int8 mutant breaks the int8 engine's dequantise (`models/quant.py`,
+the per-token activation scale dropped) and loads the unbroken kernels,
+as a schedule mutant does; its one check is `chip_smoke.int8_case`, phase
+4c's int8 `FeatureEngine` against the bf16 one at the full-width slab.
+
 Each check must fail: a tolerance loose enough to pass a broken kernel or
 schedule shows here. The mutants' checks run four at a time on the one card (each is a
 correctness check, none is timed). Prints one line per mutant and exits 0
@@ -65,6 +70,7 @@ LND_F32_CASE = "chip_smoke.ln_dense_cases('ln_dense f32 decoder qkv', 13832, 512
 RING_CASE = "chip_smoke.ring_case('ring bf16 NB1032', 2, 12, 4097, 64, 4, seed=70)"
 SEQ_CASE = "chip_smoke.seq_case('seq bf16 N1032 Nk4097', 2, 12, 4097, 64, 4, seed=80)"
 GROUP_CASE = "chip_smoke.check_group_attention(chip_smoke.run_group(chip_smoke.attention_rank))"
+INT8_CASE = "chip_smoke.int8_case()"
 # name -> (file under the package, text in it, its broken replacement at
 # every occurrence, main-path check); a kernel mutant's file is under
 # kernels/csrc/
@@ -386,6 +392,12 @@ MUTANTS = {
         "dk, dv = ring_shift((dk, dv), mesh, axis)",
         "dk, dv = dk, dv",
         GROUP_CASE,
+    ),
+    "int8_no_token_scale": (  # the int8 dequantise drops the per-token activation scale
+        "models/quant.py",
+        'y = acc.float() * xscale * w["scale"]',
+        'y = acc.float() * w["scale"]',
+        INT8_CASE,
     ),
     "seq_dkdv_not_summed": (  # each rank keeps its own rows' share of dk and dv
         "kernels/seq_flash.py",

@@ -209,9 +209,17 @@ def test_extract_features_matches_jax(data_dir, pretrain_dir, tmp_path, monkeypa
                                       np.load(tmp_path / "jax" / f"{split}_gt_labels.npy"))
     with pytest.raises(ValueError, match="only_test_split"):
         tef.extract_ssl_features(DataConfig(name="egd"), ckpt + ".pth", str(tmp_path / "egd"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tef.extract_ssl_features(td, ckpt + ".pth", str(tmp_path / "q"), quantize="int8", device="cpu")
+    with pytest.raises(ValueError, match="quantize"):
+        tef.extract_ssl_features(td, ckpt + ".pth", str(tmp_path / "q"), quantize="int4", device="cpu")
     assert not (tmp_path / "egd").exists() and not (tmp_path / "q").exists()
+    # the int8 engine: the JAX package's int8 extraction's features within
+    # 1e-3 of the largest (tests/test_torch_port_quant.py's bar)
+    jef.extract_ssl_features(jd, ckpt, str(tmp_path / "jax_q"), quantize="int8", **kw)
+    tef.extract_ssl_features(td, ckpt + ".pth", str(tmp_path / "q"), quantize="int8", device="cpu", **kw)
+    for split in ("train", "test"):
+        want = np.load(tmp_path / "jax_q" / f"{split}_features.npy")
+        got = np.load(tmp_path / "q" / f"{split}_features.npy")
+        assert got.shape == want.shape and np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("mode", ["probe", "finetune_kfold", "finetune_single"])
@@ -332,8 +340,8 @@ def test_cli_refusals(cmd, tmp_path, capsys, monkeypatch):
     assert "does not split into 3" in capsys.readouterr().err
     assert not work.exists()  # before any spawn
     if cmd == "extract-features":
-        assert cli_run(argv + ["--quantize", "int8"]) == 2
-        assert "item 4" in capsys.readouterr().err
+        assert cli_run(argv + ["--quantize", "int8"]) == 2  # int8 runs: the missing checkpoint stops it
+        assert "none.pth" in capsys.readouterr().err
         assert cli_run(argv[:1] + ["--dataset", "egd"] + argv[1:]) == 2
         assert "only-test-split" in capsys.readouterr().err
         assert not work.exists()

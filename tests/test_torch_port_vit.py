@@ -149,10 +149,13 @@ def test_graft_checks_fresh_keys_and_grid(mae_params):
     sd = mae_params_to_vit(mae_sd, vit_sd, cfg, vit_cfg)
     assert set(sd) == set(vit_sd)
     np.testing.assert_array_equal(sd["fc_norm.weight"].numpy(), np.ones(24, np.float32))
+    # an MAE of another patch grid: its table resized to the ViT's grid
+    # (tests/test_torch_port_resize.py holds the table to JAX's)
+    other = MODEL_ZOO[TINY](volume_size=2 * VOL)
+    resized = mae_params_to_vit(mae_sd, vit_sd, other, vit_cfg)
+    assert resized["pos_embed"].shape == vit_sd["pos_embed"].shape
+    assert not torch.equal(resized["pos_embed"], sd["pos_embed"])
     del mae_sd["cls_token"]
     with pytest.raises(AssertionError, match="fresh"):
         mae_params_to_vit(mae_sd, vit_sd, cfg, vit_cfg)
-    other = MODEL_ZOO[TINY](volume_size=2 * VOL)
-    with pytest.raises(NotImplementedError, match="interpolation"):
-        mae_params_to_vit(mae_sd, vit_sd, other, vit_cfg)
     assert type(build_model(cfg)).__name__ == "MaskedAutoencoderViT3D"  # the MAE is ported

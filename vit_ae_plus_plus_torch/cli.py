@@ -1,6 +1,8 @@
 """Command-line interface of the port.
 
     python -m vit_ae_plus_plus_torch.cli serve --checkpoint mae.pth [...]
+    python -m vit_ae_plus_plus_torch.cli serve --task classify \
+        --checkpoint ft1 [--ensemble-criterion ft] [--quantize int8] [--resize-inputs]
     python -m vit_ae_plus_plus_torch.cli prepare-data brats --volumes flair_all.npy \
         --labels label_all.npy --out-dir splits
     python -m vit_ae_plus_plus_torch.cli prepare-data egd --csv rad.csv \
@@ -63,11 +65,23 @@ def build_parser() -> argparse.ArgumentParser:
 
     srv = sub.add_parser(
         "serve",
-        help="dynamic-batching HTTP feature-inference server (serving.py): "
-             "POST /features with .npy volumes, GET /healthz, GET /stats")
+        help="dynamic-batching HTTP inference server (serving.py): "
+             "POST /features or /predict with .npy or NIfTI-1 volumes, "
+             "GET /healthz, GET /stats")
     srv.add_argument("--checkpoint", required=True,
-                     help="reference-layout MAE state dict (.pth), as "
-                          "`vit_ae_plus_plus_tpu.cli export-torch` writes it")
+                     help="--task features: a reference-layout MAE state dict "
+                          "(.pth), as pretrain-kfold or `vit_ae_plus_plus_tpu.cli "
+                          "export-torch` writes it; --task classify: fine-tuned "
+                          "classifier .pth file(s), comma-separated, or a "
+                          "finetune-kfold work dir (fold ensemble)")
+    srv.add_argument("--task", default="features", choices=["features", "classify"],
+                     help="features: SSL features from an MAE checkpoint; "
+                          "classify: the fold-mean softmax of fine-tuned "
+                          "classifier checkpoints")
+    srv.add_argument("--num-classes", type=int, default=2)
+    srv.add_argument("--ensemble-criterion", default="ft", choices=["ft", "spec", "sens"],
+                     help="which per-fold best model to ensemble when "
+                          "--checkpoint is a finetune-kfold work dir")
     srv.add_argument("--model", default="contr_mae_vit_base_patch16")
     srv.add_argument("--volume-size", type=int, default=96)
     srv.add_argument("--in-channels", type=int, default=1)
@@ -77,8 +91,14 @@ def build_parser() -> argparse.ArgumentParser:
                           "and padded to it)")
     srv.add_argument("--compute-dtype", default="bfloat16",
                      choices=["float32", "bfloat16"])
+    srv.add_argument("--quantize", default="none", choices=["none", "int8"],
+                     help="int8: the trunk's Dense products on int8 operands "
+                          "(models/quant.py)")
     srv.add_argument("--normalize", default="none", choices=["none", "zscore"],
                      help="zscore: per-channel z-score each request volume")
+    srv.add_argument("--resize-inputs", action="store_true",
+                     help="trilinear-resample mismatched spatial dims to "
+                          "the model's volume size instead of rejecting")
     srv.add_argument("--max-wait-ms", type=float, default=5.0,
                      help="dynamic-batching gather window")
     srv.add_argument("--max-body-mb", type=int, default=1024,
@@ -169,7 +189,7 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument("--checkpoint", required=True, help="MAE checkpoint (.pth)")
             p.add_argument("--only-test-split", action="store_true")
             p.add_argument("--quantize", default="none", choices=["none", "int8"],
-                           help="int8: the int8 engine (not ported yet: refused)")
+                           help="int8: the int8 engine (models/quant.py)")
         p.add_argument("--device", default=None,
                        help="torch device (default: cuda; 'cpu' to run on the CPU)")
 
@@ -358,8 +378,10 @@ def command(args):
             args.checkpoint, model_name=args.model,
             volume_size=args.volume_size, in_chans=args.in_channels,
             patch_size=args.patch_size, batch_size=args.batch_size,
-            compute_dtype=args.compute_dtype, normalize=args.normalize,
-            max_wait_ms=args.max_wait_ms, host=args.host, port=args.port,
+            compute_dtype=args.compute_dtype, quantize=args.quantize,
+            normalize=args.normalize, max_wait_ms=args.max_wait_ms, host=args.host,
+            port=args.port, task=args.task, num_classes=args.num_classes,
+            ensemble_criterion=args.ensemble_criterion, resize=args.resize_inputs,
             max_body_mb=args.max_body_mb, device=args.device,
         )
     elif args.cmd == "prepare-data":

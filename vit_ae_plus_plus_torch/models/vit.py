@@ -208,6 +208,12 @@ class Block(nn.Module):
         return x + self.mlp(self._norm(x, self.norm2))
 
 
+def patch_embed_matrix(weight: torch.Tensor) -> torch.Tensor:
+    """The patch embed's Conv3d weight (D, C, p, p, p) as the (D, p^3 C)
+    matrix over patchify's (dz, dy, dx, c) rows."""
+    return weight.permute(0, 2, 3, 4, 1).reshape(weight.shape[0], -1)
+
+
 class PatchEmbed3D(nn.Module):
     """The reference's stride-p Conv3d, computed as patchify + matmul.
 
@@ -222,8 +228,7 @@ class PatchEmbed3D(nn.Module):
 
     def forward(self, volume: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         x = patchify(volume.to(dtype), self.patch_size)
-        w = self.proj.weight.permute(0, 2, 3, 4, 1).reshape(self.proj.out_channels, -1)
-        return _dense(x, w, self.proj.bias)
+        return _dense(x, patch_embed_matrix(self.proj.weight), self.proj.bias)
 
 
 class VisionTransformer3D(nn.Module):

@@ -9,7 +9,8 @@ from vit_ae_plus_plus_torch.ops.losses import (
 )
 from vit_ae_plus_plus_torch.ops.masking import random_masking, restore_tokens
 from vit_ae_plus_plus_torch.ops.patches import patch_grid_size, patchify, unpatchify
-from vit_ae_plus_plus_torch.ops.pos_embed import get_3d_sincos_pos_embed
+from vit_ae_plus_plus_torch.ops.pos_embed import get_3d_sincos_pos_embed, interpolate_pos_embed
+from vit_ae_plus_plus_torch.ops.resize import resize_trilinear
 
 __all__ = [
     "at_least_f32",
@@ -17,11 +18,13 @@ __all__ = [
     "gaussian_blur_3d",
     "gaussian_kernel_1d",
     "get_3d_sincos_pos_embed",
+    "interpolate_pos_embed",
     "masked_mse_loss",
     "negative_cosine_loss",
     "patch_grid_size",
     "patchify",
     "random_masking",
+    "resize_trilinear",
     "restore_tokens",
     "sobel_edges_3d",
     "soft_cross_entropy_with_weights",

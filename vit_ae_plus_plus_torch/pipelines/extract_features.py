@@ -9,8 +9,8 @@ reference-layout `.pth`, as `pretrain-kfold` writes it
 (`checkpoints/fold_k/checkpoint-min_loss.pth`) or the JAX package's
 `export-torch`; the JAX package reads its orbax directories instead.
 
-`quantize="int8"` (the JAX package's int8 engine) is not ported yet and
-raises before any file is read (ROADMAP Queue 1 item 4).
+`quantize="int8"` runs the int8 engine (models/quant.py) over the grafted
+weights, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from vit_ae_plus_plus_torch.data import Loader, get_dataset
 from vit_ae_plus_plus_torch.data.loader import cuda_prefetch
 from vit_ae_plus_plus_torch.device import resolve_device
 from vit_ae_plus_plus_torch.models import MODEL_ZOO
+from vit_ae_plus_plus_torch.models.quant import QuantizedViT
 from vit_ae_plus_plus_torch.parallel import all_gather_batch, data_parallel, get_mesh
 from vit_ae_plus_plus_torch.pipelines.transfer import build_grafted_vit
 from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict
@@ -86,11 +87,7 @@ def extract_ssl_features(
     each under a data mesh of (n_devices, 1) (the CLI's `--n-devices`
     launches them): each rank runs its rows of each batch of `batch_size`,
     and the first writes the features in the one-process order."""
-    if quantize == "int8":
-        raise NotImplementedError(
-            "extract-features: quantize='int8' (the int8 engine) is not ported yet "
-            "(ROADMAP Queue 1 item 4)")
-    if quantize != "none":
+    if quantize not in ("none", "int8"):
         raise ValueError(f"quantize must be 'none'|'int8', got {quantize!r}")
     d, size = data_parallel(n_devices, "extract-features")
     if data_cfg.name == "egd" and not only_test_split:
@@ -105,6 +102,8 @@ def extract_ssl_features(
     )
     vit_cfg = mae_cfg.encoder_vit_config(num_classes=data_cfg.num_classes, global_pool=True)
     model = build_grafted_vit(load_reference_state_dict(checkpoint_path), mae_cfg, vit_cfg, dev)
+    if quantize == "int8":
+        model = QuantizedViT(model.state_dict(), vit_cfg)
 
     splits = ["test"] if only_test_split else ["train", "test"]
     for split in splits:

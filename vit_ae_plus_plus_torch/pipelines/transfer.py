@@ -3,7 +3,8 @@
 Counterpart of the JAX package's pipelines/transfer.py, on state dicts under
 the reference keys. The blocks, the patch embed and the cls token are copied
 from the MAE; the MAE's fixed sincos table is written into the ViT's learned
-`pos_embed`; `fc_norm` (or, without global pooling, the MAE's `norm`) and
+`pos_embed`, resized when the MAE's patch grid is not the ViT's
+(`interpolate_pos_embed`, as the JAX package's graft does); `fc_norm` (or, without global pooling, the MAE's `norm`) and
 the classifier head follow the reference: fc_norm fresh (ones and zeros),
 head fresh (normal, std 0.02). The set of fresh modules is asserted as the
 reference asserts its missing keys. `build_grafted_vit` builds the ViT
@@ -18,7 +19,7 @@ import torch
 
 from vit_ae_plus_plus_torch.configs import MAEConfig, ViTConfig
 from vit_ae_plus_plus_torch.models import build_model
-from vit_ae_plus_plus_torch.ops import get_3d_sincos_pos_embed
+from vit_ae_plus_plus_torch.ops import get_3d_sincos_pos_embed, interpolate_pos_embed
 
 
 def _module_of(key: str) -> str:
@@ -38,11 +39,6 @@ def mae_params_to_vit(
 
     `vit_sd` gives the ViT's keys and shapes (a model built on the `meta`
     device will do). The fresh head is drawn from a generator seeded 0."""
-    if mae_cfg.num_patches != vit_cfg.num_patches:
-        raise NotImplementedError(
-            f"the MAE's {mae_cfg.num_patches} patches differ from the ViT's "
-            f"{vit_cfg.num_patches}: pos-embed interpolation is not ported yet"
-        )
     copy_modules = {"patch_embed", "cls_token"}
     if not vit_cfg.global_pool:
         copy_modules.add("norm")
@@ -55,7 +51,8 @@ def mae_params_to_vit(
             copied.add(mod)
 
     table = get_3d_sincos_pos_embed(mae_cfg.embed_dim, mae_cfg.grid_size, cls_token=True)
-    out["pos_embed"] = torch.as_tensor(table[None], dtype=torch.float32)
+    out["pos_embed"] = interpolate_pos_embed(torch.as_tensor(table[None], dtype=torch.float32),
+                                             vit_cfg.num_patches)
 
     # the reference's strict-missing-keys assert, as a structural check
     expected_fresh = {"head", "fc_norm"} if vit_cfg.global_pool else {"head"}

@@ -1,44 +1,67 @@
-"""Feature serving: a dynamic-batching inference server over the port's ViT.
+"""Serving: a dynamic-batching inference server over the port's ViT.
 
-Counterpart of the JAX package's serving.py for the feature task:
+Counterpart of the JAX package's serving.py:
 
 - `FeatureEngine`: MAE weights -> the ViT encoder on the card, run on
   fixed-size slabs of `batch_size` volumes (the last slab padded with
-  repeats). Requests reach the device through pinned host memory; a call's
-  slabs are gathered with one synchronising copy back.
+  repeats), in the compute dtype or on the int8 engine (models/quant.py).
+  Requests reach the device through pinned host memory; a call's slabs are
+  gathered with one synchronising copy back.
+- `ClassifierEngine`: one or more fine-tuned classifier checkpoints (a
+  k-fold ensemble) -> the fold-mean softmax, every fold's weights through
+  one module in one slab step.
 - `BatchingQueue`: gathers concurrent requests into slabs within a bounded
   wait, with admission control and latency/fill statistics.
 - `make_http_server` / `serve`: a stdlib ThreadingHTTPServer front end —
-  `POST /features` with a `.npy` body, `GET /healthz`, `GET /stats` —
-  exposed as the `serve` subcommand of cli.py; drains on SIGTERM.
+  `POST /features` and `POST /predict` with a `.npy` or NIfTI-1 body,
+  `GET /healthz`, `GET /stats` — exposed as the `serve` subcommand of
+  cli.py; drains on SIGTERM.
 
-Not ported yet: NIfTI request bodies (answered with 400), resizing of
-mismatched volumes, the int8 engine and the classifier engine.
+With `resize`, a request whose spatial size is not the model's is resampled
+on the engine's device (`ops.resize_trilinear`, the weights of
+`jax.image.resize`) before it is queued. Not ported: the JAX package's
+precompiled engines (`serve --engine`) and the serving mesh
+(`serve --n-devices`).
 """
 
 from __future__ import annotations
 
 import io
 import json
+import os
+import re
 import threading
 import time
 from collections import deque
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from vit_ae_plus_plus_torch.device import resolve_device
-from vit_ae_plus_plus_torch.models import MODEL_ZOO
+from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_model
+from vit_ae_plus_plus_torch.models.quant import QuantizedViT
+from vit_ae_plus_plus_torch.ops import resize_trilinear
 from vit_ae_plus_plus_torch.pipelines.transfer import build_grafted_vit
 from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict, params_from_jax
 from vit_ae_plus_plus_torch.train.step import feature_step
+from vit_ae_plus_plus_torch.utils.nifti import is_nifti, read_nifti
+
+QUANTIZE = ("none", "int8")
+
+
+def _check_options(normalize: str, quantize: str) -> None:
+    if normalize not in ("none", "zscore"):
+        raise ValueError(f"normalize must be 'none'|'zscore', got {normalize!r}")
+    if quantize not in QUANTIZE:
+        raise ValueError(f"quantize must be 'none'|'int8', got {quantize!r}")
 
 
 class _SlabEngine:
     """Fixed-shape slab machinery: per-channel z-score, padding every request
-    to `batch_size`, one slab stream on the device at a time. Subclasses set
-    `_step`, `batch_size`, `volume_shape`, `normalize`, `device`, `_lock`."""
+    to `batch_size`, one slab stream on the device at a time, and the
+    optional resize of mismatched volumes. Subclasses set `_step`,
+    `batch_size`, `volume_shape`, `normalize`, `resize`, `device`, `_lock`."""
 
     def _normalize(self, v: np.ndarray) -> np.ndarray:
         if self.normalize == "zscore":
@@ -48,10 +71,27 @@ class _SlabEngine:
             v = (v - mean) / np.maximum(std, 1e-8)
         return v
 
+    def _maybe_resize(self, v: np.ndarray) -> np.ndarray:
+        """(N, C, ...) -> (N, *volume_shape): with `resize`, mismatched
+        spatial sizes are resampled trilinearly on the engine's device, as
+        the JAX package's `jax.image.resize`; the channel count must match."""
+        if v.shape[1:] == self.volume_shape or not self.resize:
+            return v
+        if v.ndim != len(self.volume_shape) + 1:
+            raise ValueError(f"expected (N, C, D, H, W) volumes, got {v.shape}")
+        if v.shape[1] != self.volume_shape[0]:
+            raise ValueError(
+                f"channel mismatch: model expects {self.volume_shape[0]}, "
+                f"got {v.shape[1]} (resize only fixes spatial dims)"
+            )
+        out = resize_trilinear(torch.from_numpy(v).to(self.device), (v.shape[0], *self.volume_shape))
+        return out.cpu().numpy()
+
     def prepare_one(self, volume: np.ndarray) -> np.ndarray:
-        """Validate ONE request volume before it is queued, so a bad request
-        fails alone instead of poisoning its co-batched slab."""
-        v = np.asarray(volume, np.float32)
+        """Validate (and with `resize`, resample) ONE request volume before
+        it is queued, so a bad request fails alone instead of poisoning its
+        co-batched slab, and requests of mixed sizes share a slab."""
+        v = self._maybe_resize(np.asarray(volume, np.float32)[None])[0]
         if v.shape != self.volume_shape:
             raise ValueError(
                 f"expected ({', '.join(map(str, self.volume_shape))}), got {v.shape}"
@@ -66,7 +106,7 @@ class _SlabEngine:
 
     def infer(self, volumes: np.ndarray) -> np.ndarray:
         """(N, C, S, S, S) -> (N, out_dim) float32, any N >= 1."""
-        volumes = np.asarray(volumes, np.float32)
+        volumes = self._maybe_resize(np.asarray(volumes, np.float32))
         if volumes.ndim != 5 or volumes.shape[1:] != self.volume_shape:
             raise ValueError(
                 f"expected (N, {', '.join(map(str, self.volume_shape))}), "
@@ -97,8 +137,10 @@ class FeatureEngine(_SlabEngine):
 
     Weights come from `checkpoint_path` (a reference-layout `.pth`, as the
     JAX package's `export-torch` writes it) or from `mae_params` (a JAX MAE
-    param tree of numpy arrays). `device` defaults to `cuda` and raises when
-    there is none; pass `device="cpu"` to run on the CPU."""
+    param tree of numpy arrays). `quantize="int8"` runs the int8 engine
+    (models/quant.py) over the grafted weights, quantised once here.
+    `device` defaults to `cuda` and raises when there is none; pass
+    `device="cpu"` to run on the CPU."""
 
     def __init__(
         self,
@@ -112,10 +154,11 @@ class FeatureEngine(_SlabEngine):
         normalize: str = "none",
         mae_params: Optional[Dict] = None,
         attn_impl: str = "auto",
+        quantize: str = "none",
+        resize: bool = False,
         device=None,
     ):
-        if normalize not in ("none", "zscore"):
-            raise ValueError(f"normalize must be 'none'|'zscore', got {normalize!r}")
+        _check_options(normalize, quantize)
         self.device = resolve_device(device)
         mae_cfg = MODEL_ZOO[model_name](
             volume_size=volume_size, in_chans=in_chans, patch_size=patch_size,
@@ -131,13 +174,111 @@ class FeatureEngine(_SlabEngine):
         else:
             raise ValueError("need checkpoint_path or mae_params")
         self.model = build_grafted_vit(mae_sd, mae_cfg, vit_cfg, self.device).eval()
+        if quantize == "int8":
+            self.model = QuantizedViT(self.model.state_dict(), vit_cfg)
         self._step = lambda batch: feature_step(self.model, batch)
 
         self.batch_size = int(batch_size)
         self.volume_shape = (in_chans, volume_size, volume_size, volume_size)
         self.normalize = normalize
+        self.resize = resize
         self.feature_dim = mae_cfg.embed_dim
         self._lock = threading.Lock()  # one caller's slabs at a time
+
+
+class ClassifierEngine(_SlabEngine):
+    """Fine-tuned classifier serving, one checkpoint or a k-fold ensemble:
+    the fold-mean softmax in f32, computed inside one slab step.
+
+    Weights: `checkpoint_paths` (one `.pth` or a list; the reference-layout
+    classifier state dicts that `finetune-kfold` and `finetune` write) or
+    `vit_params_list` (JAX ViT param trees of numpy arrays). The
+    `VisionTransformer3D(num_classes, global_pool=True)` is built once and
+    every fold's weights run through it (`torch.func.functional_call`).
+    `quantize="int8"`: each fold's trunk on the int8 engine, its head and
+    softmax in f32. `device` as `FeatureEngine`'s."""
+
+    def __init__(
+        self,
+        checkpoint_paths=None,
+        model_name: str = "contr_mae_vit_base_patch16",
+        volume_size: int = 96,
+        in_chans: int = 1,
+        patch_size: int = 8,
+        batch_size: int = 8,
+        num_classes: int = 2,
+        compute_dtype: str = "bfloat16",
+        quantize: str = "none",
+        normalize: str = "none",
+        vit_params_list: Optional[List[Dict]] = None,
+        resize: bool = False,
+        attn_impl: str = "auto",
+        device=None,
+    ):
+        _check_options(normalize, quantize)
+        self.device = resolve_device(device)
+        if isinstance(checkpoint_paths, str):
+            checkpoint_paths = [checkpoint_paths]
+        mae_cfg = MODEL_ZOO[model_name](
+            volume_size=volume_size, in_chans=in_chans, patch_size=patch_size,
+            dtype=compute_dtype, attn_impl=attn_impl,
+        )
+        vit_cfg = mae_cfg.encoder_vit_config(num_classes=num_classes, global_pool=True)
+        if vit_params_list is not None:
+            sds = [params_from_jax(tree, patch_size, in_chans) for tree in vit_params_list]
+        elif checkpoint_paths:
+            sds = [load_reference_state_dict(path) for path in checkpoint_paths]
+        else:
+            raise ValueError("need checkpoint_paths or vit_params_list")
+        with torch.device("meta"):
+            model = build_model(vit_cfg)
+        model = model.to_empty(device=self.device).eval()
+        folds = []
+        for sd in sds:
+            model.load_state_dict(sd, strict=True)  # every fold's keys and shapes
+            fold = {k: v.to(self.device) for k, v in sd.items()}
+            folds.append(QuantizedViT(fold, vit_cfg) if quantize == "int8" else fold)
+
+        def probs(fold, batch):
+            with torch.inference_mode():
+                if quantize == "int8":
+                    logits = fold(batch)
+                else:
+                    logits = torch.func.functional_call(model, fold, (batch,))
+                return torch.softmax(logits.float(), dim=-1)
+
+        self._step = lambda batch: sum(probs(fold, batch) for fold in folds) / len(folds)
+
+        self.batch_size = int(batch_size)
+        self.volume_shape = (in_chans, volume_size, volume_size, volume_size)
+        self.normalize = normalize
+        self.resize = resize
+        self.num_folds = len(folds)
+        self._lock = threading.Lock()
+
+    @classmethod
+    def from_work_dir(cls, work_dir: str, criterion: str = "ft", **kwargs) -> "ClassifierEngine":
+        """The ensemble of a `finetune-kfold` work dir: its per-fold best
+        checkpoints `checkpoints/checkpoint-best_{criterion}_model_{k}.pth`,
+        in fold order (other files beside them, such as an unfinished
+        write's temporary file, are skipped), or `finetune`'s single
+        `checkpoint-best_{criterion}_model.pth`. `criterion`: 'ft' (ROC AUC),
+        'spec' or 'sens'. The JAX package reads orbax directories of the
+        same names, without the suffix."""
+        ckpt_dir = os.path.join(work_dir, "checkpoints")
+        stem = f"checkpoint-best_{criterion}_model"
+        folds = []
+        for name in os.listdir(ckpt_dir) if os.path.isdir(ckpt_dir) else ():
+            m = re.fullmatch(re.escape(stem) + r"_(\d+)\.pth", name)
+            if m:
+                folds.append((int(m.group(1)), os.path.join(ckpt_dir, name)))
+        paths = [p for _, p in sorted(folds)]
+        single = os.path.join(ckpt_dir, stem + ".pth")
+        if not paths and os.path.isfile(single):
+            paths = [single]
+        if not paths:
+            raise FileNotFoundError(f"no checkpoints {stem}_<fold>.pth or {stem}.pth in {ckpt_dir}")
+        return cls(paths, **kwargs)
 
 
 class QueueFull(RuntimeError):
@@ -260,6 +401,13 @@ class BatchingQueue:
                     p.error = e
                     p.event.set()
 
+    def reset_stats(self) -> None:
+        """Clear the latency and fill history, keeping the counters: a
+        benchmark drops its warm-up samples before it reads percentiles."""
+        with self._stats_lock:
+            self._latencies.clear()
+            self._fills.clear()
+
     def stats(self) -> dict:
         with self._stats_lock:
             lat = sorted(self._latencies)
@@ -284,18 +432,23 @@ class BatchingQueue:
         self._worker.join(timeout=10)
 
 
-def make_http_server(queue: BatchingQueue, host: str = "127.0.0.1",
-                     port: int = 8000, max_body_mb: int = 1024):
-    """ThreadingHTTPServer over a BatchingQueue of a FeatureEngine.
+def make_http_server(queue: Optional[BatchingQueue] = None, host: str = "127.0.0.1",
+                     port: int = 8000, classifier_queue: Optional[BatchingQueue] = None,
+                     max_body_mb: int = 1024):
+    """ThreadingHTTPServer over BatchingQueues of a FeatureEngine (`queue`)
+    and of a ClassifierEngine (`classifier_queue`), either or both.
 
-    POST /features — body: ``.npy`` bytes of one (C,S,S,S) volume or an
-    (N,C,S,S,S) stack, sent with a Content-Length; response: ``.npy`` bytes
-    of (N,D) float32 features. GET /healthz — liveness; GET /stats —
-    batching statistics JSON.
-    Failure codes: 400 malformed request (NIfTI bodies included, not ported
-    yet), 404 unknown path, 411 body without Content-Length (e.g. chunked),
-    413 body over `max_body_mb`, 429 queue at capacity (retry later), 500
-    server-side inference error, 504 inference timeout."""
+    POST /features — body, sent with a Content-Length: ``.npy`` bytes of one
+    (C,S,S,S) volume or an (N,C,S,S,S) stack, or a NIfTI-1 file (``.nii`` or
+    ``.nii.gz``; a 3-D volume is one channel, a 4-D one's last axis the
+    channels); response: ``.npy`` bytes of (N,D) float32 features.
+    POST /predict — the same bodies; response: JSON {probs, pred, num_folds}.
+    GET /healthz — liveness; GET /stats — batching statistics JSON, nested
+    under "features" and "predict" when both queues are served.
+    Failure codes: 400 malformed request (a body neither .npy nor NIfTI-1),
+    404 unknown path or a task not served, 411 body without Content-Length
+    (e.g. chunked), 413 body over `max_body_mb`, 429 queue at capacity
+    (retry later), 500 server-side inference error, 504 inference timeout."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     if max_body_mb < 1:
@@ -335,7 +488,9 @@ def make_http_server(queue: BatchingQueue, host: str = "127.0.0.1",
             if self.path == "/healthz":
                 self._json(200, {"status": "ok"})
             elif self.path == "/stats":
-                self._json(200, queue.stats())
+                stats = {name: q.stats() for name, q in (("features", queue), ("predict", classifier_queue))
+                         if q is not None}
+                self._json(200, next(iter(stats.values())) if len(stats) == 1 else stats)
             else:
                 self._json(404, {"error": f"unknown path {self.path}"})
 
@@ -362,11 +517,18 @@ def make_http_server(queue: BatchingQueue, host: str = "127.0.0.1",
                 raise _BodyTooLarge(f"body {length} bytes > max_body_mb={max_body_mb}")
             body = self.rfile.read(length)
             self._consumed = len(body)
-            if body[:6] != b"\x93NUMPY":
-                raise ValueError(
-                    "body is not .npy (NIfTI bodies are not supported by this server yet)"
-                )
-            arr = np.load(io.BytesIO(body), allow_pickle=False)
+            if body[:6] == b"\x93NUMPY":
+                arr = np.load(io.BytesIO(body), allow_pickle=False)
+            elif is_nifti(body):
+                arr = read_nifti(body)
+                if arr.ndim == 3:  # (x, y, z) -> one channel
+                    arr = arr[None]
+                elif arr.ndim == 4:  # (x, y, z, t) -> channels first
+                    arr = arr.transpose(3, 0, 1, 2)
+                else:
+                    raise ValueError(f"NIfTI volume must be 3-D or 4-D, got {arr.ndim}-D")
+            else:
+                raise ValueError("body is neither .npy nor NIfTI-1")
             if arr.ndim == len(engine.volume_shape):
                 arr = arr[None]
             return arr
@@ -389,7 +551,7 @@ def make_http_server(queue: BatchingQueue, host: str = "127.0.0.1",
                 self._json(400, {"error": f"bad Content-Length: {e}"})
                 return
             try:
-                if self.path == "/features":
+                if self.path == "/features" and queue is not None:
                     feats = _gather(queue, self._read_volumes(length, queue.engine))
                     buf = io.BytesIO()
                     np.save(buf, feats.astype(np.float32), allow_pickle=False)
@@ -399,6 +561,11 @@ def make_http_server(queue: BatchingQueue, host: str = "127.0.0.1",
                     self.send_header("Content-Length", str(len(body)))
                     self.end_headers()
                     self.wfile.write(body)
+                elif self.path == "/predict" and classifier_queue is not None:
+                    engine = classifier_queue.engine
+                    probs = _gather(classifier_queue, self._read_volumes(length, engine))
+                    self._json(200, {"probs": probs.tolist(), "pred": probs.argmax(-1).tolist(),
+                                     "num_folds": engine.num_folds})
                 else:
                     self._drain_body(length)  # rejected before the body was read
                     self._json(404, {"error": f"unknown path {self.path}"})
@@ -419,23 +586,39 @@ def make_http_server(queue: BatchingQueue, host: str = "127.0.0.1",
 
 def build_engine(
     checkpoint_path: str,
+    task: str = "features",
     model_name: str = "contr_mae_vit_base_patch16",
     volume_size: int = 96,
     in_chans: int = 1,
     patch_size: int = 8,
     batch_size: int = 8,
     compute_dtype: str = "bfloat16",
+    quantize: str = "none",
     normalize: str = "none",
+    num_classes: int = 2,
+    ensemble_criterion: str = "ft",
+    resize: bool = False,
     device=None,
-) -> FeatureEngine:
-    """A `.pth` checkpoint -> the feature engine `serve` runs."""
+):
+    """The engine `serve` runs. 'features': a FeatureEngine over an MAE
+    `.pth`. 'classify': a ClassifierEngine over comma-separated `.pth`
+    paths, a `finetune-kfold` work dir (its per-fold best
+    `ensemble_criterion` checkpoints) or one `.pth`."""
     if checkpoint_path is None:
         raise ValueError("need checkpoint_path")
-    return FeatureEngine(
-        checkpoint_path, model_name=model_name, volume_size=volume_size,
-        in_chans=in_chans, patch_size=patch_size, batch_size=batch_size,
-        compute_dtype=compute_dtype, normalize=normalize, device=device,
-    )
+    common = dict(model_name=model_name, volume_size=volume_size, in_chans=in_chans,
+                  patch_size=patch_size, batch_size=batch_size, compute_dtype=compute_dtype,
+                  quantize=quantize, normalize=normalize, resize=resize, device=device)
+    if task == "classify":
+        common["num_classes"] = num_classes
+        if "," in checkpoint_path:
+            return ClassifierEngine(checkpoint_path.split(","), **common)
+        if os.path.isdir(os.path.join(checkpoint_path, "checkpoints")):
+            return ClassifierEngine.from_work_dir(checkpoint_path, criterion=ensemble_criterion, **common)
+        return ClassifierEngine(checkpoint_path, **common)
+    if task == "features":
+        return FeatureEngine(checkpoint_path, **common)
+    raise ValueError(f"task must be 'features'|'classify', got {task!r}")
 
 
 def serve(
@@ -446,25 +629,36 @@ def serve(
     patch_size: int = 8,
     batch_size: int = 8,
     compute_dtype: str = "bfloat16",
+    quantize: str = "none",
     normalize: str = "none",
     max_wait_ms: float = 5.0,
     host: str = "127.0.0.1",
     port: int = 8000,
+    task: str = "features",
+    num_classes: int = 2,
+    ensemble_criterion: str = "ft",
+    resize: bool = False,
     max_body_mb: int = 1024,
     device=None,
 ):
-    """Build the engine, warm it, and run the HTTP server until SIGTERM or
-    Ctrl-C; accepted requests are answered before it returns."""
+    """Build the engine (`build_engine`), warm it, and run the HTTP server
+    until SIGTERM or Ctrl-C: POST /features for task 'features', POST
+    /predict for 'classify'. Accepted requests are answered before it
+    returns."""
     engine = build_engine(
-        checkpoint_path, model_name=model_name, volume_size=volume_size,
+        checkpoint_path, task=task, model_name=model_name, volume_size=volume_size,
         in_chans=in_chans, patch_size=patch_size, batch_size=batch_size,
-        compute_dtype=compute_dtype, normalize=normalize, device=device,
+        compute_dtype=compute_dtype, quantize=quantize, normalize=normalize,
+        num_classes=num_classes, ensemble_criterion=ensemble_criterion, resize=resize, device=device,
     )
     t = engine.warmup()
-    print(f"engine warm in {t:.1f}s (batch {batch_size}, {compute_dtype}, "
-          f"{engine.device})", flush=True)
+    folds = f", {engine.num_folds}-fold ensemble" if task == "classify" else ""
+    print(f"engine warm in {t:.1f}s (batch {batch_size}, "
+          f"{quantize if quantize != 'none' else compute_dtype}{folds}, {engine.device})", flush=True)
     queue = BatchingQueue(engine, max_wait_ms=max_wait_ms)
-    server = make_http_server(queue, host=host, port=port, max_body_mb=max_body_mb)
+    kw = {"classifier_queue": queue} if task == "classify" else {"queue": queue}
+    server = make_http_server(host=host, port=port, max_body_mb=max_body_mb, **kw)
+    endpoint = "POST /predict" if task == "classify" else "POST /features"
 
     import signal
 
@@ -477,7 +671,7 @@ def serve(
     # "listening on" may send SIGTERM right after
     prev = signal.signal(signal.SIGTERM, _stop)
     print(f"listening on http://{host}:{server.server_address[1]} "
-          f"(POST /features, GET /healthz, GET /stats)", flush=True)
+          f"({endpoint}, GET /healthz, GET /stats)", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
