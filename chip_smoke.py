@@ -158,6 +158,29 @@ non-zero exit when it fails:
    peak memory; then the command on 5c's split, 2 epochs of 6 steps in
    bf16, without and with `--use-proj` (exit 0, 2 finite `log.txt` rows,
    the `.pth` loads, the launches by shape), its wall time by span;
+   5i. the pretraining options off the default path: (a)
+   `device_augment_batch` on seeded raw batches of 8 at 96^3, BraTS (one
+   channel) and EGD (four, per-channel z-score), shear and gather, on the
+   card against its CPU run with the same draws on the first volumes
+   (AUG_TOL), ms per batch; (b) 5c's raw volumes resident on the card
+   (`DeviceResidentBatches`: one epoch's batches `Loader`'s, bitwise)
+   feeding phase 5's f32 and bf16 steps through the augmentation (phase
+   5's launches each step), ms per step, volumes/s and idle beside 5c's
+   steps; (c) phase 5's f32 step with the VGG16 term at
+   PERCEPTUAL_WEIGHT (seeded weights): the logged term, the term against
+   the VGG in f64 (PERCEPTUAL_TOL), a TF32 control that must miss, the
+   gradients against the term-free step's, ms and peak memory with and
+   without it; (c') `perceptual_differentiable=True` on the f32 model at
+   PERCEPTUAL_GRAD_BATCH volumes: the through pass's gradients minus the
+   term-free pass's against the term's own gradient (STEP_TOL), which the
+   default mode must miss, ms and peak memory of each pass; (d)
+   `accum_iter=2` on the f32 step: mini-step 1 leaves the
+   parameters bitwise, mini-step 2 makes one AdamW update on the mean of
+   the two gradients (moves and first moments within STEP_TOL), a
+   summing control that must miss; (e) `pretrain-kfold --device-data
+   --perceptual-weight` (2 folds x 2 epochs x 3 steps, bf16, accum_iter 2
+   on the CLI's TrainConfig): exit 0, the resident lines, finite log rows
+   with the term, the `.pth` files, the features, the launches by shape;
 6. the ring's partial kernels (csrc/flash_fwd.cu and flash_bwd.cu with a
    key bias) against their plain versions at the ring blocks of the paths
    in phase 7, each the block that holds the padded tail, bf16 and, at
@@ -202,7 +225,9 @@ non-zero exit when it fails:
    way; one f32 fine-tune step with timm's mixup from 5d's fold-0 `.pth`
    against the one-process step; `pretrain_kfold` (5c's split, fold 0, one
    epoch of 3 steps without warmup, bf16) against the same run in one
-   process (one `.pth`, one `log.txt`, the one-process run's files, the
+   process at 4 x blr (the ranks' rate counts the global batch 4 times, as
+   the JAX package's does; `log.txt`'s train_lr equal), (one `.pth`, one
+   `log.txt`, the one-process run's files, the
    epoch's train_loss within DDP_LOSS_TOL, the features within
    ENGINE_TOL), and a control with the gradients left unaveraged, whose
    train_loss must miss that limit; `extract_ssl_features` from 5d's
@@ -247,6 +272,8 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import copy
+import dataclasses
 import functools
 import gc
 import io
@@ -1338,9 +1365,12 @@ def fill_launches(rows: list, counts: dict, path: str) -> None:
 
 class Trainer:
     """One training run of the port's public API: `build_model`, the weight
-    bridge, `make_adamw`, `create_train_state`, `make_train_step`."""
+    bridge, `make_adamw`, `create_train_state`, `make_train_step`; with
+    `accum_iter` > 1 the accumulating AdamW, with `perceptual_fn` the VGG
+    term at `perceptual_weight` (phase 5i)."""
 
-    def __init__(self, tree, stats, dtype: str, attn_impl: str, ln_fusion: str = "auto"):
+    def __init__(self, tree, stats, dtype: str, attn_impl: str, ln_fusion: str = "auto", accum_iter: int = 1,
+                 perceptual_fn=None, perceptual_weight: float = 0.0):
         import torch
 
         from vit_ae_plus_plus_torch.configs import TrainConfig
@@ -1362,8 +1392,10 @@ class Trainer:
         # no warmup here: the warmup's first learning rate is 0, and the smoke
         # run checks that the first update moves the parameters
         schedule = warmup_cosine_schedule(lr, tc.min_lr, 0, tc.epochs, steps_per_epoch=4)
-        self.state = create_train_state(self.model, make_adamw(schedule, weight_decay=tc.weight_decay), seed=0)
-        self.kw = dict(mask_ratio=tc.mask_ratio, contr_weight=tc.contr_weight)
+        self.state = create_train_state(
+            self.model, make_adamw(schedule, weight_decay=tc.weight_decay, accum_iter=accum_iter), seed=0)
+        self.kw = dict(mask_ratio=tc.mask_ratio, contr_weight=tc.contr_weight, perceptual_fn=perceptual_fn,
+                       perceptual_weight=perceptual_weight)
         self.step = make_train_step(self.model, PATCH, **self.kw)
         self.emw = 0.01  # the edge-loss weight of epoch 0
 
@@ -3177,6 +3209,525 @@ def contrastive_command_phase(split_dir: Path) -> None:
     print(f"contrastive command phase {time.perf_counter() - t0:.1f}s", flush=True)
 
 
+# phase 5i: the pretraining options off the default path. (a) the
+# augmentation on the card against its CPU run with the same draws, on the
+# CPU for the first AUG_CPU_ROWS volumes of each batch: f32 on both sides
+# in another order, every voxel within AUG_TOL of the view's largest
+# magnitude (the shear's twelve passes each blend two taps; an H100 reads
+# 3e-7). The gather path's sample points are 3x3 products, which the card
+# and the CPU may round one spacing apart (7.6e-6 at 95), and a noise
+# volume changes by up to its largest magnitude from voxel to voxel, so
+# it is held to AUG_GATHER_TOL (an H100 reads 1.4e-5); a point rounded to
+# the other side of the volume's edge, where the sampler jumps to 0, may
+# put a share AUG_EDGE_SHARE of the voxels past that
+AUG_TOL = {"shear": 1e-5, "gather": 1e-4}
+AUG_EDGE_SHARE = 1e-5
+AUG_CPU_ROWS = 2
+EGD_CHANNELS = 4
+# (c) the perceptual term on the f32 step's prediction and target against
+# the same seeded VGG16 in f64 on the card, over the first PERCEPTUAL_ROWS
+# volumes, relative; the same term with TF32 convolutions must miss it.
+# On an H100 the f32 term reads 8.6e-8 and the TF32 control 7.8e-6: the
+# term is an MSE of differences of two views' taps, both rounded alike
+PERCEPTUAL_WEIGHT = 0.1
+PERCEPTUAL_ROWS = 2
+PERCEPTUAL_TOL = 1e-6
+# (c') the opt-in `perceptual_differentiable=True` keeps the VGG's
+# activations of every slice of the prediction for the backward (about
+# 12 GB at phase 5's batch of 8, by count), so it runs on phase 5's model
+# and views cut to PERCEPTUAL_GRAD_BATCH volumes
+PERCEPTUAL_GRAD_BATCH = 4
+# (e) the command's epochs at batch 8 on 5c's split (2 folds of 24 training
+# volumes: 3 steps an epoch), with accum_iter 2 through TrainConfig
+OPTIONS_EPOCHS, OPTIONS_ACCUM = 2, 2
+
+
+def augment_phase() -> None:
+    """Phase 5i (a): `device_augment_batch` on seeded raw batches of 8 at
+    96^3, BraTS (one channel, whole-volume z-score) and EGD (four
+    channels, per-channel z-score), the shear and the gather path, on the
+    card against its CPU run on the first AUG_CPU_ROWS volumes with the same
+    draws (`augment_draws` from a generator on the card). Prints the ms per
+    batch of 8 by CUDA events."""
+    import torch
+
+    from vit_ae_plus_plus_torch.ops.augment import augment_draws, device_augment_batch
+
+    t0 = time.perf_counter()
+    card = card_line()
+    rng = np.random.default_rng(71)
+    for label, c, per_channel in (("BraTS", 1, False), ("EGD", EGD_CHANNELS, True)):
+        raw = torch.from_numpy(rng.standard_normal((BATCH, c, VOLUME, VOLUME, VOLUME), dtype=np.float32) * 2 + 3).cuda()
+        draws = augment_draws(torch.Generator(device="cuda").manual_seed(72), raw.shape, device="cuda")
+        cpu_draws = {k: v[:AUG_CPU_ROWS].cpu() for k, v in draws.items()}
+        for method in ("shear", "gather"):
+            run = functools.partial(device_augment_batch, raw, draws=draws, per_channel=per_channel, method=method)
+            views = run()
+            synced(f"augment {label} {method}")
+            want = device_augment_batch(raw[:AUG_CPU_ROWS].cpu(), draws=cpu_draws, per_channel=per_channel,
+                                        method=method)
+            readings = []
+            for name, got, ref in zip(("augmented", "original"), views, want):
+                got, ref = got.cpu().numpy(), ref.numpy()
+                check(got.shape == (BATCH, c, VOLUME, VOLUME, VOLUME) and bool(np.isfinite(got).all()),
+                      f"augment {label} {method} {name}: {got.shape}")
+                dev = np.abs(got[:AUG_CPU_ROWS] - ref) / np.abs(ref).max()
+                share = float((dev > AUG_TOL[method]).mean())
+                readings.append(f"{name} largest {float(dev.max()):.3g}, share past tol {share:.3g}")
+                check(share <= (AUG_EDGE_SHARE if method == "gather" else 0.0),
+                      f"augment {label} {method} {name} on the card vs the CPU: {readings[-1]}")
+            ms = cuda_ms(run, reps=3, warmup=1)
+            print(f"augment {label} ({c} channel{'s' * (c > 1)}) {method} on the card vs the CPU, same draws, "
+                  f"{AUG_CPU_ROWS} volumes: " + "; ".join(readings)
+                  + f" (tol {AUG_TOL[method]}, edge share {AUG_EDGE_SHARE if method == 'gather' else 0}); "
+                  f"{ms:.2f} ms per batch of {BATCH} ({card}, CUDA events over 3 batches)", flush=True)
+        del raw, draws
+    print(f"augment phase {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def resident_phase(split_dir: Path, step_times: dict) -> None:
+    """Phase 5i (b): 5c's split's 48 raw volumes resident on the card
+    (`DeviceResidentBatches`, seed 0) feed phase 5's full-width step through
+    `device_augment_batch` (the draws seeded as `pretrain_kfold` seeds them),
+    in f32 and in bf16: one warm-up and TIMED_STEPS timed steps an epoch.
+    Checks: one epoch's batches are `Loader`'s over the same raw dataset,
+    bitwise; every step launches phase 5's attention kernels by shape;
+    every metric finite. Prints ms per step, volumes/s, the augmentation's
+    share, and the device's idle share of a fed step beside 5c's
+    loader-fed and resident-views steps."""
+    import torch
+
+    from vit_ae_plus_plus_torch.data import BraTSDataset, Loader
+    from vit_ae_plus_plus_torch.data.loader import DeviceResidentBatches
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+    from vit_ae_plus_plus_torch.ops.augment import device_augment_batch
+    from vit_ae_plus_plus_torch.pipelines.pretrain_kfold import augment_seed
+
+    t0 = time.perf_counter()
+    card = card_line()
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    tree, stats = mae_tree(cfg, seed=0)
+    raw = BraTSDataset(str(split_dir), "whole", raw=True)
+    resident = DeviceResidentBatches(raw, BATCH, seed=0, device="cuda")
+    check(len(resident) == 1 + TIMED_STEPS, f"{len(resident)} resident batches an epoch")
+    loader = Loader(raw, BATCH, seed=0, num_workers=8)
+    for b, ((got, same, _), (want, _, _)) in enumerate(zip(resident, loader)):
+        check(got is same and np.array_equal(got.cpu().numpy(), want), f"resident batch {b} is not Loader's")
+    print(f"resident data ({card}): {resident.nbytes() / 1e9:.3f} GB on the card; epoch 1's {len(resident)} "
+          "batches equal Loader's over the same raw volumes", flush=True)
+    gen = torch.Generator(device="cuda")
+    for dtype in ("float32", "bfloat16"):
+        trainer = Trainer(tree, stats, dtype, "auto")
+        want_step = step_launches(cfg, "packed_flash", dtype)
+        epoch = [0]
+        batches = iter(())
+        metrics_all, aug_ms = [], []
+
+        def fed_step():
+            nonlocal batches
+            item = next(batches, None)
+            if item is None:
+                epoch[0] += 1
+                batches = enumerate(resident)
+                item = next(batches)
+            count, (batch, _, _) = item
+            gen.manual_seed(augment_seed(42, 0, epoch[0], count))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            aug, orig = device_augment_batch(batch, gen)
+            end.record()
+            aug_ms.append((start, end))
+            reset_launch_counts()
+            trainer.state, metrics = trainer.step(trainer.state, aug, orig, trainer.emw)
+            counts = shape_counts()
+            check(counts == want_step, f"{dtype} resident fed step launched {counts} (want {want_step})")
+            metrics_all.append(metrics)
+
+        fed_step()  # warm-up, the epoch's first batch
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(TIMED_STEPS):
+            fed_step()
+        end.record()
+        torch.cuda.synchronize()
+        fed_ms = start.elapsed_time(end) / TIMED_STEPS
+        augment_ms = [s.elapsed_time(e) for s, e in aug_ms[1:]]
+        for i, m in enumerate(metrics_all):
+            m = {k: float(v) for k, v in m.items()}
+            check(all(np.isfinite(v) for v in m.values()), f"{dtype} resident fed step {i + 1}: {m}")
+        busy = profile_run(fed_step, f"{dtype} resident fed step", fed_ms)
+        print(f"resident fed step {dtype} ({card}): {fed_ms:.2f} ms per step of {BATCH} (CUDA events over "
+              f"{TIMED_STEPS} steps after one warm-up, the augmentation included), {BATCH / fed_ms * 1e3:.1f} "
+              f"volumes/s; augmentation ms per batch {mean_max(augment_ms)}; device idle "
+              f"{1 - busy / fed_ms:.1%} of a fed step; phase 5c: loader-fed {step_times[dtype]['fed']:.2f} ms, "
+              f"resident views {step_times[dtype]['resident']:.2f} ms", flush=True)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    del resident
+    print(f"resident phase {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+@contextlib.contextmanager
+def tf32_vgg():
+    """The TF32 control of phase 5i (c): the VGG's `conv_precision()` made
+    to allow TF32, as cuDNN does by default."""
+    from vit_ae_plus_plus_torch.models import vgg
+
+    cudnn = vgg.torch.backends.cudnn
+    real = vgg.conv_precision
+    vgg.conv_precision = lambda: cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                                             deterministic=cudnn.deterministic, allow_tf32=True)
+    try:
+        yield
+    finally:
+        vgg.conv_precision = real
+
+
+def perceptual_case() -> None:
+    """Phase 5i (c): phase 5's f32 step (weights, views, noise) with the
+    VGG16 term at PERCEPTUAL_WEIGHT, seeded VGG weights
+    (`build_perceptual(seed=0)`). Checks: phase 5's launches, finite
+    metrics, the logged term PERCEPTUAL_WEIGHT times the term recomputed on
+    the step's prediction and target; that term on the first
+    PERCEPTUAL_ROWS volumes against the same VGG in f64 within
+    PERCEPTUAL_TOL, which the term with TF32 convolutions must miss; the
+    step's gradients (GRAD_NAMES) within STEP_TOL["float32"] of the
+    term-free step's (the term is gradient-free). Prints the step's ms and
+    peak memory with and without the term."""
+    import torch
+
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_perceptual, make_perceptual_fn
+
+    t0 = time.perf_counter()
+    card = card_line()
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    tree, stats = mae_tree(cfg, seed=0)
+    views, noise = train_inputs(cfg)
+    vgg, fn = build_perceptual(seed=0, device="cuda")
+    seen = []
+
+    def term(pred_vol, target_vol):
+        if not seen:
+            seen.append((pred_vol.detach().clone(), target_vol.detach().clone()))
+        return fn(pred_vol, target_vol)
+
+    plain = Trainer(tree, stats, "float32", "auto")
+    (m0, counts0) = plain.run(views, noise[0])
+    g0 = plain.grads()
+    plain_resident = reset_peak()
+    plain_ms, _ = step_ms(plain, views, reps=3)
+    plain_peak = torch.cuda.max_memory_allocated()
+    del plain
+    with_term = Trainer(tree, stats, "float32", "auto", perceptual_fn=term, perceptual_weight=PERCEPTUAL_WEIGHT)
+    m1, counts1 = with_term.run(views, noise[0])
+    want_step = step_launches(cfg, "packed_flash", "float32")
+    check(counts0 == counts1 == want_step, f"f32 step with the perceptual term launched {counts1}")
+    pred, target = seen[0]
+    with torch.no_grad():
+        full = float(fn(pred, target))
+        sub = float(fn(pred[:PERCEPTUAL_ROWS], target[:PERCEPTUAL_ROWS]))
+        f64 = float(make_perceptual_fn(copy.deepcopy(vgg).double())(pred[:PERCEPTUAL_ROWS].double(),
+                                                                   target[:PERCEPTUAL_ROWS].double()))
+        with tf32_vgg():
+            tf32 = float(fn(pred[:PERCEPTUAL_ROWS], target[:PERCEPTUAL_ROWS]))
+    logged = m1["perceptual_loss"]
+    err, err_tf32 = abs(sub - f64) / f64, abs(tf32 - f64) / f64
+    grad_errs = {n: float((g - g0[n]).abs().max() / g0[n].abs().max()) for n, g in with_term.grads().items()}
+    print(f"perceptual term f32 ({card}): logged {logged:.6g} = {PERCEPTUAL_WEIGHT} x {full:.6g} (rel "
+          f"{abs(logged - PERCEPTUAL_WEIGHT * full) / (PERCEPTUAL_WEIGHT * full):.3g}); on {PERCEPTUAL_ROWS} "
+          f"volumes ({PERCEPTUAL_ROWS * VOLUME} slices) against f64: rel err {err:.3g} (tol {PERCEPTUAL_TOL}); "
+          f"TF32 control {err_tf32:.3g} (must miss); gradients vs the term-free step "
+          + ", ".join(f"{n} {v:.3g}" for n, v in grad_errs.items()) + f"; loss {m1['loss']:.6f} vs "
+          f"{m0['loss']:.6f} without", flush=True)
+    check(abs(logged - PERCEPTUAL_WEIGHT * full) <= 1e-5 * PERCEPTUAL_WEIGHT * full and logged > 0,
+          f"the logged perceptual term {logged} is not {PERCEPTUAL_WEIGHT} x {full}")
+    check(err <= PERCEPTUAL_TOL, f"perceptual term f32 vs f64: rel err {err:.3g}")
+    check(err_tf32 > PERCEPTUAL_TOL, f"the TF32 control passed the perceptual gate: {err_tf32:.3g}")
+    check(max(grad_errs.values()) <= STEP_TOL["float32"]["grad"], f"the term moved the gradients: {grad_errs}")
+    term_resident = reset_peak()
+    term_ms, timed = step_ms(with_term, views, reps=3)
+    term_peak = torch.cuda.max_memory_allocated()
+    check(timed == {k: 3 * n for k, n in want_step.items()}, f"3 timed f32 steps with the term launched {timed}")
+    print(f"perceptual step f32 ({card}): {term_ms:.2f} ms per step of {BATCH} with the term, {plain_ms:.2f} "
+          f"without (CUDA events over 3 steps), max_memory_allocated {term_peak / 2**30:.2f} GiB "
+          f"({term_resident / 2**30:.2f} before the steps), without {plain_peak / 2**30:.2f} GiB "
+          f"({plain_resident / 2**30:.2f})", flush=True)
+    del with_term, vgg
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"perceptual phase {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def perceptual_grad_case() -> None:
+    """Phase 5i (c'): `mae_loss_terms(..., perceptual_differentiable=True)`,
+    the opt-in that lets the VGG term's gradient through, on phase 5's f32
+    model, views and noise cut to PERCEPTUAL_GRAD_BATCH volumes, seeded VGG
+    weights. One forward and backward each without the term, with the
+    default (no_grad) term and with the term's gradient. Checks: each
+    pass's attention launches (one forward and one backward per block);
+    finite gradients; the through pass's gradients (GRAD_NAMES) minus the
+    term-free pass's within STEP_TOL["float32"] of the term's own gradient
+    (taken by `autograd.grad` of the weighted term in a through pass),
+    which the default mode's gradients must miss. Prints each pass's ms
+    (CUDA events, after a warm-up pass) and peak memory."""
+    import torch
+
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_perceptual
+    from vit_ae_plus_plus_torch.ops import at_least_f32
+    from vit_ae_plus_plus_torch.train.objective import mae_loss_terms
+
+    t0 = time.perf_counter()
+    card = card_line()
+    b = PERCEPTUAL_GRAD_BATCH
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    tree, stats = mae_tree(cfg, seed=0)
+    views, noise = train_inputs(cfg)
+    views, noise = [v[:b] for v in views], noise[0][:2 * b]
+    trainer = Trainer(tree, stats, "float32", "auto")
+    model, kw = trainer.model, trainer.kw
+    named = dict(model.named_parameters())
+    _, fn = build_perceptual(seed=0, device="cuda")
+    depth = cfg.depth + cfg.decoder_depth
+    recorded = []
+
+    def term(pred_vol, target_vol):
+        value = fn(pred_vol, target_vol)
+        recorded.append(value)
+        return value
+
+    def one_pass(mode: str, term_grads: bool = False):
+        """-> (GRAD_NAMES gradients, launches by wrapper)."""
+        model.zero_grad(set_to_none=True)
+        recorded.clear()
+        reset_launch_counts()
+        outputs = model(*views, noise=noise)
+        total, _ = mae_loss_terms(
+            outputs, at_least_f32(views[0]), PATCH, edge_map_weight=trainer.emw, contr_weight=kw["contr_weight"],
+            perceptual_weight=0.0 if mode == "free" else PERCEPTUAL_WEIGHT,
+            perceptual_fn=None if mode == "free" else term, perceptual_differentiable=mode == "through")
+        got = {}
+        if term_grads:
+            got = dict(zip(GRAD_NAMES, torch.autograd.grad(
+                PERCEPTUAL_WEIGHT * recorded[0], [named[n] for n in GRAD_NAMES], retain_graph=True)))
+        total.backward()
+        return (got or {n: named[n].grad.clone() for n in GRAD_NAMES}), totals(shape_counts())
+
+    runs = {}
+    for mode in ("free", "no_grad", "through"):
+        one_pass(mode)  # warm-up
+        reset_peak()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        grads, counts = one_pass(mode)
+        end.record()
+        torch.cuda.synchronize()
+        runs[mode] = (grads, counts, start.elapsed_time(end), torch.cuda.max_memory_allocated())
+        check(counts["packed_flash_fwd"] == counts["packed_flash_bwd"] == depth,
+              f"the {mode} pass launched {counts}")
+        check(all(bool(torch.isfinite(g).all()) for g in grads.values()), f"the {mode} pass's gradients")
+    g_term, _ = one_pass("through", term_grads=True)
+    g_free, g_default, g_through = (runs[m][0] for m in ("free", "no_grad", "through"))
+
+    def rel(a, b_, n):
+        return float((a[n] - b_[n]).abs().max() / g_through[n].abs().max())
+
+    errs = {n: rel(g_through, {n: g_free[n] + g_term[n]}, n) for n in GRAD_NAMES}
+    control = {n: rel(g_through, g_default, n) for n in GRAD_NAMES}
+    share = {n: float(g_term[n].abs().max() / g_through[n].abs().max()) for n in GRAD_NAMES}
+    tol = STEP_TOL["float32"]["grad"]
+    print(f"perceptual gradient f32 ({card}), batch {b}: through minus term-free vs the term's own gradient "
+          + ", ".join(f"{n} {v:.3g}" for n, v in errs.items()) + f" (tol {tol}); the default no_grad mode "
+          + ", ".join(f"{n} {v:.3g}" for n, v in control.items()) + " (must miss); the term's share of the "
+          "gradient " + ", ".join(f"{n} {v:.3g}" for n, v in share.items()), flush=True)
+    print(f"perceptual passes f32 ({card}), batch {b}, one forward and backward by CUDA events: "
+          + "; ".join(f"{m} {r[2]:.2f} ms, max_memory_allocated {r[3] / 2**30:.2f} GiB" for m, r in runs.items()),
+          flush=True)
+    check(max(errs.values()) <= tol, f"the through pass's gradients are not the term-free pass's plus the "
+          f"term's: {errs}")
+    check(max(control.values()) > tol, f"the default mode passed the gradient-through gate: {control}")
+    del trainer, model, named, fn, runs, g_term, g_free, g_default, g_through
+    recorded.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"perceptual gradient phase {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def accum_errs(trainer, p0: dict, ref) -> dict:
+    """The accumulating trainer's update against `ref`'s (one AdamW update
+    on the mean of the two gradients): each GRAD_NAMES parameter's move and
+    AdamW first moment, over their largest magnitudes."""
+    named, ref_named = dict(trainer.model.named_parameters()), dict(ref.model.named_parameters())
+    errs = {}
+    for n in GRAD_NAMES:
+        move, want = named[n].detach() - p0[n], ref_named[n].detach() - p0[n]
+        errs[f"{n} move"] = float((move - want).abs().max() / want.abs().max())
+        m, want_m = (t.state.tx.opt.state[p]["exp_avg"] for t, p in ((trainer, named[n]), (ref, ref_named[n])))
+        errs[f"{n} exp_avg"] = float((m - want_m).abs().max() / want_m.abs().max())
+    return errs
+
+
+def accum_case() -> None:
+    """Phase 5i (d): phase 5's f32 step (weights, noise) with
+    `make_adamw(accum_iter=2)`, two mini-steps on two batches (phase 5's
+    views, then the same flipped along the last axis). Checks: after
+    mini-step 1 every parameter bitwise unchanged and no update counted;
+    after mini-step 2 one update, its parameter moves and AdamW first
+    moments (GRAD_NAMES) within STEP_TOL["float32"] of one plain AdamW
+    update, from the same start, on the mean of the two gradients (each
+    taken by a plain step from that start). A control that sums the two
+    gradients instead must miss."""
+    import torch
+
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+    from vit_ae_plus_plus_torch.train.optim import MultiSteps
+
+    t0 = time.perf_counter()
+    card = card_line()
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    tree, stats = mae_tree(cfg, seed=0)
+    views, noise = train_inputs(cfg)
+    batches = [(views, noise[0]), ([v.flip(-1) for v in views], noise[1])]
+    grads = []
+    for v, nz in batches:  # each gradient at the start, by a plain step
+        plain = Trainer(tree, stats, "float32", "auto")
+        plain.run(v, nz)
+        grads.append({n: p.grad.clone() for n, p in plain.model.named_parameters()})
+        del plain
+    ref = Trainer(tree, stats, "float32", "auto")
+    p0 = {n: p.detach().clone() for n, p in ref.model.named_parameters()}
+    for n, p in ref.model.named_parameters():
+        p.grad = grads[0][n] + (grads[1][n] - grads[0][n]) / 2
+    ref.state.tx.step()
+    del grads
+
+    def two_mini_steps(trainer):
+        trainer.run(*batches[0])
+        check(trainer.state.tx.count == 0 and trainer.state.tx.mini_step == 1, "mini-step 1 counted an update")
+        same = all(torch.equal(p.detach(), p0[n]) for n, p in trainer.model.named_parameters())
+        trainer.run(*batches[1])
+        check(trainer.state.tx.count == 1 and trainer.state.tx.mini_step == 0, "mini-step 2 did not update")
+        return same, accum_errs(trainer, p0, ref)
+
+    acc = Trainer(tree, stats, "float32", "auto", accum_iter=2)
+    check(isinstance(acc.state.tx, MultiSteps), f"accum_iter=2 built {type(acc.state.tx).__name__}")
+    same, errs = two_mini_steps(acc)
+    del acc
+    torch.cuda.empty_cache()
+
+    class Summed(MultiSteps):  # the control: a sum of the gradients, optax's use_grad_mean=False
+        def _acc_update(self, grads):
+            torch._foreach_add_(self.acc, grads)
+
+    summed = Trainer(tree, stats, "float32", "auto", accum_iter=2)
+    summed.state.tx.__class__ = Summed
+    _, control = two_mini_steps(summed)
+    tol = STEP_TOL["float32"]["grad"]
+    print(f"accumulation f32 ({card}): after mini-step 1 the parameters {'bitwise unchanged' if same else 'MOVED'}; "
+          "after mini-step 2 against one AdamW update on the mean gradient: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (tol {tol}); the summing control: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in control.items()) + " (must miss)", flush=True)
+    check(same, "mini-step 1 moved the parameters")
+    check(max(errs.values()) <= tol, f"accumulated update vs the mean gradient's: {errs}")
+    check(max(control.values()) > tol, f"the summing control passed the accumulation gate: {control}")
+    del summed, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"accumulation phase {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def options_command_phase(split_dir: Path) -> None:
+    """Phase 5i (e): the port's `pretrain-kfold --device-data
+    --perceptual-weight PERCEPTUAL_WEIGHT` on 5c's split in its default
+    bf16, 2 folds of OPTIONS_EPOCHS epochs (3 steps of 8 each), with
+    `accum_iter` OPTIONS_ACCUM set on the TrainConfig the CLI builds, counts
+    read around the run. Checks: the flags reached the TrainConfig; exit 0;
+    each fold's "dataset resident on the card" line; finite `log.txt` rows
+    with a positive perceptual term; each fold's min-loss `.pth` loads;
+    (24, 768) finite features with their labels; the attention launches by
+    shape (12 steps of phase 5's plus 12 extraction slabs of 12)."""
+    import torch
+
+    from vit_ae_plus_plus_torch import cli
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+    from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict
+
+    t0 = time.perf_counter()
+    card = card_line()
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    folds, fold_train = 2, DATA_VOLUMES // 2
+    steps, slabs = folds * OPTIONS_EPOCHS * (fold_train // BATCH), fold_train // BATCH
+    work = split_dir.parent / "pretrain_options"
+    argv = ["pretrain-kfold", "--data-path", str(split_dir), "--work-dir", str(work), "--model", MODEL,
+            "--volume-size", str(VOLUME), "--patch-size", str(PATCH), "--batch-size", str(BATCH),
+            "--epochs", str(OPTIONS_EPOCHS), "--n-splits", str(folds), "--device-data",
+            "--perceptual-weight", str(PERCEPTUAL_WEIGHT)]
+    real, built = cli.configs_from_args, []
+
+    def configs_from_args(args):
+        data_cfg, train_cfg = real(args)
+        built.append(train_cfg)
+        return data_cfg, dataclasses.replace(train_cfg, accum_iter=OPTIONS_ACCUM)
+
+    out = io.StringIO()
+    cli.configs_from_args = configs_from_args
+    reset_launch_counts()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    except BaseException:
+        print("\n".join(out.getvalue().splitlines()[-20:]), file=sys.stderr)
+        raise
+    finally:
+        cli.configs_from_args = real
+    wall = time.perf_counter() - t
+    counts = shape_counts()
+    printed = out.getvalue().strip().splitlines()
+    check(rc == 0, f"pretrain-kfold with the options exit {rc}: " + "\n".join(printed[-20:]))
+    tc = built[0]
+    check(tc.device_data and tc.device_augment and tc.perceptual_weight == PERCEPTUAL_WEIGHT,
+          f"the flags did not reach the TrainConfig: {tc}")
+    resident = [line for line in printed if "dataset resident on the card" in line]
+    check(len(resident) == folds, f"resident lines {resident}")
+    results = json.loads(printed[-1])
+    with open(work / "checkpoints" / "log.txt") as f:
+        rows = [json.loads(line) for line in f]
+    check(sorted(results) == ["0", "1"] and [(r["fold"], r["epoch"]) for r in rows]
+          == [(k, e) for k in range(folds) for e in range(OPTIONS_EPOCHS)]
+          and all(np.isfinite(v) for r in rows for v in r.values())
+          and all(r["train_perceptual_loss"] > 0 for r in rows), f"pretrain-kfold with the options: {rows}")
+    labels = np.load(split_dir / "y_whole_ssl.npy")
+    for k in range(folds):
+        sd = load_reference_state_dict(str(work / "checkpoints" / f"fold_{k}" / "checkpoint-min_loss.pth"))
+        check(sd["blocks.0.attn.qkv.weight"].dtype == torch.float32, f"fold {k} checkpoint")
+        for tag in ("train", "test"):
+            feats = np.load(work / "ssl_features_dir" / f"{tag}_contrast_ssl_features_split_{k}.npy")
+            labs = np.load(work / "ssl_features_dir" / f"{tag}_contrast_ssl_labels_split_{k}.npy")
+            ids = np.sort(np.load(work / "k_fold" / "indices_file" / f"{tag}_{k}.npy"))
+            check(feats.shape == (fold_train, cfg.embed_dim) and bool(np.isfinite(feats).all())
+                  and np.array_equal(labs, labels[ids]), f"fold {k} {tag} features {feats.shape}")
+    want = {key: steps * n for key, n in step_launches(cfg, "packed_flash", "bfloat16").items()}
+    slab_key = ("packed_flash_fwd", (BATCH, cfg.num_heads, cfg.num_patches + 1, cfg.embed_dim // cfg.num_heads,
+                                     "bfloat16"))
+    want[slab_key] = want.get(slab_key, 0) + folds * 2 * slabs * cfg.depth
+    check(counts == want, f"pretrain-kfold with the options launched {counts} (want {want})")
+    ms = [1e3 * BATCH / r["train_volumes_per_sec"] for r in rows]
+    print(f"pretrain-kfold --device-data --perceptual-weight {PERCEPTUAL_WEIGHT}, accum_iter {OPTIONS_ACCUM}, bf16 "
+          f"({card}): exit 0 in {wall:.1f}s; {resident[0].split(': ', 1)[1]}; ms per step by (fold, epoch) "
+          + ", ".join(f"({r['fold']}, {r['epoch']}) {m:.2f}" for r, m in zip(rows, ms))
+          + "; perceptual term by row " + ", ".join(f"{r['train_perceptual_loss']:.4g}" for r in rows)
+          + f"; lr {rows[-1]['train_lr']:.4g} last; {steps} steps, {folds * 2 * slabs} slabs", flush=True)
+    shutil.rmtree(work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"options command phase {time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def fused_layernorm_run(rows: list, cfg) -> None:
     """The path of the LayerNorm kernels (#6): one forward and backward of
     `FusedLayerNorm` at the encoder's norm shape in the training step,
@@ -4169,8 +4720,11 @@ def ddp_references(reference: dict, paths: dict, moco: dict, contrastive: dict) 
     del tuner
     data_cfg, train_cfg, folds = ddp_configs(paths["split"])
     t0 = time.perf_counter()
-    pretrain_kfold(data_cfg, train_cfg, paths["one_work"], model_name=MODEL, n_splits=DDP_FOLDS, folds=folds,
-                   device="cuda")
+    # at the ranks' rate: on D ranks the learning rate counts the global
+    # batch D times (the JAX package's eff_batch), so one process takes D
+    # times the base rate
+    pretrain_kfold(data_cfg, dataclasses.replace(train_cfg, blr=GROUP_RANKS * train_cfg.blr), paths["one_work"],
+                   model_name=MODEL, n_splits=DDP_FOLDS, folds=folds, device="cuda")
     pretrain_s = time.perf_counter() - t0
     cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
     views, noise = train_inputs(cfg)
@@ -4288,6 +4842,9 @@ def check_ddp(results: list, rows: list, refs: dict, paths: dict) -> None:
         with open(os.path.join(paths[run], "checkpoints", "log.txt")) as f:
             logged[run] = [json.loads(line) for line in f]
         check(len(logged[run]) == 1 and np.isfinite(logged[run][0]["train_loss"]), f"ddp {run} log.txt {logged[run]}")
+    check(logged["ranks_work"][0]["train_lr"] == logged["one_work"][0]["train_lr"] > 0,
+          f"ddp pretrain_kfold train_lr {logged['ranks_work'][0]['train_lr']} against one process's at "
+          f"{GROUP_RANKS} x blr {logged['one_work'][0]['train_lr']}")
     want_loss, tol = logged["one_work"][0]["train_loss"], DDP_LOSS_TOL
     loss_errs = {run: abs(logged[run][0]["train_loss"] - want_loss) / abs(want_loss)
                  for run in ("ranks_work", "control_work")}
@@ -4767,6 +5324,16 @@ def main(argv) -> int:
         # phase 5h: contrastive-train, its step and the command
         contrastive_ref = contrastive_step_phase(rows)
         contrastive_command_phase(split_dir)
+        # phase 5i: the options off the default path (augmentation on the
+        # card, resident data, the VGG term, accumulation, the command)
+        t0 = time.perf_counter()
+        augment_phase()
+        resident_phase(split_dir, step_times)
+        perceptual_case()
+        perceptual_grad_case()
+        accum_case()
+        options_command_phase(split_dir)
+        print(f"options phase {time.perf_counter() - t0:.1f}s", flush=True)
         fused_layernorm_run(rows, cfg)
 
         # phase 6: the ring's partial kernels at the ring blocks of phase 7 (the

@@ -41,6 +41,12 @@ The int8 mutant breaks the int8 engine's dequantise (`models/quant.py`,
 the per-token activation scale dropped) and loads the unbroken kernels,
 as a schedule mutant does; its one check is `chip_smoke.int8_case`, phase
 4c's int8 `FeatureEngine` against the bf16 one at the full-width slab.
+Two more break the pretraining options of phase 5i the same way: the
+VGG16's convolutions left to TF32 (`models/vgg.py`; check
+`chip_smoke.perceptual_case`, the term against the VGG in f64) and the
+accumulator summing the mini-steps' gradients (`train/optim.py`; check
+`chip_smoke.accum_case`, the update against one AdamW update on the mean
+gradient).
 
 Each check must fail: a tolerance loose enough to pass a broken kernel or
 schedule shows here. The mutants' checks run four at a time on the one card (each is a
@@ -71,6 +77,8 @@ RING_CASE = "chip_smoke.ring_case('ring bf16 NB1032', 2, 12, 4097, 64, 4, seed=7
 SEQ_CASE = "chip_smoke.seq_case('seq bf16 N1032 Nk4097', 2, 12, 4097, 64, 4, seed=80)"
 GROUP_CASE = "chip_smoke.check_group_attention(chip_smoke.run_group(chip_smoke.attention_rank))"
 INT8_CASE = "chip_smoke.int8_case()"
+PERCEPTUAL_CASE = "chip_smoke.perceptual_case()"
+ACCUM_CASE = "chip_smoke.accum_case()"
 # name -> (file under the package, text in it, its broken replacement at
 # every occurrence, main-path check); a kernel mutant's file is under
 # kernels/csrc/
@@ -398,6 +406,18 @@ MUTANTS = {
         'y = acc.float() * xscale * w["scale"]',
         'y = acc.float() * w["scale"]',
         INT8_CASE,
+    ),
+    "vgg_tf32": (  # the VGG's f32 convolutions left to cuDNN's default, TF32
+        "models/vgg.py",
+        "with conv_precision():",
+        "with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):",
+        PERCEPTUAL_CASE,
+    ),
+    "accum_sum": (  # the accumulator sums the mini-steps' gradients instead of averaging them
+        "train/optim.py",
+        "torch._foreach_div_(delta, self.mini_step + 1)",
+        "torch._foreach_add_(delta, self.acc)",
+        ACCUM_CASE,
     ),
     "seq_dkdv_not_summed": (  # each rank keeps its own rows' share of dk and dv
         "kernels/seq_flash.py",

@@ -129,8 +129,8 @@ def _shared_eval_step(real):
 
 def _configs(data_dir, **train):
     dkw = dict(name="brats", base_path=data_dir, volume_size=VOL, in_channels=1, use_z_score=True)
-    tkw = dict(epochs=EPOCHS, batch_size=BATCH, patch_size=PATCH, warmup_epochs=1, lr=1e-3,
-               compute_dtype="float32", **train)
+    tkw = {**dict(epochs=EPOCHS, batch_size=BATCH, patch_size=PATCH, warmup_epochs=1, lr=1e-3,
+                  compute_dtype="float32"), **train}
     return (JDataConfig(**dkw), JTrainConfig(**tkw)), (DataConfig(**dkw), TrainConfig(**tkw))
 
 
@@ -222,9 +222,24 @@ def test_extract_features_matches_jax(data_dir, pretrain_dir, tmp_path, monkeypa
         assert got.shape == want.shape and np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("mode", ["probe", "finetune_kfold", "finetune_single"])
+@pytest.mark.parametrize("mode", ["probe", "finetune_kfold", "finetune_single", "probe_accum",
+                                  "finetune_single_accum"])
 def test_downstream_matches_jax(mode, data_dir, pretrain_dir, tmp_path, monkeypatch):
-    (jd, jtc), (td, ttc) = _configs(data_dir)
+    """`_accum`: `accum_iter=2` without `lr`, so the rate is blr * batch *
+    2 / 256 in both packages (`train_lr` in each log row, held with the
+    other metrics), and no optimizer accumulates."""
+    accum = mode.endswith("_accum")
+    mode = mode.removesuffix("_accum")
+    (jd, jtc), (td, ttc) = _configs(data_dir, **(dict(accum_iter=2, lr=None) if accum else {}))
+    rates = {"jax": [], "port": []}
+    if accum:  # the base rate each fold's schedule is built with
+        from vit_ae_plus_plus_tpu import train as jtrain
+
+        for side, module, name in (("jax", jtrain, "warmup_cosine_schedule"), ("jax", jpk, "warmup_cosine_schedule"),
+                                   ("port", tft, "warmup_cosine_schedule"), ("port", tpk, "warmup_cosine_schedule")):
+            real = getattr(module, name)
+            monkeypatch.setattr(module, name, lambda lr, *a, _real=real, _side=side: rates[_side].append(lr)
+                                or _real(lr, *a))
     heads = []
     jwork, twork = str(tmp_path / "jax"), str(tmp_path / "port")
     if mode == "finetune_single":
@@ -249,6 +264,8 @@ def test_downstream_matches_jax(mode, data_dir, pretrain_dir, tmp_path, monkeypa
             np.testing.assert_array_equal(np.load(os.path.join(twork, "k_fold", "indices_file", name)),
                                           np.load(os.path.join(jwork, "k_fold", "indices_file", name)))
     assert len(heads) == len(want)
+    if accum:  # blr * batch * accum_iter / 256, fold by fold
+        assert rates["port"] == rates["jax"] == [1e-3 * BATCH * 2 / 256] * len(want)
     jlog, tlog = _log(jwork), _log(twork)
     assert [list(r) for r in tlog] == [list(r) for r in jlog] and len(tlog) == len(want) * EPOCHS
     for i, (t, j) in enumerate(zip(tlog, jlog)):
@@ -355,8 +372,10 @@ def test_cli_refusals(cmd, tmp_path, capsys, monkeypatch):
                 tpk.probe_kfold(td, ttc, str(work), "none", fix_backbone=cmd == "probe-kfold", n_devices=2,
                                 device="cpu")
         assert os.listdir(work) == [".writer.lock"]  # refused after the lock, before any data
+    # accum_iter > 1 only scales the rate, as in the JAX package: not
+    # refused, so the missing data stops the run
     _, (td, ttc) = _configs(str(tmp_path / "no_data"), accum_iter=2)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(FileNotFoundError):
         if cmd == "finetune":
             tft.finetune_single(td, ttc, str(tmp_path / "a"), "none.pth", device="cpu")
         else:

@@ -148,10 +148,7 @@ def test_resume_skips_completed_folds(brats_dir, tmp_path, scipy_policy):
 
 
 REFUSED = {
-    "device_augment": dict(device_augment=True),
-    "device_data": dict(device_data=True),
-    "perceptual_weight": dict(perceptual_weight=0.1),
-    "accum_iter": dict(accum_iter=2),
+    "device_data": dict(device_data=True),  # without device_augment
     "fsdp": dict(fsdp=True),
     "pipe_devices": dict(pipe_devices=2),
     "mesh_shape": dict(mesh_shape=(2,)),
@@ -163,13 +160,16 @@ REFUSED = {
 def test_unported_settings_are_refused_before_any_work(setting, tmp_path):
     """Each refused before any data is read; n_devices > 1 (or a mesh_shape
     with data > 1) is ported, but only as one of so many ranks under a data
-    mesh (tests/test_torch_port_ring_flash.py), and this process is none."""
+    mesh (tests/test_torch_port_ring_flash.py), and this process is none;
+    device_data needs device_augment, as in the JAX package."""
     # a data path that does not exist: reading it would raise another error
     data_cfg, train_cfg = _cfgs(str(tmp_path / "no_data"), **REFUSED[setting])
     n_devices = 2 if setting == "n_devices" else None
     work = tmp_path / "work"
-    error = ((ValueError, "n_devices=2 trains on 2 ranks") if setting in ("n_devices", "mesh_shape")
-             else (NotImplementedError, "ROADMAP Queue 1 item"))
+    error = {"n_devices": (ValueError, "n_devices=2 trains on 2 ranks"),
+             "mesh_shape": (ValueError, "n_devices=2 trains on 2 ranks"),
+             "device_data": (ValueError, "device_data requires device_augment")}.get(
+        setting, (NotImplementedError, "ROADMAP Queue 1 item 6"))
     with pytest.raises(error[0], match=error[1]):
         tpk.pretrain_kfold(data_cfg, train_cfg, str(work), model_name=MODEL, n_splits=FOLDS,
                            n_devices=n_devices, device="cpu")

@@ -41,7 +41,14 @@ from the same numpy inputs):
   relative, each parameter's update 1e-4 of its largest), and a control
   whose `weighted_ce` divides by each rank's own weights, which must miss;
   `pretrain_kfold` on 2 ranks, then resumed, and `extract_ssl_features` on
-  2 ranks, against one process's files.
+  2 ranks, against one process's files (the one process at twice the
+  base rate: on D ranks the learning rate counts the global batch D
+  times); its logged `train_lr` against the JAX package's
+  `pretrain_one_fold` under a (2, 1) mesh without `lr`, within 1e-6.
+- the augmentation on the card under a (2, 1) mesh: each rank's views of
+  its rows equal one process's views of the global batch bitwise (the
+  draws are the global batch's), and a control that draws for the rank's
+  rows alone must miss.
 - the MoCo step (both trunks, f64, on (2, 1) and (4, 1)) and the
   contrastive step (f64, (2, 1)) against JAX's data-mesh steps, their
   controls, and `moco_kfold` on 2 ranks with its resume against one
@@ -282,6 +289,8 @@ def _group_rank(rank, tree, x, ddp):
     for case in SUPERVISED:
         on(4, 1, f"ddp_{case}", lambda mesh: _run_ddp_supervised(mesh, case, ddp["vit"], ddp["lam"]))
     on(2, 1, "ddp_pipelines", lambda mesh: _run_ddp_pipelines(mesh, ddp["dirs"]))
+    for control in (False, True):
+        on(2, 1, f"ddp_augment_{control}", lambda mesh: _run_ddp_augment(mesh, control))
     for arch in MOCO_ARCHS:
         for data in DDP_MESHES:
             on(data, 1, f"ddp_moco_{arch}_{data}", lambda mesh: md.run_ddp_moco(mesh, arch, ddp[f"moco_{arch}"]))
@@ -739,12 +748,30 @@ def _min_loss(work, fold):
 
 
 def _pretrain_one_process(dirs):
+    """One process at the 2-rank run's rate: without `lr`, 2 ranks take
+    blr * batch * 2 / 256 (the JAX package's eff_batch), so one process
+    takes twice the base rate."""
     from vit_ae_plus_plus_torch.pipelines.pretrain_kfold import pretrain_kfold
 
     data_cfg, train_cfg = _pretrain_cfgs(dirs["data"])
     with _scipy_policy():
-        return pretrain_kfold(data_cfg, train_cfg, dirs["one"], model_name=MAE_TINY, n_splits=PIPE_FOLDS,
-                              device="cpu")
+        return pretrain_kfold(data_cfg, dataclasses.replace(train_cfg, blr=2 * train_cfg.blr), dirs["one"],
+                              model_name=MAE_TINY, n_splits=PIPE_FOLDS, device="cpu")
+
+
+def _ddp_augment_raw():
+    return np.random.default_rng(33).standard_normal((DDP_B, 1, 12, 12, 12)).astype(np.float32) * 2 + 3
+
+
+def _run_ddp_augment(mesh, control):
+    """One rank's views of its rows of `_ddp_augment_raw()`, the draws the
+    global batch's (`rows`), or with `control` the rank's rows' alone."""
+    from vit_ae_plus_plus_torch.ops.augment import device_augment_batch
+
+    d, b = mesh.coords["data"], DDP_B // mesh.size("data")
+    raw = torch.from_numpy(_ddp_augment_raw()[d * b:(d + 1) * b])
+    views = device_augment_batch(raw, torch.Generator().manual_seed(5), rows=None if control else (d, 2))
+    return [v.numpy() for v in views]
 
 
 def _ddp_results(group, case, data):
@@ -837,6 +864,52 @@ def test_data_parallel_pretrain_kfold_and_its_resume_match_one_process(group):
         assert (r["fold"], r["epoch"]) == (w["fold"], w["epoch"])
         assert abs(r["train_loss"] - w["train_loss"]) <= 1e-5 * abs(w["train_loss"])
     assert len(tb_files) == 1 and os.listdir(os.path.join(ranks, "k_fold", "indices_file"))
+
+
+def test_data_parallel_pretrain_kfold_logs_the_jax_learning_rate(group, tmp_path):
+    """Without `lr`, the JAX package's `pretrain_one_fold` under a (2, 1)
+    mesh counts the global batch twice in its rate (eff_batch = batch *
+    accum_iter * 2, pretrain_kfold.py:122 there); the 2-rank port logs the
+    same `train_lr`."""
+    import jax
+
+    from vit_ae_plus_plus_tpu.configs import DataConfig as JDataConfig
+    from vit_ae_plus_plus_tpu.configs import TrainConfig as JTrainConfig
+    from vit_ae_plus_plus_tpu.data import get_dataset
+    from vit_ae_plus_plus_tpu.parallel import make_mesh as jax_make_mesh
+    from vit_ae_plus_plus_tpu.pipelines.pretrain_kfold import pretrain_one_fold
+
+    _ddp_results(group, "ddp_pipelines", 2)
+    dirs = group[1]["ddp_pretrain"]["dirs"]
+    data_cfg, train_cfg = _pretrain_cfgs(dirs["data"])
+    jdata = JDataConfig(**{k: getattr(data_cfg, k) for k in ("name", "base_path", "volume_size", "in_channels")})
+    jtrain = JTrainConfig(**{k: getattr(train_cfg, k) for k in ("batch_size", "patch_size", "warmup_epochs", "epochs",
+                                                                 "compute_dtype", "contr_weight", "lr")})
+    assert jtrain.lr is None
+    ids = np.load(os.path.join(dirs["ranks"], "k_fold", "indices_file", "train_0.npy"))
+    mesh = jax_make_mesh(data=2, devices=jax.devices()[:2])
+    pretrain_one_fold(0, ids, get_dataset("brats", "whole", jdata, transforms=None), jtrain, MAE_TINY, jdata,
+                      str(tmp_path), mesh=mesh)
+    with open(os.path.join(tmp_path, "checkpoints", "log.txt")) as f:
+        want = [json.loads(x) for x in f]
+    with open(os.path.join(dirs["ranks"], "checkpoints", "log.txt")) as f:
+        got = [json.loads(x) for x in f if json.loads(x)["fold"] == 0]
+    assert [r["epoch"] for r in got] == [r["epoch"] for r in want] == [0, 1]
+    for r, w in zip(got, want):
+        assert abs(r["train_lr"] - w["train_lr"]) <= 1e-6 * w["train_lr"], (r["train_lr"], w["train_lr"])
+    assert want[-1]["train_lr"] > 0
+
+
+@pytest.mark.parametrize("control", [False, True])
+def test_data_parallel_augmentation_draws_for_the_global_batch(group, control):
+    from vit_ae_plus_plus_torch.ops.augment import device_augment_batch
+
+    per_rank = _ddp_results(group, f"ddp_augment_{control}", 2)
+    whole = device_augment_batch(torch.from_numpy(_ddp_augment_raw()), torch.Generator().manual_seed(5))
+    b = DDP_B // 2
+    same = all(np.array_equal(views[i], whole[i][d * b:(d + 1) * b].numpy())
+               for d, views in enumerate(per_rank) for i in range(2))
+    assert same != control
 
 
 def test_data_parallel_extract_features_matches_one_process(group):

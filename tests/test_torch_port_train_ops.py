@@ -152,9 +152,11 @@ def test_mae_loss_terms_match_jax(norm_pix_loss, c):
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5, atol=1e-7, err_msg=k)
-    with pytest.raises(NotImplementedError, match="perceptual"):
-        mae_loss_terms({k: torch.from_numpy(v) for k, v in out_np.items()}, torch.from_numpy(view1), p,
-                       perceptual_weight=1.0)
+    # a weight without a perceptual function adds nothing, as in the JAX
+    # package (tests/test_torch_port_vgg.py holds the term itself)
+    _, no_fn = mae_loss_terms({k: torch.from_numpy(v) for k, v in out_np.items()}, torch.from_numpy(view1), p,
+                              perceptual_weight=1.0, **kw)
+    assert float(no_fn["perceptual_loss"]) == 0.0 and float(no_fn["loss"]) == float(got["loss"])
 
 
 @pytest.mark.parametrize("clip_grad", [None, 0.5])
@@ -188,15 +190,20 @@ def test_adamw_matches_optax(clip_grad):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="accum_iter"):
-        make_adamw(1e-3, accum_iter=2)
+    """The options once refused here are ported: `accum_iter` > 1 builds
+    the accumulating AdamW (tests/test_torch_port_accum.py), and a step
+    with a perceptual weight but no function takes a finite step with a
+    zero term, as JAX's does."""
+    from vit_ae_plus_plus_torch.train.optim import MultiSteps
+
     tiny = dict(volume_size=8, patch_size=4, embed_dim=12, depth=1, num_heads=2,
                 decoder_embed_dim=8, decoder_depth=1, decoder_num_heads=2)
     model = build_model(MAEConfig(**tiny))
+    assert isinstance(make_adamw(1e-3, accum_iter=2)(model), MultiSteps)
     step = make_train_step(model, 4, perceptual_weight=0.1)
     view = torch.from_numpy(_np((1, 1, 8, 8, 8), 40))
-    with pytest.raises(NotImplementedError, match="perceptual"):  # raised by mae_loss_terms
-        step(create_train_state(model, make_adamw(1e-3)), view, view, 0.0)
+    _, metrics = step(create_train_state(model, make_adamw(1e-3)), view, view, 0.0)
+    assert float(metrics["perceptual_loss"]) == 0.0 and np.isfinite(float(metrics["loss"]))
     # the LayerNorm options are ported: each builds and takes a finite step
     for override in ({"ln_fusion": "on"}, {"ln_dtype": "bfloat16"}):
         model = build_model(MAEConfig(**tiny, **override))

@@ -234,9 +234,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "of every batch; resnet-kfold refuses N > 1")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device-augment", action="store_true",
-                   help="augmentation on the card (not ported yet: refused)")
+                   help="augment and normalise each raw batch on the card (pretrain-kfold)")
     p.add_argument("--device-data", action="store_true",
-                   help="the whole raw fold on the card (not ported yet: refused)")
+                   help="hold the fold's raw volumes on the card (implies --device-augment)")
     p.add_argument("--resume", action="store_true",
                    help="resume folds from their resume checkpoints")
     p.add_argument("--ckpt-every", type=int, default=1,

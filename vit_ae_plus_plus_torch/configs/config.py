@@ -112,9 +112,8 @@ class TrainConfig:
     """SSL pretraining hyperparameters: every field of the JAX package's
     `TrainConfig`, with its defaults (the reference's config.ini [K_FOLD]
     and argparse defaults). `pretrain_kfold` refuses the fields whose
-    paths are not ported yet (`device_augment`, `device_data`, `fsdp`,
-    `pipe_devices > 1`, a data mesh); `donate_state` has no meaning in
-    eager PyTorch and nothing reads it."""
+    paths are not ported yet (`fsdp`, `pipe_devices > 1`); `donate_state`
+    has no meaning in eager PyTorch and nothing reads it."""
 
     epochs: int = 50
     batch_size: int = 4
@@ -131,15 +130,15 @@ class TrainConfig:
     # loss weights
     use_edge_map: bool = True  # edge weight schedule 0.01 * (1 - epoch/epochs)
     perceptual_weight: float = 0.0
-    vgg_ckpt: Optional[str] = None  # the perceptual term is not ported yet
+    vgg_ckpt: Optional[str] = None  # torchvision VGG16 state dict; None: seeded random weights
     contr_weight: float = 0.001
     norm_pix_loss: bool = False
     # execution
     compute_dtype: str = "float32"  # "bfloat16" for throughput
     ln_dtype: str = "float32"
     loss_filters_dtype: str = "float32"  # "bfloat16": edge-loss filters in bf16
-    device_augment: bool = False  # augment on the card (not ported yet)
-    device_data: bool = False  # the whole raw fold resident on the card (not ported yet)
+    device_augment: bool = False  # augment and normalise raw batches on the card
+    device_data: bool = False  # the whole raw fold resident on the card (needs device_augment)
     donate_state: bool = True
     mesh_shape: Tuple[int, ...] = (1,)  # (data,) mesh; data > 1 asks for that many data-parallel ranks
     pipe_devices: int = 1  # > 1: GPipe pipeline (not ported yet)

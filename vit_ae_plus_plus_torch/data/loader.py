@@ -17,8 +17,9 @@ of a one-process loader of `batch_size` (the global batch), of which rank
 d loads and yields rows [d b, (d + 1) b), b = batch_size / D; the last
 partial batch of `drop_last=False` is padded with its first item, as the
 JAX package pads its eval batches. The JAX package's round-robin process
-sharding (`epoch_shard` over `jax.process_count()`) and its
-`DeviceResidentBatches` have no counterpart here.
+sharding (`epoch_shard` over `jax.process_count()`) has no counterpart
+here. `DeviceResidentBatches` holds a fold's raw volumes on the card and
+takes each batch there.
 """
 
 from __future__ import annotations
@@ -54,6 +55,27 @@ def epoch_order(indices, epoch: int, seed: int, shuffle: bool = True) -> np.ndar
     if shuffle:
         np.random.default_rng(seed + epoch).shuffle(order)
     return order
+
+
+def check_shard_rows(batch_size: int, shard_rows: Optional[Tuple[int, int]]) -> None:
+    """Refuse a `shard_rows` (d, D) whose D does not divide the global batch."""
+    if shard_rows is not None:
+        d, size = shard_rows
+        if batch_size % size or not 0 <= d < size:
+            raise ValueError(
+                f"the global batch of {batch_size} does not split into {size} equal shards (rank {d}): "
+                "data-parallel runs need a batch size that the number of devices divides")
+
+
+def shard_slice(batch_idx: np.ndarray, batch_size: int,
+                shard_rows: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Under `shard_rows` (d, D): rank d's items of one global batch, the
+    other ranks' items, and the number of pad rows after its own."""
+    d, size = shard_rows
+    b = batch_size // size
+    mine = batch_idx[d * b:(d + 1) * b]
+    others = np.concatenate([batch_idx[:d * b], batch_idx[(d + 1) * b:]])
+    return mine, others, b - len(mine)
 
 
 def all_items(dataset) -> Tuple[np.ndarray, np.ndarray]:
@@ -187,6 +209,68 @@ def _prefetch(iterator, size: int, dev, put_orig: bool, record: Optional[dict]):
         yield ready(ahead.popleft())
 
 
+class DeviceResidentBatches:
+    """The whole fold's raw volumes resident on the card: the JAX package's
+    `DeviceResidentBatches` (data/loader.py there). The fold is staged once
+    as one (n, C, S, S, S) f32 tensor on `device`; each batch is an
+    `index_select` there, so an epoch moves nothing from the host. Only
+    `raw=True` datasets are accepted: the augmentation and normalisation
+    run on the card (ops/augment.py). The epoch order is `Loader`'s
+    (`epoch_order` with the same seed) and `set_epoch` fast-forwards it.
+
+    Under `shard_rows=(d, D)` every rank holds the whole store (the JAX
+    package stages it replicated) and takes rows [d b, (d + 1) b) of each
+    global batch of `batch_size`, b = batch_size / D, as
+    `Loader(shard_rows=...)` does. The last partial batch is dropped, so
+    every rank gets b rows of every batch. Yields (batch, batch, labels)
+    with the raw batch as both views."""
+
+    def __init__(self, dataset, batch_size: int, indices=None, seed: int = 0, device=None,
+                 shard_rows: Optional[Tuple[int, int]] = None):
+        import torch
+
+        from vit_ae_plus_plus_torch.device import resolve_device
+
+        datasets = getattr(dataset, "datasets", [dataset])
+        if not all(getattr(ds, "raw", False) for ds in datasets):
+            raise ValueError("DeviceResidentBatches takes raw=True datasets only: the volumes are "
+                             "augmented and normalised on the card")
+        check_shard_rows(batch_size, shard_rows)
+        ids = np.asarray(indices if indices is not None else np.arange(len(dataset)))
+        vols = np.stack([np.asarray(dataset[int(i)][0], np.float32) for i in ids])
+        self._data = torch.from_numpy(vols).to(resolve_device(device))  # (n, C, S, S, S)
+        self._labels = all_labels(dataset)[ids]
+        self.batch_size = batch_size
+        self.shard_rows = shard_rows
+        self._seed = seed
+        self._epoch = 0
+        self._n = len(ids)
+
+    def nbytes(self) -> int:
+        return self._data.numel() * self._data.element_size()
+
+    def __len__(self) -> int:
+        return self._n // self.batch_size
+
+    def set_epoch(self, epoch: int) -> None:
+        """Fast-forward the shuffle schedule for a resumed run (as
+        `Loader.set_epoch`)."""
+        self._epoch = int(epoch)
+
+    def __iter__(self):
+        import torch
+
+        self._epoch += 1
+        # positions 0..n-1 in `Loader`'s order of the ids they hold
+        order = epoch_order(np.arange(self._n), self._epoch, self._seed)
+        for b in range(len(self)):
+            idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+            if self.shard_rows is not None:
+                idx = shard_slice(idx, self.batch_size, self.shard_rows)[0]
+            batch = self._data.index_select(0, torch.from_numpy(idx).to(self._data.device))
+            yield batch, batch, self._labels[idx]
+
+
 def measure_prefetch_overlap(load_ms: float = 20.0, compute_ms: float = 30.0,
                              n_batches: int = 10, batch_size: int = 2, device=None):
     """Measure the streaming pipeline's consumer stall fraction with a
@@ -253,12 +337,7 @@ class Loader:
         self._seed = seed
         self.collate_ms: list = []
         self.wait_ms: list = []
-        if shard_rows is not None:
-            d, size = shard_rows
-            if batch_size % size or not 0 <= d < size:
-                raise ValueError(
-                    f"the global batch of {batch_size} does not split into {size} equal shards (rank {d}): "
-                    "data-parallel runs need a batch size that the number of devices divides")
+        check_shard_rows(batch_size, shard_rows)
         self.shard_rows = shard_rows
 
     def __len__(self) -> int:
@@ -284,15 +363,6 @@ class Loader:
         for b in range(n_batches):
             yield order[b * self.batch_size : (b + 1) * self.batch_size]
 
-    def _rows(self, batch_idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray, int]:
-        """Under `shard_rows` (d, D): this rank's items of one global batch,
-        the other ranks' items, and the number of pad rows after its own."""
-        d, size = self.shard_rows
-        b = self.batch_size // size
-        mine = batch_idx[d * b:(d + 1) * b]
-        others = np.concatenate([batch_idx[:d * b], batch_idx[(d + 1) * b:]])
-        return mine, others, b - len(mine)
-
     def __iter__(self):
         self._epoch += 1
         pool = ThreadPoolExecutor(max_workers=self.num_workers)
@@ -305,7 +375,8 @@ class Loader:
         def collate(batch_idx):
             pad = 0
             if self.shard_rows is not None:
-                first, (batch_idx, others, pad) = batch_idx[0], self._rows(batch_idx)
+                first = batch_idx[0]
+                batch_idx, others, pad = shard_slice(batch_idx, self.batch_size, self.shard_rows)
                 if counted:  # the other ranks' loads of this batch
                     for item in others:
                         self.dataset.count_access(int(item))

@@ -1,3 +1,4 @@
+from vit_ae_plus_plus_torch.ops.augment import augment_draws, device_augment_batch
 from vit_ae_plus_plus_torch.ops.filters import gaussian_blur_3d, gaussian_kernel_1d, sobel_edges_3d
 from vit_ae_plus_plus_torch.ops.losses import (
     at_least_f32,
@@ -14,6 +15,8 @@ from vit_ae_plus_plus_torch.ops.resize import resize_trilinear
 
 __all__ = [
     "at_least_f32",
+    "augment_draws",
+    "device_augment_batch",
     "edge_map_loss",
     "gaussian_blur_3d",
     "gaussian_kernel_1d",

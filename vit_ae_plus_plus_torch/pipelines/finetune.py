@@ -79,13 +79,11 @@ from vit_ae_plus_plus_torch.utils.metrics import roc_auc
 
 def check_supported(train_cfg: TrainConfig, n_devices: Optional[int] = None,
                     command: str = "finetune") -> Tuple[int, int]:
-    """Raise `NotImplementedError` for a setting whose path the port does not
-    have yet, naming the ROADMAP item that brings it, and `ValueError` when
-    the ambient mesh is not the data mesh of `n_devices`
-    (`parallel.data_parallel`). -> (d, D) on the 'data' axis."""
-    if train_cfg.accum_iter > 1:
-        raise NotImplementedError(
-            f"{command}: accum_iter > 1 (gradient accumulation) is not ported yet (ROADMAP Queue 1 item 5)")
+    """Raise `ValueError` when the ambient mesh is not the data mesh of
+    `n_devices` (`parallel.data_parallel`). -> (d, D) on the 'data' axis.
+    `accum_iter` only scales the learning rate here, as in the JAX package
+    (finetune.py:302, probe_kfold.py:108 there): no optimizer of these
+    commands accumulates."""
     return data_parallel(requested_devices(train_cfg, n_devices), command)
 
 

@@ -7,7 +7,10 @@ the primary entry point (reference k_fold_cross_valid_combined_brats.py:
 - stratified k folds (5 BraTS / 3 EGD) with persisted fold indices;
 - per fold: contrastive MAE pretraining with the per-epoch edge-weight
   schedule 0.01 * (1 - epoch / epochs), AdamW(0.9, 0.95) with
-  lr = blr * eff_batch / 256, per-update warmup-cosine;
+  lr = blr * eff_batch / 256, eff_batch = batch_size * accum_iter * D on D
+  data-parallel ranks, per-update warmup-cosine; with `accum_iter` k > 1
+  an update every k steps on the mean of their gradients (optax's
+  `MultiSteps`);
 - the min-train-loss weights as `checkpoints/fold_k/checkpoint-min_loss.pth`
   (a reference-layout state dict, which `serve --checkpoint` reads), the
   JSON-lines epoch log `checkpoints/log.txt`, TensorBoard scalars under
@@ -19,22 +22,36 @@ The step's metrics are summed on the device and fetched once an epoch; the
 only sync inside an epoch is the NaN check every `nan_check_every` steps
 (the reference synchronised every iteration, train_one_epoch.py:76,105).
 
+The options off the default path, wired as the JAX package wires them:
+`device_augment` reads raw volumes (BraTS, or EGD's labeled and SSL pools,
+per-channel z-scored) and augments and normalises each batch on the card
+(ops/augment.py), its draws from a generator seeded by (seed, fold, epoch,
+step), as the JAX package folds (key, epoch, step), so a resumed run draws
+what an uninterrupted one would; `device_data` (which needs
+`device_augment`) holds the fold's raw volumes on the card
+(`DeviceResidentBatches`) and its batches skip `cuda_prefetch`;
+`perceptual_weight` > 0 adds the VGG16 term (models/vgg.py, weights from
+`vgg_ckpt` or seeded), gradient-free as in the reference.
+
 Data parallelism: `n_devices` > 1 runs on that many ranks, each under a
 mesh of (n_devices, 1) (the CLI's `--n-devices` launches them; the JAX
 package's `make_mesh(data=n_devices)`). `batch_size` stays the global
-batch and the learning rate's `eff_batch`; each rank loads and trains on
-its rows of the one-process run's batches (`Loader(shard_rows=...)`), the
-step averages over the group (train/step.py), and the extraction gathers
-the features in the one-process order. The group's first rank alone takes
-the work-dir lock and writes: the fold index files (which the others then
-read), the min-loss `.pth`, the resume state, `log.txt`, the TensorBoard
-events and the features. The others choose the same best state, since the
+batch; each rank loads and trains on its rows of the one-process run's
+batches (`Loader(shard_rows=...)`), the step averages over the group
+(train/step.py), and the extraction gathers the features in the
+one-process order. The learning rate's `eff_batch` and the logged
+volumes/s count the global batch D times, as the JAX package's do
+(pretrain_kfold.py:122, :340-342 there): a quirk kept, so that a run on D
+devices learns at the JAX package's rate (ROADMAP Queue 3). The group's
+first rank alone takes the work-dir lock and writes: the fold index files
+(which the others then read), the min-loss `.pth`, the resume state,
+`log.txt`, the TensorBoard events and the features. The others choose the same best state, since the
 epoch's loss is the group's mean, and read the same resume file.
 
 Not ported yet, and refused before any data is read or any file written:
-`device_augment`, `device_data`, the perceptual term and `accum_iter > 1`
-(ROADMAP Queue 1 item 5); FSDP, the GPipe pipeline and a mesh with a model
-axis (item 6).
+FSDP, the GPipe pipeline and a mesh with a model axis (ROADMAP Queue 1 item
+6); `device_data` without `device_augment` raises `ValueError`, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -49,11 +66,12 @@ import numpy as np
 import torch
 
 from vit_ae_plus_plus_torch.configs import DataConfig, TrainConfig
-from vit_ae_plus_plus_torch.data import Loader, default_ssl_transforms, get_dataset
-from vit_ae_plus_plus_torch.data.loader import ConcatDataset, all_labels, cuda_prefetch
+from vit_ae_plus_plus_torch.data import BraTSDataset, EGDDataset, Loader, default_ssl_transforms, get_dataset
+from vit_ae_plus_plus_torch.data.loader import ConcatDataset, DeviceResidentBatches, all_labels, cuda_prefetch
 from vit_ae_plus_plus_torch.data.splits import kfold_indices
 from vit_ae_plus_plus_torch.device import resolve_device
-from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_model
+from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_model, build_perceptual
+from vit_ae_plus_plus_torch.ops.augment import device_augment_batch
 from vit_ae_plus_plus_torch.parallel import data_coords, data_parallel, writer_first
 from vit_ae_plus_plus_torch.pipelines.extract_features import loader_features
 from vit_ae_plus_plus_torch.pipelines.transfer import build_grafted_vit
@@ -79,11 +97,9 @@ def check_supported(train_cfg: TrainConfig, n_devices: Optional[int] = None) -> 
     have yet, naming the ROADMAP item that brings it, and `ValueError` when
     the ambient mesh is not the data mesh of `n_devices`
     (`parallel.data_parallel`). -> (d, D) on the 'data' axis."""
+    if train_cfg.device_data and not train_cfg.device_augment:
+        raise ValueError("device_data requires device_augment (the raw volumes are normalised on the card)")
     refused = [
-        (train_cfg.device_augment, "device_augment (augmentation on the card)", "item 5"),
-        (train_cfg.device_data, "device_data (the whole raw fold resident on the card)", "item 5"),
-        (train_cfg.perceptual_weight > 0, "perceptual_weight > 0 (the VGG perceptual term)", "item 5"),
-        (train_cfg.accum_iter > 1, "accum_iter > 1 (gradient accumulation)", "item 5"),
         (train_cfg.fsdp, "fsdp (parameters and optimizer state sharded over 'data')", "item 6"),
         ((train_cfg.pipe_devices or 1) > 1, "pipe_devices > 1 (the GPipe pipeline)", "item 6"),
     ]
@@ -128,15 +144,20 @@ def pretrain_one_fold(
         ln_dtype=train_cfg.ln_dtype,
     )
     model = build_model(mae_cfg).init_weights(torch.Generator().manual_seed(train_cfg.seed)).to(dev)
-    loader = Loader(
-        dataset_aug, train_cfg.batch_size, indices=train_ids,
-        shuffle=True, drop_last=True, seed=train_cfg.seed,
-        # a global per-epoch reshuffle; under a data mesh, this rank's rows
-        # of each global batch
-        shard_rows=(d, size) if size > 1 else None,
-    )
+    # under a data mesh, this rank's rows of each global batch
+    shard_rows = (d, size) if size > 1 else None
+    if train_cfg.device_data:
+        # the fold's raw volumes staged on the card once: an epoch copies
+        # nothing from the host, a batch is one index_select
+        loader = DeviceResidentBatches(dataset_aug, train_cfg.batch_size, indices=train_ids,
+                                       seed=train_cfg.seed, device=dev, shard_rows=shard_rows)
+        print(f"Fold {fold_idx}: dataset resident on the card ({loader.nbytes() / 1e9:.2f} GB)")
+    else:
+        # a global per-epoch reshuffle
+        loader = Loader(dataset_aug, train_cfg.batch_size, indices=train_ids, shuffle=True, drop_last=True,
+                        seed=train_cfg.seed, shard_rows=shard_rows)
     steps_per_epoch = len(loader)
-    eff_batch = train_cfg.batch_size * train_cfg.accum_iter
+    eff_batch = train_cfg.batch_size * train_cfg.accum_iter * size
     lr = train_cfg.lr if train_cfg.lr is not None else train_cfg.blr * eff_batch / 256
     schedule = warmup_cosine_schedule(
         lr, train_cfg.min_lr, train_cfg.warmup_epochs, train_cfg.epochs, steps_per_epoch
@@ -148,14 +169,20 @@ def pretrain_one_fold(
     # restored with the resume checkpoint, so a resumed run draws what an
     # uninterrupted one would
     state = create_train_state(model, tx, seed=train_cfg.seed + 100 + fold_idx)
+    perceptual_fn = None
+    if train_cfg.perceptual_weight:
+        # the gradient-free VGG term (reference vit_autoenc.py:229-230)
+        _, perceptual_fn = build_perceptual(train_cfg.vgg_ckpt, device=dev)
     step = make_train_step(
         model, mae_cfg.patch_size,
         mask_ratio=train_cfg.mask_ratio,
         contr_weight=train_cfg.contr_weight if mae_cfg.contrastive else 0.0,
         perceptual_weight=train_cfg.perceptual_weight,
         norm_pix_loss=train_cfg.norm_pix_loss,
+        perceptual_fn=perceptual_fn,
         loss_filters_dtype=train_cfg.loss_filters_dtype,
     )
+    augment_gen = torch.Generator(device=dev) if train_cfg.device_augment else None
 
     ckpt_dir = os.path.join(work_dir, "checkpoints", f"fold_{fold_idx}")
     min_loss_path = os.path.join(ckpt_dir, MIN_LOSS_CHECKPOINT)
@@ -190,10 +217,20 @@ def pretrain_one_fold(
         if train_cfg.profile_dir and epoch == start_epoch + 1:
             prof = _start_profile(dev)
         epoch_t0 = time.time()
-        batches = cuda_prefetch(loader, size=2, device=dev)
+        if train_cfg.device_data:
+            batches = loader  # on the card already
+        else:
+            # with device_augment both views come from the raw batch on
+            # the card: copying orig too would double the copies
+            batches = cuda_prefetch(loader, size=2, device=dev, put_orig=not train_cfg.device_augment)
         for aug, orig, _ in logger.log_every(
             batches, header=f"Fold {fold_idx} Epoch [{epoch}]", length=len(loader)
         ):
+            if augment_gen is not None:
+                augment_gen.manual_seed(augment_seed(train_cfg.seed, fold_idx, epoch, count))
+                aug, orig = device_augment_batch(
+                    aug, augment_gen, data_cfg.use_z_score, per_channel=data_cfg.name == "egd",
+                    rows=shard_rows)
             state, metrics = step(state, aug, orig, edge_w)
             sums = metrics if sums is None else {k: sums[k] + v for k, v in metrics.items()}
             count += 1
@@ -212,7 +249,7 @@ def pretrain_one_fold(
         values = torch.stack([sums[n].double() for n in names]).tolist()  # one fetch
         stats = {n: v / count for n, v in zip(names, values)}
         epoch_time = time.time() - epoch_t0  # the fetch above waited for the card
-        stats["volumes_per_sec"] = count * train_cfg.batch_size / epoch_time
+        stats["volumes_per_sec"] = count * train_cfg.batch_size * size / epoch_time
         if prof is not None:
             prof.stop()
             os.makedirs(train_cfg.profile_dir, exist_ok=True)
@@ -259,6 +296,14 @@ def pretrain_one_fold(
     print(f"Fold {fold_idx}: trained epochs [{start_epoch}, {train_cfg.epochs}) in "
           f"{time.time() - t_start:.0f}s, min loss {min_loss:.4f}")
     return mae_cfg, best, {"min_loss": min_loss}
+
+
+def augment_seed(seed: int, fold_idx: int, epoch: int, count: int) -> int:
+    """The seed of one step's augmentation draws: the JAX package folds
+    epoch and step into PRNGKey(seed + 100 + fold); here they seed a
+    `torch.Generator` through numpy's `SeedSequence`, so the draws depend on
+    (seed, fold, epoch, step) alone and a resumed run repeats them."""
+    return int(np.random.SeedSequence([seed + 100 + fold_idx, epoch, count]).generate_state(1, np.uint64)[0] >> 1)
 
 
 def _check_layout(resume_dir: str, write: bool) -> None:
@@ -349,19 +394,27 @@ def pretrain_kfold(
         # over the LABELED pool; pretraining sees labeled-train + the whole
         # unlabeled SSL pool concatenated with offset ids; features come from
         # the labeled pool only
-        labeled_aug = get_dataset("egd", "test", data_cfg, transforms=transforms,
+        split_dir = os.path.join(data_cfg.base_path, "splits")
+        if train_cfg.device_augment:  # raw volumes, augmented on the card
+            labeled_aug = EGDDataset(data_cfg.base_path, split_dir, mode="test", split=data_cfg.split, raw=True)
+            ssl_aug = EGDDataset(data_cfg.base_path, split_dir, mode="ssl", split=data_cfg.split, raw=True)
+        else:
+            labeled_aug = get_dataset("egd", "test", data_cfg, transforms=transforms,
+                                      use_z_score=data_cfg.use_z_score)
+            ssl_aug = get_dataset("egd", "ssl", data_cfg, transforms=transforms,
                                   use_z_score=data_cfg.use_z_score)
         labeled_no_aug = get_dataset("egd", "test", data_cfg, transforms=None,
                                      use_z_score=data_cfg.use_z_score)
-        ssl_aug = get_dataset("egd", "ssl", data_cfg, transforms=transforms,
-                              use_z_score=data_cfg.use_z_score)
         dataset_aug = ConcatDataset([labeled_aug, ssl_aug])
         dataset_no_aug = labeled_no_aug
         labels = all_labels(labeled_no_aug)
         ssl_offset_ids = np.arange(len(ssl_aug)) + len(labeled_aug)
     else:
-        dataset_aug = get_dataset(data_cfg.name, "whole", data_cfg, transforms=transforms,
-                                  use_z_score=data_cfg.use_z_score)
+        if train_cfg.device_augment:  # raw volumes, augmented on the card
+            dataset_aug = BraTSDataset(data_cfg.base_path, "whole", raw=True)
+        else:
+            dataset_aug = get_dataset(data_cfg.name, "whole", data_cfg, transforms=transforms,
+                                      use_z_score=data_cfg.use_z_score)
         dataset_no_aug = get_dataset(data_cfg.name, "whole", data_cfg, transforms=None,
                                      use_z_score=data_cfg.use_z_score)
         labels = all_labels(dataset_no_aug)

@@ -11,8 +11,9 @@ the previous file whole:
   `load_reference_state_dict` and `serve --checkpoint` read it;
 - `CheckpointManager`: a fold's resume checkpoint, one `torch.save` file
   holding the model (BatchNorm statistics included), the AdamW state and
-  its update count, the step, the masking generator's state, the epoch
-  and the best loss so far.
+  its update count, under gradient accumulation the running mean and the
+  mini-step (optax's `MultiStepsState`), the step, the masking generator's
+  state, the epoch and the best loss so far.
 
 The weight bridge reads exactly two inputs:
 
@@ -37,7 +38,9 @@ ResNet), the predictor under `predictor.`, each head's `Dense_l` /
 `BatchNorm_l` at Sequential index 3l / 3l + 1. A contrastive ViT tree
 (top-level `trunk` and `heads`, `VisionTransformer3DContrastive`) goes to
 `trunk.*` and `heads.predictor.*` / `heads.projector.*`, each head's
-layers where the MAE's heads put them.
+layers where the MAE's heads put them. The perceptual loss's VGG16 tree
+(top-level `conv_0` ... `conv_9`, models/vgg.py there) goes to
+`VGG16Features`' `convs.{i}`, its (kh, kw, I, O) kernels to (O, I, kh, kw).
 """
 
 from __future__ import annotations
@@ -193,6 +196,15 @@ def _contrastive_state_dict(tree: Dict, patch_size: Optional[int], in_chans: int
     return sd
 
 
+def _vgg_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(len(tree)):
+        leaf = tree[f"conv_{i}"]
+        sd[f"convs.{i}.weight"] = torch.from_numpy(np.array(np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1)))
+        sd[f"convs.{i}.bias"] = torch.from_numpy(np.array(leaf["bias"]))
+    return sd
+
+
 def params_from_jax(
     tree: Dict, patch_size: Optional[int] = None, in_chans: int = 1, batch_stats: Optional[Dict] = None
 ) -> Dict[str, torch.Tensor]:
@@ -204,7 +216,10 @@ def params_from_jax(
     (top-level `Conv_0`) needs neither: its conv kernels go from (kd, kh,
     kw, cin, cout) to (cout, cin, kd, kh, kw); a MoCo tree (top-level
     `trunk`, `projector`, `predictor`, either trunk) and a contrastive ViT
-    tree (top-level `trunk`, `heads`) take their trunk's arguments."""
+    tree (top-level `trunk`, `heads`) take their trunk's arguments; a VGG16
+    tree (top-level `conv_0`) needs none."""
+    if "conv_0" in tree:
+        return _vgg_state_dict(tree)
     if "trunk" in tree and "projector" in tree:
         return _moco_state_dict(tree, patch_size, in_chans, batch_stats)
     if "trunk" in tree and "heads" in tree:
@@ -263,7 +278,7 @@ class CheckpointManager:
         self.path = os.path.join(self.directory, "checkpoint.pth")
 
     def save(self, state, epoch: int, min_loss: float = float("inf")) -> None:
-        save_atomic({
+        payload = {
             "model": state.model.state_dict(),
             "optimizer": state.tx.opt.state_dict(),
             "count": state.tx.count,
@@ -271,7 +286,10 @@ class CheckpointManager:
             "generator": state.generator.get_state(),
             "epoch": int(epoch),
             "min_loss": float(min_loss),
-        }, self.path)
+        }
+        if hasattr(state.tx, "acc"):  # MultiSteps: a run killed mid-accumulation resumes it
+            payload["accum"] = {"mini_step": state.tx.mini_step, "acc": [a.detach().cpu() for a in state.tx.acc]}
+        save_atomic(payload, self.path)
 
     def restore(self, state):
         """-> (state, epoch, min_loss); epoch is None when no checkpoint exists
@@ -281,9 +299,16 @@ class CheckpointManager:
         if not os.path.exists(self.path):
             return state, None, float("inf")
         payload = torch.load(self.path, map_location="cpu", weights_only=True)
+        if hasattr(state.tx, "acc") != ("accum" in payload):
+            raise ValueError(f"{self.path} was written with another accum_iter setting than this run's "
+                             "(gradient accumulation on in one, off in the other)")
         state.model.load_state_dict(payload["model"], strict=True)
         state.tx.opt.load_state_dict(payload["optimizer"])
         state.tx.count = payload["count"]
+        if "accum" in payload:
+            state.tx.mini_step = payload["accum"]["mini_step"]
+            for a, saved in zip(state.tx.acc, payload["accum"]["acc"], strict=True):
+                a.copy_(saved)
         state.step = payload["step"]
         state.generator.set_state(payload["generator"])
         return state, payload["epoch"], payload["min_loss"]

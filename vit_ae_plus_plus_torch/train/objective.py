@@ -4,13 +4,18 @@ Counterpart of the JAX package's train/objective.py (`mae_loss_terms`),
 with its quirks kept: the Sobel map of the RAW prediction is compared with
 that of the BLURRED target; the reconstruction is averaged over removed
 patches only (computed in volume space when `norm_pix_loss` is off); the
-contrastive term is per token, cls included. The perceptual (VGG) term is
-not ported: it is reported as 0 and a non-zero weight raises.
+contrastive term is per token, cls included; the perceptual (VGG) term,
+computed on the (normalised, under `norm_pix_loss`) target volume, is
+logged but gradient-free by default (the reference's `torch.no_grad()`,
+vit_autoenc.py:229-230, the JAX package's `stop_gradient`): it runs under
+`torch.no_grad()`, so the VGG's activations never join the step's graph.
+`perceptual_differentiable=True` is the opt-in that lets its gradient
+through.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -36,13 +41,15 @@ def mae_loss_terms(
     contr_weight: float = 0.0,
     perceptual_weight: float = 0.0,
     norm_pix_loss: bool = False,
+    perceptual_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+    perceptual_differentiable: bool = False,
     filters_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Model outputs + input -> (total loss, metrics): `loss`,
     `edge_map_loss` (unweighted), `reconstruction_loss`, `perceptual_loss`
-    and `contr_loss` (weighted)."""
-    if perceptual_weight:
-        raise NotImplementedError("the perceptual (VGG) loss is not ported yet")
+    and `contr_loss` (weighted). The perceptual term is 0 unless both
+    `perceptual_fn` (models/vgg.py `make_perceptual_fn`) and
+    `perceptual_weight` are given."""
     pred, mask = outputs["pred"], outputs["mask"]
     pred_f = at_least_f32(pred)
     pred_vol = unpatchify(pred_f, patch_size)
@@ -74,18 +81,26 @@ def mae_loss_terms(
     edge_loss = edge_map_weight * raw_edge
 
     zero = torch.zeros((), dtype=torch.float32, device=pred.device)
+    if perceptual_fn is not None and perceptual_weight:
+        if perceptual_differentiable:
+            percep = perceptual_weight * perceptual_fn(pred_vol, target_vol)
+        else:
+            with torch.no_grad():
+                percep = perceptual_weight * perceptual_fn(pred_vol.detach(), target_vol.detach())
+    else:
+        percep = zero
     if contr_weight and "p1" in outputs:
         contr = contr_weight * negative_cosine_loss(
             outputs["p1"], outputs["p2"], outputs["z1"], outputs["z2"]
         )
     else:
         contr = zero
-    total = edge_loss + recon + zero + contr
+    total = edge_loss + recon + percep + contr
     metrics = {
         "loss": total,
         "edge_map_loss": raw_edge,
         "reconstruction_loss": recon,
-        "perceptual_loss": zero,
+        "perceptual_loss": percep,
         "contr_loss": contr,
     }
     return total, metrics

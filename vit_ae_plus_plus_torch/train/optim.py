@@ -11,6 +11,10 @@ frozen backbone of its pipelines/finetune.py), with optax's semantics:
 - update k (counted from 0, as optax counts) uses the learning rate
   `schedule(k)`;
 - `clip_grad`: optax's `clip_by_global_norm`, applied before the update;
+- `accum_iter` k > 1: optax's `MultiSteps(chain, every_k_schedule=k)`
+  with its default `use_grad_mean` (`MultiSteps` below): a running mean
+  of k mini-steps' gradients, the clip and AdamW on the mean at the k-th,
+  the parameters and the update count untouched on the other k - 1;
 - the fine-tune AdamW(0.9, 0.999) with BEiT layer-wise decay: optax's
   update -lr * s * (adam + wd * p) for a decayed parameter of scale s, and
   -lr * s * adam for an exempt one, is `torch.optim.AdamW`'s decoupled
@@ -125,6 +129,45 @@ class AdamW:
         self.count += 1
 
 
+class MultiSteps(AdamW):
+    """optax's `MultiSteps(make_adamw chain, every_k_schedule=k)` with
+    `use_grad_mean` (the JAX package's `make_adamw(accum_iter=k)`).
+
+    Each `step()` folds the parameters' `.grad` into `acc` as optax's
+    running mean, acc + (g - acc) / (n + 1) for the n-th mini-step of the
+    cycle (rounded as optax rounds it, not a sum divided by k). At the k-th
+    mini-step the mean replaces `.grad`, the inner chain (the clip, then
+    AdamW at the learning rate of the update's count) runs on it, `acc`
+    returns to zeros and `mini_step` to 0; on the other k - 1 the
+    parameters, the AdamW state and `count` stay as they are. `mini_step`
+    and `acc` carry over epoch boundaries, and the resume checkpoint holds
+    them (train/checkpoint.py)."""
+
+    def __init__(self, model: nn.Module, learning_rate: Union[Schedule, float], accum_iter: int, **kwargs):
+        super().__init__(model, learning_rate, **kwargs)
+        self.accum_iter = accum_iter
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def _acc_update(self, grads) -> None:
+        delta = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(delta, self.mini_step + 1)
+        torch._foreach_add_(self.acc, delta)
+
+    def step(self) -> None:
+        self._acc_update([p.grad for p in self.params])
+        if self.mini_step < self.accum_iter - 1:
+            self.mini_step += 1
+            return
+        with torch.no_grad():
+            for p, a in zip(self.params, self.acc):
+                p.grad.copy_(a)
+                a.zero_()
+        super().step()
+        self.mini_step = 0
+
+
 def _set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
     for group in opt.param_groups:
         group["lr"] = lr * group.get("lr_scale", 1.0)
@@ -140,12 +183,14 @@ def make_adamw(
 ) -> Callable[[nn.Module], AdamW]:
     """The optimizer's recipe, as the JAX package's `make_adamw` returns an
     optax transformation: call it on the model (`create_train_state` does)
-    to get the `AdamW` over its parameters."""
-    if accum_iter > 1:
-        raise NotImplementedError("gradient accumulation (accum_iter > 1) is not ported yet")
+    to get the `AdamW` over its parameters, or with `accum_iter` > 1 the
+    `MultiSteps` that accumulates that many mini-steps an update."""
 
     def init(model: nn.Module) -> AdamW:
-        return AdamW(model, learning_rate, weight_decay, b1, b2, clip_grad)
+        kwargs = dict(weight_decay=weight_decay, b1=b1, b2=b2, clip_grad=clip_grad)
+        if accum_iter > 1:
+            return MultiSteps(model, learning_rate, accum_iter, **kwargs)
+        return AdamW(model, learning_rate, **kwargs)
 
     return init
 

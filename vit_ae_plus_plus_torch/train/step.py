@@ -50,6 +50,7 @@ def make_train_step(
     contr_weight: float = 0.0,
     perceptual_weight: float = 0.0,
     norm_pix_loss: bool = False,
+    perceptual_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
     loss_filters_dtype: str = "float32",
     forward_fn: Optional[ForwardFn] = None,
 ) -> Callable:
@@ -62,6 +63,11 @@ def make_train_step(
     replaces the model call, e.g. to inject noise in tests. `metrics` holds
     the loss terms and `grad_norm` (the global norm of all gradients before
     clipping) as device scalars, so the step does not wait for the card.
+    `perceptual_fn` with `perceptual_weight` adds the VGG term
+    (train/objective.py `mae_loss_terms`, gradient-free). Under
+    `make_adamw(accum_iter=k)` each call is one mini-step and `grad_norm`
+    is that mini-step's gradient's, as the JAX step reports it under
+    optax's `MultiSteps`.
 
     Under a `parallel.set_mesh` mesh of (D, 1) the step is data parallel
     and the metrics are the 'data' group's means; it raises `ValueError`
@@ -84,7 +90,7 @@ def make_train_step(
             outputs, at_least_f32(view1), patch_size,
             edge_map_weight=edge_map_weight, contr_weight=contr_weight,
             perceptual_weight=perceptual_weight, norm_pix_loss=norm_pix_loss,
-            filters_dtype=loss_filters_dtype,
+            perceptual_fn=perceptual_fn, filters_dtype=loss_filters_dtype,
         )
         for p in state.tx.params:
             p.grad = None
