@@ -119,9 +119,14 @@ non-zero exit when it fails:
    batch 8, bf16 and f32; no custom kernel launched, 4 finite log rows,
    each fold's best `.pth` loads into `ResNet3D`, `--eval-only` reads each
    best ROC back bitwise), its wall time by span; and `eval-classical` on
-   5d's bf16 features, twice (the port's copy of scikit-learn's libsvm,
-   built with g++: the summary's keys, AUCs finite in [0, 1], the second
-   run equal), with the build and wall times;
+   5d's bf16 features, twice with `--method svm` (the port's copy of
+   scikit-learn's libsvm, built with g++) and twice with `--method linear`
+   (its copies of liblinear, SAG and the logistic loss): the summary's
+   keys, AUCs finite in [0, 1], the second run equal; for linear each
+   fold's refitted search gives the command's AUC, and lbfgs and newton-cg
+   on fold 0 converge and agree within LINEAR_GATE, which lbfgs at
+   max_iter=1 must miss; with the build and wall times, each fold's
+   best_params_ and the card's scipy and numpy versions;
    5g. the MoCo-v3 baseline: the full-width MoCo-ViT step (ViT-B at 96^3 /
    patch 8, every token, heads 4096 / 256, LARS) from seeded numpy
    weights and batch statistics through `params_from_jax`, the momentum
@@ -2616,6 +2621,107 @@ def eval_classical_phase(feature_dir: Path) -> None:
     print(f"eval-classical ({card}, host only): libsvm build {build_s:.2f} s; wall {wall1:.2f} s and "
           f"{wall2:.2f} s for 2 folds of 41 SVM fits each (8 candidates x 5 splits + the refit); AUC by fold "
           + ", ".join(f"{a:.4f}" for a in summary["per_fold"]["auroc"]) + "; equal on the second run", flush=True)
+
+
+# phase 5f (c), --method linear: lbfgs and newton-cg, both l2 at
+# max_iter=1000, converge to one optimum only within their tolerances
+# (gtol / max|gradient| <= 1e-4), so their probabilities agree to a limit,
+# not bitwise (parity with scikit-learn is held in the CPU tests, as the
+# card's machine has no scikit-learn). How far apart they land, and how far
+# lbfgs stopped at max_iter=1 (the control) lands, depends on the features.
+# 5d's are nearly one vector: the rows share a mean of norm about 27.7 (768
+# LayerNorm'd features) and spread about 0.04 a feature around it (the
+# phase prints both). On the CPU, over 12 seeded stand-ins of that make
+# (a standard normal mean, spread 0.04, the classes 0 or 0.01 apart; 24
+# training and 24 test rows of 768 f32 features), the two solvers'
+# predict_proba differ by at most 2.12e-3 and the control by at least
+# 3.68e-2 (tests/test_torch_port_linear.py test_linear_gate_margins, which
+# holds LINEAR_GATE 3x above the first and 3x below the second).
+LINEAR_GATE = 0.01
+
+
+def eval_classical_linear_phase(feature_dir: Path) -> None:
+    """Phase 5f (c), the logistic regression: the port's copies of
+    scikit-learn's liblinear and of its SAG solver and half binomial loss,
+    built with g++ on the card's host (the build times printed); then
+    `eval-classical --method linear --n-splits 2` on 5d's bf16 features,
+    twice: exit 0, the summary's keys, each fold's AUC finite in [0, 1],
+    the second summary equal to the first; each fold's search refitted here
+    gives the summary's AUC and its `best_params_` (printed). The gate: on
+    fold 0, lbfgs and newton-cg (l2, max_iter=1000) both converge and their
+    `predict_proba` on the test rows agree within LINEAR_GATE, which lbfgs
+    at max_iter=1 must miss. Prints the wall times, the card's scipy and
+    numpy versions and the card's line."""
+    import scipy
+
+    from vit_ae_plus_plus_torch.pipelines import classical_models as cm
+    from vit_ae_plus_plus_torch.pipelines.eval_classical import evaluate_results
+    from vit_ae_plus_plus_torch.pipelines.logistic import LogisticRegression
+    from vit_ae_plus_plus_torch.utils import liblinear, sag
+    from vit_ae_plus_plus_torch.utils.optimize import ConvergenceWarning
+
+    card = card_line()
+    t_phase = t = time.perf_counter()
+    liblinear.load()
+    liblinear_s = time.perf_counter() - t
+    t = time.perf_counter()
+    sag.load()
+    sag_s = time.perf_counter() - t
+    argv = ["eval-classical", "--feature-dir", str(feature_dir), "--n-splits", "2", "--method", "linear"]
+    first, wall1, _ = run_cli(argv, "eval-classical --method linear")
+    second, wall2, _ = run_cli(argv, "eval-classical --method linear (again)")
+    summary = json.loads(first)
+    check(sorted(summary) == ["auroc_mean", "auroc_std", "per_fold", "sensitivity_mean", "specificity_mean"]
+          and sorted(summary["per_fold"]) == ["auroc", "sensitivity", "specificity"]
+          and all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in summary["per_fold"]["auroc"])
+          and len(summary["per_fold"]["auroc"]) == 2, f"eval-classical --method linear summary {summary}")
+    check(first == second, f"eval-classical --method linear twice: {first} vs {second}")
+
+    def fold(k):
+        return [np.load(feature_dir / f"{split}_contrast_ssl_{what}_split_{k}.npy")
+                for split in ("train", "test") for what in ("features", "labels")]
+
+    best = []
+    t = time.perf_counter()
+    for k in range(2):
+        X, y, X_test, y_test = fold(k)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", ConvergenceWarning)
+            search = cm.RandomizedSearchCV(cm._estimator("linear"), cm.PARAM_GRIDS["linear"],
+                                           random_state=42).fit(X, y)
+        auc = evaluate_results(search.predict_proba(X_test)[:, 1], y_test)[2]
+        check(auc == summary["per_fold"]["auroc"][k], f"fold {k}: the search's AUC {auc} vs the command's "
+              f"{summary['per_fold']['auroc'][k]}")
+        best.append(search.best_params_)
+    search_s = time.perf_counter() - t
+
+    X, y, X_test, _ = fold(0)
+    probs, iters = {}, {}
+    for solver, max_iter in (("lbfgs", 1000), ("newton-cg", 1000), ("lbfgs", 1)):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", ConvergenceWarning)
+            est = LogisticRegression(random_state=42, solver=solver, max_iter=max_iter).fit(X, y)
+        converged = not any(issubclass(w.category, ConvergenceWarning) for w in caught)
+        probs[solver, max_iter], iters[solver, max_iter] = est.predict_proba(X_test), int(est.n_iter_[0])
+        check(np.isfinite(probs[solver, max_iter]).all(), f"{solver} max_iter={max_iter}: probabilities")
+        if max_iter == 1000:
+            check(converged and iters[solver, max_iter] < max_iter,
+                  f"{solver} (l2, max_iter=1000) on fold 0 did not converge ({iters[solver, max_iter]} iterations)")
+    gate = float(np.abs(probs["lbfgs", 1000] - probs["newton-cg", 1000]).max())
+    control = float(np.abs(probs["lbfgs", 1] - probs["newton-cg", 1000]).max())
+    print(f"linear gate on fold 0 ({X.shape[0]} x {X.shape[1]} {X.dtype}; the rows' mean of norm "
+          f"{np.linalg.norm(X.mean(axis=0)):.2f}, spread {X.std(axis=0).mean():.4f} a feature around it): lbfgs "
+          f"({iters['lbfgs', 1000]} iterations) vs newton-cg ({iters['newton-cg', 1000]}) max|predict_proba diff| "
+          f"{gate:.3e} (limit {LINEAR_GATE}); control lbfgs at max_iter=1 {control:.3e}", flush=True)
+    check(gate <= LINEAR_GATE, f"lbfgs vs newton-cg on fold 0: {gate:.3e} > {LINEAR_GATE}")
+    check(control > LINEAR_GATE, f"the control (lbfgs at max_iter=1) met the linear gate: {control:.3e}")
+    print(f"eval-classical --method linear ({card}, host only; scipy {scipy.__version__}, numpy {np.__version__}): "
+          f"liblinear build {liblinear_s:.2f} s, sag and loss build {sag_s:.2f} s; wall {wall1:.2f} s and "
+          f"{wall2:.2f} s for 2 folds of 51 fits each (10 candidates x 5 splits + the refit); the searches again "
+          f"{search_s:.2f} s; AUC by fold " + ", ".join(f"{a:.4f}" for a in summary["per_fold"]["auroc"])
+          + "; best_params_ by fold " + "; ".join(
+              f"{p['solver']}/{p['penalty']}/{p['max_iter']}" for p in best)
+          + f"; equal on the second run; the linear part of 5f (c) {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
 # phase 5g: the MoCo-v3 baseline. Its step's kernel-against-plain gate runs
@@ -5316,6 +5422,7 @@ def main(argv) -> int:
         resnet_step_phase()
         resnet_kfold_phase(split_dir)
         eval_classical_phase(pre_work / "ssl_features_dir")
+        eval_classical_linear_phase(pre_work / "ssl_features_dir")
         # phase 5g: the MoCo-v3 baseline, its step and its commands
         t0 = time.perf_counter()
         moco_refs = moco_step_phase(rows)

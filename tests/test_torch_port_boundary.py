@@ -38,6 +38,21 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
     assert not bad, sorted(bad)
 
 
+def test_port_sources_import_no_sklearn():
+    """The GPU machine has no scikit-learn: the port carries its own copies
+    of what the classical evaluation runs, and imports none of it, not even
+    where it is installed."""
+    bad = {f"{f.relative_to(REPO)}: {root}" for f in _port_sources() for root in _imported_roots(f)
+           if root == "sklearn"}
+    assert not bad, sorted(bad)
+    code = ("import sys, vit_ae_plus_plus_torch.cli, vit_ae_plus_plus_torch.pipelines.classical_models\n"
+            "import vit_ae_plus_plus_torch.pipelines.eval_classical, vit_ae_plus_plus_torch.utils.linear_loss\n"
+            "import vit_ae_plus_plus_torch.utils.liblinear, vit_ae_plus_plus_torch.utils.sag\n"
+            "sys.exit(1 if [m for m in sys.modules if m.split('.')[0] == 'sklearn'] else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_importing_serving_and_cli_loads_no_jax():
     code = (
         "import sys, vit_ae_plus_plus_torch.serving, vit_ae_plus_plus_torch.cli\n"
@@ -152,6 +167,42 @@ def test_libsvm_builds_from_the_ports_sources_into_its_build_dir():
     assert libsvm.library_path().parent == libsvm.BUILD_DIR
     assert "-ffp-contract=off" in libsvm.GXX_FLAGS
     assert not any(f.startswith(("-ffast-math", "-march", "-Ofast")) for f in libsvm.GXX_FLAGS)
+
+
+@pytest.mark.parametrize("library", ["liblinear", "sag"])
+def test_liblinear_and_sag_build_from_the_ports_sources_into_its_build_dir(library):
+    """The copies of scikit-learn's liblinear and of its SAG solver and
+    half binomial loss are the port's own: every source in the package's
+    native/ (each listed source a file of the library's directory, every
+    quoted include naming a file under native/, none of scikit-learn's or
+    the JAX package's), the library in the package's build/, built without
+    fast-math, FMA contraction or -march; liblinear's COPYRIGHT is kept."""
+    import importlib
+    import re
+
+    from vit_ae_plus_plus_torch.kernels import _build
+
+    module = importlib.import_module(f"vit_ae_plus_plus_torch.utils.{library}")
+    pkg = (REPO / "vit_ae_plus_plus_torch").resolve()
+    native = pkg / "native"
+    src = module.SRC_DIR.resolve()
+    assert src == native / library
+    names = set(module.SOURCES)
+    assert names == {p.name for p in src.iterdir() if p.suffix in (".c", ".cpp", ".h")}
+    for name in names:
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', (src / name).read_text(), flags=re.M):
+            target = (src / inc).resolve()
+            assert target.is_relative_to(native) and target.is_file(), f"{name} includes {inc}"
+            assert target.parent == src or target in [p.resolve() for p in getattr(module, "INCLUDED", ())], inc
+    assert module.BUILD_DIR.resolve() == _build.BUILD_DIR.resolve() == pkg / "build"
+    assert module.library_path().parent == module.BUILD_DIR
+    assert "-ffp-contract=off" in module.GXX_FLAGS
+    assert not any(f.startswith(("-ffast-math", "-march", "-Ofast")) for f in module.GXX_FLAGS)
+    if library == "liblinear":
+        assert "Copyright (c) 2007-2014 The LIBLINEAR Project." in (src / "COPYRIGHT").read_text()
+        assert "BSD" in (src / "COPYING").read_text()
+    else:
+        assert "BSD" in (src / "COPYING").read_text()
 
 
 def test_moco_refuses_before_any_file_is_read(monkeypatch, tmp_path):

@@ -19,8 +19,9 @@ on the CPU.
   lines.
 - The binary AUC that `evaluate_results` takes from utils/metrics.py,
   bitwise scikit-learn's; a single-class test fold raises `ValueError`.
-- `--method rf` and `linear` raise `NotImplementedError` before any file
-  is read; the CLI prints the summary as its last line.
+- `--method rf` raises `NotImplementedError` before any file is read
+  (`linear` runs: test_torch_port_linear.py); the CLI prints the summary
+  as its last line.
 """
 
 import json
@@ -204,7 +205,7 @@ def test_evaluate_results_matches_jax_and_raises_on_one_class():
         tec.evaluate_results(np.linspace(0, 1, 12), np.ones(12, dtype=int))
 
 
-@pytest.mark.parametrize("method", ["rf", "linear"])
+@pytest.mark.parametrize("method", ["rf"])
 def test_unported_methods_raise_before_reading(method, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
         tec.evaluate_features(str(tmp_path / "missing"), n_splits=2, method=method)

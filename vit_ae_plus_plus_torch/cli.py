@@ -17,7 +17,7 @@
     python -m vit_ae_plus_plus_torch.cli finetune --data-path splits \
         --work-dir ft1 --checkpoint mae.pth [--fix-backbone] [--use-mixup]
     python -m vit_ae_plus_plus_torch.cli eval-classical \
-        --feature-dir run1/ssl_features_dir [--n-splits 5] [--method svm]
+        --feature-dir run1/ssl_features_dir [--n-splits 5] [--method svm|linear]
     python -m vit_ae_plus_plus_torch.cli resnet-kfold --data-path splits \
         --work-dir resnet1 [--eval-only]
     python -m vit_ae_plus_plus_torch.cli moco-kfold --data-path splits \
@@ -29,14 +29,15 @@
 
 `serve`, `prepare-data`, `pretrain-kfold`, `extract-features`,
 `probe-kfold`, `finetune-kfold`, `finetune`, `eval-classical` (`--method
-svm`), `resnet-kfold`, `moco-kfold`, `moco-extract` and
+svm` and `linear`), `resnet-kfold`, `moco-kfold`, `moco-extract` and
 `contrastive-train` are ported so far. Every ViT checkpoint they read
 is a reference-layout `.pth`, as the JAX package's `export-torch` and this
 package's `pretrain-kfold` write it. All but `prepare-data` and
 `eval-classical` run on `cuda` unless `--device cpu` is given.
 `prepare-data` runs on the host and writes the same split files as the JAX
-package's command; `eval-classical` fits the SVM on the host, through the
-port's copy of scikit-learn's libsvm. The training and extraction commands
+package's command; `eval-classical` fits the SVM or the logistic
+regression on the host, through the port's copies of scikit-learn's
+libsvm, liblinear and logistic regression. The training and extraction commands
 take the JAX commands' flags and, as there, `--config` loads a config.ini
 section over them (configs/ini.py); they print their results as one JSON
 line last.
@@ -195,12 +196,13 @@ def build_parser() -> argparse.ArgumentParser:
 
     ev = sub.add_parser(
         "eval-classical",
-        help="SVM on pretrain-kfold's per-fold SSL features (pipelines/eval_classical.py; host only)")
+        help="SVM or logistic regression on pretrain-kfold's per-fold SSL features "
+             "(pipelines/eval_classical.py; host only)")
     ev.add_argument("--feature-dir", required=True,
                     help="{train,test}_contrast_ssl_{features,labels}_split_{k}.npy, as pretrain-kfold writes them")
     ev.add_argument("--n-splits", type=int, default=5)
     ev.add_argument("--method", default="svm", choices=["svm", "rf", "linear"],
-                    help="svm; rf and linear are not ported yet (refused)")
+                    help="svm or linear; rf is not ported yet (refused)")
     return parser
 
 

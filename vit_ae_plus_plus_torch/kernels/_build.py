@@ -1,5 +1,6 @@
 """Build the port's CUDA sources with nvcc at first use and load them with ctypes;
-build its host C++ libraries with g++ (`build_shared`).
+build its host C++ libraries with g++ (`build_shared`, `host_library_path`,
+and `scipy_blas` for the BLAS functions they call).
 
 Each source under `csrc/` has a plain C interface, so it compiles in
 seconds with `nvcc -shared` (no PyTorch headers) into
@@ -17,11 +18,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Union
 
 import torch
 
@@ -89,23 +92,54 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     return {name: library_path(name) for name in names}
 
 
-def build_shared(src: Path, flags: Iterable[str], so_path: Path) -> None:
-    """Compile the host C++ source `src` with g++ `flags` into the shared
-    library `so_path`, through a temporary file beside it that `os.replace`
-    moves into place, so a process loading the library while another
-    builds it never opens half a file. Raises `RuntimeError` naming the
-    cause when g++ is missing or fails."""
+def build_shared(src: Union[Path, Sequence[Path]], flags: Iterable[str], so_path: Path) -> None:
+    """Compile the host C++ source `src` (or the translation units listed)
+    with g++ `flags` into the shared library `so_path`, through a temporary
+    file beside it that `os.replace` moves into place, so a process loading
+    the library while another builds it never opens half a file. Raises
+    `RuntimeError` naming the cause when g++ is missing or fails."""
+    srcs = [src] if isinstance(src, Path) else list(src)
     so_path.parent.mkdir(parents=True, exist_ok=True)
     tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     try:
-        proc = subprocess.run(["g++", *flags, "-o", str(tmp), str(src)], capture_output=True, text=True)
+        proc = subprocess.run(["g++", *flags, "-o", str(tmp), *map(str, srcs)], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed to build {src}:\n{proc.stderr}")
+            raise RuntimeError(f"g++ failed to build {srcs[0]}:\n{proc.stderr}")
         os.replace(tmp, so_path)
     except FileNotFoundError as e:
-        raise RuntimeError(f"g++ is needed to build {src} and was not found") from e
+        raise RuntimeError(f"g++ is needed to build {srcs[0]} and was not found") from e
     finally:
         tmp.unlink(missing_ok=True)
+
+
+def host_library_path(stem: str, files: Iterable[Path], flags: Iterable[str], build_dir: Path = BUILD_DIR) -> Path:
+    """The path in `build_dir` of the host library `stem` built with g++
+    `flags` from `files` (its sources and what they include), keyed by a
+    hash of their bytes and the flags: an edited source is rebuilt, never
+    loaded stale."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in files:
+        h.update(Path(path).read_bytes())
+    return build_dir / f"_{stem}_{sys.platform}_{h.hexdigest()[:12]}.so"
+
+
+def scipy_blas(name: str, signature: str) -> int:
+    """The address of scipy's Fortran BLAS function `name` from
+    `scipy.linalg.cython_blas`'s capsule, as scikit-learn's Cython calls
+    it. Raises `RuntimeError` unless scipy declares it as `signature`
+    (scipy's typedef of double read as double; an ILP64 BLAS has other
+    integer types)."""
+    from scipy.linalg import cython_blas
+
+    capsule = cython_blas.__pyx_capi__[name]
+    get_name = ctypes.pythonapi.PyCapsule_GetName
+    get_name.restype, get_name.argtypes = ctypes.c_char_p, [ctypes.py_object]
+    get_pointer = ctypes.pythonapi.PyCapsule_GetPointer
+    get_pointer.restype, get_pointer.argtypes = ctypes.c_void_p, [ctypes.py_object, ctypes.c_char_p]
+    declared = get_name(capsule)
+    if re.sub(r"\S*cython_blas_d\b", "double", declared.decode()) != signature:
+        raise RuntimeError(f"scipy's {name} has the signature {declared.decode()!r}, not {signature!r}")
+    return get_pointer(capsule, declared)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,13 +1,17 @@
-"""Classical models on extracted SSL features: the SVM and its search.
+"""Classical models on extracted SSL features: the SVM, the logistic
+regression and their search.
 
 The port's counterpart of the JAX package's pipelines/classical_models.py
 (reference bootstrap/utils/classical_models.py:12-103), which fits
 `sklearn.svm.SVC(probability=True, random_state=42,
-class_weight="balanced")` inside `RandomizedSearchCV(..., random_state=42)`
-and returns `predict_proba` on the test features. The GPU machine has no
-scikit-learn, so this module carries what that path runs of it, on the
-port's copy of sklearn's libsvm (utils/libsvm.py), and gives sklearn
-1.9.0's numbers:
+class_weight="balanced")` (`--method svm`) or
+`sklearn.linear_model.LogisticRegression(random_state=42,
+class_weight="balanced")` (`--method linear`) inside
+`RandomizedSearchCV(..., random_state=42)` and returns `predict_proba` on
+the test features. The GPU machine has no scikit-learn, so this module
+carries what that path runs of it, on the port's copies of sklearn's
+libsvm (utils/libsvm.py) and of its logistic regression
+(pipelines/logistic.py), and gives sklearn 1.9.0's numbers:
 
 - `SVC`: sklearn/svm/_base.py and _classes.py for the dense C-SVC with
   the reference's settings (`class_weight="balanced"`, every other one at
@@ -28,9 +32,12 @@ port's copy of sklearn's libsvm (utils/libsvm.py), and gives sklearn
   means ranked last (all ranked 1 when every mean is NaN); the first best
   is refitted on all the rows.
 
-Only the SVM is ported. The random forest (sklearn's Cython tree-growing code
-with its own RNG) and the logistic regression (four solvers, one of them
-Cython) raise `NotImplementedError` before any fit: ROADMAP Queue 1 item 3.
+- `LogisticRegression`: pipelines/logistic.py, its four solvers on the
+  linear grid's 10 sampled points (a permutation's head of 24).
+
+The random forest (sklearn's Cython tree-growing code with its own RNG) is
+not ported: `--method rf` raises `NotImplementedError` before any fit,
+ROADMAP Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import numpy as np
 from scipy.stats import rankdata
 
 from vit_ae_plus_plus_torch.data.splits import stratified_kfold
+from vit_ae_plus_plus_torch.pipelines.logistic import LogisticRegression
 from vit_ae_plus_plus_torch.utils import libsvm
 
 PARAM_GRIDS = {
@@ -231,13 +239,14 @@ class RandomizedSearchCV:
         return self.best_estimator_.predict_proba(X)
 
 
-def _estimator(method: str) -> SVC:
+def _estimator(method: str):
     if method == "svm":
         return SVC(probability=True, random_state=42)
-    if method in PARAM_GRIDS:
+    if method == "linear":
+        return LogisticRegression(random_state=42)
+    if method == "rf":
         raise NotImplementedError(
-            f"eval-classical --method {method}: only svm is ported; {method} is the next part of "
-            "ROADMAP Queue 1 item 3")
+            "eval-classical --method rf: only svm and linear are ported; rf is ROADMAP Queue 1 item 3")
     raise ValueError(f"invalid method {method!r}")
 
 

@@ -26,16 +26,13 @@ names the cause.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import re
-import sys
 import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
-from vit_ae_plus_plus_torch.kernels._build import BUILD_DIR, build_shared
+from vit_ae_plus_plus_torch.kernels._build import BUILD_DIR, build_shared, host_library_path, scipy_blas
 
 SRC_DIR = Path(__file__).resolve().parents[1] / "native" / "libsvm"
 SOURCES = ("vitae_libsvm.cpp", "svm.cpp", "svm.h", "libsvm_helper.c", "_svm_cython_blas_helpers.h",
@@ -60,10 +57,7 @@ _ssize = ctypes.POINTER(ctypes.c_ssize_t)
 
 def library_path() -> Path:
     """The library's path in BUILD_DIR, keyed by its sources and flags."""
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    for name in SOURCES:
-        h.update((SRC_DIR / name).read_bytes())
-    return BUILD_DIR / f"_libsvm_{sys.platform}_{h.hexdigest()[:12]}.so"
+    return host_library_path("libsvm", [SRC_DIR / name for name in SOURCES], GXX_FLAGS, BUILD_DIR)
 
 
 def build() -> Path:
@@ -73,24 +67,6 @@ def build() -> Path:
     if not so_path.exists():
         build_shared(SRC_DIR / SOURCES[0], GXX_FLAGS, so_path)
     return so_path
-
-
-def scipy_ddot() -> int:
-    """The address of scipy's `ddot(int *n, double *x, int *incx, double *y,
-    int *incy)`, as sklearn's `_dot` calls it. Raises when scipy's BLAS
-    takes other than `int` sizes (an ILP64 build)."""
-    from scipy.linalg import cython_blas
-
-    capsule = cython_blas.__pyx_capi__["ddot"]
-    get_name = ctypes.pythonapi.PyCapsule_GetName
-    get_name.restype, get_name.argtypes = ctypes.c_char_p, [ctypes.py_object]
-    get_pointer = ctypes.pythonapi.PyCapsule_GetPointer
-    get_pointer.restype, get_pointer.argtypes = ctypes.c_void_p, [ctypes.py_object, ctypes.c_char_p]
-    name = get_name(capsule)
-    if not re.search(rb"\(int \*, \S+ \*, int \*, \S+ \*, int \*\)$", name):
-        raise RuntimeError(f"libsvm: scipy's ddot has the signature {name.decode()!r}, not (int *, "
-                           "double *, int *, double *, int *)")
-    return get_pointer(capsule, name)
 
 
 def load() -> ctypes.CDLL:
@@ -128,7 +104,7 @@ def load() -> ctypes.CDLL:
             getattr(lib, name).restype = None
         lib.svm_free_and_destroy_model.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
         lib.svm_free_and_destroy_model.restype = None
-        lib.vitae_set_ddot(scipy_ddot())
+        lib.vitae_set_ddot(scipy_blas("ddot", "double (int *, double *, int *, double *, int *)"))
         _LIB = lib
         return lib
 
