@@ -120,13 +120,17 @@ non-zero exit when it fails:
    each fold's best `.pth` loads into `ResNet3D`, `--eval-only` reads each
    best ROC back bitwise), its wall time by span; and `eval-classical` on
    5d's bf16 features, twice with `--method svm` (the port's copy of
-   scikit-learn's libsvm, built with g++) and twice with `--method linear`
-   (its copies of liblinear, SAG and the logistic loss): the summary's
-   keys, AUCs finite in [0, 1], the second run equal; for linear each
-   fold's refitted search gives the command's AUC, and lbfgs and newton-cg
-   on fold 0 converge and agree within LINEAR_GATE, which lbfgs at
-   max_iter=1 must miss; with the build and wall times, each fold's
-   best_params_ and the card's scipy and numpy versions;
+   scikit-learn's libsvm, built with g++), twice with `--method linear`
+   (its copies of liblinear, SAG and the logistic loss) and twice with
+   `--method rf` (its copy of the tree builder): the summary's keys, AUCs
+   finite in [0, 1], the second run equal; for linear and rf each fold's
+   refitted search gives the command's AUC; lbfgs and newton-cg on fold 0
+   converge and agree within LINEAR_GATE, which lbfgs at max_iter=1 must
+   miss; the forest equals scikit-learn 1.9.0's RF_REFERENCE bit for bit
+   (trees and probabilities), which its control at random_state=43 must
+   miss; with the build and wall times, each fold's best_params_, the
+   trees grown and the microseconds a tree, and the card's scipy and numpy
+   versions;
    5g. the MoCo-v3 baseline: the full-width MoCo-ViT step (ViT-B at 96^3 /
    patch 8, every token, heads 4096 / 256, LARS) from seeded numpy
    weights and batch statistics through `params_from_jax`, the momentum
@@ -281,6 +285,7 @@ import copy
 import dataclasses
 import functools
 import gc
+import hashlib
 import io
 import json
 import os
@@ -2722,6 +2727,131 @@ def eval_classical_linear_phase(feature_dir: Path) -> None:
           + "; best_params_ by fold " + "; ".join(
               f"{p['solver']}/{p['penalty']}/{p['max_iter']}" for p in best)
           + f"; equal on the second run; the linear part of 5f (c) {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
+# phase 5f (c), --method rf: the card's machine has no scikit-learn, so
+# the port's copy of its tree builder is held to scikit-learn 1.9.0's
+# numbers taken on the CPU (tests/test_torch_port_forest.py
+# test_rf_reference_is_sklearns holds these constants to scikit-learn's
+# live output): a stand-in of 5d's features (rows that share a standard
+# normal mean and spread 0.04 a feature around it, the classes 0.01 apart,
+# rounded through bfloat16 as 5d's bf16 features are, so that about 18 of
+# the 24 values of a feature are distinct and ties are common), 24
+# training and 24 test rows of 768 features from numpy's RandomState(0);
+# at two points of the rf grid that cover both criteria and both
+# class-weight modes, the forest's `predict_proba` on the test rows (class
+# 1) and a sha256 over every tree's arrays (RF_TREE_ARRAYS, in tree
+# order). This checks the card's g++, libm and numpy against the wheel's;
+# the same fits at random_state=43, the control, must miss both.
+RF_PROBLEM = {"seed": 0, "width": 768, "n_rows": 24, "spread": 0.04, "apart": 0.01}
+RF_TREE_ARRAYS = ("children_left", "children_right", "feature", "threshold", "impurity", "n_node_samples",
+                  "weighted_n_node_samples", "missing_go_to_left", "value")
+RF_REFERENCE = (
+    {"params": {"n_estimators": 50, "criterion": "gini", "class_weight": "balanced"},
+     "proba1": (0.4, 0.58, 0.48, 0.48, 0.34, 0.5, 0.44, 0.46, 0.52, 0.6, 0.42, 0.58, 0.42, 0.54, 0.54, 0.48,
+                0.44, 0.34, 0.54, 0.58, 0.46, 0.48, 0.42, 0.42),
+     "trees_sha256": "3d30cd400deb9d54e4aeb4ddc8b71a0427d32f72d64f63afe0dc914a1826e2b4"},
+    {"params": {"n_estimators": 100, "criterion": "entropy", "class_weight": "balanced_subsample"},
+     "proba1": (0.42, 0.6, 0.43, 0.6, 0.4, 0.59, 0.36, 0.48, 0.46, 0.56, 0.52, 0.52, 0.37, 0.47, 0.59, 0.53,
+                0.53, 0.47, 0.49, 0.58, 0.45, 0.47, 0.42, 0.58),
+     "trees_sha256": "3372f87986fcffb7095976720bee7db932d29e400397540df3e3ace6629529e6"},
+)
+
+
+def bf16_round(a) -> np.ndarray:
+    """float32 values rounded to bfloat16 (to nearest, ties to even) and
+    back, in numpy."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    bits = (bits + np.uint32(0x7FFF) + ((bits >> np.uint32(16)) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return bits.view(np.float32)
+
+
+def rf_reference_problem() -> tuple:
+    """RF_PROBLEM's (X, y, X_test): float32 rows, int labels."""
+    rs = np.random.RandomState(RF_PROBLEM["seed"])
+    width, n, spread, apart = (RF_PROBLEM[k] for k in ("width", "n_rows", "spread", "apart"))
+    mean = rs.standard_normal(width)
+    y = rs.permutation(np.arange(n) % 2)
+    X = bf16_round(mean + spread * rs.standard_normal((n, width)) + apart * y[:, None])
+    X_test = bf16_round(mean + spread * rs.standard_normal((n, width)) + apart * (np.arange(n) % 2)[:, None])
+    return X, y, X_test
+
+
+def forest_digest(trees) -> str:
+    """sha256 over RF_TREE_ARRAYS of each tree (objects with those
+    attributes: scikit-learn's `tree_` or the port's `Tree`), in order."""
+    h = hashlib.sha256()
+    for tree in trees:
+        for name in RF_TREE_ARRAYS:
+            h.update(np.ascontiguousarray(getattr(tree, name)).tobytes())
+    return h.hexdigest()
+
+
+def eval_classical_rf_phase(feature_dir: Path) -> None:
+    """Phase 5f (c), the random forest: the port's copy of scikit-learn's
+    tree builder, built with g++ on the card's host (the build time
+    printed); the gate, RF_REFERENCE met bit for bit and missed by its
+    control; then `eval-classical --method rf --n-splits 2` on 5d's bf16
+    features, twice: exit 0, the summary's keys, each fold's AUC finite in
+    [0, 1], the second summary equal to the first; each fold's search
+    refitted here gives the summary's AUC. Prints the wall times, the trees
+    grown a fold, the microseconds a tree, each fold's `best_params_`, the
+    card's numpy version and the card's line."""
+    from vit_ae_plus_plus_torch.pipelines import classical_models as cm
+    from vit_ae_plus_plus_torch.pipelines.eval_classical import evaluate_results
+    from vit_ae_plus_plus_torch.pipelines.forest import RandomForestClassifier
+    from vit_ae_plus_plus_torch.utils import tree
+
+    card = card_line()
+    t_phase = t = time.perf_counter()
+    tree.load()
+    build_s = time.perf_counter() - t
+
+    X, y, X_test = rf_reference_problem()
+    for ref in RF_REFERENCE:
+        forest = RandomForestClassifier(random_state=42, **ref["params"]).fit(X, y)
+        proba1, digest = forest.predict_proba(X_test)[:, 1], forest_digest(e.tree_ for e in forest.estimators_)
+        control = RandomForestClassifier(random_state=43, **ref["params"]).fit(X, y)
+        c_proba1, c_digest = control.predict_proba(X_test)[:, 1], forest_digest(e.tree_ for e in control.estimators_)
+        point = "/".join(str(v) for v in ref["params"].values())
+        print(f"rf gate at {point}: trees sha256 {digest[:16]} (reference {ref['trees_sha256'][:16]}), "
+              f"predict_proba {'equal' if np.array_equal(proba1, ref['proba1']) else 'NOT equal'}; control "
+              f"random_state=43 {c_digest[:16]}", flush=True)
+        check(digest == ref["trees_sha256"] and np.array_equal(proba1, np.asarray(ref["proba1"])),
+              f"rf at {point}: the port's forest differs from scikit-learn 1.9.0's ({digest}; {proba1.tolist()})")
+        check(c_digest != ref["trees_sha256"] and not np.array_equal(c_proba1, np.asarray(ref["proba1"])),
+              f"rf at {point}: the control (random_state=43) met the reference")
+
+    argv = ["eval-classical", "--feature-dir", str(feature_dir), "--n-splits", "2", "--method", "rf"]
+    first, wall1, _ = run_cli(argv, "eval-classical --method rf")
+    second, wall2, _ = run_cli(argv, "eval-classical --method rf (again)")
+    summary = json.loads(first)
+    check(sorted(summary) == ["auroc_mean", "auroc_std", "per_fold", "sensitivity_mean", "specificity_mean"]
+          and sorted(summary["per_fold"]) == ["auroc", "sensitivity", "specificity"]
+          and all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in summary["per_fold"]["auroc"])
+          and len(summary["per_fold"]["auroc"]) == 2, f"eval-classical --method rf summary {summary}")
+    check(first == second, f"eval-classical --method rf twice: {first} vs {second}")
+
+    best, trees, search_s = [], [], []
+    for k in range(2):
+        X, y, X_test, y_test = (np.load(feature_dir / f"{split}_contrast_ssl_{what}_split_{k}.npy")
+                                for split in ("train", "test") for what in ("features", "labels"))
+        t = time.perf_counter()
+        search = cm.RandomizedSearchCV(cm._estimator("rf"), cm.PARAM_GRIDS["rf"], random_state=42).fit(X, y)
+        search_s.append(time.perf_counter() - t)
+        auc = evaluate_results(search.predict_proba(X_test)[:, 1], y_test)[2]
+        check(auc == summary["per_fold"]["auroc"][k], f"fold {k}: the rf search's AUC {auc} vs the command's "
+              f"{summary['per_fold']['auroc'][k]}")
+        best.append(search.best_params_)
+        trees.append(cm.CV * sum(p["n_estimators"] for p in search.cv_results_["params"])
+                     + search.best_params_["n_estimators"])
+    print(f"eval-classical --method rf ({card}, host only; numpy {np.__version__}): tree build {build_s:.2f} s; "
+          f"wall {wall1:.2f} s and {wall2:.2f} s for 2 folds of 51 forests each (10 candidates x 5 splits + the "
+          f"refit); trees grown by fold {trees[0]}, {trees[1]}; the searches again {search_s[0]:.2f} s and "
+          f"{search_s[1]:.2f} s, {1e6 * sum(search_s) / sum(trees):.1f} us a tree; AUC by fold "
+          + ", ".join(f"{a:.4f}" for a in summary["per_fold"]["auroc"]) + "; best_params_ by fold " + "; ".join(
+              f"{p['n_estimators']}/{p['criterion']}/{p['class_weight']}" for p in best)
+          + f"; equal on the second run; the rf part of 5f (c) {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
 # phase 5g: the MoCo-v3 baseline. Its step's kernel-against-plain gate runs
@@ -5423,6 +5553,7 @@ def main(argv) -> int:
         resnet_kfold_phase(split_dir)
         eval_classical_phase(pre_work / "ssl_features_dir")
         eval_classical_linear_phase(pre_work / "ssl_features_dir")
+        eval_classical_rf_phase(pre_work / "ssl_features_dir")
         # phase 5g: the MoCo-v3 baseline, its step and its commands
         t0 = time.perf_counter()
         moco_refs = moco_step_phase(rows)

@@ -48,6 +48,7 @@ def test_port_sources_import_no_sklearn():
     code = ("import sys, vit_ae_plus_plus_torch.cli, vit_ae_plus_plus_torch.pipelines.classical_models\n"
             "import vit_ae_plus_plus_torch.pipelines.eval_classical, vit_ae_plus_plus_torch.utils.linear_loss\n"
             "import vit_ae_plus_plus_torch.utils.liblinear, vit_ae_plus_plus_torch.utils.sag\n"
+            "import vit_ae_plus_plus_torch.utils.tree, vit_ae_plus_plus_torch.pipelines.forest\n"
             "sys.exit(1 if [m for m in sys.modules if m.split('.')[0] == 'sklearn'] else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -169,14 +170,15 @@ def test_libsvm_builds_from_the_ports_sources_into_its_build_dir():
     assert not any(f.startswith(("-ffast-math", "-march", "-Ofast")) for f in libsvm.GXX_FLAGS)
 
 
-@pytest.mark.parametrize("library", ["liblinear", "sag"])
+@pytest.mark.parametrize("library", ["liblinear", "sag", "tree"])
 def test_liblinear_and_sag_build_from_the_ports_sources_into_its_build_dir(library):
-    """The copies of scikit-learn's liblinear and of its SAG solver and
-    half binomial loss are the port's own: every source in the package's
-    native/ (each listed source a file of the library's directory, every
-    quoted include naming a file under native/, none of scikit-learn's or
-    the JAX package's), the library in the package's build/, built without
-    fast-math, FMA contraction or -march; liblinear's COPYRIGHT is kept."""
+    """The copies of scikit-learn's liblinear, of its SAG solver and half
+    binomial loss, and of its tree builder are the port's own: every source
+    in the package's native/ (each listed source a file of the library's
+    directory, every quoted include naming a file under native/, none of
+    scikit-learn's or the JAX package's), the library in the package's
+    build/, built without fast-math, FMA contraction or -march; liblinear's
+    COPYRIGHT is kept."""
     import importlib
     import re
 

@@ -17,7 +17,7 @@
     python -m vit_ae_plus_plus_torch.cli finetune --data-path splits \
         --work-dir ft1 --checkpoint mae.pth [--fix-backbone] [--use-mixup]
     python -m vit_ae_plus_plus_torch.cli eval-classical \
-        --feature-dir run1/ssl_features_dir [--n-splits 5] [--method svm|linear]
+        --feature-dir run1/ssl_features_dir [--n-splits 5] [--method svm|rf|linear]
     python -m vit_ae_plus_plus_torch.cli resnet-kfold --data-path splits \
         --work-dir resnet1 [--eval-only]
     python -m vit_ae_plus_plus_torch.cli moco-kfold --data-path splits \
@@ -28,19 +28,19 @@
         --work-dir contr1 [--use-proj]
 
 `serve`, `prepare-data`, `pretrain-kfold`, `extract-features`,
-`probe-kfold`, `finetune-kfold`, `finetune`, `eval-classical` (`--method
-svm` and `linear`), `resnet-kfold`, `moco-kfold`, `moco-extract` and
+`probe-kfold`, `finetune-kfold`, `finetune`, `eval-classical`,
+`resnet-kfold`, `moco-kfold`, `moco-extract` and
 `contrastive-train` are ported so far. Every ViT checkpoint they read
 is a reference-layout `.pth`, as the JAX package's `export-torch` and this
 package's `pretrain-kfold` write it. All but `prepare-data` and
 `eval-classical` run on `cuda` unless `--device cpu` is given.
 `prepare-data` runs on the host and writes the same split files as the JAX
-package's command; `eval-classical` fits the SVM or the logistic
-regression on the host, through the port's copies of scikit-learn's
-libsvm, liblinear and logistic regression. The training and extraction commands
-take the JAX commands' flags and, as there, `--config` loads a config.ini
-section over them (configs/ini.py); they print their results as one JSON
-line last.
+package's command; `eval-classical` fits the SVM, the random forest or
+the logistic regression on the host, through the port's copies of
+scikit-learn's libsvm, tree builder, liblinear and logistic regression.
+The training and extraction commands take the JAX commands' flags and,
+as there, `--config` loads a config.ini section over them
+(configs/ini.py); they print their results as one JSON line last.
 
 `--n-devices N` (N > 1) on `pretrain-kfold`, `probe-kfold`,
 `finetune-kfold`, `finetune`, `extract-features`, `moco-kfold` and
@@ -196,13 +196,13 @@ def build_parser() -> argparse.ArgumentParser:
 
     ev = sub.add_parser(
         "eval-classical",
-        help="SVM or logistic regression on pretrain-kfold's per-fold SSL features "
+        help="SVM, random forest or logistic regression on pretrain-kfold's per-fold SSL features "
              "(pipelines/eval_classical.py; host only)")
     ev.add_argument("--feature-dir", required=True,
                     help="{train,test}_contrast_ssl_{features,labels}_split_{k}.npy, as pretrain-kfold writes them")
     ev.add_argument("--n-splits", type=int, default=5)
     ev.add_argument("--method", default="svm", choices=["svm", "rf", "linear"],
-                    help="svm or linear; rf is not ported yet (refused)")
+                    help="svm (SVC), rf (random forest) or linear (logistic regression)")
     return parser
 
 

@@ -1,22 +1,24 @@
-"""Classical models on extracted SSL features: the SVM, the logistic
-regression and their search.
+"""Classical models on extracted SSL features: the SVM, the random forest,
+the logistic regression and their search.
 
 The port's counterpart of the JAX package's pipelines/classical_models.py
 (reference bootstrap/utils/classical_models.py:12-103), which fits
 `sklearn.svm.SVC(probability=True, random_state=42,
-class_weight="balanced")` (`--method svm`) or
-`sklearn.linear_model.LogisticRegression(random_state=42,
+class_weight="balanced")` (`--method svm`),
+`sklearn.ensemble.RandomForestClassifier(random_state=42)` (`--method
+rf`) or `sklearn.linear_model.LogisticRegression(random_state=42,
 class_weight="balanced")` (`--method linear`) inside
 `RandomizedSearchCV(..., random_state=42)` and returns `predict_proba` on
 the test features. The GPU machine has no scikit-learn, so this module
 carries what that path runs of it, on the port's copies of sklearn's
-libsvm (utils/libsvm.py) and of its logistic regression
-(pipelines/logistic.py), and gives sklearn 1.9.0's numbers:
+libsvm (utils/libsvm.py), of its random forest (pipelines/forest.py) and
+of its logistic regression (pipelines/logistic.py), and gives sklearn
+1.9.0's numbers:
 
 - `SVC`: sklearn/svm/_base.py and _classes.py for the dense C-SVC with
   the reference's settings (`class_weight="balanced"`, every other one at
   sklearn's default). Classes are encoded by `np.unique`; the balanced
-  weights are n / (k * bincount); `gamma="scale"` is 1 / (n_features *
+  weights are n / (k * bincount) (utils/class_weight.py); `gamma="scale"` is 1 / (n_features *
   X.var()) on float64 X;
   libsvm's seed is `RandomState(random_state).randint(iinfo("i").max)`;
   with two classes `intercept_`, `dual_coef_` and `decision_function`
@@ -32,12 +34,11 @@ libsvm (utils/libsvm.py) and of its logistic regression
   means ranked last (all ranked 1 when every mean is NaN); the first best
   is refitted on all the rows.
 
+- `RandomForestClassifier`: pipelines/forest.py, on the rf grid's 10
+  sampled points (a permutation's head of 16): n_estimators, criterion
+  and class_weight.
 - `LogisticRegression`: pipelines/logistic.py, its four solvers on the
   linear grid's 10 sampled points (a permutation's head of 24).
-
-The random forest (sklearn's Cython tree-growing code with its own RNG) is
-not ported: `--method rf` raises `NotImplementedError` before any fit,
-ROADMAP Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -50,8 +51,10 @@ import numpy as np
 from scipy.stats import rankdata
 
 from vit_ae_plus_plus_torch.data.splits import stratified_kfold
+from vit_ae_plus_plus_torch.pipelines.forest import RandomForestClassifier
 from vit_ae_plus_plus_torch.pipelines.logistic import LogisticRegression
 from vit_ae_plus_plus_torch.utils import libsvm
+from vit_ae_plus_plus_torch.utils.class_weight import compute_class_weight_balanced
 
 PARAM_GRIDS = {
     "svm": {"C": [0.1, 1, 5, 10], "kernel": ["linear", "rbf"]},
@@ -96,9 +99,7 @@ class SVC:
             raise ValueError(f"X of shape {X.shape} and y of {y.shape[0]} labels do not match")
         rnd = np.random.RandomState(self.random_state)
         classes, y_enc = np.unique(y, return_inverse=True)
-        # sklearn/utils/class_weight.py compute_class_weight("balanced")
-        counts = np.bincount(y_enc, weights=np.ones(y.shape[0], dtype=np.float64))
-        self.class_weight_ = np.sum(counts) / (classes.shape[0] * counts)
+        self.class_weight_ = compute_class_weight_balanced(classes, y)
         if len(classes) < 2:
             raise ValueError(f"The number of classes has to be greater than one; got {len(classes)} class")
         self.classes_ = classes
@@ -242,16 +243,15 @@ class RandomizedSearchCV:
 def _estimator(method: str):
     if method == "svm":
         return SVC(probability=True, random_state=42)
+    if method == "rf":
+        return RandomForestClassifier(random_state=42)
     if method == "linear":
         return LogisticRegression(random_state=42)
-    if method == "rf":
-        raise NotImplementedError(
-            "eval-classical --method rf: only svm and linear are ported; rf is ROADMAP Queue 1 item 3")
     raise ValueError(f"invalid method {method!r}")
 
 
 def check_methods(*methods: str) -> None:
-    """Raise before any file is read for a method that is not ported."""
+    """Raise before any file is read for a method that is not known."""
     for method in methods:
         _estimator(method)
 

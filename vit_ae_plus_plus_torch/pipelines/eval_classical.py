@@ -1,11 +1,12 @@
-"""Classical evaluation of extracted SSL features (per-fold SVM or logistic
-regression + metrics).
+"""Classical evaluation of extracted SSL features (per-fold SVM, random
+forest or logistic regression + metrics).
 
 The port's counterpart of the JAX package's pipelines/eval_classical.py
 (reference feature_evaluation_script/evaluation_k_fold_brats.py:13-81): per
 fold, load `{train,test}_contrast_ssl_{features,labels}_split_{idx}.npy`
-(as `pretrain-kfold` writes them), fit the SVM (`method="svm"`) or the
-logistic regression (`"linear"`) through the search (classical_models.py), take P(class 1), the AUROC on the raw
+(as `pretrain-kfold` writes them), fit the SVM (`method="svm"`), the
+random forest (`"rf"`) or the logistic regression (`"linear"`) through the
+search (classical_models.py), take P(class 1), the AUROC on the raw
 probabilities, then threshold at 0.65 for specificity and sensitivity with
 the transposed confusion-matrix convention; mean and std over folds. Host
 work only, as in the JAX package. The feature normalisation helpers exist

@@ -40,6 +40,7 @@ from scipy import optimize
 from scipy.special import expit
 
 from vit_ae_plus_plus_torch.utils import liblinear, sag
+from vit_ae_plus_plus_torch.utils.class_weight import compute_class_weight_balanced
 from vit_ae_plus_plus_torch.utils.linear_loss import LinearModelLoss
 from vit_ae_plus_plus_torch.utils.optimize import _check_optimize_result, _newton_cg
 
@@ -129,8 +130,7 @@ class LogisticRegression:
         # sklearn/utils/class_weight.py compute_class_weight("balanced"), its
         # float64 weights cast to X's dtype, times unit sample weights
         y_ind = np.searchsorted(self.classes_, y)
-        counts = np.bincount(y_ind, weights=np.ones(n_samples, dtype=X.dtype))
-        class_weight_ = (np.sum(counts) / (self.classes_.shape[0] * counts))[y_ind]
+        class_weight_ = compute_class_weight_balanced(self.classes_, y)[y_ind]
         sample_weight = np.ones(n_samples, dtype=X.dtype)
         sample_weight *= np.asarray(class_weight_, dtype=X.dtype)
         w0 = np.zeros(n_features + 1, dtype=X.dtype)
