@@ -264,6 +264,20 @@ non-zero exit when it fails:
    local-moments control that must miss on the predictor's statistics.
    Prints each rank's step wall times, host stagings (count and bytes),
    the gradient all-reduce alone and peak memory;
+   7e. the sharded training state over the same ranks (SHARDED_RUNS), one
+   step each from phase 5's weights, views and noise on each data
+   coordinate's rows: FSDP (parallel/fsdp.py) on (4, 1) in f32 and bf16,
+   TP (parallel/tp.py, attn_impl='flash') on (1, 2) in f32 and bf16 and on
+   (2, 2) in bf16, and the 'flash_ring' step on (2, 2), each against phase
+   5's one-process step within STEP_TOL (the gradients gathered whole);
+   then the MoCo ViT FSDP step on (4, 1) in f32 against 5g's step within
+   its limits. The whole parameters bitwise equal on every rank after the
+   step, the launches (under FSDP a block's forward runs again in the
+   backward), a TP rank's qkv block (3C / M, C), an FSDP rank's resident
+   parameters below 0.3 of the replicated ones; every per-rank shape has
+   a phase 2 or phase 6 row. Prints each rank's resident parameter and
+   optimizer bytes beside the replicated figure, peak memory, host-staged
+   bytes and step wall time, and the phase's seconds;
 8. print one JSON line of kernels, the card's name and power limit, and as
    the last line `{"ok": true, "device": {...}}`. Each kernel row names
    the CUDA bodies it launched (`body`). Each kernel row's
@@ -4684,7 +4698,7 @@ def ddp_commands(mesh, paths: dict) -> dict:
         extract_ssl_features(data_cfg, paths["pth"], paths["ranks_features"], model_name=MODEL, batch_size=BATCH,
                              patch_size=PATCH, compute_dtype="bfloat16", n_devices=size, device="cuda")
         out["extract"] = {"wall_s": time.perf_counter() - t0, "counts": shape_counts()}
-        with mock.patch.object(step, "average_grads", lambda params: None):
+        with mock.patch.object(step, "average_grads", lambda params, shard_axes=None: None):
             pretrain_kfold(data_cfg, train_cfg, paths["control_work"], model_name=MODEL, n_splits=DDP_FOLDS,
                            folds=folds, n_devices=size, device="cuda")
     return out
@@ -4834,7 +4848,7 @@ def ddp_moco_commands(mesh, paths: dict) -> dict:
         t0 = time.perf_counter()
         results = run_moco_kfold(paths, "moco_ranks_work", size)
         out = {"moco_kfold": {"results": results, "wall_s": time.perf_counter() - t0, "counts": shape_counts()}}
-        with mock.patch.object(tmk, "average_grads", lambda params: None):
+        with mock.patch.object(tmk, "average_grads", lambda params, shard_axes=None: None):
             run_moco_kfold(paths, "moco_control_work", size)
     return out
 
@@ -4876,6 +4890,266 @@ def group_ddp(references: dict, paths: dict) -> dict:
     return out
 
 
+# phase 7e: the sharded training state on phase 7's ranks (gloo, all on the
+# one card: correctness and bytes, no speed). (a) the FSDP MAE step on a
+# (4, 1) mesh in f32 and bf16 and (b) the MoCo ViT FSDP step on (4, 1) in
+# f32, each rank's resident parameters and optimizer state; (c) the TP MAE
+# step on (1, 2) with 'flash' in f32 and bf16; (d) on (2, 2) the TP step and
+# the 'flash_ring' step in bf16. Each against phase 5's (or 5g's)
+# one-process step within the same limits as phase 7d's data-parallel step
+SHARDED_RUNS = (("fsdp", "float32", (GROUP_RANKS, 1), "auto"), ("fsdp", "bfloat16", (GROUP_RANKS, 1), "auto"),
+                ("tp", "float32", (1, 2), "flash"), ("tp", "bfloat16", (1, 2), "flash"),
+                ("tp", "bfloat16", (2, 2), "flash"), ("ring", "bfloat16", (2, 2), "flash_ring"))
+
+
+def tp_shapes(cfg, data: int, model: int) -> tuple:
+    """(B, H, N, d) of a TP rank's per-head attention in the MAE step: the
+    encoder over both views of its data coordinate's rows, the decoder over
+    the rows, each with H / M heads."""
+    enc, dec = train_shapes(cfg)
+    b = BATCH // data
+    return (2 * b, enc[1] // model, *enc[2:]), (b, dec[1] // model, *dec[2:])
+
+
+def sharded_launches(cfg, kind: str, mesh_shape: tuple, dtype: str) -> dict:
+    """The attention launches of one rank's step of phase 7e's run."""
+    data, model = mesh_shape
+    if kind == "fsdp":  # a block's forward runs again in the backward, where it gathers its leaves again
+        return {key: 2 * n if key[0].endswith("fwd") else n for key, n in ddp_step_launches(cfg, data, dtype).items()}
+    if kind == "tp":
+        shapes, names, per = tp_shapes(cfg, data, model), ("flash_fwd", "flash_bwd"), 1
+    else:  # the ring: each block's attention in `model` ring steps over its shard of the rows
+        from vit_ae_plus_plus_torch.parallel import padded_len
+
+        shapes = [(2 * BATCH // data if i == 0 else BATCH // data, h, padded_len(n, model) // model, d)
+                  for i, (_, h, n, d) in enumerate(train_shapes(cfg))]
+        names, per = ("ring_flash_fwd", "ring_flash_bwd"), model
+    return {(name, (*shape, dtype)): depth * per for name in names
+            for shape, depth in zip(shapes, (cfg.depth, cfg.decoder_depth))}
+
+
+def sharded_cases(cfg) -> list:
+    """Phase 2's cases at phase 7e's TP shapes, and phase 6's at its ring
+    blocks: (case, label, layout, shape, dtype) and (label, B, H, N, d)."""
+    cases = []
+    for (data, model), dtypes in (((1, 2), ("bfloat16", "float32")), ((2, 2), ("bfloat16",))):
+        enc, dec = tp_shapes(cfg, data, model)
+        for dtype in dtypes:
+            tag = "bf16" if dtype == "bfloat16" else "f32"
+            for where, shape in ((f"N433 d64 H{enc[1]} (encoder, TP rank of ({data}, {model}))", enc),
+                                 (f"N1729 d32 H{dec[1]} (decoder, TP rank of ({data}, {model}))", dec)):
+                cases += [(kernel_case, f"per-head {tag} {where}", "per_head", shape, dtype),
+                          (bwd_case, f"per-head bwd {tag} {where}", "per_head", shape, dtype)]
+    enc, dec = train_shapes(cfg)
+    rings = [("ring bf16 NB224 d64 (encoder, (2, 2))", BATCH, enc[1], enc[2], 64),
+             ("ring bf16 NB872 d32 (decoder, (2, 2))", BATCH // 2, dec[1], dec[2], 32)]
+    return cases, rings
+
+
+def resident_bytes(params, tx) -> dict:
+    """This rank's bytes of parameters and of optimizer state (moments,
+    traces, their step counts)."""
+    import torch
+
+    state = [t for p in tx.params for t in tx.opt.state[p].values() if torch.is_tensor(t)]
+    return {"params": sum(p.numel() * p.element_size() for p in params),
+            "optimizer": sum(t.numel() * t.element_size() for t in state)}
+
+
+def whole_diff(model, mesh) -> float:
+    """The whole parameters' largest difference from those of the mesh's
+    first rank (every rank gathers: collective)."""
+    import torch
+    import torch.distributed as dist
+
+    from vit_ae_plus_plus_torch.parallel import fsdp
+
+    whole = fsdp.full_state_dict(model)
+    flat = torch.cat([whole[n].float().flatten() for n, _ in model.named_parameters()]).cpu()
+    diff = 0.0
+    for axis in ("data", "model"):
+        if mesh.size(axis) > 1:
+            first = flat.clone()
+            dist.broadcast(first, src=mesh.ranks[axis][0], group=mesh.groups[axis])
+            diff = max(diff, float((flat - first).abs().max()))
+    return diff
+
+
+def sharded_mae(mesh, want: dict, dtype: str, kind: str, attn_impl: str) -> dict:
+    """Phase 7e (a), (c), (d) on one rank: one step of phase 5's trainer (its
+    weights, views and step-1 noise) on this rank's data coordinate's rows,
+    the state sharded by `kind` ('fsdp', 'tp'; 'ring' replicated with
+    'flash_ring'), its errors against `want` (phase 5's one-process step:
+    the gradients gathered whole), launches, host-staged bytes, resident
+    bytes, the whole parameters' difference from the first rank's, peak."""
+    import torch
+
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+    from vit_ae_plus_plus_torch.parallel import fsdp, set_mesh, tp
+
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    tree, stats = mae_tree(cfg, seed=0)
+    views, noise = train_inputs(cfg)
+    d, b = mesh.coords["data"], BATCH // mesh.size("data")
+
+    def mine(t):
+        return t[d * b:(d + 1) * b]
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(tree, stats, dtype, attn_impl)
+    model = trainer.model
+    replicated = resident_bytes(list(model.parameters()), trainer.state.tx)["params"]
+    if kind == "fsdp":
+        trainer.state, _ = fsdp.shard_train_state_fsdp(trainer.state, mesh)
+    elif kind == "tp":
+        trainer.state = tp.shard_train_state(trainer.state, mesh)
+    out = {}
+    with set_mesh(mesh):
+        staged = {"bytes": 0}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with staged_bytes(staged):
+            metrics, counts = trainer.run([mine(v) for v in views], torch.cat([mine(noise[0]), mine(noise[0][BATCH:])]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        named, placements = dict(model.named_parameters()), getattr(model, "placements", {})
+        grads = {n: tp.whole(n, named[n].grad, placements.get(n, {}), mesh).float() for n in trainer.grad_names}
+        errs = step_rel_errs(metrics, want["metrics"], {n: g.cpu() for n, g in grads.items()},
+                             {n: torch.from_numpy(g) for n, g in want["grads"].items()})
+        out.update(errs={**errs, **stats_errs(trainer.stats(), want["stats"])}, counts=counts, wall_s=wall,
+                   staged_bytes=staged["bytes"], metrics=metrics, replicated_param_bytes=replicated,
+                   resident=resident_bytes(list(model.parameters()), trainer.state.tx),
+                   qkv_block=tuple(named["blocks.0.attn.qkv.weight"].shape),
+                   placed={n: sorted(dims) for n, dims in placements.items()},
+                   params_max_diff=whole_diff(model, mesh))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del trainer, model, named
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_moco(mesh, want: dict) -> dict:
+    """Phase 7e (b) on one rank: one f32 MoCo step of phase 5g's trainer on
+    this rank's rows, both encoders and the LARS traces sharded over
+    'data', its readings (gathered whole) against `want` (phase 5g's
+    one-process step), launches, resident bytes, peak."""
+    import torch
+
+    from vit_ae_plus_plus_torch.parallel import fsdp, set_mesh, tp
+
+    d, b = mesh.coords["data"], BATCH // mesh.size("data")
+    views = [v[d * b:(d + 1) * b] for v in moco_views()]
+    torch.cuda.reset_peak_memory_stats()
+    trainer = MoCoTrainer(moco_base_sd("vit"), "float32", "auto")
+    mom = trainer.state.momentum_encoder
+    replicated = resident_bytes([*trainer.model.parameters(), *mom.parameters()], trainer.state.tx)["params"]
+    trainer.state, _ = fsdp.shard_moco_state_fsdp(trainer.state, mesh)
+    mom = trainer.state.momentum_encoder
+    with set_mesh(mesh):
+        got, counts = trainer.run(*views)
+        named, placed = dict(trainer.model.named_parameters()), trainer.model.placements
+        grads, _, mom_leaves = MOCO_NAMES["vit"]
+        got.update({n: tp.whole(n, named[n].grad, placed[n], mesh).float() for n in grads if n in placed})
+        mom_named = dict(mom.named_parameters())
+        got.update({f"momentum_encoder.{n}": tp.whole(n, mom_named[n].detach(), mom.placements[n], mesh).float()
+                    for n in mom_leaves if n in mom.placements})
+        out = {"errs": moco_errs(on_host(got), want["want"]), "counts": counts, "loss": got["loss"],
+               "replicated_param_bytes": replicated,
+               "resident": resident_bytes([*trainer.model.parameters(), *mom.parameters()], trainer.state.tx),
+               "params_max_diff": whole_diff(trainer.model, mesh)}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del trainer, mom, named, mom_named
+    torch.cuda.empty_cache()
+    return out
+
+
+def group_sharded(references: dict) -> dict:
+    """Phase 7e on one rank of phase 7's world (SHARDED_RUNS, then the MoCo
+    FSDP step); every rank makes every mesh and waits at a barrier before
+    each run (a rank outside a mesh gets None and skips its run)."""
+    from vit_ae_plus_plus_torch.parallel import barrier, make_mesh
+
+    with warnings.catch_warnings():  # a mesh of 2 of the 4 ranks warns
+        warnings.simplefilter("ignore")
+        meshes = {shape: make_mesh(*shape) for shape in sorted({shape for _, _, shape, _ in SHARDED_RUNS})}
+    world = meshes[(GROUP_RANKS, 1)]
+    reference = references["step"]
+    out = {}
+    t0 = time.perf_counter()
+    for kind, dtype, shape, attn_impl in SHARDED_RUNS:
+        barrier(world)
+        if meshes[shape] is not None:
+            want = reference["float32"] if dtype == "float32" else reference
+            out[f"{kind}_{dtype}_{shape}"] = sharded_mae(meshes[shape], want, dtype, kind, attn_impl)
+    barrier(world)
+    out["moco"] = sharded_moco(world, references["moco"]["vit"]["float32"])
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_sharded(results: list, rows: list, refs: dict) -> None:
+    """Phase 7e's limits on the ranks' numbers; fills its rows' launches."""
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    card = card_line()
+    mb = lambda n: f"{n / 1e6:.1f} MB"  # noqa: E731
+    for kind, dtype, shape, attn_impl in SHARDED_RUNS:
+        name = f"{kind}_{dtype}_{shape}"
+        tol, want_counts = STEP_TOL[dtype], sharded_launches(cfg, kind, shape, dtype)
+        ranks = [(rank, res["sharded"][name]) for rank, res in enumerate(results) if name in res["sharded"]]
+        check(len(ranks) == shape[0] * shape[1], f"7e {name} ran on {len(ranks)} ranks")
+        for rank, t in ranks:
+            res = t["resident"]
+            print(f"sharded rank {rank} {kind} {dtype} MAE step on {shape} attn_impl={attn_impl!r} vs phase 5's "
+                  f"one-process step, relative errors: " + ", ".join(f"{k} {v:.3g}" for k, v in t["errs"].items())
+                  + f" (tol loss terms and statistics {tol['loss']}, grads {tol['grad']}); whole parameters' "
+                  f"largest difference from the first rank's after the step {t['params_max_diff']:.3g}; qkv block "
+                  f"{t['qkv_block']}", flush=True)
+            print(f"sharded rank {rank} {kind} {dtype} {shape} ({card}): resident parameters {mb(res['params'])} "
+                  f"(replicated: {mb(t['replicated_param_bytes'])}), optimizer state {mb(res['optimizer'])}, "
+                  f"together {mb(res['params'] + res['optimizer'])}; peak {t['peak_gib']:.2f} GiB; host-staged "
+                  f"{mb(t['staged_bytes'])}; step wall {1e3 * t['wall_s']:.1f} ms (host clock, gloo through "
+                  "pinned host memory, information only)", flush=True)
+            for k, v in t["errs"].items():
+                check(v <= (tol["grad"] if k in GRAD_NAMES else tol["loss"]), f"7e rank {rank} {name} {k}: {v:.3g}")
+            check(t["params_max_diff"] == 0.0, f"7e rank {rank} {name}: whole parameters differ from the first "
+                  f"rank's by {t['params_max_diff']:.3g}")
+            check(t["counts"] == want_counts, f"7e rank {rank} {name} launched {t['counts']} (want {want_counts})")
+            if kind == "tp":
+                check(t["qkv_block"] == (3 * cfg.embed_dim // shape[1], cfg.embed_dim),
+                      f"7e rank {rank} {name}: qkv block {t['qkv_block']}")
+            if kind == "fsdp":
+                check(res["params"] < 0.3 * t["replicated_param_bytes"],
+                      f"7e rank {rank} {name}: {mb(res['params'])} of parameters resident, replicated "
+                      f"{mb(t['replicated_param_bytes'])}")
+        counts = ranks[0][1]["counts"]
+        unrowed = sorted(k for k in counts if not any((r["name"], r["key"]) == k for r in rows))
+        check(not unrowed, f"7e {name} launched kernels at shapes that no row holds against plain: {unrowed}")
+        fill_launches(rows, counts, f"make_train_step, compute_dtype='{dtype}', attn_impl='{attn_impl}', {kind} on a "
+                      f"{shape} mesh, one step, rank 0")
+    ref = refs["moco"]["vit"]["float32"]
+    # the base encoder's passes run their forward again in the backward (FSDP's re-gather)
+    limits, want_counts = ref["limits"], moco_step_launches("float32", BATCH // GROUP_RANKS)
+    want_counts = {key: n + 24 if key[0].endswith("fwd") else n for key, n in want_counts.items()}
+    for rank, res in enumerate(results):
+        t = res["sharded"]["moco"]
+        r = t["resident"]
+        print(f"sharded rank {rank} MoCo-ViT f32 FSDP step on ({GROUP_RANKS}, 1) vs phase 5g's one-process step: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in t["errs"].items())
+              + " (limits " + ", ".join(f"{k} {v:.3g}" for k, v in limits.items()) + f"); loss {t['loss']:.6f}; "
+              f"both encoders' parameters {mb(r['params'])} (replicated: {mb(t['replicated_param_bytes'])}), LARS "
+              f"traces {mb(r['optimizer'])}; peak {t['peak_gib']:.2f} GiB ({card})", flush=True)
+        bad = {k: v for k, v in t["errs"].items() if v > limits[k]}
+        check(not bad, f"7e rank {rank} MoCo FSDP step: {bad}")
+        check(t["params_max_diff"] == 0.0, f"7e rank {rank} MoCo FSDP: whole parameters differ by "
+              f"{t['params_max_diff']:.3g}")
+        check(t["counts"] == want_counts, f"7e rank {rank} MoCo FSDP launched {t['counts']}")
+        check(r["params"] < 0.3 * t["replicated_param_bytes"], f"7e rank {rank} MoCo FSDP: {mb(r['params'])} resident")
+    print(f"phase 7e (the sharded training state): {max(res['sharded']['seconds'] for res in results):.1f}s on the "
+          "slowest rank", flush=True)
+
+
 def rank_mesh():
     """A rank of phase 7: the one card, f32 kept f32, and the (1, 4) mesh."""
     import torch
@@ -4893,7 +5167,8 @@ def group_rank(rank: int, references: dict, paths: dict) -> dict:
     the one card (the kernels were built by the parent). -> its numbers."""
     mesh = rank_mesh()
     return {"attention": group_attention(mesh), "vit": group_vit(mesh),
-            "train": group_train(mesh, references["step"]), "ddp": group_ddp(references, paths)}
+            "train": group_train(mesh, references["step"]), "ddp": group_ddp(references, paths),
+            "sharded": group_sharded(references)}
 
 
 def attention_rank(rank: int) -> dict:
@@ -5344,6 +5619,7 @@ def group_phase(rows: list, reference: dict, paths: dict, moco: dict, contrastiv
         fill_launches(rows, run_counts, f"make_train_step, compute_dtype='{dtype}', attn_impl='flash_ring', "
                       f"{len(results[0]['train'][dtype]['steps'])} steps, rank 0 of {GROUP_RANKS}")
     check_ddp(results, rows, refs, paths)  # 7d
+    check_sharded(results, rows, refs)  # 7e
 
 
 def main(argv) -> int:
@@ -5470,6 +5746,12 @@ def main(argv) -> int:
     rows += [case(label, "packed", *shape, dtype, seed=110 + i)
              for i, (case, label, shape, dtype) in enumerate(ddp_cases(cfg))]
     print(f"data-parallel kernel cases {time.perf_counter() - t0:.1f}s", flush=True)
+    # the per-head kernels at phase 7e's TP shapes (H / M heads a rank)
+    t0 = time.perf_counter()
+    tp_cases, sharded_rings = sharded_cases(cfg)
+    rows += [case(label, layout, *shape, dtype, seed=150 + i)
+             for i, (case, label, layout, shape, dtype) in enumerate(tp_cases)]
+    print(f"tensor-parallel kernel cases {time.perf_counter() - t0:.1f}s", flush=True)
 
     # phase 3: the full-width ViT-B feature engine, kernel against plain
     tree = mae_encoder_tree(cfg, seed=0)
@@ -5585,6 +5867,9 @@ def main(argv) -> int:
         rows += ring_case("ring bf16 NB1032 d64, every key padded", 2, 12, 4097, 64, GROUP_RANKS, seed=75,
                           full_pad=True)
         rows += seq_case("seq bf16 N1032 Nk4097 d64", 2, 12, 4097, 64, GROUP_RANKS, seed=80)
+        # phase 7e's (2, 2) flash_ring step: its encoder's and decoder's blocks over 2
+        for i, (label, b, h, n, d) in enumerate(sharded_rings):
+            rows += ring_case(label, b, h, n, d, 2, seed=85 + i)
 
         # with --parent: the redesigned rows in turns against the parent's bodies
         if parent is not None:

@@ -208,9 +208,10 @@ def test_liblinear_and_sag_build_from_the_ports_sources_into_its_build_dir(libra
 
 
 def test_moco_refuses_before_any_file_is_read(monkeypatch, tmp_path):
-    """`moco_kfold` refuses FSDP with `NotImplementedError`, more devices
-    than the process's 'data' axis has (`n_devices`, a data mesh shape)
-    with `ValueError`, and a default device without CUDA with
+    """`moco_kfold` refuses FSDP without a data mesh, as the JAX package
+    does, and more devices than the process's 'data' axis has
+    (`n_devices`, a data mesh shape), with `ValueError`, and a default
+    device without CUDA with
     `RuntimeError`, before it reads the (missing) data or writes the work
     dir; `moco_extract` refuses the missing card likewise."""
     from vit_ae_plus_plus_torch.configs import DataConfig, TrainConfig
@@ -218,8 +219,8 @@ def test_moco_refuses_before_any_file_is_read(monkeypatch, tmp_path):
 
     data_cfg = DataConfig(base_path=str(tmp_path / "no_data"))
     work = tmp_path / "w"
-    refused = ((NotImplementedError, "ROADMAP Queue 1 item 6", {"fsdp": True}),
-               (NotImplementedError, "ROADMAP Queue 1 item 6", {"train_cfg": TrainConfig(fsdp=True)}),
+    refused = ((ValueError, r"--fsdp needs a data mesh \(--n-devices > 1\)", {"fsdp": True}),
+               (ValueError, r"--fsdp needs a data mesh \(--n-devices > 1\)", {"train_cfg": TrainConfig(fsdp=True)}),
                (ValueError, "n_devices=2 trains on 2 ranks", {"n_devices": 2}),
                (ValueError, "n_devices=2 trains on 2 ranks", {"train_cfg": TrainConfig(mesh_shape=(2,))}))
     for error, match, kw in refused:

@@ -7,11 +7,14 @@ over the global batch. The port's step does the same on a mesh of (D, 1):
 those cases need a process group, so they run in the 8-rank world of
 tests/test_torch_port_ring_flash.py (against JAX's data-mesh step). Here:
 
-- a mesh with data > 1 and model > 1 is refused before any forward, and
-  the refusal changes nothing; a mesh of data = 1 (the sequence-parallel
-  paths' (1, M)) and no mesh at all train as before. These meshes are
-  built directly, with no process group: the step must decide from the
-  mesh's shape alone.
+- as in the JAX package, a mesh with a model axis > 1 refuses
+  `attn_impl='auto'` (the packed kernel) before any forward, and the
+  refusal changes nothing; a mesh of data = 1 and no mesh at all train as
+  before (on (1, 4) with 'plain': the trunk replicated over 'model'). These
+  meshes are built directly, with no process group: the step must decide
+  from the mesh's shape alone. The (D, M > 1) steps themselves (TP, FSDP
+  with TP, 'flash_ring') run in the 8-rank world of
+  tests/test_torch_port_ring_flash.py.
 - the masking noise drawn from the generator under a (D, 1) mesh: each
   data coordinate's rows of the global batch's noise, for both views, so
   the masks are the one-process run's rows (the model in eval mode: its
@@ -52,9 +55,9 @@ def _mesh(data: int, model: int, d: int = 0) -> Mesh:
                 groups={"data": None, "model": None})
 
 
-def _step_and_state():
+def _step_and_state(attn_impl="auto"):
     torch.manual_seed(0)
-    model = build_model(MAEConfig(**TINY))
+    model = build_model(MAEConfig(**TINY, attn_impl=attn_impl))
     state = create_train_state(model, make_adamw(1e-3))
     calls = []
     rng = np.random.default_rng(3)
@@ -71,11 +74,12 @@ def _step_and_state():
 
 @pytest.mark.parametrize("data,model", [(2, 4), (4, 2)])
 def test_step_refuses_a_data_axis_before_any_forward(data, model):
-    """data > 1 with model > 1: neither the data-parallel step (a replicated
-    trunk) nor the sequence-parallel one (one data coordinate)."""
+    """A model axis > 1 with attn_impl='auto': the packed kernel holds whole
+    heads of q, k and v, so the JAX package refuses it under a model axis
+    (tests/test_tensor_parallel.py:21), and so does the port."""
     step, state, calls, v1, v2 = _step_and_state()
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
-    with set_mesh(_mesh(data, model)), pytest.raises(ValueError, match=r"data=\d.*DDP.*item 6"):
+    with set_mesh(_mesh(data, model)), pytest.raises(ValueError, match="tensor-parallel"):
         step(state, v1, v2, 0.01)
     assert calls == [] and state.step == 0
     after = state.model.state_dict()
@@ -84,7 +88,8 @@ def test_step_refuses_a_data_axis_before_any_forward(data, model):
 
 @pytest.mark.parametrize("mesh", [None, (1, 1), (1, 4)], ids=["no_mesh", "mesh_1x1", "mesh_1x4"])
 def test_step_trains_without_a_data_axis(mesh):
-    step, state, calls, v1, v2 = _step_and_state()
+    # on (1, 4) the packed 'auto' is refused (above): the replicated trunk with 'plain'
+    step, state, calls, v1, v2 = _step_and_state("plain" if mesh == (1, 4) else "auto")
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     with set_mesh(None if mesh is None else _mesh(*mesh)):
         state, metrics = step(state, v1, v2, 0.01)

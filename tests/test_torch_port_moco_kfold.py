@@ -17,8 +17,10 @@ the CPU.
   `moco_kfold`'s own dumps bitwise; on one `.pth` it extracts the whole
   dataset (a last partial batch padded), within `FEAT_TOL` of the JAX
   package's `moco_extract` on its own fold-0 checkpoint.
-- The CLI on the CPU, and its refusal of `--fsdp` before any data is read
-  (`--n-devices N` runs N ranks: tests/test_torch_port_moco_ddp.py).
+- The CLI on the CPU, and its refusal of `--fsdp` without a data mesh
+  before any data is read, as the JAX package's (`--n-devices N` runs N
+  ranks: tests/test_torch_port_moco_ddp.py; `--fsdp --n-devices 2`:
+  tests/test_torch_port_ring_flash.py).
 """
 
 import contextlib
@@ -336,7 +338,7 @@ def test_moco_cli_and_refusals(data_dir, tmp_path, monkeypatch, capsys):
     # refused before any data is read
     missing = ["--data-path", str(tmp_path / "none"), "--work-dir", str(tmp_path / "w")]
     assert cli_run(["moco-kfold", *missing, "--fsdp"]) == 2
-    assert "fsdp" in capsys.readouterr().err
+    assert "--fsdp needs a data mesh (--n-devices > 1)" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for cmd in (["moco-kfold"], ["moco-extract", "--checkpoint", work]):
         assert cli_run([*cmd, *missing]) == 2

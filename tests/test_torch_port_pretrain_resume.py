@@ -168,8 +168,9 @@ def test_unported_settings_are_refused_before_any_work(setting, tmp_path):
     work = tmp_path / "work"
     error = {"n_devices": (ValueError, "n_devices=2 trains on 2 ranks"),
              "mesh_shape": (ValueError, "n_devices=2 trains on 2 ranks"),
-             "device_data": (ValueError, "device_data requires device_augment")}.get(
-        setting, (NotImplementedError, "ROADMAP Queue 1 item 6"))
+             "device_data": (ValueError, "device_data requires device_augment"),
+             "fsdp": (ValueError, r"--fsdp needs a data mesh \(--n-devices > 1\)")}.get(
+        setting, (NotImplementedError, "ROADMAP Queue 1 item 6b"))
     with pytest.raises(error[0], match=error[1]):
         tpk.pretrain_kfold(data_cfg, train_cfg, str(work), model_name=MODEL, n_splits=FOLDS,
                            n_devices=n_devices, device="cpu")

@@ -54,6 +54,14 @@ from the same numpy inputs):
   controls, and `moco_kfold` on 2 ranks with its resume against one
   process's run: tests/test_torch_port_moco_ddp.py holds the cases'
   helpers and says what each checks.
+- the sharded training state: the FSDP MAE step on (8, 1) (plain, with
+  the clip, with accumulation) and the MoCo ViT FSDP step on (4, 1)
+  against JAX's FSDP steps, TP on (2, 4), FSDP with TP on (4, 2) and the
+  'flash_ring' step on (2, 4) against JAX's, their controls, the
+  transport's log, and `pretrain-kfold --fsdp` / `moco-kfold --fsdp`
+  through the CLI on 2 ranks with resumes across layouts:
+  tests/test_torch_port_fsdp.py holds the cases' helpers and says what
+  each checks.
 
 JAX is imported inside the functions that run it: the ranks import this
 module by name and need none of it.
@@ -89,6 +97,7 @@ from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict, p
 from vit_ae_plus_plus_torch.train.optim import make_sgd
 from vit_ae_plus_plus_torch.train.step import feature_step
 
+import test_torch_port_fsdp as fs
 import test_torch_port_moco_ddp as md
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -299,6 +308,21 @@ def _group_rank(rank, tree, x, ddp):
     for control in (None, "local_moments"):
         on(2, 1, f"ddp_contrastive_{control}", lambda mesh: md.run_ddp_contrastive(mesh, ddp["contrastive"], control))
     on(2, 1, "ddp_moco_kfold", lambda mesh: md.run_ddp_moco_kfold(mesh, ddp["dirs"]["moco_ranks"], ddp["dirs"]["data"]))
+    sharded = ddp["sharded"]
+    for variant in fs.VARIANTS:
+        on(8, 1, f"fsdp_mae_{variant}", lambda mesh: fs.run_mae(mesh, sharded["mae"], variant=variant))
+    on(8, 1, "fsdp_mae_clip_local", lambda mesh: fs.run_mae(mesh, sharded["mae"], variant="clip",
+                                                             control_name="clip_local"))
+    for control in (None, "lars_local"):
+        on(4, 1, f"fsdp_moco_{control}", lambda mesh: fs.run_moco(mesh, ddp["moco_vit"], control))
+    for control in (None, "tp_no_f"):
+        on(2, 4, f"tp_mae_{control}", lambda mesh: fs.run_mae(mesh, sharded["tp"], fs.TP_CFG, kind="tp",
+                                                               control_name=control, attn_impl="flash"))
+    on(4, 2, "fsdp_tp_mae", lambda mesh: fs.run_mae(mesh, sharded["tp"], fs.TP_CFG, kind="fsdp", attn_impl="flash"))
+    on(2, 4, "ring_mae", lambda mesh: fs.run_mae(mesh, sharded["tp"], fs.TP_CFG, kind="replicated",
+                                                 attn_impl="flash_ring"))
+    on(2, 1, "fsdp_cli_pretrain", lambda mesh: fs.run_cli_pretrain(mesh, ddp["dirs"]["data"], ddp["dirs"]["fsdp_cli"]))
+    on(2, 1, "fsdp_cli_moco", lambda mesh: fs.run_cli_moco(mesh, ddp["dirs"]["data"], ddp["dirs"]["fsdp_cli"]))
     return out
 
 
@@ -350,7 +374,8 @@ def group(tmp_path_factory):
     tree, x, want_trunk = _jax_trunk()
     ddp = {"mae": _jax_mae_weights(), "vit": _jax_vit_weights(), "lam": _jax_mixup_lam(),
            "dirs": _ddp_dirs(tmp_path_factory), "contrastive": md.jax_contrastive_weights(),
-           **{f"moco_{arch}": md.jax_moco_weights(arch) for arch in MOCO_ARCHS}}
+           **{f"moco_{arch}": md.jax_moco_weights(arch) for arch in MOCO_ARCHS},
+           "sharded": {"mae": fs.jax_weights(None, 3), "tp": fs.jax_weights(fs.TP_CFG, 4)}}
     results = {}
     ranks = threading.Thread(target=lambda: results.update(ranks=run_ranks(
         _group_rank, WORLD, (tree, x, ddp), store_dir=str(tmp_path_factory.mktemp("store")), timeout=600)))
@@ -366,6 +391,15 @@ def group(tmp_path_factory):
         want["ddp_moco"] = {arch: md.jax_ddp_moco(arch, ddp[f"moco_{arch}"]) for arch in MOCO_ARCHS}
         want["ddp_contrastive"] = md.jax_ddp_contrastive(ddp["contrastive"])
         want["ddp_moco_kfold"] = md.run_moco_kfold(ddp["dirs"]["moco_one"], ddp["dirs"]["data"])
+        sharded = ddp["sharded"]
+        want["fsdp_mae"] = {variant: fs.jax_mae_run(sharded["mae"], variant=variant) for variant in fs.VARIANTS}
+        want["fsdp_moco"] = fs.jax_moco_fsdp(ddp["moco_vit"])
+        tp_one = fs.jax_mae_run(sharded["tp"], fs.TP_CFG, kind="replicated", data=1)
+        want["tp_mae"] = fs.with_floor(fs.jax_mae_run(sharded["tp"], fs.TP_CFG, kind="tp", data=2, model_axis=4),
+                                       tp_one)
+        want["fsdp_tp_mae"] = fs.with_floor(
+            fs.jax_mae_run(sharded["tp"], fs.TP_CFG, kind="fsdp", data=4, model_axis=2), tp_one)
+        want["ring_mae"] = {**tp_one, "floor": want["tp_mae"]["floor"]}
     finally:
         ranks.join(timeout=900)
     assert not ranks.is_alive() and "ranks" in results, "the group of ranks did not finish"
@@ -674,7 +708,7 @@ def _ddp_dirs(tmp_path_factory):
         np.save(root / f"x_{split}_ssl.npy", rng.standard_normal((n, 16, 16, 16, 1)).astype(np.float32))
         np.save(root / f"y_{split}_ssl.npy", np.arange(n) % 2)
     names = ("ranks", "one", "extract_ranks", "extract_one", "finetune_ranks", "finetune_one", "moco_ranks",
-             "moco_one")
+             "moco_one", "fsdp_cli")
     return {name: str(root / name) for name in names} | {"data": str(root)}
 
 
@@ -1035,3 +1069,176 @@ def test_data_parallel_moco_kfold_and_its_resume_match_one_process(group):
             np.testing.assert_array_equal(got, w)
         else:
             assert np.abs(got - w).max() <= 1e-4 * np.abs(w).max(), name
+
+
+# ------------------------------------------- the sharded training state
+
+def _mesh_results(group, case, data, model):
+    """Every rank's result of `case`, and each rank's (d, m)."""
+    got = group[0][case]
+    assert sorted(got) == list(range(data)) and all(len(r) == model for r in got.values())
+    results = [r for d in range(data) for r in got[d]]
+    assert sorted(r["coords"] for r in results) == [(d, m) for d in range(data) for m in range(model)]
+    return results
+
+
+def _assert_eval_matches_one_process(results):
+    """`make_eval_step` on the sharded model against one process's on a
+    whole copy of it, each rank's rows."""
+    for r in results:
+        for k, (sharded, one) in r["eval"].items():
+            assert abs(sharded - one) <= 1e-6 * abs(one) + 1e-9, (k, sharded, one)
+
+
+def _assert_blocks_agree(results):
+    """Each leaf's local tensor bitwise equal on the ranks that hold the same
+    block: every rank for a replicated leaf, the ranks of the axis a block
+    is not cut on for a sharded one."""
+    axis_index = {"data": 0, "model": 1}
+    for name in results[0]["local"]:
+        held = {}
+        for r in results:
+            key = tuple(r["coords"][axis_index[a]] for a in sorted(r["placements"].get(name, {})))
+            held.setdefault(key, []).append(r["local"][name])
+        for blocks in held.values():
+            for other in blocks[1:]:
+                np.testing.assert_array_equal(other, blocks[0], err_msg=name)
+
+
+def _assert_fsdp_transport(result, extra=()):
+    """FSDP's collectives move the blocks of 'data'-sharded leaves (gathers),
+    those leaves whole over 'data' (gloo's reduce-scatter), the flat
+    replicated gradients and vectors of statistics (1-D): never an
+    activation. `extra`: the shapes a step gathers by design (MoCo's
+    keys)."""
+    data = result["mesh"][0]
+    blocks, wholes = set(), set()
+    for name, dims in result["placements"].items():
+        if "data" in dims:
+            shape = result["local"][name].shape
+            blocks.add(shape)
+            wholes.add(tuple(s * (data if i == dims["data"] else 1) for i, s in enumerate(shape)))
+    gathers = {s for axis, s in result["log"]["all_gather"] if axis == "data"}
+    reduces = [s for axis, s in result["log"]["all_reduce"] if axis == "data"]
+    assert gathers and gathers <= blocks | set(extra), gathers
+    assert all(len(s) == 1 or s in wholes for s in reduces), reduces
+
+
+@pytest.mark.parametrize("variant", fs.VARIANTS)
+def test_fsdp_mae_step_matches_jax(group, variant):
+    results = _mesh_results(group, f"fsdp_mae_{variant}", 8, 1)
+    want = group[1]["fsdp_mae"][variant]
+    if variant == "clip":
+        assert all(m["grad_norm"] > fs.CLIP for m in want["metrics"])
+    for r in results:
+        assert fs.mae_gate(r, want) <= 1.0
+    _assert_blocks_agree(results)
+    _assert_eval_matches_one_process(results)
+    _assert_fsdp_transport(results[0])
+    qkv = "blocks.0.attn.qkv.weight"
+    assert results[0]["local"][qkv].shape == (72 // 8, 24) and results[0]["placements"][qkv] == {"data": 0}
+
+
+def test_fsdp_mae_step_with_a_shard_local_clip_norm_misses(group):
+    results = _mesh_results(group, "fsdp_mae_clip_local", 8, 1)
+    assert min(fs.mae_gate(r, group[1]["fsdp_mae"]["clip"]) for r in results) > 1.0
+
+
+@pytest.mark.parametrize("control", [None, "lars_local"])
+def test_fsdp_moco_step_matches_jax(group, control):
+    results = _mesh_results(group, f"fsdp_moco_{control}", 4, 1)
+    want = group[1]["fsdp_moco"]
+    gates = [fs.moco_gate(r, want) for r in results]
+    if control is None:
+        assert max(gates) <= 1.0
+        _assert_blocks_agree(results)
+        _assert_fsdp_transport(results[0], extra={(md.MOCO_B // 4, 2 * md.DIM)})  # the keys
+        assert any("head" in n for n in results[0]["placements"])
+    else:
+        assert min(gates) > 1.0
+
+
+@pytest.mark.parametrize("control", [None, "tp_no_f"])
+def test_tp_step_on_2x4_matches_jax(group, control):
+    results = _mesh_results(group, f"tp_mae_{control}", 2, 4)
+    want = group[1]["tp_mae"]
+    if control is not None:
+        assert min(fs.mae_gate(r, want) for r in results) > 1.0
+        return
+    for r in results:
+        assert fs.mae_gate(r, want) <= 1.0
+        # no rank holds the whole (C, 3C) qkv, and TP gathers nothing
+        c = fs.TP_CFG["embed_dim"]
+        assert r["local"]["blocks.0.attn.qkv.weight"].shape == (3 * c // 4, c)
+        assert r["local"]["decoder_blocks.0.attn.qkv.weight"].shape == (3 * c // 4, c)
+        assert not r["log"]["all_gather"] and (3 * c, c) not in {s for _, s in r["log"]["all_reduce"]}
+    _assert_blocks_agree(results)
+    _assert_eval_matches_one_process(results)
+
+
+def test_fsdp_composed_with_tp_on_4x2_matches_jax(group):
+    results = _mesh_results(group, "fsdp_tp_mae", 4, 2)
+    want = group[1]["fsdp_tp_mae"]
+    for r in results:
+        assert fs.mae_gate(r, want) <= 1.0
+        assert r["placements"]["blocks.0.attn.qkv.weight"] == {"model": 0, "data": 1}
+        c = fs.TP_CFG["embed_dim"]
+        assert r["local"]["blocks.0.attn.qkv.weight"].shape == (3 * c // 2, c // 4)
+    _assert_blocks_agree(results)
+    _assert_eval_matches_one_process(results)
+    _assert_fsdp_transport(results[0])
+
+
+def test_flash_ring_step_on_2x4_matches_jax(group):
+    results = _mesh_results(group, "ring_mae", 2, 4)
+    for r in results:
+        assert fs.mae_gate(r, group[1]["ring_mae"]) <= 1.0
+    _assert_blocks_agree(results)
+
+
+def test_pretrain_kfold_fsdp_cli_resumes_across_layouts(group):
+    """A: --fsdp straight; B: a data-parallel epoch resumed under --fsdp; C:
+    an --fsdp epoch resumed data parallel. The same training, so the same
+    losses and weights within f32 summation order; each .pth loads into one
+    process's model."""
+    out, _ = _ddp_results(group, "fsdp_cli_pretrain", 2)
+    root = group[1]["ddp_pretrain"]["dirs"]["fsdp_cli"]
+    model = build_model(MODEL_ZOO[MAE_TINY](volume_size=16, dtype="float32"))
+    for fold in range(PIPE_FOLDS):
+        want_sd = load_reference_state_dict(_min_loss(os.path.join(root, "A"), fold))
+        model.load_state_dict(want_sd, strict=True)
+        for run in ("B", "C"):
+            assert abs(out[run][fold]["min_loss"] - out["A"][fold]["min_loss"]) <= 1e-5 * out["A"][fold]["min_loss"]
+            got_sd = load_reference_state_dict(_min_loss(os.path.join(root, run), fold))
+            for n, w in want_sd.items():
+                assert float((got_sd[n] - w).abs().max()) <= 1e-5 * max(float(w.abs().max()), 1.0), (run, n)
+    with open(os.path.join(root, "A", "checkpoints", "log.txt")) as f:
+        assert len(f.readlines()) == PIPE_FOLDS * 2
+
+
+def test_moco_kfold_fsdp_cli_resumes_across_layouts(group):
+    """A: --fsdp, then resumed data parallel (A'); D: data parallel, then
+    resumed under --fsdp (D'). A resumed fold restores its state whole and
+    extracts again from its .pth: the same features bitwise; A and D train
+    the same steps within f32 summation order."""
+    from vit_ae_plus_plus_torch.configs import DataConfig
+    from vit_ae_plus_plus_torch.pipelines import moco_kfold as tmk
+
+    out, _ = _ddp_results(group, "fsdp_cli_moco", 2)
+    root = group[1]["ddp_pretrain"]["dirs"]["fsdp_cli"]
+    model = tmk.build_moco_model(DataConfig(volume_size=16), "float32", "vit", **md.MOCO)
+    for run in ("A", "D"):
+        work = os.path.join(root, f"moco_{run}")
+        assert out[run + "'"] == out[run]
+        for fold in range(PIPE_FOLDS):
+            for tag in ("train", "test"):
+                name = f"{tag}_contrast_ssl_features_split_{fold}.npy"
+                np.testing.assert_array_equal(np.load(os.path.join(work, "ssl_features_dir", name)),
+                                              np.load(os.path.join(work, "ssl_features_dir.first", name)))
+            model.load_state_dict(torch.load(_min_loss(work, fold), weights_only=True), strict=True)
+    for fold in range(PIPE_FOLDS):
+        assert abs(out["D"][fold]["min_loss"] - out["A"][fold]["min_loss"]) <= 1e-5 * out["A"][fold]["min_loss"]
+        a = torch.load(_min_loss(os.path.join(root, "moco_A"), fold), weights_only=True)
+        d = torch.load(_min_loss(os.path.join(root, "moco_D"), fold), weights_only=True)
+        for n, w in a.items():
+            assert float((d[n] - w).abs().max()) <= 1e-5 * max(float(w.abs().max()), 1.0), n

@@ -133,11 +133,12 @@ def build_parser() -> argparse.ArgumentParser:
              "(pipelines/pretrain_kfold.py)")
     _add_common(pre)
     pre.add_argument("--pipe-devices", type=int, default=1,
-                     help="GPipe pipeline stages (not ported yet: > 1 is refused)")
+                     help="GPipe pipeline stages (not ported yet, ROADMAP Queue 1 item 6b: > 1 is refused)")
     pre.add_argument("--pp-microbatches", type=int, default=None,
-                     help="GPipe microbatches (not ported yet)")
+                     help="GPipe microbatches (not ported yet, ROADMAP Queue 1 item 6b)")
     pre.add_argument("--fsdp", action="store_true",
-                     help="ZeRO/FSDP (not ported yet: refused)")
+                     help="ZeRO/FSDP: shard params + optimizer moments 1/data over the 'data' mesh axis "
+                          "(parallel/fsdp.py; needs --n-devices > 1)")
     pre.add_argument("--device", default=None,
                      help="torch device (default: cuda; 'cpu' to run on the CPU)")
 
@@ -172,7 +173,8 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument("--eval-only", action="store_true")
         if name == "moco-kfold":
             p.add_argument("--fsdp", action="store_true",
-                           help="both encoders and the LARS traces sharded (not ported yet: refused)")
+                           help="shard both MoCo encoders + LARS moments 1/data over the mesh "
+                                "(parallel/fsdp.py; needs --n-devices > 1)")
         if name in ("moco-kfold", "moco-extract"):
             p.add_argument("--moco-arch", default="vit", choices=["vit", "resnet"],
                            help="MoCo trunk (reference builder.py:101-124)")

@@ -111,9 +111,10 @@ class MAEConfig:
 class TrainConfig:
     """SSL pretraining hyperparameters: every field of the JAX package's
     `TrainConfig`, with its defaults (the reference's config.ini [K_FOLD]
-    and argparse defaults). `pretrain_kfold` refuses the fields whose
-    paths are not ported yet (`fsdp`, `pipe_devices > 1`); `donate_state`
-    has no meaning in eager PyTorch and nothing reads it."""
+    and argparse defaults). `pretrain_kfold` refuses `pipe_devices > 1`,
+    whose path is not ported yet (ROADMAP Queue 1 item 6b); `fsdp` shards
+    the state over the data mesh (parallel/fsdp.py); `donate_state` has no
+    meaning in eager PyTorch and nothing reads it."""
 
     epochs: int = 50
     batch_size: int = 4
@@ -141,9 +142,9 @@ class TrainConfig:
     device_data: bool = False  # the whole raw fold resident on the card (needs device_augment)
     donate_state: bool = True
     mesh_shape: Tuple[int, ...] = (1,)  # (data,) mesh; data > 1 asks for that many data-parallel ranks
-    pipe_devices: int = 1  # > 1: GPipe pipeline (not ported yet)
+    pipe_devices: int = 1  # > 1: GPipe pipeline (not ported yet, ROADMAP Queue 1 item 6b)
     pp_microbatches: Optional[int] = None
-    fsdp: bool = False  # ZeRO/FSDP (not ported yet)
+    fsdp: bool = False  # ZeRO/FSDP over the data mesh (parallel/fsdp.py; needs data > 1)
     start_epoch: int = 0
     resume: bool = False  # restore model, optimizer and epoch from the fold's resume checkpoint
     ckpt_every: int = 1  # write the resume checkpoint and flush the min-loss weights every N

@@ -25,6 +25,9 @@ weight bridge (train/checkpoint.py) loads a JAX param tree with
 compute dtype; LayerNorm and BatchNorm statistics are at least f32, except
 in the blocks under `ln_dtype="bfloat16"`. `ln_fusion` and `ln_dtype` reach
 the encoder and decoder blocks; `norm` and `decoder_norm` stay unfused.
+Tensor parallelism and FSDP's gather at a block's use (models/vit.py
+`Block`, `_linear`) reach the encoder and decoder blocks alike, and the
+decoder embed and the heads' Linear layers, as the JAX rules' paths do.
 """
 
 from __future__ import annotations

@@ -167,7 +167,9 @@ class MoCoResNet3D(_MoCo):
 def ema_update(momentum: list, base: list, m: float) -> None:
     """momentum = momentum * m + base * (1 - m), in place, over matching
     lists of tensors (builder.py:57-61). `m` is rounded to f32 first, as
-    the JAX package passes it (`jnp.float32(m)`), so 1 - m is exact."""
+    the JAX package passes it (`jnp.float32(m)`), so 1 - m is exact. On an
+    FSDP state both lists hold this rank's blocks, the momentum tree in the
+    base tree's placement (parallel/fsdp.py `shard_moco_state_fsdp`)."""
     m = float(torch.tensor(m, dtype=torch.float32))
     torch._foreach_mul_(momentum, m)
     torch._foreach_add_(momentum, torch._foreach_mul(base, 1.0 - m))

@@ -23,6 +23,16 @@ A block's LayerNorms run one of three ways, as in the JAX package:
 computes their statistics in bf16 (`ln_stats_dtype`), and the default is
 the unfused LayerNorm with f32 statistics. Parameter names are the same in
 all three, so one state dict loads into any of them.
+
+The sharded training state (parallel/tp.py, parallel/fsdp.py) hooks in
+here. Under tensor parallelism (`Attention.tp`, `Mlp.tp`) the qkv and fc1
+hold this rank's heads or hidden units, the proj and fc2 its rows of the
+input dim: the input of qkv and fc1 goes through `copy_to_model`, the
+partial products of proj and fc2 through `reduce_from_model`, and their
+biases are added after the sum; a fused LayerNorm falls back to the
+unfused pair, as in the JAX package. Under FSDP a `Block` (`fsdp_unit`)
+and a Linear outside the blocks gather their 'data'-sharded leaves at
+their use (`Block.fsdp`, `_linear`: parallel/fsdp.py `gathered_call`).
 """
 
 from __future__ import annotations
@@ -45,6 +55,8 @@ from vit_ae_plus_plus_torch.kernels import (
 )
 from vit_ae_plus_plus_torch.ops import patchify
 from vit_ae_plus_plus_torch.parallel import get_mesh, psum
+from vit_ae_plus_plus_torch.parallel.fsdp import gathered_call
+from vit_ae_plus_plus_torch.parallel.tp import copy_to_model, reduce_from_model
 
 # float64 serves the CPU trajectory tests, as in the JAX package
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
@@ -71,8 +83,20 @@ def _dense(x: torch.Tensor, weight: torch.Tensor, bias) -> torch.Tensor:
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """Dense in x's dtype over f32 parameters (`_dense`)."""
+    """Dense in x's dtype over f32 parameters (`_dense`); a Linear whose
+    leaves are sharded over 'data' gathers them for the call."""
+    if getattr(layer, "fsdp", None):
+        return gathered_call(layer, lambda t: _dense(t, layer.weight, layer.bias), x)
     return _dense(x, layer.weight, layer.bias)
+
+
+def _row_parallel(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """A row-parallel Dense: this rank's partial product of its rows of the
+    input dim, rounded where `_dense` rounds it, summed over 'model', then
+    the bias."""
+    mesh = get_mesh()
+    out = reduce_from_model(F.linear(x, layer.weight.to(x.dtype)), mesh)
+    return out + layer.bias.to(x.dtype)
 
 
 def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -126,6 +150,8 @@ class FusedLayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
+    tp = False  # tensor parallel: fc1 column-, fc2 row-parallel over 'model'
+
     def __init__(self, dim: int, hidden_dim: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden_dim)
@@ -134,6 +160,9 @@ class Mlp(nn.Module):
     def forward(self, x, ln: nn.LayerNorm = None):
         """`ln`: when given, x is the un-normalised stream and `ln` is fused
         into fc1."""
+        if self.tp:
+            h = F.gelu(_linear(copy_to_model(x, get_mesh()), self.fc1))
+            return _row_parallel(h, self.fc2)
         h = _linear(x, self.fc1) if ln is None else _ln_dense(x, ln, self.fc1)
         return _linear(F.gelu(h), self.fc2)
 
@@ -149,7 +178,10 @@ class Attention(nn.Module):
     ambient mesh (`parallel.set_mesh`; without one they are 'flash'). Every
     path is differentiable: the kernels' backward runs in
     csrc/flash_bwd.cu. With `ln`, x is the un-normalised stream and `ln` is
-    fused into qkv."""
+    fused into qkv. With `tp`, qkv holds this rank's H / M heads and proj
+    its rows (module docstring)."""
+
+    tp = False
 
     def __init__(self, dim: int, num_heads: int, attn_impl: str = "auto"):
         super().__init__()
@@ -163,20 +195,27 @@ class Attention(nn.Module):
     def forward(self, x, ln: nn.LayerNorm = None):
         b, n, c = x.shape
         d = c // self.num_heads
+        if self.tp:
+            x = copy_to_model(x, get_mesh())
         qkv = _linear(x, self.qkv) if ln is None else _ln_dense(x, ln, self.qkv)
+        heads = qkv.shape[-1] // (3 * d)  # this rank's, under tp
         if self.attn_impl == "auto" and qkv.is_cuda:
             out = packed_flash_attention(qkv, d)
         else:
             impl = "plain" if self.attn_impl == "auto" else self.attn_impl
-            q, k, v = qkv.view(b, n, 3, self.num_heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+            q, k, v = qkv.view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
             out = multihead_attention(q, k, v, impl)  # (B, H, N, d)
-            out = out.transpose(1, 2).reshape(b, n, c)
-        return _linear(out, self.proj)
+            out = out.transpose(1, 2).reshape(b, n, heads * d)
+        return _row_parallel(out, self.proj) if self.tp else _linear(out, self.proj)
 
 
 class Block(nn.Module):
     """Pre-LN transformer block, its LayerNorms fused (`ln_fusion="on"`),
-    with bf16 statistics (`ln_dtype="bfloat16"`) or plain."""
+    with bf16 statistics (`ln_dtype="bfloat16"`) or plain. Under FSDP the
+    unit that gathers its leaves: `fsdp` {leaf name: sharded dim}."""
+
+    fsdp_unit = True
+    fsdp = None
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, attn_impl: str = "auto",
                  ln_fusion: str = "auto", ln_dtype: str = "float32"):
@@ -201,7 +240,12 @@ class Block(nn.Module):
         return _layer_norm(x, norm)
 
     def forward(self, x):
-        if self.fused:
+        if self.fsdp:
+            return gathered_call(self, self._forward, x)
+        return self._forward(x)
+
+    def _forward(self, x):
+        if self.fused and not self.attn.tp:  # under TP, the unfused pair (kernel #7 holds the whole W)
             x = x + self.attn(x, ln=self.norm1)
             return x + self.mlp(x, ln=self.norm2)
         x = x + self.attn(self._norm(x, self.norm1))

@@ -18,8 +18,10 @@ position of the mesh, rank = d * model + m, and runs its own program:
   shard over the 'model' group.
 
 Transport (`ring_shift`, `all_gather_rows`, `all_gather_batch`,
-`all_reduce_sum`, the differentiable `psum`, `all_reduce_flat`) follows the
-group's backend. An NCCL group moves CUDA tensors itself. A gloo group moves
+`all_reduce_sum`, the differentiable `psum`, `all_reduce_flat`, and the
+shard transport of the sharded training state: `all_gather_dim`,
+`reduce_scatter_dim`, the differentiable `gather_shards`, `sum_over`)
+follows the group's backend. An NCCL group moves CUDA tensors itself. A gloo group moves
 host memory, so CUDA tensors go through pinned host buffers once the current
 stream has finished producing them, and come back to the card after. That
 is how several ranks share one GPU (NCCL refuses two ranks on one device).
@@ -140,9 +142,13 @@ def data_parallel(n_devices: Optional[int], what: str) -> Tuple[int, int]:
     mesh = get_mesh()
     d, size = data_coords(mesh)
     if mesh is not None and mesh.size("model") > 1:
+        # the pipelines write from the 'data' group's first rank, and, as the
+        # JAX package's, build a data mesh only (--n-devices); the (D, M > 1)
+        # steps run through make_train_step and parallel.tp / parallel.fsdp
         raise NotImplementedError(
-            f"{what}: a mesh with model={mesh.size('model')} is not ported for this pipeline: data "
-            "parallelism runs on a mesh of (D, 1) (ROADMAP Queue 1 item 6 brings the rest)")
+            f"{what}: a mesh with model={mesh.size('model')} is not a pipeline's mesh: the pipelines run on "
+            "the data mesh of --n-devices, (D, 1), as the JAX package's do; the (D, M > 1) training step "
+            "runs through make_train_step (train/step.py)")
     if n_devices is not None and max(n_devices, 1) != size:
         raise ValueError(
             f"{what}: n_devices={n_devices} trains on {n_devices} ranks, each under a data mesh of "
@@ -278,4 +284,76 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str = "da
         total = all_reduce_sum(flat, mesh, axis)
         for i, part in zip(idx, torch.split(total, [tensors[i].numel() for i in idx])):
             out[i] = part.view(tensors[i].shape)
+    return out
+
+
+def all_gather_dim(t: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    """The ranks' shards `t` along `axis`, concatenated along `dim` in the
+    order of their coordinates: a leaf sharded over `axis` on `dim`, whole.
+    Every rank passes the same shape. Not differentiable (`gather_shards`
+    is)."""
+    size = mesh.size(axis)
+    if size == 1:
+        return t
+    group = mesh.groups[axis]
+    staged = _staged(t, group)
+    src = _to_host([t])[0] if staged else t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(size)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    return out.to(t.device, non_blocking=True) if staged else out
+
+
+def reduce_scatter_dim(t: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block along `dim` of the sum of the ranks' `t` along
+    `axis`: the shard of a summed gradient. An NCCL group reduce-scatters;
+    a gloo group, which has no reduce-scatter for this use, sums the whole
+    tensor (through pinned host memory, as `all_reduce_sum` does) and
+    keeps the block."""
+    size = mesh.size(axis)
+    if size == 1:
+        return t
+    group, i = mesh.groups[axis], mesh.coords[axis]
+    if t.is_cuda and dist.get_backend(group) == dist.Backend.NCCL:
+        chunks = [c.contiguous() for c in t.chunk(size, dim=dim)]
+        out = torch.empty_like(chunks[i])
+        dist.reduce_scatter(out, chunks, op=dist.ReduceOp.SUM, group=group)
+        return out
+    return all_reduce_sum(t, mesh, axis).chunk(size, dim=dim)[i].contiguous()
+
+
+class _GatherShards(torch.autograd.Function):
+    """`all_gather_dim` whose backward reduce-scatters the gradient of the
+    whole leaf back to this rank's shard (summed over the ranks: each rank's
+    loss reaches the leaf through its own gather)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather_dim(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_dim(grad, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def gather_shards(t: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    """The differentiable whole of a leaf sharded over `axis` on `dim`."""
+    if mesh.size(axis) == 1:
+        return t
+    return _GatherShards.apply(t, mesh, axis, dim)
+
+
+def sum_over(values: torch.Tensor, axes: Sequence[Tuple[str, ...]], mesh: Optional[Mesh]) -> torch.Tensor:
+    """The vector `values` with entry i summed over the ranks of the mesh
+    axes `axes[i]` (a sum of squares of a leaf sharded over those axes; ()
+    for a replicated one, left as it is): one all-reduce of the entries of
+    each sharded axis set."""
+    out = values
+    for key in sorted({a for a in axes if a}):
+        idx = torch.tensor([i for i, a in enumerate(axes) if a == key], device=values.device)
+        part = values[idx]
+        for axis in key:
+            part = all_reduce_sum(part, mesh, axis)
+        out = out.index_put((idx,), part)
     return out

@@ -42,8 +42,17 @@ features; every rank reads the resume state, and after a barrier the
 min-loss `.pth`, from which the ranks extract their rows of each batch
 and gather them in the one-process order.
 
-Not ported yet, and refused before any data is read: FSDP (ROADMAP Queue
-1 item 6) and a mesh with a model axis (item 6).
+FSDP (`fsdp`, the CLI's `--fsdp`, JAX moco_kfold.py:180-194, 242-248
+there): on the data mesh of `n_devices` > 1, the base and momentum
+encoders' leaves and the LARS traces are sharded over 'data'
+(parallel/fsdp.py `shard_moco_state_fsdp`), the EMA runs on the blocks,
+and the BatchNorm statistics stay replicated. As in the JAX package it
+needs a data mesh and a batch that the data size divides, and takes the
+ViT trunk only. The checkpoints are written whole (every rank gathers)
+and the extraction runs on an unsharded copy of the model.
+
+Refused before any data is read: a mesh with a model axis (the pipelines
+run on the data mesh of `n_devices`).
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ from vit_ae_plus_plus_torch.data.splits import kfold_indices
 from vit_ae_plus_plus_torch.device import resolve_device
 from vit_ae_plus_plus_torch.models.moco import MoCoResNet3D, MoCoViT3D, ema_update, moco_loss
 from vit_ae_plus_plus_torch.parallel import barrier, data_coords, data_parallel, get_mesh, writer_first
+from vit_ae_plus_plus_torch.parallel import fsdp as sharding
 from vit_ae_plus_plus_torch.pipelines.extract_features import loader_features
 from vit_ae_plus_plus_torch.pipelines.pretrain_kfold import requested_devices
 from vit_ae_plus_plus_torch.train import warmup_cosine_schedule
@@ -145,7 +155,7 @@ def make_moco_train_step(model: nn.Module, temperature: float = 1.0):
         for p in state.tx.params:
             p.grad = None
         loss.backward()
-        average_grads(state.tx.params)
+        average_grads(state.tx.params, state.tx.shard_axes)
         state.tx.step()
         with torch.no_grad():
             torch._foreach_copy_(mom_stats, kept)
@@ -178,14 +188,23 @@ def build_moco_model(
     return MoCoViT3D(vit_cfg, dim=moco_dim, mlp_dim=moco_mlp_dim)
 
 
-def check_supported(train_cfg: TrainConfig, n_devices: Optional[int] = None, fsdp: bool = False):
-    """Raise `NotImplementedError` for a setting whose path the port does not
-    have yet, and `ValueError` when the ambient mesh is not the data mesh of
-    `n_devices` (`parallel.data_parallel`). -> (d, D) on the 'data' axis."""
+def check_supported(train_cfg: TrainConfig, n_devices: Optional[int] = None, fsdp: bool = False,
+                    arch: str = "vit"):
+    """Raise `ValueError` for an FSDP setting that the JAX package refuses
+    (no data mesh, a batch the data size does not divide, the ResNet
+    trunk), and when the ambient mesh is not the data mesh of `n_devices`
+    (`parallel.data_parallel`). -> (d, D) on the 'data' axis."""
+    devices = requested_devices(train_cfg, n_devices)
     if fsdp or train_cfg.fsdp:
-        raise NotImplementedError("moco-kfold: fsdp (both encoders and the LARS traces sharded over 'data') "
-                                  "is not ported yet (ROADMAP Queue 1 item 6)")
-    return data_parallel(requested_devices(train_cfg, n_devices), "moco-kfold")
+        if devices is None or devices <= 1:
+            raise ValueError("--fsdp needs a data mesh (--n-devices > 1)")
+        if train_cfg.batch_size % devices:
+            raise ValueError(f"--batch-size {train_cfg.batch_size} must divide by the data mesh ({devices} "
+                             "devices) under --fsdp")
+        if arch != "vit":
+            raise ValueError("--fsdp is implemented for the ViT MoCo trunk; the ResNet trunk is small enough "
+                             "to replicate")
+    return data_parallel(devices, "moco-kfold")
 
 
 def min_loss_path(work_dir: str, fold_idx: int) -> str:
@@ -197,23 +216,29 @@ def resume_path(work_dir: str, fold_idx: int) -> str:
 
 
 def save_resume(path: str, state: MoCoState, epoch: int, min_loss: float) -> None:
-    save_atomic({
-        "model": state.model.state_dict(),
-        "momentum_encoder": state.momentum_encoder.state_dict(),
-        "optimizer": state.tx.opt.state_dict(),
+    """The resume state, whole: every rank of the 'data' group calls it (on
+    a sharded state the gathers are collective) and its first rank
+    writes."""
+    payload = {
+        "model": sharding.full_state_dict(state.model),
+        "momentum_encoder": sharding.full_state_dict(state.momentum_encoder),
+        "optimizer": sharding.full_optimizer_state(state.tx),
         "count": state.tx.count,
         "step": state.step,
         "epoch": int(epoch),
         "min_loss": float(min_loss),
-    }, path)
+    }
+    if data_coords()[0] == 0:
+        save_atomic(payload, path)
 
 
 def restore_resume(path: str, state: MoCoState):
-    """-> (state, the epoch to start at, the best loss so far)."""
+    """-> (state, the epoch to start at, the best loss so far); whole leaves
+    cut to this rank's blocks on a sharded state."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(payload["model"], strict=True)
-    state.momentum_encoder.load_state_dict(payload["momentum_encoder"], strict=True)
-    state.tx.opt.load_state_dict(payload["optimizer"])
+    sharding.load_full_state_dict(state.model, payload["model"], strict=True)
+    sharding.load_full_state_dict(state.momentum_encoder, payload["momentum_encoder"], strict=True)
+    state.tx.opt.load_state_dict(sharding.local_optimizer_state(state.tx, payload["optimizer"]))
     state.tx.count = payload["count"]
     state.step = payload["step"]
     return state, payload["epoch"] + 1, payload["min_loss"]
@@ -258,7 +283,8 @@ def moco_kfold(
     """-> {fold: {"min_loss"}}. Runs on `cuda` unless `device` names another
     device, and raises when CUDA is asked for and absent. `n_devices` > 1:
     one of that many ranks (module docstring)."""
-    d, size = check_supported(train_cfg, n_devices, fsdp)
+    fsdp_on = fsdp or train_cfg.fsdp
+    d, size = check_supported(train_cfg, n_devices, fsdp_on, arch)
     dev = resolve_device(device)
     writer = d == 0
     epochs = epochs if epochs is not None else train_cfg.epochs
@@ -289,6 +315,10 @@ def moco_kfold(
         actual_lr = lr * train_cfg.batch_size / 256  # the global batch, as JAX
         sched = warmup_cosine_schedule(actual_lr, 0.0, warmup_epochs, epochs, len(loader))
         state = create_moco_state(model, make_lars(sched, weight_decay=weight_decay))
+        if fsdp_on:
+            state, _ = sharding.shard_moco_state_fsdp(state, get_mesh())
+            print(f"Fold {fold_idx}: MoCo FSDP over data={size} (both encoders + LARS moments "
+                  f"1/{size}-sharded)")
         train_step = make_moco_train_step(model, temperature)
 
         ckpt, resume = min_loss_path(work_dir, fold_idx), resume_path(work_dir, fold_idx)
@@ -306,20 +336,26 @@ def moco_kfold(
                 min_loss = mean_loss
                 # parameters and BatchNorm statistics, as the reference saves
                 # and reloads (main_3d_moco_k_fold.py:261-268, 295-322)
-                best = {k: v.detach().clone() for k, v in model.state_dict().items()}
+                best = {k: v.detach().clone() for k, v in model.state_dict().items()}  # this rank's blocks
                 best_dirty = True
             jsonl.write({"train_loss": mean_loss, "epoch": epoch, "fold": fold_idx})
-            if writer and (epoch % ck_every == ck_every - 1 or epoch == epochs - 1):
+            if epoch % ck_every == ck_every - 1 or epoch == epochs - 1:
+                # every rank gathers a sharded state; the writer writes
                 if best_dirty:
-                    save_state_dict(ckpt, best)
+                    whole = sharding.full_state_dict(model, best)
+                    if writer:
+                        save_state_dict(ckpt, whole)
                     best_dirty = False
                 save_resume(resume, state, epoch, min_loss)
         results[fold_idx] = {"min_loss": min_loss}
 
         # features from the saved min-loss weights, as the reference reloads
         # min_loss.pth.tar before extracting (main_3d_moco_k_fold.py:295-322);
-        # the first rank wrote them
+        # the first rank wrote them. A sharded model gives way to a whole one.
         barrier(get_mesh())
+        if fsdp_on:
+            model = build_moco_model(data_cfg, train_cfg.compute_dtype, arch, resnet_depth, moco_dim, moco_mlp_dim,
+                                     vit_overrides)
         for tag, ids in (("train", train_ids), ("test", test_ids)):
             extract_moco_features(model, ckpt, dataset_no_aug, np.sort(ids), train_cfg.batch_size, feat_dir, tag,
                                   fold_idx, device=dev)

@@ -48,10 +48,19 @@ first rank alone takes the work-dir lock and writes: the fold index files
 `log.txt`, the TensorBoard events and the features. The others choose the same best state, since the
 epoch's loss is the group's mean, and read the same resume file.
 
+FSDP (`fsdp`, the CLI's `--fsdp`, JAX pretrain_kfold.py:196-216 there):
+on the data mesh of `n_devices` > 1, the parameters and the AdamW moments
+(and `MultiSteps`' running mean) are sharded over 'data'
+(parallel/fsdp.py `shard_train_state_fsdp`), each block's leaves gathered
+at its use; it needs a data mesh, as in the JAX package. The best weights
+are kept as this rank's blocks and gathered, by every rank, when they are
+written and for the extraction; the resume checkpoint is written whole,
+so a run resumes under either layout.
+
 Not ported yet, and refused before any data is read or any file written:
-FSDP, the GPipe pipeline and a mesh with a model axis (ROADMAP Queue 1 item
-6); `device_data` without `device_augment` raises `ValueError`, as in the
-JAX package.
+the GPipe pipeline (ROADMAP Queue 1 item 6b) and a mesh with a model axis;
+`device_data` without `device_augment` raises `ValueError`, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -72,7 +81,8 @@ from vit_ae_plus_plus_torch.data.splits import kfold_indices
 from vit_ae_plus_plus_torch.device import resolve_device
 from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_model, build_perceptual
 from vit_ae_plus_plus_torch.ops.augment import device_augment_batch
-from vit_ae_plus_plus_torch.parallel import data_coords, data_parallel, writer_first
+from vit_ae_plus_plus_torch.parallel import data_coords, data_parallel, get_mesh, writer_first
+from vit_ae_plus_plus_torch.parallel import fsdp as sharding
 from vit_ae_plus_plus_torch.pipelines.extract_features import loader_features
 from vit_ae_plus_plus_torch.pipelines.transfer import build_grafted_vit
 from vit_ae_plus_plus_torch.train import (
@@ -99,15 +109,13 @@ def check_supported(train_cfg: TrainConfig, n_devices: Optional[int] = None) -> 
     (`parallel.data_parallel`). -> (d, D) on the 'data' axis."""
     if train_cfg.device_data and not train_cfg.device_augment:
         raise ValueError("device_data requires device_augment (the raw volumes are normalised on the card)")
-    refused = [
-        (train_cfg.fsdp, "fsdp (parameters and optimizer state sharded over 'data')", "item 6"),
-        ((train_cfg.pipe_devices or 1) > 1, "pipe_devices > 1 (the GPipe pipeline)", "item 6"),
-    ]
-    for bad, what, item in refused:
-        if bad:
-            raise NotImplementedError(
-                f"pretrain-kfold: {what} is not ported yet (ROADMAP Queue 1 {item})")
-    return data_parallel(requested_devices(train_cfg, n_devices), "pretrain-kfold")
+    if (train_cfg.pipe_devices or 1) > 1:
+        raise NotImplementedError(
+            "pretrain-kfold: pipe_devices > 1 (the GPipe pipeline) is not ported yet (ROADMAP Queue 1 item 6b)")
+    devices = requested_devices(train_cfg, n_devices)
+    if train_cfg.fsdp and (devices is None or devices <= 1):
+        raise ValueError("--fsdp needs a data mesh (--n-devices > 1)")
+    return data_parallel(devices, "pretrain-kfold")
 
 
 def requested_devices(train_cfg: TrainConfig, n_devices: Optional[int]) -> Optional[int]:
@@ -169,6 +177,11 @@ def pretrain_one_fold(
     # restored with the resume checkpoint, so a resumed run draws what an
     # uninterrupted one would
     state = create_train_state(model, tx, seed=train_cfg.seed + 100 + fold_idx)
+    if train_cfg.fsdp:
+        # the parameters and moments 1/D-sharded (parallel/fsdp.py); the
+        # checkpoints stay whole (train/checkpoint.py)
+        state, _ = sharding.shard_train_state_fsdp(state, get_mesh())
+        print(f"Fold {fold_idx}: FSDP over data={size} (params+moments 1/{size}-sharded)")
     perceptual_fn = None
     if train_cfg.perceptual_weight:
         # the gradient-free VGG term (reference vit_autoenc.py:229-230)
@@ -200,7 +213,7 @@ def pretrain_one_fold(
     if train_cfg.resume:
         resume_dir = os.path.join(ckpt_dir, "resume")
         writer_first(lambda: _check_layout(resume_dir, write=writer))
-        resume_mgr = CheckpointManager(resume_dir)
+        resume_mgr = CheckpointManager(resume_dir, write=writer)
         state, restored_epoch, restored_min = resume_mgr.restore(state)
         if restored_epoch is not None:
             start_epoch = restored_epoch + 1
@@ -273,13 +286,16 @@ def pretrain_one_fold(
             raise FloatingPointError(f"Loss is {stats['loss']}, stopping training")
         if stats["loss"] < min_loss:  # the group's mean loss: every rank keeps the same best
             min_loss = stats["loss"]
-            best = {n: v.detach().clone() for n, v in model.state_dict().items()}
+            best = {n: v.detach().clone() for n, v in model.state_dict().items()}  # this rank's blocks
             best_dirty = True
         jsonl.write({**{f"train_{n}": v for n, v in stats.items()}, "epoch": epoch,
                      "fold": fold_idx})
-        if writer and (epoch % ck_every == ck_every - 1 or epoch == train_cfg.epochs - 1):
+        if epoch % ck_every == ck_every - 1 or epoch == train_cfg.epochs - 1:
+            # every rank gathers a sharded state; the writer writes
             if best_dirty:
-                save_state_dict(min_loss_path, best)
+                whole = sharding.full_state_dict(model, best)
+                if writer:
+                    save_state_dict(min_loss_path, whole)
                 best_dirty = False
             if resume_mgr is not None:
                 resume_mgr.save(state, epoch=epoch, min_loss=min_loss)
@@ -293,6 +309,8 @@ def pretrain_one_fold(
                 f"exists at {min_loss_path} (start_epoch >= epochs on a fresh work dir?)"
             )
         best = load_reference_state_dict(min_loss_path)
+    else:
+        best = sharding.full_state_dict(model, best)
     print(f"Fold {fold_idx}: trained epochs [{start_epoch}, {train_cfg.epochs}) in "
           f"{time.time() - t_start:.0f}s, min loss {min_loss:.4f}")
     return mae_cfg, best, {"min_loss": min_loss}

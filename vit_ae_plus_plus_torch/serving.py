@@ -20,8 +20,8 @@ Counterpart of the JAX package's serving.py:
 With `resize`, a request whose spatial size is not the model's is resampled
 on the engine's device (`ops.resize_trilinear`, the weights of
 `jax.image.resize`) before it is queued. Not ported: the JAX package's
-precompiled engines (`serve --engine`) and the serving mesh
-(`serve --n-devices`).
+precompiled engines (`serve --engine`, ROADMAP Queue 1 item 4) and the
+serving mesh (`serve --n-devices`, item 6b).
 """
 
 from __future__ import annotations

@@ -51,6 +51,8 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from vit_ae_plus_plus_torch.parallel import fsdp
+
 # contrastive heads: flax MLPHead layer names -> reference Sequential indices
 _HEAD_LAYER_TO_SEQ = {
     "predictor": {"Dense_0": 0, "BatchNorm_0": 1, "Dense_1": 3},
@@ -270,17 +272,28 @@ def save_state_dict(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
 class CheckpointManager:
     """A fold's resume checkpoint: `directory/checkpoint.pth`, one file that
     each `save` replaces. The JAX package keeps the same payload in orbax
-    directories; the port cannot read those."""
+    directories; the port cannot read those.
 
-    def __init__(self, directory: str):
+    The file is layout-independent, as JAX's `_host_params` and orbax's
+    global arrays are: a state sharded over a mesh (parallel/fsdp.py,
+    parallel/tp.py) is saved whole, every rank taking part in the gathers
+    and only a manager made with `write` (the writer rank's) writing, and
+    restored by cutting the whole leaves to this rank's blocks; so a run
+    written under data parallelism resumes under FSDP, and the other way
+    round."""
+
+    def __init__(self, directory: str, write: bool = True):
+        self.write = write
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.path = os.path.join(self.directory, "checkpoint.pth")
 
     def save(self, state, epoch: int, min_loss: float = float("inf")) -> None:
+        """Write the state whole; collective on a sharded state, where every
+        rank calls it."""
         payload = {
-            "model": state.model.state_dict(),
-            "optimizer": state.tx.opt.state_dict(),
+            "model": fsdp.full_state_dict(state.model),
+            "optimizer": fsdp.full_optimizer_state(state.tx),
             "count": state.tx.count,
             "step": state.step,
             "generator": state.generator.get_state(),
@@ -288,8 +301,10 @@ class CheckpointManager:
             "min_loss": float(min_loss),
         }
         if hasattr(state.tx, "acc"):  # MultiSteps: a run killed mid-accumulation resumes it
-            payload["accum"] = {"mini_step": state.tx.mini_step, "acc": [a.detach().cpu() for a in state.tx.acc]}
-        save_atomic(payload, self.path)
+            payload["accum"] = {"mini_step": state.tx.mini_step,
+                                "acc": [a.detach().cpu() for a in fsdp.full_like_params(state.tx, state.tx.acc)]}
+        if self.write:
+            save_atomic(payload, self.path)
 
     def restore(self, state):
         """-> (state, epoch, min_loss); epoch is None when no checkpoint exists
@@ -302,13 +317,14 @@ class CheckpointManager:
         if hasattr(state.tx, "acc") != ("accum" in payload):
             raise ValueError(f"{self.path} was written with another accum_iter setting than this run's "
                              "(gradient accumulation on in one, off in the other)")
-        state.model.load_state_dict(payload["model"], strict=True)
-        state.tx.opt.load_state_dict(payload["optimizer"])
+        fsdp.load_full_state_dict(state.model, payload["model"], strict=True)
+        state.tx.opt.load_state_dict(fsdp.local_optimizer_state(state.tx, payload["optimizer"]))
         state.tx.count = payload["count"]
         if "accum" in payload:
             state.tx.mini_step = payload["accum"]["mini_step"]
-            for a, saved in zip(state.tx.acc, payload["accum"]["acc"], strict=True):
-                a.copy_(saved)
+            saved = fsdp.local_like_params(state.tx, payload["accum"]["acc"])
+            for a, block in zip(state.tx.acc, saved, strict=True):
+                a.copy_(block)
         state.step = payload["step"]
         state.generator.set_state(payload["generator"])
         return state, payload["epoch"], payload["min_loss"]

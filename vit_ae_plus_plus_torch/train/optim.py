@@ -29,17 +29,30 @@ frozen backbone of its pipelines/finetune.py), with optax's semantics:
   stock LARS: decay and trust ratio on the ndim > 1 parameters, a trace of
   the raw updates, then the learning rate of the update's count over the
   whole trace (`make_lars`).
+
+On a sharded model (parallel/fsdp.py, parallel/tp.py: the model's
+`placements`) each rank's optimizer holds the blocks of its parameters
+and updates them elementwise; its moments, traces and running mean are
+created from the blocks. Where a rule needs a norm it takes the whole
+leaf's or the whole model's: the sum of squares of a sharded leaf's
+blocks summed over the axes it is sharded on (`leaf_norms`), the global
+norm those sums plus the replicated leaves' once each (`global_norm`).
+`rebuild(model)` makes the same optimizer over a model's new parameters,
+as the JAX package's sharding functions re-run `tx.init`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
+from vit_ae_plus_plus_torch.parallel.mesh import get_mesh, sum_over
+
 Schedule = Callable[[int], float]
+Axes = Sequence[Tuple[str, ...]]
 
 
 def warmup_cosine_schedule(
@@ -72,11 +85,33 @@ def decay_everything(named_params: Iterable[Tuple[str, torch.Tensor]]) -> Dict[s
     return {name: True for name, _ in named_params}
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Iterable[torch.Tensor], axes: Optional[Axes] = None) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax `global_norm`),
-    accumulated in at least f32, without a host sync."""
-    sq = [t.to(torch.promote_types(t.dtype, torch.float32)).pow(2).sum() for t in tensors]
-    return torch.stack(sq).sum().sqrt()
+    accumulated in at least f32, without a host sync. `axes[i]`: the mesh
+    axes tensor i is a block over (() replicated), whose ranks' sums of
+    squares are summed (parallel.mesh `sum_over`); None: all whole."""
+    sq = torch.stack([t.to(torch.promote_types(t.dtype, torch.float32)).pow(2).sum() for t in tensors])
+    if axes is None or not any(axes):
+        return sq.sum().sqrt()
+    return sum_over(sq, axes, get_mesh()).sum().sqrt()
+
+
+def leaf_norms(tensors, axes: Optional[Axes] = None) -> torch.Tensor:
+    """Each tensor's norm (`torch._foreach_norm`); a sharded leaf's (axes[i]
+    not empty) over its whole: its blocks' sums of squares summed over its
+    axes (parallel.mesh `sum_over`)."""
+    norms = torch.stack(torch._foreach_norm(tensors))
+    if axes is None or not any(axes):
+        return norms
+    whole = sum_over(torch.stack([t.pow(2).sum() for t in tensors]), axes, get_mesh()).sqrt()
+    sharded = torch.tensor([bool(a) for a in axes], device=norms.device)
+    return torch.where(sharded, whole.to(norms.dtype), norms)
+
+
+def _shard_axes(model: nn.Module, names) -> list:
+    """The mesh axes each named parameter of `model` is a block over."""
+    placements = getattr(model, "placements", {})
+    return [tuple(sorted(placements.get(n, {}))) for n in names]
 
 
 class AdamW:
@@ -99,10 +134,15 @@ class AdamW:
         decay_mask: Callable = weight_decay_mask,
         lr_scales: Optional[Dict[str, float]] = None,
     ):
+        self._config = dict(learning_rate=learning_rate, weight_decay=weight_decay, b1=b1, b2=b2,
+                            clip_grad=clip_grad, decay_mask=decay_mask, lr_scales=lr_scales)
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         decay = decay_mask(named)
         scales = lr_scales or {}
+        self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        self.placements = getattr(model, "placements", {})
+        self.shard_axes = _shard_axes(model, self.names)
         self.schedule = learning_rate if callable(learning_rate) else (lambda _k: learning_rate)
         self.clip_grad = clip_grad
         self.count = 0
@@ -117,10 +157,15 @@ class AdamW:
             lr=self.schedule(0), betas=(b1, b2), eps=1e-8,
         )
 
+    def rebuild(self, model: nn.Module) -> "AdamW":
+        """The same optimizer over `model`'s parameters as they are now (its
+        state fresh, its count at 0)."""
+        return type(self)(model, **self._config)
+
     def step(self) -> None:
         grads = [p.grad for p in self.params]
         if self.clip_grad is not None:
-            norm = global_norm(grads)
+            norm = global_norm(grads, self.shard_axes)
             keep = norm < self.clip_grad
             for g in grads:
                 g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * self.clip_grad))
@@ -145,6 +190,7 @@ class MultiSteps(AdamW):
 
     def __init__(self, model: nn.Module, learning_rate: Union[Schedule, float], accum_iter: int, **kwargs):
         super().__init__(model, learning_rate, **kwargs)
+        self._config["accum_iter"] = accum_iter
         self.accum_iter = accum_iter
         self.mini_step = 0
         self.acc = [torch.zeros_like(p) for p in self.params]
@@ -317,9 +363,13 @@ class _LarsChain(torch.optim.Optimizer):
     u = g otherwise; then trace = u + momentum * trace, p = p + (-lr) *
     trace. Each product is rounded on its own, as optax rounds it."""
 
-    def __init__(self, groups, lr: float, weight_decay: float, momentum: float, trust_coefficient: float):
+    def __init__(self, groups, lr: float, weight_decay: float, momentum: float, trust_coefficient: float,
+                 axes_of: Optional[Dict[int, Tuple[str, ...]]] = None):
         super().__init__(groups, dict(lr=lr, weight_decay=weight_decay, momentum=momentum,
                                       trust_coefficient=trust_coefficient, decay=False))
+        # id(parameter) -> the mesh axes it is a block over: its norms are
+        # the whole leaf's (kept off the param groups, which a resume loads)
+        self.axes_of = axes_of or {}
 
     @torch.no_grad()
     def step(self) -> None:
@@ -330,8 +380,9 @@ class _LarsChain(torch.optim.Optimizer):
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
             if group["decay"]:
                 u = torch._foreach_add(grads, torch._foreach_mul(params, group["weight_decay"]))
-                p_norm = torch.stack(torch._foreach_norm(params))
-                u_norm = torch.stack(torch._foreach_norm(u))
+                axes = [self.axes_of.get(id(p), ()) for p in params]
+                p_norm = leaf_norms(params, axes)
+                u_norm = leaf_norms(u, axes)
                 ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
                                     group["trust_coefficient"] * p_norm / u_norm)
                 torch._foreach_mul_(u, list(ratio.unbind(0)))
@@ -356,15 +407,25 @@ class LARS(SGD):
 
     def __init__(self, model: nn.Module, learning_rate: Union[Schedule, float], weight_decay: float = 1e-6,
                  momentum: float = 0.9, trust_coefficient: float = 0.001):
+        self._config = dict(learning_rate=learning_rate, weight_decay=weight_decay, momentum=momentum,
+                            trust_coefficient=trust_coefficient)
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         decay = weight_decay_mask(named)
+        self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        self.placements = getattr(model, "placements", {})
+        self.shard_axes = _shard_axes(model, self.names)
         self.schedule = learning_rate if callable(learning_rate) else (lambda _k: learning_rate)
         self.count = 0
         self.opt = _LarsChain(
             [{"params": [p for n, p in named if decay[n] == want], "decay": want} for want in (True, False)],
             lr=self.schedule(0), weight_decay=weight_decay, momentum=momentum, trust_coefficient=trust_coefficient,
+            axes_of={id(p): a for p, a in zip(self.params, self.shard_axes) if a},
         )
+
+    def rebuild(self, model: nn.Module) -> "LARS":
+        """The same LARS over `model`'s parameters as they are now."""
+        return LARS(model, **self._config)
 
 
 def make_lars(learning_rate: Union[Schedule, float], weight_decay: float = 1e-6, momentum: float = 0.9,

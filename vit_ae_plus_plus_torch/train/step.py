@@ -19,10 +19,22 @@ is a mean over equally many elements on every rank (train/objective.py
 `mae_loss_terms`): the masked reconstruction divides by the rank's masked
 patch count, which is b times the same count per volume; the edge term is
 a mean over the rank's whole volumes; the contrastive term a mean over its
-b (1 + kept) tokens of each view. A mesh with data > 1 and model > 1 is
-refused before any forward (ROADMAP Queue 1 item 6); a mesh of (1, M), as
-the sequence-parallel attention paths train on, and no mesh at all run in
-one process's way.
+b (1 + kept) tokens of each view.
+
+On a mesh of (D, M > 1) the batch is sliced over 'data' as above and every
+rank of a 'model' group passes its data coordinate's rows: with
+'flash_ring' or 'flash_seq' the attention shards the tokens over 'model'
+(kernels/ring_flash.py, seq_flash.py) on a replicated trunk; after
+`parallel.tp.shard_train_state` the trunk's heads and hidden units are
+cut over 'model' (tensor parallelism, models/vit.py), and with 'flash' or
+'plain' on an unsharded trunk every model rank repeats its group's work.
+Gradients are averaged over 'data' only. As in the JAX package, a mesh
+with model > 1 refuses `attn_impl` 'auto' (the packed kernel) before any
+forward. After `parallel.fsdp.shard_train_state_fsdp` the state is
+sharded over 'data': each sharded leaf's gradient arrives reduce-scattered
+(summed over 'data', models/vit.py gathers the leaves at their use) and is
+divided by D, the replicated leaves' are all-reduced, and the global norm
+and the clip take each leaf whole (train/optim.py).
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ import torch
 from vit_ae_plus_plus_torch.models.vit import VisionTransformer3D
 from vit_ae_plus_plus_torch.ops import at_least_f32
 from vit_ae_plus_plus_torch.parallel import all_reduce_flat, all_reduce_sum, get_mesh
+from vit_ae_plus_plus_torch.parallel.tp import PACKED_IMPLS
 from vit_ae_plus_plus_torch.train.objective import mae_loss_terms
 from vit_ae_plus_plus_torch.train.optim import global_norm
 from vit_ae_plus_plus_torch.train.state import TrainState
@@ -69,10 +82,10 @@ def make_train_step(
     is that mini-step's gradient's, as the JAX step reports it under
     optax's `MultiSteps`.
 
-    Under a `parallel.set_mesh` mesh of (D, 1) the step is data parallel
-    and the metrics are the 'data' group's means; it raises `ValueError`
-    under a mesh with data > 1 and model > 1 (see the module's
-    docstring)."""
+    Under a `parallel.set_mesh` mesh of (D, M) the step is data parallel
+    over 'data' and the metrics are the 'data' group's means; under a
+    model axis > 1 it raises `ValueError` for `attn_impl` 'auto' (see the
+    module's docstring)."""
     contrastive = model.cfg.contrastive
 
     if forward_fn is None:
@@ -82,7 +95,7 @@ def make_train_step(
 
     def train_step(state: TrainState, view1, view2, edge_map_weight: Union[torch.Tensor, float]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        check_data_axis()
+        check_mesh(model)
         m = state.model
         m.train()
         outputs = forward_fn(m, view1, view2 if contrastive else None, state.generator)
@@ -99,8 +112,8 @@ def make_train_step(
             if p.grad is None:  # never used (the projector): a zero gradient, as in JAX
                 p.grad = torch.zeros_like(p)
         metrics = data_mean({k: v.detach() for k, v in metrics.items()})
-        average_grads(state.tx.params)
-        metrics["grad_norm"] = global_norm(p.grad for p in state.tx.params)
+        average_grads(state.tx.params, state.tx.shard_axes)
+        metrics["grad_norm"] = global_norm([p.grad for p in state.tx.params], state.tx.shard_axes)
         state.tx.step()
         state.step += 1
         return state, metrics
@@ -108,28 +121,48 @@ def make_train_step(
     return train_step
 
 
+def check_mesh(model) -> None:
+    """JAX's refusal (train/step.py:58-70 there), before any forward: the
+    packed attention ('auto', 'flash_packed') under a model axis > 1."""
+    mesh = get_mesh()
+    if mesh is not None and mesh.size("model") > 1 and model.cfg.attn_impl in PACKED_IMPLS:
+        raise ValueError(
+            "attn_impl='auto'/'flash_packed' is not tensor-parallel-safe; build the model with "
+            "attn_impl='flash' or 'plain' (or a sequence-parallel 'flash_ring' / 'flash_seq') for a mesh "
+            "with a model axis > 1")
+
+
 def check_data_axis() -> None:
-    """Raise when the ambient mesh has data > 1 and model > 1: the
-    data-parallel step replicates the trunk, and the sequence-parallel
-    paths train on a 'model' group of one data coordinate only."""
+    """Raise when the ambient mesh has data > 1 and model > 1: the MoCo and
+    contrastive steps run data parallel on (D, 1) and one process's way on
+    (1, M); the (D, M > 1) MoCo and contrastive steps are ROADMAP Queue 1
+    item 6b."""
     mesh = get_mesh()
     if mesh is not None and mesh.size("data") > 1 and mesh.size("model") > 1:
         raise ValueError(
-            f"make_train_step: the mesh is data={mesh.size('data')} x model={mesh.size('model')}; "
-            "data parallelism (DDP) runs on a mesh of (D, 1) and sequence parallelism on (1, M), "
-            "and the two together are not ported yet (ROADMAP Queue 1 item 6)."
+            f"the mesh is data={mesh.size('data')} x model={mesh.size('model')}; the MoCo and contrastive "
+            "steps run data parallel (DDP) on a mesh of (D, 1), and on (D, M > 1) only the MAE step is "
+            "ported (ROADMAP Queue 1 item 6b)."
         )
 
 
-def average_grads(params) -> None:
+def average_grads(params, shard_axes=None) -> None:
     """Replace each parameter's gradient by its mean over the ambient mesh's
-    'data' group, in one flat all-reduce per dtype (nothing without one)."""
+    'data' group: a leaf sharded over 'data' (`shard_axes[i]` holds it)
+    arrives summed over the group by its gather's backward and is divided
+    by D; the others go through one flat all-reduce per dtype (nothing
+    without a mesh)."""
     mesh = get_mesh()
     if mesh is None or mesh.size("data") == 1:
         return
     params = list(params)
-    for p, g in zip(params, all_reduce_flat([p.grad for p in params], mesh, "data")):
-        p.grad = g.div_(mesh.size("data"))
+    size = mesh.size("data")
+    sharded = {i for i, a in enumerate(shard_axes or ()) if "data" in a}
+    for i in sharded:
+        params[i].grad.div_(size)
+    whole = [p for i, p in enumerate(params) if i not in sharded]
+    for p, g in zip(whole, all_reduce_flat([p.grad for p in whole], mesh, "data")):
+        p.grad = g.div_(size)
 
 
 def data_mean(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
