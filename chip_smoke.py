@@ -435,6 +435,7 @@ FUSED_GRAD_NAMES = GRAD_NAMES + ("blocks.0.norm1.weight", "blocks.0.mlp.fc1.weig
 # more: kernel_mutants.py's schedule mutants run this check.
 SHARDED_SPACINGS = {"o": 2, "grad": 4}
 TRAIN_STEPS = 3
+DDP_STEPS = 2  # phase 7d (a)'s steps a run: two show the ranks stay equal after an update
 TIMED_STEPS = 5
 GROUP_RANKS = 4  # the 'model' group of phase 7, all on the one card
 GROUP_VOLUME = 128  # 128^3 / patch 8: 4,097 tokens, a length the sequence-parallel paths exist for
@@ -4868,11 +4869,11 @@ def group_ddp(references: dict, paths: dict) -> dict:
         warnings.simplefilter("ignore")
         pair = make_mesh(2, 1)
     reference = references["step"]
-    out = {"float32": ddp_mae(mesh, reference["float32"], "float32", TRAIN_STEPS),
-           "bfloat16": ddp_mae(mesh, reference, "bfloat16", TRAIN_STEPS),
+    out = {"float32": ddp_mae(mesh, reference["float32"], "float32", DDP_STEPS),
+           "bfloat16": ddp_mae(mesh, reference, "bfloat16", DDP_STEPS),
            "control": ddp_mae(mesh, reference["float32"], "float32", 1, local_moments=True)}
     if pair is not None:
-        out["pair"] = ddp_mae(pair, reference, "bfloat16", TRAIN_STEPS)
+        out["pair"] = ddp_mae(pair, reference, "bfloat16", DDP_STEPS)
     out["finetune"] = ddp_finetune(mesh, paths["pth"], references["finetune"])
     out.update(ddp_commands(mesh, paths))
     moco = references["moco"]
@@ -4944,6 +4945,21 @@ def sharded_cases(cfg) -> list:
     rings = [("ring bf16 NB224 d64 (encoder, (2, 2))", BATCH, enc[1], enc[2], 64),
              ("ring bf16 NB872 d32 (decoder, (2, 2))", BATCH // 2, dec[1], dec[2], 32)]
     return cases, rings
+
+
+def pipe_cases(cfg) -> list:
+    """Phase 2's per-head cases at phase 7f's stage microbatches, forward
+    and backward, bf16 and f32: (case, label, shape, dtype)."""
+    shapes = {pipe_shapes(cfg, data, pipe) for _, (data, pipe), _ in PIPE_RUNS}
+    cases = []
+    for enc, dec in sorted(shapes):
+        for dtype in ("bfloat16", "float32"):
+            tag = "bf16" if dtype == "bfloat16" else "f32"
+            for where, shape in ((f"B{enc[0]} N433 d64 (encoder, a GPipe microbatch)", enc),
+                                 (f"B{dec[0]} N1729 d32 (decoder, a GPipe microbatch)", dec)):
+                cases += [(kernel_case, f"per-head {tag} {where}", shape, dtype),
+                          (bwd_case, f"per-head bwd {tag} {where}", shape, dtype)]
+    return cases
 
 
 def resident_bytes(params, tx) -> dict:
@@ -5150,6 +5166,255 @@ def check_sharded(results: list, rows: list, refs: dict) -> None:
           "slowest rank", flush=True)
 
 
+# phase 7f: the GPipe pipeline on phase 7's ranks (gloo, all on the one
+# card: correctness, bytes and launches, no speed). (a) the MAE step on a
+# (1, 4) pipeline mesh in f32 and bf16 and (b) on (2, 2) with FSDP composed
+# in f32, each against phase 5's one-process step, the leaves outside the
+# stacks bitwise equal on every rank; (c) `pretrain_kfold` with
+# pipe_devices=2 on (2, 2), its `.pth` loaded into the one-process model,
+# and a resume with pipe_devices=4 refused
+PIPE_RUNS = (("float32", (1, GROUP_RANKS), False), ("bfloat16", (1, GROUP_RANKS), False),
+             ("float32", (2, 2), True))
+
+
+def pipe_microbatches(data: int, pipe: int) -> int:
+    """The microbatches `pretrain_kfold` takes on a (data, pipe) mesh."""
+    from vit_ae_plus_plus_torch.parallel import auto_microbatches
+
+    return auto_microbatches(BATCH, pipe, data=data)
+
+
+def pipe_shapes(cfg, data: int, pipe: int) -> tuple:
+    """(B, H, N, d) of a stage's attention: one microbatch of the encoder's
+    rows (both views) and of the decoder's."""
+    enc, dec = train_shapes(cfg)
+    rows = BATCH // data // pipe_microbatches(data, pipe)
+    return (rows, *enc[1:]), (rows, *dec[1:])
+
+
+def pipe_launches(cfg, mesh_shape: tuple, dtype: str, fsdp: bool) -> dict:
+    """The per-head launches ('flash_local') of one stage's step: each of
+    its L / S blocks once a microbatch (2M encoder microbatches, M decoder
+    ones), the forward twice under FSDP (the block recomputed in the
+    backward, where it gathers its leaves again)."""
+    data, pipe = mesh_shape
+    m = pipe_microbatches(data, pipe)
+    out = {}
+    for shape, depth, mbs in zip(pipe_shapes(cfg, data, pipe), (cfg.depth, cfg.decoder_depth), (2 * m, m)):
+        n = depth // pipe * mbs
+        out[("flash_fwd", (*shape, dtype))] = 2 * n if fsdp else n
+        out[("flash_bwd", (*shape, dtype))] = n
+    return out
+
+
+def shared_diff(model, mesh) -> float:
+    """The largest difference of the leaves outside the block stacks from
+    the mesh's first rank's (collective over 'pipe' and 'data')."""
+    import torch
+    import torch.distributed as dist
+
+    flat = torch.cat([p.detach().float().flatten() for n, p in model.named_parameters()
+                      if not n.startswith(("blocks.", "decoder_blocks."))]).cpu()
+    diff = 0.0
+    for axis in ("pipe", "data"):
+        if mesh.size(axis) > 1:
+            first = flat.clone()
+            dist.broadcast(first, src=mesh.ranks[axis][0], group=mesh.groups[axis])
+            diff = max(diff, float((flat - first).abs().max()))
+    return diff
+
+
+def pipe_mae(mesh, want: dict, dtype: str, fsdp: bool) -> dict:
+    """Phase 7f (a), (b) on one rank: one step of phase 5's trainer (its
+    weights, views and step-1 noise) on this rank's data coordinate's rows,
+    the state in the stage layout (`shard_pipeline_state`, FSDP composed
+    with `fsdp`), the MAE forward pipelined (`pipelined_mae_forward`) ->
+    its errors against `want` on the `GRAD_NAMES` it holds, launches,
+    host-staged bytes, resident bytes, the shared leaves' difference from
+    the first rank's, peak."""
+    import torch
+
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+    from vit_ae_plus_plus_torch.parallel import pp, set_mesh, tp
+    from vit_ae_plus_plus_torch.train import make_train_step
+
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    tree, stats = mae_tree(cfg, seed=0)
+    views, noise = train_inputs(cfg)
+    d, b = mesh.coords["data"], BATCH // mesh.size("data")
+
+    def mine(t):
+        return t[d * b:(d + 1) * b]
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(tree, stats, dtype, "auto")
+    model = trainer.model
+    replicated = resident_bytes(list(model.parameters()), trainer.state.tx)["params"]
+    trainer.state, _ = pp.shard_pipeline_state(trainer.state, mesh, "data" if fsdp else None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    m = pipe_microbatches(mesh.size("data"), mesh.size("pipe"))
+    rows_noise = torch.cat([mine(noise[0]), mine(noise[0][BATCH:])])
+    step = make_train_step(model, PATCH, forward_fn=lambda mm, a, c, _g: pp.pipelined_mae_forward(
+        mm, a, c, mesh=mesh, n_microbatches=m, noise=rows_noise), **trainer.kw)
+    with set_mesh(mesh):
+        staged = {"bytes": 0}
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with staged_bytes(staged):
+            trainer.state, metrics = step(trainer.state, mine(views[0]), mine(views[1]), trainer.emw)
+            metrics = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = shape_counts()
+        check(all(np.isfinite(v) for v in metrics.values()), f"7f non-finite metrics {metrics}")
+        named, placements = dict(model.named_parameters()), model.placements
+        grads = {n: tp.whole(n, named[n].grad, placements.get(n, {}), mesh).float().cpu()
+                 for n in GRAD_NAMES if n in named}
+        errs = step_rel_errs(metrics, want["metrics"], grads, {n: torch.from_numpy(want["grads"][n]) for n in grads})
+        out = {"errs": {**errs, **stats_errs(trainer.stats(), want["stats"])}, "counts": counts, "wall_s": wall,
+               "staged_bytes": staged["bytes"], "metrics": metrics, "replicated_param_bytes": replicated,
+               "resident": resident_bytes(list(model.parameters()), trainer.state.tx), "microbatches": m,
+               "grad_names": sorted(grads), "shared_diff": shared_diff(model, mesh),
+               "coords": (mesh.coords["data"], mesh.coords["pipe"])}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del trainer, model, named, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe_pretrain(mesh, refusal_mesh, paths: dict) -> dict:
+    """Phase 7f (c) on one rank: `pretrain_kfold` with pipe_devices=2 under
+    the (2, 2) `mesh` (fold 0, 2 steps of BATCH, bf16, resume files), the
+    first rank loading its `.pth` into the one-process model; then, fold
+    0's features set aside, a resume with pipe_devices=4 under the (1, 4)
+    `refusal_mesh` -> results, launches, the refusal's message."""
+    import torch
+
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_model
+    from vit_ae_plus_plus_torch.parallel import is_writer, mesh_barrier, set_mesh
+    from vit_ae_plus_plus_torch.pipelines.pretrain_kfold import pretrain_kfold
+    from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict
+
+    data_cfg, train_cfg, folds = ddp_configs(paths["split"])
+    (train_ids, test_ids), = folds
+    folds = [(train_ids[:2 * BATCH], test_ids)]
+    work = paths["pipe_work"]
+    out = {}
+    with set_mesh(mesh):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out["results"] = pretrain_kfold(data_cfg, dataclasses.replace(train_cfg, pipe_devices=2, resume=True),
+                                        work, model_name=MODEL, n_splits=DDP_FOLDS, folds=folds,
+                                        n_devices=GROUP_RANKS, device="cuda")
+        out["wall_s"], out["counts"] = time.perf_counter() - t0, shape_counts()
+        if is_writer(mesh):
+            sd = load_reference_state_dict(os.path.join(work, "checkpoints", "fold_0", "checkpoint-min_loss.pth"))
+            model = build_model(MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH))
+            model.load_state_dict(sd, strict=True)
+            out["loaded"] = len(sd)
+            with open(os.path.join(work, "checkpoints", "fold_0", "resume", "layout.json")) as f:
+                out["layout"] = json.load(f)
+            out["resume_files"] = sorted(os.listdir(os.path.join(work, "checkpoints", "fold_0", "resume")))
+            feat_dir = os.path.join(work, "ssl_features_dir")
+            os.replace(feat_dir, feat_dir + ".first")
+            del model, sd
+        mesh_barrier(mesh)
+    try:
+        with set_mesh(refusal_mesh):
+            pretrain_kfold(data_cfg, dataclasses.replace(train_cfg, pipe_devices=GROUP_RANKS, resume=True), work,
+                           model_name=MODEL, n_splits=DDP_FOLDS, folds=folds, n_devices=GROUP_RANKS, device="cuda")
+        out["refusal"] = None
+    except ValueError as e:
+        out["refusal"] = str(e)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def group_pipe(references: dict, paths: dict) -> dict:
+    """Phase 7f on one rank of phase 7's world (PIPE_RUNS, then the
+    command); every rank makes both pipeline meshes and waits at a barrier
+    before each run."""
+    from vit_ae_plus_plus_torch.parallel import barrier, make_pipeline_mesh
+
+    meshes = {shape: make_pipeline_mesh(shape[1], shape[0]) for shape in sorted({s for _, s, _ in PIPE_RUNS})}
+    line = meshes[(1, GROUP_RANKS)]
+    reference = references["step"]
+    out = {}
+    t0 = time.perf_counter()
+    for dtype, shape, fsdp in PIPE_RUNS:
+        barrier(line, "pipe")
+        want = reference["float32"] if dtype == "float32" else reference
+        out[f"{dtype}_{shape}"] = pipe_mae(meshes[shape], want, dtype, fsdp)
+    barrier(line, "pipe")
+    out["pretrain"] = pipe_pretrain(meshes[(2, 2)], line, paths)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_pipe(results: list, rows: list) -> None:
+    """Phase 7f's limits on the ranks' numbers; fills its rows' launches."""
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    card = card_line()
+    mb = lambda n: f"{n / 1e6:.1f} MB"  # noqa: E731
+    for dtype, shape, fsdp in PIPE_RUNS:
+        name = f"{dtype}_{shape}"
+        tol, want_counts = STEP_TOL[dtype], pipe_launches(cfg, shape, dtype, fsdp)
+        held = set()
+        for rank, res in enumerate(results):
+            t = res["pipe"][name]
+            r = t["resident"]
+            print(f"pipe rank {rank} at {t['coords']} {dtype} MAE step on a (data, pipe) = {shape} mesh"
+                  f"{' with FSDP' if fsdp else ''}, {t['microbatches']} microbatches, vs phase 5's one-process "
+                  f"step, relative errors: " + ", ".join(f"{k} {v:.3g}" for k, v in t["errs"].items())
+                  + f" (tol loss terms and statistics {tol['loss']}, grads {tol['grad']}); the leaves outside the "
+                  f"stacks' largest difference from the first rank's {t['shared_diff']:.3g}", flush=True)
+            print(f"pipe rank {rank} {dtype} {shape} ({card}): resident parameters {mb(r['params'])} (replicated: "
+                  f"{mb(t['replicated_param_bytes'])}), optimizer state {mb(r['optimizer'])}; peak "
+                  f"{t['peak_gib']:.2f} GiB; host-staged {mb(t['staged_bytes'])} a step; launched {t['counts']} "
+                  f"(predicted {want_counts}); step wall {1e3 * t['wall_s']:.1f} ms (host clock, gloo through "
+                  "pinned host memory, information only)", flush=True)
+            for k, v in t["errs"].items():
+                check(v <= (tol["grad"] if k in GRAD_NAMES else tol["loss"]), f"7f rank {rank} {name} {k}: {v:.3g}")
+            check(t["shared_diff"] == 0.0, f"7f rank {rank} {name}: the leaves outside the stacks differ from the "
+                  f"first rank's by {t['shared_diff']:.3g}")
+            check(t["counts"] == want_counts, f"7f rank {rank} {name} launched {t['counts']} (want {want_counts})")
+            check("patch_embed.proj.weight" in t["grad_names"], f"7f rank {rank} {name}: no patch embed gradient")
+            check(r["params"] < 0.4 * t["replicated_param_bytes"], f"7f rank {rank} {name}: {mb(r['params'])} of "
+                  f"parameters resident, replicated {mb(t['replicated_param_bytes'])}")
+            held.update(t["grad_names"])
+        check(held == set(GRAD_NAMES), f"7f {name}: gradients held to phase 5's {sorted(held)}")
+        counts = results[0]["pipe"][name]["counts"]
+        unrowed = sorted(k for k in counts if not any((r["name"], r["key"]) == k for r in rows))
+        check(not unrowed, f"7f {name} launched kernels at shapes that no row holds against plain: {unrowed}")
+        fill_launches(rows, counts, f"make_pp_train_step's pipelined forward (attn_impl 'flash_local'), "
+                      f"compute_dtype='{dtype}', {'FSDP composed, ' if fsdp else ''}on a (data, pipe) = {shape} "
+                      "mesh, one step, rank 0")
+    first = results[0]["pipe"]["pretrain"]
+    print(f"pipe pretrain_kfold pipe_devices=2 on (2, 2): {first['results']}; {first['wall_s']:.1f} s (host clock, "
+          f"information only); .pth of {first.get('loaded')} tensors loaded into the one-process model; resume "
+          f"files {first.get('resume_files')}, layout {first.get('layout')}; the resume with pipe_devices="
+          f"{GROUP_RANKS} refused: {first['refusal']!r}", flush=True)
+    check(all(np.isfinite(r["min_loss"]) for r in first["results"].values()), "7f pretrain_kfold: a loss")
+    check(first.get("loaded") and first.get("layout") == {"pipe": 2}
+          and first.get("resume_files") == ["checkpoint-stage0.pth", "checkpoint-stage1.pth", "layout.json"],
+          f"7f pretrain_kfold: {first.get('loaded')}, {first.get('layout')}, {first.get('resume_files')}")
+    for rank, res in enumerate(results):
+        t = res["pipe"]["pretrain"]
+        check(t["results"] == first["results"], f"7f rank {rank} pretrain_kfold results {t['results']}")
+        check(t["refusal"] is not None and f"this run uses --pipe-devices {GROUP_RANKS}" in t["refusal"],
+              f"7f rank {rank}: the resume with another pipe_devices was not refused ({t['refusal']!r})")
+    print(f"phase 7f (the GPipe pipeline): {max(res['pipe']['seconds'] for res in results):.1f}s on the slowest "
+          f"rank ({card})", flush=True)
+
+
 def rank_mesh():
     """A rank of phase 7: the one card, f32 kept f32, and the (1, 4) mesh."""
     import torch
@@ -5168,7 +5433,7 @@ def group_rank(rank: int, references: dict, paths: dict) -> dict:
     mesh = rank_mesh()
     return {"attention": group_attention(mesh), "vit": group_vit(mesh),
             "train": group_train(mesh, references["step"]), "ddp": group_ddp(references, paths),
-            "sharded": group_sharded(references)}
+            "sharded": group_sharded(references), "pipe": group_pipe(references, paths)}
 
 
 def attention_rank(rank: int) -> dict:
@@ -5620,6 +5885,7 @@ def group_phase(rows: list, reference: dict, paths: dict, moco: dict, contrastiv
                       f"{len(results[0]['train'][dtype]['steps'])} steps, rank 0 of {GROUP_RANKS}")
     check_ddp(results, rows, refs, paths)  # 7d
     check_sharded(results, rows, refs)  # 7e
+    check_pipe(results, rows)  # 7f
 
 
 def main(argv) -> int:
@@ -5752,6 +6018,11 @@ def main(argv) -> int:
     rows += [case(label, layout, *shape, dtype, seed=150 + i)
              for i, (case, label, layout, shape, dtype) in enumerate(tp_cases)]
     print(f"tensor-parallel kernel cases {time.perf_counter() - t0:.1f}s", flush=True)
+    # the per-head kernels at phase 7f's GPipe microbatches ('flash_local')
+    t0 = time.perf_counter()
+    rows += [case(label, "per_head", *shape, dtype, seed=170 + i)
+             for i, (case, label, shape, dtype) in enumerate(pipe_cases(cfg))]
+    print(f"pipeline kernel cases {time.perf_counter() - t0:.1f}s", flush=True)
 
     # phase 3: the full-width ViT-B feature engine, kernel against plain
     tree = mae_encoder_tree(cfg, seed=0)
@@ -5882,7 +6153,7 @@ def main(argv) -> int:
                  "pth": str(pre_work / "checkpoints" / "fold_0" / "checkpoint-min_loss.pth"),
                  **{name: str(Path(tmp) / f"ddp_{name}")
                     for name in ("ranks_work", "one_work", "control_work", "ranks_features", "moco_ranks_work",
-                                 "moco_one_work", "moco_control_work", "moco_nudged_work")}}
+                                 "moco_one_work", "moco_control_work", "moco_nudged_work", "pipe_work")}}
         group_phase(rows, reference, paths, moco_refs, contrastive_ref)
     for row in rows:
         if row["launches"] is None:

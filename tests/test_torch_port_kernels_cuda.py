@@ -148,6 +148,31 @@ def test_packed_kernel_matches_plain(cuda, dtype, d):
     _assert_close(o, lse, want_o, want_lse)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 12, 433, 64), (1, 16, 1729, 32)])
+def test_flash_local_route_launches_the_per_head_kernels(cuda, dtype, shape):
+    """'flash_local' (the GPipe stages' attention, parallel/pp.py) on CUDA
+    tensors at the pipeline's microbatch shapes: one forward and one
+    backward launch of the per-head kernels, o and the gradients within
+    the kernels' tolerances of plain."""
+    from vit_ae_plus_plus_torch.kernels import multihead_attention
+
+    q, k, v = (_rand(shape, dtype, cuda, s).requires_grad_() for s in range(3))
+    do = _rand(shape, dtype, cuda, 3)
+    fwd0, bwd0 = flash_attention.launches, flash_attention_bwd.launches
+    o = multihead_attention(q, k, v, "flash_local")
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - fwd0, flash_attention_bwd.launches - bwd0) == (1, 1)
+    scale = shape[-1] ** -0.5
+    want_o, want_lse = attention_plain(q.detach(), k.detach(), v.detach(), scale, return_lse=True)
+    tol_o, _ = kernel_tolerance(want_o)
+    torch.testing.assert_close(o.detach().float(), want_o.float(), rtol=0, atol=tol_o)
+    want = attention_bwd_plain(q.detach(), k.detach(), v.detach(), want_o, want_lse, do, scale)
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=bwd_tolerance(ref))
+
+
 def test_per_head_kernel_reads_strided_views(cuda):
     """q, k, v as non-contiguous views of one packed projection."""
     qkv = _rand((2, 77, 3 * 128), torch.bfloat16, cuda, seed=7)

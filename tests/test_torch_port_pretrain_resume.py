@@ -161,7 +161,9 @@ def test_unported_settings_are_refused_before_any_work(setting, tmp_path):
     """Each refused before any data is read; n_devices > 1 (or a mesh_shape
     with data > 1) is ported, but only as one of so many ranks under a data
     mesh (tests/test_torch_port_ring_flash.py), and this process is none;
-    device_data needs device_augment, as in the JAX package."""
+    pipe_devices > 1 likewise, as one of the ranks of a pipeline mesh
+    (tests/test_torch_port_pp.py); device_data needs device_augment, as in
+    the JAX package."""
     # a data path that does not exist: reading it would raise another error
     data_cfg, train_cfg = _cfgs(str(tmp_path / "no_data"), **REFUSED[setting])
     n_devices = 2 if setting == "n_devices" else None
@@ -169,8 +171,8 @@ def test_unported_settings_are_refused_before_any_work(setting, tmp_path):
     error = {"n_devices": (ValueError, "n_devices=2 trains on 2 ranks"),
              "mesh_shape": (ValueError, "n_devices=2 trains on 2 ranks"),
              "device_data": (ValueError, "device_data requires device_augment"),
-             "fsdp": (ValueError, r"--fsdp needs a data mesh \(--n-devices > 1\)")}.get(
-        setting, (NotImplementedError, "ROADMAP Queue 1 item 6b"))
+             "fsdp": (ValueError, r"--fsdp needs a data mesh \(--n-devices > 1\)"),
+             "pipe_devices": (ValueError, "pipe_devices=2 runs under a pipeline mesh of 2 stages")}[setting]
     with pytest.raises(error[0], match=error[1]):
         tpk.pretrain_kfold(data_cfg, train_cfg, str(work), model_name=MODEL, n_splits=FOLDS,
                            n_devices=n_devices, device="cpu")

@@ -62,6 +62,14 @@ from the same numpy inputs):
   through the CLI on 2 ranks with resumes across layouts:
   tests/test_torch_port_fsdp.py holds the cases' helpers and says what
   each checks.
+- the GPipe pipeline on ('data', 'pipe') meshes: the pipelined features
+  on (1, 4), (2, 2) and (1, 2) and the pipelined MAE forward, gradients
+  and statistics (contrastive and not) against JAX's pipelined functions,
+  two clipped AdamW steps of the stage-layout step, alone and with FSDP
+  composed, on (2, 2) against JAX's, their controls, and `pretrain_kfold`
+  with `pipe_devices=2` on (2, 2) against one process's run, then a resume
+  with another S refused: tests/test_torch_port_pp.py holds the cases'
+  helpers and says what each checks.
 
 JAX is imported inside the functions that run it: the ranks import this
 module by name and need none of it.
@@ -91,7 +99,15 @@ from vit_ae_plus_plus_torch.kernels import (
 )
 from vit_ae_plus_plus_torch.kernels.ring_flash import NEG_INF
 from vit_ae_plus_plus_torch.models import MODEL_ZOO, VisionTransformer3D, build_model
-from vit_ae_plus_plus_torch.parallel import Mesh, barrier, get_mesh, make_mesh, run_ranks, set_mesh
+from vit_ae_plus_plus_torch.parallel import (
+    Mesh,
+    barrier,
+    get_mesh,
+    make_mesh,
+    make_pipeline_mesh,
+    run_ranks,
+    set_mesh,
+)
 from vit_ae_plus_plus_torch.train import create_train_state, make_adamw, make_train_step
 from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict, params_from_jax
 from vit_ae_plus_plus_torch.train.optim import make_sgd
@@ -99,6 +115,7 @@ from vit_ae_plus_plus_torch.train.step import feature_step
 
 import test_torch_port_fsdp as fs
 import test_torch_port_moco_ddp as md
+import test_torch_port_pp as ppt
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 D = 32
@@ -323,6 +340,33 @@ def _group_rank(rank, tree, x, ddp):
                                                  attn_impl="flash_ring"))
     on(2, 1, "fsdp_cli_pretrain", lambda mesh: fs.run_cli_pretrain(mesh, ddp["dirs"]["data"], ddp["dirs"]["fsdp_cli"]))
     on(2, 1, "fsdp_cli_moco", lambda mesh: fs.run_cli_moco(mesh, ddp["dirs"]["data"], ddp["dirs"]["fsdp_cli"]))
+
+    def on_pipe(data, pipe, name, run):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            mesh = make_pipeline_mesh(pipe, data)
+        assert len(caught) == (data * pipe < WORLD), [str(w.message) for w in caught]
+        if mesh is not None:
+            out[name] = (mesh.coords["data"], run(mesh))
+
+    pipes = ddp["pp"]
+    for name, (data, pipe, n_mb) in ppt.FEATURE_MESHES.items():
+        on_pipe(data, pipe, f"pp_features_{name}", lambda mesh: ppt.run_features(mesh, pipes["trunk"], n_mb))
+    on_pipe(1, 4, "pp_features_out_from_first", lambda mesh: ppt.run_features(mesh, pipes["trunk"], 2,
+                                                                               "out_from_first"))
+    for name, (contrastive, data, pipe) in ppt.MAE_RUNS.items():
+        on_pipe(data, pipe, f"pp_mae_{name}", lambda mesh: ppt.run_mae(mesh, pipes[f"mae_{contrastive}"], contrastive))
+    for control in ("out_grad_summed", "in_grad_local"):
+        on_pipe(2, 2, f"pp_mae_{control}", lambda mesh: ppt.run_mae(mesh, pipes["mae_True"], True, control))
+    for data_axis, control in ((None, None), (None, "clip_local"), ("data", None), ("data", "clip_no_pipe")):
+        on_pipe(2, 2, f"pp_steps_{data_axis}_{control}", lambda mesh: ppt.run_steps(mesh, pipes["steps"], data_axis,
+                                                                                     control))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        meshes = make_pipeline_mesh(2, 2), make_pipeline_mesh(4, 1)
+    if meshes[0] is not None:
+        out["pp_pretrain"] = (meshes[0].coords["data"], ppt.run_pretrain(*meshes[:1], ddp["dirs"]["data"],
+                                                                         ddp["dirs"]["pp_ranks"], meshes[1]))
     return out
 
 
@@ -364,6 +408,18 @@ def _jax_attention(case):
     return [np.asarray(t) for t in (o, *grads)]
 
 
+def _pp_references(ddp):
+    """The GPipe cases' JAX references: the pipelined features, MAE and
+    stage-layout steps."""
+    pipes = ddp["pp"]
+    pipe_only = ppt.jax_steps(pipes["steps"])
+    return {"pp_features": {name: ppt.jax_features(pipes["trunk"], *shape)
+                            for name, shape in ppt.FEATURE_MESHES.items()},
+            "pp_mae": {name: ppt.jax_mae(pipes[f"mae_{c}"], c, data, pipe)
+                       for name, (c, data, pipe) in ppt.MAE_RUNS.items()},
+            "pp_steps": {None: pipe_only, "data": fs.with_floor(ppt.jax_steps(pipes["steps"], "data"), pipe_only)}}
+
+
 @pytest.fixture(scope="module")
 def group(tmp_path_factory):
     """The ranks' results by case ({case: {data coord: [each model rank's
@@ -375,11 +431,17 @@ def group(tmp_path_factory):
     ddp = {"mae": _jax_mae_weights(), "vit": _jax_vit_weights(), "lam": _jax_mixup_lam(),
            "dirs": _ddp_dirs(tmp_path_factory), "contrastive": md.jax_contrastive_weights(),
            **{f"moco_{arch}": md.jax_moco_weights(arch) for arch in MOCO_ARCHS},
-           "sharded": {"mae": fs.jax_weights(None, 3), "tp": fs.jax_weights(fs.TP_CFG, 4)}}
+           "sharded": {"mae": fs.jax_weights(None, 3), "tp": fs.jax_weights(fs.TP_CFG, 4)},
+           "pp": {"trunk": ppt.trunk_inputs(), "mae_True": ppt.mae_weights(True), "mae_False": ppt.mae_weights(False),
+                  "steps": ppt.step_weights()}}
     results = {}
     ranks = threading.Thread(target=lambda: results.update(ranks=run_ranks(
         _group_rank, WORLD, (tree, x, ddp), store_dir=str(tmp_path_factory.mktemp("store")), timeout=600)))
     ranks.start()
+    # the GPipe cases' references in a thread of their own beside the others
+    # (XLA compiles without the GIL)
+    pipelines = threading.Thread(target=lambda: results.update(pp=_pp_references(ddp)))
+    pipelines.start()
     try:
         want = {case: _jax_attention(case) for case in ATTENTION}
         want["trunk"] = want_trunk
@@ -400,9 +462,13 @@ def group(tmp_path_factory):
         want["fsdp_tp_mae"] = fs.with_floor(
             fs.jax_mae_run(sharded["tp"], fs.TP_CFG, kind="fsdp", data=4, model_axis=2), tp_one)
         want["ring_mae"] = {**tp_one, "floor": want["tp_mae"]["floor"]}
+        want["pp_pretrain"] = ppt.pretrain_one_process(ddp["dirs"]["data"], ddp["dirs"]["pp_one"])
     finally:
+        pipelines.join()
         ranks.join(timeout=900)
     assert not ranks.is_alive() and "ranks" in results, "the group of ranks did not finish"
+    assert "pp" in results, "the GPipe references did not finish"
+    want.update(results["pp"])
     by_case = {}
     for rank_out in results["ranks"]:
         for case, (d, result) in rank_out.items():
@@ -708,7 +774,7 @@ def _ddp_dirs(tmp_path_factory):
         np.save(root / f"x_{split}_ssl.npy", rng.standard_normal((n, 16, 16, 16, 1)).astype(np.float32))
         np.save(root / f"y_{split}_ssl.npy", np.arange(n) % 2)
     names = ("ranks", "one", "extract_ranks", "extract_one", "finetune_ranks", "finetune_one", "moco_ranks",
-             "moco_one", "fsdp_cli")
+             "moco_one", "fsdp_cli", "pp_ranks", "pp_one")
     return {name: str(root / name) for name in names} | {"data": str(root)}
 
 
@@ -1242,3 +1308,167 @@ def test_moco_kfold_fsdp_cli_resumes_across_layouts(group):
         d = torch.load(_min_loss(os.path.join(root, "moco_D"), fold), weights_only=True)
         for n, w in a.items():
             assert float((d[n] - w).abs().max()) <= 1e-5 * max(float(w.abs().max()), 1.0), n
+
+
+# ------------------------------------------------------------ the GPipe pipeline
+
+def _pp_results(group, case, data, pipe):
+    """Every rank's result of a pipeline case, in (d, p) order."""
+    got = group[0][case]
+    assert sorted(got) == list(range(data)) and all(len(r) == pipe for r in got.values())
+    return [r for d in range(data) for r in got[d]]
+
+
+def _pp_close(got, want, what):
+    """Within 1e-5 of the largest magnitude of `want` (at least 1e-5)."""
+    err = float(np.abs(got - want).max())
+    assert err <= 1e-5 * max(float(np.abs(want).max()), 1.0), (what, err)
+
+
+def _pp_grads(results, want):
+    """Every leaf's gradient on every rank that computes it against JAX's;
+    each leaf computed somewhere; a leaf outside the stacks, which every
+    stage computes, bitwise equal on every rank."""
+    seen = {}
+    for r in results:
+        for n, g in r["grads"].items():
+            _pp_close(g, want[n], n)
+            seen.setdefault(n, []).append(g)
+    assert set(seen) == set(want)
+    for n, copies in seen.items():
+        if not n.startswith(("blocks.", "decoder_blocks.")):
+            assert len(copies) == len(results), n
+            for other in copies[1:]:
+                np.testing.assert_array_equal(other, copies[0], err_msg=n)
+
+
+def _pp_miss(results, want, key="grads"):
+    """The largest error over its 1e-5 limit across the ranks' readings."""
+    worst = 0.0
+    for r in results:
+        items = r[key].items() if key == "grads" else [("features", r["features"])]
+        for n, g in items:
+            w = want[key][n] if key == "grads" else want["features"][slice(*r["rows"])]
+            worst = max(worst, float(np.abs(g - w).max()) / (1e-5 * max(float(np.abs(w).max()), 1.0)))
+    return worst
+
+
+@pytest.mark.parametrize("mesh_name", list(ppt.FEATURE_MESHES))
+def test_pipelined_features_and_grads_match_jax(group, mesh_name):
+    data, pipe, _ = ppt.FEATURE_MESHES[mesh_name]
+    results = _pp_results(group, f"pp_features_{mesh_name}", data, pipe)
+    feats, grads = group[1]["pp_features"][mesh_name]
+    for r in results:
+        _pp_close(r["features"], feats[slice(*r["rows"])], "features")
+    _pp_grads(results, grads)
+    held = {n.split(".")[1] for r in results[:pipe] for n in r["grads"] if n.startswith("blocks.")}
+    assert held == {str(i) for i in range(ppt.TRUNK_CFG["depth"])}
+
+
+def test_pipelined_features_from_the_first_stage_miss(group):
+    feats, grads = group[1]["pp_features"]["1x4"]
+    results = _pp_results(group, "pp_features_out_from_first", 1, 4)
+    assert _pp_miss(results, {"features": feats}, "features") > 1
+
+
+_TOKEN_ROWS = ("p1", "p2", "z1", "z2")
+
+
+@pytest.mark.parametrize("run", list(ppt.MAE_RUNS))
+def test_pipelined_mae_forward_grads_and_statistics_match_jax(group, run):
+    contrastive, data, pipe = ppt.MAE_RUNS[run]
+    results = _pp_results(group, f"pp_mae_{run}", data, pipe)
+    want = group[1]["pp_mae"][run]
+    b = ppt.MAE_B // data
+    for r in results:
+        assert abs(r["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+        lo, hi = r["rows"]
+        for k, w in want["outputs"].items():
+            got = r["outputs"][k]
+            rows = slice(lo * got.shape[0] // b, hi * got.shape[0] // b) if k in _TOKEN_ROWS else slice(lo, hi)
+            _pp_close(got.astype(np.float64), np.asarray(w, np.float64)[rows], k)
+        for n, w in want["stats"].items():
+            assert np.abs(r["stats"][n] - w).max() <= 1e-6, n
+    assert set(want["outputs"]) == ({"pred", "mask", "ids_restore", "latent"} | (set(_TOKEN_ROWS) if contrastive
+                                                                                else set()))
+    _pp_grads(results, want["grads"])
+
+
+@pytest.mark.parametrize("control", ["out_grad_summed", "in_grad_local"])
+def test_pipelined_mae_gradient_controls_miss(group, control):
+    results = _pp_results(group, f"pp_mae_{control}", 2, 2)
+    assert _pp_miss(results, group[1]["pp_mae"]["contrastive_2x2"]) > 1
+
+
+@pytest.mark.parametrize("data_axis", [None, "data"])
+def test_stage_layout_steps_match_jax(group, data_axis):
+    """Two clipped AdamW steps on (2, 2), pipe alone and with FSDP
+    composed: metrics, parameters and moments against JAX's stacked-state
+    step (`fs.mae_gate`), every stage's leaves outside the stacks bitwise
+    equal across all ranks, each block leaf across the ranks that hold it
+    whole, and its control missing."""
+    want = group[1]["pp_steps"][data_axis]
+    results = _pp_results(group, f"pp_steps_{data_axis}_None", 2, 2)
+    for r in results:
+        mu, nu = {}, {}
+        for other in results:
+            mu.update(other["mu"])
+            nu.update(other["nu"])
+        assert fs.mae_gate({**r, "mu": mu, "nu": nu}, want) <= 1
+    for name in results[0]["local"]:
+        if not name.startswith(("blocks.", "decoder_blocks.")):
+            for r in results[1:]:
+                np.testing.assert_array_equal(r["local"][name], results[0]["local"][name], err_msg=name)
+    by_stage = [[r for r in results if any(n.startswith("blocks.0.") for n in r["local"]) == (p == 0)]
+                for p in range(2)]
+    for stage in by_stage:
+        assert len(stage) == 2
+        for name, dims in stage[0]["placements"].items():
+            if "data" not in dims:
+                np.testing.assert_array_equal(stage[1]["local"][name], stage[0]["local"][name], err_msg=name)
+    sharded = [n for n, dims in results[0]["placements"].items() if "data" in dims]
+    assert bool(sharded) == (data_axis is not None)
+    control = "clip_local" if data_axis is None else "clip_no_pipe"
+    for r in _pp_results(group, f"pp_steps_{data_axis}_{control}", 2, 2):
+        assert fs.mae_gate({**r, "mu": {**want["mu"], **r["mu"]}, "nu": {**want["nu"], **r["nu"]}}, want) > 1
+
+
+def test_pipelined_pretrain_kfold_matches_one_process_and_refuses_another_layout(group):
+    """`pretrain_kfold` with pipe_devices=2 on (2, 2) against one process at
+    the same rate, weights, noise and rows: the min losses, each per-layer
+    `.pth` (loaded into the one-process model), the log rows and the
+    features; a `.pth` with the stages' blocks swapped misses; the resume
+    files per stage and `layout.json`; a resume with pipe_devices=4
+    refused."""
+    (results, refusal), *others = _pp_results(group, "pp_pretrain", 2, 2)
+    dirs = group[1]["ddp_pretrain"]["dirs"]
+    want = group[1]["pp_pretrain"]
+    work, one = dirs["pp_ranks"], dirs["pp_one"]
+    assert all(o[0] == results for o in others)
+    assert refusal is not None and "were written with --pipe-devices 2; this run uses --pipe-devices 4" in refusal
+    model = build_model(MODEL_ZOO[ppt.PP_MODEL](volume_size=16, dtype="float32"))
+    for fold in range(ppt.PP_FOLDS):
+        assert abs(results[fold]["min_loss"] - want[fold]["min_loss"]) <= 1e-5 * abs(want[fold]["min_loss"])
+        got_sd, want_sd = load_reference_state_dict(_min_loss(work, fold)), load_reference_state_dict(_min_loss(one, fold))
+        assert list(got_sd) == list(want_sd)
+        model.load_state_dict(got_sd, strict=True)
+        for n, w in want_sd.items():
+            assert float((got_sd[n] - w).abs().max()) <= 1e-5 * max(float(w.abs().max()), 1.0), n
+        swapped = {n.replace("blocks.0.", "blocks.X.").replace("blocks.1.", "blocks.0.").replace("blocks.X.",
+                                                                                               "blocks.1."): v
+                   for n, v in got_sd.items()}
+        assert max(float((swapped[n] - w).abs().max()) for n, w in want_sd.items()) > 1e-4
+        for tag in ("train", "test"):
+            got = _features(work, fold, tag) if fold == 0 else np.load(os.path.join(
+                work, "ssl_features_dir", f"{tag}_contrast_ssl_features_split_1.npy.first"))
+            w = _features(one, fold, tag)
+            assert got.shape == w.shape and np.abs(got - w).max() <= 1e-5 * np.abs(w).max(), (fold, tag)
+        resume = os.path.join(work, "checkpoints", f"fold_{fold}", "resume")
+        assert sorted(os.listdir(resume)) == ["checkpoint-stage0.pth", "checkpoint-stage1.pth", "layout.json"]
+        with open(os.path.join(resume, "layout.json")) as f:
+            assert json.load(f) == {"pipe": 2}
+    with open(os.path.join(work, "checkpoints", "log.txt")) as f, open(os.path.join(one, "checkpoints", "log.txt")) as g:
+        got_rows, want_rows = [json.loads(x) for x in f], [json.loads(x) for x in g]
+    assert len(got_rows) == len(want_rows) == ppt.PP_FOLDS * 2
+    for r, w in zip(got_rows, want_rows):
+        assert abs(r["train_loss"] - w["train_loss"]) <= 1e-5 * abs(w["train_loss"])

@@ -49,6 +49,10 @@ spawned ranks (`parallel.run_ranks`), each under a data mesh of (N, 1):
 NCCL with rank r on `cuda:r`, refused before any spawn when fewer than N
 cards are visible, or gloo ranks on the CPU with `--device cpu`. The
 batch size stays the global batch and must split into N equal shards.
+`pretrain-kfold --pipe-devices S` runs the GPipe pipeline on N ranks (S
+by default) under the ('data', 'pipe') mesh of S stages and N / S data
+coordinates (parallel/pp.py); N must be divisible by S, and the batch
+splits over the N / S data coordinates.
 """
 
 from __future__ import annotations
@@ -133,9 +137,10 @@ def build_parser() -> argparse.ArgumentParser:
              "(pipelines/pretrain_kfold.py)")
     _add_common(pre)
     pre.add_argument("--pipe-devices", type=int, default=1,
-                     help="GPipe pipeline stages (not ported yet, ROADMAP Queue 1 item 6b: > 1 is refused)")
+                     help="GPipe pipeline stages over a 'pipe' mesh axis (must divide --n-devices and both "
+                          "block-stack depths; parallel/pp.py)")
     pre.add_argument("--pp-microbatches", type=int, default=None,
-                     help="GPipe microbatches (not ported yet, ROADMAP Queue 1 item 6b)")
+                     help="GPipe microbatches (default: auto, <= 4*pipe)")
     pre.add_argument("--fsdp", action="store_true",
                      help="ZeRO/FSDP: shard params + optimizer moments 1/data over the 'data' mesh axis "
                           "(parallel/fsdp.py; needs --n-devices > 1)")
@@ -340,35 +345,60 @@ DATA_PARALLEL = ("pretrain-kfold", "probe-kfold", "finetune-kfold", "finetune", 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    n = getattr(args, "n_devices", None) or 1
+    n = world_size(args)
     out = launch_ranks(args, argv, n) if n > 1 and args.cmd in DATA_PARALLEL else command(args)
     if out is not None:
         print(out if isinstance(out, str) else json.dumps(out, default=str))
     return 0
 
 
+def world_size(args) -> int:
+    """The ranks a command runs on: `--n-devices` (1 without it), or for
+    `pretrain-kfold --pipe-devices S` S when `--n-devices` is not given, as
+    in the JAX package; a count S does not divide raises before any
+    spawn."""
+    n = getattr(args, "n_devices", None)
+    pipe = getattr(args, "pipe_devices", 1) or 1
+    if pipe > 1:
+        total = n if n is not None else pipe
+        if total % pipe:
+            raise ValueError(f"--n-devices {total} not divisible by --pipe-devices {pipe}")
+        return total
+    return n or 1
+
+
+def _rank_mesh(args):
+    """The mesh of one rank of `launch_ranks`: (n, 1), or with
+    `--pipe-devices S` the ('data', 'pipe') mesh of S stages."""
+    from vit_ae_plus_plus_torch.parallel import make_mesh, make_pipeline_mesh
+
+    n, pipe = world_size(args), getattr(args, "pipe_devices", 1) or 1
+    return make_pipeline_mesh(pipe, n // pipe) if pipe > 1 else make_mesh(n)
+
+
 def launch_ranks(args, argv: list, n: int):
     """`argv`'s command on `n` spawned ranks, each under a data mesh of
-    (n, 1) (module docstring); -> rank 0's result. The ranks meet through a
-    file store under the work dir."""
+    (n, 1), or the pipeline's mesh (module docstring); -> rank 0's result.
+    The ranks meet through a file store under the work dir."""
     import torch
 
     from vit_ae_plus_plus_torch.parallel import run_ranks
 
-    if args.batch_size % n:
-        raise ValueError(f"--batch-size {args.batch_size} does not split into {n} equal shards: a "
-                         "data-parallel run needs a batch size that --n-devices divides")
+    shards = n // (getattr(args, "pipe_devices", 1) or 1)
+    if args.batch_size % shards:
+        raise ValueError(f"--batch-size {args.batch_size} does not split into {shards} equal shards: a "
+                         "data-parallel run needs a batch size that its data axis divides")
     backend = "gloo" if args.device is not None and torch.device(args.device).type == "cpu" else "nccl"
     return run_ranks(_rank_command, n, (argv,), store_dir=os.path.join(args.work_dir, ".ranks"),
                      timeout=None, backend=backend)[0]
 
 
 def _rank_command(rank: int, argv: list):
-    """One rank of `launch_ranks`: the command under the data mesh."""
-    from vit_ae_plus_plus_torch.parallel import make_mesh, set_mesh
+    """One rank of `launch_ranks`: the command under its mesh."""
+    from vit_ae_plus_plus_torch.parallel import set_mesh
 
     args = build_parser().parse_args(argv)
-    with set_mesh(make_mesh(args.n_devices)):
+    with set_mesh(_rank_mesh(args)):
         return command(args)
 
 

@@ -35,7 +35,7 @@ class ViTConfig:
     num_classes: int = 2
     global_pool: bool = True
     dtype: str = "float32"  # compute dtype; params stay float32
-    attn_impl: str = "auto"  # 'auto' | 'flash' | 'plain' | 'flash_ring' | 'flash_seq' (kernels/flash_attention.py)
+    attn_impl: str = "auto"  # 'auto' | 'flash' | 'plain' | 'flash_local' | 'flash_ring' | 'flash_seq' (kernels/flash_attention.py)
     ln_fusion: str = "auto"  # 'on': LayerNorm fused into qkv and fc1 (kernels/fused_ln_dense.py); 'auto' never fuses
     ln_dtype: str = "float32"  # "bfloat16": block-LN statistics in bf16 (models/vit.py ln_stats_dtype)
 
@@ -111,10 +111,11 @@ class MAEConfig:
 class TrainConfig:
     """SSL pretraining hyperparameters: every field of the JAX package's
     `TrainConfig`, with its defaults (the reference's config.ini [K_FOLD]
-    and argparse defaults). `pretrain_kfold` refuses `pipe_devices > 1`,
-    whose path is not ported yet (ROADMAP Queue 1 item 6b); `fsdp` shards
-    the state over the data mesh (parallel/fsdp.py); `donate_state` has no
-    meaning in eager PyTorch and nothing reads it."""
+    and argparse defaults). `pipe_devices > 1` trains through the GPipe
+    pipeline (parallel/pp.py) at `pp_microbatches` microbatches (None:
+    `auto_microbatches`); `fsdp` shards the state over the data mesh
+    (parallel/fsdp.py), and composes with the pipeline; `donate_state` has
+    no meaning in eager PyTorch and nothing reads it."""
 
     epochs: int = 50
     batch_size: int = 4
@@ -142,8 +143,8 @@ class TrainConfig:
     device_data: bool = False  # the whole raw fold resident on the card (needs device_augment)
     donate_state: bool = True
     mesh_shape: Tuple[int, ...] = (1,)  # (data,) mesh; data > 1 asks for that many data-parallel ranks
-    pipe_devices: int = 1  # > 1: GPipe pipeline (not ported yet, ROADMAP Queue 1 item 6b)
-    pp_microbatches: Optional[int] = None
+    pipe_devices: int = 1  # > 1: GPipe pipeline stages over a 'pipe' mesh axis (parallel/pp.py)
+    pp_microbatches: Optional[int] = None  # None: auto_microbatches(batch_size, pipe_devices, data)
     fsdp: bool = False  # ZeRO/FSDP over the data mesh (parallel/fsdp.py; needs data > 1)
     start_epoch: int = 0
     resume: bool = False  # restore model, optimizer and epoch from the fold's resume checkpoint

@@ -18,9 +18,9 @@ Counterpart of the JAX package's kernels/flash_attention.py
   both take the plain versions; on CUDA tensors they launch the kernels or
   raise. Gradients reach q, k and v on either device.
 - `multihead_attention`: the per-head dispatch behind `attn_impl`
-  ('plain', 'flash', and the sequence-parallel 'flash_ring' and
-  'flash_seq' under `parallel.set_mesh`); the model's 'auto' is resolved in
-  models/vit.py.
+  ('plain', 'flash', 'flash_local', and the sequence-parallel 'flash_ring'
+  and 'flash_seq' under `parallel.set_mesh`); the model's 'auto' is
+  resolved in models/vit.py.
 - `kernel_tolerance` / `bwd_tolerance`: how far the kernels may lie from the
   plain versions.
 
@@ -380,16 +380,19 @@ flash_attention.launches_by_shape = {}
 def multihead_attention(q, k, v, impl: str):
     """Scaled dot-product attention over (B, H, N, Dh), scale 1/sqrt(Dh).
 
-    impl: 'plain' (eager reference), 'flash' (the per-head kernels), or the
-    sequence-parallel 'flash_ring' (q, k and v sharded over the ambient
-    mesh's 'model' group, K/V rotating round the ring: kernels/ring_flash.py)
-    and 'flash_seq' (q sharded, K/V replicated: kernels/seq_flash.py). Those
-    two read `parallel.get_mesh()`; with no mesh, or a 'model' group of one
-    rank, they take `flash_attention`, as the JAX package does."""
+    impl: 'plain' (eager reference), 'flash' (the per-head kernels),
+    'flash_local' (the same kernels, whatever the ambient mesh: JAX's
+    `pallas_flash.flash_attention_local`, the route the GPipe pipeline's
+    stages take, parallel/pp.py), or the sequence-parallel 'flash_ring'
+    (q, k and v sharded over the ambient mesh's 'model' group, K/V rotating
+    round the ring: kernels/ring_flash.py) and 'flash_seq' (q sharded, K/V
+    replicated: kernels/seq_flash.py). Those two read
+    `parallel.get_mesh()`; with no mesh, or a 'model' group of one rank,
+    they take `flash_attention`, as the JAX package does."""
     scale = q.shape[-1] ** -0.5
     if impl == "plain":
         return attention_plain(q, k, v, scale)
-    if impl == "flash":
+    if impl in ("flash", "flash_local"):
         return flash_attention(q, k, v, scale)
     if impl in ("flash_ring", "flash_seq"):
         from vit_ae_plus_plus_torch.parallel import get_mesh
@@ -405,7 +408,7 @@ def multihead_attention(q, k, v, impl: str):
 
         return seq_sharded_flash_attention(q, k, v, mesh, scale=scale)
     raise ValueError(
-        f"unknown attention impl {impl!r} (want 'flash'|'plain'|'flash_ring'|'flash_seq')"
+        f"unknown attention impl {impl!r} (want 'flash'|'plain'|'flash_local'|'flash_ring'|'flash_seq')"
     )
 
 

@@ -46,6 +46,7 @@ from vit_ae_plus_plus_torch.models.vit import (
     _layer_norm,
     _linear,
     compute_dtype,
+    run_blocks,
 )
 from vit_ae_plus_plus_torch.ops import get_3d_sincos_pos_embed, random_masking, restore_tokens
 from vit_ae_plus_plus_torch.parallel import data_coords
@@ -114,9 +115,11 @@ class MaskedAutoencoderViT3D(nn.Module):
             t.normal_(0.0, 0.02, generator=generator)
         return self
 
-    def forward_encoder(self, x, mask_ratio: float, noise: Optional[torch.Tensor] = None):
+    def forward_encoder(self, x, mask_ratio: float, noise: Optional[torch.Tensor] = None, blocks_fn=None):
         """(B, C, S, S, S) -> latent (B, 1 + len_keep, D), mask (B, L) in the
-        compute dtype (1 = removed), ids_restore (B, L)."""
+        compute dtype (1 = removed), ids_restore (B, L). `blocks_fn(blocks,
+        x)` runs the block stack in place of the loop (the GPipe pipeline,
+        parallel/pp.py)."""
         x = self.patch_embed(x, self.dtype)
         x = x + self.pos_embed[:, 1:].to(x.dtype)
         b, l, d = x.shape
@@ -127,17 +130,15 @@ class MaskedAutoencoderViT3D(nn.Module):
             ids_restore = torch.arange(l, device=x.device).expand(b, l)
         cls = self.cls_token.to(x.dtype) + self.pos_embed[:, :1].to(x.dtype)
         x = torch.cat([cls.expand(x.shape[0], -1, -1), x], dim=1)
-        for blk in self.blocks:
-            x = blk(x)
+        x = run_blocks(self.blocks, x, blocks_fn)
         return _layer_norm(x, self.norm), mask, ids_restore
 
-    def forward_decoder(self, latent, ids_restore):
+    def forward_decoder(self, latent, ids_restore, blocks_fn=None):
         """latent (B, 1 + len_keep, D) -> pred (B, L, p^3 C)."""
         x = _linear(latent, self.decoder_embed)
         x = torch.cat([x[:, :1], restore_tokens(x[:, 1:], self.mask_token, ids_restore)], dim=1)
         x = x + self.decoder_pos_embed.to(x.dtype)
-        for blk in self.decoder_blocks:
-            x = blk(x)
+        x = run_blocks(self.decoder_blocks, x, blocks_fn)
         return _linear(_layer_norm(x, self.decoder_norm), self.decoder_pred)[:, 1:]
 
     def forward(
@@ -147,9 +148,13 @@ class MaskedAutoencoderViT3D(nn.Module):
         mask_ratio: float = 0.75,
         noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        blocks_fn=None,
     ) -> Dict[str, torch.Tensor]:
         """The full forward: a dict of `pred`, `mask`, `ids_restore`,
         `latent` and, contrastive with `view2`, `p1`, `p2`, `z1`, `z2`.
+        `blocks_fn(blocks, x)` runs each block stack (`self.blocks`, then
+        `self.decoder_blocks`) in place of its loop: the GPipe pipeline
+        (parallel/pp.py `pipelined_mae_forward`).
 
         `noise` (rows, L) is the masking noise, one row per encoded volume
         (2B rows when both views are encoded); without it, uniform noise is
@@ -168,9 +173,9 @@ class MaskedAutoencoderViT3D(nn.Module):
             noise = torch.rand((views * size * b, self.cfg.num_patches), generator=generator,
                                device=both.device)
             noise = noise.view(views, size, b, -1)[:, d].reshape(views * b, -1)
-        latent_all, mask_all, ids_all = self.forward_encoder(both, mask_ratio, noise)
+        latent_all, mask_all, ids_all = self.forward_encoder(both, mask_ratio, noise, blocks_fn)
         latent, mask, ids_restore = latent_all[:b], mask_all[:b], ids_all[:b]
-        out = {"pred": self.forward_decoder(latent, ids_restore), "mask": mask,
+        out = {"pred": self.forward_decoder(latent, ids_restore, blocks_fn), "mask": mask,
                "ids_restore": ids_restore, "latent": latent}
         if contrastive:
             z1 = latent.reshape(-1, latent.shape[-1])

@@ -192,17 +192,20 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x, ln: nn.LayerNorm = None):
+    def forward(self, x, ln: nn.LayerNorm = None, impl: str = None):
+        """`impl` overrides `attn_impl` for this call (the pipeline's
+        stages, parallel/pp.py `make_block_apply`)."""
         b, n, c = x.shape
         d = c // self.num_heads
+        impl = self.attn_impl if impl is None else impl
         if self.tp:
             x = copy_to_model(x, get_mesh())
         qkv = _linear(x, self.qkv) if ln is None else _ln_dense(x, ln, self.qkv)
         heads = qkv.shape[-1] // (3 * d)  # this rank's, under tp
-        if self.attn_impl == "auto" and qkv.is_cuda:
+        if impl == "auto" and qkv.is_cuda:
             out = packed_flash_attention(qkv, d)
         else:
-            impl = "plain" if self.attn_impl == "auto" else self.attn_impl
+            impl = "plain" if impl == "auto" else impl
             q, k, v = qkv.view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
             out = multihead_attention(q, k, v, impl)  # (B, H, N, d)
             out = out.transpose(1, 2).reshape(b, n, heads * d)
@@ -239,17 +242,27 @@ class Block(nn.Module):
             return ln_stats_dtype(x, norm, torch.bfloat16).to(x.dtype)
         return _layer_norm(x, norm)
 
-    def forward(self, x):
+    def forward(self, x, attn_impl: str = None):
+        """`attn_impl` overrides the attention's own for this call."""
         if self.fsdp:
-            return gathered_call(self, self._forward, x)
-        return self._forward(x)
+            return gathered_call(self, self._forward, x, attn_impl)
+        return self._forward(x, attn_impl)
 
-    def _forward(self, x):
+    def _forward(self, x, attn_impl=None):
         if self.fused and not self.attn.tp:  # under TP, the unfused pair (kernel #7 holds the whole W)
-            x = x + self.attn(x, ln=self.norm1)
+            x = x + self.attn(x, ln=self.norm1, impl=attn_impl)
             return x + self.mlp(x, ln=self.norm2)
-        x = x + self.attn(self._norm(x, self.norm1))
+        x = x + self.attn(self._norm(x, self.norm1), impl=attn_impl)
         return x + self.mlp(self._norm(x, self.norm2))
+
+
+def run_blocks(blocks: nn.ModuleList, x: torch.Tensor, blocks_fn=None) -> torch.Tensor:
+    """The blocks in turn, or `blocks_fn(blocks, x)`."""
+    if blocks_fn is not None:
+        return blocks_fn(blocks, x)
+    for blk in blocks:
+        x = blk(x)
+    return x
 
 
 def patch_embed_matrix(weight: torch.Tensor) -> torch.Tensor:
@@ -302,12 +315,13 @@ class VisionTransformer3D(nn.Module):
         if cfg.num_classes > 0:
             self.head = nn.Linear(d, cfg.num_classes)
 
-    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_features(self, x: torch.Tensor, blocks_fn=None) -> torch.Tensor:
+        """`blocks_fn(blocks, x)`, when given, runs the block stack in place
+        of the loop (the GPipe pipeline, parallel/pp.py)."""
         x = self.patch_embed(x, self.dtype)
         cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
-        for blk in self.blocks:
-            x = blk(x)
+        x = run_blocks(self.blocks, x, blocks_fn)
         if self.cfg.global_pool:
             return _layer_norm(x[:, 1:].mean(dim=1), self.fc_norm)
         return _layer_norm(x, self.norm)[:, 0]

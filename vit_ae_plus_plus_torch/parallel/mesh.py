@@ -1,14 +1,19 @@
-"""The ('data', 'model') mesh of a torch.distributed world and its transport.
+"""The ('data', 'model') and ('data', 'pipe') meshes of a torch.distributed
+world and their transport.
 
-Counterpart of the JAX package's parallel/mesh.py (`make_mesh`) and of
-`jax.set_mesh` / `get_abstract_mesh`. JAX runs one program over a mesh of
-devices; here every rank of an initialised `torch.distributed` world is one
-position of the mesh, rank = d * model + m, and runs its own program:
+Counterpart of the JAX package's parallel/mesh.py (`make_mesh`), of
+parallel/pp.py's `make_pipeline_mesh` and of `jax.set_mesh` /
+`get_abstract_mesh`. JAX runs one program over a mesh of devices; here
+every rank of an initialised `torch.distributed` world is one position of
+the mesh, rank = d * model + m (d * pipe + p), and runs its own program:
 
 - `make_mesh(data, model)` builds the process groups of both axes (every
   rank of the world must call it, as `torch.distributed.new_group` asks)
   and returns this rank's `Mesh`: the groups, the axes' sizes and its
-  coordinates.
+  coordinates. `make_pipeline_mesh(pipe, data)` builds the ('data',
+  'pipe') mesh of the GPipe pipeline (parallel/pp.py) the same way; an
+  axis a mesh does not have has size 1 (`Mesh.size`), so every reader of
+  the 'model' axis sees 1 on a pipeline's mesh.
 - `set_mesh(mesh)` makes it the ambient mesh of a `with` block, as
   `jax.set_mesh` does; `get_mesh()` reads it (None outside). The
   sequence-parallel attention ('flash_ring', 'flash_seq') reads it.
@@ -18,9 +23,11 @@ position of the mesh, rank = d * model + m, and runs its own program:
   shard over the 'model' group.
 
 Transport (`ring_shift`, `all_gather_rows`, `all_gather_batch`,
-`all_reduce_sum`, the differentiable `psum`, `all_reduce_flat`, and the
+`all_reduce_sum`, the differentiable `psum`, `all_reduce_flat`, the
 shard transport of the sharded training state: `all_gather_dim`,
-`reduce_scatter_dim`, the differentiable `gather_shards`, `sum_over`)
+`reduce_scatter_dim`, the differentiable `gather_shards`, `sum_over`;
+and the pipeline's hops along 'pipe': `send_to`, `recv_from`,
+`broadcast_from`, and the differentiable `from_first` and `from_last`)
 follows the group's backend. An NCCL group moves CUDA tensors itself. A gloo group moves
 host memory, so CUDA tensors go through pinned host buffers once the current
 stream has finished producing them, and come back to the card after. That
@@ -39,23 +46,24 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-_AXES = ("data", "model")
+_AXES = ("data", "model")  # make_mesh's; make_pipeline_mesh's are ("data", "pipe")
 _current: contextvars.ContextVar = contextvars.ContextVar("vit_ae_mesh", default=None)
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in a (data, model) grid of ranks: the axes' sizes,
-    its coordinates, and for each axis the global ranks along it and their
-    process group."""
+    """This rank's place in a (data, model) or (data, pipe) grid of ranks:
+    the axes' sizes, its coordinates, and for each axis the global ranks
+    along it and their process group."""
 
-    shape: dict  # {"data": D, "model": M}
-    coords: dict  # {"data": d, "model": m}
+    shape: dict  # {"data": D, "model": M} or {"data": D, "pipe": S}
+    coords: dict  # {"data": d, "model": m} or {"data": d, "pipe": p}
     ranks: dict  # axis -> global ranks along it through this rank, by coordinate
     groups: dict  # axis -> its ProcessGroup (None for a one-rank axis)
 
     def size(self, axis: str) -> int:
-        return self.shape[axis]
+        """The axis' size; 1 for an axis this mesh does not have."""
+        return self.shape.get(axis, 1)
 
 
 def make_mesh(data: int, model: int = 1) -> Optional[Mesh]:
@@ -63,29 +71,41 @@ def make_mesh(data: int, model: int = 1) -> Optional[Mesh]:
     initialised default group, global rank d * model + m at (d, m). Every
     rank of the world calls it; a rank outside the mesh gets None. As in
     the JAX package, a mesh smaller than the world warns."""
+    return _grid(data, model, "model")
+
+
+def make_pipeline_mesh(pipe: int, data: int = 1) -> Optional[Mesh]:
+    """The ('data', 'pipe') mesh of the GPipe pipeline (JAX parallel/pp.py
+    `make_pipeline_mesh`): global rank d * pipe + p at (d, p), as JAX's
+    `reshape(data, pipe)` places devices, so a stage's neighbours are the
+    adjacent ranks. Collective, as `make_mesh`."""
+    return _grid(data, pipe, "pipe")
+
+
+def _grid(data: int, inner: int, axis: str) -> Optional[Mesh]:
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed.init_process_group first")
     world = dist.get_world_size()
-    if data * model > world:
-        raise ValueError(f"mesh {data}x{model} needs {data * model} ranks, the world has {world}")
-    if data * model < world:
-        warnings.warn(f"mesh {data}x{model} uses only {data * model} of {world} ranks", stacklevel=2)
-    ranks = list(range(data * model))
-    grid = [ranks[d * model:(d + 1) * model] for d in range(data)]
-    lines = {"model": grid, "data": [list(col) for col in zip(*grid)]}
+    if data * inner > world:
+        raise ValueError(f"mesh {data}x{inner} needs {data * inner} ranks, the world has {world}")
+    if data * inner < world:
+        warnings.warn(f"mesh {data}x{inner} uses only {data * inner} of {world} ranks", stacklevel=3)
+    ranks = list(range(data * inner))
+    grid = [ranks[d * inner:(d + 1) * inner] for d in range(data)]
+    lines = {axis: grid, "data": [list(col) for col in zip(*grid)]}
     me = dist.get_rank()
     mine, groups = {}, {}
-    for axis in _AXES:
-        for line in lines[axis]:
+    for name in ("data", axis):
+        for line in lines[name]:
             # new_group is collective over the world: every rank creates every group
             group = dist.new_group(line) if len(line) > 1 else None
             if me in line:
-                mine[axis], groups[axis] = line, group
+                mine[name], groups[name] = line, group
     if me not in ranks:
         return None
     return Mesh(
-        shape={"data": data, "model": model},
-        coords={"data": me // model, "model": me % model},
+        shape={"data": data, axis: inner},
+        coords={"data": me // inner, axis: me % inner},
         ranks=mine, groups=groups,
     )
 
@@ -134,13 +154,55 @@ def barrier(mesh: Optional[Mesh], axis: str = "data") -> None:
         dist.barrier(group=mesh.groups[axis])
 
 
-def data_parallel(n_devices: Optional[int], what: str) -> Tuple[int, int]:
+def _other_axes(mesh: Mesh) -> List[str]:
+    """The mesh's axes other than 'data' with more than one rank."""
+    return [a for a in mesh.shape if a != "data" and mesh.size(a) > 1]
+
+
+def is_writer(mesh: Optional[Mesh] = None) -> bool:
+    """Whether this rank is the mesh's first (every coordinate 0), the one
+    that writes a run's files; True without a mesh."""
+    mesh = get_mesh() if mesh is None else mesh
+    return mesh is None or not any(mesh.coords.values())
+
+
+def mesh_barrier(mesh: Optional[Mesh]) -> None:
+    """Wait until every rank of the mesh has reached this call: along
+    'data', then along the other axes (a rank passes the second only once
+    its whole line has passed the first)."""
+    if mesh is not None:
+        for axis in ("data", *_other_axes(mesh)):
+            barrier(mesh, axis)
+
+
+def broadcast_object(obj, mesh: Optional[Mesh]):
+    """The writer's (`is_writer`) `obj` on every rank of the mesh: along
+    the other axes among the ranks of data coordinate 0, then along
+    'data'. -> the writer's object."""
+    box = [obj]
+    if mesh is None:
+        return obj
+    for axis in (*_other_axes(mesh), "data"):
+        if mesh.size(axis) > 1 and (axis == "data" or mesh.coords["data"] == 0):
+            dist.broadcast_object_list(box, src=mesh.ranks[axis][0], group=mesh.groups[axis])
+    return box[0]
+
+
+def data_parallel(n_devices: Optional[int], what: str, pipe: int = 1) -> Tuple[int, int]:
     """(d, D) of the ambient mesh (`data_coords`), after checking that it is
     the data mesh a pipeline was asked for: `n_devices` > 1 runs as that
     many ranks, each under a mesh of (n_devices, 1) (the CLI's
-    `--n-devices` launches them); None takes the ambient mesh as it is."""
+    `--n-devices` launches them); None takes the ambient mesh as it is.
+    `pipe` > 1 (`pretrain-kfold --pipe-devices`): the mesh must be the
+    ('data', 'pipe') mesh of that many stages, `n_devices` its data size."""
     mesh = get_mesh()
     d, size = data_coords(mesh)
+    stages = mesh.size("pipe") if mesh is not None else 1
+    if stages != pipe:
+        raise ValueError(
+            f"{what}: pipe_devices={pipe} runs under a pipeline mesh of {pipe} stages "
+            f"(make_pipeline_mesh, as the CLI's --pipe-devices launches it), but this process sits on a "
+            f"'pipe' axis of {stages}")
     if mesh is not None and mesh.size("model") > 1:
         # the pipelines write from the 'data' group's first rank, and, as the
         # JAX package's, build a data mesh only (--n-devices); the (D, M > 1)
@@ -158,14 +220,14 @@ def data_parallel(n_devices: Optional[int], what: str) -> Tuple[int, int]:
 
 
 def writer_first(fn, mesh: Optional[Mesh] = None):
-    """`fn()` on the 'data' group's first rank, then on the others once it
-    has returned: for a call that may write the files that the others then
-    read (the fold index files). -> its result on this rank."""
+    """`fn()` on the mesh's first rank (`is_writer`), then on the others
+    once it has returned: for a call that may write the files that the
+    others then read (the fold index files). -> its result on this rank."""
     mesh = get_mesh() if mesh is None else mesh
-    d, _ = data_coords(mesh)
-    out = fn() if d == 0 else None
-    barrier(mesh)
-    return fn() if d > 0 else out
+    first = is_writer(mesh)
+    out = fn() if first else None
+    mesh_barrier(mesh)
+    return out if first else fn()
 
 
 def _staged(t: torch.Tensor, group) -> bool:
@@ -357,3 +419,102 @@ def sum_over(values: torch.Tensor, axes: Sequence[Tuple[str, ...]], mesh: Option
             part = all_reduce_sum(part, mesh, axis)
         out = out.index_put((idx,), part)
     return out
+
+
+class _Sent:
+    """An `isend` in flight and the buffer it reads (kept alive until
+    `wait` returns)."""
+
+    def __init__(self, work, buf):
+        self.work, self.buf = work, buf
+
+    def wait(self) -> None:
+        self.work.wait()
+        self.buf = None
+
+
+def send_to(t: torch.Tensor, mesh: Mesh, axis: str, coord: int, tag: int = 0) -> _Sent:
+    """Start sending `t` to the rank at `coord` along `axis` (a CUDA tensor
+    on gloo through a pinned host copy, once the current stream has
+    produced it) -> its handle; `wait()` it before the run moves on."""
+    group = mesh.groups[axis]
+    buf = _to_host([t])[0] if _staged(t, group) else t.contiguous()
+    return _Sent(dist.isend(buf, mesh.ranks[axis][coord], group=group, tag=tag), buf)
+
+
+def recv_from(like: torch.Tensor, mesh: Mesh, axis: str, coord: int, tag: int = 0) -> torch.Tensor:
+    """What the rank at `coord` along `axis` sends (`send_to`): a tensor of
+    `like`'s shape and dtype on its device."""
+    group = mesh.groups[axis]
+    staged = _staged(like, group)
+    buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True) if staged else torch.empty(
+        like.shape, dtype=like.dtype, device=like.device)
+    dist.irecv(buf, mesh.ranks[axis][coord], group=group, tag=tag).wait()
+    return buf.to(like.device, non_blocking=True) if staged else buf
+
+
+def broadcast_from(t: torch.Tensor, mesh: Mesh, axis: str, coord: int) -> torch.Tensor:
+    """The tensor `t` of the rank at `coord` along `axis`, on every rank of
+    it (the others pass a tensor of the same shape and dtype, whose values
+    are not read). Not differentiable (`from_first`, `from_last` are)."""
+    if mesh.size(axis) == 1:
+        return t
+    group = mesh.groups[axis]
+    staged = _staged(t, group)
+    if mesh.coords[axis] == coord:
+        buf = _to_host([t])[0] if staged else t.contiguous()
+    else:
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=staged,
+                          device="cpu" if staged else t.device)
+    dist.broadcast(buf, src=mesh.ranks[axis][coord], group=group)
+    return buf.to(t.device, non_blocking=True) if staged else buf
+
+
+class _FromFirst(torch.autograd.Function):
+    """Identity forward; backward, the first rank's gradient along the
+    axis on every rank of it: the transpose of a replicated input that only
+    the first rank consumes (JAX's `where(idx == 0, ...)` inside a
+    shard_map, whose gradient is psum'd over the axis, the other ranks'
+    parts being zeros)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return broadcast_from(grad, ctx.mesh, ctx.axis, 0), None, None
+
+
+class _FromLast(torch.autograd.Function):
+    """Forward, the last rank's `t` along the axis on every rank of it;
+    backward, the gradient on the last rank and none elsewhere: every rank
+    computes the same function of the one output, so the last rank takes
+    its gradient once, as JAX's masked psum transposes (not summed over the
+    axis)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.last = mesh.coords[axis] == mesh.size(axis) - 1
+        return broadcast_from(t, mesh, axis, mesh.size(axis) - 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.last else None), None, None
+
+
+def from_first(t: torch.Tensor, mesh: Mesh, axis: str = "pipe") -> torch.Tensor:
+    """`t`, whose gradient is the axis' first rank's (`_FromFirst`)."""
+    if mesh is None or mesh.size(axis) == 1:
+        return t
+    return _FromFirst.apply(t, mesh, axis)
+
+
+def from_last(t: torch.Tensor, mesh: Mesh, axis: str = "pipe") -> torch.Tensor:
+    """The axis' last rank's `t` on every rank, differentiable
+    (`_FromLast`)."""
+    if mesh is None or mesh.size(axis) == 1:
+        return t
+    return _FromLast.apply(t, mesh, axis)

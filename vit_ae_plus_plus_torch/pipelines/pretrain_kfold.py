@@ -57,10 +57,25 @@ are kept as this rank's blocks and gathered, by every rank, when they are
 written and for the extraction; the resume checkpoint is written whole,
 so a run resumes under either layout.
 
-Not ported yet, and refused before any data is read or any file written:
-the GPipe pipeline (ROADMAP Queue 1 item 6b) and a mesh with a model axis;
-`device_data` without `device_augment` raises `ValueError`, as in the JAX
-package.
+The GPipe pipeline (`pipe_devices` S > 1, the CLI's `--pipe-devices`,
+JAX pretrain_kfold.py:150-193 there): `n_devices` (S by default) ranks
+under the ('data', 'pipe') mesh of S stages and n_devices / S data
+coordinates (`parallel.make_pipeline_mesh`); each stage holds its blocks
+of both stacks and their AdamW moments (parallel/pp.py
+`shard_pipeline_state`, the optimizer built in that layout), the step is
+`make_pp_train_step` at `pp_microbatches` or
+`auto_microbatches(batch, S, data=D)` microbatches, and `fsdp` composes
+(the stage's large block leaves also sharded over 'data', which must then
+be > 1). The min-loss `.pth` is per-layer and in the reference layout, every
+stage's blocks gathered (`pp.full_state_dict`); the resume files are per
+stage, `layout.json` records `{"pipe": S}` and another S is refused, as in
+the JAX package. The extraction runs the whole best weights on stage 0's
+'data' group (JAX's `extract_fold_features` runs unpipelined too). The
+mesh's first rank writes every file.
+
+Refused before any data is read or any file written: a mesh with a model
+axis, a `--n-devices` that `--pipe-devices` does not divide; `device_data`
+without `device_augment` raises `ValueError`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -81,8 +96,9 @@ from vit_ae_plus_plus_torch.data.splits import kfold_indices
 from vit_ae_plus_plus_torch.device import resolve_device
 from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_model, build_perceptual
 from vit_ae_plus_plus_torch.ops.augment import device_augment_batch
-from vit_ae_plus_plus_torch.parallel import data_coords, data_parallel, get_mesh, writer_first
+from vit_ae_plus_plus_torch.parallel import data_coords, data_parallel, get_mesh, is_writer, writer_first
 from vit_ae_plus_plus_torch.parallel import fsdp as sharding
+from vit_ae_plus_plus_torch.parallel import pp
 from vit_ae_plus_plus_torch.pipelines.extract_features import loader_features
 from vit_ae_plus_plus_torch.pipelines.transfer import build_grafted_vit
 from vit_ae_plus_plus_torch.train import (
@@ -103,18 +119,24 @@ MIN_LOSS_CHECKPOINT = "checkpoint-min_loss.pth"
 
 
 def check_supported(train_cfg: TrainConfig, n_devices: Optional[int] = None) -> Tuple[int, int]:
-    """Raise `NotImplementedError` for a setting whose path the port does not
-    have yet, naming the ROADMAP item that brings it, and `ValueError` when
-    the ambient mesh is not the data mesh of `n_devices`
-    (`parallel.data_parallel`). -> (d, D) on the 'data' axis."""
+    """Raise `ValueError` for a setting the JAX package refuses too (FSDP
+    without a data axis > 1, a `--n-devices` that `--pipe-devices` does not
+    divide) and when the ambient mesh is not the mesh of `n_devices` and
+    `pipe_devices` (`parallel.data_parallel`). -> (d, D) on the 'data'
+    axis."""
     if train_cfg.device_data and not train_cfg.device_augment:
         raise ValueError("device_data requires device_augment (the raw volumes are normalised on the card)")
-    if (train_cfg.pipe_devices or 1) > 1:
-        raise NotImplementedError(
-            "pretrain-kfold: pipe_devices > 1 (the GPipe pipeline) is not ported yet (ROADMAP Queue 1 item 6b)")
+    pipe = train_cfg.pipe_devices or 1
     devices = requested_devices(train_cfg, n_devices)
     if train_cfg.fsdp and (devices is None or devices <= 1):
         raise ValueError("--fsdp needs a data mesh (--n-devices > 1)")
+    if train_cfg.fsdp and pipe > 1 and devices // pipe <= 1:
+        raise ValueError(f"--fsdp with --pipe-devices needs a data axis > 1 (got n_devices={devices}, pipe={pipe})")
+    if pipe > 1:
+        total = devices if devices is not None else pipe
+        if total % pipe:
+            raise ValueError(f"--n-devices {total} not divisible by --pipe-devices {pipe}")
+        return data_parallel(total // pipe, "pretrain-kfold", pipe=pipe)
     return data_parallel(devices, "pretrain-kfold")
 
 
@@ -141,8 +163,17 @@ def pretrain_one_fold(
     Under a data mesh, each rank trains on its rows of the global batches
     and the first rank alone writes (module docstring)."""
     dev = resolve_device(device)
-    d, size = data_coords()
-    writer = d == 0
+    mesh = get_mesh()
+    d, size = data_coords(mesh)
+    writer = is_writer(mesh)
+    pipe = mesh.size("pipe") if mesh is not None else 1
+    ckpt_dir = os.path.join(work_dir, "checkpoints", f"fold_{fold_idx}")
+    resume_dir = os.path.join(ckpt_dir, "resume")
+    if train_cfg.resume:
+        # another layout is refused on every rank before any work, then the
+        # writer records this one in a fresh dir
+        _check_layout(resume_dir, pipe, write=False)
+        writer_first(lambda: _check_layout(resume_dir, pipe, write=writer))
     mae_cfg = MODEL_ZOO[model_name](
         volume_size=data_cfg.volume_size,
         in_chans=data_cfg.in_channels,
@@ -177,17 +208,21 @@ def pretrain_one_fold(
     # restored with the resume checkpoint, so a resumed run draws what an
     # uninterrupted one would
     state = create_train_state(model, tx, seed=train_cfg.seed + 100 + fold_idx)
-    if train_cfg.fsdp:
+    if pipe > 1:
+        # each stage its blocks and their moments, the optimizer built in
+        # that layout (parallel/pp.py); with fsdp the stage's large block
+        # leaves also 1/D over 'data'; the min-loss checkpoint stays whole
+        state, _ = pp.shard_pipeline_state(state, mesh, data_axis="data" if train_cfg.fsdp else None)
+    elif train_cfg.fsdp:
         # the parameters and moments 1/D-sharded (parallel/fsdp.py); the
         # checkpoints stay whole (train/checkpoint.py)
-        state, _ = sharding.shard_train_state_fsdp(state, get_mesh())
+        state, _ = sharding.shard_train_state_fsdp(state, mesh)
         print(f"Fold {fold_idx}: FSDP over data={size} (params+moments 1/{size}-sharded)")
     perceptual_fn = None
     if train_cfg.perceptual_weight:
         # the gradient-free VGG term (reference vit_autoenc.py:229-230)
         _, perceptual_fn = build_perceptual(train_cfg.vgg_ckpt, device=dev)
-    step = make_train_step(
-        model, mae_cfg.patch_size,
+    step_kw = dict(
         mask_ratio=train_cfg.mask_ratio,
         contr_weight=train_cfg.contr_weight if mae_cfg.contrastive else 0.0,
         perceptual_weight=train_cfg.perceptual_weight,
@@ -195,9 +230,14 @@ def pretrain_one_fold(
         perceptual_fn=perceptual_fn,
         loss_filters_dtype=train_cfg.loss_filters_dtype,
     )
+    if pipe > 1:
+        n_mb = train_cfg.pp_microbatches or pp.auto_microbatches(train_cfg.batch_size, pipe, data=size)
+        step = pp.make_pp_train_step(model, mae_cfg.patch_size, mesh, n_microbatches=n_mb, **step_kw)
+        print(f"Fold {fold_idx}: GPipe pipeline pipe={pipe} data={size} microbatches={n_mb}")
+    else:
+        step = make_train_step(model, mae_cfg.patch_size, **step_kw)
     augment_gen = torch.Generator(device=dev) if train_cfg.device_augment else None
 
-    ckpt_dir = os.path.join(work_dir, "checkpoints", f"fold_{fold_idx}")
     min_loss_path = os.path.join(ckpt_dir, MIN_LOSS_CHECKPOINT)
     jsonl = JsonlLogger(os.path.join(work_dir, "checkpoints")) if writer else Discard()
     min_loss = float("inf")
@@ -211,10 +251,13 @@ def pretrain_one_fold(
     start_epoch = train_cfg.start_epoch
     resume_mgr = None
     if train_cfg.resume:
-        resume_dir = os.path.join(ckpt_dir, "resume")
-        writer_first(lambda: _check_layout(resume_dir, write=writer))
-        resume_mgr = CheckpointManager(resume_dir, write=writer)
+        # a pipelined run: one file per stage, written by its 'data' group's first rank
+        resume_mgr = CheckpointManager(resume_dir, write=d == 0 if pipe > 1 else writer,
+                                       stage=mesh.coords["pipe"] if pipe > 1 else None)
         state, restored_epoch, restored_min = resume_mgr.restore(state)
+        if not pp.same_on_stages(-1 if restored_epoch is None else restored_epoch, mesh):
+            raise ValueError(f"the stages' resume files in {resume_dir} hold different epochs (a run stopped "
+                             "between their writes): start from the min-loss checkpoint in a fresh work dir")
         if restored_epoch is not None:
             start_epoch = restored_epoch + 1
             min_loss = restored_min  # keep the pre-crash best
@@ -293,7 +336,7 @@ def pretrain_one_fold(
         if epoch % ck_every == ck_every - 1 or epoch == train_cfg.epochs - 1:
             # every rank gathers a sharded state; the writer writes
             if best_dirty:
-                whole = sharding.full_state_dict(model, best)
+                whole = pp.full_state_dict(model, best)
                 if writer:
                     save_state_dict(min_loss_path, whole)
                 best_dirty = False
@@ -310,7 +353,7 @@ def pretrain_one_fold(
             )
         best = load_reference_state_dict(min_loss_path)
     else:
-        best = sharding.full_state_dict(model, best)
+        best = pp.full_state_dict(model, best)
     print(f"Fold {fold_idx}: trained epochs [{start_epoch}, {train_cfg.epochs}) in "
           f"{time.time() - t_start:.0f}s, min loss {min_loss:.4f}")
     return mae_cfg, best, {"min_loss": min_loss}
@@ -324,24 +367,29 @@ def augment_seed(seed: int, fold_idx: int, epoch: int, count: int) -> int:
     return int(np.random.SeedSequence([seed + 100 + fold_idx, epoch, count]).generate_state(1, np.uint64)[0] >> 1)
 
 
-def _check_layout(resume_dir: str, write: bool) -> None:
-    """The JAX package's guard against restoring a pipeline-parallel
-    layout (the port trains one layout only); `write` records the layout
-    of a fresh resume dir."""
+def _check_layout(resume_dir: str, pipe: int, write: bool) -> None:
+    """The JAX package's guard (pretrain_kfold.py:262-276 there): resume
+    files carry the training layout, a pipelined run's one per stage, so a
+    resume dir written with another `--pipe-devices` is refused; `write`
+    records the layout of a fresh resume dir."""
     layout_file = os.path.join(resume_dir, "layout.json")
     if os.path.exists(layout_file):
         with open(layout_file) as f:
             have = json.load(f).get("pipe", 1)
-        if have != 1:
+        if have != pipe:
             raise ValueError(
-                f"resume checkpoints in {resume_dir} were written with --pipe-devices "
-                f"{have}; the port trains with --pipe-devices 1. Start from the "
-                "layout-independent min-loss checkpoint in a fresh work dir."
+                f"resume checkpoints in {resume_dir} were written with "
+                f"--pipe-devices {have}; this run uses --pipe-devices "
+                f"{pipe}. Resume with the same --pipe-devices, or start "
+                f"from the layout-independent min-loss checkpoint in a "
+                f"fresh work dir."
             )
-    elif write:
+    elif write:  # atomically: the other ranks may read it meanwhile
         os.makedirs(resume_dir, exist_ok=True)
-        with open(layout_file, "w") as f:
-            json.dump({"pipe": 1}, f)
+        tmp = f"{layout_file}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump({"pipe": pipe}, f)
+        os.replace(tmp, layout_file)
 
 
 def _start_profile(dev: torch.device):
@@ -373,11 +421,15 @@ def extract_fold_features(
     `feature_step` over `ids`, save float32 features and the labels as npy
     (reference k_fold_…_brats.py:256-281 + utils/feature_extraction.py:9-45).
     Under a data mesh each rank runs its rows of each batch, and the first
-    rank writes the gathered features."""
+    rank writes the gathered features; under a pipeline mesh the stages
+    other than the first return at once."""
     dev = resolve_device(device)
+    mesh = get_mesh()
+    if mesh is not None and mesh.coords.get("pipe", 0) > 0:
+        return
     vit_cfg = mae_cfg.encoder_vit_config(num_classes=num_classes, global_pool=True)
     model = build_grafted_vit(mae_sd, mae_cfg, vit_cfg, dev)
-    d, size = data_coords()
+    d, size = data_coords(mesh)
     loader = Loader(dataset_no_aug, batch_size, indices=ids, shuffle=False, drop_last=False,
                     shard_rows=(d, size) if size > 1 else None)
     feats, labels = loader_features(model, loader, batch_size, dev)
@@ -404,7 +456,7 @@ def pretrain_kfold(
     Runs on `cuda` unless `device` names another device, and raises when
     CUDA is asked for and absent. `n_devices` > 1: one of that many ranks
     (module docstring)."""
-    d, _ = check_supported(train_cfg, n_devices)
+    check_supported(train_cfg, n_devices)
     dev = resolve_device(device)
     transforms = default_ssl_transforms()
     if data_cfg.name == "egd":
@@ -441,7 +493,7 @@ def pretrain_kfold(
         labels, n_splits, index_dir=os.path.join(work_dir, "k_fold", "indices_file")
     ))
 
-    tb = TBWriter(os.path.join(work_dir, "logs")) if d == 0 else Discard()
+    tb = TBWriter(os.path.join(work_dir, "logs")) if is_writer() else Discard()
     results = {}
     feat_dir = os.path.join(work_dir, "ssl_features_dir")
     try:

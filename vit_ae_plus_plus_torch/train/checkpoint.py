@@ -18,7 +18,8 @@ the previous file whole:
 The weight bridge reads exactly two inputs:
 
 - `params_from_jax(tree, patch_size, in_chans, batch_stats)`: a JAX param
-  tree (MAE, ViT, 3D ResNet or MoCo) and its flax `batch_stats` tree (the
+  tree (MAE, ViT, 3D ResNet or MoCo; a MAE's also in the pipeline's
+  stacked layout) and its flax `batch_stats` tree (the
   contrastive heads', the ResNet's, the MoCo heads'), as nested dicts of
   arrays, e.g. loaded by the JAX package and passed on as numpy;
 - `load_reference_state_dict(path)`: the `.pth` that the JAX package's
@@ -207,6 +208,23 @@ def _vgg_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _unstack_pp(tree: Dict) -> Dict:
+    """JAX `from_pp_params` (parallel/pp.py there) on nested dicts of
+    arrays: each 'enc_stack' / 'dec_stack' subtree of (L, ...) leaves back
+    to its per-layer `blocks_{i}` / `decoder_blocks_{i}` subtrees."""
+    out = {k: v for k, v in tree.items() if k not in ("enc_stack", "dec_stack")}
+    for stack, prefix in (("enc_stack", "blocks_"), ("dec_stack", "decoder_blocks_")):
+        if stack in tree:
+            depth = len(next(iter(v for _, v in _flatten(tree[stack]))))
+            for i in range(depth):
+                out[f"{prefix}{i}"] = _map_leaves(tree[stack], lambda a, i=i: np.asarray(a)[i])
+    return out
+
+
+def _map_leaves(tree: Dict, fn) -> Dict:
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
 def params_from_jax(
     tree: Dict, patch_size: Optional[int] = None, in_chans: int = 1, batch_stats: Optional[Dict] = None
 ) -> Dict[str, torch.Tensor]:
@@ -219,7 +237,11 @@ def params_from_jax(
     kw, cin, cout) to (cout, cin, kd, kh, kw); a MoCo tree (top-level
     `trunk`, `projector`, `predictor`, either trunk) and a contrastive ViT
     tree (top-level `trunk`, `heads`) take their trunk's arguments; a VGG16
-    tree (top-level `conv_0`) needs none."""
+    tree (top-level `conv_0`) needs none. A MAE or ViT tree in JAX's
+    pipeline layout (`to_pp_params`: 'enc_stack' / 'dec_stack') is
+    unstacked to its layers first."""
+    if "enc_stack" in tree or "dec_stack" in tree:
+        tree = _unstack_pp(tree)
     if "conv_0" in tree:
         return _vgg_state_dict(tree)
     if "trunk" in tree and "projector" in tree:
@@ -280,13 +302,17 @@ class CheckpointManager:
     and only a manager made with `write` (the writer rank's) writing, and
     restored by cutting the whole leaves to this rank's blocks; so a run
     written under data parallelism resumes under FSDP, and the other way
-    round."""
+    round. A GPipe stage (`stage`, parallel/pp.py) writes and reads its own
+    file, `checkpoint-stage{p}.pth`, with its blocks and their moments: the
+    training layout, which a run resumes only with the same number of
+    stages, as the JAX package's stacked orbax checkpoints."""
 
-    def __init__(self, directory: str, write: bool = True):
+    def __init__(self, directory: str, write: bool = True, stage: Optional[int] = None):
         self.write = write
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
-        self.path = os.path.join(self.directory, "checkpoint.pth")
+        name = "checkpoint.pth" if stage is None else f"checkpoint-stage{stage}.pth"
+        self.path = os.path.join(self.directory, name)
 
     def save(self, state, epoch: int, min_loss: float = float("inf")) -> None:
         """Write the state whole; collective on a sharded state, where every

@@ -36,7 +36,10 @@ and updates them elementwise; its moments, traces and running mean are
 created from the blocks. Where a rule needs a norm it takes the whole
 leaf's or the whole model's: the sum of squares of a sharded leaf's
 blocks summed over the axes it is sharded on (`leaf_norms`), the global
-norm those sums plus the replicated leaves' once each (`global_norm`).
+norm those sums plus the replicated leaves' once each (`global_norm`). A
+GPipe stage's blocks (parallel/pp.py) are placed on 'pipe': each is whole
+on its stage, and the global norm adds their sums of squares over the
+stages.
 `rebuild(model)` makes the same optimizer over a model's new parameters,
 as the JAX package's sharding functions re-run `tx.init`.
 """

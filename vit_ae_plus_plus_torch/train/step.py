@@ -35,6 +35,12 @@ sharded over 'data': each sharded leaf's gradient arrives reduce-scattered
 (summed over 'data', models/vit.py gathers the leaves at their use) and is
 divided by D, the replicated leaves' are all-reduced, and the global norm
 and the clip take each leaf whole (train/optim.py).
+
+On a ('data', 'pipe') mesh the forward is the GPipe pipeline's
+(parallel/pp.py `make_pp_train_step` passes it as `forward_fn`): each
+stage holds its blocks, the gradients are averaged over its 'data' group
+as above, and the global norm sums the stages' blocks over 'pipe' and
+counts the leaves every stage holds once.
 """
 
 from __future__ import annotations

@@ -27,10 +27,11 @@ Semantics
 * A second live holder raises :class:`WorkdirLockedError` naming the
   holder's pid and the remediation.
 
-Under an ambient mesh with data > 1 the ranks of the 'data' group are one
-run: the group's first rank takes the lock, the others wait on it and
-write nothing (the pipelines leave every file to the first rank), and all
-of them fail if the lock is refused.
+Under an ambient mesh of more than one rank (a data mesh, or the ('data',
+'pipe') mesh of a pipelined run) the mesh's ranks are one run: its first
+rank takes the lock, the others wait on it and write nothing (the
+pipelines leave every file to the first rank), and all of them fail if
+the lock is refused.
 
 Scope: single host (flock does not span NFS reliably).
 """
@@ -45,9 +46,7 @@ import threading
 import time
 from typing import Dict
 
-import torch.distributed
-
-from vit_ae_plus_plus_torch.parallel import data_coords, get_mesh
+from vit_ae_plus_plus_torch.parallel import broadcast_object, get_mesh, is_writer
 
 _LOCK_NAME = ".writer.lock"
 # realpath -> [fd, hold_count]; the open fd IS the lock
@@ -143,26 +142,25 @@ def locked_workdir(fn):
     def wrapper(*args, **kwargs):
         work_dir = sig.bind_partial(*args, **kwargs).arguments["work_dir"]
         mesh = get_mesh()
-        d, size = data_coords(mesh)
-        if size > 1:
-            # one run on `size` ranks: the first holds the lock for all, and
-            # the others learn whether it did before they touch anything
-            refusal = [None]
-            if d == 0:
+        first = is_writer(mesh)
+        if mesh is not None and any(mesh.size(a) > 1 for a in mesh.shape):
+            # one run on the mesh's ranks: the first holds the lock for all,
+            # and the others learn whether it did before they touch anything
+            refusal = None
+            if first:
                 try:
                     acquire_workdir_lock(work_dir)
                 except WorkdirLockedError as e:
-                    refusal[0] = str(e)
-            torch.distributed.broadcast_object_list(refusal, src=mesh.ranks["data"][0],
-                                                    group=mesh.groups["data"])
-            if refusal[0] is not None:
-                raise WorkdirLockedError(refusal[0])
+                    refusal = str(e)
+            refusal = broadcast_object(refusal, mesh)
+            if refusal is not None:
+                raise WorkdirLockedError(refusal)
         else:
             acquire_workdir_lock(work_dir)
         try:
             return fn(*args, **kwargs)
         finally:
-            if d == 0:
+            if first:
                 release_workdir_lock(work_dir)
 
     return wrapper
