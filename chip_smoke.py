@@ -49,6 +49,13 @@ non-zero exit when it fails:
    neighbour; probabilities within 0.05, same argmax), 12 per-head
    launches a fold and slab; each path's device ms per slab printed
    beside bf16 features, and a profile of the int8 feature slab;
+   4d. the engine artifacts (serving_aot.py): `save_engine` then
+   `load_engine` of phase 3's bf16 feature engine and 4c's int8 feature
+   engine and classifier, each load and its first slab with an empty
+   kernel build directory: no nvcc run, the loaded slab equal to the built
+   engine's bitwise, the same launches; each artifact's MB, save seconds
+   and seconds from the load to the first answer printed beside the
+   seconds of building and warming the engine;
 5. the full-width MAE pretraining step (96^3, patch 8, batch 8, bf16,
    ViT-B encoder over 2B = 16 masked views, 8-block decoder, composite loss,
    AdamW) from seeded numpy weights and batch statistics through
@@ -278,6 +285,17 @@ non-zero exit when it fails:
    a phase 2 or phase 6 row. Prints each rank's resident parameter and
    optimizer bytes beside the replicated figure, peak memory, host-staged
    bytes and step wall time, and the phase's seconds;
+   7f. the GPipe pipeline (PIPE_RUNS, `check_pipe`);
+   7g. the serving mesh over the same ranks: phase 4c's bf16 and int8
+   feature engines and 5-fold classifier on a (4, 1) mesh, rank 0
+   answering phase 4c's slab (each rank runs its 2 rows) against the
+   one-process engines within ENGINE_TOL / CLASSIFY_TOL, every rank's
+   launches of one slab, each rank's device ms per slab and host-staged
+   bytes printed;
+   7h. on a (2, 2) mesh of the same ranks, one f32 step each of MoCo-ViT,
+   MoCo-ResNet and the contrastive model against phases 5g's and 5h's
+   one-process steps under their f32 gates, the parameters equal on all 4
+   ranks (one digest), the launches of each rank;
 8. print one JSON line of kernels, the card's name and power limit, and as
    the last line `{"ok": true, "device": {...}}`. Each kernel row names
    the CUDA bodies it launched (`body`). Each kernel row's
@@ -4313,6 +4331,98 @@ def classify_phase(engine, tree: dict, rows: list, feature_ms: float) -> None:
           + ", ".join(f"{k} {v:.2f}" for k, v in times.items()), flush=True)
     profile_run(lambda: q_feat._step(slab), "int8 feature slab", times["int8 features"])
     print(f"classify phase {time.perf_counter() - t0:.1f}s", flush=True)
+    return q_feat, ens
+
+
+@contextlib.contextmanager
+def cold_kernels(counter: dict):
+    """A process state as at a fresh start: the kernel build directory an
+    empty temporary one and no library loaded; every nvcc run counted in
+    `counter["nvcc"]`. Restores the build directory and the loaded
+    libraries after."""
+    from unittest import mock
+
+    from vit_ae_plus_plus_torch.kernels import _build
+
+    popen = subprocess.Popen
+
+    def counted(cmd, *a, **k):
+        if "nvcc" in os.path.basename(str(cmd[0])):
+            counter["nvcc"] += 1
+        return popen(cmd, *a, **k)
+
+    loaded, files = dict(_build._loaded), dict(_build._files)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_build_") as empty:
+        _build._loaded.clear()
+        _build._files.clear()
+        try:
+            with mock.patch.object(_build, "BUILD_DIR", Path(empty)), \
+                    mock.patch.object(_build.subprocess, "Popen", counted):
+                yield Path(empty)
+        finally:
+            _build._loaded.clear()
+            _build._loaded.update(loaded)
+            _build._files.clear()
+            _build._files.update(files)
+
+
+def artifact_phase(engines: dict, vols: np.ndarray, tree: dict, rows: list) -> None:
+    """Phase 4d: `save_engine` then `load_engine` for phase 3's bf16 feature
+    engine, 4c's int8 feature engine and 5-fold classifier. Each load and
+    its first slab run in `cold_kernels` (an empty build directory): no
+    nvcc run, the shipped libraries only; the loaded slab equal to the
+    built engine's bitwise, with the same launches. Prints each artifact's
+    MB, the save seconds, the seconds from the load to the first slab's
+    answer, and beside them the seconds of building the bf16 feature
+    engine from its weights and warming it with the kernels already built
+    (a cold start adds phase 1's nvcc seconds). -> each built engine's
+    answers on `vols`, by name (phase 7g's references)."""
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+    from vit_ae_plus_plus_torch.serving import FeatureEngine
+    from vit_ae_plus_plus_torch.serving_aot import load_engine, save_engine
+
+    t_phase = time.perf_counter()
+    answers = {}
+    common = dict(model_name=MODEL, volume_size=VOLUME, patch_size=PATCH, batch_size=BATCH)
+    t0 = time.perf_counter()
+    FeatureEngine(mae_params=tree, **common).warmup()
+    build_s = time.perf_counter() - t0
+    gc.collect()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_engine_") as tmp:
+        for name, engine in engines.items():
+            want, want_counts = path_launches(engine, vols)
+            answers[name] = want
+            path = os.path.join(tmp, f"{name}.vitae")
+            t0 = time.perf_counter()
+            meta = save_engine(engine, path)
+            save_s = time.perf_counter() - t0
+            counter = {"nvcc": 0}
+            with cold_kernels(counter) as empty:
+                t0 = time.perf_counter()
+                loaded = load_engine(path)
+                reset_launch_counts()
+                got = loaded.infer(vols)
+                first_s = time.perf_counter() - t0
+                counts = shape_counts()
+                built = sorted(p.name for p in empty.rglob("*.so"))
+            mb = os.path.getsize(path) / 2**20
+            same = bool(np.array_equal(got, want))
+            print(f"artifact {name} ({card_line()}): {mb:.1f} MB ({len(meta['weights'])} tensors, kernels "
+                  f"{sorted(meta['kernels'])}), save {save_s:.2f} s; load to first slab's answer {first_s:.2f} s with "
+                  f"an empty build directory ({counter['nvcc']} nvcc runs; libraries in it after: {built}); the "
+                  f"loaded slab equals the built engine's bitwise: {same}; launches {totals(counts)}", flush=True)
+            check(counter["nvcc"] == 0, f"artifact {name}: {counter['nvcc']} nvcc runs while loading")
+            check(same, f"artifact {name}: the loaded slab differs from the built engine's by "
+                  f"{float(np.abs(got - want).max()):.3g}")
+            check(counts == want_counts, f"artifact {name}: the loaded slab launched {counts} (built {want_counts})")
+            check(all(n.startswith("lib") for n in built) and len(built) == len(meta["kernels"]) > 0,
+                  f"artifact {name}: libraries {built} for {sorted(meta['kernels'])}")
+            note_launches(rows, counts, f"artifact_{name}", f"load_engine(the {name} artifact).infer, one slab")
+            del loaded
+            gc.collect()
+    print(f"artifact phase ({card_line()}): the bf16 feature engine built from its weights and warmed in "
+          f"{build_s:.2f} s with the kernels already built; {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return answers
 
 
 def fused_vit_phase(engine, vols, engine_feats, rows) -> None:
@@ -4577,6 +4687,7 @@ def rank_peak_and_diff(model, mesh) -> dict:
     first = flat.clone()
     dist.broadcast(first, src=mesh.ranks["data"][0], group=mesh.groups["data"])
     return {"params_max_diff": float((flat - first).abs().max()),
+            "params_sha": hashlib.sha256(flat.float().numpy().tobytes()).hexdigest(),
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
@@ -5415,6 +5526,190 @@ def check_pipe(results: list, rows: list) -> None:
           f"rank ({card})", flush=True)
 
 
+# phase 7g: the serving mesh on phase 7's ranks (gloo, all on the one card:
+# correctness, launches and staged bytes; no speed-up is possible on one
+# card). The bf16 and int8 feature engines and the 5-fold classifier on a
+# (4, 1) mesh, each slab of BATCH volumes split into BATCH / 4 rows a rank
+SERVING_MESH_RUNS = ("features", "int8", "classify")
+SERVING_MESH_REPS = 3  # timed slabs after the checked one
+
+
+def mesh_engine(name: str, mesh):
+    """Phase 4c's engine `name` (phase 3's weights; the classifier's folds
+    over them) on the serving mesh `mesh`."""
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+    from vit_ae_plus_plus_torch.serving import ClassifierEngine, FeatureEngine
+
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    tree = mae_encoder_tree(cfg, seed=0)
+    common = dict(model_name=MODEL, volume_size=VOLUME, patch_size=PATCH, batch_size=BATCH, mesh=mesh)
+    if name == "classify":
+        return ClassifierEngine(vit_params_list=classifier_trees(tree, cfg, FOLDS), **common)
+    return FeatureEngine(mae_params=tree, quantize="int8" if name == "int8" else "none", **common)
+
+
+def group_serving() -> dict:
+    """Phase 7g on one rank: each of SERVING_MESH_RUNS on a (4, 1) serving
+    mesh. Rank 0 answers phase 4c's slab (`classify_volumes`) with the
+    counts set to 0 just before and read just after, then SERVING_MESH_REPS
+    more slabs, and stops the others after each; the others follow. Each
+    rank's device ms per slab of its rows (CUDA events around the step),
+    its host stagings through `_to_host` (the outputs' gather, the
+    messages) and the rows it received from rank 0's host buffer."""
+    import torch
+
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+    from vit_ae_plus_plus_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(GROUP_RANKS, 1)
+    first = mesh.coords["data"] == 0
+    vols = classify_volumes()
+    out = {}
+    for name in SERVING_MESH_RUNS:
+        engine = mesh_engine(name, mesh)
+        step, ms = engine._step, []
+
+        def timed(batch, step=step, ms=ms):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = step(batch)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            return res
+
+        engine._step = timed
+        staged = {"bytes": 0, "calls": 0}
+        res = {}
+        with staged_bytes(staged):
+            reset_launch_counts()
+            if first:
+                res["answers"] = engine.infer(vols)
+                engine.stop_followers()
+            else:
+                res["slabs"] = engine.follow()
+            res["counts"] = shape_counts()
+            res["staged_bytes"], res["staged_calls"] = staged["bytes"], staged["calls"]
+            if first:
+                for _ in range(SERVING_MESH_REPS):
+                    engine.infer(vols)
+                engine.stop_followers()
+            else:
+                res["slabs"] += engine.follow()
+        res["rows"] = vols[:BATCH // GROUP_RANKS].nbytes
+        res["ms"] = ms
+        out[name] = res
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def group_mesh_steps(references: dict) -> dict:
+    """Phase 7h on one rank: on a (2, 2) mesh, one f32 step each of
+    MoCo-ViT and MoCo-ResNet (phase 5g's weights and views, `ddp_moco`)
+    and of the contrastive model (5h's, `ddp_contrastive`) on the rows of
+    this rank's data coordinate."""
+    from vit_ae_plus_plus_torch.parallel import barrier, make_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(2, 2)
+    out = {}
+    for arch in ("vit", "resnet"):
+        barrier(mesh, "model")
+        barrier(mesh, "data")
+        out[f"moco_{arch}"] = ddp_moco(mesh, references["moco"][arch]["float32"], arch, "float32", 1)
+    out["contrastive"] = ddp_contrastive(mesh, references["contrastive"])
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def check_serving_mesh(results: list, rows: list, refs: dict) -> None:
+    """Phase 7g's limits: rank 0's answers against phase 4c's one-process
+    engines (ENGINE_TOL in bf16 for the features and the int8 features,
+    CLASSIFY_TOL["plain"] for the probabilities), every rank's launches of
+    one slab of its rows, every follower's slabs."""
+    card = card_line()
+    b = BATCH // GROUP_RANKS
+    key = (b, 12, (VOLUME // PATCH) ** 3 + 1, 64, "bfloat16")
+    want_counts = {"features": {("packed_flash_fwd", key): 12}, "int8": {("flash_fwd", key): 12},
+                   "classify": {("packed_flash_fwd", key): 12 * FOLDS}}
+    for name in SERVING_MESH_RUNS:
+        got, want = results[0]["serving"][name]["answers"], refs["serving"][name]
+        if name == "classify":
+            err, tol = float(np.abs(got - want).max()), CLASSIFY_TOL["plain"]
+        else:
+            err, tol = rel_err(got, want), ENGINE_TOL["bfloat16"]
+        check(got.shape == want.shape and bool(np.isfinite(got).all()), f"7g {name}: answers {got.shape}")
+        print(f"7g serving mesh ({GROUP_RANKS}, 1) {name}: rank 0's answers to phase 4c's slab vs the one-process "
+              f"engine's {err:.3g} (tol {tol}); {card}, information only: device ms per slab of {b} rows by rank "
+              + "; ".join(f"{r}: " + ", ".join(f"{x:.2f}" for x in res["serving"][name]["ms"])
+                          for r, res in enumerate(results))
+              + "; host stagings of the checked slab by rank "
+              + ", ".join(f"{res['serving'][name]['staged_calls']} of {res['serving'][name]['staged_bytes'] / 1e3:.1f} kB"
+                          for res in results)
+              + f" (besides {b} volumes of {results[0]['serving'][name]['rows'] / 1e6:.1f} MB scattered from rank 0's "
+              f"host slab to each other rank)", flush=True)
+        check(err <= tol, f"7g {name}: the mesh engine's answers vs one process's: {err:.3g}")
+        for rank, res in enumerate(results):
+            r = res["serving"][name]
+            check(r["counts"] == want_counts[name], f"7g rank {rank} {name}: one slab launched {r['counts']} "
+                  f"(want {want_counts[name]})")
+            if rank:
+                check(r["slabs"] == 1 + SERVING_MESH_REPS, f"7g rank {rank} {name}: followed {r['slabs']} slabs")
+        counts = results[0]["serving"][name]["counts"]
+        unrowed = sorted(k for k in counts if not any((r["name"], r["key"]) == k for r in rows))
+        check(not unrowed, f"7g {name} launched kernels at shapes that no row holds against plain: {unrowed}")
+        fill_launches(rows, counts, f"the {name} engine on a ({GROUP_RANKS}, 1) serving mesh, one slab, rank 0")
+        note_launches(rows, counts, f"serving_mesh_{name}", f"the {name} engine on a ({GROUP_RANKS}, 1) serving "
+                      "mesh, one slab, rank 0")
+    print(f"7g serving mesh phase: " + ", ".join(f"rank {r} {res['serving']['seconds']:.1f} s"
+                                                  for r, res in enumerate(results)) + f" ({card})", flush=True)
+
+
+def check_mesh_steps(results: list, rows: list, refs: dict) -> None:
+    """Phase 7h's limits: each rank's f32 MoCo (both trunks) and contrastive
+    step on (2, 2) against phases 5g's and 5h's one-process steps within
+    those phases' f32 gates, the parameters after the step equal on all 4
+    ranks (one digest), and the launches of the rows of a data
+    coordinate."""
+    card = card_line()
+
+    def line(errs: dict) -> str:
+        return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+
+    runs = {"moco_vit": (refs["moco"]["vit"]["float32"]["limits"], moco_step_launches("float32", BATCH // 2)),
+            "moco_resnet": (refs["moco"]["resnet"]["float32"].get("limits"), {}),
+            "contrastive": (None, contrastive_launches("float32", BATCH // 2))}
+    tol = STEP_TOL["float32"]
+    for name, (limits, want_counts) in runs.items():
+        shas = set()
+        for rank, res in enumerate(results):
+            t = res["mesh_steps"][name]
+            counts = t["steps"][0]["counts"] if "steps" in t else t["counts"]
+            if name == "contrastive":
+                bad = {k: v for k, v in t["errs"].items() if v > (tol["loss"] if k == "loss" else tol["grad"])}
+            else:
+                bad = {k: v for k, v in t["errs"].items() if limits and v > limits[k]}
+            print(f"7h rank {rank} (d, m) = ({rank // 2}, {rank % 2}) {name} f32 step on (2, 2) vs the one-process "
+                  f"step: {line(t['errs'])}; parameters' digest {t['params_sha'][:12]}; {card}, information only: "
+                  f"peak {t['peak_gib']:.2f} GiB", flush=True)
+            check(limits is not None or name == "contrastive", f"7h {name}: phase 5g has no f32 limits")
+            check(not bad, f"7h rank {rank} {name} step on (2, 2): {bad}")
+            check(counts == want_counts, f"7h rank {rank} {name}: launched {counts} (want {want_counts})")
+            shas.add(t["params_sha"])
+        check(len(shas) == 1, f"7h {name}: the parameters after the step differ across the 4 ranks")
+        counts = results[0]["mesh_steps"][name]
+        counts = counts["steps"][0]["counts"] if "steps" in counts else counts["counts"]
+        unrowed = sorted(k for k in counts if not any((r["name"], r["key"]) == k for r in rows))
+        check(not unrowed, f"7h {name} launched kernels at shapes that no row holds against plain: {unrowed}")
+        fill_launches(rows, counts, f"the f32 {name} step on a (2, 2) mesh, rank 0")
+    print(f"7h (D, M > 1) steps phase: " + ", ".join(f"rank {r} {res['mesh_steps']['seconds']:.1f} s"
+                                                      for r, res in enumerate(results)) + f" ({card})", flush=True)
+
+
 def rank_mesh():
     """A rank of phase 7: the one card, f32 kept f32, and the (1, 4) mesh."""
     import torch
@@ -5433,7 +5728,8 @@ def group_rank(rank: int, references: dict, paths: dict) -> dict:
     mesh = rank_mesh()
     return {"attention": group_attention(mesh), "vit": group_vit(mesh),
             "train": group_train(mesh, references["step"]), "ddp": group_ddp(references, paths),
-            "sharded": group_sharded(references), "pipe": group_pipe(references, paths)}
+            "sharded": group_sharded(references), "pipe": group_pipe(references, paths),
+            "serving": group_serving(), "mesh_steps": group_mesh_steps(references)}
 
 
 def attention_rank(rank: int) -> dict:
@@ -5813,7 +6109,7 @@ def check_ddp_moco(results: list, rows: list, refs: dict, paths: dict, rowed) ->
             row["contrastive_ddp_launches"] = n
 
 
-def group_phase(rows: list, reference: dict, paths: dict, moco: dict, contrastive: dict) -> None:
+def group_phase(rows: list, reference: dict, paths: dict, moco: dict, contrastive: dict, serving: dict) -> None:
     """Phase 7: run `group_rank` on 4 spawned ranks and hold their numbers
     to the limits; fills the ring rows' `launches` from rank 0's runs, and
     7d's per-rank rows'. `moco` and `contrastive`: phases 5g's and 5h's
@@ -5824,6 +6120,7 @@ def group_phase(rows: list, reference: dict, paths: dict, moco: dict, contrastiv
     from vit_ae_plus_plus_torch.parallel import padded_len
 
     refs = ddp_references(reference, paths, moco, contrastive)
+    refs["serving"] = serving
     gc.collect()
     torch.cuda.empty_cache()
     results = run_group(group_rank, refs, paths)
@@ -5886,6 +6183,8 @@ def group_phase(rows: list, reference: dict, paths: dict, moco: dict, contrastiv
     check_ddp(results, rows, refs, paths)  # 7d
     check_sharded(results, rows, refs)  # 7e
     check_pipe(results, rows)  # 7f
+    check_serving_mesh(results, rows, refs)  # 7g
+    check_mesh_steps(results, rows, refs)  # 7h
 
 
 def main(argv) -> int:
@@ -6011,6 +6310,11 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     rows += [case(label, "packed", *shape, dtype, seed=110 + i)
              for i, (case, label, shape, dtype) in enumerate(ddp_cases(cfg))]
+    # the int8 engine on a rank of phase 7g's serving mesh: the per-head
+    # kernel at BATCH / 4 volumes (the bf16 engines' packed rows at that
+    # shape are the extraction rows above)
+    rows.append(kernel_case("per-head bf16 N1729 d64 (int8 engine, a rank of 4)", "per_head", BATCH // GROUP_RANKS,
+                            12, cfg.num_patches + 1, 64, "bfloat16", seed=140))
     print(f"data-parallel kernel cases {time.perf_counter() - t0:.1f}s", flush=True)
     # the per-head kernels at phase 7e's TP shapes (H / M heads a rank)
     t0 = time.perf_counter()
@@ -6088,7 +6392,13 @@ def main(argv) -> int:
 
     # phase 4c: the classifier ensemble, /predict, NIfTI and resized
     # requests, the int8 engines
-    classify_phase(engine, tree, rows, device_ms)
+    q_feat, ens = classify_phase(engine, tree, rows, device_ms)
+    # phase 4d: the engine artifacts (compile-engine / serve --engine)
+    serving_refs = artifact_phase({"features": engine, "int8": q_feat, "classify": ens}, classify_volumes(),
+                                  tree, rows)
+    del q_feat, ens
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # phase 5: the pretraining step at full width (5b: ln_fusion="on")
     t0 = time.perf_counter()
@@ -6154,7 +6464,7 @@ def main(argv) -> int:
                  **{name: str(Path(tmp) / f"ddp_{name}")
                     for name in ("ranks_work", "one_work", "control_work", "ranks_features", "moco_ranks_work",
                                  "moco_one_work", "moco_control_work", "moco_nudged_work", "pipe_work")}}
-        group_phase(rows, reference, paths, moco_refs, contrastive_ref)
+        group_phase(rows, reference, paths, moco_refs, contrastive_ref, serving_refs)
     for row in rows:
         if row["launches"] is None:
             row["launches"], row["path"] = 0, "none: a reference case at a shape no path runs"

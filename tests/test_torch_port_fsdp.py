@@ -571,10 +571,11 @@ def mae_gate(got, want, tol=TOL) -> float:
     return float(max(ratios))
 
 
-def jax_moco_fsdp(weights, data=4, steps=2):
+def jax_moco_fsdp(weights, data=4, steps=2, model_axis=1, vit=None):
     """JAX `make_moco_train_step` with LARS on the state of
-    `shard_moco_state_fsdp` over a data mesh, f64 -> (each step's loss, the
-    base and momentum leaves, the LARS traces, the statistics)."""
+    `shard_moco_state_fsdp` over a (data, model) mesh, f64 (the trunk
+    `md.VIT`, or `vit`) -> (each step's loss, the base and momentum leaves,
+    the LARS traces, the statistics)."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -588,14 +589,14 @@ def jax_moco_fsdp(weights, data=4, steps=2):
     x1, x2 = md.moco_views()
     base, mom = weights["base"], weights["momentum"]
     with md.x64():
-        model = md._jax_moco_model("vit")
+        model = md._jax_moco_model("vit", vit)
         tx = jax_lars(md.MOCO_LR)
         copy = lambda tree: jax.tree.map(jnp.array, tree)  # noqa: E731
         state = jmk.MoCoState(step=jnp.zeros((), jnp.int32), params=copy(base["params"]),
                               batch_stats=copy(base["batch_stats"]), momentum_params=copy(mom["params"]),
                               momentum_batch_stats=copy(mom["batch_stats"]), opt_state=tx.init(base["params"]),
                               tx=tx)
-        mesh = jax_mesh(data=data, devices=jax.devices()[:data])
+        mesh = jax_mesh(data=data, model=model_axis, devices=jax.devices()[:data * model_axis])
         state, shardings = jax_shard(state, mesh, min_size=MIN)
         step = jmk.make_moco_train_step(model, mesh=mesh, state_shardings=shardings)
         losses = []
@@ -614,16 +615,16 @@ def jax_moco_fsdp(weights, data=4, steps=2):
             "trace": named(trace.trace)}
 
 
-def run_moco(mesh, weights, control_name=None, steps=2):
-    """The port's MoCo ViT step (f64, LARS) with the FSDP state over `mesh`
-    on this rank's rows, `steps` steps -> as `jax_moco_fsdp`, and the
-    rank's own tensors."""
+def run_moco(mesh, weights, control_name=None, steps=2, vit=None):
+    """The port's MoCo ViT step (f64, LARS; the trunk `md.VIT`, or `vit`)
+    with the FSDP state over `mesh` on this rank's rows, `steps` steps -> as
+    `jax_moco_fsdp`, and the rank's own tensors."""
     import test_torch_port_moco_ddp as md
     from vit_ae_plus_plus_torch.pipelines import moco_kfold as tmk
     from vit_ae_plus_plus_torch.train.optim import make_lars
 
-    model = md._port_moco("vit", weights["base"])
-    mom = md._port_moco("vit", weights["momentum"]).base_encoder
+    model = md._port_moco("vit", weights["base"], vit)
+    mom = md._port_moco("vit", weights["momentum"], vit).base_encoder
     state = tmk.create_moco_state(model, make_lars(md.MOCO_LR))
     state.momentum_encoder.load_state_dict(mom.state_dict(), strict=True)
     state, _ = fsdp.shard_moco_state_fsdp(state, mesh, MIN)

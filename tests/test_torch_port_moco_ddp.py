@@ -68,13 +68,12 @@ MOCO_TOL = {"vit": dict(loss=1e-9, grads=1e-9, stats=1e-9, atol=1e-12),
 
 @contextlib.contextmanager
 def x64():
+    """JAX in f64 inside the block, in this thread only (the references of
+    tests/test_torch_port_ring_flash.py run in threads beside each other)."""
     import jax
 
-    jax.config.update("jax_enable_x64", True)
-    try:
+    with jax.enable_x64(True):
         yield
-    finally:
-        jax.config.update("jax_enable_x64", False)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -182,23 +181,26 @@ def seeded(shapes, seed):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
-def _jax_moco_model(arch):
+def _jax_moco_model(arch, vit=None):
+    """The JAX package's MoCo model of `arch`; the ViT trunk `VIT`, or
+    `vit` (its attention 'xla' where the port's is 'plain')."""
     from vit_ae_plus_plus_tpu.configs import DataConfig as JDataConfig
     from vit_ae_plus_plus_tpu.pipelines import moco_kfold as jmk
 
-    return jmk.build_moco_model(JDataConfig(volume_size=VOL), "float64", arch, **MOCO)
+    overrides = VIT if vit is None else {**vit, "attn_impl": "xla"} if vit.get("attn_impl") == "plain" else vit
+    return jmk.build_moco_model(JDataConfig(volume_size=VOL), "float64", arch, **{**MOCO, "vit_overrides": overrides})
 
 
-def jax_moco_weights(arch):
+def jax_moco_weights(arch, vit=None):
     """The base model's and the momentum encoder's variables (f64 numpy) of
-    the JAX package's MoCo model of `arch`."""
+    the JAX package's MoCo model of `arch` (`_jax_moco_model`)."""
     import functools
 
     import jax
     import jax.numpy as jnp
 
     with narrow(arch, in_jax=True), x64():
-        model = _jax_moco_model(arch)
+        model = _jax_moco_model(arch, vit)
         shapes = jax.eval_shape(functools.partial(model.init, use_predictor=True), {"params": jax.random.PRNGKey(0)},
                                 jnp.zeros((2, 1, VOL, VOL, VOL)))
     return {"base": seeded(shapes, 52), "momentum": seeded(shapes, 53)}
@@ -217,10 +219,11 @@ def _keeps_grads():
         lambda grads, state, params=None: (jax.tree.map(jnp.zeros_like, grads), grads))
 
 
-def jax_ddp_moco(arch, weights):
-    """JAX `make_moco_train_step` on a data mesh of 2 and of 4 over the
-    global batch -> {D: (loss, gradients as a state dict, the base model's
-    and the momentum encoder's running statistics after the step)}."""
+def jax_ddp_moco(arch, weights, meshes=((2, 1), (4, 1))):
+    """JAX `make_moco_train_step` on each (data, model) mesh of `meshes`
+    over the global batch -> {(D, M): (loss, gradients as a state dict, the
+    base model's and the momentum encoder's running statistics after the
+    step)}."""
     import jax
     import jax.numpy as jnp
 
@@ -233,13 +236,14 @@ def jax_ddp_moco(arch, weights):
     with narrow(arch, in_jax=True), x64():
         model = _jax_moco_model(arch)
         tx = _keeps_grads()
-        for data in (2, 4):
+        for data, model_axis in meshes:
             copy = lambda tree: jax.tree.map(jnp.array, tree)  # noqa: E731  (the step donates its state)
             state = jmk.MoCoState(step=jnp.zeros((), jnp.int32), params=copy(base["params"]),
                                   batch_stats=copy(base["batch_stats"]), momentum_params=copy(mom["params"]),
                                   momentum_batch_stats=copy(mom["batch_stats"]), opt_state=tx.init(base["params"]),
                                   tx=tx)
-            step = jmk.make_moco_train_step(model, mesh=jax_mesh(data=data, devices=jax.devices()[:data]))
+            mesh = jax_mesh(data=data, model=model_axis, devices=jax.devices()[:data * model_axis])
+            step = jmk.make_moco_train_step(model, mesh=mesh)
             new, metrics = step(state, jnp.asarray(x1), jnp.asarray(x2), jnp.float32(MOCO_M))
             new = jax.device_get(new)
             grads = params_from_jax(jax.tree.map(np.asarray, new.opt_state), PATCH, 1)
@@ -248,14 +252,15 @@ def jax_ddp_moco(arch, weights):
             stats = {k: v.numpy() for k, v in stats.items() if k.endswith(("running_mean", "running_var"))}
             stats.update({f"momentum.{k}": v.numpy() for k, v in mom_stats.items()
                           if k.startswith("base_encoder.") and k.endswith(("running_mean", "running_var"))})
-            out[data] = (float(metrics["loss"]), {k: v.numpy() for k, v in grads.items()}, stats)
+            out[data, model_axis] = (float(metrics["loss"]), {k: v.numpy() for k, v in grads.items()}, stats)
     return out
 
 
-def _port_moco(arch, variables):
+def _port_moco(arch, variables, vit=None):
     from vit_ae_plus_plus_torch.pipelines import moco_kfold as tmk
 
-    model = tmk.build_moco_model(DataConfig(volume_size=VOL), "float64", arch, **MOCO).double()
+    model = tmk.build_moco_model(DataConfig(volume_size=VOL), "float64", arch,
+                                 **{**MOCO, "vit_overrides": vit or VIT}).double()
     model.load_state_dict(params_from_jax(variables["params"], PATCH, 1, variables["batch_stats"]), strict=True)
     return model
 
@@ -335,9 +340,10 @@ def jax_contrastive_weights():
     return seeded(shapes, 54)
 
 
-def jax_ddp_contrastive(weights):
-    """JAX `make_contrastive_step` on a data mesh of 2 over the global batch
-    -> (loss, gradients, the heads' running statistics after the step)."""
+def jax_ddp_contrastive(weights, data=2, model_axis=1):
+    """JAX `make_contrastive_step` on a (data, model) mesh, (2, 1) by
+    default, over the global batch -> (loss, gradients, the heads' running
+    statistics after the step)."""
     import jax
     import jax.numpy as jnp
 
@@ -350,7 +356,8 @@ def jax_ddp_contrastive(weights):
         params, bs = (jax.tree.map(jnp.array, weights[k]) for k in ("params", "batch_stats"))
         state = jc.ContrastiveState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=bs,
                                     opt_state=tx.init(params), tx=tx)
-        step = jc.make_contrastive_step(_jax_contrastive_model(), mesh=jax_mesh(data=2, devices=jax.devices()[:2]))
+        mesh = jax_mesh(data=data, model=model_axis, devices=jax.devices()[:data * model_axis])
+        step = jc.make_contrastive_step(_jax_contrastive_model(), mesh=mesh)
         new, metrics = step(state, jnp.asarray(orig), jnp.asarray(aug))
         new = jax.device_get(new)
     grads = params_from_jax(jax.tree.map(np.asarray, new.opt_state), PATCH, 1)

@@ -70,6 +70,13 @@ from the same numpy inputs):
   with `pipe_devices=2` on (2, 2) against one process's run, then a resume
   with another S refused: tests/test_torch_port_pp.py holds the cases'
   helpers and says what each checks.
+- the serving mesh: the feature, int8 and classifier engines on (2, 1),
+  (4, 1) and (8, 1) against JAX's mesh engines and the port's one-process
+  engines, with a control; the MoCo (both trunks) and contrastive steps on
+  (2, 2) and (2, 4) against JAX's steps on those meshes, with controls
+  that reduce over the whole mesh instead of 'data', and the MoCo ViT FSDP
+  step on (2, 2): tests/test_torch_port_serving_mesh.py holds the cases'
+  helpers and says what each checks.
 
 JAX is imported inside the functions that run it: the ranks import this
 module by name and need none of it.
@@ -116,6 +123,7 @@ from vit_ae_plus_plus_torch.train.step import feature_step
 import test_torch_port_fsdp as fs
 import test_torch_port_moco_ddp as md
 import test_torch_port_pp as ppt
+import test_torch_port_serving_mesh as sm
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 D = 32
@@ -341,6 +349,31 @@ def _group_rank(rank, tree, x, ddp):
     on(2, 1, "fsdp_cli_pretrain", lambda mesh: fs.run_cli_pretrain(mesh, ddp["dirs"]["data"], ddp["dirs"]["fsdp_cli"]))
     on(2, 1, "fsdp_cli_moco", lambda mesh: fs.run_cli_moco(mesh, ddp["dirs"]["data"], ddp["dirs"]["fsdp_cli"]))
 
+    serving = ddp["serving"]
+    for kind in sm.SERVE_KINDS:
+        for data in sm.SERVE_MESHES:
+            on(data, 1, f"serve_{kind}_{data}", lambda mesh: sm.run_serving(mesh, kind, serving))
+    on(4, 1, "serve_first_rows", lambda mesh: sm.run_serving(mesh, "features", serving, control=True))
+    for data, model in sm.STEP_MESHES:
+        for arch in MOCO_ARCHS:
+            on(data, model, f"mesh_moco_{arch}_{data}x{model}",
+               lambda mesh: sm.run_mesh_moco(mesh, arch, ddp[f"moco_{arch}"]))
+        on(data, model, f"mesh_contrastive_{data}x{model}", lambda mesh: sm.run_mesh_contrastive(mesh, ddp["contrastive"]))
+    for control in sm.STEP_CONTROLS:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            mesh = make_mesh(2, 2)
+        whole = torch.distributed.new_group(list(range(4)))  # collective: every rank of the world
+        if mesh is not None:
+            out[f"mesh_moco_{control}"] = (mesh.coords["data"], sm.run_mesh_moco(mesh, "vit", ddp["moco_vit"], control,
+                                                                                 whole))
+            if control == "world_grads":
+                out["mesh_contrastive_world_grads"] = (mesh.coords["data"], sm.run_mesh_contrastive(
+                    mesh, ddp["contrastive"], control, whole))
+    for case in sm.REPLICA_CASES:
+        on(2, 2, f"mesh_moco_{case}", lambda mesh: sm.run_mesh_moco(mesh, "vit", ddp["moco_vit"], case))
+    on(2, 2, "mesh_fsdp_moco", lambda mesh: fs.run_moco(mesh, ddp["moco_fsdp_vit"], vit=sm.FSDP_VIT))
+
     def on_pipe(data, pipe, name, run):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -420,6 +453,20 @@ def _pp_references(ddp):
             "pp_steps": {None: pipe_only, "data": fs.with_floor(ppt.jax_steps(pipes["steps"], "data"), pipe_only)}}
 
 
+def _mesh_references(ddp):
+    """The serving mesh's references (JAX's mesh engines and the port's
+    one-process ones) and the MoCo and contrastive steps' (JAX's MoCo,
+    contrastive and FSDP MoCo steps on the data meshes and on (D, M > 1))."""
+    return {"ddp_moco": {arch: md.jax_ddp_moco(arch, ddp[f"moco_{arch}"]) for arch in MOCO_ARCHS},
+            "ddp_contrastive": md.jax_ddp_contrastive(ddp["contrastive"]),
+            "fsdp_moco": fs.jax_moco_fsdp(ddp["moco_vit"]),
+            "serving": {"jax": sm.jax_serving(ddp["serving"]), "one": sm.one_process_serving(ddp["serving"])},
+            "mesh_moco": {arch: md.jax_ddp_moco(arch, ddp[f"moco_{arch}"], sm.STEP_MESHES) for arch in MOCO_ARCHS},
+            "mesh_contrastive": {shape: md.jax_ddp_contrastive(ddp["contrastive"], *shape)
+                                 for shape in sm.STEP_MESHES},
+            "mesh_fsdp_moco": fs.jax_moco_fsdp(ddp["moco_fsdp_vit"], data=2, model_axis=2, vit=sm.FSDP_VIT)}
+
+
 @pytest.fixture(scope="module")
 def group(tmp_path_factory):
     """The ranks' results by case ({case: {data coord: [each model rank's
@@ -432,6 +479,7 @@ def group(tmp_path_factory):
            "dirs": _ddp_dirs(tmp_path_factory), "contrastive": md.jax_contrastive_weights(),
            **{f"moco_{arch}": md.jax_moco_weights(arch) for arch in MOCO_ARCHS},
            "sharded": {"mae": fs.jax_weights(None, 3), "tp": fs.jax_weights(fs.TP_CFG, 4)},
+           "serving": sm.serving_weights(), "moco_fsdp_vit": sm.fsdp_moco_weights(),
            "pp": {"trunk": ppt.trunk_inputs(), "mae_True": ppt.mae_weights(True), "mae_False": ppt.mae_weights(False),
                   "steps": ppt.step_weights()}}
     results = {}
@@ -442,6 +490,9 @@ def group(tmp_path_factory):
     # (XLA compiles without the GIL)
     pipelines = threading.Thread(target=lambda: results.update(pp=_pp_references(ddp)))
     pipelines.start()
+    # and the MoCo, contrastive and serving mesh's (md.x64 is per thread)
+    meshes = threading.Thread(target=lambda: results.update(mesh=_mesh_references(ddp)))
+    meshes.start()
     try:
         want = {case: _jax_attention(case) for case in ATTENTION}
         want["trunk"] = want_trunk
@@ -450,12 +501,9 @@ def group(tmp_path_factory):
         want["ddp_mae_generator"] = _ddp_mae_one_process(ddp["mae"])
         want["ddp_supervised"] = {case: _jax_ddp_supervised(case, ddp["vit"]) for case in SUPERVISED}
         want["ddp_pretrain"] = {"dirs": ddp["dirs"], "results": _pretrain_one_process(ddp["dirs"])}
-        want["ddp_moco"] = {arch: md.jax_ddp_moco(arch, ddp[f"moco_{arch}"]) for arch in MOCO_ARCHS}
-        want["ddp_contrastive"] = md.jax_ddp_contrastive(ddp["contrastive"])
         want["ddp_moco_kfold"] = md.run_moco_kfold(ddp["dirs"]["moco_one"], ddp["dirs"]["data"])
         sharded = ddp["sharded"]
         want["fsdp_mae"] = {variant: fs.jax_mae_run(sharded["mae"], variant=variant) for variant in fs.VARIANTS}
-        want["fsdp_moco"] = fs.jax_moco_fsdp(ddp["moco_vit"])
         tp_one = fs.jax_mae_run(sharded["tp"], fs.TP_CFG, kind="replicated", data=1)
         want["tp_mae"] = fs.with_floor(fs.jax_mae_run(sharded["tp"], fs.TP_CFG, kind="tp", data=2, model_axis=4),
                                        tp_one)
@@ -465,10 +513,12 @@ def group(tmp_path_factory):
         want["pp_pretrain"] = ppt.pretrain_one_process(ddp["dirs"]["data"], ddp["dirs"]["pp_one"])
     finally:
         pipelines.join()
+        meshes.join()
         ranks.join(timeout=900)
     assert not ranks.is_alive() and "ranks" in results, "the group of ranks did not finish"
-    assert "pp" in results, "the GPipe references did not finish"
+    assert "pp" in results and "mesh" in results, "the GPipe or the mesh references did not finish"
     want.update(results["pp"])
+    want.update(results["mesh"])
     by_case = {}
     for rank_out in results["ranks"]:
         for case, (d, result) in rank_out.items():
@@ -1059,7 +1109,7 @@ def test_data_parallel_moco_step_matches_jax(group, arch, data):
     JAX's data-mesh step (`md.ddp_gate`); the parameters after the LARS
     step and the statistics bitwise equal on every rank."""
     per_rank = _ddp_results(group, f"ddp_moco_{arch}_{data}", data)
-    want = group[1]["ddp_moco"][arch][data]
+    want = group[1]["ddp_moco"][arch][data, 1]
     for result in per_rank:
         assert md.ddp_gate(result, want, md.MOCO_TOL[arch]) <= 1.0
     for other in per_rank[1:]:
@@ -1074,10 +1124,10 @@ def test_data_parallel_moco_step_controls_miss(group, control):
     BatchNorm on each rank's rows alone misses on the predictor's running
     statistics."""
     per_rank = _ddp_results(group, f"ddp_moco_{control}", 4)
-    want_loss, want_grads, want_stats = group[1]["ddp_moco"]["vit"][4]
+    want_loss, want_grads, want_stats = group[1]["ddp_moco"]["vit"][4, 1]
     for loss, grads, stats, _ in per_rank:
         if control == "local_keys":
-            assert md.ddp_gate((loss, want_grads, want_stats), group[1]["ddp_moco"]["vit"][4]) > 1.0
+            assert md.ddp_gate((loss, want_grads, want_stats), group[1]["ddp_moco"]["vit"][4, 1]) > 1.0
         else:
             predictor = {n: w for n, w in want_stats.items() if n.startswith("predictor.")}
             assert predictor and md.ddp_gate((want_loss, want_grads, stats), (want_loss, want_grads, predictor)) > 1.0
@@ -1472,3 +1522,89 @@ def test_pipelined_pretrain_kfold_matches_one_process_and_refuses_another_layout
     assert len(got_rows) == len(want_rows) == ppt.PP_FOLDS * 2
     for r, w in zip(got_rows, want_rows):
         assert abs(r["train_loss"] - w["train_loss"]) <= 1e-5 * abs(w["train_loss"])
+
+
+# ------------------------------------------ the serving mesh and (D, M > 1) steps
+
+@pytest.mark.parametrize("kind", sm.SERVE_KINDS)
+@pytest.mark.parametrize("data", sm.SERVE_MESHES)
+def test_serving_mesh_matches_jax_and_one_process(group, kind, data):
+    """Rank 0's answers to 11 volumes (a full and a padded slab of 8)
+    against JAX's engine on `make_mesh(data=8)` and the port's one-process
+    engine; every other rank followed both slabs."""
+    per_rank = _ddp_results(group, f"serve_{kind}_{data}", data)
+    got, want = per_rank[0], group[1]["serving"]
+    assert got.shape == want["one"][kind].shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want["one"][kind], **sm.SERVE_TOL)
+    if kind == "int8":
+        assert np.abs(got - want["jax"][kind]).max() <= sm.INT8_JAX_TOL * np.abs(want["jax"][kind]).max()
+    else:
+        np.testing.assert_allclose(got, want["jax"][kind], **sm.SERVE_TOL)
+    assert per_rank[1:] == [2] * (data - 1)
+
+
+def test_serving_mesh_whose_ranks_all_take_the_first_rows_misses(group):
+    got = _ddp_results(group, "serve_first_rows", 4)[0]
+    want = group[1]["serving"]["one"]["features"]
+    assert not np.allclose(got, want, **sm.SERVE_TOL)
+
+
+def _mesh_step_results(group, case, data, model):
+    got = group[0][case]
+    assert sorted(got) == list(range(data)) and all(len(r) == model for r in got.values())
+    return [r for d in range(data) for r in got[d]]
+
+
+@pytest.mark.parametrize("arch", MOCO_ARCHS)
+@pytest.mark.parametrize("shape", sm.STEP_MESHES)
+def test_moco_step_on_a_model_axis_matches_jax(group, arch, shape):
+    """Every rank of the (D, M) mesh against JAX's step on that mesh; the
+    parameters and statistics after the step bitwise equal on all D * M
+    ranks."""
+    per_rank = _mesh_step_results(group, f"mesh_moco_{arch}_{shape[0]}x{shape[1]}", *shape)
+    want = group[1]["mesh_moco"][arch][shape]
+    for result in per_rank:
+        assert md.ddp_gate(result, want, md.MOCO_TOL[arch]) <= 1.0
+    for other in per_rank[1:]:
+        np.testing.assert_array_equal(other[3], per_rank[0][3])
+        for n, b in per_rank[0][2].items():
+            np.testing.assert_array_equal(other[2][n], b)
+
+
+@pytest.mark.parametrize("shape", sm.STEP_MESHES)
+def test_contrastive_step_on_a_model_axis_matches_jax(group, shape):
+    per_rank = _mesh_step_results(group, f"mesh_contrastive_{shape[0]}x{shape[1]}", *shape)
+    want = group[1]["mesh_contrastive"][shape]
+    for result in per_rank:
+        assert md.ddp_gate(result, want) <= 1.0
+    for other in per_rank[1:]:
+        np.testing.assert_array_equal(other[3], per_rank[0][3])
+
+
+@pytest.mark.parametrize("case", ["mesh_moco_world_keys", "mesh_moco_world_grads", "mesh_contrastive_world_grads"])
+def test_steps_reducing_over_the_whole_mesh_miss(group, case):
+    """The keys gathered, or the gradients summed, over all 4 ranks of the
+    (2, 2) mesh instead of its 'data' group miss JAX's (2, 2) step."""
+    want = group[1]["mesh_contrastive"][2, 2] if "contrastive" in case else group[1]["mesh_moco"]["vit"][2, 2]
+    for result in _mesh_step_results(group, case, 2, 2):
+        assert md.ddp_gate(result, want) > 1.0
+
+
+@pytest.mark.parametrize("case", sm.REPLICA_CASES)
+def test_replicas_moved_apart_agree_again(group, case):
+    """Gradients moved apart on model coordinate 1 after the data mean:
+    `agree_over_model` gives all 4 ranks model coordinate 0's, so the
+    parameters after the step are bitwise equal; without it the replicas
+    differ."""
+    per_rank = _mesh_step_results(group, f"mesh_moco_{case}", 2, 2)
+    equal = [np.array_equal(r[3], per_rank[0][3]) for r in per_rank]
+    assert equal == ([True] * 4 if case == "apart" else [True, False, True, False])
+
+
+def test_fsdp_moco_step_on_2x2_matches_jax(group):
+    """FSDP over 'data' with the TP rule over 'model' (JAX's
+    `shard_moco_state_fsdp` on a (D, M) mesh): two steps against JAX's."""
+    results = _mesh_results(group, "mesh_fsdp_moco", 2, 2)
+    assert max(fs.moco_gate(r, group[1]["mesh_fsdp_moco"]) for r in results) <= 1.0
+    _assert_blocks_agree(results)
+    assert any("model" in dims for dims in results[0]["placements"].values())

@@ -1,8 +1,11 @@
 """Command-line interface of the port.
 
-    python -m vit_ae_plus_plus_torch.cli serve --checkpoint mae.pth [...]
+    python -m vit_ae_plus_plus_torch.cli serve --checkpoint mae.pth [--n-devices N] [...]
     python -m vit_ae_plus_plus_torch.cli serve --task classify \
         --checkpoint ft1 [--ensemble-criterion ft] [--quantize int8] [--resize-inputs]
+    python -m vit_ae_plus_plus_torch.cli compile-engine --checkpoint mae.pth \
+        --out engine.vitae [the engine flags of serve]
+    python -m vit_ae_plus_plus_torch.cli serve --engine engine.vitae
     python -m vit_ae_plus_plus_torch.cli prepare-data brats --volumes flair_all.npy \
         --labels label_all.npy --out-dir splits
     python -m vit_ae_plus_plus_torch.cli prepare-data egd --csv rad.csv \
@@ -27,13 +30,16 @@
     python -m vit_ae_plus_plus_torch.cli contrastive-train --data-path splits \
         --work-dir contr1 [--use-proj]
 
-`serve`, `prepare-data`, `pretrain-kfold`, `extract-features`,
-`probe-kfold`, `finetune-kfold`, `finetune`, `eval-classical`,
-`resnet-kfold`, `moco-kfold`, `moco-extract` and
+`serve`, `compile-engine`, `prepare-data`, `pretrain-kfold`,
+`extract-features`, `probe-kfold`, `finetune-kfold`, `finetune`,
+`eval-classical`, `resnet-kfold`, `moco-kfold`, `moco-extract` and
 `contrastive-train` are ported so far. Every ViT checkpoint they read
 is a reference-layout `.pth`, as the JAX package's `export-torch` and this
 package's `pretrain-kfold` write it. All but `prepare-data` and
 `eval-classical` run on `cuda` unless `--device cpu` is given.
+`compile-engine` writes the engine `serve` would build to an artifact
+(serving_aot.py); `serve --engine` loads it with no graft, no
+quantisation and no kernel build, and ignores every other engine flag.
 `prepare-data` runs on the host and writes the same split files as the JAX
 package's command; `eval-classical` fits the SVM, the random forest or
 the logistic regression on the host, through the port's copies of
@@ -49,6 +55,10 @@ spawned ranks (`parallel.run_ranks`), each under a data mesh of (N, 1):
 NCCL with rank r on `cuda:r`, refused before any spawn when fewer than N
 cards are visible, or gloo ranks on the CPU with `--device cpu`. The
 batch size stays the global batch and must split into N equal shards.
+`serve --n-devices N` serves over a (N, 1) data mesh of N such ranks
+(serving.py): rank 0 holds the HTTP front and splits each slab over the
+ranks, whose number must divide the batch size, and SIGTERM to the
+command reaches rank 0, which drains, stops the others and returns.
 `pretrain-kfold --pipe-devices S` runs the GPipe pipeline on N ranks (S
 by default) under the ('data', 'pipe') mesh of S stages and N / S data
 coordinates (parallel/pp.py); N must be divisible by S, and the batch
@@ -73,45 +83,27 @@ def build_parser() -> argparse.ArgumentParser:
         help="dynamic-batching HTTP inference server (serving.py): "
              "POST /features or /predict with .npy or NIfTI-1 volumes, "
              "GET /healthz, GET /stats")
-    srv.add_argument("--checkpoint", required=True,
-                     help="--task features: a reference-layout MAE state dict "
-                          "(.pth), as pretrain-kfold or `vit_ae_plus_plus_tpu.cli "
-                          "export-torch` writes it; --task classify: fine-tuned "
-                          "classifier .pth file(s), comma-separated, or a "
-                          "finetune-kfold work dir (fold ensemble)")
-    srv.add_argument("--task", default="features", choices=["features", "classify"],
-                     help="features: SSL features from an MAE checkpoint; "
-                          "classify: the fold-mean softmax of fine-tuned "
-                          "classifier checkpoints")
-    srv.add_argument("--num-classes", type=int, default=2)
-    srv.add_argument("--ensemble-criterion", default="ft", choices=["ft", "spec", "sens"],
-                     help="which per-fold best model to ensemble when "
-                          "--checkpoint is a finetune-kfold work dir")
-    srv.add_argument("--model", default="contr_mae_vit_base_patch16")
-    srv.add_argument("--volume-size", type=int, default=96)
-    srv.add_argument("--in-channels", type=int, default=1)
-    srv.add_argument("--patch-size", type=int, default=8)
-    srv.add_argument("--batch-size", type=int, default=8,
-                     help="serving slab size (requests are dynamic-batched "
-                          "and padded to it)")
-    srv.add_argument("--compute-dtype", default="bfloat16",
-                     choices=["float32", "bfloat16"])
-    srv.add_argument("--quantize", default="none", choices=["none", "int8"],
-                     help="int8: the trunk's Dense products on int8 operands "
-                          "(models/quant.py)")
-    srv.add_argument("--normalize", default="none", choices=["none", "zscore"],
-                     help="zscore: per-channel z-score each request volume")
-    srv.add_argument("--resize-inputs", action="store_true",
-                     help="trilinear-resample mismatched spatial dims to "
-                          "the model's volume size instead of rejecting")
+    _engine_args(srv)
+    srv.add_argument("--engine", default=None,
+                     help="a compile-engine artifact (serving_aot.py): no graft, no quantisation, no kernel "
+                          "build; every other engine flag, --n-devices included, is ignored")
+    srv.add_argument("--n-devices", type=int, default=None,
+                     help="serve over a (N, 1) data mesh of N ranks, each slab split over them (N must divide "
+                          "the batch size): NCCL, one rank per card, or gloo ranks on the CPU with --device cpu")
     srv.add_argument("--max-wait-ms", type=float, default=5.0,
                      help="dynamic-batching gather window")
     srv.add_argument("--max-body-mb", type=int, default=1024,
                      help="reject request bodies over this size with HTTP 413")
-    srv.add_argument("--device", default=None,
-                     help="torch device (default: cuda; 'cpu' to run on the CPU)")
     srv.add_argument("--host", default="127.0.0.1")
     srv.add_argument("--port", type=int, default=8000)
+
+    ce = sub.add_parser(
+        "compile-engine",
+        help="build a serving engine and write it to an artifact (serving_aot.py) that serve --engine loads "
+             "without a graft, a quantisation or a kernel build; it is tied to the device and versions it "
+             "was built on")
+    _engine_args(ce)
+    ce.add_argument("--out", required=True, help="the artifact's path")
 
     prep = sub.add_parser(
         "prepare-data",
@@ -211,6 +203,43 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--method", default="svm", choices=["svm", "rf", "linear"],
                     help="svm (SVC), rf (random forest) or linear (logistic regression)")
     return parser
+
+
+def _engine_args(p: argparse.ArgumentParser) -> None:
+    """The engine flags of `serve` and `compile-engine`."""
+    p.add_argument("--checkpoint", default=None,
+                   help="--task features: a reference-layout MAE state dict "
+                        "(.pth), as pretrain-kfold or `vit_ae_plus_plus_tpu.cli "
+                        "export-torch` writes it; --task classify: fine-tuned "
+                        "classifier .pth file(s), comma-separated, or a "
+                        "finetune-kfold work dir (fold ensemble)")
+    p.add_argument("--task", default="features", choices=["features", "classify"],
+                   help="features: SSL features from an MAE checkpoint; "
+                        "classify: the fold-mean softmax of fine-tuned "
+                        "classifier checkpoints")
+    p.add_argument("--num-classes", type=int, default=2)
+    p.add_argument("--ensemble-criterion", default="ft", choices=["ft", "spec", "sens"],
+                   help="which per-fold best model to ensemble when "
+                        "--checkpoint is a finetune-kfold work dir")
+    p.add_argument("--model", default="contr_mae_vit_base_patch16")
+    p.add_argument("--volume-size", type=int, default=96)
+    p.add_argument("--in-channels", type=int, default=1)
+    p.add_argument("--patch-size", type=int, default=8)
+    p.add_argument("--batch-size", type=int, default=8,
+                   help="serving slab size (requests are dynamic-batched "
+                        "and padded to it)")
+    p.add_argument("--compute-dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--quantize", default="none", choices=["none", "int8"],
+                   help="int8: the trunk's Dense products on int8 operands "
+                        "(models/quant.py)")
+    p.add_argument("--normalize", default="none", choices=["none", "zscore"],
+                   help="zscore: per-channel z-score each request volume")
+    p.add_argument("--resize-inputs", action="store_true",
+                   help="trilinear-resample mismatched spatial dims to "
+                        "the model's volume size instead of rejecting")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; 'cpu' to run on the CPU)")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -346,7 +375,12 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     n = world_size(args)
-    out = launch_ranks(args, argv, n) if n > 1 and args.cmd in DATA_PARALLEL else command(args)
+    if n > 1 and args.cmd == "serve" and args.engine is None:
+        out = launch_serve(args, argv, n)
+    elif n > 1 and args.cmd in DATA_PARALLEL:
+        out = launch_ranks(args, argv, n)
+    else:
+        out = command(args)
     if out is not None:
         print(out if isinstance(out, str) else json.dumps(out, default=str))
     return 0
@@ -376,10 +410,11 @@ def _rank_mesh(args):
     return make_pipeline_mesh(pipe, n // pipe) if pipe > 1 else make_mesh(n)
 
 
-def launch_ranks(args, argv: list, n: int):
+def launch_ranks(args, argv: list, n: int, store_dir: str = None, forward_signals=()):
     """`argv`'s command on `n` spawned ranks, each under a data mesh of
     (n, 1), or the pipeline's mesh (module docstring); -> rank 0's result.
-    The ranks meet through a file store under the work dir."""
+    The ranks meet through a file store under the work dir (or
+    `store_dir`); `forward_signals` reach rank 0 (`run_ranks`)."""
     import torch
 
     from vit_ae_plus_plus_torch.parallel import run_ranks
@@ -389,8 +424,28 @@ def launch_ranks(args, argv: list, n: int):
         raise ValueError(f"--batch-size {args.batch_size} does not split into {shards} equal shards: a "
                          "data-parallel run needs a batch size that its data axis divides")
     backend = "gloo" if args.device is not None and torch.device(args.device).type == "cpu" else "nccl"
-    return run_ranks(_rank_command, n, (argv,), store_dir=os.path.join(args.work_dir, ".ranks"),
-                     timeout=None, backend=backend)[0]
+    store_dir = store_dir or os.path.join(args.work_dir, ".ranks")
+    kw = {"forward_signals": forward_signals} if forward_signals else {}
+    return run_ranks(_rank_command, n, (argv,), store_dir=store_dir, timeout=None, backend=backend, **kw)[0]
+
+
+def launch_serve(args, argv: list, n: int):
+    """`serve --n-devices n`: the server on `n` ranks (serving.py's serving
+    mesh); SIGTERM to this process reaches rank 0, which drains, stops the
+    others and returns. The ranks meet through a file store in a temporary
+    directory."""
+    import signal
+    import tempfile
+
+    if args.checkpoint is None:
+        raise ValueError("serve needs --checkpoint or --engine")
+    store = tempfile.mkdtemp(prefix="vitae-serve-")
+    try:
+        return launch_ranks(args, argv, n, store_dir=store, forward_signals=(signal.SIGTERM,))
+    finally:
+        import shutil
+
+        shutil.rmtree(store, ignore_errors=True)
 
 
 def _rank_command(rank: int, argv: list):
@@ -406,18 +461,26 @@ def command(args):
     """Run the parsed command -> what `main` prints last (a JSON-able
     result, a line, or None)."""
     if args.cmd == "serve":
+        from vit_ae_plus_plus_torch.parallel import get_mesh
         from vit_ae_plus_plus_torch.serving import serve
 
+        if args.engine is None and args.checkpoint is None:
+            raise ValueError("serve needs --checkpoint or --engine")
         serve(
-            args.checkpoint, model_name=args.model,
-            volume_size=args.volume_size, in_chans=args.in_channels,
-            patch_size=args.patch_size, batch_size=args.batch_size,
-            compute_dtype=args.compute_dtype, quantize=args.quantize,
-            normalize=args.normalize, max_wait_ms=args.max_wait_ms, host=args.host,
-            port=args.port, task=args.task, num_classes=args.num_classes,
-            ensemble_criterion=args.ensemble_criterion, resize=args.resize_inputs,
-            max_body_mb=args.max_body_mb, device=args.device,
+            args.checkpoint, max_wait_ms=args.max_wait_ms, host=args.host, port=args.port,
+            max_body_mb=args.max_body_mb, device=args.device, engine_path=args.engine, mesh=get_mesh(),
+            **_engine_options(args),
         )
+    elif args.cmd == "compile-engine":
+        from vit_ae_plus_plus_torch.serving import build_engine
+        from vit_ae_plus_plus_torch.serving_aot import save_engine
+
+        if args.checkpoint is None:
+            raise ValueError("compile-engine needs --checkpoint")
+        meta = save_engine(build_engine(args.checkpoint, device=args.device, **_engine_options(args)), args.out)
+        return (f"wrote {args.out} ({os.path.getsize(args.out) / 2**20:.1f} MB): {meta['kind']}, batch "
+                f"{meta['batch_size']}, volume {tuple(meta['volume_shape'])}, quantize={meta['quantize']}, "
+                f"{meta['fingerprint']['platform']}/{meta['fingerprint']['device_name']}")
     elif args.cmd == "prepare-data":
         prepare_data(args)
     elif args.cmd == "pretrain-kfold":
@@ -489,6 +552,14 @@ def command(args):
         )
         return "done"
     return None
+
+
+def _engine_options(args) -> dict:
+    """`build_engine`'s options from the engine flags (`_engine_args`)."""
+    return dict(task=args.task, model_name=args.model, volume_size=args.volume_size, in_chans=args.in_channels,
+                patch_size=args.patch_size, batch_size=args.batch_size, compute_dtype=args.compute_dtype,
+                quantize=args.quantize, normalize=args.normalize, num_classes=args.num_classes,
+                ensemble_criterion=args.ensemble_criterion, resize=args.resize_inputs)
 
 
 def run(argv=None) -> int:

@@ -11,6 +11,10 @@ Nothing is built when a module is imported; `load` builds on first call.
 Every source exports its launchers as `int fn(const Params*, int is_bf16,
 int device, void* stream)` returning the CUDA error, and
 `<source>_error_string`; `launch` calls one.
+
+A precompiled serving engine (serving_aot.py) ships the libraries its step
+loaded (`recording`) and, at load, hands them to `use_library`: `load`
+then returns them and never builds.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import re
 import shutil
 import subprocess
 import sys
+import contextlib
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, Sequence, Union
@@ -38,6 +43,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}  # one dlopen per library and process
+_files: Dict[str, Path] = {}  # the file each loaded library came from
+_recorders: list = []  # the sets `recording` fills
 
 
 def nvcc_path() -> str:
@@ -55,13 +62,18 @@ def nvcc_path() -> str:
     )
 
 
-def library_path(name: str) -> Path:
+def source_digest(name: str) -> str:
+    """The sha256 of csrc/<name>.cu, the headers under csrc/ and the flags:
+    what a library built from this checkout is keyed by."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    digest = h.hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return h.hexdigest()
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{source_digest(name)[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
@@ -143,13 +155,44 @@ def scipy_blas(name: str, signature: str) -> int:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, built first if needed."""
+    """The loaded library for `csrc/<name>.cu`, built first if needed (or
+    the one `use_library` gave)."""
     with _lock:
+        for names in _recorders:
+            names.add(name)
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build((name,))[name]))
-            _loaded[name] = lib
+            _files[name] = build((name,))[name]
+            lib = _loaded[name] = ctypes.CDLL(str(_files[name]))
         return lib
+
+
+def loaded_file(name: str) -> Path:
+    """The file of the library `load` returns for csrc/<name>.cu."""
+    with _lock:
+        return _files[name]
+
+
+def use_library(name: str, path: Path) -> None:
+    """Load the library at `path` as csrc/<name>.cu's: `load` returns it
+    from now on in this process."""
+    with _lock:
+        _loaded[name] = ctypes.CDLL(str(path))
+        _files[name] = Path(path)
+
+
+@contextlib.contextmanager
+def recording():
+    """A set that collects the name of every library `load` is asked for
+    inside the block."""
+    names: set = set()
+    with _lock:
+        _recorders.append(names)
+    try:
+        yield names
+    finally:
+        with _lock:
+            _recorders.remove(names)
 
 
 def launch(source: str, fn_name: str, params: ctypes.Structure, t: torch.Tensor) -> None:

@@ -157,6 +157,15 @@ class QuantizedViT(torch.nn.Module):
         self.cfg = cfg
         self.params = quantize_params(state_dict)
 
+    @classmethod
+    def from_quantized(cls, params: Dict[str, object], cfg: ViTConfig) -> "QuantizedViT":
+        """A QuantizedViT over `params` that `quantize_params` made earlier (a
+        precompiled engine's, serving_aot.py): nothing is quantised again."""
+        model = cls.__new__(cls)
+        torch.nn.Module.__init__(model)
+        model.cfg, model.params = cfg, params
+        return model
+
     def forward_features(self, x: torch.Tensor) -> torch.Tensor:
         return quant_forward_features(self.params, self.cfg, x)
 

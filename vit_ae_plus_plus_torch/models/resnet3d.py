@@ -21,8 +21,8 @@ cuDNN may run f32 convolutions on the TF32 tensor cores
 (`torch.backends.cudnn.allow_tf32` is True by default), which the f32
 model must not: `conv_precision()` turns TF32 off for the length of a
 `with` block, around the forward here and around the backward in the
-training step (pipelines/resnet_kfold.py), and leaves the process-wide
-flag as it was.
+training steps (pipelines/resnet_kfold.py, pipelines/moco_kfold.py), and
+leaves the process-wide flag as it was.
 
 The port's own init (`init_weights`) draws the JAX package's
 distributions from a `torch.Generator` (variance-scaling 2.0 over fan-out,

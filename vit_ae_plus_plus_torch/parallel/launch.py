@@ -16,16 +16,24 @@ puts rank r on `cuda:r` (`torch.cuda.set_device(r)` before the group
 forms), one rank per card, and raises before any spawn when the world has
 more ranks than the process sees cards: NCCL refuses two ranks on one
 device, and the launch never falls back to gloo.
+
+`forward_signals` (the CLI's `serve --n-devices`): while the ranks run,
+each of these signals that reaches the launching process is passed on to
+rank 0, which decides how the run ends (a server drains, then stops the
+other ranks).
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import multiprocessing
 import os
 import queue
 import shutil
+import signal
 import tempfile
+import threading
 import time
 import traceback
 from typing import Callable, List, Optional, Sequence
@@ -64,11 +72,14 @@ def _check_backend(backend: str, world_size: int) -> None:
 
 
 def run_ranks(fn: Callable, world_size: int, args: Sequence = (), *, store_dir: str,
-              timeout: Optional[float] = 600.0, backend: str = "gloo") -> List:
+              timeout: Optional[float] = 600.0, backend: str = "gloo",
+              forward_signals: Sequence[int] = ()) -> List:
     """`[fn(0, *args), ..., fn(world_size - 1, *args)]`, each run on its own
     rank of a `backend` process group; raises RuntimeError if a rank fails
     or dies, or the run outlives `timeout` seconds (None: no limit, and the
-    collectives keep torch's default timeout)."""
+    collectives keep torch's default timeout). `forward_signals`: passed
+    on to rank 0 while the ranks run (module docstring; from the main
+    thread only)."""
     _check_backend(backend, world_size)
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
@@ -80,6 +91,14 @@ def run_ranks(fn: Callable, world_size: int, args: Sequence = (), *, store_dir: 
              for r in range(world_size)]
     for p in procs:
         p.start()
+    def forward(signum, _frame):
+        if procs[0].is_alive():
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(procs[0].pid, signum)
+
+    previous = {}
+    if threading.current_thread() is threading.main_thread():
+        previous = {sig: signal.signal(sig, forward) for sig in forward_signals}
     deadline = time.monotonic() + (timeout if timeout is not None else float("inf"))
     out, failures = {}, []
     try:
@@ -104,6 +123,8 @@ def run_ranks(fn: Callable, world_size: int, args: Sequence = (), *, store_dir: 
         for p in procs:
             p.join(timeout=1.0 if failures else None if timeout is None else max(deadline - time.monotonic(), 1.0))
     finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
         for p in procs:
             if p.is_alive():
                 p.kill()

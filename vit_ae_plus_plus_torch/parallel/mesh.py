@@ -22,8 +22,9 @@ the mesh, rank = d * model + m (d * pipe + p), and runs its own program:
   data-parallel steps reduce over the 'data' group, the attention paths
   shard over the 'model' group.
 
-Transport (`ring_shift`, `all_gather_rows`, `all_gather_batch`,
-`all_reduce_sum`, the differentiable `psum`, `all_reduce_flat`, the
+Transport (`ring_shift`, `all_gather_rows`, `all_gather_batch`, the
+serving mesh's `scatter_batch`, `all_reduce_sum`, the differentiable
+`psum`, `all_reduce_flat`, the
 shard transport of the sharded training state: `all_gather_dim`,
 `reduce_scatter_dim`, the differentiable `gather_shards`, `sum_over`;
 and the pipeline's hops along 'pipe': `send_to`, `recv_from`,
@@ -305,6 +306,31 @@ def all_gather_batch(t: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.T
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=0)
     return out.to(t.device, non_blocking=True) if staged else out
+
+
+def scatter_batch(t: Optional[torch.Tensor], mesh: Mesh, shape: Sequence[int], dtype: torch.dtype,
+                  device: torch.device, axis: str = "data") -> torch.Tensor:
+    """This rank's block of rows of the batch `t` (`shape`, `dtype`) that
+    the axis' first rank holds, cut into one block per rank in the order of
+    their coordinates: a batch placed `P('data')`. The other ranks pass
+    None. An NCCL group scatters from `device`; a gloo group from host
+    memory (the first rank's `t` may stay there), and the block comes back
+    to `device`. -> the block on `device`."""
+    size = mesh.size(axis)
+    if size == 1:
+        return t.to(device, non_blocking=True)
+    group = mesh.groups[axis]
+    nccl = dist.get_backend(group) == dist.Backend.NCCL
+    rows = shape[0] // size
+    buf = torch.empty((rows, *shape[1:]), dtype=dtype, device=device if nccl else "cpu",
+                      pin_memory=not nccl and device.type == "cuda")
+    parts = None
+    if mesh.coords[axis] == 0:
+        if t.is_cuda and not nccl:
+            t = _to_host([t])[0]
+        parts = [c.contiguous() for c in t.to(buf.device).split(rows)]
+    dist.scatter(buf, parts, src=mesh.ranks[axis][0], group=group)
+    return buf.to(device, non_blocking=True)
 
 
 class _PSum(torch.autograd.Function):

@@ -54,7 +54,7 @@ from vit_ae_plus_plus_torch.train import warmup_cosine_schedule
 from vit_ae_plus_plus_torch.train.checkpoint import save_state_dict
 from vit_ae_plus_plus_torch.train.metrics import Discard, JsonlLogger
 from vit_ae_plus_plus_torch.train.optim import AdamW, decay_everything
-from vit_ae_plus_plus_torch.train.step import average_grads, check_data_axis, data_mean
+from vit_ae_plus_plus_torch.train.step import agree_over_model, average_grads, data_mean
 from vit_ae_plus_plus_torch.utils.locking import locked_workdir
 
 
@@ -72,13 +72,15 @@ def make_contrastive_step(model: nn.Module):
     """`step(state, original, augmented) -> (state, {"loss"})`: the model in
     training mode on both views, the negative cosine loss, its gradients
     and the AdamW update. Takes tensors on the model's device; the loss
-    stays there. Under a `parallel.set_mesh` mesh of (D, 1) the views are
-    this rank's rows of the global batch, the gradients are averaged over
-    the 'data' group before the update and the loss is the group's mean; a
-    mesh with data > 1 and model > 1 raises `ValueError`."""
+    stays there. Under a `parallel.set_mesh` mesh of (D, M) the views are
+    the rows of this rank's data coordinate in the global batch, the heads'
+    BatchNorm moments, the gradients (before the update) and the loss are
+    the 'data' group's, and the M ranks of a 'model' group repeat their
+    coordinate's work, as the 'model' axis replicates the JAX step, and
+    take their group's first rank's gradients (train/step.py
+    `agree_over_model`)."""
 
     def step(state: ContrastiveState, original: torch.Tensor, augmented: torch.Tensor):
-        check_data_axis()
         m = state.model
         m.train()
         loss = negative_cosine_loss(*m(original, augmented))
@@ -86,6 +88,7 @@ def make_contrastive_step(model: nn.Module):
             p.grad = None
         loss.backward()
         average_grads(state.tx.params)
+        agree_over_model(state.tx.params)
         state.tx.step()
         state.step += 1
         return state, data_mean({"loss": loss.detach()})

@@ -72,6 +72,7 @@ from vit_ae_plus_plus_torch.data.loader import all_labels, cuda_prefetch
 from vit_ae_plus_plus_torch.data.splits import kfold_indices
 from vit_ae_plus_plus_torch.device import resolve_device
 from vit_ae_plus_plus_torch.models.moco import MoCoResNet3D, MoCoViT3D, ema_update, moco_loss
+from vit_ae_plus_plus_torch.models.resnet3d import conv_precision
 from vit_ae_plus_plus_torch.parallel import barrier, data_coords, data_parallel, get_mesh, writer_first
 from vit_ae_plus_plus_torch.parallel import fsdp as sharding
 from vit_ae_plus_plus_torch.pipelines.extract_features import loader_features
@@ -79,7 +80,7 @@ from vit_ae_plus_plus_torch.pipelines.pretrain_kfold import requested_devices
 from vit_ae_plus_plus_torch.train import warmup_cosine_schedule
 from vit_ae_plus_plus_torch.train.checkpoint import save_atomic, save_state_dict
 from vit_ae_plus_plus_torch.train.metrics import Discard, JsonlLogger
-from vit_ae_plus_plus_torch.train.step import average_grads, check_data_axis, data_mean
+from vit_ae_plus_plus_torch.train.step import agree_over_model, average_grads, data_mean
 from vit_ae_plus_plus_torch.train.optim import LARS, make_lars
 from vit_ae_plus_plus_torch.utils.locking import locked_workdir
 
@@ -140,13 +141,18 @@ def make_moco_train_step(model: nn.Module, temperature: float = 1.0):
     """`train_step(state, x1, x2, m) -> (state, {"loss"})`: one MoCo update
     in the order the module docstring gives. Takes tensors on the model's
     device; the loss stays there. Under a `parallel.set_mesh` mesh of
-    (D, 1), x1 and x2 are this rank's rows of the global batch, the
-    gradients are averaged over the 'data' group before LARS and the loss
-    is the group's mean; a mesh with data > 1 and model > 1 raises
-    `ValueError`."""
+    (D, M), x1 and x2 are the rows of this rank's data coordinate in the
+    global batch; the keys (`all_gather_batch`), the BatchNorm moments, the
+    gradients (before LARS) and the loss are the 'data' group's, and the M
+    ranks of a 'model' group repeat their coordinate's work, as the 'model'
+    axis replicates the JAX step, and take their group's first rank's
+    gradients (train/step.py `agree_over_model`). After
+    `parallel.fsdp.shard_moco_state_fsdp` on (D, M > 1) the ViT trunks'
+    blocks are also cut over 'model' (JAX's TP rule, which its FSDP
+    placement extends). The backward runs under `conv_precision`, as the
+    forward of the ResNet trunk does: f32 convolutions without TF32."""
 
     def train_step(state: MoCoState, x1: torch.Tensor, x2: torch.Tensor, m: float):
-        check_data_axis()
         mom = state.momentum_encoder
         ema_update(list(mom.parameters()), list(state.model.base_encoder.parameters()), m)
         mom_stats = _batch_stats(mom)
@@ -154,8 +160,10 @@ def make_moco_train_step(model: nn.Module, temperature: float = 1.0):
         loss = moco_loss(state.model, mom, x1, x2, temperature)
         for p in state.tx.params:
             p.grad = None
-        loss.backward()
+        with conv_precision():
+            loss.backward()
         average_grads(state.tx.params, state.tx.shard_axes)
+        agree_over_model(state.tx.params, state.tx.shard_axes)
         state.tx.step()
         with torch.no_grad():
             torch._foreach_copy_(mom_stats, kept)

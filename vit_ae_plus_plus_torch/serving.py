@@ -19,9 +19,21 @@ Counterpart of the JAX package's serving.py:
 
 With `resize`, a request whose spatial size is not the model's is resampled
 on the engine's device (`ops.resize_trilinear`, the weights of
-`jax.image.resize`) before it is queued. Not ported: the JAX package's
-precompiled engines (`serve --engine`, ROADMAP Queue 1 item 4) and the
-serving mesh (`serve --n-devices`, item 6b).
+`jax.image.resize`) before it is queued.
+
+The serving mesh (`mesh=`, the CLI's `serve --n-devices N`): JAX splits
+each slab over the devices of its 'data' axis in one program; here every
+rank of a (D, 1) `parallel.make_mesh` builds the same engine, and the
+'data' group's first rank owns the front (the queue, normalisation and
+resizing). For each slab it sends the others a slab message, scatters the
+slab's rows (`parallel.scatter_batch`: rank d runs rows [d B/D, (d + 1)
+B/D) through the same step) and gathers the outputs back
+(`all_gather_batch`); the other ranks run `follow()` until
+`stop_followers()` sends them the stop message. The last slab is padded
+before the split, so every rank gets B/D rows; a batch size that D does
+not divide raises `ValueError`, as in JAX. A precompiled engine is a file
+of its own (serving_aot.py, the CLI's `compile-engine` and `serve
+--engine`).
 """
 
 from __future__ import annotations
@@ -42,12 +54,15 @@ from vit_ae_plus_plus_torch.device import resolve_device
 from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_model
 from vit_ae_plus_plus_torch.models.quant import QuantizedViT
 from vit_ae_plus_plus_torch.ops import resize_trilinear
+from vit_ae_plus_plus_torch.parallel.mesh import all_gather_batch, broadcast_from, scatter_batch
 from vit_ae_plus_plus_torch.pipelines.transfer import build_grafted_vit
 from vit_ae_plus_plus_torch.train.checkpoint import load_reference_state_dict, params_from_jax
 from vit_ae_plus_plus_torch.train.step import feature_step
 from vit_ae_plus_plus_torch.utils.nifti import is_nifti, read_nifti
 
 QUANTIZE = ("none", "int8")
+# the messages of a serving mesh's first rank to the others (`follow`)
+_STOP, _SLAB = 0, 1
 
 
 def _check_options(normalize: str, quantize: str) -> None:
@@ -57,11 +72,28 @@ def _check_options(normalize: str, quantize: str) -> None:
         raise ValueError(f"quantize must be 'none'|'int8', got {quantize!r}")
 
 
+def _check_mesh(mesh, batch_size: int) -> None:
+    """A serving mesh is a (D, 1) data mesh whose 'data' axis divides the
+    slab, as JAX's engines ask."""
+    if mesh is None:
+        return
+    others = {a: mesh.size(a) for a in mesh.shape if a != "data" and mesh.size(a) > 1}
+    if others:
+        raise ValueError(f"a serving mesh shards slabs over 'data' only (parallel.make_mesh(D)); this one also "
+                         f"has {others}")
+    n_data = mesh.size("data")
+    if batch_size % n_data:
+        raise ValueError(f"the mesh's data axis ({n_data}) must divide the serving batch_size ({batch_size})")
+
+
 class _SlabEngine:
     """Fixed-shape slab machinery: per-channel z-score, padding every request
-    to `batch_size`, one slab stream on the device at a time, and the
-    optional resize of mismatched volumes. Subclasses set `_step`,
-    `batch_size`, `volume_shape`, `normalize`, `resize`, `device`, `_lock`."""
+    to `batch_size`, one slab stream on the device at a time, the optional
+    resize of mismatched volumes, and the serving mesh's transport (module
+    docstring). Subclasses set `_step`, `batch_size`, `volume_shape`,
+    `normalize`, `resize`, `device`, `_lock` and, on a mesh, `mesh`."""
+
+    mesh = None
 
     def _normalize(self, v: np.ndarray) -> np.ndarray:
         if self.normalize == "zscore":
@@ -124,12 +156,47 @@ class _SlabEngine:
         with self._lock:
             # enqueue every slab (copy, then compute, on one stream), then
             # one synchronising copy of all features back to the host
-            outs = [
-                self._step(host[i:i + b].to(self.device, non_blocking=True))
-                for i in range(0, n_pad, b)
-            ]
+            outs = [self._run_slab(host[i:i + b]) for i in range(0, n_pad, b)]
             feats = torch.cat(outs)[:n].float().cpu()
         return feats.numpy()
+
+    def _run_slab(self, slab: torch.Tensor) -> torch.Tensor:
+        """The outputs of one slab `slab` (B, ...) in host memory, on the
+        device; on a mesh, the followers are sent the slab message and each
+        rank runs its rows."""
+        if self.mesh is None or self.mesh.size("data") == 1:
+            return self._step(slab.to(self.device, non_blocking=True))
+        self._message(_SLAB)
+        return self._mesh_rows(slab)
+
+    def _mesh_rows(self, slab: Optional[torch.Tensor]) -> torch.Tensor:
+        """This rank's rows of the first rank's `slab` (None elsewhere)
+        through the step, the 'data' group's outputs gathered in row order."""
+        rows = scatter_batch(slab, self.mesh, (self.batch_size, *self.volume_shape), torch.float32, self.device)
+        return all_gather_batch(self._step(rows), self.mesh, "data")
+
+    def _message(self, op: Optional[int] = None) -> int:
+        """The first rank's `op` on every rank of the 'data' group."""
+        t = torch.tensor([_STOP if op is None else op], dtype=torch.int64, device=self.device)
+        return int(broadcast_from(t, self.mesh, "data", 0).item())
+
+    def follow(self) -> int:
+        """A follower rank of a serving mesh: run its rows of every slab the
+        first rank sends until the stop message. -> the slabs it ran."""
+        if self.mesh is None or self.mesh.coords["data"] == 0:
+            raise RuntimeError("follow() runs on the ranks of a serving mesh other than its first")
+        slabs = 0
+        while self._message() == _SLAB:
+            self._mesh_rows(None)
+            slabs += 1
+        return slabs
+
+    def stop_followers(self) -> None:
+        """On the first rank of a serving mesh: end the others' `follow`
+        (nothing without a mesh)."""
+        if self.mesh is not None and self.mesh.size("data") > 1 and self.mesh.coords["data"] == 0:
+            with self._lock:
+                self._message(_STOP)
 
 
 class FeatureEngine(_SlabEngine):
@@ -140,7 +207,8 @@ class FeatureEngine(_SlabEngine):
     param tree of numpy arrays). `quantize="int8"` runs the int8 engine
     (models/quant.py) over the grafted weights, quantised once here.
     `device` defaults to `cuda` and raises when there is none; pass
-    `device="cpu"` to run on the CPU."""
+    `device="cpu"` to run on the CPU. `mesh`: a (D, 1) `parallel.make_mesh`
+    to serve over (module docstring); D must divide `batch_size`."""
 
     def __init__(
         self,
@@ -157,8 +225,10 @@ class FeatureEngine(_SlabEngine):
         quantize: str = "none",
         resize: bool = False,
         device=None,
+        mesh=None,
     ):
         _check_options(normalize, quantize)
+        _check_mesh(mesh, batch_size)
         self.device = resolve_device(device)
         mae_cfg = MODEL_ZOO[model_name](
             volume_size=volume_size, in_chans=in_chans, patch_size=patch_size,
@@ -178,6 +248,10 @@ class FeatureEngine(_SlabEngine):
             self.model = QuantizedViT(self.model.state_dict(), vit_cfg)
         self._step = lambda batch: feature_step(self.model, batch)
 
+        self.config = dict(model_name=model_name, volume_size=volume_size, in_chans=in_chans,
+                           patch_size=patch_size, compute_dtype=compute_dtype, attn_impl=attn_impl)
+        self.mesh = mesh
+        self.quantize = quantize
         self.batch_size = int(batch_size)
         self.volume_shape = (in_chans, volume_size, volume_size, volume_size)
         self.normalize = normalize
@@ -196,7 +270,7 @@ class ClassifierEngine(_SlabEngine):
     `VisionTransformer3D(num_classes, global_pool=True)` is built once and
     every fold's weights run through it (`torch.func.functional_call`).
     `quantize="int8"`: each fold's trunk on the int8 engine, its head and
-    softmax in f32. `device` as `FeatureEngine`'s."""
+    softmax in f32. `device` and `mesh` as `FeatureEngine`'s."""
 
     def __init__(
         self,
@@ -214,8 +288,10 @@ class ClassifierEngine(_SlabEngine):
         resize: bool = False,
         attn_impl: str = "auto",
         device=None,
+        mesh=None,
     ):
         _check_options(normalize, quantize)
+        _check_mesh(mesh, batch_size)
         self.device = resolve_device(device)
         if isinstance(checkpoint_paths, str):
             checkpoint_paths = [checkpoint_paths]
@@ -236,23 +312,21 @@ class ClassifierEngine(_SlabEngine):
         folds = []
         for sd in sds:
             model.load_state_dict(sd, strict=True)  # every fold's keys and shapes
-            fold = {k: v.to(self.device) for k, v in sd.items()}
+            # contiguous, as a loaded state dict's (params_from_jax's kernels are transposed views)
+            fold = {k: v.to(self.device).contiguous() for k, v in sd.items()}
             folds.append(QuantizedViT(fold, vit_cfg) if quantize == "int8" else fold)
+        self.model, self.folds = model, folds
+        self._step = ensemble_step(model, folds)
 
-        def probs(fold, batch):
-            with torch.inference_mode():
-                if quantize == "int8":
-                    logits = fold(batch)
-                else:
-                    logits = torch.func.functional_call(model, fold, (batch,))
-                return torch.softmax(logits.float(), dim=-1)
-
-        self._step = lambda batch: sum(probs(fold, batch) for fold in folds) / len(folds)
-
+        self.config = dict(model_name=model_name, volume_size=volume_size, in_chans=in_chans,
+                           patch_size=patch_size, compute_dtype=compute_dtype, attn_impl=attn_impl)
+        self.mesh = mesh
+        self.quantize = quantize
         self.batch_size = int(batch_size)
         self.volume_shape = (in_chans, volume_size, volume_size, volume_size)
         self.normalize = normalize
         self.resize = resize
+        self.num_classes = num_classes
         self.num_folds = len(folds)
         self._lock = threading.Lock()
 
@@ -279,6 +353,22 @@ class ClassifierEngine(_SlabEngine):
         if not paths:
             raise FileNotFoundError(f"no checkpoints {stem}_<fold>.pth or {stem}.pth in {ckpt_dir}")
         return cls(paths, **kwargs)
+
+
+def ensemble_step(model: torch.nn.Module, folds: list):
+    """The slab step of a fold ensemble: each fold's softmax in f32 (a
+    `QuantizedViT`, or a state dict run through `model` by
+    `torch.func.functional_call`), averaged over the folds."""
+
+    def probs(fold, batch):
+        with torch.inference_mode():
+            if isinstance(fold, QuantizedViT):
+                logits = fold(batch)
+            else:
+                logits = torch.func.functional_call(model, fold, (batch,))
+            return torch.softmax(logits.float(), dim=-1)
+
+    return lambda batch: sum(probs(fold, batch) for fold in folds) / len(folds)
 
 
 class QueueFull(RuntimeError):
@@ -599,16 +689,18 @@ def build_engine(
     ensemble_criterion: str = "ft",
     resize: bool = False,
     device=None,
+    mesh=None,
 ):
     """The engine `serve` runs. 'features': a FeatureEngine over an MAE
     `.pth`. 'classify': a ClassifierEngine over comma-separated `.pth`
     paths, a `finetune-kfold` work dir (its per-fold best
-    `ensemble_criterion` checkpoints) or one `.pth`."""
+    `ensemble_criterion` checkpoints) or one `.pth`. `mesh`: the serving
+    mesh (module docstring)."""
     if checkpoint_path is None:
         raise ValueError("need checkpoint_path")
     common = dict(model_name=model_name, volume_size=volume_size, in_chans=in_chans,
                   patch_size=patch_size, batch_size=batch_size, compute_dtype=compute_dtype,
-                  quantize=quantize, normalize=normalize, resize=resize, device=device)
+                  quantize=quantize, normalize=normalize, resize=resize, device=device, mesh=mesh)
     if task == "classify":
         common["num_classes"] = num_classes
         if "," in checkpoint_path:
@@ -622,7 +714,7 @@ def build_engine(
 
 
 def serve(
-    checkpoint_path: str,
+    checkpoint_path: Optional[str] = None,
     model_name: str = "contr_mae_vit_base_patch16",
     volume_size: int = 96,
     in_chans: int = 1,
@@ -640,21 +732,48 @@ def serve(
     resize: bool = False,
     max_body_mb: int = 1024,
     device=None,
+    mesh=None,
+    engine_path: Optional[str] = None,
 ):
-    """Build the engine (`build_engine`), warm it, and run the HTTP server
-    until SIGTERM or Ctrl-C: POST /features for task 'features', POST
-    /predict for 'classify'. Accepted requests are answered before it
-    returns."""
-    engine = build_engine(
-        checkpoint_path, task=task, model_name=model_name, volume_size=volume_size,
-        in_chans=in_chans, patch_size=patch_size, batch_size=batch_size,
-        compute_dtype=compute_dtype, quantize=quantize, normalize=normalize,
-        num_classes=num_classes, ensemble_criterion=ensemble_criterion, resize=resize, device=device,
-    )
-    t = engine.warmup()
-    folds = f", {engine.num_folds}-fold ensemble" if task == "classify" else ""
-    print(f"engine warm in {t:.1f}s (batch {batch_size}, "
-          f"{quantize if quantize != 'none' else compute_dtype}{folds}, {engine.device})", flush=True)
+    """Build the engine (`build_engine`), or load the precompiled one at
+    `engine_path` (serving_aot.py `load_engine`; the other engine options
+    and `mesh` are then ignored), warm it, and run the HTTP server until
+    SIGTERM or Ctrl-C: POST /features for task 'features', POST /predict
+    for 'classify'. Accepted requests are answered before it returns. On a
+    serving mesh every rank calls it: the 'data' group's first rank serves
+    and, when it stops, stops the others, which run their rows of each slab
+    until then (module docstring)."""
+    if engine_path is not None:
+        from vit_ae_plus_plus_torch.serving_aot import load_engine
+
+        engine, mesh = load_engine(engine_path, device=device), None
+        task = "classify" if engine.kind == "classify" else "features"
+    else:
+        engine = build_engine(
+            checkpoint_path, task=task, model_name=model_name, volume_size=volume_size,
+            in_chans=in_chans, patch_size=patch_size, batch_size=batch_size,
+            compute_dtype=compute_dtype, quantize=quantize, normalize=normalize,
+            num_classes=num_classes, ensemble_criterion=ensemble_criterion, resize=resize, device=device,
+            mesh=mesh,
+        )
+    if mesh is not None and mesh.coords["data"] != 0:
+        engine.follow()
+        return
+    try:
+        t = engine.warmup()
+        folds = f", {engine.num_folds}-fold ensemble" if task == "classify" else ""
+        ranks = f", {mesh.size('data')} ranks" if mesh is not None else ""
+        print(f"engine warm in {t:.1f}s (batch {engine.batch_size}, "
+              f"{engine.quantize if engine.quantize != 'none' else engine.config['compute_dtype']}{folds}, "
+              f"{engine.device}{ranks})", flush=True)
+        _serve_http(engine, task, max_wait_ms, host, port, max_body_mb)
+    finally:
+        engine.stop_followers()
+
+
+def _serve_http(engine, task: str, max_wait_ms: float, host: str, port: int, max_body_mb: int) -> None:
+    """`serve`'s front: the queue and the HTTP server over `engine` until
+    SIGTERM or Ctrl-C, accepted requests answered before it returns."""
     queue = BatchingQueue(engine, max_wait_ms=max_wait_ms)
     kw = {"classifier_queue": queue} if task == "classify" else {"queue": queue}
     server = make_http_server(host=host, port=port, max_body_mb=max_body_mb, **kw)

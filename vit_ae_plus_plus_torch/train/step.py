@@ -52,6 +52,7 @@ import torch
 from vit_ae_plus_plus_torch.models.vit import VisionTransformer3D
 from vit_ae_plus_plus_torch.ops import at_least_f32
 from vit_ae_plus_plus_torch.parallel import all_reduce_flat, all_reduce_sum, get_mesh
+from vit_ae_plus_plus_torch.parallel.mesh import broadcast_from
 from vit_ae_plus_plus_torch.parallel.tp import PACKED_IMPLS
 from vit_ae_plus_plus_torch.train.objective import mae_loss_terms
 from vit_ae_plus_plus_torch.train.optim import global_norm
@@ -138,20 +139,6 @@ def check_mesh(model) -> None:
             "with a model axis > 1")
 
 
-def check_data_axis() -> None:
-    """Raise when the ambient mesh has data > 1 and model > 1: the MoCo and
-    contrastive steps run data parallel on (D, 1) and one process's way on
-    (1, M); the (D, M > 1) MoCo and contrastive steps are ROADMAP Queue 1
-    item 6b."""
-    mesh = get_mesh()
-    if mesh is not None and mesh.size("data") > 1 and mesh.size("model") > 1:
-        raise ValueError(
-            f"the mesh is data={mesh.size('data')} x model={mesh.size('model')}; the MoCo and contrastive "
-            "steps run data parallel (DDP) on a mesh of (D, 1), and on (D, M > 1) only the MAE step is "
-            "ported (ROADMAP Queue 1 item 6b)."
-        )
-
-
 def average_grads(params, shard_axes=None) -> None:
     """Replace each parameter's gradient by its mean over the ambient mesh's
     'data' group: a leaf sharded over 'data' (`shard_axes[i]` holds it)
@@ -169,6 +156,30 @@ def average_grads(params, shard_axes=None) -> None:
     whole = [p for i, p in enumerate(params) if i not in sharded]
     for p, g in zip(whole, all_reduce_flat([p.grad for p in whole], mesh, "data")):
         p.grad = g.div_(size)
+
+
+def agree_over_model(params, shard_axes=None) -> None:
+    """Under a mesh whose model axis > 1 only repeats the step (the MoCo and
+    contrastive steps: each rank of a 'model' group runs its data
+    coordinate's rows through the whole model), give every rank of the
+    group its first rank's gradients, one broadcast per dtype, so that
+    kernels that sum in no fixed order (cuDNN's convolution weight
+    gradients, max-pooling's backward) cannot set the replicas apart; the
+    values are the 'data' group's means all the same. Leaves cut over
+    'model' (`shard_axes[i]` holds it: TP under FSDP) keep their own."""
+    mesh = get_mesh()
+    if mesh is None or mesh.size("model") == 1:
+        return
+    params = list(params)
+    axes = list(shard_axes) if shard_axes is not None else [()] * len(params)
+    whole = [p for p, a in zip(params, axes) if "model" not in a]
+    by_dtype: dict = {}
+    for p in whole:
+        by_dtype.setdefault(p.grad.dtype, []).append(p)
+    for group in by_dtype.values():
+        flat = broadcast_from(torch.cat([p.grad.reshape(-1) for p in group]), mesh, "model", 0)
+        for p, part in zip(group, torch.split(flat, [p.grad.numel() for p in group])):
+            p.grad = part.view(p.grad.shape)
 
 
 def data_mean(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
