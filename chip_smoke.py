@@ -101,7 +101,8 @@ non-zero exit when it fails:
    plus 12 slabs of 12), and fold 0's test features against the same
    `.pth` run with attn_impl="plain"; prints each epoch's ms per step and
    volumes/s beside 5c's step times, the `.pth` writes, extraction ms per
-   slab and each fold's wall time;
+   slab and each fold's wall time; the bf16 run also profiles epoch 1 of
+   each fold and writes its resume files at epoch 2 (for phase 5j);
    5e. the port's downstream commands on 5d's bf16 work dir and 5c's
    split, at batch 8: `extract-features` from fold 0's `.pth` (the files,
    and the test features against the same `.pth` run with
@@ -194,9 +195,29 @@ non-zero exit when it fails:
    parameters bitwise, mini-step 2 makes one AdamW update on the mean of
    the two gradients (moves and first moments within STEP_TOL), a
    summing control that must miss; (e) `pretrain-kfold --device-data
-   --perceptual-weight` (2 folds x 2 epochs x 3 steps, bf16, accum_iter 2
+   --perceptual-weight` (2 folds x 1 epoch x 3 steps, bf16, accum_iter 2
    on the CLI's TrainConfig): exit 0, the resident lines, finite log rows
    with the term, the `.pth` files, the features, the launches by shape;
+   5j. the tooling on 5d's bf16 work dir (whose run profiles one epoch a
+   fold with `--profile-dir` and writes resume files with `--resume
+   --ckpt-every 3`): `profile-attrib --json` on the newest trace (the
+   buckets against the device events recounted from the trace, the
+   attention bucket `flash_*` only, its kernels a step the packed
+   wrappers' launches times KERNELS_PER_LAUNCH; the table printed);
+   `doctor` (exit 0, no FAIL, its seconds); `export-torch` of fold 0's
+   resume directory (loads strictly into the MAE, equal to the payload's
+   model bitwise) and of its `checkpoint.pth` through `file://` and
+   `http://` from a local server (equal bitwise); `sanity_viz.reconstruct`
+   in bf16 from fold 0's `.pth` on 2 test volumes against the same weights
+   and noise with attn_impl="plain" (ENGINE_TOL), 12 + 8 packed launches a
+   volume at the B1 shapes phase 2 holds, finite fractions, `save_nifti`
+   read back; the `sanity-viz` command (exit 0 and its PNGs with
+   matplotlib, exit 2 naming it before any model build without); the
+   reference-faithful f32 step of FAITHFUL_BATCH from phase 5's weights,
+   views and noise against the port's plain f32 step (STEP_TOL; the
+   perceptual metric, which the port's step leaves at 0, finite), its ms
+   with a sync a step, its peak, `flagship_step_flops` and phase 5c's
+   bf16 step's MFU;
 6. the ring's partial kernels (csrc/flash_fwd.cu and flash_bwd.cu with a
    key bias) against their plain versions at the ring blocks of the paths
    in phase 7, each the block that holds the padded tail, bf16 and, at
@@ -1982,6 +2003,8 @@ def pretrain_phase(split_dir: Path, step_times: dict) -> Path:
                 "--epochs", str(epochs), "--n-splits", str(folds)]
         if dtype == "float32":
             argv += ["--compute-dtype", "float32"]
+        else:  # phase 5j reads its profiled epoch and its fold-0 resume file
+            argv += ["--profile-dir", str(work / "profile"), "--resume", "--ckpt-every", str(epochs)]
         fold_start, fold_end, extract_ms, writes, fills = {}, {}, [], [], []
 
         def pretrain_one_fold(fold_idx, *args, **kwargs):
@@ -3508,7 +3531,7 @@ PERCEPTUAL_TOL = 1e-6
 PERCEPTUAL_GRAD_BATCH = 4
 # (e) the command's epochs at batch 8 on 5c's split (2 folds of 24 training
 # volumes: 3 steps an epoch), with accum_iter 2 through TrainConfig
-OPTIONS_EPOCHS, OPTIONS_ACCUM = 2, 2
+OPTIONS_EPOCHS, OPTIONS_ACCUM = 1, 2
 
 
 def augment_phase() -> None:
@@ -3995,6 +4018,318 @@ def options_command_phase(split_dir: Path) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"options command phase {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+# phase 5j: the CUDA kernels one packed wrapper call runs in bf16
+# (csrc/flash_fwd.cu: flash_fwd_wgmma_kernel; csrc/flash_bwd.cu:
+# flash_bwd_delta_kernel, flash_bwd_dkdv_wgmma_kernel, flash_bwd_dq_wgmma_kernel)
+KERNELS_PER_LAUNCH = {"packed_flash_fwd": 1, "packed_flash_bwd": 3}
+PRETRAIN_STEPS = DATA_VOLUMES // 2 // BATCH  # phase 5d's steps an epoch: the profiled epoch's
+SANITY_SAMPLES = 2
+FAITHFUL_BATCH, FAITHFUL_STEPS = 4, 3  # the reference's batch (config.ini:28); timed steps
+
+
+def recon_shapes(cfg) -> list:
+    """(label, (B, H, N, d)) of one volume's MAE pass: the masked encoder
+    over one view, then the decoder."""
+    from vit_ae_plus_plus_torch.configs import TrainConfig
+
+    kept = int(cfg.num_patches * (1 - TrainConfig().mask_ratio)) + 1
+    return [("B1 N433 d64 (encoder, one volume)", (1, cfg.num_heads, kept, cfg.embed_dim // cfg.num_heads)),
+            ("B1 N1729 d32 (decoder, one volume)", (1, cfg.decoder_num_heads, cfg.num_patches + 1,
+                                                    cfg.decoder_embed_dim // cfg.decoder_num_heads))]
+
+
+def cli_output(argv: list) -> tuple:
+    """The port's CLI `run(argv)` (its exit code as a user sees it) in this
+    process -> (exit code, stdout lines, stderr, wall seconds)."""
+    from vit_ae_plus_plus_torch.cli import run as cli_run
+
+    out, err = io.StringIO(), io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_run(argv)
+    return rc, out.getvalue().strip().splitlines(), err.getvalue(), time.perf_counter() - t
+
+
+def profile_attrib_case(trace_dir: Path, cfg, card: str) -> None:
+    """`profile-attrib --json` on the trace phase 5d's bf16 run wrote (the
+    newest: fold 1's profiled epoch of PRETRAIN_STEPS steps). Checks: exit
+    0; the buckets sum to the device events' time recounted from the trace
+    (float rounding only); the attention bucket holds the `flash_*`
+    kernels and nothing else; its kernels a step equal the packed
+    wrappers' launches a step (phase 5's) times KERNELS_PER_LAUNCH."""
+    from vit_ae_plus_plus_torch.utils import profile_tools
+
+    rc, lines, err, wall = cli_output(["profile-attrib", "--trace-dir", str(trace_dir), "--steps",
+                                       str(PRETRAIN_STEPS), "--json"])
+    check(rc == 0, f"profile-attrib exit {rc}: {err[-2000:]}")
+    table = json.loads(lines[-1])
+    (trace,) = profile_tools.find_trace_files(str(trace_dir))
+    with open(trace) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", []) if isinstance(events, dict) else events
+    device = [e for e in events if e.get("ph") == "X" and e.get("cat") in profile_tools.DEVICE_CATEGORIES]
+    recount = sum(float(e.get("dur", 0.0)) for e in device) / 1e3 / PRETRAIN_STEPS
+    buckets = sum(row["ms_per_step"] for b, row in table.items() if b != "__total__")
+    check(bool(device) and abs(buckets - recount) <= 1e-9 * recount
+          and abs(table["__total__"]["ms_per_step"] - recount) <= 1e-9 * recount,
+          f"profile-attrib buckets {buckets} ms a step against the trace's device events {recount}")
+    names = Counter(e["name"] for e in device)
+    attention = {n: c for n, c in names.items() if profile_tools.bucket_of(n) == "attention kernels"}
+    check(bool(attention) and all("flash_" in n for n in attention)
+          and all(n in attention for n in names if "flash_" in n), f"attention bucket {sorted(attention)}")
+    want = sum(n * KERNELS_PER_LAUNCH[name] for (name, _), n in step_launches(cfg, "packed_flash", "bfloat16").items())
+    got = sum(attention.values()) / PRETRAIN_STEPS
+    check(got == want, f"the trace's attention kernels a step {got} (want {want})")
+    print(f"profile-attrib ({card}): exit 0 in {wall:.2f}s on {Path(trace).name} "
+          f"({os.path.getsize(trace) / 1e6:.1f} MB, {len(device)} device events, {PRETRAIN_STEPS} steps); "
+          f"attention kernels a step {got:g} = 20 packed forward x 1 + 20 packed backward x 3; buckets sum "
+          f"{buckets:.4f} ms a step, recounted {recount:.4f}\n{profile_tools.format_table(table)}", flush=True)
+
+
+def doctor_case(card: str) -> None:
+    """`doctor` through the CLI after phase 1's build: exit 0, no FAIL."""
+    rc, lines, err, wall = cli_output(["doctor"])
+    check(rc == 0 and not any(line.startswith("[FAIL]") for line in lines),
+          "doctor: " + "\n".join(lines) + err[-2000:])
+    print(f"doctor ({card}): exit 0 in {wall:.2f}s\n  " + "\n  ".join(lines), flush=True)
+
+
+@contextlib.contextmanager
+def served_directory(root: Path):
+    """`root` over HTTP on an ephemeral port of 127.0.0.1 -> its base URL."""
+    import http.server
+
+    handler = functools.partial(http.server.SimpleHTTPRequestHandler, directory=str(root))
+    handler.log_message = lambda *a: None
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+
+
+def export_case(resume: Path, tmp: Path, cfg, card: str) -> None:
+    """`export-torch` on 5d's bf16 fold-0 resume directory, then on its
+    checkpoint.pth through a file:// URL and through http:// from a server
+    on 127.0.0.1 (the URLs cached under a HOME of the run's own). Checks:
+    exit 0 and the printed count; the output loads strictly into the
+    port's MAE (`load_exported_mae`) and equals the payload's model
+    bitwise; the two URL exports equal it bitwise."""
+    import torch
+
+    from vit_ae_plus_plus_torch.models import build_model
+    from vit_ae_plus_plus_torch.train.checkpoint import load_exported_mae
+
+    common = ["--model", MODEL, "--volume-size", str(VOLUME), "--patch-size", str(PATCH)]
+
+    def export(checkpoint: str, name: str):
+        out = tmp / name
+        rc, lines, err, wall = cli_output(["export-torch", "--checkpoint", checkpoint, "--out", str(out), *common])
+        check(rc == 0, f"export-torch {checkpoint} exit {rc}: {err[-2000:]}")
+        sd = torch.load(out, map_location="cpu", weights_only=True)
+        check(json.loads(lines[-1]) == {"out": str(out), "tensors": len(sd)}, f"export-torch printed {lines[-1:]}")
+        return sd, wall, os.path.getsize(out)
+
+    payload = torch.load(resume / "checkpoint.pth", map_location="cpu", weights_only=True)["model"]
+    sd, wall, size = export(str(resume), "export.pth")
+    model = build_model(cfg)
+    load_exported_mae(model, sd)
+    own = model.state_dict()
+    check(set(own) == set(payload) and all(torch.equal(v, payload[k]) for k, v in own.items()),
+          "the export differs from the resume payload's model")
+    home = os.environ.get("HOME")
+    os.environ["HOME"] = str(tmp / "home")  # resolve_checkpoint_path's cache
+    try:
+        file_sd, file_wall, _ = export((resume / "checkpoint.pth").as_uri(), "export_file.pth")
+        with served_directory(resume) as base:
+            http_sd, http_wall, _ = export(f"{base}/checkpoint.pth", "export_http.pth")
+    finally:
+        if home is None:
+            os.environ.pop("HOME")
+        else:
+            os.environ["HOME"] = home
+    for how, other in (("file://", file_sd), ("http://", http_sd)):
+        check(set(other) == set(sd) and all(torch.equal(other[k], v) for k, v in sd.items()),
+              f"the {how} export differs from the directory's")
+    print(f"export-torch ({card}): {len(sd)} tensors, {size / 1e6:.1f} MB from a "
+          f"{os.path.getsize(resume / 'checkpoint.pth') / 1e6:.1f} MB resume file; loads strictly into the MAE, "
+          f"equal to the payload bitwise; s: directory {wall:.2f}, file:// {file_wall:.2f}, http:// {http_wall:.2f} "
+          "(each URL's first fetch into the cache included)", flush=True)
+
+
+def sanity_case(split_dir: Path, pth: Path, rows: list, tmp: Path, cfg, card: str) -> None:
+    """`sanity_viz.reconstruct` at full width in bf16 from 5d's fold-0
+    min-loss `.pth` on SANITY_SAMPLES test volumes of 5c's split, sample i
+    with seed i, against the same weights and noise with attn_impl="plain"
+    (ENGINE_TOL["bfloat16"]); per volume 12 packed forward launches at the
+    encoder's B1 shape and 8 at the decoder's, both shapes with phase 2
+    rows, and nothing else; finite fractions; the first sample's
+    `save_nifti` files read back. Then
+    the `sanity-viz` command: with matplotlib, exit 0 and the PNGs; without
+    it, exit 2 naming matplotlib before any model is built."""
+    import importlib.util
+
+    import vit_ae_plus_plus_torch.models as models
+    from vit_ae_plus_plus_torch.configs import DataConfig
+    from vit_ae_plus_plus_torch.data import get_dataset
+    from vit_ae_plus_plus_torch.kernels import reset_launch_counts
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+    from vit_ae_plus_plus_torch.pipelines import sanity_viz
+    from vit_ae_plus_plus_torch.train.checkpoint import load_exported_mae, load_reference_state_dict
+    from vit_ae_plus_plus_torch.utils.nifti import read_nifti
+
+    sd = load_reference_state_dict(str(pth))
+
+    def mae(attn_impl):
+        m = models.build_model(MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH, dtype="bfloat16",
+                                                attn_impl=attn_impl))
+        load_exported_mae(m, sd)
+        return m.cuda()
+
+    kernel, plain = mae("auto"), mae("plain")
+    want = {("packed_flash_fwd", (*shape, "bfloat16")): depth
+            for (_, shape), depth in zip(recon_shapes(cfg), (cfg.depth, cfg.decoder_depth))}
+    check(all(any(r["name"] == name and r["key"] == key for r in rows) for name, key in want),
+          "a reconstruction shape has no phase 2 row")
+    ds = get_dataset("brats", "test", DataConfig(base_path=str(split_dir)), transforms=None, use_z_score=True)
+    errs, fractions = [], []
+    for i in range(SANITY_SAMPLES):
+        vol = ds[i][1][None]
+        reset_launch_counts()
+        got = sanity_viz.reconstruct(kernel, vol, seed=i)
+        counts = shape_counts()
+        check(counts == want, f"one volume's reconstruction launched {counts} (want {want})")
+        fill_launches(rows, counts, "sanity_viz.reconstruct, one test volume (bf16, attn_impl='auto')")
+        ref = sanity_viz.reconstruct(plain, vol, seed=i)
+        check(np.array_equal(got["mask"], ref["mask"]), "the two models drew different masks")
+        errs.append(rel_err(got["reconstruction"], ref["reconstruction"]))
+        check(errs[-1] <= ENGINE_TOL["bfloat16"], f"reconstruction vs plain: rel err {errs[-1]:.3g}")
+        fractions.append(sanity_viz.nonzero_fractions(got))
+        check(all(np.isfinite(v) for v in fractions[-1].values()), f"fractions {fractions[-1]}")
+        if i == 0:
+            sanity_viz.save_nifti(got, str(tmp / "nifti"), sample_idx=0)
+            for name in ("original", "masked", "reconstruction", "paste"):
+                check(np.array_equal(read_nifti(str(tmp / "nifti" / f"{name}_0.nii.gz")), got[name][0, 0]),
+                      f"NIfTI {name}")
+    del kernel, plain
+
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    viz, built = tmp / "sanity_viz", []
+    real = models.build_model
+    models.build_model = lambda cfg_: built.append(cfg_) or real(cfg_)
+    try:
+        rc, lines, err, wall = cli_output(
+            ["sanity-viz", "--data-path", str(split_dir), "--work-dir", str(viz), "--checkpoint", str(pth),
+             "--model", MODEL, "--volume-size", str(VOLUME), "--num-samples", str(SANITY_SAMPLES)])
+    finally:
+        models.build_model = real
+    if have_mpl:
+        slices = [f"sample0_slice{z:03d}.png" for z in range(0, VOLUME, 8)]
+        check(rc == 0 and sorted(os.listdir(viz)) == slices and sorted(json.loads(lines[-1])) == ["0", "1"],
+              f"sanity-viz exit {rc}: {err[-2000:]}")
+        case = f"matplotlib present: exit 0, {len(slices)} PNGs, fractions {lines[-1]}"
+    else:
+        check(rc == 2 and "matplotlib" in err and not built and not viz.exists(),
+              f"sanity-viz without matplotlib: exit {rc}, models built {len(built)}: {err[-2000:]}")
+        case = f"matplotlib absent: exit 2 before any model build ({err.strip()})"
+    print(f"sanity-viz ({card}): reconstruct bf16 vs plain rel err "
+          + ", ".join(f"{e:.3g}" for e in errs) + f" (tol {ENGINE_TOL['bfloat16']}); fractions {fractions}; "
+          f"NIfTI read back; the command: {case}, {wall:.2f}s", flush=True)
+
+
+def faithful_case(step_ms: float, card: str) -> None:
+    """The reference-faithful step (utils/ref_faithful.py) at full width,
+    f32, FAITHFUL_BATCH volumes, the VGG forward on, from phase 5's
+    weights, its first views and their noise rows, against the port's f32
+    step with attn_impl="plain" on the same inputs: the loss terms and
+    GRAD_NAMES within STEP_TOL["float32"]; the perceptual metric finite
+    and positive (the port's step has no VGG and logs 0, by design). Then
+    FAITHFUL_STEPS steps, each synchronised by its loss's read, and the
+    peak memory; the analytic FLOPs of a step of 8 and phase 5's bf16
+    step's MFU, information only."""
+    import torch
+
+    from vit_ae_plus_plus_torch.configs import TrainConfig
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_model
+    from vit_ae_plus_plus_torch.train import create_train_state, make_adamw
+    from vit_ae_plus_plus_torch.train.checkpoint import params_from_jax
+    from vit_ae_plus_plus_torch.utils.flops import H100_SXM_BF16_PEAK_FLOPS, flagship_step_flops
+    from vit_ae_plus_plus_torch.utils.ref_faithful import make_reference_faithful_step
+
+    tc = TrainConfig()
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH, dtype="float32", attn_impl="plain")
+    tree, stats = mae_tree(cfg, seed=0)
+    views, noise = train_inputs(cfg)
+    b = FAITHFUL_BATCH
+    views = [v[:b].contiguous() for v in views]
+    n1, n2 = noise[0][:b].contiguous(), noise[0][BATCH:BATCH + b].contiguous()
+    own = Trainer(tree, stats, "float32", "plain")
+    own_metrics, _ = own.run(views, noise=torch.cat([n1, n2]))
+    own_grads, emw = own.grads(), own.emw
+    del own
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    model.load_state_dict(params_from_jax(tree, PATCH, 1, stats), strict=True)
+    model.cuda()
+    state = create_train_state(model, make_adamw(1e-4, weight_decay=tc.weight_decay), seed=0)
+    step = make_reference_faithful_step(model, PATCH, mask_ratio=tc.mask_ratio, contr_weight=tc.contr_weight,
+                                        run_vgg=True, noise=(n1, n2))
+    state, metrics = step(state, *views, emw)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    named = dict(model.named_parameters())
+    grads = {n: named[n].grad.float().clone() for n in GRAD_NAMES}
+    terms = ("loss", "edge_map_loss", "reconstruction_loss", "contr_loss")
+    errs = step_rel_errs(metrics, {k: own_metrics[k] for k in terms}, grads, own_grads)
+    tol = STEP_TOL["float32"]
+    check(all(errs[k] <= tol["loss"] for k in terms if k in errs) and all(errs[n] <= tol["grad"] for n in GRAD_NAMES),
+          f"faithful step vs the port's plain f32 step: {errs}")
+    check(np.isfinite(metrics["perceptual_loss"]) and metrics["perceptual_loss"] > 0,
+          f"perceptual metric {metrics['perceptual_loss']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(FAITHFUL_STEPS):
+        state, m = step(state, *views, emw)
+        float(m["loss"])  # the reference's per-iteration sync
+    ms = (time.perf_counter() - t) / FAITHFUL_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flops = flagship_step_flops(BATCH)["total"]
+    mfu = flops / (step_ms / 1e3) / H100_SXM_BF16_PEAK_FLOPS
+    print(f"ref_faithful ({card}): vs the port's f32 step with attn_impl='plain', step 1: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (tol {tol}); perceptual metric "
+          f"{metrics['perceptual_loss']:.6g} (the port's step: 0, no VGG); {FAITHFUL_STEPS} steps of {b} at f32 with "
+          f"the VGG forward: {ms:.2f} ms a step with its sync ({b / ms * 1e3:.2f} volumes/s), peak {peak:.2f} GiB; "
+          f"flagship_step_flops({BATCH})['total'] {flops:.6g}; phase 5c's resident bf16 step of {BATCH} "
+          f"{step_ms:.2f} ms: MFU {mfu:.2%} of {H100_SXM_BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s", flush=True)
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tooling_phase(split_dir: Path, pre_work: Path, rows: list, step_times: dict, tmp: Path) -> None:
+    """Phase 5j: the tooling commands on 5c's split and 5d's bf16 work dir
+    (module docstring)."""
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO
+
+    t0 = time.perf_counter()
+    card = card_line()
+    cfg = MODEL_ZOO[MODEL](volume_size=VOLUME, patch_size=PATCH)
+    work = tmp / "tooling"
+    work.mkdir()
+    profile_attrib_case(pre_work / "profile", cfg, card)
+    doctor_case(card)
+    export_case(pre_work / "checkpoints" / "fold_0" / "resume", work, cfg, card)
+    sanity_case(split_dir, pre_work / "checkpoints" / "fold_0" / "checkpoint-min_loss.pth", rows, work, cfg, card)
+    faithful_case(step_times["bfloat16"]["resident"], card)
+    shutil.rmtree(work)
+    print(f"tooling phase {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def fused_layernorm_run(rows: list, cfg) -> None:
@@ -6327,6 +6662,9 @@ def main(argv) -> int:
     rows += [case(label, "per_head", *shape, dtype, seed=170 + i)
              for i, (case, label, shape, dtype) in enumerate(pipe_cases(cfg))]
     print(f"pipeline kernel cases {time.perf_counter() - t0:.1f}s", flush=True)
+    # the packed forward at one volume's shapes (phase 5j's reconstruction)
+    rows += [kernel_case(f"packed bf16 {where}", "packed", *shape, "bfloat16", seed=190 + i)
+             for i, (where, shape) in enumerate(recon_shapes(cfg))]
 
     # phase 3: the full-width ViT-B feature engine, kernel against plain
     tree = mae_encoder_tree(cfg, seed=0)
@@ -6435,6 +6773,9 @@ def main(argv) -> int:
         accum_case()
         options_command_phase(split_dir)
         print(f"options phase {time.perf_counter() - t0:.1f}s", flush=True)
+        # phase 5j: the tooling (profile-attrib, doctor, export-torch,
+        # sanity-viz, the reference-faithful step and the FLOPs)
+        tooling_phase(split_dir, pre_work, rows, step_times, Path(tmp))
         fused_layernorm_run(rows, cfg)
 
         # phase 6: the ring's partial kernels at the ring blocks of phase 7 (the

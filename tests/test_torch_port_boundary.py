@@ -235,3 +235,33 @@ def test_moco_refuses_before_any_file_is_read(monkeypatch, tmp_path):
     assert {p.name for p in work.iterdir()} <= {".writer.lock"}  # nothing written but the lock
     with pytest.raises(FileNotFoundError):  # on the CPU it goes on, to the data
         moco_kfold(data_cfg, TrainConfig(), str(work), device="cpu")
+
+
+TOOLING = ("pipelines/sanity_viz.py", "utils/doctor.py", "utils/profile_tools.py", "utils/flops.py",
+           "utils/ref_faithful.py")
+
+
+def test_the_import_scan_covers_the_tooling_modules():
+    pkg = REPO / "vit_ae_plus_plus_torch"
+    scanned = {f.relative_to(pkg).as_posix() for f in _port_sources() if f.is_relative_to(pkg)}
+    assert set(TOOLING) <= scanned
+    code = ("import sys\n"
+            + "".join(f"import vit_ae_plus_plus_torch.{m[:-3].replace('/', '.')}\n" for m in TOOLING)
+            + f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_sanity_viz_raises_without_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from vit_ae_plus_plus_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["sanity-viz", "--checkpoint", str(tmp_path / "none.pth"), "--data-path", str(tmp_path / "no_data"),
+            "--work-dir", str(tmp_path / "w")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv)
+    with pytest.raises(FileNotFoundError):  # on the CPU it goes on, to the checkpoint
+        cli.main(argv + ["--device", "cpu"])
+    assert not (tmp_path / "w").exists()

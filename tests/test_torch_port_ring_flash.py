@@ -1483,6 +1483,41 @@ def test_stage_layout_steps_match_jax(group, data_axis):
         assert fs.mae_gate({**r, "mu": {**want["mu"], **r["mu"]}, "nu": {**want["nu"], **r["nu"]}}, want) > 1
 
 
+def test_export_torch_merges_the_pipelined_runs_stage_files(group, tmp_path):
+    """`export-torch` of the per-stage resume files that the pipelined
+    `pretrain_kfold` above wrote on (2, 2): every leaf from the stage file
+    that holds it, and the whole equal, key for key and bitwise, to the JAX
+    package's `export_mae_torch_state_dict` of the same weights and
+    statistics."""
+    from vit_ae_plus_plus_tpu.models import MODEL_ZOO as JAX_ZOO
+    from vit_ae_plus_plus_tpu.train.checkpoint import (
+        export_mae_torch_state_dict,
+        import_torch_batch_stats,
+        import_torch_state_dict,
+    )
+    from vit_ae_plus_plus_torch import cli
+
+    resume = os.path.join(group[1]["ddp_pretrain"]["dirs"]["pp_ranks"], "checkpoints", "fold_0", "resume")
+    out = tmp_path / "mae.pth"
+    assert cli.main(["export-torch", "--checkpoint", resume, "--out", str(out), "--model", ppt.PP_MODEL,
+                     "--volume-size", str(ppt.VOL)]) == 0
+    got = torch.load(out, map_location="cpu", weights_only=True)
+    stages = [torch.load(os.path.join(resume, f"checkpoint-stage{p}.pth"), map_location="cpu",
+                         weights_only=True)["model"] for p in range(2)]
+    blocks = [{k for k in sd if k.startswith(("blocks.", "decoder_blocks."))} for sd in stages]
+    assert blocks[0] and blocks[1] and not blocks[0] & blocks[1]
+    for p, sd in enumerate(stages):
+        for k in (sd if p == 0 else blocks[p]):
+            assert torch.equal(got[k], sd[k]), (p, k)
+    arrays = {k: v.numpy() for k, v in got.items()}
+    want = export_mae_torch_state_dict(import_torch_state_dict(arrays, ppt.PATCH, 1, mae=True),
+                                       JAX_ZOO[ppt.PP_MODEL](volume_size=ppt.VOL), import_torch_batch_stats(arrays))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].numpy().dtype == np.asarray(w).dtype, k
+        np.testing.assert_array_equal(got[k].numpy(), w, err_msg=k)
+
+
 def test_pipelined_pretrain_kfold_matches_one_process_and_refuses_another_layout(group):
     """`pretrain_kfold` with pipe_devices=2 on (2, 2) against one process at
     the same rate, weights, noise and rows: the min losses, each per-layer

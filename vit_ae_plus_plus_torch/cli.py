@@ -29,14 +29,24 @@
         --work-dir feats --checkpoint moco1 [--fold K]
     python -m vit_ae_plus_plus_torch.cli contrastive-train --data-path splits \
         --work-dir contr1 [--use-proj]
+    python -m vit_ae_plus_plus_torch.cli sanity-viz --data-path splits \
+        --work-dir viz --checkpoint mae.pth [--num-samples 2]
+    python -m vit_ae_plus_plus_torch.cli explore-data --volumes flair_all.npy [--out slice.png]
+    python -m vit_ae_plus_plus_torch.cli profile-attrib --trace-dir run1/profile --steps 3 [--json]
+    python -m vit_ae_plus_plus_torch.cli export-torch \
+        --checkpoint run1/checkpoints/fold_0/resume --out mae.pth
+    python -m vit_ae_plus_plus_torch.cli doctor [--device cpu]
 
-`serve`, `compile-engine`, `prepare-data`, `pretrain-kfold`,
-`extract-features`, `probe-kfold`, `finetune-kfold`, `finetune`,
-`eval-classical`, `resnet-kfold`, `moco-kfold`, `moco-extract` and
-`contrastive-train` are ported so far. Every ViT checkpoint they read
-is a reference-layout `.pth`, as the JAX package's `export-torch` and this
-package's `pretrain-kfold` write it. All but `prepare-data` and
-`eval-classical` run on `cuda` unless `--device cpu` is given.
+Every subcommand of the JAX package's CLI is here. Every ViT checkpoint they
+read is a reference-layout `.pth`, as the JAX package's `export-torch` and
+this package's `pretrain-kfold` and `export-torch` write it; every
+`--checkpoint` also takes an `http://`, `https://` or `file://` URL,
+downloaded once into a cache (train/checkpoint.py
+`resolve_checkpoint_path`) before any rank is spawned. All but
+`prepare-data`, `eval-classical`, `explore-data`, `profile-attrib` and
+`export-torch` run on `cuda` unless `--device cpu` is given. `serve` and
+`compile-engine` print a note for the non-parity `_fast` / `_fastdec`
+presets, as the JAX package does.
 `compile-engine` writes the engine `serve` would build to an artifact
 (serving_aot.py); `serve --engine` loads it with no graft, no
 quantisation and no kernel build, and ignores every other engine flag.
@@ -152,6 +162,8 @@ def build_parser() -> argparse.ArgumentParser:
         "moco-kfold": "MoCo-v3 k-fold pretraining and per-fold trunk features (pipelines/moco_kfold.py)",
         "moco-extract": "trunk features of MoCo checkpoints without training (pipelines/moco_kfold.py)",
         "contrastive-train": "two-view contrastive ViT training, negative cosine loss (pipelines/contrastive.py)",
+        "sanity-viz": "MAE reconstructions of test volumes: nonzero fractions and per-slice PNGs "
+                      "(pipelines/sanity_viz.py; needs matplotlib)",
     }
     for name, text in helps.items():
         p = sub.add_parser(name, help=text)
@@ -185,6 +197,9 @@ def build_parser() -> argparse.ArgumentParser:
         if name == "contrastive-train":
             p.add_argument("--use-proj", action="store_true",
                            help="apply the 3-layer projector (reference use_proj)")
+        if name == "sanity-viz":
+            p.add_argument("--checkpoint", required=True, help="MAE checkpoint (reference-layout .pth)")
+            p.add_argument("--num-samples", type=int, default=2)
         if name == "extract-features":
             p.add_argument("--checkpoint", required=True, help="MAE checkpoint (.pth)")
             p.add_argument("--only-test-split", action="store_true")
@@ -202,6 +217,45 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--n-splits", type=int, default=5)
     ev.add_argument("--method", default="svm", choices=["svm", "rf", "linear"],
                     help="svm (SVC), rf (random forest) or linear (logistic regression)")
+
+    explore = sub.add_parser("explore-data",
+                             help="plot one augmented slice (reference dataset/brats_dataset/data_exploration.py; "
+                                  "needs matplotlib)")
+    explore.add_argument("--volumes", required=True, help="flair_all.npy path")
+    explore.add_argument("--out", default=None, help="PNG output (else show)")
+    explore.add_argument("--sample", type=int, default=0)
+
+    prof = sub.add_parser(
+        "profile-attrib",
+        help="step-time attribution table from a torch.profiler trace (utils/profile_tools.py; pair with "
+             "pretrain-kfold --profile-dir)")
+    prof.add_argument("--trace-dir", required=True, help="the trace directory, or one trace file")
+    prof.add_argument("--steps", type=int, default=1, help="steps captured in the trace (divides totals)")
+    prof.add_argument("--json", action="store_true", help="machine-readable output")
+
+    exp = sub.add_parser(
+        "export-torch",
+        help="write the port's MAE checkpoint as one strict reference-layout torch .pth state_dict (what the "
+             "reference's model/vit_autoenc.py loads): from a resume checkpoint.pth, a directory of GPipe "
+             "checkpoint-stage{p}.pth files, or a reference-layout .pth")
+    exp.add_argument("--checkpoint", required=True,
+                     help="pretrain-kfold's checkpoints/fold_k/resume (or its checkpoint.pth), the GPipe stage "
+                          "files' directory, or a reference-layout .pth; not an orbax directory (the JAX "
+                          "package's export-torch reads those)")
+    exp.add_argument("--out", required=True, help="output .pth path")
+    exp.add_argument("--model", default="contr_mae_vit_base_patch16")
+    exp.add_argument("--volume-size", type=int, default=96)
+    exp.add_argument("--in-channels", type=int, default=1)
+    exp.add_argument("--patch-size", type=int, default=None,
+                     help="override the zoo preset's patch size (must match the trained checkpoint)")
+    exp.add_argument("--seed", type=int, default=42,
+                     help="kept for the JAX command's flags; read by nothing (no template is initialised here)")
+
+    doc = sub.add_parser("doctor",
+                         help="environment diagnostics: CUDA device, toolchain, kernel and host libraries, the "
+                              "build directory, distributed backends, versions, engine artifacts (utils/doctor.py)")
+    doc.add_argument("--device", default=None,
+                     help="torch device (default: cuda; 'cpu' to check a machine without a card)")
     return parser
 
 
@@ -371,9 +425,74 @@ DATA_PARALLEL = ("pretrain-kfold", "probe-kfold", "finetune-kfold", "finetune", 
                  "contrastive-train")
 
 
+def warn_fast_preset(model_name) -> None:
+    """The `_fast` / `_fastdec` presets are opt-in NON-PARITY presets
+    (another attention partition at the same parameter shapes,
+    models/zoo.py): they serve only checkpoints trained under the same
+    preset; a parity-trained checkpoint loads but computes another
+    function."""
+    if model_name and model_name.endswith(("_fast", "_fastdec")):
+        print(
+            f"note: {model_name!r} is an opt-in non-parity preset; serve it "
+            "only with checkpoints trained under this same preset "
+            "(parity-trained checkpoints are shape-compatible but NOT "
+            "function-compatible)",
+            file=sys.stderr,
+        )
+
+
+def _engine_model_name(path: str):
+    """The preset an engine artifact was built from (its meta.json's
+    config), or None where the file cannot be read: `load_engine` reports
+    that properly."""
+    import zipfile
+
+    try:
+        with zipfile.ZipFile(path) as zf:
+            meta = json.loads(zf.read("meta.json"))
+        return meta["config"]["model_name"]
+    except Exception:
+        return None
+
+
+def resolve_checkpoints(args, argv: list) -> list:
+    """Resolve a `--checkpoint` URL (each element of `serve`'s and
+    `compile-engine`'s comma list) to its cached local file, once, in this
+    process: `args.checkpoint` and the returned argv, which the spawned
+    ranks parse, then name the local file."""
+    from vit_ae_plus_plus_torch.train.checkpoint import resolve_checkpoint_path
+
+    given = getattr(args, "checkpoint", None)
+    if not given:
+        return argv
+    if args.cmd in ("serve", "compile-engine"):
+        local = ",".join(resolve_checkpoint_path(c) for c in given.split(","))
+    else:
+        local = resolve_checkpoint_path(given)
+    if local == given:
+        return argv
+    args.checkpoint = local
+    argv = list(argv)
+    for i, a in enumerate(argv):
+        if a == "--checkpoint" and i + 1 < len(argv) and argv[i + 1] == given:
+            argv[i + 1] = local
+        elif a == f"--checkpoint={given}":
+            argv[i] = f"--checkpoint={local}"
+    return argv
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    if args.cmd == "doctor":
+        from vit_ae_plus_plus_torch.utils.doctor import run_doctor
+
+        return run_doctor(device=args.device)
+    if args.cmd == "serve" and args.engine is not None:
+        warn_fast_preset(_engine_model_name(args.engine))
+    elif args.cmd in ("serve", "compile-engine") and args.checkpoint is not None:
+        warn_fast_preset(args.model)
+    argv = resolve_checkpoints(args, argv)
     n = world_size(args)
     if n > 1 and args.cmd == "serve" and args.engine is None:
         out = launch_serve(args, argv, n)
@@ -551,7 +670,61 @@ def command(args):
             quantize=args.quantize, n_devices=args.n_devices, device=args.device,
         )
         return "done"
+    elif args.cmd == "sanity-viz":
+        return sanity_viz(args)
+    elif args.cmd == "explore-data":
+        from vit_ae_plus_plus_torch.pipelines.sanity_viz import plot_one_slice
+
+        plot_one_slice(args.volumes, out_path=args.out, sample_idx=args.sample)
+    elif args.cmd == "profile-attrib":
+        from vit_ae_plus_plus_torch.utils.profile_tools import attribute_trace, format_table
+
+        table = attribute_trace(args.trace_dir, steps=args.steps)
+        return table if args.json else format_table(table)
+    elif args.cmd == "export-torch":
+        from vit_ae_plus_plus_torch.models import MODEL_ZOO
+        from vit_ae_plus_plus_torch.train.checkpoint import export_torch, save_atomic
+
+        zoo_kw = dict(volume_size=args.volume_size, in_chans=args.in_channels)
+        if args.patch_size is not None:
+            zoo_kw["patch_size"] = args.patch_size
+        sd = export_torch(args.checkpoint, MODEL_ZOO[args.model](**zoo_kw))
+        save_atomic(sd, args.out)
+        return {"out": args.out, "tensors": len(sd)}
     return None
+
+
+def sanity_viz(args) -> dict:
+    """The `sanity-viz` subcommand: the MAE of `--checkpoint` (a
+    reference-layout .pth) at `--compute-dtype` reconstructs the first
+    `--num-samples` test volumes, sample i with seed i; -> {i: nonzero
+    fractions}. Each sample's PNGs are written as sample 0, so the last
+    sample's stand, as in the JAX command. Checks for matplotlib before it
+    builds anything."""
+    from vit_ae_plus_plus_torch.data import get_dataset
+    from vit_ae_plus_plus_torch.device import resolve_device
+    from vit_ae_plus_plus_torch.models import MODEL_ZOO, build_model
+    from vit_ae_plus_plus_torch.pipelines.sanity_viz import (
+        nonzero_fractions, reconstruct, require_matplotlib, save_slice_pngs,
+    )
+    from vit_ae_plus_plus_torch.train.checkpoint import load_exported_mae, load_reference_state_dict
+
+    require_matplotlib()
+    dev = resolve_device(args.device)
+    data_cfg, _ = configs_from_args(args)
+    mae_cfg = MODEL_ZOO[args.model](volume_size=data_cfg.volume_size, in_chans=data_cfg.in_channels,
+                                    dtype=args.compute_dtype)
+    model = build_model(mae_cfg)
+    load_exported_mae(model, load_reference_state_dict(args.checkpoint))
+    model = model.to(dev)
+    dataset = get_dataset(data_cfg.name, "test", data_cfg, transforms=None, use_z_score=data_cfg.use_z_score)
+    out = {}
+    for i in range(min(args.num_samples, len(dataset))):
+        _aug, orig, _lab = dataset[i]
+        recon = reconstruct(model, orig[None], seed=i)
+        out[i] = nonzero_fractions(recon)
+        save_slice_pngs(recon, args.work_dir, sample_idx=0)
+    return out
 
 
 def _engine_options(args) -> dict:
@@ -564,11 +737,12 @@ def _engine_options(args) -> dict:
 
 def run(argv=None) -> int:
     """Console entry with friendly error reporting: exit 2 on a bad input, a
-    refused setting, a missing card or a work dir locked by another run
-    (`WorkdirLockedError` and `NotImplementedError` are `RuntimeError`s)."""
+    refused setting, a missing card or optional library, or a work dir
+    locked by another run (`WorkdirLockedError` and `NotImplementedError`
+    are `RuntimeError`s)."""
     try:
         return main(argv)
-    except (FileNotFoundError, FileExistsError, KeyError, ValueError, RuntimeError) as e:
+    except (FileNotFoundError, FileExistsError, KeyError, ValueError, RuntimeError, ImportError) as e:
         print(f"error: {type(e).__name__}: {e}", file=sys.stderr)
         return 2
 

@@ -1,5 +1,12 @@
 from vit_ae_plus_plus_torch.ops.augment import augment_draws, device_augment_batch
-from vit_ae_plus_plus_torch.ops.filters import gaussian_blur_3d, gaussian_kernel_1d, sobel_edges_3d
+from vit_ae_plus_plus_torch.ops.filters import (
+    gaussian_blur_3d,
+    gaussian_blur_3d_conv,
+    gaussian_blur_3d_dense,
+    gaussian_kernel_1d,
+    sobel_edges_3d,
+    sobel_edges_3d_conv,
+)
 from vit_ae_plus_plus_torch.ops.losses import (
     at_least_f32,
     edge_map_loss,
@@ -19,6 +26,8 @@ __all__ = [
     "device_augment_batch",
     "edge_map_loss",
     "gaussian_blur_3d",
+    "gaussian_blur_3d_conv",
+    "gaussian_blur_3d_dense",
     "gaussian_kernel_1d",
     "get_3d_sincos_pos_embed",
     "interpolate_pos_embed",
@@ -30,6 +39,7 @@ __all__ = [
     "resize_trilinear",
     "restore_tokens",
     "sobel_edges_3d",
+    "sobel_edges_3d_conv",
     "soft_cross_entropy_with_weights",
     "unpatchify",
     "weighted_ce",

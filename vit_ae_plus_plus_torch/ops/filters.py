@@ -6,6 +6,11 @@ linspace at spacing 1.2, both run as separable 1-D passes, each a product
 with a banded matrix M[j, i] = taps[j - i + pad] (zero padding). Products
 stay out of cuDNN, so f32 stays f32 on the card (cuDNN's f32 convolutions
 default to TF32; matmuls do not).
+
+The `*_conv` and `*_dense` variants are the reference's own stock
+convolutions (sobel_filter.py:12-45, gaussian_filter.py:16-26), kept for
+cross-checks and for the reference-faithful step (utils/ref_faithful.py):
+`F.conv3d` on the tensor's device, f32 without TF32 on the card.
 """
 
 from __future__ import annotations
@@ -14,11 +19,39 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # separable Sobel factors: each axis's kernel is the outer product of the
 # derivative on that axis and the smoothing on the other two
 _SMOOTH = (1.0, 2.0, 1.0)
 _DERIV = (1.0, 0.0, -1.0)
+
+# the dense Sobel kernels, axis order (z, y, x) as the reference's weight[0..2, 0]
+_SOBEL_X = np.array(
+    [
+        [[1, 0, -1], [2, 0, -2], [1, 0, -1]],
+        [[2, 0, -2], [4, 0, -4], [2, 0, -2]],
+        [[1, 0, -1], [2, 0, -2], [1, 0, -1]],
+    ],
+    dtype=np.float32,
+)
+_SOBEL_Y = np.array(
+    [
+        [[-1, -2, -1], [0, 0, 0], [1, 2, 1]],
+        [[-2, -4, -2], [0, 0, 0], [2, 4, 2]],
+        [[-1, -2, -1], [0, 0, 0], [1, 2, 1]],
+    ],
+    dtype=np.float32,
+)
+_SOBEL_Z = np.array(
+    [
+        [[-1, -2, -1], [-2, -4, -2], [-1, -2, -1]],
+        [[0, 0, 0], [0, 0, 0], [0, 0, 0]],
+        [[1, 2, 1], [2, 4, 2], [1, 2, 1]],
+    ],
+    dtype=np.float32,
+)
+_SOBEL_KERNEL = np.stack([_SOBEL_X, _SOBEL_Y, _SOBEL_Z])[:, None]  # (3, 1, 3, 3, 3) OIDHW
 
 _AXIS_EINSUM = {0: "bczyx,zw->bcwyx", 1: "bczyx,yw->bczwx", 2: "bczyx,xw->bczyw"}
 
@@ -86,3 +119,51 @@ def gaussian_blur_3d(volume: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
     for axis in range(3):
         x = _apply_1d(x, taps, axis)
     return x
+
+
+def _conv3d(x: torch.Tensor, kernel: np.ndarray, padding) -> torch.Tensor:
+    """`F.conv3d` (a cross-correlation, as lax.conv) of (N, 1, Z, Y, X) with
+    a constant OIDHW kernel, in x's dtype; cuDNN without TF32."""
+    w = torch.as_tensor(kernel).to(x.device, x.dtype)
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        return F.conv3d(x, w, padding=padding)
+
+
+def sobel_edges_3d_conv(volume: torch.Tensor) -> torch.Tensor:
+    """`sobel_edges_3d` as the reference computes it: one 1 -> 3-channel 3^3
+    convolution per input channel, 'same' zero padding."""
+    n, c, *spatial = volume.shape
+    g = _conv3d(volume.reshape(n * c, 1, *spatial), _SOBEL_KERNEL, 1)
+    mag = _edge_magnitude(torch.sum(g * g, dim=1))
+    return mag.reshape(n, c, *spatial).sum(dim=1)
+
+
+def gaussian_blur_3d_conv(volume: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
+    """`gaussian_blur_3d` as three 1-D convolutions, one per axis."""
+    k = gaussian_kernel_1d(sigma)
+    pad = len(k) // 2
+    n, c, *spatial = volume.shape
+    x = volume.reshape(n * c, 1, *spatial)
+    for axis in range(3):
+        shape = [1, 1, 1, 1, 1]
+        shape[2 + axis] = len(k)
+        padding = tuple(pad if i == axis else 0 for i in range(3))
+        x = _conv3d(x, k.reshape(shape), padding)
+    return x.reshape(n, c, *spatial)
+
+
+def gaussian_blur_3d_dense(volume: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
+    """The reference's own algorithm (gaussian_filter.py:16-26): one dense
+    k^3 convolution per channel with the outer-product kernel k (x) k (x) k,
+    renormalised, padding len(k) // 2: 1,331 MACs a voxel at sigma 2
+    against the separable path's 33. Only the reference-faithful step
+    (utils/ref_faithful.py) uses it."""
+    k = gaussian_kernel_1d(sigma)
+    k3d = np.einsum("i,j,k->ijk", k, k, k)
+    k3d = k3d / k3d.sum()
+    pad = len(k) // 2
+    n, c, *spatial = volume.shape
+    x = _conv3d(volume.reshape(n * c, 1, *spatial), k3d[None, None], pad)
+    return x.reshape(n, c, *spatial)

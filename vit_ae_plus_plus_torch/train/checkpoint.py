@@ -42,11 +42,22 @@ ResNet), the predictor under `predictor.`, each head's `Dense_l` /
 layers where the MAE's heads put them. The perceptual loss's VGG16 tree
 (top-level `conv_0` ... `conv_9`, models/vgg.py there) goes to
 `VGG16Features`' `convs.{i}`, its (kh, kw, I, O) kernels to (O, I, kh, kw).
+
+`export_torch(path, cfg)` is the `export-torch` command's body: it turns
+the port's own MAE files (a resume `checkpoint.pth`, a directory of GPipe
+`checkpoint-stage{p}.pth` files, or a reference-layout `.pth`) into one
+strict reference-layout state dict, with the keys the JAX package's
+`export_mae_torch_state_dict` gives (`reference_mae_state_dict`);
+`load_exported_mae` loads such a dict back into the port's MAE.
+`resolve_checkpoint_path` turns a checkpoint URL into a cached local file.
 """
 
 from __future__ import annotations
 
+import glob
+import json
 import os
+import re
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -261,6 +272,40 @@ def params_from_jax(
     return sd
 
 
+def resolve_checkpoint_path(path_or_url: str, cache_dir: Optional[str] = None) -> str:
+    """A local path, or an `http://`, `https://` or `file://` URL, for any
+    checkpoint argument -> a local path.
+
+    The reference resumes straight from an http(s) URL through
+    torch.hub.load_state_dict_from_url (utils/misc.py:318-323). A URL is
+    downloaded once into ~/.cache/vit_ae_plus_plus_torch/checkpoints, one
+    entry per URL named `sha256(url)[:12] + "_" + basename` (two URLs that
+    share a basename do not collide), through a `.part` file that
+    `os.replace` moves into place, so an interrupted transfer is never taken
+    for a cached checkpoint; a local path passes through untouched. JAX's
+    copy reads through `urlretrieve`'s 8 KiB blocks; this one reads 16 MiB
+    at a time."""
+    if not path_or_url.startswith(("http://", "https://", "file://")):
+        return path_or_url
+    import hashlib
+    import shutil
+    import urllib.parse
+    import urllib.request
+
+    cache_dir = cache_dir or os.path.join(os.path.expanduser("~"), ".cache", "vit_ae_plus_plus_torch", "checkpoints")
+    os.makedirs(cache_dir, exist_ok=True)
+    name = os.path.basename(urllib.parse.urlparse(path_or_url).path) or "checkpoint"
+    digest = hashlib.sha256(path_or_url.encode()).hexdigest()[:12]
+    target = os.path.join(cache_dir, f"{digest}_{name}")
+    if not os.path.exists(target):
+        print(f"Downloading checkpoint {path_or_url} -> {target}")
+        tmp = target + ".part"
+        with urllib.request.urlopen(path_or_url) as src, open(tmp, "wb") as dst:
+            shutil.copyfileobj(src, dst, 16 << 20)  # a checkpoint is GBs: large reads
+        os.replace(tmp, target)
+    return target
+
+
 def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """Read a reference-layout `.pth` (as `export-torch` writes it) to CPU."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
@@ -354,3 +399,140 @@ class CheckpointManager:
         state.step = payload["step"]
         state.generator.set_state(payload["generator"])
         return state, payload["epoch"], payload["min_loss"]
+
+
+# the MAE's fixed sincos tables: buffers of the port's model (not in its
+# state dict), frozen Parameters of the reference's, so its strict load
+# expects them (vit_autoenc.py:30,45)
+_FIXED_TABLES = ("pos_embed", "decoder_pos_embed")
+# files that mark an orbax checkpoint directory (the JAX package's format)
+_ORBAX_MARKERS = ("_METADATA", "_CHECKPOINT_METADATA", "manifest.ocdbt", "_sharding")
+
+
+def reference_mae_state_dict(model_sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """A MAE's state dict (the port's `model.state_dict()` layout) as CPU
+    tensors with what the reference's strict load also expects, as the JAX
+    package's `export_mae_torch_state_dict` adds it: the two sincos tables
+    (1, N + 1, D) in f32, and `num_batches_tracked` 0 (int64) beside each
+    BatchNorm's running statistics."""
+    from vit_ae_plus_plus_torch.ops import get_3d_sincos_pos_embed
+
+    sd = {k: v.detach().cpu() for k, v in model_sd.items()}
+    for k in list(sd):
+        if k.endswith(".running_mean"):
+            sd.setdefault(k[: -len("running_mean")] + "num_batches_tracked", torch.tensor(0, dtype=torch.int64))
+    grid = round(cfg.num_patches ** (1 / 3))
+    for name, dim in zip(_FIXED_TABLES, (cfg.embed_dim, cfg.decoder_embed_dim)):
+        sd.setdefault(name, torch.from_numpy(get_3d_sincos_pos_embed(dim, grid, cls_token=True)[None]
+                                             .astype(np.float32)))
+    return sd
+
+
+def load_exported_mae(model, sd: Dict[str, torch.Tensor]) -> None:
+    """Load a reference-layout MAE state dict (`export_torch`'s, or the JAX
+    package's export) into the port's MAE strictly: every key of the
+    model's state dict from `sd`, and `sd`'s others only the fixed tables,
+    equal to the model's, and `num_batches_tracked`."""
+    own = model.state_dict()
+    extra = set(sd) - set(own)
+    odd = sorted(k for k in extra if k not in _FIXED_TABLES and not k.endswith(".num_batches_tracked"))
+    if odd:
+        raise ValueError(f"keys the MAE does not have: {odd}")
+    for name in extra & set(_FIXED_TABLES):
+        if not torch.equal(sd[name].cpu(), getattr(model, name).cpu()):
+            raise ValueError(f"{name} differs from the model's table: another volume, patch or width")
+    model.load_state_dict({k: v for k, v in sd.items() if k in own}, strict=True)
+
+
+def _stage_files(directory: str) -> Dict[int, str]:
+    """{stage: path} of a GPipe resume directory's `checkpoint-stage{p}.pth`."""
+    out = {}
+    for path in glob.glob(os.path.join(directory, "checkpoint-stage*.pth")):
+        m = re.fullmatch(r"checkpoint-stage(\d+)\.pth", os.path.basename(path))
+        if m:
+            out[int(m.group(1))] = path
+    return out
+
+
+def _merge_stages(directory: str, files: Dict[int, str]) -> Dict[str, torch.Tensor]:
+    """The whole model of a GPipe run's per-stage resume files: each
+    stage's blocks (kept under their global layer index) and, from stage
+    0, the leaves every stage holds. Refuses a missing stage, a layer that
+    two stages hold, and stages saved at different epochs."""
+    layout = os.path.join(directory, "layout.json")
+    stages = max(files) + 1
+    if os.path.exists(layout):
+        with open(layout) as f:
+            stages = json.load(f).get("pipe", stages)
+    missing = sorted(set(range(stages)) - set(files))
+    if missing or len(files) != stages:
+        raise ValueError(f"{directory}: the GPipe resume files of {stages} stages lack stage(s) {missing} "
+                         f"(found {sorted(files)})")
+    merged, owner, epochs = {}, {}, {}
+    for p in sorted(files):
+        payload = torch.load(files[p], map_location="cpu", weights_only=True)
+        epochs[p] = payload["epoch"]
+        for k, v in payload["model"].items():
+            if k.split(".", 1)[0] in ("blocks", "decoder_blocks"):
+                if k in owner:
+                    raise ValueError(f"{directory}: {k} is in the files of stages {owner[k]} and {p}: a stage "
+                                     "appears twice")
+                owner[k] = p
+                merged[k] = v
+            elif p == 0:
+                merged[k] = v
+    if len(set(epochs.values())) > 1:
+        raise ValueError(f"{directory}: the stages' resume files hold different epochs {epochs} (a run stopped "
+                         "between their writes)")
+    return merged
+
+
+def _is_orbax(path: str) -> bool:
+    if not os.path.isdir(path):
+        return False
+    names = set(os.listdir(path))
+    subdirs = [os.path.join(path, n) for n in names if os.path.isdir(os.path.join(path, n))]
+    return bool(names & set(_ORBAX_MARKERS)) or any(set(os.listdir(d)) & set(_ORBAX_MARKERS) for d in subdirs)
+
+
+def export_torch(path: str, cfg) -> Dict[str, torch.Tensor]:
+    """The `export-torch` command's state dict for the MAE preset `cfg`:
+    from a resume `checkpoint.pth` (`CheckpointManager`'s payload, its
+    `model`), a directory holding one (or the GPipe stage files, merged),
+    or a reference-layout `.pth`. The result has exactly the keys and
+    shapes of `reference_mae_state_dict` for the preset, as CPU tensors;
+    an orbax directory (the JAX package's) is refused."""
+    from vit_ae_plus_plus_torch.models import build_model
+
+    if os.path.isdir(path):
+        if _is_orbax(path):
+            raise ValueError(f"{path} is an orbax checkpoint of the JAX package, which this package cannot read: "
+                             "export it with `python -m vit_ae_plus_plus_tpu.cli export-torch`")
+        stages = _stage_files(path)
+        if os.path.exists(os.path.join(path, "checkpoint.pth")):
+            model_sd = torch.load(os.path.join(path, "checkpoint.pth"), map_location="cpu",
+                                  weights_only=True)["model"]
+        elif stages:
+            model_sd = _merge_stages(path, stages)
+        else:
+            raise FileNotFoundError(f"{path} holds no checkpoint.pth and no checkpoint-stage*.pth")
+    else:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(payload, dict) and "model" in payload and "optimizer" in payload:
+            model_sd = payload["model"]
+        else:
+            model_sd = load_reference_state_dict(path)
+    sd = reference_mae_state_dict(model_sd, cfg)
+    with torch.device("meta"):
+        want = {k: tuple(v.shape) for k, v in build_model(cfg).state_dict().items()}
+    want.update({k[: -len("running_mean")] + "num_batches_tracked": () for k in want if k.endswith(".running_mean")})
+    want.update({name: (1, cfg.num_patches + 1, dim)
+                 for name, dim in zip(_FIXED_TABLES, (cfg.embed_dim, cfg.decoder_embed_dim))})
+    if set(sd) != set(want):
+        raise ValueError(f"{path} does not hold a MAE of this preset: missing "
+                         f"{sorted(set(want) - set(sd))[:5]}, unexpected {sorted(set(sd) - set(want))[:5]}")
+    wrong = [k for k in want if tuple(sd[k].shape) != want[k]]
+    if wrong:
+        raise ValueError(f"{path}: shapes differ from the preset's at {wrong[:5]} (check --patch-size and "
+                         "--volume-size)")
+    return sd

@@ -6,8 +6,7 @@ global_avg) and a MetricLogger that prints ETA, iteration time and data
 time; the JSON-lines epoch log (reference k_fold_…_brats.py:205-209); and
 TensorBoard scalars with the reference's `epoch_1000x` x-axis
 (train_one_epoch.py:90-101) through utils/tb_events.py, which needs no
-tensorboard package. Image grids and the embedding projector are not
-ported yet.
+tensorboard package, with image grids and the embedding projector.
 """
 
 from __future__ import annotations
@@ -19,7 +18,9 @@ import time
 from collections import defaultdict, deque
 from typing import Dict, Iterable
 
-from vit_ae_plus_plus_torch.utils.tb_events import EventWriter
+import numpy as np
+
+from vit_ae_plus_plus_torch.utils.tb_events import EventWriter, image_grid, write_projector
 
 
 class SmoothedValue:
@@ -137,10 +138,12 @@ class Discard:
 
 
 class TBWriter:
-    """TensorBoard scalars with the reference's epoch_1000x x-axis, through
-    the native event writer (utils/tb_events.py)."""
+    """TensorBoard scalars with the reference's epoch_1000x x-axis, image
+    grids and the embedding projector, through the native event writer
+    (utils/tb_events.py)."""
 
     def __init__(self, log_dir: str):
+        self._dir = log_dir
         self._w = EventWriter(log_dir)
 
     def scalars(self, values: Dict[str, float], epoch_frac: float):
@@ -153,6 +156,15 @@ class TBWriter:
         fine_tune_epoch.py:416-419, use `epoch` directly, not epoch_1000x)."""
         for k, v in values.items():
             self._w.scalar(k, float(v), int(step))
+
+    def images(self, images_nchw, tag: str = "op_check"):
+        """Image grid (reference custom_operation_checks.py:49-52)."""
+        self._w.image(tag, image_grid(np.asarray(images_nchw)), 0)
+
+    def embedding(self, features, labels, tag: str = "ssl_embedding"):
+        """TensorBoard embedding projector (reference
+        feature_extraction.py:43-45) through checkpoint-free TSV tensors."""
+        write_projector(self._dir, np.asarray(features), [int(x) for x in labels], tag=tag)
 
     def flush(self):
         self._w.flush()
