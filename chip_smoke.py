@@ -227,14 +227,16 @@ non-zero exit when it fails:
    from `scaled_dot_product_attention` with the bias as a float mask, the
    fastest fused backend that takes it named;
    6b. with `--parent DIR` (a checkout of another commit), the f32
-   attention backward rows of the training step (its encoder and decoder
-   shapes and the `_fast` preset's two d = 128 shapes, packed and
-   per-head) timed in turns against DIR's bodies: each checkout's
-   own case functions in a process of its own, parent, this checkout,
-   this checkout, parent; the rows' `in_turns` hold the four times (null
-   without `--parent`); each turn also times the f32 step (TrainConfig's
-   default dtype), unfused and with `ln_fusion="on"`, and the `_fast`
-   preset's f32 step;
+   attention forward and backward rows of the training step (its encoder
+   and decoder shapes and the `_fast` preset's two d = 128 shapes, packed
+   and per-head) and the forward at the f32 slab's shape timed in turns
+   against DIR's bodies: each checkout's own case functions in a process
+   of its own, parent, this checkout, this checkout, parent; the rows'
+   `in_turns` hold the four times (null without `--parent`; the per-head
+   forward rows, which phase 2 has not, are printed with SDPA's time and
+   the bound); each turn also times the f32 slab (and its peak allocation)
+   and the f32 step (TrainConfig's default dtype), unfused and with
+   `ln_fusion="on"`, and the `_fast` preset's f32 step, with their peaks;
 7. a world of 4 spawned ranks on the one card, in one gloo group (NCCL
    takes one rank per device; the kernels stay on the card and the blocks
    travel through pinned host memory), every join bounded: ring and
@@ -398,7 +400,7 @@ LN_SOURCES = {  # kernel row -> (source, the TPU kernel it replaces)
 }
 BODIES = {  # (kernel row or attention direction, dtype) -> the CUDA bodies it launches
     ("fwd", "bfloat16"): "flash_fwd_wgmma_kernel (wgmma + TMA)",
-    ("fwd", "float32"): "flash_fwd_f32_kernel (3xTF32 on mma.sync)",
+    ("fwd", "float32"): "flash_fwd_split_kernel + flash_fwd_tf32_kernel (3xTF32 on tf32 wgmma + TMA)",
     ("bwd", "bfloat16"): "flash_bwd_delta_kernel + flash_bwd_dkdv_wgmma_kernel + flash_bwd_dq_wgmma_kernel "
                          "(wgmma + TMA)",
     ("bwd", "float32"): "flash_bwd_delta_kernel + flash_bwd_split_kernel + flash_bwd_dkdv_tf32_kernel + "
@@ -1113,13 +1115,25 @@ def f32_lnd_cases(cfg) -> list:
 
 
 def turn_cases(cfg) -> list:
-    """(row name, row key, case call) for every f32 attention backward row
-    of the training step: its encoder and decoder shapes and the fast
-    preset's two, packed and per-head (the seeds of `main`'s rows); the
-    rows that `--parent` times in
-    turns against another checkout's bodies. The calls are this script's
-    case functions, which that checkout's copy has too."""
+    """(row name, row key, case call) for every f32 attention forward and
+    backward row of the training step: its encoder and decoder shapes and
+    the fast preset's two, packed and per-head, and the forward at the f32
+    slab's B8 H12 N1729 d64 (the seeds of `main`'s rows; the per-head
+    forward rows, which `main` has not, seeds of their own); the rows that
+    `--parent` times in turns against another checkout's bodies. The calls
+    are this script's case functions, which that checkout's copy has too."""
     enc, dec = train_shapes(cfg)
+    slab = (BATCH, 12, cfg.num_patches + 1, 64)
+    fwd = [("packed f32 N1729 d64", "packed", slab, 4),
+           ("per-head f32 N1729 d64", "per_head", slab, 200),
+           ("packed f32 N433 d64 (encoder)", "packed", enc, 19),
+           ("per-head f32 N433 d64 (encoder)", "per_head", enc, 201),
+           ("packed f32 N1729 d32 (decoder)", "packed", dec, 20),
+           ("per-head f32 N1729 d32 (decoder)", "per_head", dec, 202),
+           ("packed f32 N433 d128 (encoder, fast preset)", "packed", FAST_ENC, 94),
+           ("packed f32 N1729 d128 (decoder, fast preset)", "packed", FAST_DEC, 95),
+           ("per-head f32 N433 d128 (encoder, fast preset)", "per_head", FAST_ENC, 203),
+           ("per-head f32 N1729 d128 (decoder, fast preset)", "per_head", FAST_DEC, 204)]
     heads = [("packed bwd f32 N433 d64 (encoder)", "packed", enc, 21),
              ("per-head bwd f32 N433 d64 (encoder)", "per_head", enc, 22),
              ("packed bwd f32 N1729 d32 (decoder)", "packed", dec, 18),
@@ -1128,22 +1142,28 @@ def turn_cases(cfg) -> list:
              ("packed bwd f32 N1729 d128 (decoder, fast preset)", "packed", FAST_DEC, 27),
              ("per-head bwd f32 N433 d128 (encoder, fast preset)", "per_head", FAST_ENC, 90),
              ("per-head bwd f32 N1729 d128 (decoder, fast preset)", "per_head", FAST_DEC, 91)]
-    return [("packed_flash_bwd" if layout == "packed" else "flash_bwd", (*shape, "float32"),
-             f"bwd_case('{label}', '{layout}', {', '.join(map(str, shape))}, 'float32', seed={seed})")
-            for label, layout, shape, seed in heads]
+    return [(f"{'packed_' if layout == 'packed' else ''}flash_{way}", (*shape, "float32"),
+             f"{case}('{label}', '{layout}', {', '.join(map(str, shape))}, 'float32', seed={seed})")
+            for way, case, rows in (("fwd", "kernel_case", fwd), ("bwd", "bwd_case", heads))
+            for label, layout, shape, seed in rows]
 
 
 # One turn in another checkout: its own chip_smoke's case functions (each
-# call once), each call's row of the given name -> its kernel ms; and the
-# f32 training step's time (CUDA events over 3 steps after one warm-up),
-# unfused and with ln_fusion="on", and the fast preset's (its Trainer built
-# with that checkout's MODEL set to the preset), from that checkout's
-# Trainer, as one JSON line
+# call once), each call's row of the given name -> its kernel, SDPA and
+# bound ms; the f32 serving slab's device time (CUDA events over 3 slabs)
+# and its peak allocation above the engine's resident bytes; and the f32
+# training step's time (CUDA events over 3 steps after one warm-up) and
+# peak allocation, unfused and with ln_fusion="on", and the fast preset's
+# (its Trainer built with that checkout's MODEL set to the preset), from
+# that checkout's FeatureEngine and Trainer, as one JSON line
 TURN_CHILD = """
 import json, sys
+import numpy as np
 import torch
 import chip_smoke as cs
 from vit_ae_plus_plus_torch.models import MODEL_ZOO
+from vit_ae_plus_plus_torch.serving import FeatureEngine
+from vit_ae_plus_plus_torch.train.step import feature_step
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 out, done = [], {}
@@ -1151,20 +1171,34 @@ for name, call in json.loads(sys.argv[1]):
     if call not in done:
         got = eval("cs." + call)
         done[call] = got if isinstance(got, list) else [got]
-    out.append(next(r["ms"] for r in done[call] if r["name"] == name))
+    row = next(r for r in done[call] if r["name"] == name)
+    out.append({k: row[k] for k in ("ms", "library_ms", "bound_ms")})
 cfg = MODEL_ZOO[cs.MODEL](volume_size=cs.VOLUME, patch_size=cs.PATCH)
+engine = FeatureEngine(mae_params=cs.mae_encoder_tree(cfg, seed=0), model_name=cs.MODEL, volume_size=cs.VOLUME,
+                       patch_size=cs.PATCH, batch_size=cs.BATCH, compute_dtype="float32")
+vols = np.random.default_rng(5).standard_normal((cs.BATCH, 1, cs.VOLUME, cs.VOLUME, cs.VOLUME)).astype(np.float32)
+slab = torch.from_numpy(vols).cuda()
+slab_ms = cs.cuda_ms(lambda: feature_step(engine.model, slab), reps=3)
+base = cs.reset_peak()
+feature_step(engine.model, slab)
+torch.cuda.synchronize()
+slab_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+del engine, slab
 tree, stats = cs.mae_tree(cfg, seed=0)
 views, _ = cs.train_inputs(cfg)
-steps = {}
+steps, peaks = {}, {}
 for which, model, fusion in (("auto", cs.MODEL, "auto"), ("on", cs.MODEL, "on"),
                              ("fast", "contr_mae_vit_base_patch16_fast", "auto")):
     cs.MODEL, main_model = model, cs.MODEL
     trainer = cs.Trainer(tree, stats, "float32", "auto", ln_fusion=fusion)
     cs.MODEL = main_model
+    cs.reset_peak()
     steps[which] = cs.step_ms(trainer, views, reps=3)[0]
+    peaks[which] = torch.cuda.max_memory_allocated() / 2**30
     del trainer
     torch.cuda.empty_cache()
-print("TURN " + json.dumps({"ms": out, "step_ms": steps}))
+print("TURN " + json.dumps({"rows": out, "slab_ms": slab_ms, "slab_mb": slab_mb, "step_ms": steps,
+                            "step_gib": peaks}))
 """
 
 
@@ -1186,7 +1220,10 @@ def turn_ms(checkout: Path, cases: list) -> dict:
 def in_turns_phase(rows: list, cfg, parent: Path, parent_build) -> None:
     """The redesigned rows timed in turns against `parent`'s bodies, on this
     card in this run: parent, this checkout, this checkout, parent. Each
-    row gets `in_turns` {"parent_ms": [..], "ms": [..]}."""
+    row gets `in_turns` {"parent_ms": [..], "ms": [..]}; a case without a
+    row here (the per-head f32 forward rows) is printed with its SDPA and
+    bound ms from this checkout's turns. Then the f32 slab's and steps'
+    times and peak allocations of each turn."""
     log, _ = parent_build.communicate(timeout=600)
     check(parent_build.returncode == 0, f"the parent checkout's kernels did not build:\n{log[-2000:]}")
     cases = turn_cases(cfg)
@@ -1195,15 +1232,28 @@ def in_turns_phase(rows: list, cfg, parent: Path, parent_build) -> None:
     mine = [turn_ms(REPO, cases) for _ in range(2)]
     last = turn_ms(parent, cases)
     for i, (name, key, _) in enumerate(cases):
-        row = next(r for r in rows if r["name"] == name and r["key"] == key)
-        row["in_turns"] = {"parent_ms": [first["ms"][i], last["ms"][i]],
-                           "ms": [mine[0]["ms"][i], mine[1]["ms"][i]]}
-        print(f"in turns {name} {key[:-1]}: parent {first['ms'][i]:.4f}, {last['ms'][i]:.4f} ms -> "
-              f"{mine[0]['ms'][i]:.4f}, {mine[1]['ms'][i]:.4f} ms", flush=True)
+        parent_ms = [first["rows"][i]["ms"], last["rows"][i]["ms"]]
+        ms = [mine[0]["rows"][i]["ms"], mine[1]["rows"][i]["ms"]]
+        row = next((r for r in rows if r["name"] == name and r["key"] == key), None)
+        if row is not None:
+            row["in_turns"] = {"parent_ms": parent_ms, "ms": ms}
+        ours = [turn["rows"][i] for turn in mine]
+        extra = "" if row is not None else (
+            f" (no phase 2 row: sdpa {ours[0]['library_ms']:.4f}, {ours[1]['library_ms']:.4f} ms, "
+            f"bound {ours[0]['bound_ms']:.4f} ms)")
+        print(f"in turns {name} {key[:-1]}: parent {parent_ms[0]:.4f}, {parent_ms[1]:.4f} ms -> "
+              f"{ms[0]:.4f}, {ms[1]:.4f} ms{extra}", flush=True)
+    turns = (first, mine[0], mine[1], last)
+    print(f"in turns, f32 slab of {BATCH} (feature_step, CUDA events over 3 slabs): parent "
+          f"{first['slab_ms']:.2f}, {last['slab_ms']:.2f} -> {mine[0]['slab_ms']:.2f}, {mine[1]['slab_ms']:.2f} ms; "
+          "peak allocation above the engine's resident bytes "
+          + ", ".join(f"{t['slab_mb']:.1f}" for t in turns) + " MB (parent, this, this, parent)", flush=True)
     for fusion, what in (("auto", "unfused"), ("on", "ln_fusion='on'"), ("fast", FAST_MODEL)):
         print(f"in turns, f32 step {what}, ms per step of {BATCH} (CUDA events over 3 steps): parent "
               f"{first['step_ms'][fusion]:.2f}, {last['step_ms'][fusion]:.2f} -> {mine[0]['step_ms'][fusion]:.2f}, "
-              f"{mine[1]['step_ms'][fusion]:.2f}", flush=True)
+              f"{mine[1]['step_ms'][fusion]:.2f}; max_memory_allocated "
+              + ", ".join(f"{t['step_gib'][fusion]:.2f}" for t in turns) + " GiB (parent, this, this, parent)",
+              flush=True)
     print(f"in-turns phase {time.perf_counter() - t0:.1f}s", flush=True)
 
 

@@ -176,7 +176,7 @@ MUTANTS = {
         F32_BWD_CASE,
     ),
     "f32_bwd_chunk_acc_not_reset": (  # a stage's dK, dV or dQ accumulator starts from the last stage's
-        "kernels/csrc/flash_bwd.cu",
+        "kernels/csrc/flash_sm90.cuh",
         "sm90::WgmmaTf32<D>::rs(d, a_lo[kk], desc_tf32_t<D, T>(b_hi, kk), kk > 0);",
         "sm90::WgmmaTf32<D>::rs(d, a_lo[kk], desc_tf32_t<D, T>(b_hi, kk), 1);",
         F32_BWD_CASE,
@@ -285,16 +285,38 @@ MUTANTS = {
         "",
         LND_CASE,
     ),
-    "f32_fwd_tf32_low_terms_dropped": (  # plain TF32: hi * hi alone
-        "kernels/csrc/flash_common.cuh",
-        "  mma_1688_tf32(c, a_lo, b0.hi, b1.hi);\n  mma_1688_tf32(c, a_hi, b0.lo, b1.lo);\n",
-        "",
+    "f32_fwd_tf32_low_terms_dropped": (  # the f32 forward's P V in plain TF32: hi * hi alone
+        "kernels/csrc/flash_fwd.cu",
+        "chunk_3xtf32<D, kRows>(chunk, pa_hi, pa_lo, st + 2 * kRow, st + 3 * kRow);  // P V, B = V^T",
+        "for (int kk = 0; kk < kRows / 8; ++kk) WgmmaTf32<D>::rs(chunk, pa_hi[kk], desc_tf32_t<D, kRows>(st + 2 * kRow, kk), kk > 0);",
         F32_CASE,
     ),
-    "f32_fwd_drop_last_key_tile": (
+    "f32_fwd_drop_last_key_tile": (  # the f32 forward's ring skips its last stage: the ragged last keys
         "kernels/csrc/flash_fwd.cu",
-        "for (int tile = 0; tile < ktiles; ++tile)",
-        "for (int tile = 0; tile + 1 < ktiles; ++tile)",
+        "const int ktiles = (nk + kRows - 1) / kRows;",
+        "const int ktiles = (nk - 1) / kRows;",
+        F32_CASE,
+    ),
+    "f32_fwd_chunk_acc_not_reset": (  # a stage's P V accumulator starts from the last stage's
+        "kernels/csrc/flash_fwd.cu",
+        "chunk_3xtf32<D, kRows>(chunk, pa_hi, pa_lo, st + 2 * kRow, st + 3 * kRow);  // P V, B = V^T",
+        """for (int kk = 0; kk < kRows / 8; ++kk) {
+      WgmmaTf32<D>::rs(chunk, pa_lo[kk], desc_tf32_t<D, kRows>(st + 2 * kRow, kk), 1);
+      WgmmaTf32<D>::rs(chunk, pa_hi[kk], desc_tf32_t<D, kRows>(st + 3 * kRow, kk), 1);
+      WgmmaTf32<D>::rs(chunk, pa_hi[kk], desc_tf32_t<D, kRows>(st + 2 * kRow, kk), 1);
+    }""",
+        F32_CASE,
+    ),
+    "f32_fwd_v_copy_not_permuted": (  # V^T in token order, P's A fragments permuted
+        "kernels/csrc/flash_fwd.cu",
+        "split_tf32(tile[(pos & ~7) + tf32_token(pos & 7)][c])",
+        "split_tf32(tile[pos][c])",
+        F32_CASE,
+    ),
+    "f32_fwd_no_rescale": (  # O is not scaled by alpha when the running max grows
+        "kernels/csrc/flash_fwd.cu",
+        "o[i] = fmaf(o[i], alpha[(i >> 1) & 1], chunk[i]);",
+        "o[i] += chunk[i];",
         F32_CASE,
     ),
     "lnd_dln_drop_last_stage": (  # the dln product's ring skips its last 64-deep stage of F

@@ -11,11 +11,14 @@ to bf16; the kernel also rounds P for the P V product), 1e-5 in f32; for the
 f32 lse, 1e-4. `kernel_mutants.py` shows that these catch a bf16 kernel
 that drops its last key tile, leaves the ragged key tail unmasked, is off
 in its scale by 1%, leaves O unscaled when the running max grows or reads
-V's MN-major tile as K-major, and an f32 kernel that drops its last key
-tile or the 3xTF32 low terms (plain TF32; tests/test_torch_port_tf32_split.py
-shows the same on the CPU). The bf16 forward runs on wgmma with K and V
-streamed by TMA; its cases walk more key tiles than its ring has stages,
-and two calls must give bitwise equal o and lse.
+V's MN-major tile as K-major, and an f32 forward (3xTF32 on tf32 wgmma,
+after a pre-pass that splits Q, K and V^T) that drops its last key stage or
+the low terms of P V (plain TF32), carries a stage's P V accumulator into
+the next, writes V^T unpermuted or leaves O unscaled when the running max
+grows (tests/test_torch_port_tf32_split.py shows the order's error budget
+on the CPU). Both forwards stream K and V by TMA; their cases walk more key
+stages than the rings have, and two bf16 calls must give bitwise equal o
+and lse.
 
 Backward: `bwd_tolerance` (kernels/flash_attention.py): eight bf16 spacings
 at the plain gradient's largest magnitude in bf16 (the kernel rounds P and
@@ -193,11 +196,13 @@ def test_kernel_rejects_misaligned_operands(cuda, dtype):
 
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("with_bias", [False, True])
-@pytest.mark.parametrize("nq,nk", [(1, 1), (64, 129), (130, 64), (200, 333)])
+@pytest.mark.parametrize("nq,nk", [(1, 1), (64, 129), (130, 64), (200, 333), (65, 1000)])
 def test_f32_forward_kernel_matches_plain(cuda, d, with_bias, nq, nk):
-    """The 3xTF32 forward: one key, whole and ragged key tiles (the cp.async
-    ring's last stage), query tiles past the rows, kv_len != seq_len, with
-    and without the ring's key bias (a padded tail)."""
+    """The 3xTF32 forward: one key, whole and ragged key stages (the TMA
+    ring's last stage), query blocks past the rows (a warpgroup with no row
+    left), kv_len != seq_len, more key stages than the ring holds (O's
+    rescale as the running max grows), with and without the ring's key bias
+    (a padded tail)."""
     q = _rand((2, 3, nq, d), torch.float32, cuda, 1)
     k, v = (_rand((2, 3, nk, d), torch.float32, cuda, s) for s in (2, 3))
     scale = d**-0.5

@@ -10,10 +10,14 @@ in f32) and shows, at small ragged shapes, that the emulation stays within
 `kernel_tolerance` of `attention_plain` while plain TF32 (hi * hi alone)
 does not: the 1e-5 on o sees the low terms. The same holds for the f32
 LayerNorm+Dense products of csrc/ln_dense.cu (the second part of this
-file), in their own chunked order, and for the f32 attention backward of
-csrc/flash_bwd.cu (the last part), whose permuted transposed copies are
-emulated too. On the card the CUDA tests and `kernel_mutants.py` (the low
-terms dropped, the copies unpermuted) check the kernels themselves.
+file), in their own chunked order, for the f32 attention backward of
+csrc/flash_bwd.cu (the third part), whose permuted transposed copies are
+emulated too, and for the f32 forward's own order on tf32 wgmma (the last
+part: truncating score accumulators, a fresh P V accumulator a key stage,
+V's permuted transposed copy). On the card the CUDA tests and
+`kernel_mutants.py` (the low terms dropped, the copies unpermuted, a
+stage's accumulator carried over, O left unscaled) check the kernels
+themselves.
 """
 
 import numpy as np
@@ -49,7 +53,7 @@ def split(x: torch.Tensor):
 
 
 def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as the kernel's mma_1688_3xtf32: the small terms, then hi * hi."""
+    """a @ b as 3xTF32 with f32 sums: the small terms, then hi * hi."""
     (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
 
@@ -424,3 +428,115 @@ def test_one_accumulator_attention_bwd_at_d128_is_outside_bwd_tolerance():
     errs = _bwd_errors(got[1:], want[1:])
     assert all(err > tol for err, tol in errs)  # dk, dv
 
+
+# ------------------------------------------------------------- attention forward
+# csrc/flash_fwd.cu's f32 forward runs both products as 3xTF32 on tf32 wgmma.
+# Q and K are split into hi and lo copies (K by a pre-pass, Q in shared
+# memory), and the pre-pass writes a transposed hi and lo copy of V (d x
+# tokens) whose token axis is permuted within each 8-token group (FRAG), so
+# that P goes from the S accumulator straight into the A operand of P V. Per stage of keys (`fwd_stage`): S = Q K^T sums d in
+# one truncating accumulator (at d = 128 two of 64 dims, added to nearest),
+# the online softmax in the log2 domain gives P and alpha, and P V sums the
+# stage's keys in a fresh truncating accumulator, which is added to O to
+# nearest after O is scaled by alpha.
+
+LN2 = 0.6931471805599453
+
+
+def fwd_stage(d):
+    """Keys a stage of the f32 forward: the depth of a fresh P V accumulator
+    (csrc/flash_fwd.cu `Tf32Fwd`)."""
+    return 32 if d == 128 else 64
+
+
+def split_alu(x: torch.Tensor):
+    """csrc/flash_common.cuh `split_tf32_alu`, P's split: hi as `to_tf32`,
+    lo = x - hi unrounded, which the tensor core truncates to TF32."""
+    hi = to_tf32(x)
+    return hi, ((x - hi).contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def pv_tf32(p, v, acc, copy_order=FRAG):
+    """acc plus p (.., M, T) @ v (.., T, D) in k8 steps, each taken exactly
+    and added rounding toward zero, a.lo b.hi, a.hi b.lo, a.hi b.hi: A
+    position j holds p's column 8kk + FRAG[j] (split by `split_alu`), the
+    transposed copy's position j v's row 8kk + copy_order[j]."""
+    t_pad = -(-p.shape[-1] // 8) * 8
+    p = torch.nn.functional.pad(p, (0, t_pad - p.shape[-1]))
+    v = torch.nn.functional.pad(v, (0, 0, 0, t_pad - v.shape[-2]))
+    for s0 in range(0, t_pad, 8):
+        a_hi, a_lo = split_alu(p[..., [s0 + i for i in FRAG]])
+        b_hi, b_lo = split(v[..., [s0 + i for i in copy_order], :])
+        acc = _truncating_dots(acc, ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)))
+    return acc
+
+
+def attention_fwd_tf32(q, k, v, scale, bias=None, copy_order=FRAG, one_accumulator=False):
+    """(o, lse) in the f32 forward kernel's order. `copy_order` is V^T's
+    token order within each 8-token group; `one_accumulator` sums P V over
+    every stage in one truncating accumulator that O's alpha scale rewrites
+    in place (the bf16 body's way), instead of a fresh one a stage."""
+    nk, stage = k.shape[-2], fwd_stage(q.shape[-1])
+    kb = torch.zeros(nk) if bias is None else bias * LOG2E
+    scale2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    m = torch.full((*q.shape[:-1], 1), -float("inf"))
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape)
+    for k0 in range(0, nk, stage):
+        x = scores_tf32(q, k[..., k0:k0 + stage, :]) * scale2 + kb[k0:k0 + stage]
+        mx = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - mx)
+        p = torch.exp2(x - mx)
+        m, l = mx, l * alpha + p.sum(dim=-1, keepdim=True)
+        vs = v[..., k0:k0 + stage, :]
+        if one_accumulator:
+            o = pv_tf32(p, vs, o * alpha, copy_order)
+        else:
+            o = o * alpha + pv_tf32(p, vs, torch.zeros(o.shape), copy_order)
+    return o / l, ((m + torch.log2(l)) * LN2).squeeze(-1)
+
+
+@pytest.mark.parametrize("d,nq,nk", SHAPES)
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_3xtf32_attention_fwd_in_kernel_order_is_within_kernel_tolerance(d, nq, nk, with_bias):
+    """The f32 forward's order, truncating score and P V accumulators, a
+    fresh one a key stage and the permuted V^T, within half of
+    `kernel_tolerance` (room for the card's order), ragged stages and the
+    ring's padded keys included."""
+    q, k, v, bias = _operands(d, nq, nk, seed=d + nq + nk, with_bias=with_bias)
+    want_o, want_lse = attention_plain(q, k, v, d**-0.5, return_lse=True, bias=bias)
+    o, lse = attention_fwd_tf32(q, k, v, d**-0.5, bias)
+    tol_o, tol_lse = kernel_tolerance(want_o)
+    assert float((o - want_o).abs().max()) <= tol_o / 2
+    assert float((lse - want_lse).abs().max()) <= tol_lse / 2
+
+
+@pytest.mark.parametrize("d,nq,nk", SHAPES)
+def test_unpermuted_v_copy_is_outside_kernel_tolerance(d, nq, nk):
+    """V^T in token order pairs P's column 2t with V's row t: o lands far
+    outside `kernel_tolerance` (kernel_mutants.py's unpermuted copy)."""
+    q, k, v, _ = _operands(d, nq, nk, seed=d + nq + nk, with_bias=False)
+    want_o = attention_plain(q, k, v, d**-0.5)
+    o, _ = attention_fwd_tf32(q, k, v, d**-0.5, copy_order=list(range(8)))
+    assert float((o - want_o).abs().max()) > 2 * kernel_tolerance(want_o)[0]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_one_accumulator_attention_fwd_is_outside_kernel_tolerance(d):
+    """Why a fresh P V accumulator a stage: a warpgroup's 64 query rows
+    against the decoder's 1,729 keys, P V summed in one truncating
+    accumulator, drift past `kernel_tolerance` (about 1.8 times it). The
+    truncation is a bias that grows with the sum, so it shows where the
+    terms add one way: V offset by 1 (o near 1). The kernel's order reads
+    about a tenth of the tolerance on the same inputs."""
+    n = 1729
+    rng = np.random.default_rng(n + d)
+    q = torch.from_numpy(rng.standard_normal((1, 1, 64, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 1, n, d)).astype(np.float32)) for _ in range(2))
+    v = v + 1
+    want_o = attention_plain(q, k, v, d**-0.5)
+    tol_o = kernel_tolerance(want_o)[0]
+    o, _ = attention_fwd_tf32(q, k, v, d**-0.5)
+    drifted, _ = attention_fwd_tf32(q, k, v, d**-0.5, one_accumulator=True)
+    assert float((o - want_o).abs().max()) <= tol_o / 2
+    assert float((drifted - want_o).abs().max()) > tol_o

@@ -670,12 +670,8 @@ cudaError_t launch_probe(const WgmmaProbeParams& p, cudaStream_t stream) {
 // The f32 bodies (design in the header comment): a split pre-pass, then the
 // dK/dV side (one kernel at d = 32 and 64; at d = 128 a dV kernel and a dK
 // kernel) and a dQ kernel, each of kCons consumer warpgroups (64 rows each)
-// and one producer warp. Operand tiles are f32 (tf32 bit patterns) in
-// k-blocks of 32 columns: 128-byte rows swizzled 128B, 8-row atoms of 1,024
-// bytes, one K-major descriptor per k8 step (32 bytes further along the
-// row); a transposed tile of 16 tokens has 64-byte rows swizzled 64B.
-
-constexpr int kTfRows = 32;  // tokens a block of the split pre-pass
+// and one producer warp. Their tiles, descriptors, loads and products are
+// flash_sm90.cuh's 3xTF32 building blocks, which the f32 forward shares.
 
 template <int D>
 struct Tf32Bwd {
@@ -716,13 +712,6 @@ struct Tf32QRing {
   static constexpr int kSmem = 1024 + kBarOffset + (2 * kStages + 1) * 8;
   static_assert(kSmem <= 232448, "over the shared memory a block can use");
 };
-
-// The token a transposed copy holds at position p of an 8-token group: t at
-// p = t, 2t + 1 at p = t + 4 (t < 4), where a wgmma accumulator's column
-// lands when its registers are read as a tf32 A fragment (acc_to_tf32_a).
-__host__ __device__ constexpr int tf32_token(int p) { return 2 * (p & 3) + (p >> 2); }
-
-__host__ __device__ inline long long pad8(int n) { return (n + 7) / 8 * 8; }
 
 // The head dims whose f32 backward runs these bodies: all that `flash_bwd`
 // takes.
@@ -802,108 +791,6 @@ __global__ void __launch_bounds__(256) flash_bwd_split_kernel(const FlashBwdPara
       tdst[(bh * D + c) * np + t0 + pos] = __uint_as_float(v.hi);
       tdst[((s.bh + bh) * D + c) * np + t0 + pos] = __uint_as_float(v.lo);
     }
-  }
-}
-
-// K-major descriptor of k8 step kk of an R-row f32 tile (k-blocks of R x
-// 32 floats).
-template <int R>
-__device__ __forceinline__ uint64_t desc_tf32(const unsigned char* tile, int kk) {
-  return sm90::wgmma_desc(tile + (kk >> 2) * R * 128 + (kk & 3) * 32, 1024, sm90::kSwizzle128);
-}
-
-// K-major descriptor of k8 step kk of a transposed tile, D rows of T
-// tokens: T = 32 is desc_tf32<D>'s layout; T = 16 is 64-byte rows swizzled
-// 64B, 512-byte atoms, as TMA writes a 16-token box.
-template <int D, int T>
-__device__ __forceinline__ uint64_t desc_tf32_t(const unsigned char* tile, int kk) {
-  if constexpr (T == 32) {
-    return desc_tf32<D>(tile, kk);
-  } else {
-    static_assert(T == 16, "a transposed tile holds 16 or 32 tokens");
-    return sm90::wgmma_desc(tile + kk * 32, 512, sm90::kSwizzle64);
-  }
-}
-
-// Rows row0 .. row0 + R - 1 of half hl (0 hi, 1 lo) of head bh of a split
-// copy (2, BH, rows, D) into an R-row tile; rows past the copy arrive as
-// zeros. A transposed copy (2, BH, D, np) is one box of D rows of tokens
-// at (tok0, 0, bh, hl).
-template <int D, int R>
-__device__ __forceinline__ void load_split_rows(unsigned char* tile, const CUtensorMap* map, int row0, int bh, int hl,
-                                                uint64_t* bar, uint64_t policy) {
-#pragma unroll
-  for (int kb = 0; kb < D / 32; ++kb) sm90::tma_load_4d(tile + kb * R * 128, map, kb * 32, row0, bh, hl, bar, policy);
-}
-
-// The tf32 A fragment, hi and lo, of k8 step kk from an m64nN accumulator:
-// the thread's columns 8kk + 2t and 8kk + 2t + 1 of rows g and g + 8 become
-// depth positions t and t + 4, the order the transposed copies hold the
-// tokens in (tf32_token), so each register moves as it lies.
-template <int R>
-__device__ __forceinline__ void acc_to_tf32_a(const float (&acc)[R], int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  const float v[4] = {acc[4 * kk], acc[4 * kk + 2], acc[4 * kk + 1], acc[4 * kk + 3]};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const Tf32x2 s = split_tf32(v[i]);
-    hi[i] = s.hi;
-    lo[i] = s.lo;
-  }
-}
-
-// d (64 x N) = A B^T as 3xTF32 over k8 steps K0 .. K1 - 1 of D, one
-// accumulator: A (64 x D) and B (N x D) K-major in shared memory, hi and lo
-// tiles each (S^T, dP^T, S and dP; the first product overwrites d).
-template <int D, int N, int K0 = 0, int K1 = D / 8>
-__device__ __forceinline__ void scores_3xtf32(float (&d)[N / 2], const unsigned char* a_hi, const unsigned char* a_lo,
-                                              const unsigned char* b_hi, const unsigned char* b_lo) {
-#pragma unroll
-  for (int kk = K0; kk < K1; ++kk) {
-    sm90::WgmmaTf32<N>::ss(d, desc_tf32<kBlock>(a_lo, kk), desc_tf32<N>(b_hi, kk), kk > K0);
-    sm90::WgmmaTf32<N>::ss(d, desc_tf32<kBlock>(a_hi, kk), desc_tf32<N>(b_lo, kk), 1);
-    sm90::WgmmaTf32<N>::ss(d, desc_tf32<kBlock>(a_hi, kk), desc_tf32<N>(b_hi, kk), 1);
-  }
-}
-
-// A score product over all of D into d; at d = 128 over its first 64 dims
-// into d and its last 64 into d2, two fresh accumulators (one over all 128
-// would truncate twice as often at a larger magnitude: the CPU witness reads
-// the error halved), which `scores_join` adds after the wait.
-template <int D, int N>
-__device__ __forceinline__ void scores_split(float (&d)[N / 2], float (&d2)[N / 2], const unsigned char* a_hi,
-                                             const unsigned char* a_lo, const unsigned char* b_hi,
-                                             const unsigned char* b_lo) {
-  if constexpr (D == 128) {
-    scores_3xtf32<D, N, 0, 8>(d, a_hi, a_lo, b_hi, b_lo);
-    scores_3xtf32<D, N, 8, 16>(d2, a_hi, a_lo, b_hi, b_lo);
-  } else {
-    scores_3xtf32<D, N>(d, a_hi, a_lo, b_hi, b_lo);
-  }
-}
-
-template <int D, int N>
-__device__ __forceinline__ void scores_join(float (&d)[N / 2], float (&d2)[N / 2]) {
-  sm90::fence_operands(d);
-  if constexpr (D == 128) {
-    sm90::fence_operands(d2);
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) d[i] += d2[i];
-  }
-}
-
-// d (64 x D) = A B over one T-deep stage as 3xTF32 into a fresh
-// accumulator: A from registers (T / 8 k8 steps, hi and lo), B a transposed
-// D-row tile of T tokens (hi and lo) whose token order matches A's (dV, dK
-// and dQ).
-template <int D, int T>
-__device__ __forceinline__ void chunk_3xtf32(float (&d)[D / 2], const uint32_t (&a_hi)[T / 8][4],
-                                             const uint32_t (&a_lo)[T / 8][4], const unsigned char* b_hi,
-                                             const unsigned char* b_lo) {
-#pragma unroll
-  for (int kk = 0; kk < T / 8; ++kk) {
-    sm90::WgmmaTf32<D>::rs(d, a_lo[kk], desc_tf32_t<D, T>(b_hi, kk), kk > 0);  // a fresh accumulator per chunk
-    sm90::WgmmaTf32<D>::rs(d, a_hi[kk], desc_tf32_t<D, T>(b_lo, kk), 1);
-    sm90::WgmmaTf32<D>::rs(d, a_hi[kk], desc_tf32_t<D, T>(b_hi, kk), 1);
   }
 }
 
@@ -1265,19 +1152,6 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
 
   store_tile<D>(dq, p.scale, static_cast<float*>(p.dq) + bh_offset(p.dq_sb, p.dq_sh, b, h), p.dq_sn, row0, n, wl, g,
                 t);
-}
-
-// A rank-4 tensor map over a split copy (2, BH, rows, cols) of f32, boxes of
-// box_rows x box_cols (32 columns: 128-byte rows swizzled 128B; 16: 64-byte
-// rows swizzled 64B).
-inline CUresult encode_split(CUtensorMap* map, const float* base, long long bh, long long rows, long long cols,
-                             int box_rows, int box_cols = 32) {
-  const uint64_t dims[4] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows), static_cast<uint64_t>(bh), 2};
-  const uint64_t strides[3] = {static_cast<uint64_t>(cols) * 4, static_cast<uint64_t>(rows * cols) * 4,
-                               static_cast<uint64_t>(bh * rows * cols) * 4};
-  const uint32_t box[4] = {static_cast<uint32_t>(box_cols), static_cast<uint32_t>(box_rows), 1, 1};
-  return sm90::encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, 4, dims, strides, box,
-                      box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // The dK/dV-side kernel that owns dK (DK) and dV (DV), over the resident

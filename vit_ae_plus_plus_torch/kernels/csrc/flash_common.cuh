@@ -1,6 +1,6 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu)
-// and the LayerNorm+Dense kernels (ln_dense.cu): the f32-accurate 3xTF32
-// product on mma.sync m16n8k8, register packing and cp.async.
+// and the LayerNorm kernels (layernorm.cu, ln_dense.cu): constants, register
+// packing and the tf32 split of the f32-accurate 3xTF32 products.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (g = lane / 4, t = lane % 4;
 // wgmma's A from registers takes this A layout, a warp's 16 rows each):
@@ -11,7 +11,8 @@
 // So the C accumulators of two neighbouring 8-column tiles, rounded to bf16,
 // are exactly the A fragment of one 16-deep step.
 //
-// Fragment layouts of mma.sync.m16n8k8.row.col.tf32 (the same g and t):
+// Fragment layouts of mma.sync.m16n8k8.row.col.tf32 (the same g and t;
+// tf32 wgmma's A from registers takes this A layout):
 //   A (16 x 8):  a0 = (row g, k t), a1 = (row g+8, k t),
 //                a2 = (row g, k t+4), a3 = (row g+8, k t+4);
 //   B (8 x 8):   b0 = (k t, col g), b1 = (k t+4, col g);
@@ -44,7 +45,8 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
 // bits). x = hi + lo to about 2^-22 relative, and a product a * b becomes
 // a.hi * b.hi + a.hi * b.lo + a.lo * b.hi, dropping a.lo * b.lo (about 2^-22
 // relative): f32-accurate products on the TF32 tensor cores at a third of
-// their rate, CUTLASS's OpMultiplyAddFastF32.
+// their rate, CUTLASS's OpMultiplyAddFastF32. The products run on tf32
+// wgmma (flash_sm90.cuh, ln_dense.cu).
 
 struct Tf32x2 {
   uint32_t hi, lo;
@@ -61,46 +63,14 @@ __device__ __forceinline__ Tf32x2 split_tf32(float x) {
   return {hi, to_tf32(x - __uint_as_float(hi))};
 }
 
-__device__ __forceinline__ void mma_1688_tf32(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a * b in f32 accuracy: the small terms first, then hi * hi.
-__device__ __forceinline__ void mma_1688_3xtf32(float c[4], const uint32_t a_hi[4], const uint32_t a_lo[4],
-                                                Tf32x2 b0, Tf32x2 b1) {
-  mma_1688_tf32(c, a_lo, b0.hi, b1.hi);
-  mma_1688_tf32(c, a_hi, b0.lo, b1.lo);
-  mma_1688_tf32(c, a_hi, b0.hi, b1.hi);
-}
-
-// A fragment (hi and lo) of four f32 values in the m16n8k8 A order.
-__device__ __forceinline__ void split_a(const float v[4], uint32_t hi[4], uint32_t lo[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const Tf32x2 s = split_tf32(v[i]);
-    hi[i] = s.hi;
-    lo[i] = s.lo;
-  }
-}
-
-// ----------------------------------------------------------------- cp.async
-
-// 16 bytes global -> shared, zero-filled when !valid (0 source bytes).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// The same split of a finite x for a register operand, on the integer and
+// FMA pipes (cvt.rna costs more, and a softmax splits 4,096 values a
+// stage): hi rounded to nearest, ties away, by an add and a mask (cvt.rna's
+// result), lo = x - hi exact and unrounded, since the tensor core reads its
+// top 19 bits (lo truncated: 2^-11 of lo, 2^-22 of x).
+__device__ __forceinline__ Tf32x2 split_tf32_alu(float x) {
+  const uint32_t hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  return {hi, __float_as_uint(x - __uint_as_float(hi))};
 }
 
 }  // namespace flash

@@ -59,17 +59,62 @@
 // bf16, lse = (m + log2 l) ln 2 in f32. Ragged tails arrive zero-filled
 // from TMA; nothing is stored past seq_len.
 //
-// The f32 kernel (compute_dtype float32, TrainConfig's default) keeps
+// The f32 body (compute_dtype float32, TrainConfig's default) keeps
 // f32-accurate products on the tensor cores with 3xTF32 (flash_common.cuh):
 // each operand split into a TF32 high and low part, hi*hi + hi*lo + lo*hi
-// summed in f32 by mma.sync m16n8k8, lo*lo dropped (about 2^-22 relative per
-// product, inside kernel_tolerance's 1e-5 where plain TF32's 2^-11 is not).
-// Bound: 3 x 4*B*H*N*Nk*d TF32 operations, so the card's 495 TFLOP/s of
-// TF32 give 165 of f32-accurate work. 4 warps x 16 query rows, 64-key
-// tiles, online softmax in the log2 domain, with K and V tiles in f32
-// double-buffered through cp.async, rows padded by 4 floats for
-// conflict-free fragment reads (70 KB at d = 64, so dynamic shared
-// memory). Operands need 16-byte aligned rows (the wrapper checks).
+// summed in f32, lo*lo dropped (about 2^-22 relative per product, inside
+// kernel_tolerance's 1e-5 where plain TF32's 2^-11 is not). Bound: 3 x
+// 4*B*H*N*Nk*d TF32 operations, so the card's 495 TFLOP/s of TF32 give 165
+// of f32-accurate work. It runs on tf32 wgmma and TMA, built from the f32
+// backward's blocks (flash_sm90.cuh), in two launches:
+//   1. a split pre-pass (flash_fwd_split_kernel) writes tf32 hi and lo
+//      copies of K (row-major) and a transposed hi and lo copy of V (d rows
+//      of tokens, the token axis padded to 8 and each 8-token group
+//      permuted by tf32_token) into scratch the wrapper allocates at the
+//      size flash_fwd_split_floats reports. tf32 wgmma reads only K-major
+//      shared operands, and O += P V has the keys as its depth: V^T is that
+//      operand, and with the permutation P's accumulator columns land as
+//      its tf32 A fragment (acc_to_tf32_a) with no shuffle. Q is read once
+//      by one block, so it skips the pre-pass: TMA loads it in f32 and its
+//      warpgroup splits it in shared memory (the pre-pass moves 6 of the 9
+//      operand-sized passes it would with Q);
+//   2. the main kernel (flash_fwd_tf32_kernel): a block per (b, h, 64 *
+//      kCons query rows), kCons consumer warpgroups of 64 rows and one
+//      producer warp. The producer loads each warpgroup's Q once (it stays
+//      resident, hi and lo) and streams K hi, K lo, V^T hi and V^T lo in
+//      stages of kRows keys through a ring behind full/empty mbarriers, its
+//      lanes writing a ring step's key bias (log2 units) beside each stage.
+//      Per stage a warpgroup runs S = Q K^T as 3xTF32 over d in one
+//      accumulator (m64n{kRows}k8, both operands K-major; at d = 128 two
+//      accumulators of 64 dims added at nearest, as the backward's
+//      scores_split), the online softmax in the log2 domain (ex2.approx,
+//      the ragged key tail masked by a select on every stage, no branch
+//      between the products), splits P into tf32 A fragments on the ALU
+//      (split_tf32_alu) and runs P V as 3xTF32 into a fresh accumulator
+//      (m64n{d}k8, B = V^T), which is added to O on the FMA pipes after O
+//      is scaled by alpha. The tensor cores' f32 sums truncate: one
+//      accumulator over 1,729 keys would drift by about 1e-5 (the CPU
+//      witness's control), a stage's 24 or 12 products stay a few 2^-24
+//      off.
+// Sizes (shared memory: a 64-row f32 tile is 16 KiB at d = 64, twice that
+// with its lo copy):
+//   d      kCons  stage  stages  resident Q  ring     registers (o, chunk, S, P)
+//   32     2      64     4       32 KiB      128 KiB  16 + 16 + 32 + 64
+//   64     2      64     2       64 KiB      128 KiB  32 + 32 + 32 + 64
+//   128    1      32     2       64 KiB      128 KiB  64 + 64 + 32 + 32
+// At d = 32 and 64 two warpgroups share each stage: one alone would pull
+// about 40 bytes a clock from L2 at the full tf32 rate (the backward's
+// header has the reckoning), and one's softmax runs beside the other's
+// products. At d = 128 two resident Q tiles and a 64-key stage would not
+// fit, so one warpgroup takes 32-key stages. One block an SM. A warpgroup
+// whose 64 rows all lie past seq_len only releases the stages. Ragged
+// tails arrive zero-filled from TMA; nothing is stored past seq_len.
+// Not done: issuing the next stage's S beside this stage's P V (the bf16
+// body's overlap) needs a second S and P in registers, and ptxas holds a
+// 288-thread block to 168 a thread (it rounds to whole warpgroups): that
+// version spilled and ran slower.
+// Operands need 16-byte aligned rows (the wrapper checks; the bf16 TMA
+// maps need them).
 
 #include "flash_sm90.cuh"
 
@@ -81,6 +126,7 @@ struct FlashFwdParams {
   void* o;
   float* lse;  // (B, H, seq_len) f32, or null
   const float* key_bias;  // (kv_len,) f32 additive bias over the keys, or null
+  float* split;  // scratch of flash_fwd_split_floats floats (the f32 body's tf32 copies), or null
   long long q_sb, q_sn, q_sh;  // element strides of (batch, token, head)
   long long k_sb, k_sn, k_sh;
   long long v_sb, v_sn, v_sh;
@@ -438,189 +484,297 @@ cudaError_t launch_bf16(const FlashFwdParams& p, cudaStream_t stream) {
 }
 
 // ----------------------------------------------------------------- f32 path
+//
+// 3xTF32 on tf32 wgmma + TMA (design in the header comment).
 
-constexpr int kBlockQ = 64;  // query rows per block: 4 warps x 16 rows
-constexpr int kBlockK = 64;  // keys per shared-memory tile
-constexpr int kThreads = 128;
+// The pre-pass's copies, float offsets into the wrapper's scratch
+// (flash_fwd_split_floats sizes it), each hi at [0] and lo at [1] of its
+// outer axis: ks (2, BH, kv_len, D) row-major; vt (2, BH, D, npk)
+// transposed, the token axis padded to a multiple of 8 (zeros) and
+// permuted within each 8-token group by tf32_token.
+struct FwdSplit {
+  long long ks, vt, end;
+  long long bh, npk;
+};
 
-// K and V tiles of kBlockK keys in f32, two stages, rows padded by 4 floats
-// so that the m16n8k8 fragment reads hit 32 distinct banks; then the two
-// stages' key bias (log2 units).
-template <int D>
-constexpr int f32_smem_bytes() {
-  return (2 * 2 * kBlockK * (D + 4) + 2 * kBlockK) * static_cast<int>(sizeof(float));
+__host__ __device__ inline FwdSplit fwd_split(const FlashFwdParams& p) {
+  FwdSplit s;
+  s.bh = (long long)p.batch * p.heads;
+  s.npk = pad8(p.kv_len);
+  s.ks = 0;
+  s.vt = s.ks + 2 * s.bh * p.kv_len * p.head_dim;
+  s.end = s.vt + 2 * s.bh * p.head_dim * s.npk;
+  return s;
 }
 
-template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32_kernel(const FlashFwdParams p) {
-  constexpr int LD = D + 4;   // padded row pitch, in floats
-  constexpr int KT = D / 8;   // k-steps of Q K^T
-  constexpr int NT = D / 8;   // 8-column tiles of O
-  constexpr int kStage = 2 * kBlockK * LD;  // K then V of one stage, in floats
-  extern __shared__ __align__(16) float f32_smem[];
-  float* bias_s = f32_smem + 2 * kStage;
-
-  const int q0 = blockIdx.x * kBlockQ;
+// One (b, h, 32-key tile) a block: the K and V rows loaded 16 bytes a
+// thread, all loads before any store; K's rows split into tf32 hi and lo
+// (cvt.rna), V's transposed copy through a shared-memory tile, its writes
+// along the token axis coalesced.
+template <int D>
+__global__ void __launch_bounds__(256) flash_fwd_split_kernel(const FlashFwdParams p) {
+  constexpr int kVec = kTfRows * D / 4 / 256;  // float4s a thread of each operand
+  __shared__ float tile[kTfRows][D + 1];
+  const FwdSplit s = fwd_split(p);
+  const int t0 = blockIdx.x * kTfRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int n = p.seq_len;
-  const int nk = p.kv_len;
-
-  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const long long bh = (long long)b * p.heads + h;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  float4 kx[kVec], vx[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const int e = (threadIdx.x + 256 * i) * 4;  // element e .. e + 3 of the tile, along a row
+    const int row = t0 + e / D;
+    const bool live = row < p.kv_len;
+    kx[i] = live ? *reinterpret_cast<const float4*>(kg + row * p.k_sn + e % D) : make_float4(0.f, 0.f, 0.f, 0.f);
+    vx[i] = live ? *reinterpret_cast<const float4*>(vg + row * p.v_sn + e % D) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float* ks = p.split + s.ks;
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const int e = (threadIdx.x + 256 * i) * 4;
+    const int r = e / D;
+    const int c = e % D;
+    tile[r][c] = vx[i].x;
+    tile[r][c + 1] = vx[i].y;
+    tile[r][c + 2] = vx[i].z;
+    tile[r][c + 3] = vx[i].w;
+    if (t0 + r >= p.kv_len) continue;
+    const Tf32x2 x = split_tf32(kx[i].x), y = split_tf32(kx[i].y), z = split_tf32(kx[i].z), w = split_tf32(kx[i].w);
+    const long long at = (bh * p.kv_len + t0 + r) * D + c;
+    *reinterpret_cast<float4*>(ks + at) = make_float4(__uint_as_float(x.hi), __uint_as_float(y.hi),
+                                                      __uint_as_float(z.hi), __uint_as_float(w.hi));
+    *reinterpret_cast<float4*>(ks + s.bh * p.kv_len * D + at) =
+        make_float4(__uint_as_float(x.lo), __uint_as_float(y.lo), __uint_as_float(z.lo), __uint_as_float(w.lo));
+  }
+  __syncthreads();
+  float* vt = p.split + s.vt;
+  for (int i = threadIdx.x; i < kTfRows * D; i += 256) {
+    const int c = i / kTfRows;
+    const int pos = i % kTfRows;
+    if (t0 + pos >= s.npk) continue;
+    const Tf32x2 v = split_tf32(tile[(pos & ~7) + tf32_token(pos & 7)][c]);
+    vt[(bh * D + c) * s.npk + t0 + pos] = __uint_as_float(v.hi);
+    vt[((s.bh + bh) * D + c) * s.npk + t0 + pos] = __uint_as_float(v.lo);
+  }
+}
 
-  // K and V rows k0..k0+63 into one stage (rows past kv_len zero-filled),
-  // 16 bytes a copy, and the stage's bias
-  auto load_kv = [&](int stage, int k0) {
-    constexpr int kPerRow = D / 4;
-    float* ks = f32_smem + stage * kStage;
-    float* vs = ks + kBlockK * LD;
-    for (int i = threadIdx.x; i < kBlockK * kPerRow; i += kThreads) {
-      const int r = i / kPerRow;
-      const int c = (i % kPerRow) * 4;
-      const bool ok = k0 + r < nk;
-      const long long row = ok ? k0 + r : 0;
-      cp_async16(ks + r * LD + c, kg + row * p.k_sn + c, ok);
-      cp_async16(vs + r * LD + c, vg + row * p.v_sn + c, ok);
+// The main kernel's block: [kCons x (Q hi, Q lo)][kStages x (K hi, K lo,
+// V^T hi, V^T lo)][kStages x kRows f32: the stage's key bias][barriers],
+// after 1,024 bytes of alignment room. TMA writes each Q tile in f32 into
+// its lo slot; its warpgroup splits it in place.
+template <int D>
+struct Tf32Fwd {
+  static constexpr int kCons = D == 128 ? 1 : 2;     // consumer warpgroups: a block owns 64 * kCons queries
+  static constexpr int kThreads = kCons * 128 + 32;  // and a producer warp
+  static constexpr int kRows = D == 128 ? 32 : 64;   // keys a stage: the depth of a P V chunk
+  static constexpr int kStages = D == 32 ? 4 : 2;
+  static constexpr int kResBytes = kBlock * D * 4;  // a resident Q tile, hi or lo
+  static constexpr int kRowBytes = kRows * D * 4;   // a streamed K tile, or a V^T tile (D rows of kRows tokens)
+  static constexpr int kStageOffset = kCons * 2 * kResBytes;
+  static constexpr int kBiasOffset = kStageOffset + kStages * 4 * kRowBytes;
+  static constexpr int kBarOffset = kBiasOffset + kStages * kRows * 4;
+  static constexpr int kSmem = 1024 + kBarOffset + (2 * kStages + 1) * 8;
+  static_assert(kSmem <= 232448, "over the shared memory a block can use");
+};
+
+// Online softmax of one stage of S in the accumulator layout (element 4j
+// + e: query row g (+ 8 for e >= 2), key k0 + 8j + 2t + (e & 1)), in log2
+// units: x = S scale log2(e) + the key bias (log2 units, or none), keys
+// past kv_len at -inf (a select, no branch); the new running max m,
+// alpha = exp2(m_old - m) (l scaled by it), then P = exp2(x - m) in place
+// of S, summed into l.
+template <int R, bool HAS_BIAS>
+__device__ __forceinline__ void softmax_stage(float (&s)[R / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                              float scale2, const float* bias, int k0, int nk, int t) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < R / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * j + 2 * t + (e & 1);
+      float x = key < nk ? s[4 * j + e] * scale2 : -INFINITY;
+      if constexpr (HAS_BIAS) x += bias[8 * j + 2 * t + (e & 1)];
+      s[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
     }
-    if constexpr (HAS_BIAS) {
-      if (threadIdx.x < kBlockK) {
-        const int key = k0 + threadIdx.x;
-        bias_s[stage * kBlockK + threadIdx.x] = key < nk ? p.key_bias[key] * kLog2e : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = ex2(m[r] - mx[r]);
+    m[r] = mx[r];
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < R / 2; ++i) {
+    s[i] = ex2(s[i] - m[(i >> 1) & 1]);
+    l[(i >> 1) & 1] += s[i];
+  }
+}
+
+// o and lse of 64 * kCons query rows, warpgroup w owning rows 64w .. 64w +
+// 63 of the block: per stage of kRows keys S = Q K^T, the online softmax,
+// P split into tf32 A fragments, P V (B = the permuted V^T) into a fresh
+// accumulator added to O after O is scaled by alpha.
+template <int D, bool HAS_BIAS>
+__global__ void __launch_bounds__(Tf32Fwd<D>::kThreads, 1)
+flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_vt, const FlashFwdParams p) {
+  using F = Tf32Fwd<D>;
+  using namespace sm90;
+  constexpr int kStages = F::kStages;
+  constexpr int kRows = F::kRows;
+  constexpr int kRes = F::kResBytes;
+  constexpr int kRow = F::kRowBytes;
+  extern __shared__ unsigned char fwd_smem[];
+  unsigned char* base = fwd_smem + ((1024 - (smem_u32(fwd_smem) & 1023)) & 1023);
+  unsigned char* stream = base + F::kStageOffset;  // stage s: its four tiles from stream + 4s kRow
+  float* bias_s = reinterpret_cast<float*>(base + F::kBiasOffset);  // stage s: [kRows s, +kRows), log2 units
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + F::kBarOffset);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int q0 = blockIdx.x * kBlock * F::kCons;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int bh = b * p.heads + h;
+  const int n = p.seq_len;
+  const int nk = p.kv_len;
+  const int ktiles = (nk + kRows - 1) / kRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], HAS_BIAS ? 1 + 32 : 1);  // and the producer lanes' bias
+      mbar_init(&empty[s], F::kCons);
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4 * F::kCons) {  // the producer warp
+    const uint64_t once = l2_evict_first();
+    const uint64_t shared_by_all = l2_evict_last();  // every query block of the head reads K and V^T
+    if (lane == 0) {
+      tma_prefetch_descriptor(&tm_k);
+      tma_prefetch_descriptor(&tm_vt);
+      mbar_arrive_expect_tx(qbar, F::kCons * kRes);
+      for (int w = 0; w < F::kCons; ++w) {  // Q in f32 from the caller's strides, into the lo slot
+#pragma unroll
+        for (int kb = 0; kb < D / 32; ++kb) {
+          tma_load_4d(base + (2 * w + 1) * kRes + kb * kBlock * 128, &tm_q, kb * 32, q0 + kBlock * w, h, b, qbar,
+                      once);
+        }
       }
     }
-  };
-
-  // Stage the Q tile through stage 0, then keep this warp's 16 rows in
-  // registers as m16n8k8 A fragments in f32, split into hi and lo at each use
-  // (rows past seq_len are zeros and are not stored).
-  for (int i = threadIdx.x; i < kBlockQ * (D / 4); i += kThreads) {
-    const int r = i / (D / 4);
-    const int c = (i % (D / 4)) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < n) val = *reinterpret_cast<const float4*>(qg + (long long)(q0 + r) * p.q_sn + c);
-    *reinterpret_cast<float4*>(f32_smem + r * LD + c) = val;
-  }
-  __syncthreads();
-  float qf[KT][4];
-  {
-    const float* base = f32_smem + (warp * 16 + g) * LD + t;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      qf[kk][0] = base[kk * 8];
-      qf[kk][1] = base[kk * 8 + 8 * LD];
-      qf[kk][2] = base[kk * 8 + 4];
-      qf[kk][3] = base[kk * 8 + 8 * LD + 4];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(&empty[stage], phase ^ 1);  // the first round passes: every stage starts empty
+      const int k0 = kt * kRows;
+      unsigned char* st = stream + 4 * stage * kRow;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[stage], 4 * kRow);
+        for (int hl = 0; hl < 2; ++hl) {
+          load_split_rows<D, kRows>(st + hl * kRow, &tm_k, k0, bh, hl, &full[stage], shared_by_all);
+          for (int kb = 0; kb < kRows / 32; ++kb) {  // V^T: D rows of 32 tokens a box
+            tma_load_4d(st + (2 + hl) * kRow + kb * D * 128, &tm_vt, k0 + 32 * kb, 0, bh, hl, &full[stage],
+                        shared_by_all);
+          }
+        }
+      }
+      if constexpr (HAS_BIAS) {
+        for (int i = lane; i < kRows; i += 32) {
+          const int key = k0 + i;
+          bias_s[stage * kRows + i] = key < nk ? p.key_bias[key] * kLog2e : 0.f;
+        }
+        mbar_arrive(&full[stage]);
+      }
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
+    return;
   }
-  __syncthreads();
 
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const int wg = warp >> 2;
+  const int wl = warp & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const bool lead = (threadIdx.x & 127) == 0;
+  const int row0 = q0 + kBlock * wg;
+  int stage = 0;
+  uint32_t phase = 0;
+  if (row0 >= n) {  // every row of this warpgroup lies past seq_len: it only releases the stages
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(&full[stage], phase);
+      if (lead) mbar_arrive(&empty[stage]);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
   }
+  const unsigned char* q_hi = base + 2 * wg * kRes;  // then Q lo
+  const float scale2 = p.scale * kLog2e;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // rows g and g + 8 of the warp: running max (log2 units) and this
+  // thread's share of the row sums
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
-  const float scale2 = p.scale * kLog2e;
-
-  const int ktiles = (nk + kBlockK - 1) / kBlockK;
-  load_kv(0, 0);
-  cp_async_commit();
-  for (int tile = 0; tile < ktiles; ++tile) {
-    if (tile + 1 < ktiles) load_kv((tile + 1) & 1, (tile + 1) * kBlockK);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's stage has landed (the next may be in flight)
-    __syncthreads();
-    const float* ks = f32_smem + (tile & 1) * kStage;
-    const float* vs = ks + kBlockK * LD;
-    const float* bs = bias_s + (tile & 1) * kBlockK;
-    const int k0 = tile * kBlockK;
-
-    // S = Q K^T for 16 rows x 64 keys, 3xTF32
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      uint32_t a_hi[4], a_lo[4];
-      split_a(qf[kk], a_hi, a_lo);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float* kb = ks + (j * 8 + g) * LD + kk * 8 + t;
-        mma_1688_3xtf32(s[j], a_hi, a_lo, split_tf32(kb[0]), split_tf32(kb[4]));
-      }
+  mbar_wait(qbar, 0);
+  {  // split this warpgroup's Q tile: hi and lo at the same offsets (one layout), then visible to wgmma
+    float4* qhi = reinterpret_cast<float4*>(base + 2 * wg * kRes);
+    float4* qlo = reinterpret_cast<float4*>(base + (2 * wg + 1) * kRes);
+    for (int i = threadIdx.x & 127; i < kRes / 16; i += 128) {
+      const float4 x = qlo[i];
+      const Tf32x2 a = split_tf32(x.x), c = split_tf32(x.y), e = split_tf32(x.z), f = split_tf32(x.w);
+      qhi[i] = make_float4(__uint_as_float(a.hi), __uint_as_float(c.hi), __uint_as_float(e.hi), __uint_as_float(f.hi));
+      qlo[i] = make_float4(__uint_as_float(a.lo), __uint_as_float(c.lo), __uint_as_float(e.lo), __uint_as_float(f.lo));
     }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+  }
 
-    // scale into log2 units, add the bias, mask the ragged key tail, new
-    // running max: as in the bf16 kernel
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * t + (e & 1);
-        float x = key < nk ? s[j][e] * scale2 : -INFINITY;
-        if constexpr (HAS_BIAS) x += bs[j * 8 + 2 * t + (e & 1)];
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    mbar_wait(&full[stage], phase);
+    const unsigned char* st = stream + 4 * stage * kRow;
+    float s[kRows / 2], s2[kRows / 2];  // S, then P: 64 queries x kRows keys
+    wgmma_fence();
+    scores_split<D, kRows>(s, s2, q_hi, q_hi + kRes, st, st + kRow);
+    wgmma_commit();
+    wgmma_wait<0>();
+    scores_join<D, kRows>(s, s2);
     float alpha[2];
+    softmax_stage<kRows, HAS_BIAS>(s, m, l, alpha, scale2, bias_s + stage * kRows, kt * kRows, nk, t);
+    uint32_t pa_hi[kRows / 8][4], pa_lo[kRows / 8][4];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      alpha[r] = exp2f(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= alpha[r];
+    for (int kk = 0; kk < kRows / 8; ++kk) acc_to_tf32_a<kRows / 2, true>(s, kk, pa_hi[kk], pa_lo[kk]);
+    float chunk[D / 2];
+    wgmma_fence();
+    chunk_3xtf32<D, kRows>(chunk, pa_hi, pa_lo, st + 2 * kRow, st + 3 * kRow);  // P V, B = V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(chunk);
+    fence_frags(pa_hi);
+    fence_frags(pa_lo);
+    if (lead) mbar_arrive(&empty[stage]);  // the warpgroup's products on the stage are done
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = fmaf(o[i], alpha[(i >> 1) & 1], chunk[i]);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
     }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - m[e >> 1]);
-        l[e >> 1] += s[j][e];
-      }
-    }
-
-    // O = O * alpha + P V, the tile's P V in a fresh accumulator, 3xTF32.
-    // S's accumulator of key tile j holds keys 2t and 2t+1, where the
-    // m16n8k8 A fragment wants k = t and t + 4: P is taken
-    // as it lies, with its keys permuted within the tile, and V's B fragment
-    // reads the same keys (rows 2t and 2t+1); the sum over keys is
-    // order-free. The tensor cores' f32 sums truncate; a tile's 24 of them
-    // stay a few 2^-24 off, where a row's thousands would drift by 1e-5:
-    // the tiles are summed on the FMA pipes, rounded to nearest.
-    float pv[NT][4];
-#pragma unroll
-    for (int c = 0; c < NT; ++c) pv[c][0] = pv[c][1] = pv[c][2] = pv[c][3] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float pa[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
-      uint32_t p_hi[4], p_lo[4];
-      split_a(pa, p_hi, p_lo);
-      const float* vb = vs + (j * 8 + 2 * t) * LD + g;
-#pragma unroll
-      for (int c = 0; c < NT; ++c) {
-        mma_1688_3xtf32(pv[c], p_hi, p_lo, split_tf32(vb[c * 8]), split_tf32(vb[c * 8 + LD]));
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < NT; ++c) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][e] = fmaf(acc[c][e], alpha[e >> 1], pv[c][e]);
-    }
-    __syncthreads();  // the stage is consumed before the next-but-one load overwrites it
   }
 
 #pragma unroll
@@ -630,13 +784,13 @@ flash_fwd_f32_kernel(const FlashFwdParams p) {
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= n) continue;
+    const int row = row0 + wl * 16 + g + 8 * r;
+    if (row >= n) continue;  // dead query rows are not stored
     const float inv = 1.f / l[r];
     float* og = static_cast<float*>(p.o) + b * p.o_sb + (long long)row * p.o_sn + h * p.o_sh + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      *reinterpret_cast<float2*>(og + j * 8) = make_float2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(og + j * 8) = make_float2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     }
     if (p.lse != nullptr && t == 0) {
       p.lse[((long long)b * p.heads + h) * n + row] = (m[r] + log2f(l[r])) * kLn2;
@@ -645,15 +799,38 @@ flash_fwd_f32_kernel(const FlashFwdParams p) {
 }
 
 template <int D, bool HAS_BIAS>
-cudaError_t launch(const FlashFwdParams& p, int is_bf16, cudaStream_t stream) {
-  if (is_bf16) return launch_bf16<D, HAS_BIAS>(p, stream);
-  constexpr int smem = f32_smem_bytes<D>();
-  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D, HAS_BIAS>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t launch_tf32(const FlashFwdParams& p, cudaStream_t stream) {
+  using F = Tf32Fwd<D>;
+  if (p.split == nullptr) return cudaErrorInvalidValue;
+  const FwdSplit s = fwd_split(p);
+  flash_fwd_split_kernel<D><<<dim3((s.npk + kTfRows - 1) / kTfRows, p.heads, p.batch), 256, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.seq_len + kBlockQ - 1) / kBlockQ, p.heads, p.batch);
-  flash_fwd_f32_kernel<D, HAS_BIAS><<<grid, kThreads, smem, stream>>>(p);
+  // Q from the caller's (batch, token, head) strides, 64-row boxes of 32 f32
+  const uint64_t q_dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(p.seq_len),
+                              static_cast<uint64_t>(p.heads), static_cast<uint64_t>(p.batch)};
+  const uint64_t q_strides[3] = {static_cast<uint64_t>(p.q_sn) * 4, static_cast<uint64_t>(p.q_sh) * 4,
+                                 static_cast<uint64_t>(p.q_sb) * 4};
+  const uint32_t q_box[4] = {32, static_cast<uint32_t>(kBlock), 1, 1};
+  CUtensorMap tm_q, tm_k, tm_vt;
+  if (sm90::encode(&tm_q, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, p.q, 4, q_dims, q_strides, q_box,
+                   CU_TENSOR_MAP_SWIZZLE_128B) != CUDA_SUCCESS ||
+      encode_split(&tm_k, p.split + s.ks, s.bh, p.kv_len, D, F::kRows) != CUDA_SUCCESS ||
+      encode_split(&tm_vt, p.split + s.vt, s.bh, D, s.npk, D) != CUDA_SUCCESS) {
+    return cudaErrorInvalidValue;
+  }
+  err = cudaFuncSetAttribute(flash_fwd_tf32_kernel<D, HAS_BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             F::kSmem);
+  if (err != cudaSuccess) return err;
+  constexpr int kRowsABlock = kBlock * F::kCons;
+  const dim3 grid((p.seq_len + kRowsABlock - 1) / kRowsABlock, p.heads, p.batch);
+  flash_fwd_tf32_kernel<D, HAS_BIAS><<<grid, F::kThreads, F::kSmem, stream>>>(tm_q, tm_k, tm_vt, p);
   return cudaGetLastError();
+}
+
+template <int D, bool HAS_BIAS>
+cudaError_t launch(const FlashFwdParams& p, int is_bf16, cudaStream_t stream) {
+  return is_bf16 ? launch_bf16<D, HAS_BIAS>(p, stream) : launch_tf32<D, HAS_BIAS>(p, stream);
 }
 
 template <int D>
@@ -677,6 +854,12 @@ int flash_fwd(const FlashFwdParams* p, int is_bf16, int device, void* stream) {
     case 128: return static_cast<int>(launch<128>(*p, is_bf16, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Floats of the scratch `flash_fwd` reads from p->split for this call: the
+// f32 body's tf32 copies (fwd_split), none in bf16.
+long long flash_fwd_split_floats(const FlashFwdParams* p, int is_bf16) {
+  return is_bf16 ? 0 : fwd_split(*p).end;
 }
 
 const char* flash_fwd_error_string(int code) {

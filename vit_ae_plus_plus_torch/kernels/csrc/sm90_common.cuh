@@ -402,8 +402,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
 
 // The register A fragment of 16-deep step kk from an m64nN f32 accumulator,
 // rounded to bf16: a wgmma's output columns 16kk .. 16kk + 15 become the
-// next product's depth (P or dS of attention, as the mma.sync bodies reuse
-// their C fragments).
+// next product's depth (P or dS of attention).
 template <int R>
 __device__ __forceinline__ void acc_to_a(const float (&acc)[R], int kk, uint32_t (&a)[4]) {
 #pragma unroll

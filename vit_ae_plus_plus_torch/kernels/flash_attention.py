@@ -30,9 +30,10 @@ the packed (B, N, 3C) projection as three views of itself. Both dtypes run
 on the tensor cores: the bf16 forward and backward through Hopper's wgmma
 with their operands streamed by TMA (`wgmma_tile` checks one tile of those
 helpers), f32 through 3xTF32 (each f32 operand split into two TF32 parts,
-f32-accurate products): the forward on mma.sync, the backward on tf32 wgmma
-at head dims 32 and 64, after a pre-pass that writes the split copies into
-scratch this module allocates at the size csrc/flash_bwd.cu asks for.
+f32-accurate products) on tf32 wgmma with TMA, forward and backward at
+every head dim, each after a pre-pass that writes the split copies into
+scratch this module allocates at the size csrc/flash_fwd.cu or
+csrc/flash_bwd.cu asks for.
 """
 
 from __future__ import annotations
@@ -109,8 +110,8 @@ def _vec(t: torch.Tensor) -> int:
 
 def _strides_ok(t: torch.Tensor) -> bool:
     """The kernels' operand contract: a contiguous head_dim axis and 16-byte
-    aligned rows (the forward kernels load 16 bytes at a time: 8 bf16 or,
-    through cp.async, 4 f32)."""
+    aligned rows (the bf16 kernels' TMA maps need them; the f32 bodies'
+    pre-passes and stores take the same contract)."""
     vec = _vec(t)
     return (
         t.stride(-1) == 1
@@ -137,6 +138,7 @@ class FlashFwdParams(ctypes.Structure):
     _fields_ = [
         ("q", ctypes.c_void_p), ("k", ctypes.c_void_p), ("v", ctypes.c_void_p),
         ("o", ctypes.c_void_p), ("lse", ctypes.c_void_p), ("key_bias", ctypes.c_void_p),
+        ("split", ctypes.c_void_p),
         *[(f"{t}_s{a}", ctypes.c_longlong) for t in "qkvo" for a in "bnh"],
         ("batch", ctypes.c_int), ("heads", ctypes.c_int),
         ("seq_len", ctypes.c_int), ("kv_len", ctypes.c_int), ("head_dim", ctypes.c_int),
@@ -177,6 +179,19 @@ def _check_bias(bias, nk, device) -> None:
         raise ValueError("bias must be a contiguous (Nk,) float32 tensor on q's device")
 
 
+def _split_scratch(source: str, params: ctypes.Structure, q: torch.Tensor) -> Optional[torch.Tensor]:
+    """The f32 bodies' scratch for their tf32 copies of the operands, at the
+    size `<source>_split_floats` of csrc/<source>.cu asks for (none in bf16),
+    its address set in `params.split`."""
+    split_floats = getattr(_build.load(source), f"{source}_split_floats")
+    split_floats.argtypes = [ctypes.POINTER(type(params)), ctypes.c_int]
+    split_floats.restype = ctypes.c_longlong
+    floats = split_floats(ctypes.byref(params), int(q.dtype == torch.bfloat16))
+    split = torch.empty(floats, dtype=torch.float32, device=q.device) if floats else None
+    params.split = split.data_ptr() if split is not None else None
+    return split
+
+
 def launch_flash_fwd(q, k, v, o, lse: Optional[torch.Tensor], scale: float,
                      key_bias: Optional[torch.Tensor] = None) -> None:
     """Run csrc/flash_fwd.cu on (B, N, H, D) views of CUDA tensors of one
@@ -196,11 +211,13 @@ def launch_flash_fwd(q, k, v, o, lse: Optional[torch.Tensor], scale: float,
     params = FlashFwdParams(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        key_bias.data_ptr() if key_bias is not None else None,
+        key_bias.data_ptr() if key_bias is not None else None, None,
         *[t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)],
         b, h, n, nk, d, float(scale),
     )
+    split = _split_scratch("flash_fwd", params, q)
     _build.launch("flash_fwd", "flash_fwd", params, q)
+    del split  # back to the allocator once the launch is queued, reused in stream order
 
 
 def launch_flash_bwd(q, k, v, o, lse, do, dq, dk, dv, scale: float,
@@ -223,14 +240,9 @@ def launch_flash_bwd(q, k, v, o, lse, do, dq, dk, dv, scale: float,
         *[t.stride(i) for t in tensors for i in (0, 1, 2)],
         b, h, n, nk, d, float(scale),
     )
-    # the f32 bodies' tf32 copies of the operands (csrc/flash_bwd.cu sizes them)
-    split_floats = _build.load("flash_bwd").flash_bwd_split_floats
-    split_floats.argtypes = [ctypes.POINTER(FlashBwdParams), ctypes.c_int]
-    split_floats.restype = ctypes.c_longlong
-    floats = split_floats(ctypes.byref(params), int(q.dtype == torch.bfloat16))
-    split = torch.empty(floats, dtype=torch.float32, device=q.device) if floats else None
-    params.split = split.data_ptr() if split is not None else None
+    split = _split_scratch("flash_bwd", params, q)
     _build.launch("flash_bwd", "flash_bwd", params, q)
+    del split  # back to the allocator once the launch is queued, reused in stream order
 
 
 class WgmmaProbeParams(ctypes.Structure):
